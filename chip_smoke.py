@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive cudf_tpu_torch's main path once on one CUDA card, and check it.
+"""Drive cudf_tpu_torch's main paths once on one CUDA card, and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -7,26 +7,59 @@ Phases (any failure raises; the exit code is then non-zero and no
 result line is printed):
 
 1. device: a CUDA device must be present; print its name and power limit.
-2. build: compile the CUDA kernels from cudf_tpu_torch/csrc (nvcc, sm_90a).
+2. build: compile the CUDA kernels from cudf_tpu_torch/csrc (one nvcc per
+   source, all started together, sm_90a).
+
+The G1 groupby (data G1_1e8_1e2_0_0 of h2oai db-benchmark's
+groupby-datagen.R: id4 in 1..100, id6 in 1..1e6, v1 in 1..5, v2 in 1..15,
+v3 uniform in [0, 100)), 1e8 rows made on the card from a seeded
+torch.Generator:
+
 3. kernels: each kernel (A onehot_groupby_aggregate, B digit_histogram,
    C radix_scatter, D bucket_aggregate) against its plain PyTorch version
    on the card, at the main path's shapes: 1e8 rows, K = 100 for A and
    K = 1e6 for B-D.  Tolerances: counts, histograms and integer sums
    exact; float64 sums rtol 1e-12 (atomic order varies); C's output holds
    the same (key, payload) multiset in every bucket.
-4. main path: a db-benchmark G1 frame (data G1_1e8_1e2_0_0 of h2oai
-   db-benchmark's groupby-datagen.R: id4 in 1..100, id6 in 1..1e6, v1 in
-   1..5, v2 in 1..15, v3 uniform in [0, 100)), 1e8 rows made on the card
-   from a seeded torch.Generator, through DataFrame.groupby().agg: q4
-   (mean of v1, v2, v3 by id4, the one-hot tier), q5 (sum of v1, v2, v3
-   by id6, the radix tier) and bench.py's {"v": ["sum", "mean", "count"]}
-   request on v3 by id4 (K = 100) and by id6 (K = 1e6).  Each result is
-   checked against a plain PyTorch groupby on the card, and every kernel's
-   launch count must have risen during this run.  Then the sum of six
-   value columns by id6 (more than one scatter launch carries) is checked
-   the same way.
+4. main path: DataFrame.groupby().agg: q4 (mean of v1, v2, v3 by id4, the
+   one-hot tier), q5 (sum of v1, v2, v3 by id6, the radix tier) and
+   bench.py's {"v": ["sum", "mean", "count"]} request on v3 by id4
+   (K = 100) and by id6 (K = 1e6).  Each result is checked against a
+   plain PyTorch groupby on the card, and kernels A-D must each have been
+   launched during this run.  Then the sum of six value columns by id6
+   (more than one scatter launch carries) is checked the same way.
 5. timings: median of 7 warm runs of each query and of its plain PyTorch
    counterpart (CUDA events, then synchronize), as rows/s.
+
+The G1 frame is then freed.  The J1 inner join (data J1_1e8_NA_0_0 of
+h2oai db-benchmark's join-datagen.R: a fact table of 1e8 rows, id int32
+and v1 float64; dim tables of 1e2 (small), 1e5 (medium) and 1e8 (big)
+rows, id a random permutation of 1..n and v2 float64; fact ids uniform
+over 1..ceil(1.1 n), so about 9% of fact rows find no match), made on the
+card from the same generator:
+
+3. kernels, all checked exactly against their plain versions: kernel D's
+   id and idpay modes (window_tables, float64 payload) over J1 big's
+   build (1e8 unique keys, 16384 windows); B and C over J1 big's probe
+   partition; H window_probe at J1 big with one table, without and with
+   the payload (whose bits must be copied), and with three stacked
+   tables over J1 medium with each key 1-3 times.
+4. main path: DataFrame.merge(on="id"): q1 small, q2 medium and q5 big
+   (the unique tier; small in one window, medium and big partitioned),
+   the medium dim with each key 1-3 times (the stacked-table tier,
+   m = 3), and dim.merge(fact) at medium (the build on the left).  Each
+   result must equal a plain PyTorch join on the card (a dense table for
+   a unique build, a stable sort + searchsorted + repeat_interleave
+   otherwise): row order, key, v1 and v2.  Kernels B, C, D and H must
+   each have been launched during this run.
+5. timings: median of 7 warm runs of each merge and of models.j1_join
+   (gather maps only) at small, medium and big, beside plain PyTorch, as
+   probe rows/s.
+
+Each kernel's bound is the larger of the bytes it must move (each input
+read once, each output written once; for a gather, each table entry the
+run's keys touch) over 3.35 TB/s and its operations over 67e12 a second,
+the H100 SXM's published HBM rate and scalar float32 rate.
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -43,8 +76,11 @@ import torch
 
 N = 100_000_000
 K_LOW, K_HIGH = 100, 1_000_000
+J1_DIMS = {"small": 100, "medium": 100_000, "big": 100_000_000}
 SEED = 20240601
 REPS = 7
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 def check(cond, msg):
@@ -70,6 +106,30 @@ def device_ms(fn, reps=REPS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def timed_row(err, kernel, plain, library, moved, ops, **extra):
+    """A kernel's numbers: its check's error, its time, its plain
+    version's and the library call's (None: no single call), and its bound
+    from the bytes it must move and the operations it does."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    row = dict(max_abs_err=err, ms=device_ms(kernel),
+               plain_ms=device_ms(plain),
+               library_ms=None if library is None else device_ms(library),
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    row.update(extra)
+    return row
+
+
+def show(name, row):
+    log(f"kernel {name}: max_abs_err {row['max_abs_err']} ms {row['ms']} plain_ms "
+        f"{row['plain_ms']} library_ms {row['library_ms']} bound_ms {row['bound_ms']} "
+        f"({row['bound_by']})")
 
 
 def max_abs_err(got, exp):
@@ -98,7 +158,7 @@ def pairs_sorted(keys, vals):
 
 
 def kernel_phase(dev, gen, ha, rp):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each G1 kernel against its plain version at the main path's shapes."""
     rows = {}
     codes_low = torch.randint(0, K_LOW, (N,), generator=gen, device=dev, dtype=torch.int32)
     v_int = torch.randint(1, 16, (N,), generator=gen, device=dev, dtype=torch.int32)
@@ -109,14 +169,14 @@ def kernel_phase(dev, gen, ha, rp):
         got = ha.onehot_groupby_aggregate(codes_low, vals, K_LOW, with_minmax=False)
         exp = ha.onehot_groupby_aggregate_plain(codes_low, vals, K_LOW, with_minmax=False)
         err = max(err, same(got[0], exp[0], "A sums"), same(got[1], exp[1], "A counts"))
-    rows["onehot_groupby_aggregate"] = dict(
-        source=ha.SOURCE, replaces=ha.REPLACES, max_abs_err=err,
-        ms=device_ms(lambda: ha.onehot_groupby_aggregate(codes_low, v_f64, K_LOW,
-                                                         with_minmax=False)),
-        plain_ms=device_ms(lambda: ha.onehot_groupby_aggregate_plain(
-            codes_low, v_f64, K_LOW, with_minmax=False)))
-    log(f"kernel A: max_abs_err {err} ms {rows['onehot_groupby_aggregate']['ms']} "
-        f"plain_ms {rows['onehot_groupby_aggregate']['plain_ms']}")
+    rows["onehot_groupby_aggregate"] = timed_row(
+        err,
+        lambda: ha.onehot_groupby_aggregate(codes_low, v_f64, K_LOW, with_minmax=False),
+        lambda: ha.onehot_groupby_aggregate_plain(codes_low, v_f64, K_LOW, with_minmax=False),
+        lambda: torch.zeros(K_LOW, dtype=torch.float64, device=dev).index_add_(
+            0, codes_low, v_f64),
+        nbytes(codes_low, v_f64) + 16 * K_LOW, 2 * N)
+    show("A", rows["onehot_groupby_aggregate"])
     del codes_low
 
     codes = torch.randint(0, K_HIGH, (N,), generator=gen, device=dev, dtype=torch.int32)
@@ -125,12 +185,12 @@ def kernel_phase(dev, gen, ha, rp):
     shift = rp.WINDOW_BITS
     hist = rp.digit_histogram(codes, nbits, shift, tile)
     same(hist, rp.digit_histogram_plain(codes, nbits, shift, tile), "B hist")
-    rows["digit_histogram"] = dict(
-        source=rp.SOURCE, replaces=rp.REPLACES["digit_histogram"], max_abs_err=0.0,
-        ms=device_ms(lambda: rp.digit_histogram(codes, nbits, shift, tile)),
-        plain_ms=device_ms(lambda: rp.digit_histogram_plain(codes, nbits, shift, tile)))
-    log(f"kernel B: exact, tile {tile}, ms {rows['digit_histogram']['ms']} "
-        f"plain_ms {rows['digit_histogram']['plain_ms']}")
+    rows["digit_histogram"] = timed_row(
+        0.0,
+        lambda: rp.digit_histogram(codes, nbits, shift, tile),
+        lambda: rp.digit_histogram_plain(codes, nbits, shift, tile), None,
+        nbytes(codes, hist), N)
+    show(f"B (exact, tile {tile})", rows["digit_histogram"])
 
     offsets, base = rp.partition_offsets(hist)
     payloads = [v_int, v_f64]
@@ -146,13 +206,12 @@ def kernel_phase(dev, gen, ha, rp):
         same(a[0], b[0], "C keys")
         same(a[1], b[1], "C payloads", float_rtol=0.0)
     del ek, ev, a, b
-    rows["radix_scatter"] = dict(
-        source=rp.SOURCE, replaces=rp.REPLACES["radix_scatter"], max_abs_err=0.0,
-        ms=device_ms(lambda: rp.radix_scatter(codes, payloads, offsets, nbits, shift, tile)),
-        plain_ms=device_ms(lambda: rp.radix_scatter_plain(codes, payloads, offsets,
-                                                          nbits, shift, tile)))
-    log(f"kernel C: per-bucket multisets equal, ms {rows['radix_scatter']['ms']} "
-        f"plain_ms {rows['radix_scatter']['plain_ms']}")
+    rows["radix_scatter"] = timed_row(
+        0.0,
+        lambda: rp.radix_scatter(codes, payloads, offsets, nbits, shift, tile),
+        lambda: rp.radix_scatter_plain(codes, payloads, offsets, nbits, shift, tile), None,
+        2 * nbytes(codes, *payloads) + nbytes(offsets), N)
+    show("C (per-bucket multisets equal)", rows["radix_scatter"])
 
     G = 1 << nbits
     err = 0.0
@@ -160,12 +219,14 @@ def kernel_phase(dev, gen, ha, rp):
         got = rp.bucket_aggregate(pk, vals, base, G)
         exp = rp.bucket_aggregate_plain(pk, vals, base, G)
         err = max(err, same(got[0], exp[0], "D sums"), same(got[1], exp[1], "D counts"))
-    rows["bucket_aggregate"] = dict(
-        source=rp.SOURCE, replaces=rp.REPLACES["bucket_aggregate"], max_abs_err=err,
-        ms=device_ms(lambda: rp.bucket_aggregate(pk, pv[1], base, G)),
-        plain_ms=device_ms(lambda: rp.bucket_aggregate_plain(pk, pv[1], base, G)))
-    log(f"kernel D: max_abs_err {err} ms {rows['bucket_aggregate']['ms']} "
-        f"plain_ms {rows['bucket_aggregate']['plain_ms']}")
+    rows["bucket_aggregate"] = timed_row(
+        err,
+        lambda: rp.bucket_aggregate(pk, pv[1], base, G),
+        lambda: rp.bucket_aggregate_plain(pk, pv[1], base, G),
+        lambda: torch.zeros(G * rp.SPAN, dtype=torch.float64, device=dev).index_add_(
+            0, pk, pv[1]),
+        nbytes(pk, pv[1], *got), 2 * N)
+    show("D", rows["bucket_aggregate"])
     return rows
 
 
@@ -228,6 +289,242 @@ def check_query(name, res, exp):
         same(c.data, want, f"{name} {col}")
 
 
+# ----------------------------------------------------------------------
+# J1
+# ----------------------------------------------------------------------
+
+def fanout_ids(dev, gen, n):
+    """int32 codes 0..n-1, each 1-3 times, shuffled."""
+    ids = torch.repeat_interleave(torch.randperm(n, generator=gen, device=dev),
+                                  torch.randint(1, 4, (n,), generator=gen, device=dev))
+    return ids[torch.randperm(ids.numel(), generator=gen, device=dev)].int()
+
+
+def probe_codes(dev, gen, n_dim):
+    """N fact key codes uniform over 0..ceil(1.1 n_dim) - 1; those >= n_dim
+    (no dim row) are -1, as the join's code pass leaves them."""
+    lk = torch.randint(0, -(-11 * n_dim // 10), (N,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return torch.where(lk < n_dim, lk, -1)
+
+
+def j1_kernel_phase(dev, gen, rp):
+    """D's id/idpay modes, B, C and H at J1 shapes, against their plain
+    versions.  Returns {kernel: {mode: row}}."""
+    modes = {"bucket_aggregate": {}, "digit_histogram": {}, "radix_scatter": {},
+             "window_probe": {}}
+    n_dim = J1_DIMS["big"]
+    rk = torch.randperm(n_dim, generator=gen, device=dev, dtype=torch.int32)
+    rv = torch.randn(n_dim, generator=gen, device=dev, dtype=torch.float64)
+    bits = rp.domain_bits(n_dim)
+    rid1 = torch.arange(1, n_dim + 1, dtype=torch.int32, device=dev)
+    pk_r, (prid, ppay), base_r, G = rp.radix_partition(rk, [rid1, rp.payload_bits(rv)], bits)
+    del rid1
+    ids, counts, pay = rp.window_tables(pk_r, prid, base_r, G, ppay)
+    e_ids, e_counts = rp.bucket_aggregate_plain(pk_r, prid, base_r, G)
+    e_pay, _ = rp.bucket_aggregate_plain(pk_r, ppay, base_r, G, with_counts=False)
+    same(ids, e_ids, "D id mode ids")
+    same(counts, e_counts, "D id mode counts")
+    same(pay, e_pay, "D idpay mode payload bits")
+    del e_ids, e_counts, e_pay
+    want = torch.zeros_like(ids)
+    want[rk.long()] = torch.arange(1, n_dim + 1, device=dev)
+    same(ids, want, "D id mode: build_row_id + 1 per key")
+    check(int(counts.max()) == 1, "D id mode: J1 big's build is unique")
+    del want, counts
+    modes["bucket_aggregate"]["id/idpay, J1 big build (1e8 keys, G = 16384, f64 payload)"] = \
+        timed_row(0.0,
+                  lambda: rp.window_tables(pk_r, prid, base_r, G, ppay),
+                  lambda: (rp.bucket_aggregate_plain(pk_r, prid, base_r, G),
+                           rp.bucket_aggregate_plain(pk_r, ppay, base_r, G, with_counts=False)),
+                  lambda: torch.zeros(G * rp.SPAN, dtype=torch.int64, device=dev).index_add_(
+                      0, pk_r, ppay),
+                  nbytes(pk_r, prid, ppay) + 3 * nbytes(ids), 3 * n_dim)
+    show("D id/idpay (exact)", next(iter(modes["bucket_aggregate"].values())))
+    del pk_r, prid, ppay
+
+    lk = probe_codes(dev, gen, n_dim)
+    rows_i = torch.arange(N, dtype=torch.int32, device=dev)
+    nbits = bits - rp.WINDOW_BITS
+    tile = rp.choose_tile(N, nbits)
+    hist = rp.digit_histogram(lk, nbits, rp.WINDOW_BITS, tile)
+    same(hist, rp.digit_histogram_plain(lk, nbits, rp.WINDOW_BITS, tile), "B hist (J1)")
+    offsets, base_l = rp.partition_offsets(hist)
+    pk_l, (pv_l,) = rp.radix_scatter(lk, [rows_i], offsets, nbits, rp.WINDOW_BITS, tile)
+    m = int(base_l[-1])
+    live = torch.nonzero(lk >= 0).squeeze(1)
+    check(m == live.numel(), f"C (J1): {m} partitioned rows of {live.numel()}")
+    window = torch.repeat_interleave(torch.arange(G, device=dev), base_l[1:] - base_l[:-1])
+    check(torch.equal(pk_l[:m].long() >> rp.WINDOW_BITS, window), "C (J1): a key outside its window")
+    check(torch.equal(lk[pv_l[:m].long()], pk_l[:m]), "C (J1): a row id off its key")
+    check(torch.equal(torch.sort(pv_l[:m]).values.long(), live), "C (J1): rows lost or repeated")
+    del window, live
+    shape = f"J1 big probe (1e8 keys, 2^{nbits} buckets, tile {tile})"
+    modes["digit_histogram"][shape] = timed_row(
+        0.0,
+        lambda: rp.digit_histogram(lk, nbits, rp.WINDOW_BITS, tile),
+        lambda: rp.digit_histogram_plain(lk, nbits, rp.WINDOW_BITS, tile), None,
+        nbytes(lk, hist), N)
+    show("B at J1 big", modes["digit_histogram"][shape])
+    modes["radix_scatter"][shape + ", one int32 payload"] = timed_row(
+        0.0,
+        lambda: rp.radix_scatter(lk, [rows_i], offsets, nbits, rp.WINDOW_BITS, tile),
+        lambda: rp.radix_scatter_plain(lk, [rows_i], offsets, nbits, rp.WINDOW_BITS, tile),
+        None, nbytes(lk, rows_i, offsets) + 2 * 4 * m, N)
+    show("C at J1 big (exact partition)", modes["radix_scatter"][shape + ", one int32 payload"])
+    del hist, offsets
+
+    idx = pk_l[:m].long()
+    touched = torch.zeros(G * rp.SPAN, dtype=torch.bool, device=dev)
+    touched[idx] = True
+    n_touched = int(touched.sum())
+    del touched
+    tab = ids.view(1, -1)
+    main = None
+    for pay_tab, pay_dtype in ((None, None), (pay, torch.float64)):
+        bids, out = rp.window_probe(pk_l, base_l, tab, pay_tab, pay_dtype)
+        eb, eo = rp.window_probe_plain(pk_l, base_l, tab, pay_tab, pay_dtype)
+        same(bids, eb, "H bids (J1 big)")
+        found = torch.nonzero(bids[0] >= 0).squeeze(1)
+        bid = bids[0][found].long()
+        check(torch.equal(rk[bid], pk_l[found]), "H (J1 big): a match off its key")
+        check(bool((bids[0][m:] == -1).all()), "H (J1 big): a row past base[-1] matched")
+        moved = 4 * m + nbytes(bids) + 8 * n_touched
+        if pay_tab is None:
+            main = timed_row(0.0,
+                             lambda: rp.window_probe(pk_l, base_l, tab),
+                             lambda: rp.window_probe_plain(pk_l, base_l, tab),
+                             lambda: torch.take(ids, idx), moved, m,
+                             shape="J1 big: 1e8 probe rows, one table of 1.34e8 slots")
+            show("H at J1 big (exact)", main)
+        else:
+            same(rp.payload_bits(out), rp.payload_bits(eo), "H payload bits (J1 big)")
+            check(torch.equal(rp.payload_bits(out)[found], rp.payload_bits(rv)[bid]),
+                  "H (J1 big): a payload not copied")
+            check(bool((out[bids[0] < 0] == 0).all()), "H (J1 big): payload without a match")
+            name = "J1 big with the f64 payload through the table"
+            modes["window_probe"][name] = timed_row(
+                0.0,
+                lambda: rp.window_probe(pk_l, base_l, tab, pay, torch.float64),
+                lambda: rp.window_probe_plain(pk_l, base_l, tab, pay, torch.float64),
+                lambda: torch.take(pay, idx), moved + nbytes(out) + 8 * n_touched, m)
+            show("H at J1 big with payload (bits copied)", modes["window_probe"][name])
+        del bids, out, eb, eo, found, bid
+    del ids, pay, tab, idx, pk_l, pv_l, lk, rk, rv
+
+    n_med = J1_DIMS["medium"]
+    dup = fanout_ids(dev, gen, n_med)
+    tables, mult = rp.ordinal_tables(dup, n_med)
+    check(mult == 3, f"H m=3: fan-out {mult}")
+    lk = probe_codes(dev, gen, n_med)
+    pk_m, (pv_m,), base_m, _ = rp.radix_partition(lk, [rows_i], rp.domain_bits(n_med))
+    bids, _ = rp.window_probe(pk_m, base_m, tables)
+    same(bids, rp.window_probe_plain(pk_m, base_m, tables)[0], "H bids (m = 3)")
+    mm = int(base_m[-1])
+    idx = pk_m[:mm].long()
+    n_touched = int(torch.unique(idx).numel())
+    modes["window_probe"]["J1 medium, m = 3 stacked tables (keys 1-3 times)"] = timed_row(
+        0.0,
+        lambda: rp.window_probe(pk_m, base_m, tables),
+        lambda: rp.window_probe_plain(pk_m, base_m, tables),
+        lambda: torch.take(tables, idx), 4 * mm + nbytes(bids) + 3 * 8 * n_touched, 3 * mm)
+    show("H m=3 at J1 medium (exact)", modes["window_probe"][
+        "J1 medium, m = 3 stacked tables (keys 1-3 times)"])
+    return main, modes
+
+
+def j1_frames(ct, dev, gen):
+    """{name: DataFrame}: fact_<size> (1e8 rows, keys for that dim) and
+    dim_<size> for each J1 dim size, and dim_medium_fanout."""
+    v1 = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
+    frames = {}
+    for size, n_dim in J1_DIMS.items():
+        ids = torch.randint(1, -(-11 * n_dim // 10) + 1, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        frames[f"fact_{size}"] = ct.DataFrame({"id": ids, "v1": v1})
+        frames[f"dim_{size}"] = ct.DataFrame({
+            "id": torch.randperm(n_dim, generator=gen, device=dev, dtype=torch.int32) + 1,
+            "v2": torch.randn(n_dim, generator=gen, device=dev, dtype=torch.float64)})
+    ids = fanout_ids(dev, gen, J1_DIMS["medium"]) + 1
+    frames["dim_medium_fanout"] = ct.DataFrame({
+        "id": ids, "v2": torch.randn(ids.numel(), generator=gen, device=dev,
+                                     dtype=torch.float64)})
+    return frames
+
+
+J1_QUERIES = {          # name: (left frame, right frame, right side unique)
+    "q1_small": ("fact_small", "dim_small", True),
+    "q2_medium": ("fact_medium", "dim_medium", True),
+    "q5_big": ("fact_big", "dim_big", True),
+    "medium_fanout3": ("fact_medium", "dim_medium_fanout", False),
+    "medium_swapped": ("dim_medium", "fact_medium", False),
+}
+
+
+def plain_join(lk, rk, unique):
+    """(li, ri) int64 of an inner join of keys >= 1, in left-row order with
+    right-row order inside: a dense table when rk is unique, else a
+    stable sort + searchsorted + repeat_interleave."""
+    dev = lk.device
+    if unique:
+        tbl = torch.full((int(torch.maximum(lk.max(), rk.max())),), -1, dtype=torch.int64,
+                         device=dev)
+        tbl[rk.long() - 1] = torch.arange(rk.numel(), device=dev)
+        r = tbl[lk.long() - 1]
+        li = torch.nonzero(r >= 0).squeeze(1)
+        return li, r[li]
+    sk, perm = torch.sort(rk, stable=True)
+    lo = torch.searchsorted(sk, lk)
+    cnt = torch.searchsorted(sk, lk, right=True) - lo
+    M = int(cnt.sum())
+    li = torch.repeat_interleave(torch.arange(lk.numel(), device=dev), cnt, output_size=M)
+    within = torch.arange(M, device=dev) - torch.repeat_interleave(
+        torch.cumsum(cnt, 0) - cnt, cnt, output_size=M)
+    return li, perm[torch.repeat_interleave(lo, cnt, output_size=M) + within]
+
+
+def plain_merge(left, right, unique):
+    """The same merge in plain PyTorch: {name: tensor}, key from the left."""
+    li, ri = plain_join(left._table["id"].data, right._table["id"].data, unique)
+    out = {n: c.data[li] for n, c in left._table.items()}
+    out.update({n: c.data[ri] for n, c in right._table.items() if n != "id"})
+    return out
+
+
+def check_merge(name, res, exp):
+    check(list(res._table.names) == list(exp), f"{name}: columns {res._table.names}")
+    for col, want in exp.items():
+        c = res._table[col]
+        check(c.validity is None or bool(c.validity.all()), f"{name} {col}: nulls")
+        same(c.data, want, f"{name} {col}", float_rtol=0.0)
+    return len(res)
+
+
+def j1_model_inputs(frames, size):
+    n_dim = J1_DIMS[size]
+    lk = frames[f"fact_{size}"]._table["id"].data
+    rk = frames[f"dim_{size}"]._table["id"].data
+    return torch.where(lk <= n_dim, lk - 1, -1), rk - 1, n_dim
+
+
+def plain_probe(lcodes, rcodes, n_dim):
+    """Per probe row the build row or -1, with a dense table."""
+    tbl = torch.full((n_dim,), -1, dtype=torch.int32, device=lcodes.device)
+    tbl[rcodes.long()] = torch.arange(rcodes.numel(), dtype=torch.int32, device=lcodes.device)
+    return torch.where(lcodes >= 0, tbl[lcodes.clamp(min=0).long()], -1)
+
+
+def check_j1_model(j1_join, rows, lcodes, rcodes, n_dim, size):
+    _, pv, bid, unique = j1_join(lcodes, rows, rcodes, n_dim)
+    check(unique, f"j1_join {size}: build not unique")
+    exp = plain_probe(lcodes, rcodes, n_dim)
+    found = bid >= 0
+    order = torch.argsort(pv[found])
+    check(torch.equal(pv[found][order].long(), torch.nonzero(exp >= 0).squeeze(1)),
+          f"j1_join {size}: matched probe rows differ")
+    check(torch.equal(bid[found][order], exp[exp >= 0]), f"j1_join {size}: build rows differ")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -247,6 +544,7 @@ def main():
     from cudf_tpu_torch.kernels import _build
     from cudf_tpu_torch.kernels import hash_aggregate as ha
     from cudf_tpu_torch.kernels import radix_partition as rp
+    from cudf_tpu_torch.models import j1_join
 
     t0 = time.perf_counter()
     lib = _build.library()
@@ -255,45 +553,107 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = kernel_phase(dev, gen, ha, rp)
     torch.cuda.empty_cache()
-    log("phase 3 kernels: all four agree with their plain versions")
+    log("phase 3 G1 kernels: all four agree with their plain versions")
 
-    df = g1_frame(ct, dev, gen)
     wrappers = {"onehot_groupby_aggregate": ha.onehot_groupby_aggregate,
                 "digit_histogram": rp.digit_histogram,
                 "radix_scatter": rp.radix_scatter,
-                "bucket_aggregate": rp.bucket_aggregate}
-    for fn in wrappers.values():
-        fn.launches = 0
-    results = {name: df.groupby(key).agg(spec) for name, (key, spec) in QUERIES.items()}
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the main path")
-        kernels[name]["launches"] = count
+                "bucket_aggregate": rp.bucket_aggregate,
+                "window_probe": rp.window_probe}
+    paths = {"g1": ["onehot_groupby_aggregate", "digit_histogram", "radix_scatter",
+                    "bucket_aggregate"],
+             "j1": ["digit_histogram", "radix_scatter", "bucket_aggregate", "window_probe"]}
+    launches = {name: {} for name in wrappers}
+
+    def drive(path, run):
+        """Run one main path with every count at 0 before, read after."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        for name, fn in wrappers.items():
+            launches[name][path] = fn.launches
+        for name in paths[path]:
+            check(launches[name][path] > 0, f"kernel {name} was not launched by the {path} path")
+        return out
+
+    df = g1_frame(ct, dev, gen)
+    results = drive("g1", lambda: {name: df.groupby(key).agg(spec)
+                                   for name, (key, spec) in QUERIES.items()})
     for name, (key, spec) in QUERIES.items():
         check_query(name, results[name], plain_query(df, key, spec))
     del results
-    log(f"phase 4 main path: q4, q5, bench K=100 and K=1e6 agree with plain torch; "
-        f"launches {launches}")
+    log(f"phase 4 G1 main path: q4, q5, bench K=100 and K=1e6 agree with plain torch; "
+        f"launches { {k: v['g1'] for k, v in launches.items()} }")
     wide = wide_frame(ct, df)
     spec = {name: "sum" for name in wide._table.names if name != "id6"}
     check_query("q5 six values", wide.groupby("id6").agg(spec),
                 plain_query(wide, "id6", spec))
     del wide
     torch.cuda.empty_cache()
-    log("phase 4 six value columns by id6 (two scatter launches' worth of "
+    log("phase 4 G1 six value columns by id6 (two scatter launches' worth of "
         "payloads) agree with plain torch")
 
     for name, (key, spec) in QUERIES.items():
         ms = device_ms(lambda: df.groupby(key).agg(spec))
         plain = device_ms(lambda: plain_query(df, key, spec))
-        log(f"phase 5 {name}: {ms:.3f} ms = {N / ms * 1e3:.4g} rows/s; plain torch "
+        log(f"phase 5 G1 {name}: {ms:.3f} ms = {N / ms * 1e3:.4g} rows/s; plain torch "
             f"{plain:.3f} ms = {N / plain * 1e3:.4g} rows/s [{smi}]")
+    del df
+    torch.cuda.empty_cache()
 
+    kernels["window_probe"], j1_modes = j1_kernel_phase(dev, gen, rp)
+    for name, modes in j1_modes.items():
+        if modes:
+            kernels[name].setdefault("modes", {}).update(modes)
+    torch.cuda.empty_cache()
+    log("phase 3 J1 kernels: D's id/idpay modes, B, C and H agree exactly with their "
+        "plain versions")
+
+    frames = j1_frames(ct, dev, gen)
+    results = drive("j1", lambda: {
+        name: frames[left].merge(frames[right], on="id")
+        for name, (left, right, _) in J1_QUERIES.items()})
+    for name, (left, right, unique) in J1_QUERIES.items():
+        rows = check_merge(name, results.pop(name),
+                           plain_merge(frames[left], frames[right], unique))
+        log(f"phase 4 J1 {name}: {rows} rows, equal to the plain torch join")
+    torch.cuda.empty_cache()
+    log(f"phase 4 J1 main path: launches { {k: v['j1'] for k, v in launches.items()} }")
+    rows_i = torch.arange(N, dtype=torch.int32, device=dev)
+    for size in J1_DIMS:
+        check_j1_model(j1_join, rows_i, *j1_model_inputs(frames, size), size)
+    log("phase 4 J1 models.j1_join: small, medium and big agree with plain torch")
+
+    for name, (left, right, unique) in J1_QUERIES.items():
+        lf, rf = frames[left], frames[right]
+        probe = max(len(lf), len(rf))
+        ms = device_ms(lambda: lf.merge(rf, on="id"))
+        plain = device_ms(lambda: plain_merge(lf, rf, unique))
+        log(f"phase 5 J1 merge {name}: {ms:.3f} ms = {probe / ms * 1e3:.4g} probe rows/s; "
+            f"plain torch {plain:.3f} ms = {probe / plain * 1e3:.4g} probe rows/s [{smi}]")
+        torch.cuda.empty_cache()
+    for size in J1_DIMS:
+        lcodes, rcodes, n_dim = j1_model_inputs(frames, size)
+        ms = device_ms(lambda: j1_join(lcodes, rows_i, rcodes, n_dim))
+        plain = device_ms(lambda: plain_probe(lcodes, rcodes, n_dim))
+        log(f"phase 5 J1 j1_join {size}: {ms:.3f} ms = {N / ms * 1e3:.4g} probe rows/s; "
+            f"plain torch {plain:.3f} ms = {N / plain * 1e3:.4g} probe rows/s [{smi}]")
+
+    sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
+               "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"])}
+    for name in ("digit_histogram", "radix_scatter", "bucket_aggregate"):
+        sources[name] = (rp.SOURCE, rp.REPLACES[name])
     log(smi)
-    log(json.dumps({"kernels": [dict(name=name, route="cuda", **{
-        k: row[k] for k in ("source", "replaces", "launches", "max_abs_err", "ms",
-                            "plain_ms")}) for name, row in kernels.items()]}))
+    keys = ("source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for name, row in kernels.items():
+        row.update(source=sources[name][0], replaces=sources[name][1],
+                   launches=sum(launches[name].values()), launches_by_path=launches[name])
+        rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
+                         **{k: v for k, v in row.items() if k not in keys}))
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": cards}}))
     return 0

@@ -1,5 +1,6 @@
 """DataFrame (port of ``cudf_tpu/frame/dataframe.py``: construction,
-pandas round trip, column access, ``groupby`` and ``reset_index``).
+pandas round trip, column access, ``groupby``, ``merge`` and
+``reset_index``).
 
 A frame lives where its tensors live.  Host data (numpy arrays, pandas
 frames) needs an explicit ``device=``; nothing picks one by looking for
@@ -111,6 +112,16 @@ class DataFrame:
         col = self._index.column(self.device)
         return DataFrame._from(self._table.insert(name, col, loc=0),
                                default_index(len(self)))
+
+    def merge(self, right, on=None, how="inner", left_on=None, right_on=None,
+              left_index=False, right_index=False, suffixes=("_x", "_y"), sort=False):
+        """Inner join with ``right`` on one integer key column (see
+        ``frame/join.py``)."""
+        from cudf_tpu_torch.frame.join import merge as _merge
+
+        return _merge(self, right, on=on, how=how, left_on=left_on, right_on=right_on,
+                      left_index=left_index, right_index=right_index,
+                      suffixes=suffixes, sort=sort)
 
     def groupby(self, by, dropna: bool = True, as_index: bool = True):
         """Group by one key column (a name, or a one-name list).  Groups

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (counterpart of
 ``cudf_tpu/native.py``).
 
-``cudf_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``.
-The build happens at first use, from the package's sources only, into
+``cudf_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and link into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+build happens at first use, from the package's sources only, into
 ``build/cudf_tpu_torch/`` beside the package; the library's file name
 carries a hash of the sources and flags, so a changed source is rebuilt
 and a stale library is never loaded.  Nothing here runs at import time:
@@ -27,7 +28,7 @@ _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "cudf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # value kinds the kernels take (csrc/common.cuh ValueKind)
 VALUE_KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
@@ -81,19 +82,39 @@ def _source_hash() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into the library unless a build of the same
-    sources exists; return its path.  Raises with nvcc's output on a
-    failed build."""
+    sources exists; return its path.  Each source compiles in its own
+    nvcc process, all at once; then one nvcc links them.  Raises with
+    nvcc's output on a failed build."""
     out = BUILD_DIR / f"libcudf_tpu_torch_{_source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader never sees half a file
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for obj, proc in jobs:               # wait for every process, failed or not
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}: nvcc exit {proc.returncode}\n{log}")
+    objs = [str(obj) for obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     return out
 
 

@@ -1,17 +1,24 @@
-"""Radix partition + windowed aggregation: kernels B, C and D.
+"""Radix partition, windowed aggregation and window probe: kernels B, C,
+D and H.
 
-Port of ``cudf_tpu/kernels/radix_partition.py`` for the groupby tier:
+Port of ``cudf_tpu/kernels/radix_partition.py`` for the groupby and
+join tiers:
 
 - ``digit_histogram`` (kernel B) replaces the Pallas ``digit_histogram``;
 - ``radix_scatter`` (kernel C) replaces ``radix_scatter`` (and so the
   ``tile_sort_data`` -> ``merge_scatter`` pair, which computes the same
   partition);
 - ``bucket_aggregate`` (kernel D) replaces ``bucket_aggregate`` in its
-  ``float`` and ``int`` modes;
-- ``radix_partition`` and ``radix_groupby_sum_count`` chain them.
+  ``float`` and ``int`` modes, and serves its ``id`` and ``idpay`` modes
+  too (``window_tables``);
+- ``window_probe`` (kernel H) replaces ``window_probe``;
+- ``radix_partition`` and ``radix_groupby_sum_count`` chain B-D for the
+  groupby, ``build_join_tables``, ``radix_join_inner_unique`` and
+  ``radix_join_inner_multi`` chain B-D and H for the join.
 
-The CUDA sources' notes (``csrc/radix_partition.cu``) say what bounds
-each kernel on the H100 and what its design does about that.
+The CUDA sources' notes (``csrc/radix_partition.cu``,
+``csrc/window_probe.cu``) say what bounds each kernel on the H100 and
+what its design does about that.
 
 Differences from the reference, all because Hopper scatters single
 elements and has int64/fp64 atomics:
@@ -32,7 +39,6 @@ elements and has int64/fp64 atomics:
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -40,10 +46,14 @@ import torch
 from cudf_tpu_torch.kernels import _build
 
 SOURCE = "cudf_tpu_torch/csrc/radix_partition.cu"
+PROBE_SOURCE = "cudf_tpu_torch/csrc/window_probe.cu"
 REPLACES = {          # the Pallas kernel of the same name, file:line
     "digit_histogram": "cudf_tpu/kernels/radix_partition.py:93",
     "radix_scatter": "cudf_tpu/kernels/radix_partition.py:336",
+    # all four modes: float and int directly, id and idpay through
+    # window_tables
     "bucket_aggregate": "cudf_tpu/kernels/radix_partition.py:509",
+    "window_probe": "cudf_tpu/kernels/radix_partition.py:895",
 }
 
 WINDOW_BITS = 13
@@ -51,8 +61,9 @@ SPAN = 1 << WINDOW_BITS          # keys per aggregation window
 MAX_DOMAIN_BITS = 27
 MAX_TABLE = 1 << 22              # histogram entries (16 MB of int32)
 MIN_TILE = 1 << 14               # keys per partition tile
-AGG_ROWS = 1 << 17               # rows per aggregation step
+AGG_ROWS = 1 << 17               # rows per aggregation or probe step
 MAX_PAYLOADS = 4                 # payload columns per scatter launch
+MAX_TABLES = 4                   # stacked id tables per probe (join fan-out)
 
 _HIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                   ctypes.c_longlong, ctypes.c_void_p]
@@ -62,6 +73,10 @@ _SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_
 _AGG_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p]
+_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
 
 
 def _check_keys(keys: torch.Tensor) -> int:
@@ -330,15 +345,262 @@ def radix_groupby_sum_count(keys: torch.Tensor,
     vlist = [_build.kernel_values(v)[0] for v in ([vals] if single else vals)]
     if not vlist:
         raise ValueError("radix_groupby_sum_count needs at least one value tensor")
-    domain_bits = max(math.ceil(math.log2(max(num_keys, 2))), 1)
-    if domain_bits <= WINDOW_BITS:
+    bits = domain_bits(num_keys)
+    if bits <= WINDOW_BITS:
         pkeys, pvals, G = keys, vlist, 1
         base = torch.tensor([0, keys.shape[0]], dtype=torch.int64, device=keys.device)
     else:
-        pkeys, pvals, base, G = radix_partition(keys, vlist, domain_bits, tile)
+        pkeys, pvals, base, G = radix_partition(keys, vlist, bits, tile)
     sums, counts = [], None
     for i, v in enumerate(pvals):
         s, c = bucket_aggregate(pkeys, v, base, G, agg_rows, with_counts=(i == 0))
         sums.append(s[:num_keys])
         counts = c[:num_keys] if i == 0 else counts
     return (sums[0] if single else sums), counts
+
+
+# ----------------------------------------------------------------------
+# join build side: kernel D's id and idpay modes
+# ----------------------------------------------------------------------
+
+def domain_bits(key_domain: int) -> int:
+    """Bits of a key domain [0, key_domain): ceil(log2), at least 1."""
+    return max((max(key_domain, 1) - 1).bit_length(), 1)
+
+
+def payload_bits(payload: torch.Tensor) -> torch.Tensor:
+    """A 4- or 8-byte payload's bits as int32 or int64 (no copy)."""
+    if payload.element_size() == 4:
+        return payload.view(torch.int32)
+    if payload.element_size() == 8:
+        return payload.view(torch.int64)
+    raise TypeError(f"join payload dtype {payload.dtype}: 4 or 8 bytes per element")
+
+
+def _from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of payload_bits over a table's int64 entries."""
+    return (bits.to(torch.int32) if dtype.itemsize == 4 else bits).view(dtype)
+
+
+def window_tables(pkeys: torch.Tensor, rid1: torch.Tensor, base: torch.Tensor,
+                  num_windows: int, pay_bits: Optional[torch.Tensor] = None,
+                  agg_rows: int = AGG_ROWS):
+    """Kernel D's ``id`` and ``idpay`` modes (the reference's ``_agg_kernel``
+    with ``mode="id"`` / ``"idpay"``): per key over partitioned build rows,
+    (ids int64[G * SPAN] = sum of build_row_id + 1, counts int64[G * SPAN],
+    pay int64[G * SPAN] = sum of the payload's bits, or None).
+
+    These are kernel D's int mode over ``rid1`` (int32 build_row_id + 1)
+    with counts and, for idpay, over ``pay_bits`` (``payload_bits`` of the
+    payload) without counts: two launches.  Where a key has one build row
+    the sums are that row's id + 1 and its payload's bits exactly, so a
+    lookup copies the payload (NaN and -0.0 included); an empty slot holds
+    0, since kernel D zeroes its outputs up front."""
+    ids, counts = bucket_aggregate(pkeys, rid1, base, num_windows, agg_rows)
+    pay = None
+    if pay_bits is not None:
+        pay, _ = bucket_aggregate(pkeys, pay_bits, base, num_windows, agg_rows,
+                                  with_counts=False)
+    return ids, counts, pay
+
+
+def _build_tables(rk: torch.Tensor, key_domain: int, rv: Optional[torch.Tensor],
+                  tile: Optional[int], agg_rows: int):
+    """(ids, counts, pay or None, G) of window_tables over the build keys,
+    partitioned first when the domain spans more than one window."""
+    n = _check_keys(rk)
+    rid1 = torch.arange(1, n + 1, dtype=torch.int32, device=rk.device)
+    vals = [rid1] if rv is None else [rid1, payload_bits(rv)]
+    bits = domain_bits(key_domain)
+    if bits <= WINDOW_BITS:
+        pk, pv, G = rk, vals, 1
+        base = torch.tensor([0, n], dtype=torch.int64, device=rk.device)
+    else:
+        pk, pv, base, G = radix_partition(rk, vals, bits, tile)
+    ids, counts, pay = window_tables(pk, pv[0], base, G,
+                                     None if rv is None else pv[1], agg_rows)
+    return ids, counts, pay, G
+
+
+def build_join_tables(rk: torch.Tensor, key_domain: int,
+                      rv: Optional[torch.Tensor] = None, tile: Optional[int] = None,
+                      agg_rows: int = AGG_ROWS):
+    """The build side of a join (reference ``build_join_tables``):
+    (ids int64[G * SPAN], pay int64[G * SPAN] or None, unique, G).
+
+    rk: int32 build key codes in [0, key_domain), key_domain <= 2^27;
+    negative codes (nulls) are left out.  rv: an optional 4- or 8-byte
+    build payload.  ids[k] is build_row_id + 1 of key k, 0 where no row
+    has it; pay[k] the payload's bits.  Both are exact only when
+    ``unique``: one host sync for counts.max() <= 1, as the reference's
+    probe_tables makes.
+
+    The tables are kernel D's outputs, zeroed up front, so an empty
+    window reads as "no match": the reference's zero_empty_windows,
+    probe_tables_raw's occupancy mask and occupancy_step_tab (the probe's
+    occupancy bit) have no counterpart here."""
+    ids, counts, pay, G = _build_tables(rk, key_domain, rv, tile, agg_rows)
+    unique = int(counts.max()) <= 1
+    return ids, pay, unique, G
+
+
+# ----------------------------------------------------------------------
+# kernel H: look partitioned probe keys up in the window tables
+# ----------------------------------------------------------------------
+
+def _check_tables(pkeys, base, tables, pay, pay_dtype):
+    if (tables.dtype != torch.int64 or tables.dim() != 2 or tables.device != pkeys.device
+            or not tables.is_contiguous() or not 1 <= tables.shape[0] <= MAX_TABLES
+            or tables.shape[1] == 0 or tables.shape[1] % SPAN):
+        raise ValueError(f"tables: expected contiguous int64[m <= {MAX_TABLES}, G * {SPAN}] "
+                         f"on {pkeys.device}, got {tables.dtype}{list(tables.shape)} "
+                         f"on {tables.device}")
+    m, size = tables.shape
+    _build.check_vector("base", base, torch.int64, size // SPAN + 1, pkeys.device)
+    if pay is not None:
+        _build.check_vector("pay", pay, torch.int64, size, pkeys.device)
+        if m != 1 or pay_dtype is None or pay_dtype.itemsize not in (4, 8):
+            raise ValueError("a payload table goes with one id table and a 4- or "
+                             "8-byte pay_dtype")
+
+
+def window_probe(pkeys: torch.Tensor, base: torch.Tensor, tables: torch.Tensor,
+                 pay: Optional[torch.Tensor] = None, pay_dtype: Optional[torch.dtype] = None,
+                 agg_rows: int = AGG_ROWS):
+    """(bids int32[m, n], payload[n] of pay_dtype or None) for partitioned
+    probe keys (the reference's ``window_probe``).
+
+    pkeys: int32[n], window g's rows ``[base[g], base[g+1])`` holding keys
+    in ``[g * SPAN, (g+1) * SPAN)``.  tables: int64[m, G * SPAN], m <= 4
+    stacked ``window_tables`` ids (one per duplicate ordinal).  pay:
+    ``window_tables``' payload bits, with m == 1 and the payload's dtype.
+    bids[t, i] = tables[t, key] - 1: the build row, or -1 where the slot
+    is empty, the key is out of its window or the row lies past
+    ``base[-1]``; the payload is copied where bids[0] >= 0, else 0.  CUDA
+    tensors launch kernel H, counted in ``window_probe.launches``."""
+    n = _check_keys(pkeys)
+    _check_tables(pkeys, base, tables, pay, pay_dtype)
+    if pkeys.device.type == "cpu":
+        return window_probe_plain(pkeys, base, tables, pay, pay_dtype)
+    m, size = tables.shape
+    bids = torch.full((m, n), -1, dtype=torch.int32, device=pkeys.device)
+    out = None if pay is None else torch.zeros(n, dtype=pay_dtype, device=pkeys.device)
+    win, lo, hi = step_table(base, n, agg_rows)
+    _build.launch("cudf_window_probe", _PROBE_ARGTYPES, pkeys.device,
+                  pkeys.data_ptr(), win.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                  win.shape[0], tables.data_ptr(), m, size, _build.ptr(pay),
+                  0 if pay is None else pay_dtype.itemsize, bids.data_ptr(), n,
+                  _build.ptr(out))
+    window_probe.launches += 1
+    return bids, out
+
+
+window_probe.launches = 0
+
+
+def window_probe_plain(pkeys, base, tables, pay=None, pay_dtype=None):
+    """The same lookup in plain PyTorch: where(in_window, table[key], 0) - 1
+    over the rows of base's windows, and the payload gather."""
+    m, n = tables.shape[0], pkeys.shape[0]
+    G = base.shape[0] - 1
+    rows = int(base[-1])
+    win = torch.repeat_interleave(torch.arange(G, device=pkeys.device), base[1:] - base[:-1])
+    k = pkeys[:rows].long()
+    in_window = (k >= 0) & ((k >> WINDOW_BITS) == win)
+    entry = torch.where(in_window, tables[:, k.clamp(0, tables.shape[1] - 1)], 0)
+    bids = torch.full((m, n), -1, dtype=torch.int32, device=pkeys.device)
+    bids[:, :rows] = (entry - 1).to(torch.int32)
+    if pay is None:
+        return bids, None
+    out = torch.zeros(n, dtype=pay_dtype, device=pkeys.device)
+    found = torch.nonzero(entry[0] > 0).squeeze(1)
+    out[found] = _from_bits(pay[k[found]], pay_dtype)
+    return bids, out
+
+
+# ----------------------------------------------------------------------
+# joins
+# ----------------------------------------------------------------------
+
+def _probe_side(lk: torch.Tensor, lv: torch.Tensor, key_domain: int,
+                tile: Optional[int]):
+    """(pkeys, pvals, base): the probe rows partitioned like the build
+    side's, or as they are when the domain fits one window."""
+    _build.check_vector("lv", lv, lv.dtype, _check_keys(lk), lk.device)
+    bits = domain_bits(key_domain)
+    if bits <= WINDOW_BITS:
+        return lk, lv, torch.tensor([0, lk.shape[0]], dtype=torch.int64, device=lk.device)
+    pk, (pv,), base, _ = radix_partition(lk, [lv], bits, tile)
+    return pk, pv, base
+
+
+def radix_join_inner_unique(lk: torch.Tensor, lv: torch.Tensor, rk: torch.Tensor,
+                            key_domain: int, rv: Optional[torch.Tensor] = None,
+                            tile: Optional[int] = None, agg_rows: int = AGG_ROWS):
+    """Inner join against a unique-key build side (db-benchmark J1 shape;
+    the reference's ``radix_join_inner_unique``).
+
+    lk, rk: int32 key codes in [0, key_domain), key_domain <= 2^27;
+    negative codes never match.  lv: a 4- or 8-byte probe payload that
+    travels with the probe keys (typically the probe row ids).  rv: an
+    optional 4- or 8-byte build payload, retrieved through the tables.
+    Returns (probe_keys, probe_vals, bid[, pay], unique) in partitioned
+    row order: the valid rows are the first ``base[-1]`` (all rows when
+    the domain fits one window), and bid is the matched build row, -1 for
+    no match and for every row past ``base[-1]``; pay the matched build
+    payload, 0 where there is none.  Domains within one window skip the
+    partition pass.  When the build side is not unique, the probe is
+    skipped: bid and pay are None and unique is False."""
+    ids, pay_tab, unique, _ = build_join_tables(rk, key_domain, rv, tile, agg_rows)
+    if not unique:
+        return (lk, lv, None, False) if rv is None else (lk, lv, None, None, False)
+    pk, pv, base = _probe_side(lk, lv, key_domain, tile)
+    bids, pay = window_probe(pk, base, ids.view(1, -1), pay_tab,
+                             None if rv is None else rv.dtype, agg_rows)
+    if rv is None:
+        return pk, pv, bids[0], True
+    return pk, pv, bids[0], pay, True
+
+
+def radix_join_inner_multi(lk: torch.Tensor, lv: torch.Tensor, rk: torch.Tensor,
+                           key_domain: int, m_max: int = MAX_TABLES,
+                           tile: Optional[int] = None, agg_rows: int = AGG_ROWS):
+    """Inner join against a build side with at most m_max rows per key
+    (the reference's ``radix_join_inner_multi``).
+
+    Each build row's ordinal among the rows of its key comes from one
+    stable sort of the build keys plus searchsorted; table j holds the
+    j-th row of each key, and one probe looks all of them up.  Returns
+    (probe_keys, probe_vals, bids int32[mult, n], mult) in partitioned row
+    order as radix_join_inner_unique; a probe row with c matches finds
+    them in bids[0..c-1], in build-row order.  When the largest fan-out
+    mult exceeds m_max, returns (None, None, None, mult)."""
+    tables, mult = ordinal_tables(rk, key_domain, m_max, tile, agg_rows)
+    if tables is None:
+        return None, None, None, mult
+    pk, pv, base = _probe_side(lk, lv, key_domain, tile)
+    bids, _ = window_probe(pk, base, tables, agg_rows=agg_rows)
+    return pk, pv, bids, mult
+
+
+def ordinal_tables(rk: torch.Tensor, key_domain: int, m_max: int = MAX_TABLES,
+                   tile: Optional[int] = None, agg_rows: int = AGG_ROWS):
+    """(tables int64[mult, G * SPAN], mult): table j holds build_row_id + 1
+    of the j-th build row of each key (build-row order), or (None, mult)
+    when the largest fan-out mult exceeds m_max.  Null (negative) keys
+    are left out; one host sync for mult."""
+    if not 1 <= m_max <= MAX_TABLES:
+        raise ValueError(f"m_max {m_max} outside [1, {MAX_TABLES}]")
+    n_r = _check_keys(rk)
+    sk, perm = torch.sort(rk, stable=True)
+    ords = torch.arange(n_r, device=rk.device) - torch.searchsorted(sk, sk)
+    mult = int(torch.where(sk >= 0, ords, 0).max()) + 1 if n_r else 1
+    if mult > m_max:
+        return None, mult
+    ordinal = torch.empty_like(ords)
+    ordinal[perm] = ords
+    tables = []
+    for j in range(mult):
+        rk_j = torch.where((ordinal == j) & (rk >= 0), rk, -1)
+        tables.append(_build_tables(rk_j, key_domain, None, tile, agg_rows)[0])
+    return torch.stack(tables), mult

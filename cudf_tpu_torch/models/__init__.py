@@ -1,8 +1,12 @@
 """Flagship query "models" (port of ``cudf_tpu/models/__init__.py``).
 
-``g1_groupby`` is the db-benchmark G1 groupby's forward step: per-group
-sums and counts over int32 codes, dispatched by cardinality between the
-one-hot tier (kernel A) and the radix-partition tier (kernels B-D).
+- ``g1_groupby`` is the db-benchmark G1 groupby's forward step: per-group
+  sums and counts over int32 codes, dispatched by cardinality between the
+  one-hot tier (kernel A) and the radix-partition tier (kernels B-D).
+- ``j1_join`` is the db-benchmark J1 inner join's forward step against a
+  unique-key dim table: gather maps from the window probe (kernel H) over
+  tables built by kernel D, with one partition pass (kernels B, C) on
+  both sides when the key domain spans more than one window.
 """
 
 from __future__ import annotations
@@ -27,4 +31,15 @@ def g1_groupby(keys: torch.Tensor, vals: torch.Tensor, num_groups: int,
     return radix_groupby_sum_count(keys, vals, num_groups)
 
 
-__all__ = ["g1_groupby"]
+def j1_join(probe_keys: torch.Tensor, probe_row_ids: torch.Tensor,
+            build_keys: torch.Tensor, key_domain: int) -> Tuple:
+    """(probe_keys, probe_row_ids, build_row_ids, unique) in partitioned
+    row order, for int32 key codes in [0, key_domain): build_row_ids is
+    -1 where a probe row has no match (see
+    ``kernels/radix_partition.py`` ``radix_join_inner_unique``)."""
+    from cudf_tpu_torch.kernels.radix_partition import radix_join_inner_unique
+
+    return radix_join_inner_unique(probe_keys, probe_row_ids, build_keys, key_domain)
+
+
+__all__ = ["g1_groupby", "j1_join"]

@@ -77,3 +77,20 @@ _register("groupby.fast_path_min_rows", 0,
           "smaller frames need the sort tier, which is not ported yet, so "
           "the default 0 serves every row count with the kernel tiers",
           lambda v: isinstance(v, int) and v >= 0)
+_register("join.radix_fast_path", True,
+          "radix-partition + window-probe tier (kernels B-D and H) for "
+          "single-int-key inner joins with a unique or bounded-fan-out "
+          "build side (exact, left-row order)",
+          lambda v: isinstance(v, bool))
+_register("join.fast_path_min_rows", 1 << 16,
+          "minimum probe rows before joins dispatch to the radix tier",
+          lambda v: isinstance(v, int) and v >= 0)
+_register("join.multi_fan_out_max", 4,
+          "max build-side rows per key served by the stacked-table radix "
+          "tier (0 disables; larger fan-out needs the sort-merge tier, "
+          "which is not ported yet)",
+          lambda v: isinstance(v, int) and 0 <= v <= 4)
+_register("join.dense_fast_path", True,
+          "direct-address inner join when the single-int build side is "
+          "unique over a dense domain (exact, left-row order)",
+          lambda v: isinstance(v, bool))

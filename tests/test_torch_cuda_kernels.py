@@ -1,4 +1,5 @@
-"""The CUDA kernels A-D against their plain PyTorch versions on the card.
+"""The CUDA kernels A-D and H against their plain PyTorch versions on the
+card.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 the fixture, never at import).  On a machine with an H100 run
@@ -7,6 +8,8 @@ kernels first.  Tolerances: counts, histograms, integer sums, min/max and
 partition multisets exact; float64 sums rtol 1e-12 plus atol 1e-9, since
 atomics add in a varying order and sums of signed values cancel to near
 zero (the terms here are below 500 in magnitude, fewer than 1e5 a group).
+The join tables and probes (kernel D's id/idpay modes, kernel H) are
+exact: they hold and copy build row ids and payload bits.
 """
 
 import pytest
@@ -109,3 +112,104 @@ def test_cuda_path_raises_and_never_falls_back(dev):
         ha.onehot_groupby_aggregate(keys, torch.ones(10), 3)        # vals on CPU
     with pytest.raises(ValueError):
         rp.digit_histogram(keys.long(), 3, 13, 1024)                # int64 keys
+
+
+def _partitioned(dev, G, n, seed):
+    """(pkeys, base) of n probe keys over G windows, window 1 left empty
+    and every 13th key negative (so rows past base[-1] hold garbage)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, G * rp.SPAN, (n,), generator=g, device=dev, dtype=torch.int32)
+    if G == 1:
+        keys[::13] = -1
+        return keys, torch.tensor([0, n], device=dev)
+    keys = torch.where((keys >> rp.WINDOW_BITS) == 1, keys + rp.SPAN, keys)
+    keys[::13] = -1
+    pk, _, base, _ = rp.radix_partition(keys, [], rp.domain_bits(G * rp.SPAN))
+    assert int(base[2] - base[1]) == 0 and int(base[-1]) < n
+    return pk, base
+
+
+@pytest.mark.parametrize("m,pay_dtype", [(1, None), (2, None), (3, None), (4, None),
+                                         (1, torch.int64), (1, torch.float32),
+                                         (1, torch.float64)])
+@pytest.mark.parametrize("G", [1, 16])
+def test_window_probe_matches_plain(dev, m, pay_dtype, G):
+    """Kernel H: single window and partitioned probes, an empty window
+    (no rows, and a table of zeros), empty slots and rows past base[-1]."""
+    g = torch.Generator(device=dev).manual_seed(m * 10 + G)
+    pk, base = _partitioned(dev, G, 400_000, seed=G)
+    tables = torch.randint(0, 1 << 20, (m, G * rp.SPAN), generator=g, device=dev)
+    tables[torch.rand(tables.shape, generator=g, device=dev) < 0.3] = 0
+    tables[:, :rp.SPAN // 2] = 0
+    pay = None
+    if pay_dtype is not None:
+        vals = torch.randn(G * rp.SPAN, generator=g, device=dev, dtype=torch.float64) * 1e6
+        vals = vals.to(pay_dtype)
+        if pay_dtype.is_floating_point:
+            vals[::7] = float("nan")
+            vals[1::7] = -0.0
+        pay = rp.payload_bits(vals).long()
+    for agg_rows in (1000, rp.AGG_ROWS):
+        before = rp.window_probe.launches
+        bids, out = rp.window_probe(pk, base, tables, pay, pay_dtype, agg_rows=agg_rows)
+        assert rp.window_probe.launches == before + 1
+        eb, eo = rp.window_probe_plain(pk, base, tables, pay, pay_dtype)
+        assert torch.equal(bids, eb)
+        assert (bids[:, int(base[-1]):] == -1).all()
+        if pay_dtype is not None:
+            assert out.dtype == pay_dtype
+            assert torch.equal(rp.payload_bits(out), rp.payload_bits(eo))
+
+
+@pytest.mark.parametrize("pay_dtype", [None, torch.int32, torch.float64])
+@pytest.mark.parametrize("dom", [5000, 1 << 20])
+def test_window_tables_match_plain(dev, pay_dtype, dom):
+    """Kernel D's id and idpay modes: id + 1 and payload bits per key,
+    0 for an empty slot, and a duplicated key is reported."""
+    g = torch.Generator(device=dev).manual_seed(dom)
+    n_r = dom // 2
+    rk = torch.randperm(dom, generator=g, device=dev)[:n_r].int()
+    rk[::17] = -1
+    rv = None
+    if pay_dtype is not None:
+        rv = (torch.randn(n_r, generator=g, device=dev, dtype=torch.float64) * 1e9).to(pay_dtype)
+    before = rp.bucket_aggregate.launches
+    ids, pay, unique, G = rp.build_join_tables(rk, dom, rv)
+    assert rp.bucket_aggregate.launches == before + (1 if rv is None else 2) and unique
+    ok = rk >= 0
+    exp = torch.zeros(G * rp.SPAN, dtype=torch.int64, device=dev)
+    exp[rk[ok].long()] = torch.nonzero(ok).squeeze(1) + 1
+    assert torch.equal(ids, exp)
+    if rv is not None:
+        want = torch.zeros_like(exp)
+        want[rk[ok].long()] = rp.payload_bits(rv)[ok].long()
+        assert torch.equal(pay, want)
+    rk[1] = rk[2]                              # rk[::17] are the negatives
+    assert rp.build_join_tables(rk, dom)[2] is False
+
+
+def test_join_entry_points_match_cpu(dev):
+    """radix_join_inner_unique (with a payload) and radix_join_inner_multi
+    on the card give the CPU's (probe row, build row, payload) triples."""
+    g = torch.Generator().manual_seed(5)
+    dom, nl = 300_000, 1_000_000
+    rk = torch.randperm(dom, generator=g)[:200_000].int()
+    lk = torch.randint(-5, dom, (nl,), generator=g, dtype=torch.int32)
+    lv = torch.arange(nl, dtype=torch.int32)
+    rv = torch.randn(rk.shape[0], generator=g, dtype=torch.float64)
+    dup = torch.cat([rk, rk[:50_000], rk[:10_000]])
+    for run in ("unique", "multi"):
+        outs = []
+        for d in (torch.device("cpu"), dev):
+            if run == "unique":
+                pk, pv, bid, pay, unique = rp.radix_join_inner_unique(
+                    lk.to(d), lv.to(d), rk.to(d), dom, rv=rv.to(d))
+                assert unique
+                f = bid >= 0
+                outs.append(sorted(zip(pv[f].tolist(), bid[f].tolist(), pay[f].tolist())))
+            else:
+                pk, pv, bids, mult = rp.radix_join_inner_multi(lk.to(d), lv.to(d), dup.to(d), dom)
+                assert mult == 3
+                f = bids >= 0
+                outs.append(sorted(zip(pv.expand_as(bids)[f].tolist(), bids[f].tolist())))
+        assert outs[0] == outs[1] and len(outs[0]) > nl // 2

@@ -1,5 +1,6 @@
 """cudf_tpu_torch imports neither JAX nor the reference package, and the
-groupby path on CPU tensors touches neither pandas nor pyarrow."""
+groupby and merge paths on CPU tensors touch neither pandas nor
+pyarrow."""
 
 import ast
 import os
@@ -14,11 +15,19 @@ _PROBE = """
 import sys
 import torch
 import cudf_tpu_torch as ct
+from cudf_tpu_torch.utils.config import option_context
 df = ct.DataFrame({"k": torch.tensor([3, 1, 3, 2], dtype=torch.int32),
                    "v": torch.tensor([1.0, 2.0, 3.0, 4.0])})
 out = df.groupby("k").agg({"v": ["sum", "mean", "count"]})
 assert len(out) == 3, len(out)
 assert out._table[("v", "sum")].data.tolist() == [2.0, 4.0, 4.0]
+fact = ct.DataFrame({"k": torch.arange(100, dtype=torch.int32) % 4,
+                     "v": torch.arange(100.0)})
+dim = ct.DataFrame({"k": torch.tensor([3, 2]), "w": torch.tensor([5.0, 6.0])})
+for rows in (0, 1 << 16):               # the radix tier, then the dense tier
+    with option_context("join.fast_path_min_rows", rows):
+        joined = fact.merge(dim, on="k")
+    assert joined._table["w"].data.tolist() == [6.0, 5.0] * 25, rows
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu", "pandas", "pyarrow"))
 print("LOADED", bad)
