@@ -16,18 +16,23 @@ v3 uniform in [0, 100)), 1e8 rows made on the card from a seeded
 torch.Generator:
 
 3. kernels: each kernel (A onehot_groupby_aggregate, B digit_histogram,
-   C radix_scatter, D bucket_aggregate) against its plain PyTorch version
-   on the card, at the main path's shapes: 1e8 rows, K = 100 for A and
-   K = 1e6 for B-D.  Tolerances: counts, histograms and integer sums
-   exact; float64 sums rtol 1e-12 (atomic order varies); C's output holds
-   the same (key, payload) multiset in every bucket.
+   C radix_scatter, F tile_sort_data, G merge_scatter, D
+   bucket_aggregate) against its plain PyTorch version on the card, at
+   the main path's shapes: 1e8 rows, K = 100 for A and K = 1e6 for the
+   rest (7-bit digits; F and G with 4096-key tiles, 16384-key
+   supertiles).  Tolerances: counts, histograms and integer sums exact;
+   float64 sums rtol 1e-12 (atomic order varies); C's output holds the
+   same (key, payload) multiset in every bucket; F and G bit for bit.
+   Then radix_partition's two routes, merge_tiles = 1 (B, C) and 4 (B,
+   F, G), must give the same windows; both are timed.
 4. main path: DataFrame.groupby().agg: q4 (mean of v1, v2, v3 by id4, the
    one-hot tier), q5 (sum of v1, v2, v3 by id6, the radix tier) and
    bench.py's {"v": ["sum", "mean", "count"]} request on v3 by id4
    (K = 100) and by id6 (K = 1e6).  Each result is checked against a
-   plain PyTorch groupby on the card, and kernels A-D must each have been
-   launched during this run.  Then the sum of six value columns by id6
-   (more than one scatter launch carries) is checked the same way.
+   plain PyTorch groupby on the card, and kernels A, B, F, G and D must
+   each have been launched during this run.  Then the sum of six value
+   columns by id6 (more than one partition launch carries) is checked the
+   same way.
 5. timings: median of 7 warm runs of each query and of its plain PyTorch
    counterpart (CUDA events, then synchronize), as rows/s.
 
@@ -41,17 +46,22 @@ card from the same generator:
 3. kernels, all checked exactly against their plain versions: kernel D's
    id and idpay modes (window_tables, float64 payload) over J1 big's
    build (1e8 unique keys, 16384 windows); B and C over J1 big's probe
-   partition; H window_probe at J1 big with one table, without and with
-   the payload (whose bits must be copied), and with three stacked
-   tables over J1 medium with each key 1-3 times.
+   partition; E tile_sort of the probe keys with one int32 rider; F
+   (mask_bits = 20) and G in the second pass of the sorted route over
+   the probe side, and both routes of radix_partition there, which must
+   give the same windows; H window_probe at
+   J1 big with one table, without and with the payload (whose bits must
+   be copied), and with three stacked tables over J1 medium with each
+   key 1-3 times.
 4. main path: DataFrame.merge(on="id"): q1 small, q2 medium and q5 big
    (the unique tier; small in one window, medium and big partitioned),
    the medium dim with each key 1-3 times (the stacked-table tier,
    m = 3), and dim.merge(fact) at medium (the build on the left).  Each
    result must equal a plain PyTorch join on the card (a dense table for
    a unique build, a stable sort + searchsorted + repeat_interleave
-   otherwise): row order, key, v1 and v2.  Kernels B, C, D and H must
-   each have been launched during this run.
+   otherwise): row order, key, v1 and v2.  Kernels B, F, G, D and H must
+   each have been launched during this run, G among them in a second
+   pass (q5 big's 2^27-key domain).
 5. timings: median of 7 warm runs of each merge and of models.j1_join
    (gather maps only) at small, medium and big, beside plain PyTorch, as
    probe rows/s.
@@ -59,7 +69,8 @@ card from the same generator:
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; for a gather, each table entry the
 run's keys touch) over 3.35 TB/s and its operations over 67e12 a second,
-the H100 SXM's published HBM rate and scalar float32 rate.
+the H100 SXM's published HBM rate and scalar float32 rate (a sort of
+tiles of T keys: n log2 T comparisons; a merge of M tiles: n log2 M).
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -150,6 +161,13 @@ def same(got, exp, what, float_rtol=1e-12):
     return max_abs_err(got, exp)
 
 
+def same_bits(got, exp, what):
+    """Bit for bit (NaN and -0.0 included)."""
+    check(got.dtype == exp.dtype and got.shape == exp.shape
+          and torch.equal(got.view(torch.uint8), exp.view(torch.uint8)), f"{what}: differs")
+    return 0.0
+
+
 def pairs_sorted(keys, vals):
     """(key, val) pairs in lexicographic order."""
     order = torch.argsort(vals, stable=True)
@@ -157,7 +175,63 @@ def pairs_sorted(keys, vals):
     return keys[order], vals[order]
 
 
-def kernel_phase(dev, gen, ha, rp):
+def sorted_pass(rp, ts, keys, payloads, nbits, shift, offsets, base, mask_bits=None):
+    """Kernels F and G over one pass of the sorted route, each bit for
+    bit against its plain version; (F's row, G's row, G's output)."""
+    tile, st = rp.SORT_TILE, rp.MERGE_TILES * rp.SORT_TILE
+    sk, sp = ts.tile_sort_data(keys, payloads, tile, alternate=True, mask_bits=mask_bits)
+    ek, ep = ts.tile_sort_data_plain(keys, payloads, tile, True, mask_bits)
+    same_bits(sk, ek, "F keys")
+    for got, exp in zip(sp, ep):
+        same_bits(got, exp, "F payloads")
+    del ek, ep
+    out = rp.merge_scatter(sk, sp, offsets, nbits, shift, st, tile, mask_bits)
+    ek, ep = rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits)
+    m = int(base[-1])
+    same_bits(out[0][:m], ek[:m], "G keys")
+    for got, exp in zip(out[1], ep):
+        same_bits(got[:m], exp[:m], "G payloads")
+    del ek, ep
+    n = keys.numel()
+    moved = 2 * nbytes(keys, *payloads)
+    lib = keys[:n // tile * tile].view(-1, tile)
+    f_row = timed_row(
+        0.0,
+        lambda: ts.tile_sort_data(keys, payloads, tile, alternate=True, mask_bits=mask_bits),
+        lambda: ts.tile_sort_data_plain(keys, payloads, tile, True, mask_bits),
+        lambda: torch.sort(lib, dim=1, stable=True), moved, n * (tile.bit_length() - 1))
+    g_row = timed_row(
+        0.0,
+        lambda: rp.merge_scatter(sk, sp, offsets, nbits, shift, st, tile, mask_bits),
+        lambda: rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits),
+        None, moved + nbytes(offsets), n * (rp.MERGE_TILES.bit_length() - 1))
+    return f_row, g_row, out
+
+
+def route_phase(dev, rp, keys, vals, bits, what):
+    """radix_partition at merge_tiles = 1 (kernels B, C) and 4 (B, F, G):
+    the same base and, in every window, the same (key, row, value bits);
+    returns both routes' times in ms."""
+    rows = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    outs, times = {}, {}
+    for mt in (1, 4):
+        pk, pv, base, G = rp.radix_partition(keys, [rows] + vals, bits, merge_tiles=mt)
+        m = int(base[-1])
+        win = torch.repeat_interleave(torch.arange(G, device=dev), base[1:] - base[:-1])
+        check(torch.equal(pk[:m].long() >> rp.WINDOW_BITS, win),
+              f"{what} merge_tiles={mt}: a key outside its window")
+        order = torch.argsort(pv[0][:m].long() + win * keys.numel())
+        outs[mt] = [base, pk[:m][order]] + [p[:m][order] for p in pv]
+        del pk, pv, win, order
+        times[mt] = device_ms(lambda: rp.radix_partition(keys, vals, bits, merge_tiles=mt))
+    for a, b in zip(outs[1], outs[4]):
+        same_bits(a, b, f"{what}: the routes' windows")
+    log(f"route {what}: merge_tiles=1 (B, C) {times[1]:.3f} ms, merge_tiles=4 (B, F, G) "
+        f"{times[4]:.3f} ms; same windows")
+    return {"merge_tiles=1": times[1], "merge_tiles=4": times[4]}
+
+
+def kernel_phase(dev, gen, ha, rp, ts):
     """Each G1 kernel against its plain version at the main path's shapes."""
     rows = {}
     codes_low = torch.randint(0, K_LOW, (N,), generator=gen, device=dev, dtype=torch.int32)
@@ -212,6 +286,16 @@ def kernel_phase(dev, gen, ha, rp):
         lambda: rp.radix_scatter_plain(codes, payloads, offsets, nbits, shift, tile), None,
         2 * nbytes(codes, *payloads) + nbytes(offsets), N)
     show("C (per-bucket multisets equal)", rows["radix_scatter"])
+
+    st = rp.MERGE_TILES * rp.SORT_TILE
+    offsets, base_st = rp.partition_offsets(rp.digit_histogram(codes, nbits, shift, st))
+    check(torch.equal(base_st, base), "B at supertile granularity: other windows")
+    rows["tile_sort_data"], rows["merge_scatter"], _ = sorted_pass(
+        rp, ts, codes, payloads, nbits, shift, offsets, base)
+    show("F (bit for bit)", rows["tile_sort_data"])
+    show("G (bit for bit)", rows["merge_scatter"])
+    rows["merge_scatter"]["route_ms_g1"] = route_phase(dev, rp, codes, payloads,
+                                                       nbits + shift, "G1 K = 1e6")
 
     G = 1 << nbits
     err = 0.0
@@ -308,11 +392,11 @@ def probe_codes(dev, gen, n_dim):
     return torch.where(lk < n_dim, lk, -1)
 
 
-def j1_kernel_phase(dev, gen, rp):
+def j1_kernel_phase(dev, gen, rp, ts):
     """D's id/idpay modes, B, C and H at J1 shapes, against their plain
     versions.  Returns {kernel: {mode: row}}."""
     modes = {"bucket_aggregate": {}, "digit_histogram": {}, "radix_scatter": {},
-             "window_probe": {}}
+             "tile_sort_data": {}, "merge_scatter": {}, "window_probe": {}}
     n_dim = J1_DIMS["big"]
     rk = torch.randperm(n_dim, generator=gen, device=dev, dtype=torch.int32)
     rv = torch.randn(n_dim, generator=gen, device=dev, dtype=torch.float64)
@@ -374,6 +458,45 @@ def j1_kernel_phase(dev, gen, rp):
     show("C at J1 big (exact partition)", modes["radix_scatter"][shape + ", one int32 payload"])
     del hist, offsets
 
+    tile, st = rp.SORT_TILE, rp.MERGE_TILES * rp.SORT_TILE
+    got = ts.tile_sort(lk, rows_i, tile=tile, alternate=True)
+    exp = ts.tile_sort_data_plain(lk, [rows_i], tile, True)
+    same_bits(got[0], exp[0], "E keys")
+    same_bits(got[1], exp[1][0], "E rider")
+    del got, exp
+    lib = lk[:N // tile * tile].view(-1, tile)
+    tile_sort_row = timed_row(
+        0.0, lambda: ts.tile_sort(lk, rows_i, tile=tile, alternate=True),
+        lambda: ts.tile_sort_data_plain(lk, [rows_i], tile, True),
+        lambda: torch.sort(lib, dim=1, stable=True), 2 * nbytes(lk, rows_i),
+        N * (tile.bit_length() - 1), shape="J1 big probe: 1e8 keys, one int32 rider, "
+        "4096-key tiles, alternate")
+    show("E at J1 big (bit for bit)", tile_sort_row)
+
+    shift1 = rp.WINDOW_BITS + rp.PASS_BITS                 # the sorted route's two passes
+    regions = 1 << (bits - shift1)
+    off1, base1 = rp.partition_offsets(rp.digit_histogram(lk, bits - shift1, shift1, st),
+                                       align=st)
+    rows1 = (-(-N // st) + regions) * st
+    sk, sr = ts.tile_sort_data(lk, [rows_i], tile, alternate=True)
+    k1, (r1,) = rp.merge_scatter(sk, sr, off1, bits - shift1, shift1, st, tile, out_rows=rows1)
+    del sk, sr
+    region = torch.searchsorted(base1[1:], torch.arange(rows1 // st, device=dev) * st,
+                                right=True).clamp_(max=regions - 1)
+    off2, base2 = rp.partition_offsets(rp.digit_histogram(k1, rp.PASS_BITS, rp.WINDOW_BITS, st),
+                                       region, regions)
+    f_row, g_row, _ = sorted_pass(rp, ts, k1, [r1], rp.PASS_BITS, rp.WINDOW_BITS, off2, base2,
+                                  mask_bits=shift1)
+    check(torch.equal(base2, base_l), "G (J1 second pass): windows other than C's")
+    del k1, r1, off1, off2, region
+    shape2 = ("J1 big probe, second pass: 1.02e8 rows, mask_bits 20, 2^7 digits per region, "
+              "one int32 payload")
+    modes["tile_sort_data"][shape2] = f_row
+    modes["merge_scatter"][shape2] = g_row
+    show("F at J1 big, second pass (bit for bit)", f_row)
+    show("G at J1 big, second pass (bit for bit)", g_row)
+    route_ms = route_phase(dev, rp, lk, [rows_i], bits, "J1 big probe")
+
     idx = pk_l[:m].long()
     touched = torch.zeros(G * rp.SPAN, dtype=torch.bool, device=dev)
     touched[idx] = True
@@ -430,7 +553,7 @@ def j1_kernel_phase(dev, gen, rp):
         lambda: torch.take(tables, idx), 4 * mm + nbytes(bids) + 3 * 8 * n_touched, 3 * mm)
     show("H m=3 at J1 medium (exact)", modes["window_probe"][
         "J1 medium, m = 3 stacked tables (keys 1-3 times)"])
-    return main, modes
+    return {"window_probe": main, "tile_sort": tile_sort_row}, modes, route_ms
 
 
 def j1_frames(ct, dev, gen):
@@ -544,6 +667,7 @@ def main():
     from cudf_tpu_torch.kernels import _build
     from cudf_tpu_torch.kernels import hash_aggregate as ha
     from cudf_tpu_torch.kernels import radix_partition as rp
+    from cudf_tpu_torch.kernels import tile_sort as ts
     from cudf_tpu_torch.models import j1_join
 
     t0 = time.perf_counter()
@@ -551,28 +675,35 @@ def main():
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s ({lib.path.name})")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = kernel_phase(dev, gen, ha, rp)
+    kernels = kernel_phase(dev, gen, ha, rp, ts)
     torch.cuda.empty_cache()
-    log("phase 3 G1 kernels: all four agree with their plain versions")
+    log("phase 3 G1 kernels: all six agree with their plain versions")
 
     wrappers = {"onehot_groupby_aggregate": ha.onehot_groupby_aggregate,
                 "digit_histogram": rp.digit_histogram,
                 "radix_scatter": rp.radix_scatter,
+                "tile_sort": ts.tile_sort,
+                "tile_sort_data": ts.tile_sort_data,
+                "merge_scatter": rp.merge_scatter,
                 "bucket_aggregate": rp.bucket_aggregate,
                 "window_probe": rp.window_probe}
-    paths = {"g1": ["onehot_groupby_aggregate", "digit_histogram", "radix_scatter",
-                    "bucket_aggregate"],
-             "j1": ["digit_histogram", "radix_scatter", "bucket_aggregate", "window_probe"]}
+    paths = {"g1": ["onehot_groupby_aggregate", "digit_histogram", "tile_sort_data",
+                    "merge_scatter", "bucket_aggregate"],
+             "j1": ["digit_histogram", "tile_sort_data", "merge_scatter", "bucket_aggregate",
+                    "window_probe"]}
     launches = {name: {} for name in wrappers}
+    second_pass = {}
 
     def drive(path, run):
         """Run one main path with every count at 0 before, read after."""
         for fn in wrappers.values():
             fn.launches = 0
+        rp.merge_scatter.masked_launches = 0
         out = run()
         torch.cuda.synchronize()
         for name, fn in wrappers.items():
             launches[name][path] = fn.launches
+        second_pass[path] = rp.merge_scatter.masked_launches
         for name in paths[path]:
             check(launches[name][path] > 0, f"kernel {name} was not launched by the {path} path")
         return out
@@ -591,8 +722,8 @@ def main():
                 plain_query(wide, "id6", spec))
     del wide
     torch.cuda.empty_cache()
-    log("phase 4 G1 six value columns by id6 (two scatter launches' worth of "
-        "payloads) agree with plain torch")
+    log("phase 4 G1 six value columns by id6 (more payloads than one partition "
+        "launch carries) agree with plain torch")
 
     for name, (key, spec) in QUERIES.items():
         ms = device_ms(lambda: df.groupby(key).agg(spec))
@@ -602,13 +733,15 @@ def main():
     del df
     torch.cuda.empty_cache()
 
-    kernels["window_probe"], j1_modes = j1_kernel_phase(dev, gen, rp)
+    j1_rows, j1_modes, route_ms = j1_kernel_phase(dev, gen, rp, ts)
+    kernels.update(j1_rows)
+    kernels["merge_scatter"]["route_ms_j1_big"] = route_ms
     for name, modes in j1_modes.items():
         if modes:
             kernels[name].setdefault("modes", {}).update(modes)
     torch.cuda.empty_cache()
-    log("phase 3 J1 kernels: D's id/idpay modes, B, C and H agree exactly with their "
-        "plain versions")
+    log("phase 3 J1 kernels: D's id/idpay modes, B, C, E, F, G and H agree exactly with "
+        "their plain versions")
 
     frames = j1_frames(ct, dev, gen)
     results = drive("j1", lambda: {
@@ -619,7 +752,9 @@ def main():
                            plain_merge(frames[left], frames[right], unique))
         log(f"phase 4 J1 {name}: {rows} rows, equal to the plain torch join")
     torch.cuda.empty_cache()
-    log(f"phase 4 J1 main path: launches { {k: v['j1'] for k, v in launches.items()} }")
+    check(second_pass["j1"] > 0, "the J1 path ran no second pass of the sorted route")
+    log(f"phase 4 J1 main path: launches { {k: v['j1'] for k, v in launches.items()} }; "
+        f"merge_scatter under a mask (second passes): {second_pass['j1']}")
     rows_i = torch.arange(N, dtype=torch.int32, device=dev)
     for size in J1_DIMS:
         check_j1_model(j1_join, rows_i, *j1_model_inputs(frames, size), size)
@@ -641,7 +776,10 @@ def main():
             f"plain torch {plain:.3f} ms = {N / plain * 1e3:.4g} probe rows/s [{smi}]")
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
-               "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"])}
+               "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
+               "merge_scatter": (rp.MERGE_SOURCE, rp.REPLACES["merge_scatter"])}
+    for name in ("tile_sort", "tile_sort_data"):
+        sources[name] = (ts.SOURCE, ts.REPLACES[name])
     for name in ("digit_histogram", "radix_scatter", "bucket_aggregate"):
         sources[name] = (rp.SOURCE, rp.REPLACES[name])
     log(smi)

@@ -1,10 +1,12 @@
 """cudf_tpu_torch — the PyTorch/CUDA port of cudf_tpu.
 
-The port mirrors the reference package's module paths.  This slice
-carries the db-benchmark G1 groupby end to end:
+The port mirrors the reference package's module paths.  It carries
+the db-benchmark G1 groupby and J1 join end to end:
 ``DataFrame.groupby(k).agg({...})`` on the one-hot tier (kernel A) and
-the radix-partition tier (kernels B-D), hand-written CUDA for Hopper
-(``csrc/``), each beside a plain PyTorch version that CPU tensors use.
+the radix-partition tier (kernels B, F, G and D), and
+``DataFrame.merge`` on the radix tier (B, F, G, D and H), hand-written
+CUDA for Hopper (``csrc/``), each beside a plain PyTorch version that
+CPU tensors use.
 
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.

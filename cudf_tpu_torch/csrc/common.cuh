@@ -23,6 +23,49 @@ __device__ __forceinline__ unsigned long long order_key(double v) {
   return (b & kSignBit) ? ~b : (b | kSignBit);
 }
 
+// The order key of the sorted partition route (kernels E, F and G), an
+// unsigned int that sorts as the reference's tile sort orders its keys.
+// mask_bits 0: the signed key, sign bit flipped.  mask_bits m > 0: the
+// key's low m bits plus 1, and 0 for a negative key (the reference sorts
+// key & (2^m - 1), with negative keys as SENTINEL = INT32_MIN).
+__device__ __forceinline__ unsigned sort_key(int key, int mask_bits) {
+  if (mask_bits == 0) return static_cast<unsigned>(key) ^ 0x80000000u;
+  return key < 0 ? 0u : (static_cast<unsigned>(key) & ((1u << mask_bits) - 1u)) + 1u;
+}
+// Significant bits of sort_key: 32, or m + 1 under a mask.
+__host__ __device__ __forceinline__ int sort_key_bits(int mask_bits) {
+  return mask_bits == 0 ? 32 : mask_bits + 1;
+}
+
+// Up to five 4- or 8-byte columns that move together in a partition or
+// sort launch: keys first, then the payloads (kernels/_build.py
+// MAX_PAYLOADS = kMaxColumns - 1).
+constexpr int kMaxColumns = 5;
+struct Columns {
+  const void* src[kMaxColumns];
+  void* dst[kMaxColumns];
+  int width[kMaxColumns];
+  int count;
+};
+
+// Fill Columns from the wrappers' host arrays (keys are column 0); false
+// on a count or width the kernels do not take.
+inline bool make_columns(Columns* c, const void* keys, void* out_keys, int n_payloads,
+                         const void* src, const void* dst, const void* widths) {
+  if (n_payloads < 0 || n_payloads > kMaxColumns - 1) return false;
+  c->count = n_payloads + 1;
+  c->src[0] = keys;
+  c->dst[0] = out_keys;
+  c->width[0] = 4;
+  for (int j = 0; j < n_payloads; ++j) {
+    c->src[j + 1] = static_cast<const void* const*>(src)[j];
+    c->dst[j + 1] = static_cast<void* const*>(dst)[j];
+    c->width[j + 1] = static_cast<const int*>(widths)[j];
+    if (c->width[j + 1] != 4 && c->width[j + 1] != 8) return false;
+  }
+  return true;
+}
+
 // Sums accumulate in int64 (two's complement wraps like numpy's int64)
 // or in double.
 __device__ __forceinline__ void atomic_add(long long* p, long long v) {

@@ -10,7 +10,9 @@
 //
 // C  radix_scatter     replaces radix_partition.py radix_scatter (Pallas
 //    body _partition_kernel with an in-kernel bitonic sort and the
-//    covering-row DMAs of _scatter_runs).  Hopper scatters single
+//    covering-row DMAs of _scatter_runs), the reference's merge_tiles = 1
+//    route; the main path takes its merge_tiles = 4 route, kernels F and
+//    G (csrc/tile_sort.cu, csrc/merge_scatter.cu).  Hopper scatters single
 //    elements, so no sort is needed: each block re-derives its tile's
 //    digits and takes each element's output slot from a shared cursor
 //    per bucket, seeded with the exclusive scan of the histogram over
@@ -42,7 +44,6 @@ constexpr int kScatterThreads = 512;
 constexpr int kAggThreads = 1024;
 constexpr int kWindowBits = 13;
 constexpr int kSpan = 1 << kWindowBits;
-constexpr int kMaxPayloads = 4;
 
 __global__ void __launch_bounds__(kHistThreads)
 digit_histogram_kernel(const int32_t* __restrict__ keys, long long n, int shift,
@@ -63,36 +64,30 @@ digit_histogram_kernel(const int32_t* __restrict__ keys, long long n, int shift,
   for (int b = threadIdx.x; b < B; b += blockDim.x) row[b] = static_cast<int32_t>(s_hist[b]);
 }
 
-struct Payloads {
-  const void* src[kMaxPayloads];
-  void* dst[kMaxPayloads];
-  int width[kMaxPayloads];
-  int count;
-};
-
+// Columns: the keys at 0, the payloads after them (common.cuh).
 __global__ void __launch_bounds__(kScatterThreads)
-radix_scatter_kernel(const int32_t* __restrict__ keys, long long n, int shift,
-                     int nbits, long long tile, const int32_t* __restrict__ offsets,
-                     int32_t* __restrict__ out_keys, Payloads p) {
+radix_scatter_kernel(long long n, int shift, int nbits, long long tile,
+                     const int32_t* __restrict__ offsets, Columns c) {
   extern __shared__ unsigned int s_cursor[];
   const int B = 1 << nbits;
   const int32_t* row = offsets + static_cast<long long>(blockIdx.x) * B;
   for (int b = threadIdx.x; b < B; b += blockDim.x) s_cursor[b] = static_cast<unsigned>(row[b]);
   __syncthreads();
+  const int32_t* keys = static_cast<const int32_t*>(c.src[0]);
   const long long start = static_cast<long long>(blockIdx.x) * tile;
   const long long end = start + tile < n ? start + tile : n;
   for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
     const int k = keys[i];
     if (k < 0) continue;
     const unsigned pos = atomicAdd(&s_cursor[(k >> shift) & (B - 1)], 1u);
-    out_keys[pos] = k;
-    for (int j = 0; j < p.count; ++j) {
-      if (p.width[j] == 8) {
-        static_cast<unsigned long long*>(p.dst[j])[pos] =
-            static_cast<const unsigned long long*>(p.src[j])[i];
+    static_cast<int32_t*>(c.dst[0])[pos] = k;
+    for (int j = 1; j < c.count; ++j) {
+      if (c.width[j] == 8) {
+        static_cast<unsigned long long*>(c.dst[j])[pos] =
+            static_cast<const unsigned long long*>(c.src[j])[i];
       } else {
-        static_cast<unsigned int*>(p.dst[j])[pos] =
-            static_cast<const unsigned int*>(p.src[j])[i];
+        static_cast<unsigned int*>(c.dst[j])[pos] =
+            static_cast<const unsigned int*>(c.src[j])[i];
       }
     }
   }
@@ -178,14 +173,9 @@ extern "C" int cudf_radix_scatter(const void* keys, long long n, int shift, int 
                                   int n_payloads, const void* src, const void* dst,
                                   const void* widths, void* stream) {
   using namespace cudf_tpu_torch;
-  if (n_payloads < 0 || n_payloads > kMaxPayloads) return cudaErrorInvalidValue;
-  Payloads p{};
-  p.count = n_payloads;
-  for (int j = 0; j < n_payloads; ++j) {
-    p.src[j] = static_cast<const void* const*>(src)[j];
-    p.dst[j] = static_cast<void* const*>(dst)[j];
-    p.width[j] = static_cast<const int*>(widths)[j];
-    if (p.width[j] != 4 && p.width[j] != 8) return cudaErrorInvalidValue;
+  Columns c{};
+  if (!make_columns(&c, keys, out_keys, n_payloads, src, dst, widths)) {
+    return cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(unsigned int) << nbits;
   cudaError_t err = cudaFuncSetAttribute(
@@ -195,8 +185,7 @@ extern "C" int cudf_radix_scatter(const void* keys, long long n, int shift, int 
   const long long tiles = (n + tile - 1) / tile;
   radix_scatter_kernel<<<static_cast<unsigned>(tiles), kScatterThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), n, shift, nbits, tile,
-      static_cast<const int32_t*>(offsets), static_cast<int32_t*>(out_keys), p);
+      n, shift, nbits, tile, static_cast<const int32_t*>(offsets), c);
   return cudaGetLastError();
 }
 

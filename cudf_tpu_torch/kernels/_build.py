@@ -167,3 +167,43 @@ def check_vector(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+# payload columns that move with the keys in one partition or sort launch
+# (csrc/common.cuh Columns: the keys and up to four more)
+MAX_PAYLOADS = 4
+
+
+def check_keys(keys: torch.Tensor) -> int:
+    """n after checking contiguous int32 keys [n], n < 2^31, on the CPU or
+    a CUDA device."""
+    n = keys.shape[0]
+    check_vector("keys", keys, torch.int32, n, keys.device)
+    if n >= 1 << 31:
+        raise ValueError("the kernels address rows with int32: n < 2^31")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {keys.device}")
+    return n
+
+
+def check_columns(keys: torch.Tensor, columns: Sequence[torch.Tensor]) -> int:
+    """n after checking the keys and at most MAX_PAYLOADS 4- or 8-byte
+    columns [n] on the keys' device."""
+    n = check_keys(keys)
+    if len(columns) > MAX_PAYLOADS:
+        raise ValueError(f"at most {MAX_PAYLOADS} payloads move with one launch")
+    for c in columns:
+        check_vector("payload", c, c.dtype, n, keys.device)
+        if c.element_size() not in (4, 8):
+            raise ValueError(f"payload dtype {c.dtype}: 4 or 8 bytes per element")
+    return n
+
+
+def column_arrays(columns: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+    """(src, dst, widths): host arrays of the columns' and outputs' device
+    pointers and element widths, as the kernels take them (pass each with
+    ctypes.addressof; keep them alive over the launch)."""
+    src = (ctypes.c_void_p * MAX_PAYLOADS)(*[c.data_ptr() for c in columns])
+    dst = (ctypes.c_void_p * MAX_PAYLOADS)(*[o.data_ptr() for o in outs])
+    widths = (ctypes.c_int * MAX_PAYLOADS)(*[c.element_size() for c in columns])
+    return src, dst, widths

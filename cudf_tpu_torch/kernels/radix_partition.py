@@ -1,24 +1,27 @@
 """Radix partition, windowed aggregation and window probe: kernels B, C,
-D and H.
+D, G and H.
 
 Port of ``cudf_tpu/kernels/radix_partition.py`` for the groupby and
 join tiers:
 
 - ``digit_histogram`` (kernel B) replaces the Pallas ``digit_histogram``;
-- ``radix_scatter`` (kernel C) replaces ``radix_scatter`` (and so the
-  ``tile_sort_data`` -> ``merge_scatter`` pair, which computes the same
-  partition);
+- ``radix_scatter`` (kernel C) replaces ``radix_scatter``, the
+  reference's ``merge_tiles = 1`` partition route;
+- ``merge_scatter`` (kernel G) replaces ``merge_scatter``; after
+  ``tile_sort_data`` (kernel F, ``kernels/tile_sort.py``) it is the
+  reference's default ``merge_tiles = 4`` route, which the main path runs;
 - ``bucket_aggregate`` (kernel D) replaces ``bucket_aggregate`` in its
   ``float`` and ``int`` modes, and serves its ``id`` and ``idpay`` modes
   too (``window_tables``);
 - ``window_probe`` (kernel H) replaces ``window_probe``;
-- ``radix_partition`` and ``radix_groupby_sum_count`` chain B-D for the
-  groupby, ``build_join_tables``, ``radix_join_inner_unique`` and
-  ``radix_join_inner_multi`` chain B-D and H for the join.
+- ``radix_partition`` and ``radix_groupby_sum_count`` chain B, F, G (or
+  C) and D for the groupby, ``build_join_tables``,
+  ``radix_join_inner_unique`` and ``radix_join_inner_multi`` chain them
+  and H for the join.
 
 The CUDA sources' notes (``csrc/radix_partition.cu``,
-``csrc/window_probe.cu``) say what bounds each kernel on the H100 and
-what its design does about that.
+``csrc/merge_scatter.cu``, ``csrc/window_probe.cu``) say what bounds each
+kernel on the H100 and what its design does about that.
 
 Differences from the reference, all because Hopper scatters single
 elements and has int64/fp64 atomics:
@@ -29,10 +32,12 @@ elements and has int64/fp64 atomics:
   output, bucket ``b`` holds rows ``[base[b], base[b+1])``, and negative
   keys are dropped.  There is no SENTINEL fill and no run-edge garbage,
   so nothing needs a host sync to size its output.
-- One partition pass reaches 2^27 keys: the digit is the window id
-  ``key >> 13`` (up to 14 bits, 16384 buckets), and the tile size is
-  chosen so that the ``[tiles, buckets]`` histogram stays within
-  ``MAX_TABLE`` entries (see :func:`choose_tile`).
+- The sorted route passes as the reference's: one pass to 2^20 keys, two
+  beyond (the second orders by the low 20 bits inside first-pass regions
+  padded to whole supertiles).  The scatter route takes one pass to 2^27:
+  its digit is the window id ``key >> 13`` (up to 14 bits), and its tile
+  keeps the ``[tiles, buckets]`` histogram within ``MAX_TABLE`` entries
+  (see :func:`choose_tile`).
 - Sums are int64 for integer values and float64 for float values.
 """
 
@@ -44,12 +49,16 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from cudf_tpu_torch.kernels import _build
+from cudf_tpu_torch.kernels._build import MAX_PAYLOADS, check_columns, column_arrays
+from cudf_tpu_torch.kernels.tile_sort import check_mask_bits, sort_key_plain, tile_sort_data
 
 SOURCE = "cudf_tpu_torch/csrc/radix_partition.cu"
+MERGE_SOURCE = "cudf_tpu_torch/csrc/merge_scatter.cu"
 PROBE_SOURCE = "cudf_tpu_torch/csrc/window_probe.cu"
 REPLACES = {          # the Pallas kernel of the same name, file:line
     "digit_histogram": "cudf_tpu/kernels/radix_partition.py:93",
     "radix_scatter": "cudf_tpu/kernels/radix_partition.py:336",
+    "merge_scatter": "cudf_tpu/kernels/radix_partition.py:291",
     # all four modes: float and int directly, id and idpay through
     # window_tables
     "bucket_aggregate": "cudf_tpu/kernels/radix_partition.py:509",
@@ -62,7 +71,11 @@ MAX_DOMAIN_BITS = 27
 MAX_TABLE = 1 << 22              # histogram entries (16 MB of int32)
 MIN_TILE = 1 << 14               # keys per partition tile
 AGG_ROWS = 1 << 17               # rows per aggregation or probe step
-MAX_PAYLOADS = 4                 # payload columns per scatter launch
+MERGE_TILES = 4                  # sort tiles per supertile (the reference's default)
+SORT_TILE = 1 << 12              # keys per sort tile: MERGE_TILES * SORT_TILE = MIN_TILE
+PASS_BITS = 7                    # digit bits per pass of the sorted route
+MAX_SUPER_TILE = 1 << 14         # keys per merge_scatter supertile (shared memory)
+MAX_MERGE_BITS = 10
 MAX_TABLES = 4                   # stacked id tables per probe (join fan-out)
 
 _HIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -70,6 +83,10 @@ _HIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int
 _SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_MERGE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
 _AGG_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p]
@@ -77,16 +94,6 @@ _PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_v
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p]
-
-
-def _check_keys(keys: torch.Tensor) -> int:
-    n = keys.shape[0]
-    _build.check_vector("keys", keys, torch.int32, n, keys.device)
-    if n >= 1 << 31:
-        raise ValueError("the radix tier addresses rows with int32: n < 2^31")
-    if keys.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {keys.device}")
-    return n
 
 
 # ----------------------------------------------------------------------
@@ -99,7 +106,7 @@ def digit_histogram(keys: torch.Tensor, nbits: int, shift: int,
     count of each digit ``(key >> shift) & (2^nbits - 1)``.  Negative keys
     are not counted.  CUDA tensors launch kernel B, counted in
     ``digit_histogram.launches``."""
-    n = _check_keys(keys)
+    n = _build.check_keys(keys)
     if not 1 <= nbits <= MAX_DOMAIN_BITS - WINDOW_BITS or tile < 1:
         raise ValueError(f"nbits {nbits} / tile {tile} out of range")
     if keys.device.type == "cpu":
@@ -131,19 +138,37 @@ def digit_histogram_plain(keys, nbits, shift, tile):
 # layout glue (plain torch on both devices; replaces layout_device)
 # ----------------------------------------------------------------------
 
-def partition_offsets(hist: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(offsets int32[NT, B], base int64[B + 1]) from a histogram.
+def partition_offsets(hist: torch.Tensor, region_of_tile: Optional[torch.Tensor] = None,
+                      n_regions: int = 1, align: int = 1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(offsets int32[NT, B], base int64[n_regions * B + 1]) from a
+    histogram (the reference's ``layout_device``, exact).
 
-    offsets[t, b] is the first output slot of tile t's run of bucket b:
-    an exclusive scan over (bucket, tile), so bucket b's region
-    ``[base[b], base[b+1])`` holds tile 0's run, then tile 1's, ...
+    Tile t's digit b goes to window g = region_of_tile[t] * B + b (one
+    region when region_of_tile is None; a second pass's tiles each lie in
+    one first-pass region, in region order).  Window g's rows are
+    ``[base[g], base[g+1])``, its size rounded up to a multiple of
+    ``align``, and hold its tiles' runs in tile order: offsets[t, b] is
+    the first slot of tile t's run of digit b.
     """
     nt, B = hist.shape
-    flat = hist.t().reshape(-1).long()
-    excl = torch.cumsum(flat, 0) - flat
-    offsets = excl.view(B, nt).t().contiguous().to(torch.int32)
-    totals = hist.sum(dim=0, dtype=torch.int64)
+    h = hist.long()
+    excl = torch.cumsum(h, 0) - h                    # over the tiles before
+    if region_of_tile is None:
+        totals = h.sum(dim=0)
+        corr = 0
+        g = torch.arange(B, device=hist.device).expand(nt, B)
+    else:
+        region = region_of_tile.long()
+        totals = torch.zeros(n_regions, B, dtype=torch.int64,
+                             device=hist.device).index_add_(0, region, h).view(-1)
+        first = torch.searchsorted(region, torch.arange(n_regions, device=hist.device))
+        corr = excl[first.clamp(max=max(nt - 1, 0))[region]]   # scan at the region's start
+        g = region.unsqueeze(1) * B + torch.arange(B, device=hist.device)
+    if align > 1:
+        totals = (totals + align - 1) // align * align
     base = torch.cat([totals.new_zeros(1), torch.cumsum(totals, 0)])
+    offsets = (base[g] + excl - corr).to(torch.int32)
     return offsets, base
 
 
@@ -172,14 +197,8 @@ def radix_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
     ``offsets``-total of each output, and the order inside each
     (tile, bucket) run is unspecified.  CUDA tensors launch kernel C,
     counted in ``radix_scatter.launches``."""
-    n = _check_keys(keys)
     payloads = list(payloads)
-    if len(payloads) > MAX_PAYLOADS:
-        raise ValueError(f"at most {MAX_PAYLOADS} payloads per scatter")
-    for p in payloads:
-        _build.check_vector("payload", p, p.dtype, n, keys.device)
-        if p.element_size() not in (4, 8):
-            raise ValueError(f"payload dtype {p.dtype}: 4 or 8 bytes per element")
+    n = check_columns(keys, payloads)
     nt = -(-n // tile)
     _build.check_vector("offsets", offsets.view(-1), torch.int32, nt << nbits,
                         keys.device)
@@ -188,13 +207,10 @@ def radix_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
     out_keys = torch.empty_like(keys)
     outs = [torch.empty_like(p) for p in payloads]
     if n:
-        count = len(payloads)
-        src = (ctypes.c_void_p * MAX_PAYLOADS)(*[p.data_ptr() for p in payloads])
-        dst = (ctypes.c_void_p * MAX_PAYLOADS)(*[o.data_ptr() for o in outs])
-        widths = (ctypes.c_int * MAX_PAYLOADS)(*[p.element_size() for p in payloads])
+        src, dst, widths = column_arrays(payloads, outs)
         _build.launch("cudf_radix_scatter", _SCATTER_ARGTYPES, keys.device,
                       keys.data_ptr(), n, shift, nbits, tile, offsets.data_ptr(),
-                      out_keys.data_ptr(), count, ctypes.addressof(src),
+                      out_keys.data_ptr(), len(payloads), ctypes.addressof(src),
                       ctypes.addressof(dst), ctypes.addressof(widths))
         radix_scatter.launches += 1
     return out_keys, outs
@@ -221,39 +237,196 @@ def radix_scatter_plain(keys, payloads, offsets, nbits, shift, tile):
     return out_keys, outs
 
 
+# ----------------------------------------------------------------------
+# kernel G: merge sorted tiles into supertiles and write their runs
+# ----------------------------------------------------------------------
+
+def _check_merge(nbits, shift, super_tile, tile, mask_bits):
+    if not 1 <= nbits <= MAX_MERGE_BITS or shift < 0 or shift + nbits > 31:
+        raise ValueError(f"nbits {nbits} / shift {shift} out of range")
+    if not 1 <= tile <= super_tile <= MAX_SUPER_TILE or super_tile % tile:
+        raise ValueError(f"super_tile {super_tile} must be a multiple of tile {tile}, "
+                         f"at most {MAX_SUPER_TILE}")
+    if mask_bits is not None and mask_bits != shift + nbits:
+        raise ValueError(f"mask_bits {mask_bits}: the digit must be the mask's top "
+                         f"bits (shift + nbits = {shift + nbits})")
+
+
+def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
+                  offsets: torch.Tensor, nbits: int, shift: int, super_tile: int,
+                  tile: int, mask_bits: Optional[int] = None,
+                  out_rows: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(out_keys int32[rows], out_payloads) partitioned by digit (kernel G).
+
+    ``keys`` and ``payloads`` come from ``tile_sort_data(..., tile,
+    alternate=True, mask_bits)``; ``offsets`` from :func:`partition_offsets`
+    of the same keys' histogram at ``super_tile`` (a multiple of ``tile``)
+    granularity.  Each supertile's rows are merged into one stable order
+    by the sort's key (ties by tile, then position) and its run of each
+    bucket ``(key >> shift) & (2^nbits - 1)`` is written, in that order, at
+    its offset.  Negative keys are dropped.  The bucket must be the top
+    bits of the order key: keys below 2^(shift + nbits), or mask_bits =
+    shift + nbits.  rows = ``out_rows`` or n; rows no run covers hold key
+    -1 and zero payloads when ``out_rows`` is given (a first pass's padded
+    regions) and are unspecified otherwise.  CUDA tensors launch kernel G,
+    counted in ``merge_scatter.launches``, and those under a mask (a
+    second pass's) in ``merge_scatter.masked_launches`` too."""
+    payloads = list(payloads)
+    n = check_columns(keys, payloads)
+    _check_merge(nbits, shift, super_tile, tile, mask_bits)
+    mask = check_mask_bits(mask_bits)
+    ns = -(-n // super_tile)
+    _build.check_vector("offsets", offsets.view(-1), torch.int32, ns << nbits, keys.device)
+    if out_rows is not None and not n <= out_rows < 1 << 31:
+        raise ValueError(f"out_rows {out_rows} outside [n, 2^31)")
+    if keys.device.type == "cpu":
+        return merge_scatter_plain(keys, payloads, offsets, nbits, shift, super_tile, tile,
+                                   mask_bits, out_rows)
+    out_keys, outs = _merge_outputs(keys, payloads, out_rows)
+    if n:
+        src, dst, widths = column_arrays(payloads, outs)
+        _build.launch("cudf_merge_scatter", _MERGE_ARGTYPES, keys.device, keys.data_ptr(), n,
+                      shift, nbits, super_tile, tile, mask, offsets.data_ptr(),
+                      out_keys.data_ptr(), out_keys.shape[0], len(payloads),
+                      ctypes.addressof(src), ctypes.addressof(dst), ctypes.addressof(widths))
+        merge_scatter.launches += 1
+        merge_scatter.masked_launches += mask_bits is not None
+    return out_keys, outs
+
+
+merge_scatter.launches = 0
+merge_scatter.masked_launches = 0
+
+
+def _merge_outputs(keys, payloads, out_rows):
+    """merge_scatter's outputs: n rows, or out_rows rows holding key -1
+    and zero payloads until a run covers them."""
+    if out_rows is None:
+        return torch.empty_like(keys), [torch.empty_like(p) for p in payloads]
+    return (torch.full((out_rows,), -1, dtype=torch.int32, device=keys.device),
+            [torch.zeros(out_rows, dtype=p.dtype, device=keys.device) for p in payloads])
+
+
+def merge_scatter_plain(keys, payloads, offsets, nbits, shift, super_tile, tile,
+                        mask_bits=None, out_rows=None):
+    """The same function in plain PyTorch: odd tiles flipped back, a
+    stable sort of each supertile by the order key, then each valid row
+    placed at its run's offset plus its rank in the run."""
+    n, B = keys.shape[0], 1 << nbits
+    dev = keys.device
+    pos = torch.arange(n, device=dev)
+    t0 = pos // tile * tile
+    tlen = (n - t0).clamp(max=tile)
+    asc = torch.where((pos // tile) % 2 == 1, 2 * t0 + tlen - 1 - pos, pos)
+    st = pos // super_tile
+    order = (st << 32) + sort_key_plain(keys[asc], mask_bits) + (1 << 31)
+    merged = asc[torch.argsort(order, stable=True)]
+    k = keys[merged]
+    valid = torch.nonzero(k >= 0).squeeze(1)
+    rows, k = merged[valid], k[valid].long()
+    run = st[valid] * B + ((k >> shift) & (B - 1))
+    by_run = torch.argsort(run, stable=True)
+    rows, run = rows[by_run], run[by_run]
+    first = torch.searchsorted(run, run)
+    to = offsets.view(-1).long()[run] + torch.arange(run.shape[0], device=dev) - first
+    out_keys, outs = _merge_outputs(keys, payloads, out_rows)
+    out_keys[to] = keys[rows]
+    for o, p in zip(outs, payloads):
+        o[to] = p[rows]
+    return out_keys, outs
+
+
+# ----------------------------------------------------------------------
+# the partition: the sorted route (B, F, G) or the scatter route (B, C)
+# ----------------------------------------------------------------------
+
+def _scatter_route(keys, vals, domain_bits, tile):
+    """One pass of kernel C at nbits = domain_bits - 13."""
+    nbits = domain_bits - WINDOW_BITS
+    tile = choose_tile(keys.shape[0], nbits) if tile is None else tile
+    hist = digit_histogram(keys, nbits, WINDOW_BITS, tile)
+    offsets, base = partition_offsets(hist)
+    pkeys, pvals = radix_scatter(keys, vals, offsets, nbits, WINDOW_BITS, tile)
+    return pkeys, pvals, base
+
+
+def _sorted_pass(keys, vals, nbits, shift, tile, super_tile, offsets, mask_bits=None,
+                 out_rows=None):
+    sk, sv = tile_sort_data(keys, vals, tile, alternate=True, mask_bits=mask_bits)
+    return merge_scatter(sk, sv, offsets, nbits, shift, super_tile, tile, mask_bits,
+                         out_rows)
+
+
+def _sorted_route(keys, vals, domain_bits, tile, merge_tiles):
+    """The reference's route: one pass of F and G to 2^20 keys; beyond,
+    a first pass on the top bits into regions padded to whole supertiles
+    (pad keys -1), then 7 bits per region ordered by the low 20 bits."""
+    n = keys.shape[0]
+    st = merge_tiles * tile
+    if domain_bits <= WINDOW_BITS + PASS_BITS:
+        nbits = domain_bits - WINDOW_BITS
+        offsets, base = partition_offsets(digit_histogram(keys, nbits, WINDOW_BITS, st))
+        pkeys, pvals = _sorted_pass(keys, vals, nbits, WINDOW_BITS, tile, st, offsets)
+        return pkeys, pvals, base
+    shift1 = WINDOW_BITS + PASS_BITS
+    nbits1 = domain_bits - shift1
+    regions = 1 << nbits1
+    off1, base1 = partition_offsets(digit_histogram(keys, nbits1, shift1, st), align=st)
+    rows1 = (-(-n // st) + regions) * st          # >= base1[-1], without a host sync
+    k1, v1 = _sorted_pass(keys, vals, nbits1, shift1, tile, st, off1, out_rows=rows1)
+    starts = torch.arange(rows1 // st, device=keys.device) * st
+    region = torch.searchsorted(base1[1:], starts, right=True).clamp_(max=regions - 1)
+    off2, base = partition_offsets(digit_histogram(k1, PASS_BITS, WINDOW_BITS, st),
+                                   region, regions)
+    pkeys, pvals = _sorted_pass(k1, v1, PASS_BITS, WINDOW_BITS, tile, st, off2,
+                                mask_bits=shift1)
+    return pkeys[:n], [v[:n] for v in pvals], base
+
+
 def radix_partition(keys: torch.Tensor, vals: Sequence[torch.Tensor],
-                    domain_bits: int, tile: Optional[int] = None):
-    """Partition rows into SPAN-key windows in one pass.
+                    domain_bits: int, tile: Optional[int] = None,
+                    merge_tiles: int = MERGE_TILES):
+    """Partition rows into SPAN-key windows.
 
     Returns (pkeys int32[n], pvals, base int64[G + 1], G) with
     G = 2^(domain_bits - 13) windows: window g's rows are
     ``[base[g], base[g+1])`` and hold keys in ``[g * SPAN, (g+1) * SPAN)``.
-    Rows with negative keys are dropped, and rows past ``base[-1]`` are
-    unspecified.  ``tile`` defaults to :func:`choose_tile`.
+    Keys must lie below 2^domain_bits; rows with negative keys are
+    dropped, and rows past ``base[-1]`` are unspecified.
 
-    Kernel C's order inside a run changes from launch to launch, so the
-    keys are scattered once.  Beyond MAX_PAYLOADS values, that launch
-    also carries the row ids, and the values that do not fit in it are
-    gathered through them."""
+    ``merge_tiles`` (a power of two) picks the reference's route.  At 1,
+    one pass of kernel C with ``tile`` keys per tile (default
+    :func:`choose_tile`); the order inside a run is unspecified.  Above 1
+    (default 4), the sorted route: kernel F sorts tiles of ``tile`` keys
+    (default SORT_TILE) and kernel G merges ``merge_tiles`` of them per
+    supertile and writes its runs, each sorted by key; one pass to 2^20
+    keys, two beyond.
+
+    The keys are partitioned once.  Beyond MAX_PAYLOADS values, that
+    partition carries the row ids, and the values that do not fit in it
+    are gathered through them."""
     if not WINDOW_BITS < domain_bits <= MAX_DOMAIN_BITS:
         raise ValueError(f"domain_bits {domain_bits} outside "
                          f"({WINDOW_BITS}, {MAX_DOMAIN_BITS}]")
+    if merge_tiles < 1 or merge_tiles & (merge_tiles - 1):
+        raise ValueError(f"merge_tiles {merge_tiles}: a power of two")
     n = keys.shape[0]
-    nbits = domain_bits - WINDOW_BITS
-    tile = choose_tile(n, nbits) if tile is None else tile
-    hist = digit_histogram(keys, nbits, WINDOW_BITS, tile)
-    offsets, base = partition_offsets(hist)
     vals = list(vals)
-    if len(vals) <= MAX_PAYLOADS:
-        pkeys, pvals = radix_scatter(keys, vals, offsets, nbits, WINDOW_BITS, tile)
-        return pkeys, pvals, base, 1 << nbits
-    rows = torch.arange(n, dtype=torch.int32, device=keys.device)
-    head, rest = vals[:MAX_PAYLOADS - 1], vals[MAX_PAYLOADS - 1:]
-    pkeys, (prows, *pvals) = radix_scatter(keys, [rows] + head, offsets, nbits,
-                                           WINDOW_BITS, tile)
-    prows.clamp_(0, n - 1)           # rows past base[-1] hold garbage ids
-    pvals += [v.index_select(0, prows) for v in rest]
-    return pkeys, pvals, base, 1 << nbits
+    carry = vals
+    if len(vals) > MAX_PAYLOADS:
+        rows = torch.arange(n, dtype=torch.int32, device=keys.device)
+        carry = [rows] + vals[:MAX_PAYLOADS - 1]
+    if merge_tiles == 1:
+        pkeys, pvals, base = _scatter_route(keys, carry, domain_bits, tile)
+    else:
+        pkeys, pvals, base = _sorted_route(keys, carry, domain_bits,
+                                           SORT_TILE if tile is None else tile, merge_tiles)
+    if len(vals) > MAX_PAYLOADS:
+        prows, *pvals = pvals
+        prows.clamp_(0, n - 1)           # rows past base[-1] hold garbage ids
+        pvals += [v.index_select(0, prows) for v in vals[MAX_PAYLOADS - 1:]]
+    return pkeys, pvals, base, 1 << (domain_bits - WINDOW_BITS)
 
 
 # ----------------------------------------------------------------------
@@ -285,7 +458,7 @@ def bucket_aggregate(pkeys: torch.Tensor, pvals: torch.Tensor,
     keys ``[g * SPAN, (g+1) * SPAN)``; keys outside their row's window
     are dropped.  sums are int64 for integer values, float64 for floats.
     CUDA tensors launch kernel D, counted in ``bucket_aggregate.launches``."""
-    n = _check_keys(pkeys)
+    n = _build.check_keys(pkeys)
     _build.check_vector("pvals", pvals, pvals.dtype, n, pkeys.device)
     _build.check_vector("base", base, torch.int64, num_windows + 1, pkeys.device)
     if pkeys.device.type == "cpu":
@@ -408,7 +581,7 @@ def _build_tables(rk: torch.Tensor, key_domain: int, rv: Optional[torch.Tensor],
                   tile: Optional[int], agg_rows: int):
     """(ids, counts, pay or None, G) of window_tables over the build keys,
     partitioned first when the domain spans more than one window."""
-    n = _check_keys(rk)
+    n = _build.check_keys(rk)
     rid1 = torch.arange(1, n + 1, dtype=torch.int32, device=rk.device)
     vals = [rid1] if rv is None else [rid1, payload_bits(rv)]
     bits = domain_bits(key_domain)
@@ -478,7 +651,7 @@ def window_probe(pkeys: torch.Tensor, base: torch.Tensor, tables: torch.Tensor,
     is empty, the key is out of its window or the row lies past
     ``base[-1]``; the payload is copied where bids[0] >= 0, else 0.  CUDA
     tensors launch kernel H, counted in ``window_probe.launches``."""
-    n = _check_keys(pkeys)
+    n = _build.check_keys(pkeys)
     _check_tables(pkeys, base, tables, pay, pay_dtype)
     if pkeys.device.type == "cpu":
         return window_probe_plain(pkeys, base, tables, pay, pay_dtype)
@@ -526,7 +699,7 @@ def _probe_side(lk: torch.Tensor, lv: torch.Tensor, key_domain: int,
                 tile: Optional[int]):
     """(pkeys, pvals, base): the probe rows partitioned like the build
     side's, or as they are when the domain fits one window."""
-    _build.check_vector("lv", lv, lv.dtype, _check_keys(lk), lk.device)
+    _build.check_vector("lv", lv, lv.dtype, _build.check_keys(lk), lk.device)
     bits = domain_bits(key_domain)
     if bits <= WINDOW_BITS:
         return lk, lv, torch.tensor([0, lk.shape[0]], dtype=torch.int64, device=lk.device)
@@ -591,7 +764,7 @@ def ordinal_tables(rk: torch.Tensor, key_domain: int, m_max: int = MAX_TABLES,
     are left out; one host sync for mult."""
     if not 1 <= m_max <= MAX_TABLES:
         raise ValueError(f"m_max {m_max} outside [1, {MAX_TABLES}]")
-    n_r = _check_keys(rk)
+    n_r = _build.check_keys(rk)
     sk, perm = torch.sort(rk, stable=True)
     ords = torch.arange(n_r, device=rk.device) - torch.searchsorted(sk, sk)
     mult = int(torch.where(sk >= 0, ords, 0).max()) + 1 if n_r else 1

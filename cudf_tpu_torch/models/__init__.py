@@ -2,11 +2,13 @@
 
 - ``g1_groupby`` is the db-benchmark G1 groupby's forward step: per-group
   sums and counts over int32 codes, dispatched by cardinality between the
-  one-hot tier (kernel A) and the radix-partition tier (kernels B-D).
+  one-hot tier (kernel A) and the radix-partition tier (kernels B, F,
+  G and D).
 - ``j1_join`` is the db-benchmark J1 inner join's forward step against a
   unique-key dim table: gather maps from the window probe (kernel H) over
-  tables built by kernel D, with one partition pass (kernels B, C) on
-  both sides when the key domain spans more than one window.
+  tables built by kernel D, with the sorted partition route (kernels
+  B, F and G; two passes above 2^20 keys) on both sides when the key
+  domain spans more than one window.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ is reduced to int32 codes ``key - key_min`` over K = max - min + 1 slots:
 
 - K <= 4096: the one-hot tier, kernel A
   (``kernels/hash_aggregate.py``);
-- K <= 2^27: the radix tier, kernels B-D
+- K <= 2^27: the radix tier, kernels B, F, G and D
   (``kernels/radix_partition.py``); min/max there are a plain
   ``scatter_reduce_``, as the reference leaves them to XLA.
 

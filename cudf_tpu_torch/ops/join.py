@@ -6,7 +6,7 @@ Port of the inner-join dispatch in ``cudf_tpu/ops/join.py``
 side is reduced to int32 codes ``key - rmin`` over the build side's
 range, with null and out-of-range rows at -1:
 
-- the radix tier (kernels B-D and H, ``kernels/radix_partition.py``)
+- the radix tier (kernels B, F, G, D and H, ``kernels/radix_partition.py``)
   serves a unique build side, or one with at most
   ``join.multi_fan_out_max`` rows per key, over a domain of at most 2^27
   keys, from ``join.fast_path_min_rows`` probe rows up;

@@ -78,7 +78,7 @@ _register("groupby.fast_path_min_rows", 0,
           "the default 0 serves every row count with the kernel tiers",
           lambda v: isinstance(v, int) and v >= 0)
 _register("join.radix_fast_path", True,
-          "radix-partition + window-probe tier (kernels B-D and H) for "
+          "radix-partition + window-probe tier (kernels B, F, G, D and H) for "
           "single-int-key inner joins with a unique or bounded-fan-out "
           "build side (exact, left-row order)",
           lambda v: isinstance(v, bool))

@@ -1,5 +1,4 @@
-"""The CUDA kernels A-D and H against their plain PyTorch versions on the
-card.
+"""The CUDA kernels A-H against their plain PyTorch versions on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 the fixture, never at import).  On a machine with an H100 run
@@ -9,7 +8,9 @@ partition multisets exact; float64 sums rtol 1e-12 plus atol 1e-9, since
 atomics add in a varying order and sums of signed values cancel to near
 zero (the terms here are below 500 in magnitude, fewer than 1e5 a group).
 The join tables and probes (kernel D's id/idpay modes, kernel H) are
-exact: they hold and copy build row ids and payload bits.
+exact: they hold and copy build row ids and payload bits.  The sorted
+route's kernels (E and F, the tile sort; G, the merge and scatter) match
+bit for bit: both sides are stable sorts.
 """
 
 import pytest
@@ -17,6 +18,7 @@ import torch
 
 from cudf_tpu_torch.kernels import hash_aggregate as ha
 from cudf_tpu_torch.kernels import radix_partition as rp
+from cudf_tpu_torch.kernels import tile_sort as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -91,8 +93,8 @@ def test_radix_kernels_match_plain(dev, n, K, tile):
 
 @pytest.mark.parametrize("nvals", [5, 9])
 def test_radix_pipeline_many_values_match_plain(dev, nvals):
-    """More values than one scatter launch carries: each stays paired
-    with its own key although kernel C's order varies between launches."""
+    """More values than one partition launch carries: each stays paired
+    with its own key through the row ids that launch carries."""
     n, K = 2_000_000, 1_000_000
     g = torch.Generator(device=dev).manual_seed(nvals)
     keys = torch.randint(0, K, (n,), generator=g, device=dev, dtype=torch.int32)
@@ -112,6 +114,118 @@ def test_cuda_path_raises_and_never_falls_back(dev):
         ha.onehot_groupby_aggregate(keys, torch.ones(10), 3)        # vals on CPU
     with pytest.raises(ValueError):
         rp.digit_histogram(keys.long(), 3, 13, 1024)                # int64 keys
+    with pytest.raises(ValueError):
+        ts.tile_sort(keys, torch.ones(10, dtype=torch.int32), tile=8)   # rider on CPU
+    with pytest.raises(ValueError):
+        ts.tile_sort_data(keys, [], ts.MAX_TILE * 2)                  # tile too large
+    with pytest.raises(ValueError):
+        ts.tile_sort_data(keys, [torch.ones(10, dtype=torch.int16, device=dev)], 8)
+    offsets = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        rp.merge_scatter(keys, [], offsets, 2, 13, 16, 8, mask_bits=20)   # mask != 15
+    with pytest.raises(ValueError):
+        rp.merge_scatter(keys, [], offsets.cpu(), 2, 13, 16, 8)        # offsets on CPU
+    before = (ts.tile_sort.launches, ts.tile_sort_data.launches, rp.merge_scatter.launches)
+    ts.tile_sort(keys, tile=8)
+    ts.tile_sort_data(keys, [], 8, alternate=True)
+    rp.merge_scatter(keys, [], offsets, 2, 13, 16, 8)
+    assert (ts.tile_sort.launches, ts.tile_sort_data.launches,
+            rp.merge_scatter.launches) == tuple(b + 1 for b in before)
+
+
+def _sort_inputs(dev, n, seed, mask_bits, widths, nbits=7):
+    """int32 keys with ties and negatives (below 2^(13 + nbits), or with
+    random bits above a mask) and payload columns of the given widths,
+    float64 ones with NaN and -0.0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, 1 << (rp.WINDOW_BITS + nbits), (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    if mask_bits is not None:
+        keys |= torch.randint(0, 1 << 10, (n,), generator=g, device=dev,
+                              dtype=torch.int32) << mask_bits
+    keys[::13] = -5
+    keys[7:n // 3:3] = keys[1]                    # ties across tiles
+    cols = []
+    for j, w in enumerate(widths):
+        if w == 8:
+            c = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+            c[j::7], c[j + 1::7] = float("nan"), -0.0
+        else:
+            c = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                              dtype=torch.int32)
+        cols.append(c)
+    return keys, cols
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("n,tile", [(3 * 4096, 4096), (100_003, 4096), (50_001, 1000)])
+@pytest.mark.parametrize("alternate", [False, True])
+@pytest.mark.parametrize("mask_bits", [None, 20])
+@pytest.mark.parametrize("widths", [(), (4,), (8, 4), (8, 8, 4, 4)])
+def test_tile_sort_kernels_match_plain(dev, n, tile, alternate, mask_bits, widths):
+    """Kernels E and F: bit for bit the stable per-tile sort."""
+    keys, cols = _sort_inputs(dev, n, n + len(widths), mask_bits, widths)
+    before = (ts.tile_sort.launches, ts.tile_sort_data.launches)
+    gk, gc = ts.tile_sort_data(keys, cols, tile, alternate=alternate, mask_bits=mask_bits)
+    ek, ec = ts.tile_sort_data_plain(keys, cols, tile, alternate, mask_bits)
+    assert torch.equal(gk, ek) and all(_same_bits(a, b) for a, b in zip(gc, ec))
+    out = ts.tile_sort(keys, *cols, tile=tile, alternate=alternate, mask_bits=mask_bits)
+    assert torch.equal(out[0], ek) and all(_same_bits(a, b) for a, b in zip(out[1:], ec))
+    assert (ts.tile_sort.launches, ts.tile_sort_data.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+
+
+@pytest.mark.parametrize("merge_tiles", [1, 2, 4])
+@pytest.mark.parametrize("mask_bits", [None, 20])
+@pytest.mark.parametrize("n", [3 * 16384, 70_001])
+@pytest.mark.parametrize("widths", [(), (4,), (8, 4, 8, 4)])
+def test_merge_scatter_matches_plain(dev, merge_tiles, mask_bits, n, widths):
+    """Kernel G over kernel F's output: bit for bit the plain merge, in the
+    valid rows and, with out_rows, in every padded row too."""
+    tile = 4096
+    nbits, shift, st = 7, rp.WINDOW_BITS, merge_tiles * tile
+    keys, cols = _sort_inputs(dev, n, merge_tiles * n, mask_bits, widths)
+    hist = rp.digit_histogram(keys, nbits, shift, st)
+    sk, sc = ts.tile_sort_data(keys, cols, tile, alternate=True, mask_bits=mask_bits)
+    for align, out_rows in ((1, None), (st, (-(-n // st) + (1 << nbits)) * st)):
+        offsets, base = rp.partition_offsets(hist, align=align)
+        before = rp.merge_scatter.launches
+        gk, gc = rp.merge_scatter(sk, sc, offsets, nbits, shift, st, tile, mask_bits, out_rows)
+        assert rp.merge_scatter.launches == before + 1
+        ek, ec = rp.merge_scatter_plain(sk, sc, offsets, nbits, shift, st, tile, mask_bits,
+                                        out_rows)
+        m = int(base[-1]) if out_rows is None else out_rows
+        assert torch.equal(gk[:m], ek[:m])
+        assert all(_same_bits(a[:m], b[:m]) for a, b in zip(gc, ec))
+    assert int((gk >= 0).sum()) == int((keys >= 0).sum())
+
+
+@pytest.mark.parametrize("bits", [17, 21, 27])
+def test_radix_partition_routes_agree(dev, bits):
+    """merge_tiles 1 (kernel C) and 4 (kernels F and G, two passes above
+    20 bits): the same windows; the sorted route is the CPU's bit for bit."""
+    n = 1_000_003
+    keys, (rows, f) = _sort_inputs(dev, n, bits, None, (4, 8), nbits=bits - rp.WINDOW_BITS)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    outs = {}
+    for mt in (1, 4):
+        pk, (pr, pf), base, G = rp.radix_partition(keys, [rows, f], bits, merge_tiles=mt)
+        m = int(base[-1])
+        assert m == int((keys >= 0).sum())
+        win = torch.repeat_interleave(torch.arange(G, device=dev), base[1:] - base[:-1])
+        assert torch.equal(pk[:m].long() >> rp.WINDOW_BITS, win)
+        assert torch.equal(keys[pr[:m].long()], pk[:m]) and _same_bits(f[pr[:m].long()], pf[:m])
+        order = torch.argsort(pr[:m].long() + win * n)     # by window, then row
+        outs[mt] = (base, pk[:m][order], pr[:m][order])
+    assert all(torch.equal(a, b) for a, b in zip(outs[1], outs[4]))
+    gk, (gr, gf), gbase, _ = rp.radix_partition(keys, [rows, f], bits)
+    ek, (er, ef), ebase, _ = rp.radix_partition(keys.cpu(), [rows.cpu(), f.cpu()], bits)
+    m = int(ebase[-1])
+    assert torch.equal(gbase.cpu(), ebase) and torch.equal(gk[:m].cpu(), ek[:m])
+    assert torch.equal(gr[:m].cpu(), er[:m]) and _same_bits(gf[:m].cpu(), ef[:m])
 
 
 def _partitioned(dev, G, n, seed):

@@ -168,14 +168,10 @@ def test_nan_values_min_max_skip_nan_like_pandas(K):
 
 
 @pytest.mark.parametrize("K", [100, 50_000])
-def test_many_value_columns_match_pandas(K, monkeypatch):
+def test_many_value_columns_match_pandas(K):
     """Nine value columns share one partition of the keys on the radix
-    tier, more than one scatter launch carries; the plain scatter is made
-    to order each bucket's rows at random, as kernel C may."""
-    from cudf_tpu_torch.kernels import radix_partition as rp
-    from test_torch_radix_partition import _shuffling_scatter
-
-    monkeypatch.setattr(rp, "radix_scatter_plain", _shuffling_scatter(rp.radix_scatter_plain))
+    tier, more than one partition launch carries: row ids carry the
+    rest (tests/test_torch_radix_partition.py holds both routes to it)."""
     rng = np.random.default_rng(11)
     pdf = pd.DataFrame({"k": rng.integers(0, K, N)})
     for j in range(9):
@@ -254,6 +250,26 @@ def test_requests_outside_the_kernel_tiers_raise():
     with option_context("groupby.fast_path_min_rows", N + 1):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             df.groupby("k").agg({"i": "sum"})
+
+
+def test_two_pass_domain_matches_pandas(monkeypatch):
+    """Keys over more than 2^20 slots: the radix tier's sorted route takes
+    two passes, the second ordered by the low 20 bits."""
+    from cudf_tpu_torch.kernels import radix_partition as rp
+
+    masks = []
+    merge_scatter = rp.merge_scatter
+
+    def recording(*args, **kw):
+        masks.append(args[7] if len(args) > 7 else kw.get("mask_bits"))
+        return merge_scatter(*args, **kw)
+
+    monkeypatch.setattr(rp, "merge_scatter", recording)
+    pdf = _frame(12, 1_500_000).drop(columns="g")
+    spec = {"f": ["sum", "mean", "count", "size"], "i": ["sum", "min", "max"],
+            "b": ["sum", "mean"]}
+    _assert_frames(_port(pdf, spec), pdf.groupby("k").agg(spec), rtol=1e-12)
+    assert masks == [None, rp.WINDOW_BITS + rp.PASS_BITS] * 2   # f's rows, then all rows
 
 
 @pytest.mark.parametrize("K", [100, 4096, 4097, 300_000])

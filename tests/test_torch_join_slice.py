@@ -112,6 +112,33 @@ def test_partitioned_matches_pandas(case):
     _check(got, left.merge(right, on="id"))
 
 
+def test_two_pass_domain_matches_pandas(monkeypatch):
+    """A dim whose ids span more than 2^20 values: both sides take the
+    sorted route's two passes, the second ordered by the low 20 bits."""
+    from cudf_tpu_torch.kernels import radix_partition as rp
+
+    masks = []
+    merge_scatter = rp.merge_scatter
+
+    def recording(*args, **kw):
+        masks.append(args[7] if len(args) > 7 else kw.get("mask_bits"))
+        return merge_scatter(*args, **kw)
+
+    monkeypatch.setattr(rp, "merge_scatter", recording)
+    rng = np.random.default_rng(9)
+    ids = rng.choice(1_500_000, 30_000, replace=False) + 1
+    dim = pd.DataFrame({"id": ids, "v2": rng.normal(size=ids.size)})
+    fact = pd.DataFrame({"id": np.where(rng.random(20_000) < 0.9, rng.choice(ids, 20_000),
+                                        rng.integers(1, 1_500_001, 20_000)),
+                         "v1": rng.normal(size=20_000)})
+    for left, right in ((fact, dim), (dim, fact)):
+        with option_context("join.fast_path_min_rows", MIN_ROWS):
+            got = ct.from_pandas(left, device=CPU).merge(ct.from_pandas(right, device=CPU),
+                                                         on="id").to_pandas()
+        _check(got, left.merge(right, on="id"))
+    assert masks.count(rp.WINDOW_BITS + rp.PASS_BITS) >= 2 and None in masks
+
+
 def test_dense_tier_matches_reference_and_pandas():
     """Radix tier off on both packages: the direct-address dense tier."""
     fact, dim = _j1(3)

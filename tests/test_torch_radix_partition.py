@@ -72,7 +72,7 @@ def test_radix_scatter_matches_reference_partition(rng):
 
     pk, (pv,), base, pG = rp.radix_partition(torch.from_numpy(keys),
                                              [torch.from_numpy(vals)], dom_bits,
-                                             tile=8 * 128)
+                                             tile=8 * 128, merge_tiles=1)
     assert pG == G
     base = base.numpy()
     assert base[-1] == n                              # exact: every row, once
@@ -208,9 +208,10 @@ def _shuffling_scatter(plain):
 
 @pytest.mark.parametrize("nvals", [1, 4, 5, 9])
 def test_pipeline_pairs_many_values_with_their_keys(rng, monkeypatch, nvals):
-    """Past MAX_PAYLOADS values per scatter the keys are still scattered
-    once, so every value column stays paired with its own key even when
-    each scatter orders rows differently."""
+    """Past MAX_PAYLOADS values per launch the keys are still partitioned
+    once, so every value column stays paired with its own key on both
+    routes, even when kernel C's plain scatter orders rows differently on
+    each call."""
     monkeypatch.setattr(rp, "radix_scatter_plain", _shuffling_scatter(rp.radix_scatter_plain))
     n, K = 5000, 40_000
     keys = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
@@ -221,8 +222,13 @@ def test_pipeline_pairs_many_values_with_their_keys(rng, monkeypatch, nvals):
     ok = keys >= 0
     k = keys[ok].long()
     assert torch.equal(c, torch.bincount(k, minlength=K))
-    for s, v in zip(sums, vals):
-        assert torch.equal(s, torch.zeros(K, dtype=torch.int64).index_add_(0, k, v[ok].long()))
+    for merge_tiles in (1, 4):
+        pk, pv, base, G = rp.radix_partition(keys, vals, rp.domain_bits(K), tile=1024,
+                                             merge_tiles=merge_tiles)
+        route = [rp.bucket_aggregate(pk, v, base, G)[0][:K] for v in pv]
+        for s, r, v in zip(sums, route, vals):
+            exp = torch.zeros(K, dtype=torch.int64).index_add_(0, k, v[ok].long())
+            assert torch.equal(s, exp) and torch.equal(r, exp)
 
 
 def test_pipeline_shares_one_partition_across_values(rng):
