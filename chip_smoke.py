@@ -20,7 +20,9 @@ torch.Generator:
    bucket_aggregate) against its plain PyTorch version on the card, at
    the main path's shapes: 1e8 rows, K = 100 for A and K = 1e6 for the
    rest (7-bit digits; F and G with 4096-key tiles, 16384-key
-   supertiles).  Tolerances: counts, histograms and integer sums exact;
+   supertiles, under mask_bits = 20 as the route calls them, and F once
+   more without a mask: the full 32-bit order of the contract and of
+   E).  Tolerances: counts, histograms and integer sums exact;
    float64 sums rtol 1e-12 (atomic order varies); C's output holds the
    same (key, payload) multiset in every bucket; F and G bit for bit.
    Then radix_partition's two routes, merge_tiles = 1 (B, C) and 4 (B,
@@ -46,13 +48,16 @@ card from the same generator:
 3. kernels, all checked exactly against their plain versions: kernel D's
    id and idpay modes (window_tables, float64 payload) over J1 big's
    build (1e8 unique keys, 16384 windows); B and C over J1 big's probe
-   partition; E tile_sort of the probe keys with one int32 rider; F
-   (mask_bits = 20) and G in the second pass of the sorted route over
-   the probe side, and both routes of radix_partition there, which must
-   give the same windows; H window_probe at
-   J1 big with one table, without and with the payload (whose bits must
-   be copied), and with three stacked tables over J1 medium with each
-   key 1-3 times.
+   partition; E tile_sort of the probe keys with one int32 rider; F and
+   G in both passes of the sorted route over the probe side (mask_bits
+   27, then 20), and both routes of radix_partition there, which must
+   give the same windows; H window_probe at the five shapes the J1 path
+   gives it: small (one window), medium and big with one table, big with
+   the f64 payload (whose bits must be copied), and medium with three
+   stacked tables (each key 1-3 times), and at a sparse probe (1e6 rows
+   against J1 big's table), each checked after the caching allocator was
+   filled with junk, and timed also with every window staged in shared
+   memory and with none.
 4. main path: DataFrame.merge(on="id"): q1 small, q2 medium and q5 big
    (the unique tier; small in one window, medium and big partitioned),
    the medium dim with each key 1-3 times (the stacked-table tier,
@@ -60,8 +65,8 @@ card from the same generator:
    result must equal a plain PyTorch join on the card (a dense table for
    a unique build, a stable sort + searchsorted + repeat_interleave
    otherwise): row order, key, v1 and v2.  Kernels B, F, G, D and H must
-   each have been launched during this run, G among them in a second
-   pass (q5 big's 2^27-key domain).
+   each have been launched during this run, with a second pass of the
+   sorted route among them (q5 big's 2^27-key domain).
 5. timings: median of 7 warm runs of each merge and of models.j1_join
    (gather maps only) at small, medium and big, beside plain PyTorch, as
    probe rows/s.
@@ -71,6 +76,9 @@ read once, each output written once; for a gather, each table entry the
 run's keys touch) over 3.35 TB/s and its operations over 67e12 a second,
 the H100 SXM's published HBM rate and scalar float32 rate (a sort of
 tiles of T keys: n log2 T comparisons; a merge of M tiles: n log2 M).
+Library calls: H's m = 3 row times tables.index_select(1, idx), all
+three lookups; no single call gives H's ids and payload together, so
+that row has none and records torch.take of each as two_calls_ms.
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -175,36 +183,49 @@ def pairs_sorted(keys, vals):
     return keys[order], vals[order]
 
 
-def sorted_pass(rp, ts, keys, payloads, nbits, shift, offsets, base, mask_bits=None):
-    """Kernels F and G over one pass of the sorted route, each bit for
-    bit against its plain version; (F's row, G's row, G's output)."""
-    tile, st = rp.SORT_TILE, rp.MERGE_TILES * rp.SORT_TILE
+def tile_sort_row(ts, keys, payloads, tile, mask_bits, shape):
+    """Kernel F bit for bit against its plain version, and its row; the
+    library call is a stable torch.sort of the keys' whole tiles."""
     sk, sp = ts.tile_sort_data(keys, payloads, tile, alternate=True, mask_bits=mask_bits)
     ek, ep = ts.tile_sort_data_plain(keys, payloads, tile, True, mask_bits)
-    same_bits(sk, ek, "F keys")
+    same_bits(sk, ek, f"F keys ({shape})")
     for got, exp in zip(sp, ep):
-        same_bits(got, exp, "F payloads")
-    del ek, ep
-    out = rp.merge_scatter(sk, sp, offsets, nbits, shift, st, tile, mask_bits)
-    ek, ep = rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits)
-    m = int(base[-1])
-    same_bits(out[0][:m], ek[:m], "G keys")
-    for got, exp in zip(out[1], ep):
-        same_bits(got[:m], exp[:m], "G payloads")
+        same_bits(got, exp, f"F payloads ({shape})")
     del ek, ep
     n = keys.numel()
-    moved = 2 * nbytes(keys, *payloads)
     lib = keys[:n // tile * tile].view(-1, tile)
-    f_row = timed_row(
+    row = timed_row(
         0.0,
         lambda: ts.tile_sort_data(keys, payloads, tile, alternate=True, mask_bits=mask_bits),
         lambda: ts.tile_sort_data_plain(keys, payloads, tile, True, mask_bits),
-        lambda: torch.sort(lib, dim=1, stable=True), moved, n * (tile.bit_length() - 1))
+        lambda: torch.sort(lib, dim=1, stable=True), 2 * nbytes(keys, *payloads),
+        n * (tile.bit_length() - 1), shape=shape, mask_bits=mask_bits)
+    return row, (sk, sp)
+
+
+def sorted_pass(rp, ts, keys, payloads, nbits, shift, offsets, base, mask_bits, shape,
+                out_rows=None):
+    """Kernels F and G over one pass of the sorted route, each bit for
+    bit against its plain version (G in every row it writes: base[-1],
+    or out_rows); (F's row, G's row, G's output)."""
+    tile, st = rp.SORT_TILE, rp.MERGE_TILES * rp.SORT_TILE
+    f_row, (sk, sp) = tile_sort_row(ts, keys, payloads, tile, mask_bits, shape)
+    out = rp.merge_scatter(sk, sp, offsets, nbits, shift, st, tile, mask_bits, out_rows)
+    ek, ep = rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits,
+                                    out_rows)
+    m = int(base[-1]) if out_rows is None else out_rows
+    same_bits(out[0][:m], ek[:m], f"G keys ({shape})")
+    for got, exp in zip(out[1], ep):
+        same_bits(got[:m], exp[:m], f"G payloads ({shape})")
+    del ek, ep
+    n = keys.numel()
     g_row = timed_row(
         0.0,
-        lambda: rp.merge_scatter(sk, sp, offsets, nbits, shift, st, tile, mask_bits),
-        lambda: rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits),
-        None, moved + nbytes(offsets), n * (rp.MERGE_TILES.bit_length() - 1))
+        lambda: rp.merge_scatter(sk, sp, offsets, nbits, shift, st, tile, mask_bits, out_rows),
+        lambda: rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits,
+                                       out_rows),
+        None, 2 * nbytes(keys, *payloads) + nbytes(offsets),
+        n * (rp.MERGE_TILES.bit_length() - 1), shape=shape, mask_bits=mask_bits)
     return f_row, g_row, out
 
 
@@ -290,10 +311,15 @@ def kernel_phase(dev, gen, ha, rp, ts):
     st = rp.MERGE_TILES * rp.SORT_TILE
     offsets, base_st = rp.partition_offsets(rp.digit_histogram(codes, nbits, shift, st))
     check(torch.equal(base_st, base), "B at supertile granularity: other windows")
+    shape = "G1 K = 1e6: 1e8 keys, int32 + f64 payloads, mask_bits 20 (the route's)"
     rows["tile_sort_data"], rows["merge_scatter"], _ = sorted_pass(
-        rp, ts, codes, payloads, nbits, shift, offsets, base)
+        rp, ts, codes, payloads, nbits, shift, offsets, base, nbits + shift, shape)
     show("F (bit for bit)", rows["tile_sort_data"])
     show("G (bit for bit)", rows["merge_scatter"])
+    shape = "G1 K = 1e6 keys and payloads, no mask (the full 32-bit order, E's)"
+    unmasked, _ = tile_sort_row(ts, codes, payloads, rp.SORT_TILE, None, shape)
+    rows["tile_sort_data"]["modes"] = {shape: unmasked}
+    show("F without a mask (bit for bit)", unmasked)
     rows["merge_scatter"]["route_ms_g1"] = route_phase(dev, rp, codes, payloads,
                                                        nbits + shift, "G1 K = 1e6")
 
@@ -465,95 +491,160 @@ def j1_kernel_phase(dev, gen, rp, ts):
     same_bits(got[1], exp[1][0], "E rider")
     del got, exp
     lib = lk[:N // tile * tile].view(-1, tile)
-    tile_sort_row = timed_row(
+    e_row = timed_row(
         0.0, lambda: ts.tile_sort(lk, rows_i, tile=tile, alternate=True),
         lambda: ts.tile_sort_data_plain(lk, [rows_i], tile, True),
         lambda: torch.sort(lib, dim=1, stable=True), 2 * nbytes(lk, rows_i),
         N * (tile.bit_length() - 1), shape="J1 big probe: 1e8 keys, one int32 rider, "
-        "4096-key tiles, alternate")
-    show("E at J1 big (bit for bit)", tile_sort_row)
+        "4096-key tiles, alternate, no mask (32 bits)")
+    show("E at J1 big (bit for bit)", e_row)
 
     shift1 = rp.WINDOW_BITS + rp.PASS_BITS                 # the sorted route's two passes
     regions = 1 << (bits - shift1)
     off1, base1 = rp.partition_offsets(rp.digit_histogram(lk, bits - shift1, shift1, st),
                                        align=st)
     rows1 = (-(-N // st) + regions) * st
-    sk, sr = ts.tile_sort_data(lk, [rows_i], tile, alternate=True)
-    k1, (r1,) = rp.merge_scatter(sk, sr, off1, bits - shift1, shift1, st, tile, out_rows=rows1)
-    del sk, sr
+    shape1 = f"J1 big probe, first pass: 1e8 rows, mask_bits {bits}, one int32 payload"
+    f_row, g_row, (k1, (r1,)) = sorted_pass(rp, ts, lk, [rows_i], bits - shift1, shift1, off1,
+                                            base1, bits, shape1, out_rows=rows1)
+    modes["tile_sort_data"][shape1] = f_row
+    modes["merge_scatter"][shape1] = g_row
+    show("F at J1 big, first pass (bit for bit)", f_row)
+    show("G at J1 big, first pass (bit for bit)", g_row)
     region = torch.searchsorted(base1[1:], torch.arange(rows1 // st, device=dev) * st,
                                 right=True).clamp_(max=regions - 1)
     off2, base2 = rp.partition_offsets(rp.digit_histogram(k1, rp.PASS_BITS, rp.WINDOW_BITS, st),
                                        region, regions)
+    shape2 = (f"J1 big probe, second pass: {rows1:.3g} rows, mask_bits {shift1}, 2^7 digits "
+              "per region, one int32 payload")
     f_row, g_row, _ = sorted_pass(rp, ts, k1, [r1], rp.PASS_BITS, rp.WINDOW_BITS, off2, base2,
-                                  mask_bits=shift1)
+                                  shift1, shape2)
     check(torch.equal(base2, base_l), "G (J1 second pass): windows other than C's")
     del k1, r1, off1, off2, region
-    shape2 = ("J1 big probe, second pass: 1.02e8 rows, mask_bits 20, 2^7 digits per region, "
-              "one int32 payload")
     modes["tile_sort_data"][shape2] = f_row
     modes["merge_scatter"][shape2] = g_row
     show("F at J1 big, second pass (bit for bit)", f_row)
     show("G at J1 big, second pass (bit for bit)", g_row)
     route_ms = route_phase(dev, rp, lk, [rows_i], bits, "J1 big probe")
+    pk_sp, _, base_sp, _ = rp.radix_partition(lk[:N // 100], [], bits)   # a sparse probe
+    del lk
 
-    idx = pk_l[:m].long()
-    touched = torch.zeros(G * rp.SPAN, dtype=torch.bool, device=dev)
-    touched[idx] = True
-    n_touched = int(touched.sum())
-    del touched
     tab = ids.view(1, -1)
-    main = None
-    for pay_tab, pay_dtype in ((None, None), (pay, torch.float64)):
-        bids, out = rp.window_probe(pk_l, base_l, tab, pay_tab, pay_dtype)
-        eb, eo = rp.window_probe_plain(pk_l, base_l, tab, pay_tab, pay_dtype)
-        same(bids, eb, "H bids (J1 big)")
-        found = torch.nonzero(bids[0] >= 0).squeeze(1)
-        bid = bids[0][found].long()
-        check(torch.equal(rk[bid], pk_l[found]), "H (J1 big): a match off its key")
-        check(bool((bids[0][m:] == -1).all()), "H (J1 big): a row past base[-1] matched")
-        moved = 4 * m + nbytes(bids) + 8 * n_touched
-        if pay_tab is None:
-            main = timed_row(0.0,
-                             lambda: rp.window_probe(pk_l, base_l, tab),
-                             lambda: rp.window_probe_plain(pk_l, base_l, tab),
-                             lambda: torch.take(ids, idx), moved, m,
-                             shape="J1 big: 1e8 probe rows, one table of 1.34e8 slots")
-            show("H at J1 big (exact)", main)
-        else:
-            same(rp.payload_bits(out), rp.payload_bits(eo), "H payload bits (J1 big)")
-            check(torch.equal(rp.payload_bits(out)[found], rp.payload_bits(rv)[bid]),
-                  "H (J1 big): a payload not copied")
-            check(bool((out[bids[0] < 0] == 0).all()), "H (J1 big): payload without a match")
-            name = "J1 big with the f64 payload through the table"
-            modes["window_probe"][name] = timed_row(
-                0.0,
-                lambda: rp.window_probe(pk_l, base_l, tab, pay, torch.float64),
-                lambda: rp.window_probe_plain(pk_l, base_l, tab, pay, torch.float64),
-                lambda: torch.take(pay, idx), moved + nbytes(out) + 8 * n_touched, m)
-            show("H at J1 big with payload (bits copied)", modes["window_probe"][name])
-        del bids, out, eb, eo, found, bid
-    del ids, pay, tab, idx, pk_l, pv_l, lk, rk, rv
+    found, bid, _ = probe_check(rp, pk_l, base_l, tab)
+    check(torch.equal(rk[bid], pk_l[found]), "H (J1 big): a match off its key")
+    idx = pk_l[:m].long()
+    main = probe_row(rp, pk_l, base_l, tab, "J1 big: 1e8 probe rows, 16384 windows, one table "
+                     "of 1.34e8 slots", lambda: torch.take(ids, idx))
+    show("H at J1 big (exact)", main)
+    probe_check(rp, pk_sp, base_sp, tab)
+    idx_sp = pk_sp[:int(base_sp[-1])].long()
+    name = "J1 big's table, 1e6 probe rows (sparse: ~55 rows a window of 8192 slots)"
+    modes["window_probe"][name] = probe_row(rp, pk_sp, base_sp, tab, name,
+                                            lambda: torch.take(ids, idx_sp))
+    show("H, sparse probe of J1 big's table (exact)", modes["window_probe"][name])
+    del pk_sp, base_sp, idx_sp
+    found, bid, out = probe_check(rp, pk_l, base_l, tab, pay, torch.float64)
+    check(torch.equal(rp.payload_bits(out)[found], rp.payload_bits(rv)[bid]),
+          "H (J1 big): a payload not copied")
+    del out, found, bid
+    name = "J1 big with the f64 payload through the table"
+    row = probe_row(rp, pk_l, base_l, tab, name, None, pay, torch.float64)
+    row["two_calls_ms"] = device_ms(lambda: (torch.take(ids, idx), torch.take(pay, idx)))
+    row["two_calls"] = "torch.take(ids, idx) + torch.take(pay, idx): two calls, ids and payload"
+    modes["window_probe"][name] = row
+    show("H at J1 big with payload (bits copied)", row)
+    log(f"  two calls (torch.take of ids, then of the payload): {row['two_calls_ms']} ms")
+    del ids, pay, tab, idx, pk_l, pv_l, rk, rv
+
+    n_small = J1_DIMS["small"]
+    ids_s, _, unique, _ = rp.build_join_tables(
+        torch.randperm(n_small, generator=gen, device=dev, dtype=torch.int32), n_small)
+    check(unique, "J1 small's build is unique")
+    lk = probe_codes(dev, gen, n_small)                   # one window: not partitioned
+    base_s = torch.tensor([0, N], dtype=torch.int64, device=dev)
+    probe_check(rp, lk, base_s, ids_s.view(1, -1))
+    idx = lk.clamp(min=0).long()
+    name = "J1 small: 1e8 probe rows in one window (~1.2e4 rows a slot), one table"
+    modes["window_probe"][name] = probe_row(rp, lk, base_s, ids_s.view(1, -1), name,
+                                            lambda: torch.take(ids_s, idx))
+    show("H at J1 small (exact)", modes["window_probe"][name])
+    del lk, idx, ids_s
 
     n_med = J1_DIMS["medium"]
+    ids_m, _, unique, _ = rp.build_join_tables(
+        torch.randperm(n_med, generator=gen, device=dev, dtype=torch.int32), n_med)
+    check(unique, "J1 medium's build is unique")
     dup = fanout_ids(dev, gen, n_med)
     tables, mult = rp.ordinal_tables(dup, n_med)
     check(mult == 3, f"H m=3: fan-out {mult}")
     lk = probe_codes(dev, gen, n_med)
     pk_m, (pv_m,), base_m, _ = rp.radix_partition(lk, [rows_i], rp.domain_bits(n_med))
-    bids, _ = rp.window_probe(pk_m, base_m, tables)
-    same(bids, rp.window_probe_plain(pk_m, base_m, tables)[0], "H bids (m = 3)")
-    mm = int(base_m[-1])
-    idx = pk_m[:mm].long()
-    n_touched = int(torch.unique(idx).numel())
-    modes["window_probe"]["J1 medium, m = 3 stacked tables (keys 1-3 times)"] = timed_row(
-        0.0,
-        lambda: rp.window_probe(pk_m, base_m, tables),
-        lambda: rp.window_probe_plain(pk_m, base_m, tables),
-        lambda: torch.take(tables, idx), 4 * mm + nbytes(bids) + 3 * 8 * n_touched, 3 * mm)
-    show("H m=3 at J1 medium (exact)", modes["window_probe"][
-        "J1 medium, m = 3 stacked tables (keys 1-3 times)"])
-    return {"window_probe": main, "tile_sort": tile_sort_row}, modes, route_ms
+    del lk
+    idx = pk_m[:int(base_m[-1])].long()
+    probe_check(rp, pk_m, base_m, ids_m.view(1, -1))
+    name = "J1 medium: 1e8 probe rows, 16 windows (~6.9e2 rows a slot), one table"
+    modes["window_probe"][name] = probe_row(rp, pk_m, base_m, ids_m.view(1, -1), name,
+                                            lambda: torch.take(ids_m, idx))
+    show("H at J1 medium (exact)", modes["window_probe"][name])
+    probe_check(rp, pk_m, base_m, tables)
+    name = "J1 medium, m = 3 stacked tables (keys 1-3 times)"
+    modes["window_probe"][name] = probe_row(rp, pk_m, base_m, tables, name,
+                                            lambda: tables.index_select(1, idx))
+    show("H m=3 at J1 medium (exact)", modes["window_probe"][name])
+    return {"window_probe": main, "tile_sort": e_row}, modes, route_ms
+
+
+def fill_junk(*shapes):
+    """Allocate int32 tensors of these shapes filled with 0x7f7f7f7f and
+    free them, so that the caching allocator hands their blocks, junk and
+    all, to the next allocations of the same sizes."""
+    junk = [torch.full(sh, 0x7F7F7F7F, dtype=torch.int32, device="cuda") for sh in shapes]
+    torch.cuda.synchronize()
+    del junk
+
+
+def probe_check(rp, pk, base, tables, pay=None, pay_dtype=None):
+    """Kernel H exact against its plain version, its outputs allocated
+    over junk: every row past base[-1] and every row without a match
+    reads -1 (payload 0).  Returns (rows found in table 0, their bids,
+    the payload)."""
+    n, m = pk.numel(), tables.shape[0]
+    fill_junk((m, n), (2 * n,))
+    bids, out = rp.window_probe(pk, base, tables, pay, pay_dtype)
+    eb, eo = rp.window_probe_plain(pk, base, tables, pay, pay_dtype)
+    same(bids, eb, f"H bids (m = {m}, {n} rows)")
+    check(bool((bids[:, int(base[-1]):] == -1).all()), "H: a row past base[-1] matched")
+    if pay is not None:
+        same(rp.payload_bits(out), rp.payload_bits(eo), "H payload bits")
+        check(bool((out[bids[0] < 0] == 0).all()), "H: a payload without a match")
+    found = torch.nonzero(bids[0] >= 0).squeeze(1)
+    return found, bids[0][found].long(), out
+
+
+def probe_row(rp, pk, base, tables, shape, library, pay=None, pay_dtype=None):
+    """Kernel H's row at one shape, timed also with every window staged
+    (ms_staged) and with none (ms_direct).  Bound: the keys of the
+    windows' rows read, bids (and payload) written, and the table (and
+    payload) entries the keys touch read once."""
+    rows = int(base[-1])
+    k = pk[:rows].long()
+    touched = torch.zeros(tables.shape[1], dtype=torch.bool, device=pk.device)
+    touched[k[k >= 0]] = True
+    n_touched = int(touched.sum())
+    del touched, k
+    m, n = tables.shape[0], pk.numel()
+    moved = 4 * rows + 4 * m * n + 8 * m * n_touched
+    if pay is not None:
+        moved += pay_dtype.itemsize * n + 8 * n_touched
+    row = timed_row(0.0, lambda: rp.window_probe(pk, base, tables, pay, pay_dtype),
+                    lambda: rp.window_probe_plain(pk, base, tables, pay, pay_dtype),
+                    library, moved, m * rows, shape=shape, n_touched=n_touched,
+                    stage_min_rows=rp.STAGE_MIN_ROWS)
+    row["ms_staged"] = device_ms(
+        lambda: rp.window_probe(pk, base, tables, pay, pay_dtype, stage_min_rows=1))
+    row["ms_direct"] = device_ms(
+        lambda: rp.window_probe(pk, base, tables, pay, pay_dtype, stage_min_rows=1 << 40))
+    return row
 
 
 def j1_frames(ct, dev, gen):
@@ -698,12 +789,12 @@ def main():
         """Run one main path with every count at 0 before, read after."""
         for fn in wrappers.values():
             fn.launches = 0
-        rp.merge_scatter.masked_launches = 0
+        rp.radix_partition.second_passes = 0
         out = run()
         torch.cuda.synchronize()
         for name, fn in wrappers.items():
             launches[name][path] = fn.launches
-        second_pass[path] = rp.merge_scatter.masked_launches
+        second_pass[path] = rp.radix_partition.second_passes
         for name in paths[path]:
             check(launches[name][path] > 0, f"kernel {name} was not launched by the {path} path")
         return out
@@ -740,8 +831,8 @@ def main():
         if modes:
             kernels[name].setdefault("modes", {}).update(modes)
     torch.cuda.empty_cache()
-    log("phase 3 J1 kernels: D's id/idpay modes, B, C, E, F, G and H agree exactly with "
-        "their plain versions")
+    log("phase 3 J1 kernels: D's id/idpay modes, B, C, E, F, G and H (five shapes) agree "
+        "exactly with their plain versions")
 
     frames = j1_frames(ct, dev, gen)
     results = drive("j1", lambda: {
@@ -754,7 +845,7 @@ def main():
     torch.cuda.empty_cache()
     check(second_pass["j1"] > 0, "the J1 path ran no second pass of the sorted route")
     log(f"phase 4 J1 main path: launches { {k: v['j1'] for k, v in launches.items()} }; "
-        f"merge_scatter under a mask (second passes): {second_pass['j1']}")
+        f"second passes of the sorted route: {second_pass['j1']}")
     rows_i = torch.arange(N, dtype=torch.int32, device=dev)
     for size in J1_DIMS:
         check_j1_model(j1_join, rows_i, *j1_model_inputs(frames, size), size)

@@ -13,22 +13,30 @@
 //    The TPU has no scatter, so the reference sorts with an O(T log^2 T)
 //    compare-exchange network of lane gathers and sublane rolls, and is
 //    unstable.  Hopper scatters within shared memory, so one block per
-//    tile runs a stable LSD radix sort (cub's block-scope BlockRadixSort,
-//    4-bit digits) of (sort_key, local index) pairs held in registers:
-//    8 passes over 32 bits, or ceil((m + 1) / 4) under a mask of m bits.
-//    The sort is stable, so ties keep input order (exactness at least the
+//    tile runs a stable LSD radix sort of (sort_key, local index) pairs
+//    held in registers, 8 bits a pass, over the order key's significant
+//    bits only: 4 passes over 32 bits, 3 under a mask of 20 bits (21
+//    significant: 8 + 8 + 5), 4 under 27.  A pass ranks each item as
+//    cub's BlockRadixRankMatch does: every warp walks its items in order,
+//    eight ballots group the lanes that share a digit, and the lowest
+//    of them advances the warp's own 256 counters in shared memory, so
+//    an item's rank inside its warp is the counter before the group plus
+//    its lanes below it.  One scan over (digit, warp), digit-major, turns
+//    the counters into each warp's first slot per digit; items scatter to
+//    their ranks in shared memory and are read back in rank order.  The
+//    sort is stable, so ties keep input order (exactness at least the
 //    reference's) and the kernel matches a stable torch.sort bit for bit.
-//    Each column is then staged whole in shared memory with coalesced
-//    loads and written out in rank order (reversed for a descending
-//    tile), gathering through the local index: every global access is
-//    coalesced.  Bound: bytes, each column read once and written once;
-//    the passes over shared memory are the kernel's own cost beyond that.
-//    Tiles hold at most kMaxTile = 4096 keys (the 32 KB staging buffer of
-//    8-byte columns, shared with the sort's scratch); a short tile is
-//    padded with keys above every real one, which the stable sort keeps
-//    last.
-
-#include <cub/block/block_radix_sort.cuh>
+//    Items sit warp-striped (item j of lane l in warp w is position
+//    w * 256 + j * 32 + l), so the keys load coalesced from device memory
+//    and every pass reads back coalesced from shared memory.  Each column
+//    is then staged whole in shared memory with coalesced loads and
+//    written out in rank order (reversed for a descending tile),
+//    gathering through the local index: every global access is coalesced.
+//    Bound: bytes, each column read once and written once; the passes
+//    over shared memory are the kernel's own cost beyond that.  Tiles hold
+//    at most kMaxTile = 4096 keys; a short tile is padded with keys above
+//    every real one, or equal to the greatest and after it, which the
+//    stable sort keeps last.
 
 #include "common.cuh"
 
@@ -38,61 +46,178 @@ namespace {
 constexpr int kSortThreads = 512;
 constexpr int kSortItems = 8;
 constexpr int kMaxTile = kSortThreads * kSortItems;
+constexpr int kWarps = kSortThreads / 32;
+constexpr int kWarpItems = 32 * kSortItems;
+constexpr int kDigitBits = 8;
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kScanWarps = kWarps / (kSortThreads / kDigits);   // warps a scan thread sums
 
-using TileSort = cub::BlockRadixSort<unsigned, kSortThreads, kSortItems, unsigned short>;
+struct SortSmem {
+  unsigned key[kMaxTile];
+  unsigned short idx[kMaxTile];
+  unsigned count[kWarps * kDigits];     // [warp][digit]
+  unsigned warp_sum[kWarps];
+};
+union TileSmem {
+  SortSmem sort;
+  unsigned long long stage[kMaxTile];   // one column, after the sort
+};
+
+// The lanes of the warp whose label equals this lane's, for labels of
+// kDigitBits bits: one ballot a bit (cub's MatchAny; __match_any_sync is
+// slower).
+__device__ __forceinline__ unsigned match_digit(unsigned label) {
+  unsigned peers = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) {
+    const bool set = (label >> b) & 1u;
+    const unsigned vote = __ballot_sync(0xffffffffu, set);
+    peers &= set ? vote : ~vote;
+  }
+  return peers;
+}
+
+// Exclusive prefix of v over the block in thread order, via warp_sum.
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned up = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned w = lane < kWarps ? warp_sum[lane] : 0u;
+    unsigned wi = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned up = __shfl_up_sync(0xffffffffu, wi, d);
+      if (lane >= d) wi += up;
+    }
+    if (lane < kWarps) warp_sum[lane] = wi - w;
+  }
+  __syncthreads();
+  return warp_sum[warp] + incl - v;
+}
+
+// One stable pass on digit (k >> shift) & (2^nbits - 1): on return, item
+// j of this thread is the one of rank w * 256 + j * 32 + l.  The keys are
+// moved too unless this is the last pass.
+__device__ __forceinline__ void radix_pass(SortSmem& s, unsigned (&k)[kSortItems],
+                                           unsigned short (&idx)[kSortItems], int shift,
+                                           int nbits, bool last) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = (1u << nbits) - 1u;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned* cnt = s.count + warp * kDigits;
+  for (int d = lane; d < kDigits; d += 32) cnt[d] = 0;
+  __syncwarp();
+  unsigned short rank[kSortItems];
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const unsigned d = (k[j] >> shift) & mask;
+    const unsigned peers = match_digit(d);
+    const unsigned before = cnt[d];
+    __syncwarp();
+    if ((peers & below) == 0) cnt[d] = before + __popc(peers);
+    __syncwarp();
+    rank[j] = static_cast<unsigned short>(before + __popc(peers & below));
+  }
+  __syncthreads();
+
+  // counters, digit-major then warp, to each (warp, digit)'s first slot
+  const int d = threadIdx.x / (kSortThreads / kDigits);
+  const int w0 = (threadIdx.x % (kSortThreads / kDigits)) * kScanWarps;
+  unsigned c[kScanWarps], sum = 0;
+#pragma unroll
+  for (int u = 0; u < kScanWarps; ++u) {
+    c[u] = s.count[(w0 + u) * kDigits + d];
+    sum += c[u];
+  }
+  unsigned run = block_exclusive_scan(sum, s.warp_sum);
+#pragma unroll
+  for (int u = 0; u < kScanWarps; ++u) {
+    s.count[(w0 + u) * kDigits + d] = run;
+    run += c[u];
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int r = static_cast<int>(cnt[(k[j] >> shift) & mask] + rank[j]);
+    if (!last) s.key[r] = k[j];
+    s.idx[r] = idx[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int p = warp * kWarpItems + j * 32 + lane;
+    if (!last) k[j] = s.key[p];
+    idx[j] = s.idx[p];
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ void permute_column(const void* src_v, void* dst_v, T* stage,
                                                long long start, int len, bool reverse,
-                                               const unsigned short (&src_pos)[kSortItems]) {
+                                               const unsigned short (&idx)[kSortItems]) {
   const T* src = static_cast<const T*>(src_v) + start;
   T* dst = static_cast<T*>(dst_v) + start;
-  for (int i = threadIdx.x; i < len; i += kSortThreads) stage[i] = src[i];
-  __syncthreads();
-  // after SortBlockedToStriped item j of thread t has rank j * threads + t
+  T v[kSortItems];                             // all of a thread's loads in flight
 #pragma unroll
   for (int j = 0; j < kSortItems; ++j) {
-    const int r = j * kSortThreads + static_cast<int>(threadIdx.x);
-    if (r < len) dst[reverse ? len - 1 - r : r] = stage[src_pos[j]];
+    const int i = j * kSortThreads + static_cast<int>(threadIdx.x);
+    if (i < len) v[j] = src[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int i = j * kSortThreads + static_cast<int>(threadIdx.x);
+    if (i < len) stage[i] = v[j];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int r = warp * kWarpItems + j * 32 + lane;
+    if (r < len) dst[reverse ? len - 1 - r : r] = stage[idx[j]];
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kSortThreads)
+__global__ void __launch_bounds__(kSortThreads, 2)
 tile_sort_kernel(long long n, int tile, int alternate, int mask_bits, Columns c) {
-  __shared__ union {
-    typename TileSort::TempStorage sort;
-    unsigned long long stage[kMaxTile];
-  } smem;
+  __shared__ TileSmem smem;
   const long long start = static_cast<long long>(blockIdx.x) * tile;
   const int len = static_cast<int>(n - start < tile ? n - start : tile);
   const int bits = sort_key_bits(mask_bits);
   const unsigned pad = bits == 32 ? 0xffffffffu : (1u << bits) - 1u;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  int* skeys = reinterpret_cast<int*>(smem.stage);
   const int32_t* keys = static_cast<const int32_t*>(c.src[0]) + start;
-  for (int i = threadIdx.x; i < len; i += kSortThreads) skeys[i] = keys[i];
-  __syncthreads();
   unsigned k[kSortItems];
-  unsigned short pos[kSortItems];
+  unsigned short idx[kSortItems];
 #pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {       // blocked: thread t holds t*8 .. t*8+7
-    const int i = static_cast<int>(threadIdx.x) * kSortItems + j;
-    pos[j] = static_cast<unsigned short>(i);
-    k[j] = i < len ? sort_key(skeys[i], mask_bits) : pad;
+  for (int j = 0; j < kSortItems; ++j) {       // warp-striped, coalesced
+    const int p = warp * kWarpItems + j * 32 + lane;
+    idx[j] = static_cast<unsigned short>(p);
+    k[j] = p < len ? sort_key(keys[p], mask_bits) : pad;
   }
-  __syncthreads();                             // the sort reuses the staging buffer
-  TileSort(smem.sort).SortBlockedToStriped(k, pos, 0, bits);
-  __syncthreads();
+  for (int shift = 0; shift < bits; shift += kDigitBits) {
+    const int nbits = bits - shift < kDigitBits ? bits - shift : kDigitBits;
+    radix_pass(smem.sort, k, idx, shift, nbits, shift + nbits >= bits);
+  }
+  __syncthreads();                             // the columns reuse the sort's buffers
 
   const bool reverse = alternate && (blockIdx.x & 1);
   for (int col = 0; col < c.count; ++col) {
     if (c.width[col] == 8) {
       permute_column<unsigned long long>(c.src[col], c.dst[col], smem.stage, start, len,
-                                         reverse, pos);
+                                         reverse, idx);
     } else {
       permute_column<unsigned>(c.src[col], c.dst[col], reinterpret_cast<unsigned*>(smem.stage),
-                               start, len, reverse, pos);
+                               start, len, reverse, idx);
     }
   }
 }

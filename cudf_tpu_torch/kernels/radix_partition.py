@@ -34,7 +34,9 @@ elements and has int64/fp64 atomics:
   so nothing needs a host sync to size its output.
 - The sorted route passes as the reference's: one pass to 2^20 keys, two
   beyond (the second orders by the low 20 bits inside first-pass regions
-  padded to whole supertiles).  The scatter route takes one pass to 2^27:
+  padded to whole supertiles), but the single or first pass sorts under
+  ``mask_bits = domain_bits`` where the reference sorts the whole key:
+  the same order from fewer bits.  The scatter route takes one pass to 2^27:
   its digit is the window id ``key >> 13`` (up to 14 bits), and its tile
   keeps the ``[tiles, buckets]`` histogram within ``MAX_TABLE`` entries
   (see :func:`choose_tile`).
@@ -70,13 +72,14 @@ SPAN = 1 << WINDOW_BITS          # keys per aggregation window
 MAX_DOMAIN_BITS = 27
 MAX_TABLE = 1 << 22              # histogram entries (16 MB of int32)
 MIN_TILE = 1 << 14               # keys per partition tile
-AGG_ROWS = 1 << 17               # rows per aggregation or probe step
+AGG_ROWS = 1 << 17               # rows per aggregation step (kernel D)
 MERGE_TILES = 4                  # sort tiles per supertile (the reference's default)
 SORT_TILE = 1 << 12              # keys per sort tile: MERGE_TILES * SORT_TILE = MIN_TILE
 PASS_BITS = 7                    # digit bits per pass of the sorted route
 MAX_SUPER_TILE = 1 << 14         # keys per merge_scatter supertile (shared memory)
 MAX_MERGE_BITS = 10
 MAX_TABLES = 4                   # stacked id tables per probe (join fan-out)
+STAGE_MIN_ROWS = 512             # kernel H stages a window from this many rows in a block
 
 _HIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                   ctypes.c_longlong, ctypes.c_void_p]
@@ -90,10 +93,9 @@ _MERGE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_in
 _AGG_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p]
-_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p]
+_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
 
 
 # ----------------------------------------------------------------------
@@ -270,8 +272,7 @@ def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
     shift + nbits.  rows = ``out_rows`` or n; rows no run covers hold key
     -1 and zero payloads when ``out_rows`` is given (a first pass's padded
     regions) and are unspecified otherwise.  CUDA tensors launch kernel G,
-    counted in ``merge_scatter.launches``, and those under a mask (a
-    second pass's) in ``merge_scatter.masked_launches`` too."""
+    counted in ``merge_scatter.launches``."""
     payloads = list(payloads)
     n = check_columns(keys, payloads)
     _check_merge(nbits, shift, super_tile, tile, mask_bits)
@@ -291,12 +292,10 @@ def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
                       out_keys.data_ptr(), out_keys.shape[0], len(payloads),
                       ctypes.addressof(src), ctypes.addressof(dst), ctypes.addressof(widths))
         merge_scatter.launches += 1
-        merge_scatter.masked_launches += mask_bits is not None
     return out_keys, outs
 
 
 merge_scatter.launches = 0
-merge_scatter.masked_launches = 0
 
 
 def _merge_outputs(keys, payloads, out_rows):
@@ -361,26 +360,34 @@ def _sorted_pass(keys, vals, nbits, shift, tile, super_tile, offsets, mask_bits=
 def _sorted_route(keys, vals, domain_bits, tile, merge_tiles):
     """The reference's route: one pass of F and G to 2^20 keys; beyond,
     a first pass on the top bits into regions padded to whole supertiles
-    (pad keys -1), then 7 bits per region ordered by the low 20 bits."""
+    (pad keys -1), then 7 bits per region ordered by the low 20 bits.
+
+    The single pass and the first pass sort under ``mask_bits =
+    domain_bits``: keys lie below 2^domain_bits, so the order, and every
+    window, is the signed key's, from domain_bits + 1 bits instead of 32
+    (the reference sorts them unmasked)."""
     n = keys.shape[0]
     st = merge_tiles * tile
     if domain_bits <= WINDOW_BITS + PASS_BITS:
         nbits = domain_bits - WINDOW_BITS
         offsets, base = partition_offsets(digit_histogram(keys, nbits, WINDOW_BITS, st))
-        pkeys, pvals = _sorted_pass(keys, vals, nbits, WINDOW_BITS, tile, st, offsets)
+        pkeys, pvals = _sorted_pass(keys, vals, nbits, WINDOW_BITS, tile, st, offsets,
+                                    mask_bits=domain_bits)
         return pkeys, pvals, base
     shift1 = WINDOW_BITS + PASS_BITS
     nbits1 = domain_bits - shift1
     regions = 1 << nbits1
     off1, base1 = partition_offsets(digit_histogram(keys, nbits1, shift1, st), align=st)
     rows1 = (-(-n // st) + regions) * st          # >= base1[-1], without a host sync
-    k1, v1 = _sorted_pass(keys, vals, nbits1, shift1, tile, st, off1, out_rows=rows1)
+    k1, v1 = _sorted_pass(keys, vals, nbits1, shift1, tile, st, off1, mask_bits=domain_bits,
+                          out_rows=rows1)
     starts = torch.arange(rows1 // st, device=keys.device) * st
     region = torch.searchsorted(base1[1:], starts, right=True).clamp_(max=regions - 1)
     off2, base = partition_offsets(digit_histogram(k1, PASS_BITS, WINDOW_BITS, st),
                                    region, regions)
     pkeys, pvals = _sorted_pass(k1, v1, PASS_BITS, WINDOW_BITS, tile, st, off2,
                                 mask_bits=shift1)
+    radix_partition.second_passes += 1
     return pkeys[:n], [v[:n] for v in pvals], base
 
 
@@ -427,6 +434,9 @@ def radix_partition(keys: torch.Tensor, vals: Sequence[torch.Tensor],
         prows.clamp_(0, n - 1)           # rows past base[-1] hold garbage ids
         pvals += [v.index_select(0, prows) for v in vals[MAX_PAYLOADS - 1:]]
     return pkeys, pvals, base, 1 << (domain_bits - WINDOW_BITS)
+
+
+radix_partition.second_passes = 0    # sorted-route second passes run (two-pass domains)
 
 
 # ----------------------------------------------------------------------
@@ -639,7 +649,7 @@ def _check_tables(pkeys, base, tables, pay, pay_dtype):
 
 def window_probe(pkeys: torch.Tensor, base: torch.Tensor, tables: torch.Tensor,
                  pay: Optional[torch.Tensor] = None, pay_dtype: Optional[torch.dtype] = None,
-                 agg_rows: int = AGG_ROWS):
+                 stage_min_rows: int = STAGE_MIN_ROWS):
     """(bids int32[m, n], payload[n] of pay_dtype or None) for partitioned
     probe keys (the reference's ``window_probe``).
 
@@ -650,20 +660,23 @@ def window_probe(pkeys: torch.Tensor, base: torch.Tensor, tables: torch.Tensor,
     bids[t, i] = tables[t, key] - 1: the build row, or -1 where the slot
     is empty, the key is out of its window or the row lies past
     ``base[-1]``; the payload is copied where bids[0] >= 0, else 0.  CUDA
-    tensors launch kernel H, counted in ``window_probe.launches``."""
+    tensors launch kernel H, counted in ``window_probe.launches``; it
+    writes every output row and looks a window up in shared memory when
+    at least ``stage_min_rows`` of its rows fall in one block's chunk
+    (the result does not depend on it)."""
     n = _build.check_keys(pkeys)
     _check_tables(pkeys, base, tables, pay, pay_dtype)
+    if stage_min_rows < 1:
+        raise ValueError(f"stage_min_rows {stage_min_rows}: at least 1")
     if pkeys.device.type == "cpu":
         return window_probe_plain(pkeys, base, tables, pay, pay_dtype)
     m, size = tables.shape
-    bids = torch.full((m, n), -1, dtype=torch.int32, device=pkeys.device)
-    out = None if pay is None else torch.zeros(n, dtype=pay_dtype, device=pkeys.device)
-    win, lo, hi = step_table(base, n, agg_rows)
+    bids = torch.empty((m, n), dtype=torch.int32, device=pkeys.device)
+    out = None if pay is None else torch.empty(n, dtype=pay_dtype, device=pkeys.device)
     _build.launch("cudf_window_probe", _PROBE_ARGTYPES, pkeys.device,
-                  pkeys.data_ptr(), win.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                  win.shape[0], tables.data_ptr(), m, size, _build.ptr(pay),
-                  0 if pay is None else pay_dtype.itemsize, bids.data_ptr(), n,
-                  _build.ptr(out))
+                  pkeys.data_ptr(), n, base.data_ptr(), size // SPAN, tables.data_ptr(), m,
+                  _build.ptr(pay), 0 if pay is None else pay_dtype.itemsize, stage_min_rows,
+                  bids.data_ptr(), _build.ptr(out))
     window_probe.launches += 1
     return bids, out
 
@@ -729,7 +742,7 @@ def radix_join_inner_unique(lk: torch.Tensor, lv: torch.Tensor, rk: torch.Tensor
         return (lk, lv, None, False) if rv is None else (lk, lv, None, None, False)
     pk, pv, base = _probe_side(lk, lv, key_domain, tile)
     bids, pay = window_probe(pk, base, ids.view(1, -1), pay_tab,
-                             None if rv is None else rv.dtype, agg_rows)
+                             None if rv is None else rv.dtype)
     if rv is None:
         return pk, pv, bids[0], True
     return pk, pv, bids[0], pay, True
@@ -752,7 +765,7 @@ def radix_join_inner_multi(lk: torch.Tensor, lv: torch.Tensor, rk: torch.Tensor,
     if tables is None:
         return None, None, None, mult
     pk, pv, base = _probe_side(lk, lv, key_domain, tile)
-    bids, _ = window_probe(pk, base, tables, agg_rows=agg_rows)
+    bids, _ = window_probe(pk, base, tables)
     return pk, pv, bids, mult
 
 

@@ -8,7 +8,9 @@ partition multisets exact; float64 sums rtol 1e-12 plus atol 1e-9, since
 atomics add in a varying order and sums of signed values cancel to near
 zero (the terms here are below 500 in magnitude, fewer than 1e5 a group).
 The join tables and probes (kernel D's id/idpay modes, kernel H) are
-exact: they hold and copy build row ids and payload bits.  The sorted
+exact: they hold and copy build row ids and payload bits; H's outputs are
+checked after the caching allocator was filled with junk, since the
+kernel writes every row itself.  The sorted
 route's kernels (E and F, the tile sort; G, the merge and scatter) match
 bit for bit: both sides are stable sorts.
 """
@@ -125,6 +127,10 @@ def test_cuda_path_raises_and_never_falls_back(dev):
         rp.merge_scatter(keys, [], offsets, 2, 13, 16, 8, mask_bits=20)   # mask != 15
     with pytest.raises(ValueError):
         rp.merge_scatter(keys, [], offsets.cpu(), 2, 13, 16, 8)        # offsets on CPU
+    with pytest.raises(ValueError):
+        rp.window_probe(keys, torch.tensor([0, 10], device=dev),
+                        torch.zeros(1, rp.SPAN, dtype=torch.int64, device=dev),
+                        stage_min_rows=0)
     before = (ts.tile_sort.launches, ts.tile_sort_data.launches, rp.merge_scatter.launches)
     ts.tile_sort(keys, tile=8)
     ts.tile_sort_data(keys, [], 8, alternate=True)
@@ -141,7 +147,7 @@ def _sort_inputs(dev, n, seed, mask_bits, widths, nbits=7):
     keys = torch.randint(0, 1 << (rp.WINDOW_BITS + nbits), (n,), generator=g, device=dev,
                          dtype=torch.int32)
     if mask_bits is not None:
-        keys |= torch.randint(0, 1 << 10, (n,), generator=g, device=dev,
+        keys |= torch.randint(0, 1 << min(10, 31 - mask_bits), (n,), generator=g, device=dev,
                               dtype=torch.int32) << mask_bits
     keys[::13] = -5
     keys[7:n // 3:3] = keys[1]                    # ties across tiles
@@ -163,10 +169,12 @@ def _same_bits(a, b):
 
 @pytest.mark.parametrize("n,tile", [(3 * 4096, 4096), (100_003, 4096), (50_001, 1000)])
 @pytest.mark.parametrize("alternate", [False, True])
-@pytest.mark.parametrize("mask_bits", [None, 20])
+@pytest.mark.parametrize("mask_bits", [None, 1, 7, 8, 20, 21, 27, 30])
 @pytest.mark.parametrize("widths", [(), (4,), (8, 4), (8, 8, 4, 4)])
 def test_tile_sort_kernels_match_plain(dev, n, tile, alternate, mask_bits, widths):
-    """Kernels E and F: bit for bit the stable per-tile sort."""
+    """Kernels E and F: bit for bit the stable per-tile sort, over 32
+    order bits or 2 to 31 under a mask (one to four 8-bit passes, the
+    last narrower), with short tiles."""
     keys, cols = _sort_inputs(dev, n, n + len(widths), mask_bits, widths)
     before = (ts.tile_sort.launches, ts.tile_sort_data.launches)
     gk, gc = ts.tile_sort_data(keys, cols, tile, alternate=alternate, mask_bits=mask_bits)
@@ -263,15 +271,57 @@ def test_window_probe_matches_plain(dev, m, pay_dtype, G):
             vals[::7] = float("nan")
             vals[1::7] = -0.0
         pay = rp.payload_bits(vals).long()
-    for agg_rows in (1000, rp.AGG_ROWS):
+    for stage_min_rows in (1, rp.STAGE_MIN_ROWS, 1 << 40):   # every window staged, some, none
         before = rp.window_probe.launches
-        bids, out = rp.window_probe(pk, base, tables, pay, pay_dtype, agg_rows=agg_rows)
+        bids, out = rp.window_probe(pk, base, tables, pay, pay_dtype,
+                                    stage_min_rows=stage_min_rows)
         assert rp.window_probe.launches == before + 1
         eb, eo = rp.window_probe_plain(pk, base, tables, pay, pay_dtype)
         assert torch.equal(bids, eb)
         assert (bids[:, int(base[-1]):] == -1).all()
         if pay_dtype is not None:
             assert out.dtype == pay_dtype
+            assert torch.equal(rp.payload_bits(out), rp.payload_bits(eo))
+
+
+def _fill_junk(*shapes):
+    """Fill blocks of these int32 shapes with 0x7f bytes and free them:
+    the caching allocator hands them to the next allocations of that size."""
+    junk = [torch.full(sh, 0x7F7F7F7F, dtype=torch.int32, device="cuda") for sh in shapes]
+    torch.cuda.synchronize()
+    del junk
+
+
+@pytest.mark.parametrize("G,n", [(1, 400_003), (16, 1_000_001), (512, 50_001),
+                                 (2048, 3_000_001)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,pay_dtype", [(1, None), (3, None), (1, torch.float32),
+                                         (1, torch.float64)])
+def test_window_probe_writes_every_row(dev, G, n, offset, m, pay_dtype):
+    """Kernel H writes every output row: rows per slot far above (G = 1:
+    ~49) and far below (G = 512: ~0.01) the staging threshold, each window
+    staged, by the threshold, or never; n % 4 != 0, the keys a view at a
+    4-byte offset, the outputs allocated over junk."""
+    g = torch.Generator(device=dev).manual_seed(G + n + m)
+    pk, base = _partitioned(dev, G, n, seed=G + offset)
+    if offset:
+        pk = torch.cat([pk.new_zeros(1), pk])[1:]
+        assert pk.data_ptr() % 16 == 4
+    tables = torch.randint(0, 1 << 20, (m, G * rp.SPAN), generator=g, device=dev)
+    tables[torch.rand(tables.shape, generator=g, device=dev) < 0.3] = 0
+    pay = None
+    if pay_dtype is not None:
+        vals = (torch.randn(G * rp.SPAN, generator=g, device=dev, dtype=torch.float64)
+                * 1e6).to(pay_dtype)
+        vals[::5], vals[1::5] = float("nan"), -0.0
+        pay = rp.payload_bits(vals).long()
+    eb, eo = rp.window_probe_plain(pk, base, tables, pay, pay_dtype)
+    for stage_min_rows in (1, rp.STAGE_MIN_ROWS, 1 << 40):
+        _fill_junk((m, n), (2 * n,))
+        bids, out = rp.window_probe(pk, base, tables, pay, pay_dtype,
+                                    stage_min_rows=stage_min_rows)
+        assert torch.equal(bids, eb)
+        if pay_dtype is not None:
             assert torch.equal(rp.payload_bits(out), rp.payload_bits(eo))
 
 

@@ -269,7 +269,8 @@ def test_two_pass_domain_matches_pandas(monkeypatch):
     spec = {"f": ["sum", "mean", "count", "size"], "i": ["sum", "min", "max"],
             "b": ["sum", "mean"]}
     _assert_frames(_port(pdf, spec), pdf.groupby("k").agg(spec), rtol=1e-12)
-    assert masks == [None, rp.WINDOW_BITS + rp.PASS_BITS] * 2   # f's rows, then all rows
+    # f's rows, then all rows; each first pass under the 21-bit domain's mask
+    assert masks == [rp.domain_bits(1_500_000), rp.WINDOW_BITS + rp.PASS_BITS] * 2
 
 
 @pytest.mark.parametrize("K", [100, 4096, 4097, 300_000])

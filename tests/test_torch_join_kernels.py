@@ -195,11 +195,13 @@ def test_multi_fanout_over_bound_matches_reference():
         (None, None, None, 9)
 
 
-@pytest.mark.parametrize("m,pay_dtype", [(1, None), (2, None), (4, None), (1, torch.int64),
+@pytest.mark.parametrize("m,pay_dtype", [(1, None), (2, None), (3, None), (4, None),
+                                         (1, torch.int32), (1, torch.int64),
                                          (1, torch.float32), (1, torch.float64)])
 def test_window_probe_plain_edges(m, pay_dtype):
     """Empty windows, keys out of their window and rows past base[-1]
-    read -1 (payload 0); found rows read table - 1 and copy the payload."""
+    read -1 (payload 0); found rows read table - 1 and copy the payload's
+    bits, NaN and -0.0 included."""
     G = 4
     rng = np.random.default_rng(m)
     tables = torch.from_numpy(rng.integers(0, 50, (m, G * rp.SPAN)))
@@ -213,8 +215,11 @@ def test_window_probe_plain_edges(m, pay_dtype):
     base = torch.tensor([0] + list(np.cumsum(sizes)), dtype=torch.int64)
     pay = None
     if pay_dtype is not None:
-        pay = rp.payload_bits(torch.from_numpy(rng.normal(size=G * rp.SPAN) * 9).to(pay_dtype))
-        pay = pay.long()
+        vals = torch.from_numpy(rng.normal(size=G * rp.SPAN) * 9).to(pay_dtype)
+        if pay_dtype.is_floating_point:                       # rows 0-1 match these
+            vals[keys[:2]] = torch.tensor([float("nan"), -0.0], dtype=pay_dtype)
+            tables[0, keys[:2]] = 7
+        pay = rp.payload_bits(vals).long()
     bids, out = rp.window_probe(pk, base, tables, pay, pay_dtype)
     rows = int(base[-1])
     win = np.repeat(np.arange(G), sizes)
@@ -229,6 +234,8 @@ def test_window_probe_plain_edges(m, pay_dtype):
         return
     found = bids[0] >= 0
     assert out.dtype == pay_dtype and (out[~found] == 0).all()
+    if pay_dtype.is_floating_point:
+        assert found[:2].all()
     want = pay[pk[found].long()]
     got = rp.payload_bits(out[found])
     assert torch.equal(got.long() if pay_dtype.itemsize == 4 else got, want)
@@ -244,5 +251,8 @@ def test_window_probe_rejects_bad_tables():
     with pytest.raises(ValueError):
         rp.window_probe(pk, base, torch.zeros((2, rp.SPAN), dtype=torch.int64),
                         torch.zeros(rp.SPAN, dtype=torch.int64), torch.float32)
+    with pytest.raises(ValueError, match="stage_min_rows"):
+        rp.window_probe(pk, base, torch.zeros((1, rp.SPAN), dtype=torch.int64),
+                        stage_min_rows=0)
     with pytest.raises(TypeError):
         rp.payload_bits(torch.zeros(3, dtype=torch.int16))

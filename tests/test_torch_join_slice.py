@@ -136,7 +136,9 @@ def test_two_pass_domain_matches_pandas(monkeypatch):
             got = ct.from_pandas(left, device=CPU).merge(ct.from_pandas(right, device=CPU),
                                                          on="id").to_pandas()
         _check(got, left.merge(right, on="id"))
-    assert masks.count(rp.WINDOW_BITS + rp.PASS_BITS) >= 2 and None in masks
+    # second passes under the low 20 bits, first passes under the domain's
+    assert masks.count(rp.WINDOW_BITS + rp.PASS_BITS) >= 2
+    assert masks.count(rp.domain_bits(1_500_001)) >= 2
 
 
 def test_dense_tier_matches_reference_and_pandas():

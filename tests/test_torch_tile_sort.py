@@ -101,8 +101,9 @@ def test_tile_sort_matches_reference(kernel):
 @functools.lru_cache(maxsize=None)
 def _reference_partition(dom_bits):
     rng = np.random.default_rng(dom_bits)
-    n = 30_000 if dom_bits <= MASK else 20_000
+    n = 30_000 if dom_bits <= MASK else 20_000      # a ragged last tile
     keys = rng.integers(0, 1 << dom_bits, n).astype(np.int32)
+    keys[:2] = 0, (1 << dom_bits) - 1                # the domain's ends
     vals = np.arange(n, dtype=np.int32)
     pdata, base, G = ref.radix_partition(jnp.asarray(keys), jnp.asarray(vals), dom_bits,
                                          tile_rows=TILE_ROWS, chunk_rows=2, align_rows=8,
@@ -112,12 +113,19 @@ def _reference_partition(dom_bits):
                                    base, G)
 
 
+@pytest.mark.parametrize("negatives", [False, True])
 @pytest.mark.parametrize("dom_bits", [17, 21])
-def test_sorted_route_matches_reference_partition(dom_bits):
-    """One pass (17 bits) and two passes (21 bits) at merge_tiles = 4:
-    the same windows as the reference, exact, every run sorted."""
+def test_sorted_route_matches_reference_partition(dom_bits, negatives):
+    """One pass (17 bits) and two passes (21 bits) at merge_tiles = 4,
+    the single or first pass under mask_bits = dom_bits: the same windows
+    as the reference, exact, every run sorted.  With negatives, -1 rows
+    between the reference's rows are dropped and change no window."""
     keys, vals, G, exp = _reference_partition(dom_bits)
     n = keys.size
+    if negatives:
+        at = np.arange(0, n, 7)
+        keys = np.insert(keys, at, -1)
+        vals = np.insert(vals, at, n + np.arange(at.size, dtype=np.int32))
     pk, (pv,), base, pG = rp.radix_partition(torch.from_numpy(keys), [torch.from_numpy(vals)],
                                              dom_bits, tile=TILE, merge_tiles=4)
     assert pG == G
@@ -125,7 +133,9 @@ def test_sorted_route_matches_reference_partition(dom_bits):
     assert base[-1] == n
     np.testing.assert_array_equal(pk[:n] >> rp.WINDOW_BITS, np.repeat(np.arange(G), np.diff(base)))
     assert _windows(pk, pv, base, G) == exp
-    np.testing.assert_array_equal(keys[pv[:n]], pk[:n])
+    key_of = np.empty(vals.size, np.int32)
+    key_of[vals] = keys
+    np.testing.assert_array_equal(key_of[pv[:n]], pk[:n])
     st = 4 * TILE
     if dom_bits <= MASK:                      # each (supertile, bucket) run is sorted
         hist = rp.digit_histogram(torch.from_numpy(keys), dom_bits - rp.WINDOW_BITS,
@@ -148,10 +158,14 @@ def test_sorted_route_matches_reference_partition(dom_bits):
 def _route_case(name):
     rng = np.random.default_rng(len(name))
     n, bits = {"ragged": (21_111, 17), "negatives": (20_000, 16), "f64_bits": (12_000, 15),
-               "five_values": (15_000, 18), "two_pass": (25_000, 21)}[name]
+               "five_values": (15_000, 18), "two_pass": (25_000, 21),
+               "edges_one_pass": (17_001, 20), "edges_two_pass": (19_999, 23)}[name]
     keys = rng.integers(0, 1 << bits, n).astype(np.int32)
-    if name in ("negatives", "five_values", "two_pass"):
+    if name in ("negatives", "five_values", "two_pass", "edges_one_pass", "edges_two_pass"):
         keys[rng.random(n) < 0.15] = -1
+    if name.startswith("edges"):                           # the domain's ends, many times
+        keys[rng.random(n) < 0.1] = 0
+        keys[rng.random(n) < 0.1] = (1 << bits) - 1
     keys[:40] = keys[40]                                   # ties
     vals = [torch.arange(n, dtype=torch.int32)]
     if name == "f64_bits":
@@ -168,7 +182,7 @@ def _bits(v):
 
 
 @pytest.mark.parametrize("name", ["ragged", "negatives", "f64_bits", "five_values",
-                                  "two_pass"])
+                                  "two_pass", "edges_one_pass", "edges_two_pass"])
 def test_routes_agree(name):
     """merge_tiles 1 (kernel C), 2 and 4 (kernels F, G): the same base and
     the same (key, value bits) multiset in every window, every value
@@ -189,6 +203,25 @@ def test_routes_agree(name):
                             for p in pv]))
     for base, wins in seen[1:]:
         assert torch.equal(base, seen[0][0]) and wins == seen[0][1]
+
+
+@pytest.mark.parametrize("name", ["ragged", "edges_one_pass", "edges_two_pass"])
+def test_masked_pass_keeps_the_signed_order(name):
+    """The route's single or first pass sorts under mask_bits =
+    domain_bits; for keys below 2^domain_bits (and -1) F and G give, bit
+    for bit, what they give without the mask."""
+    keys, vals, bits = _route_case(name)
+    shift = rp.WINDOW_BITS if bits <= MASK else MASK
+    nbits, tile = bits - shift, 512
+    st = 4 * tile
+    offsets, _ = rp.partition_offsets(rp.digit_histogram(keys, nbits, shift, st), align=st)
+    out_rows = (-(-keys.shape[0] // st) + (1 << nbits)) * st
+    outs = []
+    for mask_bits in (None, bits):
+        sk, sv = ts.tile_sort_data(keys, vals, tile, alternate=True, mask_bits=mask_bits)
+        mk, mv = rp.merge_scatter(sk, sv, offsets, nbits, shift, st, tile, mask_bits, out_rows)
+        outs.append([sk, *sv, mk, *mv])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.parametrize("alternate", [False, True])
