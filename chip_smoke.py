@@ -51,13 +51,15 @@ card from the same generator:
    partition; E tile_sort of the probe keys with one int32 rider; F and
    G in both passes of the sorted route over the probe side (mask_bits
    27, then 20), and both routes of radix_partition there, which must
-   give the same windows; H window_probe at the five shapes the J1 path
-   gives it: small (one window), medium and big with one table, big with
-   the f64 payload (whose bits must be copied), and medium with three
-   stacked tables (each key 1-3 times), and at a sparse probe (1e6 rows
-   against J1 big's table), each checked after the caching allocator was
-   filled with junk, and timed also with every window staged in shared
-   memory and with none.
+   give the same windows; F and G in the single pass of J1 medium's
+   probe partition (2^4 digits, mask_bits 17, one int32 payload), the
+   shape of three of the five merges; H window_probe at the five shapes
+   the J1 path gives it: small (one window), medium and big with one
+   table, big with the f64 payload (whose bits must be copied), and
+   medium with three stacked tables (each key 1-3 times), and at a
+   sparse probe (1e6 rows against J1 big's table), each checked after
+   the caching allocator was filled with junk, and timed also with every
+   window staged in shared memory and with none.
 4. main path: DataFrame.merge(on="id"): q1 small, q2 medium and q5 big
    (the unique tier; small in one window, medium and big partitioned),
    the medium dim with each key 1-3 times (the stacked-table tier,
@@ -70,6 +72,12 @@ card from the same generator:
 5. timings: median of 7 warm runs of each merge and of models.j1_join
    (gather maps only) at small, medium and big, beside plain PyTorch, as
    probe rows/s.
+
+Each G row says what its timed window holds (the outputs' torch.empty,
+and with out_rows G's own fill of the rows no run covers) and G's
+resident blocks per SM, threads and shared memory; the G1 row carries
+ptxas's report on csrc/merge_scatter.cu (-Xptxas -v, compiled beside the
+build).
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; for a gather, each table entry the
@@ -85,6 +93,7 @@ JSON line of the kernels, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -225,7 +234,10 @@ def sorted_pass(rp, ts, keys, payloads, nbits, shift, offsets, base, mask_bits, 
         lambda: rp.merge_scatter_plain(sk, sp, offsets, nbits, shift, st, tile, mask_bits,
                                        out_rows),
         None, 2 * nbytes(keys, *payloads) + nbytes(offsets),
-        n * (rp.MERGE_TILES.bit_length() - 1), shape=shape, mask_bits=mask_bits)
+        n * (rp.MERGE_TILES.bit_length() - 1), shape=shape, mask_bits=mask_bits,
+        output_allocation="inside the timed window: torch.empty of the outputs"
+        + ("" if out_rows is None else ", and kernel G's own fill of the rows no run covers"),
+        occupancy=rp.merge_scatter_occupancy(st, nbits))
     return f_row, g_row, out
 
 
@@ -578,7 +590,19 @@ def j1_kernel_phase(dev, gen, rp, ts):
     tables, mult = rp.ordinal_tables(dup, n_med)
     check(mult == 3, f"H m=3: fan-out {mult}")
     lk = probe_codes(dev, gen, n_med)
-    pk_m, (pv_m,), base_m, _ = rp.radix_partition(lk, [rows_i], rp.domain_bits(n_med))
+    bits_m = rp.domain_bits(n_med)                         # 17: one pass at 2^4 digits
+    nbits_m = bits_m - rp.WINDOW_BITS
+    off_m, base_m = rp.partition_offsets(rp.digit_histogram(lk, nbits_m, rp.WINDOW_BITS, st))
+    shape = (f"J1 medium probe, single pass: 1e8 rows, 2^{nbits_m} digits, mask_bits {bits_m}, "
+             "one int32 payload")
+    f_row, g_row, _ = sorted_pass(rp, ts, lk, [rows_i], nbits_m, rp.WINDOW_BITS, off_m, base_m,
+                                  bits_m, shape)
+    modes["tile_sort_data"][shape] = f_row
+    modes["merge_scatter"][shape] = g_row
+    show("F at J1 medium (bit for bit)", f_row)
+    show("G at J1 medium (bit for bit)", g_row)
+    del off_m, base_m
+    pk_m, (pv_m,), base_m, _ = rp.radix_partition(lk, [rows_i], bits_m)
     del lk
     idx = pk_m[:int(base_m[-1])].long()
     probe_check(rp, pk_m, base_m, ids_m.view(1, -1))
@@ -762,11 +786,17 @@ def main():
     from cudf_tpu_torch.models import j1_join
 
     t0 = time.perf_counter()
-    lib = _build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:   # ptxas -v of G beside the build
+        ptxas = pool.submit(_build.ptxas_report, _build.CSRC / "merge_scatter.cu")
+        lib = _build.library()
+        ptxas = [line for line in ptxas.result() if "ptxas info" in line or "stack frame" in line]
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s ({lib.path.name})")
+    for line in ptxas:
+        log(f"  G {line}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = kernel_phase(dev, gen, ha, rp, ts)
+    kernels["merge_scatter"]["ptxas"] = ptxas
     torch.cuda.empty_cache()
     log("phase 3 G1 kernels: all six agree with their plain versions")
 

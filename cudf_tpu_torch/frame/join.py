@@ -2,7 +2,9 @@
 ``cudf_tpu/frame/join.py`` ``merge``).
 
 The key columns are given by ``on`` (emitted once, from the left), or by
-``left_on`` / ``right_on`` (both emitted).  Other columns whose names
+``left_on`` / ``right_on`` (both emitted, except a pair that names the
+same column on both sides: that key is emitted once, from the left, as
+pandas does).  Other columns whose names
 appear on both sides get ``suffixes``.  Rows come in left-row order, with
 right-row order inside each left row, under a fresh RangeIndex.  Other
 ``how`` values, ``sort=True`` and index joins need the sort-merge and
@@ -35,7 +37,8 @@ def merge(left: DataFrame, right: DataFrame, on=None, how: str = "inner",
         key_names = set(lnames)
     elif left_on is not None and right_on is not None:
         lnames, rnames = _names(left_on), _names(right_on)
-        key_names = set()
+        # a key that names the same column on both sides comes out once
+        key_names = {a for a, b in zip(lnames, rnames) if a == b}
     else:
         raise NotImplementedError("merge needs on= or both left_on= and right_on= "
                                   "(keys from the common columns are not ported yet)")

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -116,6 +116,23 @@ def build() -> Path:
         for obj in objs:
             Path(obj).unlink(missing_ok=True)
     return out
+
+
+def ptxas_report(source: Path) -> List[str]:
+    """ptxas's report (``-Xptxas -v``) on one source compiled with the
+    build's flags: each kernel's registers, stack frame and spills.  The
+    object is discarded.  Raises with nvcc's output on a failed compile."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / f"ptxas.{Path(source).stem}.{os.getpid()}.o"
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                               str(source)], capture_output=True, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {source}: exit {proc.returncode}\n{log}")
+    return [line.strip() for line in log.splitlines() if line.strip()]
 
 
 def library() -> _Library:

@@ -104,11 +104,13 @@ def _decode_order_key(enc: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
 
 
 def _finish_minmax(mins, maxs, counts, dtype: torch.dtype):
-    """Cast extrema to the values' dtype; empty groups get the identity."""
+    """Empty groups get the identity, then extrema are cast to the values'
+    dtype: the fill happens in the widened dtype, since torch has no
+    masked_fill for uint16 and uint32."""
     empty = counts == 0
     lo, hi = _extremes(dtype)
-    mins = mins.to(dtype).masked_fill(empty, hi)
-    maxs = maxs.to(dtype).masked_fill(empty, lo)
+    mins = mins.masked_fill(empty, hi).to(dtype)
+    maxs = maxs.masked_fill(empty, lo).to(dtype)
     return mins, maxs
 
 

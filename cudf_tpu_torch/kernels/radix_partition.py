@@ -88,8 +88,8 @@ _SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _MERGE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _AGG_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p]
@@ -271,8 +271,12 @@ def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
     bits of the order key: keys below 2^(shift + nbits), or mask_bits =
     shift + nbits.  rows = ``out_rows`` or n; rows no run covers hold key
     -1 and zero payloads when ``out_rows`` is given (a first pass's padded
-    regions) and are unspecified otherwise.  CUDA tensors launch kernel G,
-    counted in ``merge_scatter.launches``."""
+    regions, whose offsets are a single-region layout: partition_offsets
+    without region_of_tile) and are unspecified otherwise.  CUDA tensors
+    launch kernel G, counted in ``merge_scatter.launches``; its outputs
+    are allocated empty, and with ``out_rows`` the kernel writes -1 and 0
+    over the rows no run covers (each region's tail, the rows past the
+    last region) itself."""
     payloads = list(payloads)
     n = check_columns(keys, payloads)
     _check_merge(nbits, shift, super_tile, tile, mask_bits)
@@ -284,13 +288,14 @@ def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
     if keys.device.type == "cpu":
         return merge_scatter_plain(keys, payloads, offsets, nbits, shift, super_tile, tile,
                                    mask_bits, out_rows)
-    out_keys, outs = _merge_outputs(keys, payloads, out_rows)
+    out_keys, outs = _merge_outputs(keys, payloads, out_rows, prefill=n == 0)
     if n:
         src, dst, widths = column_arrays(payloads, outs)
         _build.launch("cudf_merge_scatter", _MERGE_ARGTYPES, keys.device, keys.data_ptr(), n,
                       shift, nbits, super_tile, tile, mask, offsets.data_ptr(),
-                      out_keys.data_ptr(), out_keys.shape[0], len(payloads),
-                      ctypes.addressof(src), ctypes.addressof(dst), ctypes.addressof(widths))
+                      out_keys.data_ptr(), out_keys.shape[0], int(out_rows is not None),
+                      len(payloads), ctypes.addressof(src), ctypes.addressof(dst),
+                      ctypes.addressof(widths))
         merge_scatter.launches += 1
     return out_keys, outs
 
@@ -298,11 +303,27 @@ def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
 merge_scatter.launches = 0
 
 
-def _merge_outputs(keys, payloads, out_rows):
-    """merge_scatter's outputs: n rows, or out_rows rows holding key -1
-    and zero payloads until a run covers them."""
+def merge_scatter_occupancy(super_tile: int, nbits: int) -> dict:
+    """Kernel G's resident blocks per SM, threads per block and dynamic
+    shared memory per block (bytes) on the current CUDA device at this
+    supertile and digit width."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.launch("cudf_merge_scatter_occupancy", [ctypes.c_int, ctypes.c_int]
+                  + [ctypes.c_void_p] * 3, dev, super_tile, nbits,
+                  *[ctypes.addressof(v) for v in out])
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), (v.value for v in out)))
+
+
+def _merge_outputs(keys, payloads, out_rows, prefill=True):
+    """merge_scatter's outputs: n rows, or out_rows rows, prefilled with
+    key -1 and zero payloads when ``prefill`` (kernel G writes those rows
+    itself)."""
     if out_rows is None:
         return torch.empty_like(keys), [torch.empty_like(p) for p in payloads]
+    if not prefill:
+        return (torch.empty(out_rows, dtype=torch.int32, device=keys.device),
+                [torch.empty(out_rows, dtype=p.dtype, device=keys.device) for p in payloads])
     return (torch.full((out_rows,), -1, dtype=torch.int32, device=keys.device),
             [torch.zeros(out_rows, dtype=p.dtype, device=keys.device) for p in payloads])
 

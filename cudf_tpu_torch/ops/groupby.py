@@ -12,7 +12,9 @@ is reduced to int32 codes ``key - key_min`` over K = max - min + 1 slots:
 
 The output holds the observed groups only, in ascending key order.
 Values keep their own width: integer and bool sums are exact int64,
-float sums float64, min/max the column's dtype.  Unlike the reference,
+float sums and means are taken in float64 and come back in the column's
+float dtype (float32 stays float32, as in pandas), integer means are
+float64, min/max the column's dtype.  Unlike the reference,
 a group whose values are all null gives a null mean, min and max (its
 sum is 0 and its count 0, as in pandas), and min/max skip NaN as pandas
 does (a group of only NaN gives NaN) on both tiers.  NaN is otherwise a
@@ -128,14 +130,16 @@ def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
     for name, col, agg in values:
         mask = valid if agg == "size" else masks[id(col)]
         s, c, mn, mx = runs[(id(col), id(mask))]["out"]
+        # float32 values: summed in float64, returned in float32 as pandas does
+        float_dt = dt.FLOAT32 if col.dtype == dt.FLOAT32 else dt.FLOAT64
         if agg == "sum":
-            out_dt = dt.FLOAT64 if s.dtype == torch.float64 else dt.INT64
-            results[name] = Column(out_dt, K, s)
+            out_dt = float_dt if s.dtype == torch.float64 else dt.INT64
+            results[name] = Column(out_dt, K, s.to(out_dt.torch_storage))
         elif agg in ("count", "size"):
             results[name] = Column(dt.INT64, K, c)
         elif agg == "mean":
-            results[name] = Column(dt.FLOAT64, K, s.double() / c.clamp(min=1),
-                                   c > 0)
+            mean = s.double() / c.clamp(min=1)
+            results[name] = Column(float_dt, K, mean.to(float_dt.torch_storage), c > 0)
         else:
             results[name] = Column(col.dtype, K, mn if agg == "min" else mx, c > 0)
     present = filter_indices(occupied > 0)

@@ -193,13 +193,23 @@ def test_tile_sort_kernels_match_plain(dev, n, tile, alternate, mask_bits, width
 def test_merge_scatter_matches_plain(dev, merge_tiles, mask_bits, n, widths):
     """Kernel G over kernel F's output: bit for bit the plain merge, in the
     valid rows and, with out_rows, in every padded row too."""
-    tile = 4096
-    nbits, shift, st = 7, rp.WINDOW_BITS, merge_tiles * tile
     keys, cols = _sort_inputs(dev, n, merge_tiles * n, mask_bits, widths)
+    gk = _merge_matches_plain(keys, cols, 4096, merge_tiles, 7, mask_bits)
+    assert int((gk >= 0).sum()) == int((keys >= 0).sum())
+
+
+def _merge_matches_plain(keys, cols, tile, merge_tiles, nbits, mask_bits):
+    """Kernel G over kernel F's output against the plain merge, bit for
+    bit: without out_rows in the valid rows, and with out_rows (a first
+    pass's padded regions) in every row, the outputs allocated over junk
+    since the kernel has no prefill.  Returns the out_rows call's keys."""
+    n, shift, st = keys.numel(), rp.WINDOW_BITS, merge_tiles * tile
     hist = rp.digit_histogram(keys, nbits, shift, st)
     sk, sc = ts.tile_sort_data(keys, cols, tile, alternate=True, mask_bits=mask_bits)
     for align, out_rows in ((1, None), (st, (-(-n // st) + (1 << nbits)) * st)):
         offsets, base = rp.partition_offsets(hist, align=align)
+        rows = n if out_rows is None else out_rows
+        _fill_junk((rows,), *[(rows * c.element_size() // 4,) for c in cols])
         before = rp.merge_scatter.launches
         gk, gc = rp.merge_scatter(sk, sc, offsets, nbits, shift, st, tile, mask_bits, out_rows)
         assert rp.merge_scatter.launches == before + 1
@@ -208,7 +218,31 @@ def test_merge_scatter_matches_plain(dev, merge_tiles, mask_bits, n, widths):
         m = int(base[-1]) if out_rows is None else out_rows
         assert torch.equal(gk[:m], ek[:m])
         assert all(_same_bits(a[:m], b[:m]) for a, b in zip(gc, ec))
-    assert int((gk >= 0).sum()) == int((keys >= 0).sum())
+    return gk
+
+
+@pytest.mark.parametrize("case", ["equal_keys", "one_bucket", "negative_supertile", "nbits_1",
+                                  "nbits_max", "short_last_supertile"])
+@pytest.mark.parametrize("widths", [(4,), (8, 4), (4, 8, 8), (8, 4, 4, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_merge_scatter_edge_shapes_match_plain(dev, case, widths, masked):
+    """Kernel G where a merge path goes wrong: every key equal across the
+    four tiles (stability: ties by tile, then position), a supertile all
+    in one bucket, a supertile of only negative keys, 1 and MAX_MERGE_BITS
+    digit bits, a last supertile shorter than one tile; 1 to 4 payloads of
+    mixed width; under the route's mask or none."""
+    tile, st = 4096, 4 * 4096
+    nbits = {"nbits_1": 1, "nbits_max": rp.MAX_MERGE_BITS}.get(case, 7)
+    n = 3 * st + 1000 if case == "short_last_supertile" else 2 * st + 5000
+    keys, cols = _sort_inputs(dev, n, len(widths), rp.WINDOW_BITS + nbits if masked else None,
+                              widths, nbits=nbits)
+    if case == "equal_keys":
+        keys.fill_(3 << rp.WINDOW_BITS | 77)
+    elif case == "one_bucket":
+        keys[:st] = (keys[:st] & (rp.SPAN - 1)) | (1 << rp.WINDOW_BITS)
+    elif case == "negative_supertile":
+        keys[st:2 * st] = -1 - keys[st:2 * st].abs()
+    _merge_matches_plain(keys, cols, tile, 4, nbits, rp.WINDOW_BITS + nbits if masked else None)
 
 
 @pytest.mark.parametrize("bits", [17, 21, 27])

@@ -13,9 +13,13 @@ are f32-representable and, like G1's v3, non-negative: the reference
 rounds float values to f32 (ops/groupby.py:943) and sums each grid step
 in f32 before its double-float carry, an error relative to the sum of
 |v| that stays within rtol 1e-7 of a sum without cancellation; the port
-sums in float64 and agrees with pandas to rtol 1e-12.  Where the
-reference is known to be wrong (all-null groups: ROADMAP.md queue 3), the
-port is held to pandas only.
+sums in float64 and agrees with pandas to rtol 1e-12.  Float32 sums and
+means come back in float32 on both sides, but pandas sums float32 in
+float32 and the port in float64 before it rounds once: they agree within
+a few float32 ulps of the terms (F32_RTOL, F32_ATOL; the terms of the
+float32 column g are below 6 in magnitude).  Where the reference is known
+to be wrong (all-null groups, the float32 mean's width: ROADMAP.md queue
+3), the port is held to pandas only.
 """
 
 import numpy as np
@@ -34,9 +38,13 @@ torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 N = 20_000
-SPEC = {"f": ["sum", "mean", "count", "size"], "g": ["min", "max", "count"],
+SPEC = {"f": ["sum", "mean", "count", "size"], "g": ["sum", "mean", "min", "max", "count"],
         "i": ["sum", "mean", "count", "min", "max", "size"],
         "b": ["sum", "mean", "min", "max"]}
+# the reference's float32 mean comes back float64, and its float32 sums
+# of g's signed terms cancel in f32: g's sum and mean are held to pandas
+REF_SPEC = dict(SPEC, g=["min", "max", "count"])
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
 
 
 @pytest.fixture
@@ -77,16 +85,17 @@ def _port(pdf, spec, **kw):
 
 
 def _assert_frames(got, exp, rtol):
-    """Index and integer/bool columns exact; float columns to rtol (NaN in
-    the same places).  The float32 column g is only asked for min, max
-    and count: pandas sums float32 in float32, the port in float64."""
+    """Index and integer/bool columns exact; float columns of the same
+    width, to rtol (float32 ones to F32_RTOL and F32_ATOL at least), NaN
+    in the same places."""
     np.testing.assert_array_equal(got.index.to_numpy(), exp.index.to_numpy())
     assert list(got.columns) == list(exp.columns)
     for col in exp.columns:
         g, e = got[col].to_numpy(), exp[col].to_numpy()
         if e.dtype.kind == "f":
-            assert g.dtype.kind == "f", col
-            np.testing.assert_allclose(g, e, rtol=rtol, atol=0, equal_nan=True,
+            assert g.dtype == e.dtype, col
+            rt, at = (max(rtol, F32_RTOL), F32_ATOL) if e.dtype == np.float32 else (rtol, 0)
+            np.testing.assert_allclose(g, e, rtol=rt, atol=at, equal_nan=True,
                                        err_msg=str(col))
         else:
             assert g.dtype == e.dtype, col
@@ -95,10 +104,9 @@ def _assert_frames(got, exp, rtol):
 
 def test_low_k_matches_reference_kernel_tier(reference_kernel_tier):
     pdf = _frame(1, 100)
-    got = _port(pdf, SPEC)
-    ref = cudf_tpu.DataFrame.from_pandas(pdf).groupby("k").agg(SPEC).to_pandas()
-    _assert_frames(got, ref, rtol=1e-7)
-    _assert_frames(got, pdf.groupby("k").agg(SPEC), rtol=1e-12)
+    ref = cudf_tpu.DataFrame.from_pandas(pdf).groupby("k").agg(REF_SPEC).to_pandas()
+    _assert_frames(_port(pdf, REF_SPEC), ref, rtol=1e-7)
+    _assert_frames(_port(pdf, SPEC), pdf.groupby("k").agg(SPEC), rtol=1e-12)
 
 
 def test_high_k_matches_reference_and_pandas():
@@ -145,7 +153,7 @@ def test_all_null_groups_match_pandas(K):
     pdf = _frame(4, K, all_null_groups=True)
     pdf.loc[pdf.k % 10 == 0, ["f", "g"]] = np.nan
     spec = {"f": ["sum", "mean", "count", "min", "max", "size"],
-            "g": ["min", "max", "count"]}
+            "g": ["sum", "mean", "min", "max", "count"]}
     got = _port(pdf, spec)
     exp = pdf.groupby("k").agg(spec)
     assert exp[("f", "count")].eq(0).any()
@@ -165,6 +173,50 @@ def test_nan_values_min_max_skip_nan_like_pandas(K):
     exp = pdf.groupby("k").agg(spec)
     assert exp[("f", "min")].isna().any()
     _assert_frames(got, exp, rtol=0)
+
+
+@pytest.mark.parametrize("K", [100, 50_000])
+def test_float32_sum_and_mean_stay_float32(K):
+    """A float32 column's sum and mean come back in float32, as pandas
+    gives them (ROADMAP.md queue 3: the port gave float64, and the
+    reference gives float64 for the mean); the sum is taken in float64."""
+    pdf = _frame(13, K)[["k", "g"]]
+    spec = {"g": ["sum", "mean", "count"]}
+    got = _port(pdf, spec)
+    assert got[("g", "sum")].dtype == got[("g", "mean")].dtype == np.float32
+    _assert_frames(got, pdf.groupby("k").agg(spec), rtol=0)
+
+
+@pytest.mark.parametrize("K", [100, 10_000])          # the one-hot tier, the radix tier
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
+def test_unsigned_values_min_max_match_pandas(K, dtype):
+    """min/max of unsigned value columns in their own dtype on both tiers
+    (ROADMAP.md queue 3: uint16 and uint32 raised on the one-hot tier),
+    values up to the dtype's largest, and a group that only has nulls."""
+    rng = np.random.default_rng(14)
+    info = np.iinfo(dtype)
+    k = rng.integers(0, K, N)
+    u = rng.integers(0, int(info.max) + 1, N, dtype=np.uint64).astype(dtype)
+    u[:3] = info.max
+    valid = k != 5
+    df = ct.DataFrame({"k": ct.from_buffers(np.int64, N, k, None, device=CPU),
+                       "u": ct.from_buffers(dtype, N, u, valid, device=CPU)})
+    spec = {"u": ["min", "max", "count"]}
+    res = df.groupby("k").agg(spec)
+    got = res.to_pandas()
+    exp = pd.DataFrame({"k": k, "u": pd.array(u, dtype=f"UInt{info.bits}")})
+    exp.loc[~valid, "u"] = pd.NA
+    exp = exp.groupby("k").agg(spec)
+    np.testing.assert_array_equal(got.index.to_numpy(), exp.index.to_numpy())
+    np.testing.assert_array_equal(got[("u", "count")].to_numpy(),
+                                  exp[("u", "count")].to_numpy())
+    for agg in ("min", "max"):
+        # the port keeps uint data under a validity mask; to_pandas gives
+        # float64 with NaN for a column with nulls, pandas UInt with <NA>
+        assert res._table[("u", agg)].data.dtype == torch.from_numpy(u).dtype
+        g, e = got[("u", agg)], exp[("u", agg)]
+        assert g.isna().tolist() == e.isna().tolist() and e.isna().any()
+        assert g.dropna().astype(dtype).tolist() == e.dropna().astype(dtype).tolist()
 
 
 @pytest.mark.parametrize("K", [100, 50_000])

@@ -180,6 +180,21 @@ def test_left_on_right_on_and_suffixes(kernel_tiers):
     _check(got, ref, left.merge(right, **kw))
 
 
+@pytest.mark.parametrize("keys", ["id", ["id"]])
+def test_left_on_right_on_same_column_emits_it_once(keys):
+    """left_on and right_on naming the same column: the key comes out
+    once, from the left, as pandas gives it (ROADMAP.md queue 3: the port
+    and the reference emit id_x and id_y).  The probe has at least
+    join.fast_path_min_rows rows, the radix tier's default bound."""
+    fact, dim = _j1(10, n_fact=70_000)
+    dim = dim.assign(v1=-np.arange(ND))
+    kw = dict(left_on=keys, right_on=keys)
+    got = ct.from_pandas(fact, device=CPU).merge(ct.from_pandas(dim, device=CPU),
+                                                 **kw).to_pandas()
+    assert list(got.columns) == ["id", "v1_x", "v2", "v1_y"]
+    _check(got, fact.merge(dim, **kw))
+
+
 @pytest.mark.parametrize("tier", ["radix", "dense"])
 def test_no_matches(kernel_tiers, tier):
     fact, dim = _j1(6)
