@@ -3,6 +3,11 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
+With --beside DIR it only builds the kernels and times kernels A and D at
+the main path's shapes beside those of the checkout in DIR (e.g. the
+parent, unpacked by git archive into build/parent), in one process on
+the same data, and prints the times as its last line.
+
 Phases (any failure raises; the exit code is then non-zero and no
 result line is printed):
 
@@ -22,19 +27,27 @@ torch.Generator:
    rest (7-bit digits; F and G with 4096-key tiles, 16384-key
    supertiles, under mask_bits = 20 as the route calls them, and F once
    more without a mask: the full 32-bit order of the contract and of
-   E).  Tolerances: counts, histograms and integer sums exact;
-   float64 sums rtol 1e-12 (atomic order varies); C's output holds the
-   same (key, payload) multiset in every bucket; F and G bit for bit.
-   Then radix_partition's two routes, merge_tiles = 1 (B, C) and 4 (B,
-   F, G), must give the same windows; both are timed.
+   E).  A at bench K = 100's one f64 column, and q4's v1, v2, v3 in one
+   launch (also timed as one launch a column).  D at q5's v1, v2, v3 in
+   one launch over radix_partition's sorted route (also timed as one
+   launch a column, and with one step a window: the cost of the
+   cross-block combine), over that route with one f64 column, and over
+   kernel C's unsorted output with one f64 column; D's outputs are
+   checked after the caching allocator was filled with junk, since it
+   writes every slot itself.  Tolerances: counts, histograms and integer
+   sums exact; float64 sums rtol 1e-12 (atomic order varies); C's output
+   holds the same (key, payload) multiset in every bucket; F and G bit
+   for bit.  Then radix_partition's two routes, merge_tiles = 1 (B, C)
+   and 4 (B, F, G), must give the same windows; both are timed.
 4. main path: DataFrame.groupby().agg: q4 (mean of v1, v2, v3 by id4, the
    one-hot tier), q5 (sum of v1, v2, v3 by id6, the radix tier) and
    bench.py's {"v": ["sum", "mean", "count"]} request on v3 by id4
    (K = 100) and by id6 (K = 1e6).  Each result is checked against a
    plain PyTorch groupby on the card, and kernels A, B, F, G and D must
-   each have been launched during this run.  Then the sum of six value
-   columns by id6 (more than one partition launch carries) is checked the
-   same way.
+   each have been launched during this run.  Each query is then run
+   alone with every count at 0 before it: q4 must launch A once and q5 D
+   once.  Then the sum of six value columns by id6 (more than one
+   partition launch carries) is checked the same way.
 5. timings: median of 7 warm runs of each query and of its plain PyTorch
    counterpart (CUDA events, then synchronize), as rows/s.
 
@@ -46,9 +59,12 @@ over 1..ceil(1.1 n), so about 9% of fact rows find no match), made on the
 card from the same generator:
 
 3. kernels, all checked exactly against their plain versions: kernel D's
-   id and idpay modes (window_tables, float64 payload) over J1 big's
-   build (1e8 unique keys, 16384 windows); B and C over J1 big's probe
-   partition; E tile_sort of the probe keys with one int32 rider; F and
+   id and idpay modes in one launch (window_tables, float64 payload) and
+   its id mode alone (the J1 path's) over J1 big's build (1e8 unique
+   keys, 16384 windows, a quarter of them empty), over junk; B and C
+   over J1 big's probe partition, and B at the sorted route's three J1
+   shapes (both J1 big passes, the J1 medium pass); E tile_sort of the
+   probe keys with one int32 rider; F and
    G in both passes of the sorted route over the probe side (mask_bits
    27, then 20), and both routes of radix_partition there, which must
    give the same windows; F and G in the single pass of J1 medium's
@@ -75,9 +91,11 @@ card from the same generator:
 
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
-resident blocks per SM, threads and shared memory; the G1 row carries
-ptxas's report on csrc/merge_scatter.cu (-Xptxas -v, compiled beside the
-build).
+resident blocks per SM, threads and shared memory; A's and D's rows
+carry theirs and their registers.  The G, D and A rows carry ptxas's
+report on their sources (-Xptxas -v, compiled beside the build), and the
+A and D rows the shared-memory atomics (ATOMS opcodes, counted in
+cuobjdump -sass) of their kernels.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; for a gather, each table entry the
@@ -93,6 +111,7 @@ JSON line of the kernels, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
+import argparse
 import concurrent.futures
 import json
 import statistics
@@ -271,6 +290,7 @@ def kernel_phase(dev, gen, ha, rp, ts):
     v_int = torch.randint(1, 16, (N,), generator=gen, device=dev, dtype=torch.int32)
     v_f64 = torch.rand(N, generator=gen, device=dev, dtype=torch.float64) * 100
 
+    v_small = torch.randint(1, 6, (N,), generator=gen, device=dev, dtype=torch.int32)
     err = 0.0
     for vals in (v_int, v_f64):
         got = ha.onehot_groupby_aggregate(codes_low, vals, K_LOW, with_minmax=False)
@@ -282,8 +302,29 @@ def kernel_phase(dev, gen, ha, rp, ts):
         lambda: ha.onehot_groupby_aggregate_plain(codes_low, v_f64, K_LOW, with_minmax=False),
         lambda: torch.zeros(K_LOW, dtype=torch.float64, device=dev).index_add_(
             0, codes_low, v_f64),
-        nbytes(codes_low, v_f64) + 16 * K_LOW, 2 * N)
+        nbytes(codes_low, v_f64) + 16 * K_LOW, 2 * N,
+        shape="bench K = 100: 1e8 rows, one f64 column",
+        occupancy=ha.onehot_aggregate_occupancy(K_LOW, [False]))
     show("A", rows["onehot_groupby_aggregate"])
+    q4 = [v_small, v_int, v_f64]                        # q4's v1, v2, v3 in one launch
+    before = ha.onehot_groupby_aggregate.launches
+    got = ha.onehot_groupby_aggregate(codes_low, q4, K_LOW, with_minmax=False)
+    check(ha.onehot_groupby_aggregate.launches == before + 1, "A: q4's columns in one launch")
+    exp = ha.onehot_groupby_aggregate_plain(codes_low, q4, K_LOW, with_minmax=False)
+    err = same(got[1], exp[1], "A q4 counts")
+    for a, b in zip(got[0], exp[0]):
+        err = max(err, same(a, b, "A q4 sums"))
+    shape = "q4: 1e8 rows, K = 100, int32 + int32 + f64 columns in one launch"
+    row = timed_row(
+        err, lambda: ha.onehot_groupby_aggregate(codes_low, q4, K_LOW, with_minmax=False),
+        lambda: ha.onehot_groupby_aggregate_plain(codes_low, q4, K_LOW, with_minmax=False),
+        None, nbytes(codes_low, *q4) + 32 * K_LOW, 4 * N, shape=shape,
+        occupancy=ha.onehot_aggregate_occupancy(K_LOW, [False] * 3))
+    row["one_launch_a_column_ms"] = device_ms(lambda: [ha.onehot_groupby_aggregate(
+        codes_low, v, K_LOW, with_minmax=False) for v in q4])
+    rows["onehot_groupby_aggregate"]["modes"] = {shape: row}
+    show("A, q4's three columns in one launch", row)
+    log(f"  the same columns in one launch each: {row['one_launch_a_column_ms']} ms")
     del codes_low
 
     codes = torch.randint(0, K_HIGH, (N,), generator=gen, device=dev, dtype=torch.int32)
@@ -336,20 +377,76 @@ def kernel_phase(dev, gen, ha, rp, ts):
                                                        nbits + shift, "G1 K = 1e6")
 
     G = 1 << nbits
+    modes = {}
+    shape = "G1 K = 1e6 over kernel C's output (merge_tiles = 1; unsorted runs), one f64 column"
     err = 0.0
     for vals in pv:
-        got = rp.bucket_aggregate(pk, vals, base, G)
-        exp = rp.bucket_aggregate_plain(pk, vals, base, G)
-        err = max(err, same(got[0], exp[0], "D sums"), same(got[1], exp[1], "D counts"))
-    rows["bucket_aggregate"] = timed_row(
+        err = max(err, d_check(rp, pk, vals, base, G, "D over C's output"))
+    got = rp.bucket_aggregate(pk, pv[1], base, G)
+    modes[shape] = timed_row(
         err,
         lambda: rp.bucket_aggregate(pk, pv[1], base, G),
         lambda: rp.bucket_aggregate_plain(pk, pv[1], base, G),
         lambda: torch.zeros(G * rp.SPAN, dtype=torch.float64, device=dev).index_add_(
             0, pk, pv[1]),
-        nbytes(pk, pv[1], *got), 2 * N)
-    show("D", rows["bucket_aggregate"])
+        nbytes(pk, pv[1], *got), 2 * N, shape=shape)
+    show("D over C's output, one f64 column", modes[shape])
+    del pk, pv, got
+
+    # the main path's D: q5's v1, v2, v3 through the sorted route, one launch
+    q5 = [v_small, v_int, v_f64]
+    pk, pv, base, G = rp.radix_partition(codes, q5, nbits + shift)
+    before = rp.bucket_aggregate.launches
+    err = d_check(rp, pk, pv, base, G, "D q5")
+    check(rp.bucket_aggregate.launches == before + 1, "D: q5's columns in one launch")
+    got = rp.bucket_aggregate(pk, pv, base, G)
+    shape = "G1 K = 1e6 over the sorted route's output: q5's int32 + int32 + f64, one launch"
+    row = timed_row(
+        err, lambda: rp.bucket_aggregate(pk, pv, base, G),
+        lambda: rp.bucket_aggregate_plain(pk, pv, base, G), None,
+        nbytes(pk, *pv, *got[0], got[1]), 4 * N, shape=shape,
+        occupancy=rp.bucket_aggregate_occupancy(3))
+    row["three_index_add_ms"] = device_ms(lambda: [torch.zeros(
+        G * rp.SPAN, dtype=torch.float64 if v.is_floating_point() else torch.int64,
+        device=dev).index_add_(0, pk, v if v.is_floating_point() else v.long()) for v in pv])
+    row["one_launch_a_column_ms"] = device_ms(
+        lambda: [rp.bucket_aggregate(pk, v, base, G, with_counts=j == 0)
+                 for j, v in enumerate(pv)])
+    row["one_step_a_window_ms"] = device_ms(         # agg_rows above every window's rows
+        lambda: rp.bucket_aggregate(pk, pv, base, G, agg_rows=1 << 21))
+    same(rp.bucket_aggregate(pk, pv, base, G, agg_rows=1 << 21)[0][2], got[0][2],
+         "D q5, one step a window")
+    rows["bucket_aggregate"] = row
+    show("D, q5's three columns in one launch", row)
+    log(f"  three index_add_ calls {row['three_index_add_ms']} ms; one launch a column "
+        f"{row['one_launch_a_column_ms']} ms; one step a window (no global atomics) "
+        f"{row['one_step_a_window_ms']} ms")
+    shape = "G1 K = 1e6 over the sorted route's output, one f64 column"
+    modes[shape] = timed_row(
+        0.0, lambda: rp.bucket_aggregate(pk, pv[2], base, G),
+        lambda: rp.bucket_aggregate_plain(pk, pv[2], base, G),
+        lambda: torch.zeros(G * rp.SPAN, dtype=torch.float64, device=dev).index_add_(
+            0, pk, pv[2]),
+        nbytes(pk, pv[2], *got[0][2:], got[1]), 2 * N, shape=shape,
+        occupancy=rp.bucket_aggregate_occupancy(1))
+    show("D over the sorted route, one f64 column", modes[shape])
+    row["modes"] = modes
     return rows
+
+
+def d_check(rp, pk, vals, base, G, what):
+    """Kernel D (one column or a list) against its plain version, its
+    outputs allocated over junk since it writes every slot itself; counts
+    exact, integer sums exact, float sums rtol 1e-12 (atomic order)."""
+    size = G * rp.SPAN
+    ncols = 1 if isinstance(vals, torch.Tensor) else len(vals)
+    fill_junk(*[(2 * size,)] * (ncols + 1))
+    got, counts = rp.bucket_aggregate(pk, vals, base, G)
+    exp, e_counts = rp.bucket_aggregate_plain(pk, vals, base, G)
+    err = same(counts, e_counts, f"{what} counts")
+    for a, b in zip([got] if ncols == 1 else got, [exp] if ncols == 1 else exp):
+        err = max(err, same(a, b, f"{what} sums"))
+    return err
 
 
 def g1_frame(ct, dev, gen):
@@ -442,28 +539,44 @@ def j1_kernel_phase(dev, gen, rp, ts):
     rid1 = torch.arange(1, n_dim + 1, dtype=torch.int32, device=dev)
     pk_r, (prid, ppay), base_r, G = rp.radix_partition(rk, [rid1, rp.payload_bits(rv)], bits)
     del rid1
+    size = G * rp.SPAN
+    fill_junk(*[(2 * size,)] * 3)               # kernel D writes every slot itself
+    before = rp.bucket_aggregate.launches
     ids, counts, pay = rp.window_tables(pk_r, prid, base_r, G, ppay)
-    e_ids, e_counts = rp.bucket_aggregate_plain(pk_r, prid, base_r, G)
-    e_pay, _ = rp.bucket_aggregate_plain(pk_r, ppay, base_r, G, with_counts=False)
+    check(rp.bucket_aggregate.launches == before + 1, "D: id + idpay in one launch")
+    (e_ids, e_pay), e_counts = rp.bucket_aggregate_plain(pk_r, [prid, ppay], base_r, G)
     same(ids, e_ids, "D id mode ids")
     same(counts, e_counts, "D id mode counts")
     same(pay, e_pay, "D idpay mode payload bits")
+    check(torch.equal(pay[rk.long()], rp.payload_bits(rv)), "D idpay: payload bits not copied")
     del e_ids, e_counts, e_pay
     want = torch.zeros_like(ids)
     want[rk.long()] = torch.arange(1, n_dim + 1, device=dev)
     same(ids, want, "D id mode: build_row_id + 1 per key")
     check(int(counts.max()) == 1, "D id mode: J1 big's build is unique")
     del want, counts
-    modes["bucket_aggregate"]["id/idpay, J1 big build (1e8 keys, G = 16384, f64 payload)"] = \
-        timed_row(0.0,
-                  lambda: rp.window_tables(pk_r, prid, base_r, G, ppay),
-                  lambda: (rp.bucket_aggregate_plain(pk_r, prid, base_r, G),
-                           rp.bucket_aggregate_plain(pk_r, ppay, base_r, G, with_counts=False)),
-                  lambda: torch.zeros(G * rp.SPAN, dtype=torch.int64, device=dev).index_add_(
-                      0, pk_r, ppay),
-                  nbytes(pk_r, prid, ppay) + 3 * nbytes(ids), 3 * n_dim)
-    show("D id/idpay (exact)", next(iter(modes["bucket_aggregate"].values())))
-    del pk_r, prid, ppay
+    name = "id/idpay in one launch, J1 big build (1e8 keys, G = 16384, f64 payload)"
+    modes["bucket_aggregate"][name] = timed_row(
+        0.0, lambda: rp.window_tables(pk_r, prid, base_r, G, ppay),
+        lambda: rp.bucket_aggregate_plain(pk_r, [prid, ppay], base_r, G),
+        lambda: torch.zeros(size, dtype=torch.int64, device=dev).index_add_(0, pk_r, ppay),
+        nbytes(pk_r, prid, ppay) + 3 * nbytes(ids), 3 * n_dim,
+        occupancy=rp.bucket_aggregate_occupancy(2))
+    show("D id + idpay in one launch (exact)", modes["bucket_aggregate"][name])
+    fill_junk(*[(2 * size,)] * 2)
+    ids1, counts1, _ = rp.window_tables(pk_r, prid, base_r, G)
+    e_ids, e_counts = rp.bucket_aggregate_plain(pk_r, prid, base_r, G)
+    same(ids1, e_ids, "D id mode alone: ids")
+    same(counts1, e_counts, "D id mode alone: counts")
+    del e_ids, e_counts
+    name = "id alone (the J1 path's mode), J1 big build (1e8 keys, G = 16384)"
+    modes["bucket_aggregate"][name] = timed_row(
+        0.0, lambda: rp.window_tables(pk_r, prid, base_r, G),
+        lambda: rp.bucket_aggregate_plain(pk_r, prid, base_r, G), None,
+        nbytes(pk_r, prid, ids1, counts1), 2 * n_dim,
+        occupancy=rp.bucket_aggregate_occupancy(1))
+    show("D id mode alone (exact)", modes["bucket_aggregate"][name])
+    del pk_r, prid, ppay, ids1, counts1
 
     lk = probe_codes(dev, gen, n_dim)
     rows_i = torch.arange(N, dtype=torch.int32, device=dev)
@@ -513,6 +626,8 @@ def j1_kernel_phase(dev, gen, rp, ts):
 
     shift1 = rp.WINDOW_BITS + rp.PASS_BITS                 # the sorted route's two passes
     regions = 1 << (bits - shift1)
+    name = f"J1 big probe, sorted route's first pass: 2^{bits - shift1} digits at shift {shift1}"
+    modes["digit_histogram"][name] = hist_row(rp, lk, bits - shift1, shift1, st, name)
     off1, base1 = rp.partition_offsets(rp.digit_histogram(lk, bits - shift1, shift1, st),
                                        align=st)
     rows1 = (-(-N // st) + regions) * st
@@ -525,6 +640,9 @@ def j1_kernel_phase(dev, gen, rp, ts):
     show("G at J1 big, first pass (bit for bit)", g_row)
     region = torch.searchsorted(base1[1:], torch.arange(rows1 // st, device=dev) * st,
                                 right=True).clamp_(max=regions - 1)
+    name = (f"J1 big probe, sorted route's second pass: {rows1:.3g} keys, 2^{rp.PASS_BITS} "
+            f"digits at shift {rp.WINDOW_BITS}")
+    modes["digit_histogram"][name] = hist_row(rp, k1, rp.PASS_BITS, rp.WINDOW_BITS, st, name)
     off2, base2 = rp.partition_offsets(rp.digit_histogram(k1, rp.PASS_BITS, rp.WINDOW_BITS, st),
                                        region, regions)
     shape2 = (f"J1 big probe, second pass: {rows1:.3g} rows, mask_bits {shift1}, 2^7 digits "
@@ -592,6 +710,8 @@ def j1_kernel_phase(dev, gen, rp, ts):
     lk = probe_codes(dev, gen, n_med)
     bits_m = rp.domain_bits(n_med)                         # 17: one pass at 2^4 digits
     nbits_m = bits_m - rp.WINDOW_BITS
+    name = f"J1 medium probe, sorted route's single pass: 2^{nbits_m} digits"
+    modes["digit_histogram"][name] = hist_row(rp, lk, nbits_m, rp.WINDOW_BITS, st, name)
     off_m, base_m = rp.partition_offsets(rp.digit_histogram(lk, nbits_m, rp.WINDOW_BITS, st))
     shape = (f"J1 medium probe, single pass: 1e8 rows, 2^{nbits_m} digits, mask_bits {bits_m}, "
              "one int32 payload")
@@ -616,6 +736,18 @@ def j1_kernel_phase(dev, gen, rp, ts):
                                             lambda: tables.index_select(1, idx))
     show("H m=3 at J1 medium (exact)", modes["window_probe"][name])
     return {"window_probe": main, "tile_sort": e_row}, modes, route_ms
+
+
+def hist_row(rp, keys, nbits, shift, tile, shape):
+    """Kernel B exact against its plain version at one sorted-route shape
+    (16384-key tiles), and its row."""
+    hist = rp.digit_histogram(keys, nbits, shift, tile)
+    same(hist, rp.digit_histogram_plain(keys, nbits, shift, tile), f"B hist ({shape})")
+    row = timed_row(0.0, lambda: rp.digit_histogram(keys, nbits, shift, tile),
+                    lambda: rp.digit_histogram_plain(keys, nbits, shift, tile), None,
+                    nbytes(keys, hist), keys.numel(), shape=shape)
+    show(f"B, {shape}", row)
+    return row
 
 
 def fill_junk(*shapes):
@@ -763,7 +895,83 @@ def check_j1_model(j1_join, rows, lcodes, rcodes, n_dim, size):
     check(torch.equal(bid[found][order], exp[exp >= 0]), f"j1_join {size}: build rows differ")
 
 
+def beside_phase(dev, gen, rp, ha, other_dir):
+    """Kernels A and D at the main path's shapes beside another checkout's
+    (``--beside DIR``, e.g. the parent unpacked by ``git archive``), in
+    this process on the same data: DIR's kernel library is built from its
+    own sources and its wrappers are loaded beside this checkout's; four
+    rounds in turns, each shape the median of REPS warm runs.  One process
+    keeps out kernel D's process-to-process spread (PERF.md §6).
+    Where DIR's wrappers take one value column a call, its q4 and q5
+    shapes are one call a column."""
+    import importlib.util
+    from pathlib import Path
+    from cudf_tpu_torch.kernels import _build
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    root = Path(other_dir).resolve() / "cudf_tpu_torch" / "kernels"
+    libs = {"this": _build.library(),
+            "beside": _build._Library(load("beside_build", root / "_build.py").build(), 0.0)}
+    o_rp = load("beside_radix_partition", root / "radix_partition.py")
+    o_ha = load("beside_hash_aggregate", root / "hash_aggregate.py")
+    q = [torch.randint(lo, hi, (N,), generator=gen, device=dev, dtype=torch.int32)
+         for lo, hi in ((1, 6), (1, 16))]
+    q.append(torch.rand(N, generator=gen, device=dev, dtype=torch.float64) * 100)
+    k100 = torch.randint(0, K_LOW, (N,), generator=gen, device=dev, dtype=torch.int32)
+    k6 = torch.randint(0, K_HIGH, (N,), generator=gen, device=dev, dtype=torch.int32)
+    pk, pv, base, G = rp.radix_partition(k6, q, 20)
+    del k6
+    rk = torch.randperm(N, generator=gen, device=dev, dtype=torch.int32)
+    rid1 = torch.arange(1, N + 1, dtype=torch.int32, device=dev)
+    pay = rp.payload_bits(torch.randn(N, generator=gen, device=dev, dtype=torch.float64))
+    jk, (jr, jp), jbase, jG = rp.radix_partition(rk, [rid1, pay], 27)
+    del rk, rid1, pay
+    torch.cuda.empty_cache()
+
+    def shapes(r, h):
+        lists_d, lists_a = hasattr(r, "MAX_AGG_COLUMNS"), hasattr(h, "MAX_COLUMNS")
+        return {
+            "A, bench K = 100's one f64 column": lambda: h.onehot_groupby_aggregate(
+                k100, q[2], K_LOW, with_minmax=False),
+            "A, q4's three columns": (
+                (lambda: h.onehot_groupby_aggregate(k100, q, K_LOW, with_minmax=False))
+                if lists_a else lambda: [h.onehot_groupby_aggregate(
+                    k100, v, K_LOW, with_minmax=False) for v in q]),
+            "D, q5's three columns over the sorted route": (
+                (lambda: r.bucket_aggregate(pk, pv, base, G)) if lists_d else
+                lambda: [r.bucket_aggregate(pk, v, base, G, with_counts=j == 0)
+                         for j, v in enumerate(pv)]),
+            "D, one f64 column over the sorted route": lambda: r.bucket_aggregate(
+                pk, pv[2], base, G),
+            "D, id alone at J1 big": lambda: r.window_tables(jk, jr, jbase, jG),
+            "D, id + idpay at J1 big": lambda: r.window_tables(jk, jr, jbase, jG, jp),
+        }
+
+    calls = {"this": shapes(rp, ha), "beside": shapes(o_rp, o_ha)}
+    out = {shape: {"this": [], "beside": []} for shape in calls["this"]}
+    for rnd in range(4):
+        for side in (("this", "beside") if rnd % 2 == 0 else ("beside", "this")):
+            _build._library = libs[side]
+            for shape, fn in calls[side].items():
+                out[shape][side].append(device_ms(fn))
+    _build._library = libs["this"]
+    for shape, times in out.items():
+        log(f"beside {shape}: this {[round(t, 3) for t in times['this']]} ms, "
+            f"{other_dir} {[round(t, 3) for t in times['beside']]} ms")
+    return out
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--beside", metavar="DIR",
+                        help="only time kernels A and D beside those of the checkout in DIR "
+                             "(e.g. the parent commit), in one process on the same data")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -786,17 +994,39 @@ def main():
     from cudf_tpu_torch.models import j1_join
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:   # ptxas -v of G beside the build
-        ptxas = pool.submit(_build.ptxas_report, _build.CSRC / "merge_scatter.cu")
+    reported = {"merge_scatter": "merge_scatter.cu", "bucket_aggregate": "radix_partition.cu",
+                "onehot_groupby_aggregate": "hash_aggregate.cu"}
+    with concurrent.futures.ThreadPoolExecutor(len(reported)) as pool:
+        # ptxas -v of G, D and A, and D's and A's shared atomics in SASS, beside the build
+        ptxas = {k: pool.submit(_build.ptxas_report, _build.CSRC / src)
+                 for k, src in reported.items()}
+        fns = {"bucket_aggregate": "bucket_aggregate_kernel",
+               "onehot_groupby_aggregate": "onehot_aggregate_kernel"}
+        sass = {k: pool.submit(_build.sass_opcodes, _build.CSRC / reported[k], "ATOMS")
+                for k in fns}
         lib = _build.library()
-        ptxas = [line for line in ptxas.result() if "ptxas info" in line or "stack frame" in line]
+        ptxas = {k: [line for line in f.result() if "ptxas info" in line or "stack frame" in line]
+                 for k, f in ptxas.items()}
+        sass = {k: {fn: ops for fn, ops in f.result().items() if fns[k] in fn}
+                for k, f in sass.items()}
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s ({lib.path.name})")
-    for line in ptxas:
-        log(f"  G {line}")
+    for k, lines in ptxas.items():
+        for line in lines:
+            log(f"  {k} {line}")
+    for k, fns in sass.items():
+        for fn, ops in fns.items():
+            log(f"  {k} SASS shared atomics of {fn}: {ops}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    if args.beside:
+        log(json.dumps({"beside": args.beside, "card": smi,
+                        "ms": beside_phase(dev, gen, rp, ha, args.beside)}))
+        return 0
     kernels = kernel_phase(dev, gen, ha, rp, ts)
-    kernels["merge_scatter"]["ptxas"] = ptxas
+    for k, lines in ptxas.items():
+        kernels[k]["ptxas"] = lines
+    for k, fns in sass.items():
+        kernels[k]["sass_shared_atomics"] = fns
     torch.cuda.empty_cache()
     log("phase 3 G1 kernels: all six agree with their plain versions")
 
@@ -837,6 +1067,16 @@ def main():
     del results
     log(f"phase 4 G1 main path: q4, q5, bench K=100 and K=1e6 agree with plain torch; "
         f"launches { {k: v['g1'] for k, v in launches.items()} }")
+    by_query = {}
+    for name, (key, spec) in QUERIES.items():   # each query alone, every count at 0 before
+        for fn in wrappers.values():
+            fn.launches = 0
+        df.groupby(key).agg(spec)
+        torch.cuda.synchronize()
+        by_query[name] = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    log(f"phase 4 G1 launches by query: {by_query}")
+    check(by_query["q4"].get("onehot_groupby_aggregate") == 1, "q4: one kernel A launch")
+    check(by_query["q5"].get("bucket_aggregate") == 1, "q5: one kernel D launch")
     wide = wide_frame(ct, df)
     spec = {name: "sum" for name in wide._table.names if name != "id6"}
     check_query("q5 six values", wide.groupby("id6").agg(spec),
@@ -909,7 +1149,8 @@ def main():
     rows = []
     for name, row in kernels.items():
         row.update(source=sources[name][0], replaces=sources[name][1],
-                   launches=sum(launches[name].values()), launches_by_path=launches[name])
+                   launches=sum(launches[name].values()), launches_by_path=launches[name],
+                   launches_by_g1_query={q: c.get(name, 0) for q, c in by_query.items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

@@ -12,6 +12,9 @@ enum ValueKind : int { kInt32 = 0, kInt64 = 1, kFloat32 = 2, kFloat64 = 3 };
 
 constexpr unsigned long long kSignBit = 0x8000000000000000ull;
 
+// Dynamic shared memory one block may have on sm_90 (227 KB).
+constexpr size_t kMaxBlockShared = 232448;
+
 // Order-preserving maps onto uint64, so that min and max are unsigned
 // 64-bit atomics whatever the value type.  Wrappers decode with the
 // inverse maps in kernels/hash_aggregate.py (_decode_order_key).
@@ -66,18 +69,81 @@ inline bool make_columns(Columns* c, const void* keys, void* out_keys, int n_pay
   return true;
 }
 
-// Sums accumulate in int64 (two's complement wraps like numpy's int64)
-// or in double.
-__device__ __forceinline__ void atomic_add(long long* p, long long v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(p),
-            static_cast<unsigned long long>(v));
-}
-__device__ __forceinline__ void atomic_add(double* p, double v) { atomicAdd(p, v); }
+// ---------------------------------------------------------------------
+// Value columns of the aggregation kernels (A and D): each a pointer and
+// a ValueKind, read as raw 4- or 8-byte words and summed into 8-byte
+// slots: int64 for integer kinds (two's complement wraps like numpy's
+// int64), double for float kinds.
+// ---------------------------------------------------------------------
 
-// Integer values widen to int64, floats to double.
-template <typename T> struct Accum { using type = long long; };
-template <> struct Accum<float> { using type = double; };
-template <> struct Accum<double> { using type = double; };
+__host__ __device__ __forceinline__ bool is_float_kind(int kind) {
+  return kind == kFloat32 || kind == kFloat64;
+}
+__host__ __device__ __forceinline__ bool is_wide_kind(int kind) {
+  return kind == kInt64 || kind == kFloat64;
+}
+
+__device__ __forceinline__ unsigned long long load_bits(const void* p, long long i, int kind) {
+  return is_wide_kind(kind) ? __ldg(static_cast<const unsigned long long*>(p) + i)
+                            : __ldg(static_cast<const unsigned*>(p) + i);
+}
+
+// The value of raw bits as the slot's type: int64 (sign-extended) or double.
+__device__ __forceinline__ long long int_value(unsigned long long bits, int kind) {
+  return kind == kInt32 ? static_cast<long long>(static_cast<int>(bits))
+                        : static_cast<long long>(bits);
+}
+__device__ __forceinline__ double float_value(unsigned long long bits, int kind) {
+  return kind == kFloat32 ? static_cast<double>(__uint_as_float(static_cast<unsigned>(bits)))
+                          : __longlong_as_double(static_cast<long long>(bits));
+}
+
+// Sums into an 8-byte shared-memory slot.  sm_90a has no native 64-bit
+// shared atomic add: atomicAdd on a shared unsigned long long or double
+// compiles to an ATOMS.CAST.SPIN.64 loop (a load, then a compare-and-swap
+// that a lane retries until it wins; chip_smoke.py prints the SASS), while
+// 32-bit ATOMS.ADD is native.  So an integer slot is a (lo, hi) pair of
+// uint32 words: lo takes the value's low word by a native atomic that
+// returns the old word, and hi takes the value's high word plus the carry
+// out of lo, only when that is not zero (rare for small values of either
+// sign).  Exact mod 2^64, as int64 sums wrap.  Float slots keep the CAS
+// loop: there is no native float shared atomic add to build on.
+__device__ __forceinline__ void shared_add_int(unsigned long long* slot, long long v) {
+  unsigned* w = reinterpret_cast<unsigned*>(slot);
+  const unsigned lo = static_cast<unsigned>(v);
+  const unsigned old = atomicAdd(w, lo);
+  const unsigned hi = static_cast<unsigned>(static_cast<unsigned long long>(v) >> 32) +
+                      (old + lo < old ? 1u : 0u);
+  if (hi != 0u) atomicAdd(w + 1, hi);
+}
+
+__device__ __forceinline__ void shared_add(unsigned long long* slot, unsigned long long bits,
+                                           int kind) {
+  if (is_float_kind(kind)) {
+    atomicAdd(reinterpret_cast<double*>(slot), float_value(bits, kind));
+  } else {
+    shared_add_int(slot, int_value(bits, kind));
+  }
+}
+
+// slot a + slot b, both of one kind's sum type.
+__device__ __forceinline__ unsigned long long slot_sum(unsigned long long a,
+                                                       unsigned long long b, bool fp) {
+  return fp ? static_cast<unsigned long long>(
+                  __double_as_longlong(__longlong_as_double(static_cast<long long>(a)) +
+                                       __longlong_as_double(static_cast<long long>(b))))
+            : a + b;
+}
+
+// Adds a slot into a global int64 or double sum (native REDG on sm_90a).
+__device__ __forceinline__ void global_add(unsigned long long* dst, unsigned long long slot,
+                                           bool fp) {
+  if (fp) {
+    atomicAdd(reinterpret_cast<double*>(dst), __longlong_as_double(static_cast<long long>(slot)));
+  } else {
+    atomicAdd(dst, slot);
+  }
+}
 
 inline int sm_count() {
   int dev = 0, sms = 0;

@@ -23,16 +23,43 @@
 //    the key and every payload); writes land in runs of about
 //    tile / B elements, so larger tiles coalesce better.
 //
-// D  bucket_aggregate  replaces radix_partition.py bucket_aggregate in its
-//    `float` and `int` modes (Pallas body _agg_kernel, _dd_block_update).
-//    Blocks walk (window, row-chunk) steps from a step table, so a skewed
-//    window spreads over many blocks.  Each block keeps one window of
-//    8192 bins in shared memory (int64 or double sums, uint32 counts —
-//    a step holds fewer than 2^32 rows — 96 KB, two blocks per SM) and
-//    merges its non-empty bins into the global sums / counts with
-//    atomics.  The wrapper zeroes those outputs up front, which replaces
-//    zero_empty_windows.  Bound: the key and value read per row; the
-//    per-step zero-and-merge of 8192 bins is amortised over agg_rows rows.
+// D  bucket_aggregate  replaces radix_partition.py bucket_aggregate in all
+//    four modes (Pallas body _agg_kernel, _dd_block_update): float and
+//    int, and the join build's id and idpay, which are int sums of
+//    build_row_id + 1 and of a payload's bits.  One launch sums up to
+//    kMaxAggColumns value columns of mixed kinds and counts the rows once
+//    (idpay is one launch of id + payload).  Bound: the key and every
+//    value read once per row, and every output slot written once.  What
+//    holds it on the card is the SM's rate of shared-memory atomics, a
+//    count and one or more a column per row (PERF.md): the design keeps
+//    to those, native 32-bit ones wherever it can.
+//    - Blocks walk (window, row-chunk) steps from a step table, so a
+//      skewed window spreads over many blocks.  A block keeps one window
+//      of 8192 bins in shared memory: uint32 counts (a step holds fewer
+//      than 2^32 rows) and an 8-byte slot per column and key.  At three
+//      columns that is 28 B x 8192 = 229,376 B, one block an SM; four do
+//      not fit, so the wrapper splits more columns over launches of at
+//      most three (the later ones count nothing).  Splitting a window's
+//      key span in two halves instead would read every row twice.
+//    - 64-bit shared atomics are CAS loops on sm_90a (common.cuh), so
+//      integer slots take native 32-bit adds with a carry word; only
+//      float sums keep the loop.  Counts are native 32-bit increments.
+//    - Each thread issues the loads of kAggBatch rows, key and values,
+//      before its first atomic; loads do not wait on the keys.
+//    - A window that one step covers whole is owned by its block: the
+//      block stores all of its slots, zeros included, with plain
+//      coalesced stores, so the outputs are allocated empty.  The slots of
+//      every other window (empty windows, which have no step, and windows
+//      of more than agg_rows rows) are zeroed first by zero_windows_kernel
+//      on the same stream, and their steps add their non-empty bins with
+//      global atomics (native REDG for int64 and double).  chip_smoke.py
+//      times G1 q5 also at one step a window (no global atomics, one
+//      block a window): the combine costs little there, and steps of
+//      agg_rows rows keep a skewed window spread over many blocks.
+//    - Order is free: the sorted route's runs, kernel C's shuffled ones
+//      and an unpartitioned single window give the same sums.  Float sums
+//      are taken in atomic order, which varies from run to run (rtol
+//      1e-12 against the plain version).
 
 #include "common.cuh"
 
@@ -41,7 +68,10 @@ namespace {
 
 constexpr int kHistThreads = 512;
 constexpr int kScatterThreads = 512;
-constexpr int kAggThreads = 1024;
+constexpr int kAggThreads = 1024;   // 512 when two blocks fit in an SM's shared memory
+constexpr int kAggBatch = 4;        // rows a thread loads before its first atomic
+constexpr int kMaxAggColumns = 3;   // kernels/radix_partition.py MAX_AGG_COLUMNS
+constexpr int kZeroThreads = 256;
 constexpr int kWindowBits = 13;
 constexpr int kSpan = 1 << kWindowBits;
 
@@ -93,56 +123,104 @@ radix_scatter_kernel(long long n, int shift, int nbits, long long tile,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kAggThreads)
-bucket_aggregate_kernel(const int32_t* __restrict__ keys, const T* __restrict__ vals,
-                        const int32_t* __restrict__ step_win,
-                        const long long* __restrict__ step_lo,
-                        const long long* __restrict__ step_hi,
-                        typename Accum<T>::type* __restrict__ sums,
-                        unsigned long long* __restrict__ counts) {
-  using S = typename Accum<T>::type;
-  const int g = step_win[blockIdx.x];
-  if (g < 0) return;  // an idle step of the upper-bound grid
-  extern __shared__ unsigned long long smem[];
-  S* s_sum = reinterpret_cast<S*>(smem);
-  unsigned int* s_cnt = reinterpret_cast<unsigned int*>(smem + kSpan);
-  for (int b = threadIdx.x; b < kSpan; b += blockDim.x) {
-    s_sum[b] = S(0);
-    s_cnt[b] = 0u;
-  }
-  __syncthreads();
-  const long long base = static_cast<long long>(g) << kWindowBits;
-  const long long hi = step_hi[blockIdx.x];
-  for (long long i = step_lo[blockIdx.x] + threadIdx.x; i < hi; i += blockDim.x) {
-    const long long local = static_cast<long long>(keys[i]) - base;
-    if (local < 0 || local >= kSpan) continue;
-    atomic_add(&s_sum[local], static_cast<S>(vals[i]));
-    atomicAdd(&s_cnt[local], 1u);
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < kSpan; b += blockDim.x) {
-    const unsigned int c = s_cnt[b];
-    if (c == 0u) continue;
-    atomic_add(&sums[base + b], s_sum[b]);
-    if (counts != nullptr) atomicAdd(&counts[base + b], static_cast<unsigned long long>(c));
+// Up to kMaxAggColumns value columns summed in one kernel D launch.
+struct AggColumns {
+  const void* vals[kMaxAggColumns];
+  unsigned long long* sums[kMaxAggColumns];  // int64 or double [G * kSpan]
+  int kind[kMaxAggColumns];
+  int count;
+};
+
+__host__ __device__ constexpr size_t agg_smem_bytes(int columns) {
+  return static_cast<size_t>(kSpan) * (8 * columns + 4);
+}
+
+// Zeroes every slot of each window that no single step owns: empty
+// windows and windows of more than agg_rows rows (kernel D adds into
+// those with atomics).  One block a window, 16-byte stores.
+__global__ void __launch_bounds__(kZeroThreads)
+zero_windows_kernel(const long long* __restrict__ base, long long agg_rows, AggColumns c,
+                    unsigned long long* __restrict__ counts) {
+  const long long rows = base[blockIdx.x + 1] - base[blockIdx.x];
+  if (rows > 0 && rows <= agg_rows) return;
+  const long long first = static_cast<long long>(blockIdx.x) << kWindowBits;
+  const ulonglong2 z = make_ulonglong2(0ull, 0ull);
+  for (int b = threadIdx.x; b < kSpan / 2; b += blockDim.x) {
+    if (counts != nullptr) reinterpret_cast<ulonglong2*>(counts + first)[b] = z;
+#pragma unroll
+    for (int j = 0; j < kMaxAggColumns; ++j) {
+      if (j < c.count) reinterpret_cast<ulonglong2*>(c.sums[j] + first)[b] = z;
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch_aggregate(const int32_t* keys, const void* vals, const int32_t* win,
-                             const long long* lo, const long long* hi, long long steps,
-                             void* sums, void* counts, cudaStream_t stream) {
-  const size_t smem = kSpan * (sizeof(unsigned long long) + sizeof(unsigned int));
-  auto kernel = bucket_aggregate_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(steps), kAggThreads, smem, stream>>>(
-      keys, static_cast<const T*>(vals), win, lo, hi,
-      static_cast<typename Accum<T>::type*>(sums),
-      static_cast<unsigned long long*>(counts));
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kAggThreads)
+bucket_aggregate_kernel(const int32_t* __restrict__ keys, AggColumns c,
+                        const int32_t* __restrict__ step_win,
+                        const long long* __restrict__ step_lo,
+                        const long long* __restrict__ step_hi,
+                        const long long* __restrict__ base,
+                        unsigned long long* __restrict__ counts) {
+  const int g = step_win[blockIdx.x];
+  if (g < 0) return;  // an idle step of the upper-bound grid
+  extern __shared__ __align__(16) unsigned long long smem[];  // c.count x kSpan slots, then kSpan counts
+  unsigned* s_cnt = reinterpret_cast<unsigned*>(smem + c.count * kSpan);
+  uint4* words = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < static_cast<int>(agg_smem_bytes(c.count) / 16); i += blockDim.x) {
+    words[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  const long long first = static_cast<long long>(g) << kWindowBits;
+  const long long lo = step_lo[blockIdx.x], hi = step_hi[blockIdx.x];
+  const long long stride = blockDim.x;
+  for (long long i0 = lo + threadIdx.x; i0 < hi; i0 += kAggBatch * stride) {
+    int local[kAggBatch];
+    unsigned long long v[kAggBatch][kMaxAggColumns];
+#pragma unroll
+    for (int u = 0; u < kAggBatch; ++u) {  // every load of the batch first
+      const long long i = i0 + u * stride;
+      local[u] = -1;
+      if (i < hi) {
+        local[u] = __ldg(keys + i);
+#pragma unroll
+        for (int j = 0; j < kMaxAggColumns; ++j) {
+          if (j < c.count) v[u][j] = load_bits(c.vals[j], i, c.kind[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAggBatch; ++u) {
+      const long long k = static_cast<long long>(local[u]) - first;
+      if (i0 + u * stride >= hi || k < 0 || k >= kSpan) continue;
+      atomicAdd(&s_cnt[k], 1u);
+#pragma unroll
+      for (int j = 0; j < kMaxAggColumns; ++j) {
+        if (j < c.count) shared_add(smem + j * kSpan + k, v[u][j], c.kind[j]);
+      }
+    }
+  }
+  __syncthreads();
+
+  const bool owner = lo == base[g] && hi == base[g + 1];  // this step is the whole window
+  for (int b = threadIdx.x; b < kSpan; b += blockDim.x) {
+    const unsigned n = s_cnt[b];
+    if (owner) {
+      if (counts != nullptr) counts[first + b] = n;
+#pragma unroll
+      for (int j = 0; j < kMaxAggColumns; ++j) {   // unrolled: c stays in the parameter bank
+        if (j < c.count) c.sums[j][first + b] = smem[j * kSpan + b];
+      }
+    } else if (n != 0u) {
+      if (counts != nullptr) atomicAdd(counts + first + b, static_cast<unsigned long long>(n));
+#pragma unroll
+      for (int j = 0; j < kMaxAggColumns; ++j) {
+        if (j < c.count) {
+          global_add(c.sums[j] + first + b, smem[j * kSpan + b], is_float_kind(c.kind[j]));
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -190,25 +268,68 @@ extern "C" int cudf_radix_scatter(const void* keys, long long n, int shift, int 
 }
 
 // Per step s: window step_win[s] (-1: idle) over rows [step_lo[s],
-// step_hi[s]) of keys / vals.  sums[G * 8192] int64 or double, counts
-// uint64 or null, both zeroed by the caller.
-extern "C" int cudf_bucket_aggregate(const void* keys, const void* vals, int value_kind,
-                                     const void* step_win, const void* step_lo,
-                                     const void* step_hi, long long steps, void* sums,
-                                     void* counts, void* stream) {
+// step_hi[s]) of keys and the n_cols (1..3) value columns, whose device
+// pointers and value kinds are the host arrays vals and kinds; the steps
+// cut each window base[g]..base[g+1] into chunks of agg_rows.  sums: a
+// host array of n_cols int64 or double [G * 8192] outputs, counts uint64
+// [G * 8192] or null; the launch writes every slot of them (zeroes the
+// windows no step owns, then aggregates).
+extern "C" int cudf_bucket_aggregate(const void* keys, int n_cols, const void* vals,
+                                     const void* kinds, const void* step_win,
+                                     const void* step_lo, const void* step_hi, long long steps,
+                                     const void* base, int num_windows, long long agg_rows,
+                                     const void* sums, void* counts, void* stream) {
   using namespace cudf_tpu_torch;
-  const auto* k = static_cast<const int32_t*>(keys);
-  const auto* w = static_cast<const int32_t*>(step_win);
-  const auto* lo = static_cast<const long long*>(step_lo);
-  const auto* hi = static_cast<const long long*>(step_hi);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (value_kind) {
-    case kInt32: return launch_aggregate<int32_t>(k, vals, w, lo, hi, steps, sums, counts, s);
-    case kInt64: return launch_aggregate<long long>(k, vals, w, lo, hi, steps, sums, counts, s);
-    case kFloat32: return launch_aggregate<float>(k, vals, w, lo, hi, steps, sums, counts, s);
-    case kFloat64: return launch_aggregate<double>(k, vals, w, lo, hi, steps, sums, counts, s);
-    default: return cudaErrorInvalidValue;
+  if (n_cols < 1 || n_cols > kMaxAggColumns || num_windows < 1 || agg_rows < 1) {
+    return cudaErrorInvalidValue;
   }
+  AggColumns c{};
+  c.count = n_cols;
+  for (int j = 0; j < n_cols; ++j) {
+    c.vals[j] = static_cast<const void* const*>(vals)[j];
+    c.sums[j] = static_cast<unsigned long long* const*>(sums)[j];
+    c.kind[j] = static_cast<const int*>(kinds)[j];
+    if (c.kind[j] < kInt32 || c.kind[j] > kFloat64) return cudaErrorInvalidValue;
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* cnt = static_cast<unsigned long long*>(counts);
+  const auto* b = static_cast<const long long*>(base);
+  zero_windows_kernel<<<static_cast<unsigned>(num_windows), kZeroThreads, 0, s>>>(
+      b, agg_rows, c, cnt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = agg_smem_bytes(n_cols);
+  err = cudaFuncSetAttribute(bucket_aggregate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(agg_smem_bytes(kMaxAggColumns)));
+  if (err != cudaSuccess) return err;
+  const int threads = 2 * smem <= kMaxBlockShared ? kAggThreads / 2 : kAggThreads;
+  bucket_aggregate_kernel<<<static_cast<unsigned>(steps), threads, smem, s>>>(
+      static_cast<const int32_t*>(keys), c, static_cast<const int32_t*>(step_win),
+      static_cast<const long long*>(step_lo), static_cast<const long long*>(step_hi), b, cnt);
+  return cudaGetLastError();
+}
+
+// Kernel D's registers, resident blocks per SM, threads and dynamic shared
+// memory (bytes) at n_cols value columns on the current device.
+extern "C" int cudf_bucket_aggregate_occupancy(int n_cols, int* registers, int* blocks_per_sm,
+                                               int* threads, int* smem_bytes, void* stream) {
+  using namespace cudf_tpu_torch;
+  (void)stream;
+  if (n_cols < 1 || n_cols > kMaxAggColumns) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bucket_aggregate_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(agg_smem_bytes(kMaxAggColumns)));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, bucket_aggregate_kernel);
+  if (err != cudaSuccess) return err;
+  const size_t smem = agg_smem_bytes(n_cols);
+  *threads = 2 * smem <= kMaxBlockShared ? kAggThreads / 2 : kAggThreads;
+  *smem_bytes = static_cast<int>(smem);
+  *registers = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bucket_aggregate_kernel,
+                                                       *threads, smem);
 }
 
 extern "C" const char* cudf_error_string(int err) {

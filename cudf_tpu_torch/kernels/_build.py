@@ -135,6 +135,39 @@ def ptxas_report(source: Path) -> List[str]:
     return [line.strip() for line in log.splitlines() if line.strip()]
 
 
+def sass_opcodes(source: Path, prefix: str) -> Dict[str, Dict[str, int]]:
+    """{kernel: {opcode: count}} of the SASS opcodes starting with
+    ``prefix`` (e.g. "ATOMS") in each kernel of one source, compiled with
+    the build's flags and disassembled by ``cuobjdump -sass``.  Raises
+    with the tools' output on a failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    cubin = BUILD_DIR / f"sass.{Path(source).stem}.{os.getpid()}.cubin"
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-cubin", "-o", str(cubin), str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -cubin {source}: exit {proc.returncode}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        proc = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                              capture_output=True, text=True)
+    finally:
+        cubin.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {source}: exit {proc.returncode}\n{proc.stderr}")
+    out: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            out[kernel] = {}
+            continue
+        for word in line.replace(";", " ").split():
+            if kernel is not None and word.startswith(prefix):
+                out[kernel][word] = out[kernel].get(word, 0) + 1
+    return out
+
+
 def library() -> _Library:
     """The loaded kernel library, built at first use."""
     global _library

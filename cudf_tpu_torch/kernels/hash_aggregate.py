@@ -11,13 +11,15 @@ atomics and native int64 and fp64.
 The contract differs from the reference where the reference was bound by
 the TPU: values keep their own width.  Integer and bool values give exact
 int64 sums, float32/float64 values float64 sums, and min/max come back in
-the values' own dtype.
+the values' own dtype.  One call takes several value columns under one
+mask (the groupby's requests that share a mask), so the keys are read
+once for all of them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -27,20 +29,26 @@ SOURCE = "cudf_tpu_torch/csrc/hash_aggregate.cu"
 REPLACES = "cudf_tpu/kernels/hash_aggregate.py:145"     # onehot_groupby_aggregate
 
 MAX_GROUPS = 4096      # the one-hot tier's K (ops/groupby.py tier split)
+MAX_COLUMNS = 4        # value columns per kernel A launch (csrc kMaxColumns)
+MAX_SHARED = 232_448   # dynamic shared memory of one block (csrc kMaxBlockShared)
 
 _SIGN = -(1 << 63)     # int64 with only the sign bit set
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int] + [ctypes.c_void_p] * 6
 
 Result = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                Optional[torch.Tensor]]
+# the list form: (sums, counts, mins, maxs), one entry a column in each list
+ListResult = Tuple[List[torch.Tensor], torch.Tensor, List[Optional[torch.Tensor]],
+                   List[Optional[torch.Tensor]]]
 
 
-def onehot_groupby_aggregate(keys: torch.Tensor, vals: torch.Tensor,
+def onehot_groupby_aggregate(keys: torch.Tensor,
+                             vals: Union[torch.Tensor, Sequence[torch.Tensor]],
                              num_groups: int,
                              valid: Optional[torch.Tensor] = None,
-                             with_minmax: bool = True) -> Result:
+                             with_minmax: Union[bool, Sequence[bool]] = True
+                             ) -> Union[Result, ListResult]:
     """(sums[K], counts[K], mins[K], maxs[K]) for group codes in [0, K).
 
     keys: int32 codes; vals: numeric or bool values; valid: bool mask or
@@ -51,47 +59,116 @@ def onehot_groupby_aggregate(keys: torch.Tensor, vals: torch.Tensor,
     group with no rows has min = the dtype's largest value (+inf for
     floats) and max = its smallest (-inf).
 
+    ``vals`` may also be a non-empty list of value tensors, dtypes mixed,
+    under the one mask: then sums, mins and maxs are lists with an entry
+    a column (mins[j] and maxs[j] None unless with_minmax, a bool or a
+    bool a column, asks), counts is shared, and the keys are read once.
+
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    kernel, counted in ``onehot_groupby_aggregate.launches``.
+    kernel, counted in ``onehot_groupby_aggregate.launches``: one launch
+    for all the columns unless their bins outgrow one block's shared
+    memory (see ``column_launches``).
     """
+    single = isinstance(vals, torch.Tensor)
+    vlist = [vals] if single else list(vals)
+    flags = _minmax_flags(vlist, with_minmax)
     n = keys.shape[0]
     _build.check_vector("keys", keys, torch.int32, n, keys.device)
-    _build.check_vector("vals", vals, vals.dtype, n, keys.device)
+    for v in vlist:
+        _build.check_vector("vals", v, v.dtype, n, keys.device)
     if valid is not None:
         _build.check_vector("valid", valid, torch.bool, n, keys.device)
     if not 1 <= num_groups <= MAX_GROUPS:
         raise ValueError(f"num_groups {num_groups} outside [1, {MAX_GROUPS}]")
+    if n >= 1 << 31:
+        raise ValueError("the kernel counts a block's rows in uint32: n < 2^31")
     if keys.device.type == "cpu":
-        return onehot_groupby_aggregate_plain(keys, vals, num_groups, valid,
-                                              with_minmax)
+        return onehot_groupby_aggregate_plain(keys, vals, num_groups, valid, with_minmax)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    return _launch(keys, vals, num_groups, valid, with_minmax)
+    outs = _launch(keys, vlist, num_groups, valid, flags)
+    return outs[0] if single else _as_lists(outs)
 
 
 onehot_groupby_aggregate.launches = 0
 
 
-def _launch(keys, vals, K, valid, with_minmax) -> Result:
-    kv, kind, acc = _build.kernel_values(vals)
+def _minmax_flags(vlist: Sequence[torch.Tensor],
+                  with_minmax: Union[bool, Sequence[bool]]) -> List[bool]:
+    """One min/max flag a value tensor; raises unless there is at least one
+    value tensor and, for a list of flags, one flag each."""
+    flags = ([with_minmax] * len(vlist) if isinstance(with_minmax, bool)
+             else [bool(f) for f in with_minmax])
+    if not vlist or len(flags) != len(vlist):
+        raise ValueError("onehot_groupby_aggregate: at least one value tensor, and one "
+                         "with_minmax flag a value tensor")
+    return flags
+
+
+def column_launches(num_groups: int, with_minmax: Sequence[bool]) -> List[List[int]]:
+    """Kernel A's launches for columns with these min/max flags: runs of
+    consecutive column indices, each at most MAX_COLUMNS columns whose bins
+    (a uint32 count, an 8-byte sum a column, two 8-byte order keys a
+    min/max column) fit one block's shared memory at one replica, as
+    csrc/hash_aggregate.cu lays them out."""
+    launches: List[List[int]] = []
+    slots = 0
+    for j, mm in enumerate(with_minmax):
+        need = 3 if mm else 1
+        if (not launches or len(launches[-1]) == MAX_COLUMNS
+                or num_groups * (8 * (slots + need) + 4) > MAX_SHARED):
+            launches.append([])
+            slots = 0
+        launches[-1].append(j)
+        slots += need
+    return launches
+
+
+def onehot_aggregate_occupancy(num_groups: int, with_minmax: Sequence[bool]) -> dict:
+    """Kernel A's registers a thread, resident blocks per SM, threads per
+    block, dynamic shared memory per block (bytes) and bin replicas on the
+    current CUDA device for one launch of columns with these flags."""
+    out = [ctypes.c_int(0) for _ in range(5)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.launch("cudf_onehot_aggregate_occupancy", [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5,
+                  dev, num_groups, sum(3 if mm else 1 for mm in with_minmax),
+                  *[ctypes.addressof(v) for v in out])
+    return dict(zip(("registers", "blocks_per_sm", "threads", "smem_bytes", "replicas"),
+                    (v.value for v in out)))
+
+
+def _launch(keys, vlist, K, valid, flags) -> List[Result]:
     dev = keys.device
-    sums = torch.zeros(K, dtype=acc, device=dev)
+    kvs = [_build.kernel_values(v) for v in vlist]
     counts = torch.zeros(K, dtype=torch.int64, device=dev)
-    mins = maxs = None
-    if with_minmax:
-        mins = torch.full((K,), -1, dtype=torch.int64, device=dev)  # all ones
-        maxs = torch.zeros(K, dtype=torch.int64, device=dev)
+    sums = [torch.zeros(K, dtype=acc, device=dev) for _, _, acc in kvs]
+    mins = [torch.full((K,), -1, dtype=torch.int64, device=dev) if mm else None   # all ones
+            for mm in flags]
+    maxs = [torch.zeros(K, dtype=torch.int64, device=dev) if mm else None for mm in flags]
     if keys.shape[0]:
-        _build.launch("cudf_onehot_aggregate", _ARGTYPES, dev,
-                      keys.data_ptr(), kv.data_ptr(), kind, _build.ptr(valid),
-                      keys.shape[0], K, int(with_minmax), sums.data_ptr(),
-                      counts.data_ptr(), _build.ptr(mins), _build.ptr(maxs))
-        onehot_groupby_aggregate.launches += 1
-    if with_minmax:
-        mins = _decode_order_key(mins, acc)
-        maxs = _decode_order_key(maxs, acc)
-        mins, maxs = _finish_minmax(mins, maxs, counts, vals.dtype)
-    return sums, counts, mins, maxs
+        for i, part in enumerate(column_launches(K, flags)):
+            arrays = [(ctypes.c_void_p * MAX_COLUMNS)(*[_build.ptr(t[j]) for j in part])
+                      for t in ([kv for kv, _, _ in kvs], sums, mins, maxs)]
+            kinds = (ctypes.c_int * MAX_COLUMNS)(*[kvs[j][1] for j in part])
+            vals_p, sums_p, mins_p, maxs_p = (ctypes.addressof(a) for a in arrays)
+            _build.launch("cudf_onehot_aggregate", _ARGTYPES, dev, keys.data_ptr(),
+                          _build.ptr(valid), keys.shape[0], K, len(part), vals_p,
+                          ctypes.addressof(kinds), sums_p, mins_p, maxs_p,
+                          counts.data_ptr() if i == 0 else None)
+            onehot_groupby_aggregate.launches += 1
+    outs = []
+    for j, v in enumerate(vlist):
+        mn = mx = None
+        if flags[j]:
+            acc = kvs[j][2]
+            mn, mx = _finish_minmax(_decode_order_key(mins[j], acc),
+                                    _decode_order_key(maxs[j], acc), counts, v.dtype)
+        outs.append((sums[j], counts, mn, mx))
+    return outs
+
+
+def _as_lists(outs: Sequence[Result]) -> ListResult:
+    return ([o[0] for o in outs], outs[0][1], [o[2] for o in outs], [o[3] for o in outs])
 
 
 def _decode_order_key(enc: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
@@ -123,12 +200,22 @@ def _extremes(dtype: torch.dtype):
     return info.min, info.max
 
 
-def onehot_groupby_aggregate_plain(keys: torch.Tensor, vals: torch.Tensor,
+def onehot_groupby_aggregate_plain(keys: torch.Tensor,
+                                   vals: Union[torch.Tensor, Sequence[torch.Tensor]],
                                    num_groups: int,
                                    valid: Optional[torch.Tensor] = None,
-                                   with_minmax: bool = True) -> Result:
+                                   with_minmax: Union[bool, Sequence[bool]] = True
+                                   ) -> Union[Result, ListResult]:
     """The same function in plain PyTorch (index_add_ / bincount /
-    scatter_reduce_)."""
+    scatter_reduce_), for one value tensor or a list of them, as
+    ``onehot_groupby_aggregate``."""
+    if isinstance(vals, torch.Tensor):
+        return _plain(keys, vals, num_groups, valid, with_minmax)
+    flags = _minmax_flags(vals, with_minmax)
+    return _as_lists([_plain(keys, v, num_groups, valid, mm) for v, mm in zip(vals, flags)])
+
+
+def _plain(keys, vals, num_groups, valid, with_minmax) -> Result:
     K = num_groups
     kv, _, acc = _build.kernel_values(vals)
     ok = (keys >= 0) & (keys < K)

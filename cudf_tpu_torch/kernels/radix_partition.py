@@ -11,8 +11,9 @@ join tiers:
   ``tile_sort_data`` (kernel F, ``kernels/tile_sort.py``) it is the
   reference's default ``merge_tiles = 4`` route, which the main path runs;
 - ``bucket_aggregate`` (kernel D) replaces ``bucket_aggregate`` in its
-  ``float`` and ``int`` modes, and serves its ``id`` and ``idpay`` modes
-  too (``window_tables``);
+  ``float`` and ``int`` modes, one launch for up to three value columns
+  of mixed dtypes, and serves its ``id`` and ``idpay`` modes too
+  (``window_tables``, one launch);
 - ``window_probe`` (kernel H) replaces ``window_probe``;
 - ``radix_partition`` and ``radix_groupby_sum_count`` chain B, F, G (or
   C) and D for the groupby, ``build_join_tables``,
@@ -73,6 +74,7 @@ MAX_DOMAIN_BITS = 27
 MAX_TABLE = 1 << 22              # histogram entries (16 MB of int32)
 MIN_TILE = 1 << 14               # keys per partition tile
 AGG_ROWS = 1 << 17               # rows per aggregation step (kernel D)
+MAX_AGG_COLUMNS = 3              # value columns per kernel D launch (shared memory)
 MERGE_TILES = 4                  # sort tiles per supertile (the reference's default)
 SORT_TILE = 1 << 12              # keys per sort tile: MERGE_TILES * SORT_TILE = MIN_TILE
 PASS_BITS = 7                    # digit bits per pass of the sorted route
@@ -90,8 +92,9 @@ _MERGE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_in
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-_AGG_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+_AGG_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                  ctypes.c_void_p]
 _PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -481,38 +484,76 @@ def step_table(base: torch.Tensor, n_rows: int, agg_rows: int):
     return torch.where(live, g, -1).to(torch.int32), lo, hi
 
 
-def bucket_aggregate(pkeys: torch.Tensor, pvals: torch.Tensor,
-                     base: torch.Tensor, num_windows: int,
-                     agg_rows: int = AGG_ROWS, with_counts: bool = True):
-    """(sums[G * SPAN], counts[G * SPAN] int64 or None) per key over
-    partitioned rows: window g's rows ``[base[g], base[g+1])`` add into
-    keys ``[g * SPAN, (g+1) * SPAN)``; keys outside their row's window
-    are dropped.  sums are int64 for integer values, float64 for floats.
-    CUDA tensors launch kernel D, counted in ``bucket_aggregate.launches``."""
+Values = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def bucket_aggregate(pkeys: torch.Tensor, pvals: Values, base: torch.Tensor,
+                     num_windows: int, agg_rows: int = AGG_ROWS, with_counts: bool = True):
+    """(sums, counts[G * SPAN] int64 or None) per key over partitioned
+    rows: window g's rows ``[base[g], base[g+1])`` add into keys
+    ``[g * SPAN, (g+1) * SPAN)``; keys outside their row's window are
+    dropped.  ``pvals`` is one value tensor (sums is then one tensor
+    [G * SPAN]) or a non-empty list of them, dtypes mixed (sums is then a
+    list): the rows are read once for all, and counted once.  Sums are
+    int64 for integer values, float64 for floats.
+
+    CUDA tensors launch kernel D, counted in ``bucket_aggregate.launches``:
+    one launch for up to MAX_AGG_COLUMNS columns (the rest in more
+    launches of as many, which count nothing).  Its outputs are allocated
+    empty: the launch writes every slot.  Windows are cut into steps of
+    ``agg_rows`` rows (``step_table``); a window of one step is summed by
+    one block, which stores its slots."""
     n = _build.check_keys(pkeys)
-    _build.check_vector("pvals", pvals, pvals.dtype, n, pkeys.device)
+    single = isinstance(pvals, torch.Tensor)
+    vals = [pvals] if single else list(pvals)
+    if not vals:
+        raise ValueError("bucket_aggregate needs at least one value tensor")
+    for v in vals:
+        _build.check_vector("pvals", v, v.dtype, n, pkeys.device)
     _build.check_vector("base", base, torch.int64, num_windows + 1, pkeys.device)
+    if agg_rows < 1:
+        raise ValueError(f"agg_rows {agg_rows}: at least 1")
     if pkeys.device.type == "cpu":
         return bucket_aggregate_plain(pkeys, pvals, base, num_windows, with_counts)
-    kv, kind, acc = _build.kernel_values(pvals)
-    sums = torch.zeros(num_windows * SPAN, dtype=acc, device=pkeys.device)
-    counts = (torch.zeros(num_windows * SPAN, dtype=torch.int64, device=pkeys.device)
+    kvs = [_build.kernel_values(v) for v in vals]
+    size = num_windows * SPAN
+    sums = [torch.empty(size, dtype=acc, device=pkeys.device) for _, _, acc in kvs]
+    counts = (torch.empty(size, dtype=torch.int64, device=pkeys.device)
               if with_counts else None)
     win, lo, hi = step_table(base, n, agg_rows)
-    _build.launch("cudf_bucket_aggregate", _AGG_ARGTYPES, pkeys.device,
-                  pkeys.data_ptr(), kv.data_ptr(), kind, win.data_ptr(),
-                  lo.data_ptr(), hi.data_ptr(), win.shape[0], sums.data_ptr(),
-                  _build.ptr(counts))
-    bucket_aggregate.launches += 1
-    return sums, counts
+    for start in range(0, len(vals), MAX_AGG_COLUMNS):
+        part = range(start, min(start + MAX_AGG_COLUMNS, len(vals)))
+        src = (ctypes.c_void_p * MAX_AGG_COLUMNS)(*[kvs[j][0].data_ptr() for j in part])
+        kinds = (ctypes.c_int * MAX_AGG_COLUMNS)(*[kvs[j][1] for j in part])
+        dst = (ctypes.c_void_p * MAX_AGG_COLUMNS)(*[sums[j].data_ptr() for j in part])
+        _build.launch("cudf_bucket_aggregate", _AGG_ARGTYPES, pkeys.device,
+                      pkeys.data_ptr(), len(part), ctypes.addressof(src),
+                      ctypes.addressof(kinds), win.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                      win.shape[0], base.data_ptr(), num_windows, agg_rows,
+                      ctypes.addressof(dst), _build.ptr(counts) if start == 0 else None)
+        bucket_aggregate.launches += 1
+    return (sums[0] if single else sums), counts
 
 
 bucket_aggregate.launches = 0
 
 
+def bucket_aggregate_occupancy(n_cols: int) -> dict:
+    """Kernel D's registers a thread, resident blocks per SM, threads per
+    block and dynamic shared memory per block (bytes) on the current CUDA
+    device at ``n_cols`` value columns a launch."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.launch("cudf_bucket_aggregate_occupancy", [ctypes.c_int] + [ctypes.c_void_p] * 4,
+                  dev, n_cols, *[ctypes.addressof(v) for v in out])
+    return dict(zip(("registers", "blocks_per_sm", "threads", "smem_bytes"),
+                    (v.value for v in out)))
+
+
 def bucket_aggregate_plain(pkeys, pvals, base, num_windows, with_counts=True):
-    """The same function in plain PyTorch (index_add_ / bincount)."""
-    kv, _, acc = _build.kernel_values(pvals)
+    """The same function in plain PyTorch (index_add_ / bincount), for one
+    value tensor or a list of them, as ``bucket_aggregate``."""
+    single = isinstance(pvals, torch.Tensor)
     m = int(base[-1])
     rows_per_window = base[1:] - base[:-1]
     win = torch.repeat_interleave(torch.arange(num_windows, device=pkeys.device),
@@ -521,27 +562,29 @@ def bucket_aggregate_plain(pkeys, pvals, base, num_windows, with_counts=True):
     ok = (k >= 0) & ((k >> WINDOW_BITS) == win)
     k = k[ok]
     size = num_windows * SPAN
-    sums = torch.zeros(size, dtype=acc, device=pkeys.device).index_add_(
-        0, k, kv[:m][ok].to(acc))
+    sums = []
+    for v in ([pvals] if single else pvals):
+        kv, _, acc = _build.kernel_values(v)
+        sums.append(torch.zeros(size, dtype=acc, device=pkeys.device).index_add_(
+            0, k, kv[:m][ok].to(acc)))
     counts = torch.bincount(k, minlength=size) if with_counts else None
-    return sums, counts
+    return (sums[0] if single else sums), counts
 
 
 # ----------------------------------------------------------------------
 # end-to-end dense-key groupby
 # ----------------------------------------------------------------------
 
-def radix_groupby_sum_count(keys: torch.Tensor,
-                            vals: Union[torch.Tensor, Sequence[torch.Tensor]],
-                            num_keys: int, tile: Optional[int] = None,
-                            agg_rows: int = AGG_ROWS):
+def radix_groupby_sum_count(keys: torch.Tensor, vals: Values, num_keys: int,
+                            tile: Optional[int] = None, agg_rows: int = AGG_ROWS):
     """(sums, counts int64[num_keys]) for int32 keys in [0, num_keys),
     num_keys <= 2^27; negative keys are dropped.
 
     ``vals`` is one tensor (sums is then one tensor) or a non-empty list
     of value tensors that share the keys (sums is then a list): the keys
-    are partitioned once for all of them.  Domains within one window
-    aggregate the raw rows; larger ones take one partition pass.
+    are partitioned once for all of them, and one kernel D call sums them
+    all.  Domains within one window aggregate the raw rows; larger ones
+    are partitioned first.
     """
     if not 1 <= num_keys <= 1 << MAX_DOMAIN_BITS:
         raise ValueError(f"num_keys {num_keys} outside [1, 2^{MAX_DOMAIN_BITS}]")
@@ -555,12 +598,9 @@ def radix_groupby_sum_count(keys: torch.Tensor,
         base = torch.tensor([0, keys.shape[0]], dtype=torch.int64, device=keys.device)
     else:
         pkeys, pvals, base, G = radix_partition(keys, vlist, bits, tile)
-    sums, counts = [], None
-    for i, v in enumerate(pvals):
-        s, c = bucket_aggregate(pkeys, v, base, G, agg_rows, with_counts=(i == 0))
-        sums.append(s[:num_keys])
-        counts = c[:num_keys] if i == 0 else counts
-    return (sums[0] if single else sums), counts
+    sums, counts = bucket_aggregate(pkeys, pvals, base, G, agg_rows)
+    sums = [s[:num_keys] for s in sums]
+    return (sums[0] if single else sums), counts[:num_keys]
 
 
 # ----------------------------------------------------------------------
@@ -596,16 +636,13 @@ def window_tables(pkeys: torch.Tensor, rid1: torch.Tensor, base: torch.Tensor,
 
     These are kernel D's int mode over ``rid1`` (int32 build_row_id + 1)
     with counts and, for idpay, over ``pay_bits`` (``payload_bits`` of the
-    payload) without counts: two launches.  Where a key has one build row
+    payload) too: one launch either way.  Where a key has one build row
     the sums are that row's id + 1 and its payload's bits exactly, so a
     lookup copies the payload (NaN and -0.0 included); an empty slot holds
-    0, since kernel D zeroes its outputs up front."""
-    ids, counts = bucket_aggregate(pkeys, rid1, base, num_windows, agg_rows)
-    pay = None
-    if pay_bits is not None:
-        pay, _ = bucket_aggregate(pkeys, pay_bits, base, num_windows, agg_rows,
-                                  with_counts=False)
-    return ids, counts, pay
+    0, since kernel D writes every slot."""
+    vals = [rid1] if pay_bits is None else [rid1, pay_bits]
+    sums, counts = bucket_aggregate(pkeys, vals, base, num_windows, agg_rows)
+    return sums[0], counts, (None if pay_bits is None else sums[1])
 
 
 def _build_tables(rk: torch.Tensor, key_domain: int, rv: Optional[torch.Tensor],
@@ -639,8 +676,9 @@ def build_join_tables(rk: torch.Tensor, key_domain: int,
     ``unique``: one host sync for counts.max() <= 1, as the reference's
     probe_tables makes.
 
-    The tables are kernel D's outputs, zeroed up front, so an empty
-    window reads as "no match": the reference's zero_empty_windows,
+    The tables are kernel D's outputs, which hold 0 in every slot no row
+    reaches, so an empty window reads as "no match": the reference's
+    zero_empty_windows,
     probe_tables_raw's occupancy mask and occupancy_step_tab (the probe's
     occupancy bit) have no counterpart here."""
     ids, counts, pay, G = _build_tables(rk, key_domain, rv, tile, agg_rows)

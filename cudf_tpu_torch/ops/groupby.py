@@ -120,10 +120,7 @@ def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
     if radix_tier:
         _run_radix(codes, K, runs)
     else:
-        for run in runs.values():
-            run["out"] = onehot_groupby_aggregate(codes, run["col"].data, K,
-                                                  valid=run["mask"],
-                                                  with_minmax=run["minmax"])
+        _run_onehot(codes, K, runs)
     occupied = next(r["out"][1] for r in runs.values() if r["mask"] is valid)
 
     results: Dict[object, Column] = {}
@@ -150,13 +147,29 @@ def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
     return Table({key_name: key_col}), out_aggs
 
 
-def _run_radix(codes: torch.Tensor, K: int, runs: Dict[Tuple, dict]) -> None:
-    """Fill run["out"] = (sums, counts, mins, maxs) on the radix tier:
-    runs that share a mask share one partition of the keys."""
+def _by_mask(runs: Dict[Tuple, dict]) -> List[List[dict]]:
+    """The runs grouped by the mask they aggregate under."""
     by_mask: Dict[int, List[dict]] = {}
     for run in runs.values():
         by_mask.setdefault(id(run["mask"]), []).append(run)
-    for group in by_mask.values():
+    return list(by_mask.values())
+
+
+def _run_onehot(codes: torch.Tensor, K: int, runs: Dict[Tuple, dict]) -> None:
+    """Fill run["out"] = (sums, counts, mins, maxs) on the one-hot tier:
+    one kernel A call a mask, over all the columns aggregated under it."""
+    for group in _by_mask(runs):
+        sums, counts, mins, maxs = onehot_groupby_aggregate(
+            codes, [r["col"].data for r in group], K, valid=group[0]["mask"],
+            with_minmax=[r["minmax"] for r in group])
+        for j, run in enumerate(group):
+            run["out"] = (sums[j], counts, mins[j], maxs[j])
+
+
+def _run_radix(codes: torch.Tensor, K: int, runs: Dict[Tuple, dict]) -> None:
+    """Fill run["out"] = (sums, counts, mins, maxs) on the radix tier:
+    runs that share a mask share one partition of the keys."""
+    for group in _by_mask(runs):
         mask = group[0]["mask"]
         k_in = codes if mask is None else torch.where(mask, codes, -1)
         sums, counts = radix_groupby_sum_count(

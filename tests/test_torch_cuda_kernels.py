@@ -373,7 +373,7 @@ def test_window_tables_match_plain(dev, pay_dtype, dom):
         rv = (torch.randn(n_r, generator=g, device=dev, dtype=torch.float64) * 1e9).to(pay_dtype)
     before = rp.bucket_aggregate.launches
     ids, pay, unique, G = rp.build_join_tables(rk, dom, rv)
-    assert rp.bucket_aggregate.launches == before + (1 if rv is None else 2) and unique
+    assert rp.bucket_aggregate.launches == before + 1 and unique     # idpay: one launch
     ok = rk >= 0
     exp = torch.zeros(G * rp.SPAN, dtype=torch.int64, device=dev)
     exp[rk[ok].long()] = torch.nonzero(ok).squeeze(1) + 1
@@ -384,6 +384,150 @@ def test_window_tables_match_plain(dev, pay_dtype, dom):
         assert torch.equal(pay, want)
     rk[1] = rk[2]                              # rk[::17] are the negatives
     assert rp.build_join_tables(rk, dom)[2] is False
+
+
+def _agg_columns(dev, n, dtypes, seed):
+    """Value columns of these dtypes: int32 over its whole range and
+    int64 within +-2^62, so that the kernel's low words carry and its
+    int64 sums wrap; floats of either sign."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cols = []
+    for dt in dtypes:
+        if dt.is_floating_point:
+            c = (torch.randn(n, generator=g, device=dev, dtype=torch.float64) * 100).to(dt)
+        else:
+            lo, hi = (-2**31, 2**31 - 1) if dt == torch.int32 else (-2**62, 2**62)
+            c = torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=dt)
+        cols.append(c)
+    return cols
+
+
+MIXED = (torch.int32, torch.int64, torch.float32, torch.float64)
+
+
+@pytest.mark.parametrize("route", ["sorted", "scatter", "one_window"])
+@pytest.mark.parametrize("agg_rows", [1000, rp.AGG_ROWS])
+@pytest.mark.parametrize("dtypes", [(torch.float64,), (torch.int32, torch.int64, torch.float32),
+                                    MIXED, MIXED + (torch.int32, torch.float64)])
+def test_bucket_aggregate_columns_match_plain(dev, route, agg_rows, dtypes):
+    """Kernel D's list form: mixed dtypes in one launch (one to three
+    columns; four and six take two launches), windows of one step
+    (AGG_ROWS) and of several (1000 rows), empty windows first, in the
+    middle and last, whose slots must read 0, over the sorted route's
+    runs, kernel C's unsorted ones and one unpartitioned window in input
+    order; outputs allocated over junk, since the kernel writes every
+    slot itself."""
+    n = 300_001
+    g = torch.Generator(device=dev).manual_seed(n + len(dtypes) + agg_rows)
+    vals = _agg_columns(dev, n, dtypes, len(dtypes))
+    if route == "one_window":
+        pk = torch.randint(-3, rp.SPAN, (n,), generator=g, device=dev, dtype=torch.int32)
+        pv, base, G = vals, torch.tensor([0, n], device=dev), 1
+    else:
+        keys = torch.randint(2 * rp.SPAN, 60 * rp.SPAN, (n,), generator=g, device=dev,
+                             dtype=torch.int32)         # windows 0, 1 and 60-63 empty
+        keys = torch.where((keys >> rp.WINDOW_BITS) == 30, keys + rp.SPAN, keys)
+        keys[::17] = -1
+        pk, pv, base, G = rp.radix_partition(keys, vals, 19,
+                                             merge_tiles=4 if route == "sorted" else 1)
+        assert G == 64 and int(base[31] - base[30]) == 0
+    _fill_junk(*[(2 * G * rp.SPAN,)] * (len(dtypes) + 1))
+    before = rp.bucket_aggregate.launches
+    sums, counts = rp.bucket_aggregate(pk, pv, base, G, agg_rows=agg_rows)
+    assert rp.bucket_aggregate.launches == before + -(-len(dtypes) // rp.MAX_AGG_COLUMNS)
+    exp, e_counts = rp.bucket_aggregate_plain(pk, pv, base, G)
+    assert torch.equal(counts, e_counts)
+    for s, e in zip(sums, exp):
+        assert s.dtype == e.dtype and _close(s.cpu(), e.cpu())
+    empty = torch.nonzero(base[1:] == base[:-1]).squeeze(1)
+    slots = (empty.unsqueeze(1) * rp.SPAN + torch.arange(rp.SPAN, device=dev)).view(-1)
+    assert all(bool((t[slots] == 0).all()) for t in [counts] + sums)
+    one = rp.bucket_aggregate(pk, pv[-1], base, G, agg_rows=agg_rows, with_counts=False)
+    assert one[1] is None and _close(one[0].cpu(), exp[-1].cpu())
+
+
+@pytest.mark.parametrize("pay_dtype", [torch.float32, torch.float64, torch.int64])
+@pytest.mark.parametrize("agg_rows", [500, rp.AGG_ROWS])
+def test_window_tables_idpay_one_launch_copies_bits(dev, pay_dtype, agg_rows):
+    """Kernel D's id + idpay in one launch: id + 1 and the payload's bits
+    exactly (NaN, -0.0 and int64 beyond 2^53), 0 in every empty slot,
+    over a partitioned build with empty windows, outputs over junk."""
+    g = torch.Generator(device=dev).manual_seed(agg_rows)
+    dom, n_r = 1 << 20, 200_000
+    rk = torch.randperm(dom // 2, generator=g, device=dev)[:n_r].int()   # windows 64-127 empty
+    rk[::23] = -1
+    if pay_dtype.is_floating_point:
+        rv = (torch.randn(n_r, generator=g, device=dev, dtype=torch.float64) * 1e9).to(pay_dtype)
+        rv[::7], rv[1::7] = float("nan"), -0.0
+    else:
+        rv = torch.randint(-2**62, 2**62, (n_r,), generator=g, device=dev)
+    rid1 = torch.arange(1, n_r + 1, dtype=torch.int32, device=dev)
+    pk, (pr, pp), base, G = rp.radix_partition(rk, [rid1, rp.payload_bits(rv)], 20)
+    _fill_junk(*[(2 * G * rp.SPAN,)] * 3)
+    before = rp.bucket_aggregate.launches
+    ids, counts, pay = rp.window_tables(pk, pr, base, G, pp, agg_rows=agg_rows)
+    assert rp.bucket_aggregate.launches == before + 1
+    ok = rk >= 0
+    want = torch.zeros(G * rp.SPAN, dtype=torch.int64, device=dev)
+    want[rk[ok].long()] = torch.nonzero(ok).squeeze(1) + 1
+    assert torch.equal(ids, want) and torch.equal(counts, (want > 0).long())
+    bits = torch.zeros_like(want)
+    bits[rk[ok].long()] = rp.payload_bits(rv)[ok].long()
+    assert torch.equal(pay, bits)
+    got = rp._from_bits(pay[rk[ok].long()], pay_dtype)
+    assert _same_bits(got, rv[ok])
+
+
+@pytest.mark.parametrize("K", [1, 100, 4096])
+@pytest.mark.parametrize("masked", [False, True])
+def test_onehot_columns_match_plain(dev, K, masked):
+    """Kernel A's list form: int32, int64, float32 and float64 columns
+    (NaN in the floats, integers over a wide range) in one call, min
+    and max on three of them, in as many launches as column_launches
+    gives (one at K = 1 and 100, two at 4096), with and without a mask."""
+    n = 300_003
+    g = torch.Generator(device=dev).manual_seed(n + K)
+    keys = torch.randint(-2, K + 2, (n,), generator=g, device=dev, dtype=torch.int32)
+    vals = _agg_columns(dev, n, MIXED, K)
+    for v in vals[2:]:      # NaN in some groups' rows; groups 2, 9, ... only NaN
+        v[(keys % 3 == 1) & (torch.rand(n, generator=g, device=dev) < 0.3)] = float("nan")
+        v[keys % 7 == 2] = float("nan")
+    valid = (torch.rand(n, generator=g, device=dev) > 0.2) if masked else None
+    flags = [True, False, True, True]
+    before = ha.onehot_groupby_aggregate.launches
+    got = ha.onehot_groupby_aggregate(keys, vals, K, valid=valid, with_minmax=flags)
+    assert ha.onehot_groupby_aggregate.launches == before + len(ha.column_launches(K, flags))
+    assert len(ha.column_launches(K, flags)) == (2 if K == 4096 else 1)
+    exp = ha.onehot_groupby_aggregate_plain(keys, vals, K, valid=valid, with_minmax=flags)
+    assert torch.equal(got[1], exp[1])
+    for part in (0, 2, 3):
+        for a, b in zip(got[part], exp[part]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and _close(a.cpu(), b.cpu())
+
+
+def test_onehot_tier_launches_once_per_mask(dev):
+    """Through DataFrame.groupby().agg: requests under one mask share a
+    kernel A launch, and columns whose null masks differ take one each;
+    the result equals the CPU's."""
+    import numpy as np
+    import pandas as pd
+    import cudf_tpu_torch as ct
+
+    rng = np.random.default_rng(3)
+    n = 200_000
+    pdf = pd.DataFrame({"k": rng.integers(0, 100, n), "x": rng.integers(-9, 9, n),
+                        "y": rng.normal(size=n), "f": rng.normal(size=n),
+                        "h": rng.normal(size=n).astype(np.float32)})
+    pdf.loc[rng.random(n) < 0.2, "f"] = np.nan
+    pdf.loc[rng.random(n) < 0.3, "h"] = np.nan
+    spec = {"x": ["sum", "max"], "y": "mean", "f": ["sum", "min"], "h": "max"}
+    before = ha.onehot_groupby_aggregate.launches
+    got = ct.from_pandas(pdf, device=dev).groupby("k").agg(spec).to_pandas()
+    assert ha.onehot_groupby_aggregate.launches == before + 3    # x and y; f; h
+    exp = ct.from_pandas(pdf, device=torch.device("cpu")).groupby("k").agg(spec).to_pandas()
+    pd.testing.assert_frame_equal(got, exp, check_exact=False, rtol=1e-12, atol=1e-9)
 
 
 def test_join_entry_points_match_cpu(dev):

@@ -109,6 +109,29 @@ def test_low_k_matches_reference_kernel_tier(reference_kernel_tier):
     _assert_frames(_port(pdf, SPEC), pdf.groupby("k").agg(SPEC), rtol=1e-12)
 
 
+@pytest.mark.parametrize("spec,columns", [
+    ({"i": "mean", "b": "sum", "k2": "mean"}, [3]),       # G1 q4's shape: no nulls, one mask
+    (SPEC, [1, 1, 3]),       # f's and g's own masks; i, b and f's size under the key's
+])
+def test_onehot_tier_calls_kernel_once_per_mask(monkeypatch, spec, columns):
+    """The one-hot tier hands every run under one mask to one kernel A
+    call (wrapper calls and their columns counted: on the CPU no kernel
+    launches), and the result still equals pandas'."""
+    from cudf_tpu_torch.ops import groupby as ops_groupby
+
+    seen = []
+    real = ops_groupby.onehot_groupby_aggregate
+
+    def counting(keys, vals, *args, **kw):
+        seen.append(len(vals))
+        return real(keys, vals, *args, **kw)
+
+    monkeypatch.setattr(ops_groupby, "onehot_groupby_aggregate", counting)
+    pdf = _frame(3, 100).assign(k2=lambda d: d.i * 3)
+    _assert_frames(_port(pdf, spec), pdf.groupby("k").agg(spec), rtol=1e-12)
+    assert sorted(seen) == columns
+
+
 def test_high_k_matches_reference_and_pandas():
     """min/max are held to pandas only: the reference's sort tier takes
     ~25 s to compile them on a CPU, and its kernel tier's high-K min/max

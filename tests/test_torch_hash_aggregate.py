@@ -173,6 +173,58 @@ def test_without_minmax_and_plain_is_the_wrapper(rng):
     assert onehot_groupby_aggregate.launches == before      # CPU: no kernel
 
 
+def test_list_form_matches_reference_and_single_calls(rng):
+    """Kernel A's list form (plain path): float32, int32, float64 and bool
+    columns under one mask in one call, min/max on two of them; the f32
+    column matches the reference (the (5000, 100) shape that
+    test_float_matches_reference compiles), every column its
+    single-column call, and the counts are shared."""
+    n, K = 5000, 100
+    keys = rng.integers(0, K, n).astype(np.int32)
+    cols = [rng.normal(size=n).astype(np.float32), rng.integers(-2**31, 2**31, n).astype(np.int32),
+            rng.normal(size=n) * 1e6, rng.random(n) > 0.5]
+    flags = [True, False, True, False]
+    s, c, mn, mx = onehot_groupby_aggregate(torch.from_numpy(keys),
+                                            [torch.from_numpy(v) for v in cols], K,
+                                            with_minmax=flags)
+    rs, rc, rmn, rmx = _ref(keys, cols[0], K)
+    np.testing.assert_allclose(s[0].numpy(), rs, rtol=1e-7, atol=1e-6)
+    np.testing.assert_array_equal(c.numpy(), rc)
+    np.testing.assert_array_equal(mn[0].numpy(), rmn)
+    np.testing.assert_array_equal(mx[0].numpy(), rmx)
+    assert mn[1] is None and mx[3] is None and mn[2].dtype == torch.float64
+    for j, v in enumerate(cols):
+        one = _port(keys, v, K, with_minmax=flags[j])
+        np.testing.assert_array_equal(s[j].numpy(), one[0])
+        np.testing.assert_array_equal(c.numpy(), one[1])
+        if flags[j]:
+            np.testing.assert_array_equal(mn[j].numpy(), one[2])
+            np.testing.assert_array_equal(mx[j].numpy(), one[3])
+    with pytest.raises(ValueError):
+        onehot_groupby_aggregate(torch.from_numpy(keys), [], K)
+    with pytest.raises(ValueError):
+        onehot_groupby_aggregate(torch.from_numpy(keys), [torch.from_numpy(cols[0])], K,
+                                 with_minmax=[True, False])
+
+
+def test_column_launches_fit_shared_memory():
+    """The launches kernel A splits a call's columns into: at most
+    MAX_COLUMNS each, and bins that fit one block's shared memory."""
+    from cudf_tpu_torch.kernels import hash_aggregate as ha
+
+    assert ha.column_launches(100, [False] * 3) == [[0, 1, 2]]
+    assert ha.column_launches(100, [False] * 6) == [[0, 1, 2, 3], [4, 5]]
+    assert ha.column_launches(4096, [True, False, True, True]) == [[0, 1], [2, 3]]
+    assert ha.column_launches(4096, [False] * 6) == [[0, 1, 2, 3], [4, 5]]
+    for K in (1, 100, 4096):
+        for flags in ([True] * 5, [False, True] * 3):
+            parts = ha.column_launches(K, flags)
+            assert sorted(j for p in parts for j in p) == list(range(len(flags)))
+            for p in parts:
+                slots = sum(3 if flags[j] else 1 for j in p)
+                assert len(p) <= ha.MAX_COLUMNS and K * (8 * slots + 4) <= ha.MAX_SHARED
+
+
 def test_wrapper_checks_inputs():
     keys = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):

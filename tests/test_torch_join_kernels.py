@@ -130,6 +130,28 @@ def test_window_tables_match_reference(name):
     np.testing.assert_array_equal(got_pay.numpy()[rk], rv.view(np.int32).astype(np.int64))
 
 
+def test_fused_window_tables_match_reference():
+    """window_tables' idpay form (ids, counts and payload bits from one
+    kernel D call over [rid + 1, payload bits]) against the reference's
+    build tables of the payload case, and against its id form."""
+    lk, lv, rk, rv, dom = _inputs("payload")
+    ids, pay, _, G = _ref_tables("payload")
+    n = rk.size
+    rid1 = torch.arange(1, n + 1, dtype=torch.int32)
+    pk, (pr, pp), base, pG = rp.radix_partition(_t(rk), [rid1, rp.payload_bits(_t(rv))],
+                                                rp.domain_bits(dom), tile=PORT["tile"])
+    got_ids, counts, got_pay = rp.window_tables(pk, pr, base, pG, pp, agg_rows=PORT["agg_rows"])
+    assert pG == G
+    np.testing.assert_array_equal(got_ids.numpy(), ids)
+    np.testing.assert_array_equal(counts.numpy(), (ids > 0).astype(np.int64))
+    as_f32 = got_pay.to(torch.int32).view(torch.float32).numpy()
+    np.testing.assert_array_equal(as_f32.astype(np.float64), pay)
+    np.testing.assert_array_equal(got_pay.numpy()[rk], rv.view(np.int32).astype(np.int64))
+    id_only = rp.window_tables(pk, pr, base, pG)
+    assert torch.equal(id_only[0], got_ids) and torch.equal(id_only[1], counts)
+    assert id_only[2] is None
+
+
 def test_nonunique_build_detected():
     lk, lv, rk, rv, dom = _inputs("nonunique")
     assert _ref_probe("nonunique")[2] is False

@@ -191,6 +191,37 @@ def test_bucket_aggregate_matches_reference_windows(rng):
     assert none is None
 
 
+def test_bucket_aggregate_list_form_matches_reference():
+    """Kernel D's list form (plain path): float32, float64, int32, int64
+    and bool columns over one partition, more than one launch's worth,
+    give the reference's sums for the f32 column, the single-column form's
+    sums for each, and one shared count."""
+    keys, vals, K, rs, rc = _case("one_pass")
+    rng = np.random.default_rng(11)
+    n = keys.shape[0]
+    cols = [torch.from_numpy(vals), torch.from_numpy(vals.astype(np.float64)),
+            torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(-2**62, 2**62, n)),
+            torch.from_numpy(rng.random(n) > 0.5)]
+    pk, pv, base, G = rp.radix_partition(torch.from_numpy(keys), cols, 15, tile=PORT_TILE)
+    sums, c = rp.bucket_aggregate(pk, pv, base, G, agg_rows=1024)
+    assert len(sums) == len(cols) > rp.MAX_AGG_COLUMNS
+    np.testing.assert_array_equal(c.numpy()[:K], rc)
+    np.testing.assert_allclose(sums[0].numpy()[:K], rs, rtol=1e-7, atol=1e-6)
+    np.testing.assert_array_equal(sums[1].numpy(), sums[0].numpy())
+    for s, v in zip(sums, pv):
+        one, none = rp.bucket_aggregate(pk, v, base, G, with_counts=False)
+        assert none is None and s.dtype == one.dtype and torch.equal(s, one)
+    exp = np.zeros(K, np.int64)
+    np.add.at(exp, keys, cols[3].numpy())                # int64 sums wrap as numpy's
+    np.testing.assert_array_equal(sums[3].numpy()[:K], exp)
+    assert [s.dtype for s in sums] == [torch.float64] * 2 + [torch.int64] * 3
+    with pytest.raises(ValueError):
+        rp.bucket_aggregate(pk, [], base, G)
+    with pytest.raises(ValueError):
+        rp.bucket_aggregate(pk, pv[:2], base, G, agg_rows=0)
+
+
 def _shuffling_scatter(plain):
     """radix_scatter_plain with each bucket's rows in a new random order on
     every call, as kernel C's shared-atomic slots may come on the card."""
