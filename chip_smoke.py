@@ -3,10 +3,11 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-With --beside DIR it only builds the kernels and times kernels A and D at
-the main path's shapes beside those of the checkout in DIR (e.g. the
-parent, unpacked by git archive into build/parent), in one process on
-the same data, and prints the times as its last line.
+With --beside DIR it only builds the kernels and times kernels A, D, B and
+C at their main shapes (B and C at G1 K = 1e6 and the J1 big probe)
+beside those of the checkout in DIR (e.g. the parent, unpacked by git
+archive into build/parent), in one process on the same data, and prints
+the times as its last line.
 
 Phases (any failure raises; the exit code is then non-zero and no
 result line is printed):
@@ -24,7 +25,8 @@ torch.Generator:
    C radix_scatter, F tile_sort_data, G merge_scatter, D
    bucket_aggregate) against its plain PyTorch version on the card, at
    the main path's shapes: 1e8 rows, K = 100 for A and K = 1e6 for the
-   rest (7-bit digits; F and G with 4096-key tiles, 16384-key
+   rest (7-bit digits; B and C at choose_tile's 4096-key tiles, B also
+   at the sorted route's 16384; F and G with 4096-key tiles, 16384-key
    supertiles, under mask_bits = 20 as the route calls them, and F once
    more without a mask: the full 32-bit order of the contract and of
    E).  A at bench K = 100's one f64 column, and q4's v1, v2, v3 in one
@@ -35,10 +37,12 @@ torch.Generator:
    kernel C's unsorted output with one f64 column; D's outputs are
    checked after the caching allocator was filled with junk, since it
    writes every slot itself.  Tolerances: counts, histograms and integer
-   sums exact; float64 sums rtol 1e-12 (atomic order varies); C's output
-   holds the same (key, payload) multiset in every bucket; F and G bit
-   for bit.  Then radix_partition's two routes, merge_tiles = 1 (B, C)
-   and 4 (B, F, G), must give the same windows; both are timed.
+   sums exact; float64 sums rtol 1e-12 (atomic order varies); C, F and G
+   bit for bit (C is a stable scatter: its valid rows are its plain
+   version's, over junk).  Then radix_partition's two routes,
+   merge_tiles = 1 (B, C) and 4 (B, F, G), must give the same windows;
+   both are timed, and the B and C launches of one call of each are
+   recorded.
 4. main path: DataFrame.groupby().agg: q4 (mean of v1, v2, v3 by id4, the
    one-hot tier), q5 (sum of v1, v2, v3 by id6, the radix tier) and
    bench.py's {"v": ["sum", "mean", "count"]} request on v3 by id4
@@ -62,7 +66,9 @@ card from the same generator:
    id and idpay modes in one launch (window_tables, float64 payload) and
    its id mode alone (the J1 path's) over J1 big's build (1e8 unique
    keys, 16384 windows, a quarter of them empty), over junk; B and C
-   over J1 big's probe partition, and B at the sorted route's three J1
+   (bit for bit) over J1 big's probe partition at the scatter route's
+   2^14 digits (B with each tile cut over blocks by tile_parts, C as two
+   stable 7-bit passes), and B at the sorted route's three J1
    shapes (both J1 big passes, the J1 medium pass); E tile_sort of the
    probe keys with one int32 rider; F and
    G in both passes of the sorted route over the probe side (mask_bits
@@ -91,11 +97,12 @@ card from the same generator:
 
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
-resident blocks per SM, threads and shared memory; A's and D's rows
-carry theirs and their registers.  The G, D and A rows carry ptxas's
-report on their sources (-Xptxas -v, compiled beside the build), and the
-A and D rows the shared-memory atomics (ATOMS opcodes, counted in
-cuobjdump -sass) of their kernels.
+resident blocks per SM, threads and shared memory; A's, D's, B's and
+C's rows carry theirs and their registers, and B's its cut (tiles,
+parts a tile, keys a part).  The G, D, A, B and C rows carry
+ptxas's report on their kernels (-Xptxas -v, compiled beside the
+build), and the A, D, B and C rows the shared-memory atomics (ATOMS
+opcodes, counted in cuobjdump -sass) of their kernels.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; for a gather, each table entry the
@@ -204,13 +211,6 @@ def same_bits(got, exp, what):
     return 0.0
 
 
-def pairs_sorted(keys, vals):
-    """(key, val) pairs in lexicographic order."""
-    order = torch.argsort(vals, stable=True)
-    order = order[torch.argsort(keys[order], stable=True)]
-    return keys[order], vals[order]
-
-
 def tile_sort_row(ts, keys, payloads, tile, mask_bits, shape):
     """Kernel F bit for bit against its plain version, and its row; the
     library call is a stable torch.sort of the keys' whole tiles."""
@@ -263,11 +263,16 @@ def sorted_pass(rp, ts, keys, payloads, nbits, shift, offsets, base, mask_bits, 
 def route_phase(dev, rp, keys, vals, bits, what):
     """radix_partition at merge_tiles = 1 (kernels B, C) and 4 (B, F, G):
     the same base and, in every window, the same (key, row, value bits);
-    returns both routes' times in ms."""
+    returns both routes' times in ms and the B and C launches of one
+    call of each."""
     rows = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
-    outs, times = {}, {}
+    outs, times, launches = {}, {}, {}
     for mt in (1, 4):
+        before = rp.digit_histogram.launches, rp.radix_scatter.launches
         pk, pv, base, G = rp.radix_partition(keys, [rows] + vals, bits, merge_tiles=mt)
+        launches[f"merge_tiles={mt}"] = {
+            "digit_histogram": rp.digit_histogram.launches - before[0],
+            "radix_scatter": rp.radix_scatter.launches - before[1]}
         m = int(base[-1])
         win = torch.repeat_interleave(torch.arange(G, device=dev), base[1:] - base[:-1])
         check(torch.equal(pk[:m].long() >> rp.WINDOW_BITS, win),
@@ -278,9 +283,10 @@ def route_phase(dev, rp, keys, vals, bits, what):
         times[mt] = device_ms(lambda: rp.radix_partition(keys, vals, bits, merge_tiles=mt))
     for a, b in zip(outs[1], outs[4]):
         same_bits(a, b, f"{what}: the routes' windows")
+    check(launches["merge_tiles=1"]["radix_scatter"] > 0, f"{what}: merge_tiles=1 ran no C")
     log(f"route {what}: merge_tiles=1 (B, C) {times[1]:.3f} ms, merge_tiles=4 (B, F, G) "
-        f"{times[4]:.3f} ms; same windows")
-    return {"merge_tiles=1": times[1], "merge_tiles=4": times[4]}
+        f"{times[4]:.3f} ms; same windows; launches {launches}")
+    return {"merge_tiles=1": times[1], "merge_tiles=4": times[4], "launches": launches}
 
 
 def kernel_phase(dev, gen, ha, rp, ts):
@@ -337,31 +343,30 @@ def kernel_phase(dev, gen, ha, rp, ts):
         0.0,
         lambda: rp.digit_histogram(codes, nbits, shift, tile),
         lambda: rp.digit_histogram_plain(codes, nbits, shift, tile), None,
-        nbytes(codes, hist), N)
+        nbytes(codes, hist), N, shape=f"G1 K = 1e6: 1e8 keys, 2^{nbits} digits, tile {tile} "
+        "(choose_tile's: the scatter route's)", cut=cut_of(rp, N, tile, nbits),
+        occupancy=rp.partition_occupancy("digit_histogram", nbits))
     show(f"B (exact, tile {tile})", rows["digit_histogram"])
 
     offsets, base = rp.partition_offsets(hist)
     payloads = [v_int, v_f64]
-    pk, pv = rp.radix_scatter(codes, payloads, offsets, nbits, shift, tile)
-    ek, ev = rp.radix_scatter_plain(codes, payloads, offsets, nbits, shift, tile)
-    m = int(base[-1])
-    check(m == N, f"C: {m} partitioned rows of {N}")
+    pk, pv = scatter_check(rp, codes, payloads, offsets, base, nbits, shift, tile, N, "C")
     window = torch.repeat_interleave(torch.arange(1 << nbits, device=dev),
                                      base[1:] - base[:-1])
-    check(torch.equal(pk[:m].long() >> shift, window), "C: a key outside its bucket")
-    for got, exp in zip(pv, ev):
-        a, b = pairs_sorted(pk[:m], got[:m]), pairs_sorted(ek[:m], exp[:m])
-        same(a[0], b[0], "C keys")
-        same(a[1], b[1], "C payloads", float_rtol=0.0)
-    del ek, ev, a, b
+    check(torch.equal(pk[:N].long() >> shift, window), "C: a key outside its bucket")
+    del window
     rows["radix_scatter"] = timed_row(
         0.0,
         lambda: rp.radix_scatter(codes, payloads, offsets, nbits, shift, tile),
         lambda: rp.radix_scatter_plain(codes, payloads, offsets, nbits, shift, tile), None,
-        2 * nbytes(codes, *payloads) + nbytes(offsets), N)
-    show("C (per-bucket multisets equal)", rows["radix_scatter"])
+        2 * nbytes(codes, *payloads) + nbytes(offsets), N,
+        shape=f"G1 K = 1e6: 1e8 keys, int32 + f64 payloads, 2^{nbits} buckets, tile {tile}",
+        occupancy=rp.partition_occupancy("radix_scatter", nbits, 4 + 8))
+    show("C (bit for bit)", rows["radix_scatter"])
 
     st = rp.MERGE_TILES * rp.SORT_TILE
+    name = f"G1 K = 1e6: 1e8 keys, 2^{nbits} digits, tile {st} (the sorted route's supertile)"
+    rows["digit_histogram"]["modes"] = {name: hist_row(rp, codes, nbits, shift, st, name)}
     offsets, base_st = rp.partition_offsets(rp.digit_histogram(codes, nbits, shift, st))
     check(torch.equal(base_st, base), "B at supertile granularity: other windows")
     shape = "G1 K = 1e6: 1e8 keys, int32 + f64 payloads, mask_bits 20 (the route's)"
@@ -585,28 +590,30 @@ def j1_kernel_phase(dev, gen, rp, ts):
     hist = rp.digit_histogram(lk, nbits, rp.WINDOW_BITS, tile)
     same(hist, rp.digit_histogram_plain(lk, nbits, rp.WINDOW_BITS, tile), "B hist (J1)")
     offsets, base_l = rp.partition_offsets(hist)
-    pk_l, (pv_l,) = rp.radix_scatter(lk, [rows_i], offsets, nbits, rp.WINDOW_BITS, tile)
-    m = int(base_l[-1])
-    live = torch.nonzero(lk >= 0).squeeze(1)
-    check(m == live.numel(), f"C (J1): {m} partitioned rows of {live.numel()}")
+    m = int((lk >= 0).sum())
+    pk_l, (pv_l,) = scatter_check(rp, lk, [rows_i], offsets, base_l, nbits, rp.WINDOW_BITS,
+                                  tile, m, "C (J1)")
     window = torch.repeat_interleave(torch.arange(G, device=dev), base_l[1:] - base_l[:-1])
     check(torch.equal(pk_l[:m].long() >> rp.WINDOW_BITS, window), "C (J1): a key outside its window")
-    check(torch.equal(lk[pv_l[:m].long()], pk_l[:m]), "C (J1): a row id off its key")
-    check(torch.equal(torch.sort(pv_l[:m]).values.long(), live), "C (J1): rows lost or repeated")
-    del window, live
+    del window
     shape = f"J1 big probe (1e8 keys, 2^{nbits} buckets, tile {tile})"
+    cut = cut_of(rp, N, tile, nbits)
     modes["digit_histogram"][shape] = timed_row(
         0.0,
         lambda: rp.digit_histogram(lk, nbits, rp.WINDOW_BITS, tile),
         lambda: rp.digit_histogram_plain(lk, nbits, rp.WINDOW_BITS, tile), None,
-        nbytes(lk, hist), N)
-    show("B at J1 big", modes["digit_histogram"][shape])
+        nbytes(lk, hist), N, shape=shape + " (the scatter route's)", cut=cut,
+        occupancy=rp.partition_occupancy("digit_histogram", nbits))
+    show("B at J1 big, 2^14 digits (exact)", modes["digit_histogram"][shape])
     modes["radix_scatter"][shape + ", one int32 payload"] = timed_row(
         0.0,
         lambda: rp.radix_scatter(lk, [rows_i], offsets, nbits, rp.WINDOW_BITS, tile),
         lambda: rp.radix_scatter_plain(lk, [rows_i], offsets, nbits, rp.WINDOW_BITS, tile),
-        None, nbytes(lk, rows_i, offsets) + 2 * 4 * m, N)
-    show("C at J1 big (exact partition)", modes["radix_scatter"][shape + ", one int32 payload"])
+        None, nbytes(lk, rows_i, offsets) + 2 * 4 * m, N,
+        passes=f"two stable passes of {nbits - nbits // 2} and {nbits // 2} digit bits "
+        f"(SCATTER_BITS = {rp.SCATTER_BITS}), each at tile {rp.choose_tile(N, nbits - nbits // 2)}",
+        occupancy=rp.partition_occupancy("radix_scatter", nbits - nbits // 2, 4))
+    show("C at J1 big (bit for bit)", modes["radix_scatter"][shape + ", one int32 payload"])
     del hist, offsets
 
     tile, st = rp.SORT_TILE, rp.MERGE_TILES * rp.SORT_TILE
@@ -745,9 +752,33 @@ def hist_row(rp, keys, nbits, shift, tile, shape):
     same(hist, rp.digit_histogram_plain(keys, nbits, shift, tile), f"B hist ({shape})")
     row = timed_row(0.0, lambda: rp.digit_histogram(keys, nbits, shift, tile),
                     lambda: rp.digit_histogram_plain(keys, nbits, shift, tile), None,
-                    nbytes(keys, hist), keys.numel(), shape=shape)
+                    nbytes(keys, hist), keys.numel(), shape=shape,
+                    cut=cut_of(rp, keys.numel(), tile, nbits),
+                    occupancy=rp.partition_occupancy("digit_histogram", nbits))
     show(f"B, {shape}", row)
     return row
+
+
+def cut_of(rp, n, tile, nbits):
+    """How kernel B cuts this shape's tiles over blocks."""
+    parts, part_len = rp.tile_parts(-(-n // tile), tile, nbits, torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count)
+    return {"tiles": -(-n // tile), "parts": parts, "part_len": part_len}
+
+
+def scatter_check(rp, keys, payloads, offsets, base, nbits, shift, tile, rows, what):
+    """Kernel C bit for bit against its plain version (a stable argsort by
+    digit) in the valid rows, keys and every payload, its outputs over
+    junk; returns its output."""
+    m = int(base[-1])
+    check(m == rows, f"{what}: {m} partitioned rows of {rows}")
+    fill_junk((keys.numel(),), *[(p.numel() * p.element_size() // 4,) for p in payloads])
+    pk, pv = rp.radix_scatter(keys, payloads, offsets, nbits, shift, tile)
+    ek, ev = rp.radix_scatter_plain(keys, payloads, offsets, nbits, shift, tile)
+    same_bits(pk[:m], ek[:m], f"{what} keys")
+    for got, exp in zip(pv, ev):
+        same_bits(got[:m], exp[:m], f"{what} payloads")
+    return pk, pv
 
 
 def fill_junk(*shapes):
@@ -896,7 +927,7 @@ def check_j1_model(j1_join, rows, lcodes, rcodes, n_dim, size):
 
 
 def beside_phase(dev, gen, rp, ha, other_dir):
-    """Kernels A and D at the main path's shapes beside another checkout's
+    """Kernels A, D, B and C at their main shapes beside another checkout's
     (``--beside DIR``, e.g. the parent unpacked by ``git archive``), in
     this process on the same data: DIR's kernel library is built from its
     own sources and its wrappers are loaded beside this checkout's; four
@@ -925,7 +956,14 @@ def beside_phase(dev, gen, rp, ha, other_dir):
     k100 = torch.randint(0, K_LOW, (N,), generator=gen, device=dev, dtype=torch.int32)
     k6 = torch.randint(0, K_HIGH, (N,), generator=gen, device=dev, dtype=torch.int32)
     pk, pv, base, G = rp.radix_partition(k6, q, 20)
-    del k6
+    g1_nbits, g1_tile, g1_st = 7, rp.choose_tile(N, 7), rp.MERGE_TILES * rp.SORT_TILE
+    g1_off, _ = rp.partition_offsets(rp.digit_histogram(k6, g1_nbits, rp.WINDOW_BITS, g1_tile))
+    j1_bits = rp.domain_bits(J1_DIMS["big"])
+    j1_nbits = j1_bits - rp.WINDOW_BITS
+    j1_tile = rp.choose_tile(N, j1_nbits)
+    lk = probe_codes(dev, gen, J1_DIMS["big"])
+    rows_i = torch.arange(N, dtype=torch.int32, device=dev)
+    j1_off, _ = rp.partition_offsets(rp.digit_histogram(lk, j1_nbits, rp.WINDOW_BITS, j1_tile))
     rk = torch.randperm(N, generator=gen, device=dev, dtype=torch.int32)
     rid1 = torch.arange(1, N + 1, dtype=torch.int32, device=dev)
     pay = rp.payload_bits(torch.randn(N, generator=gen, device=dev, dtype=torch.float64))
@@ -950,6 +988,14 @@ def beside_phase(dev, gen, rp, ha, other_dir):
                 pk, pv[2], base, G),
             "D, id alone at J1 big": lambda: r.window_tables(jk, jr, jbase, jG),
             "D, id + idpay at J1 big": lambda: r.window_tables(jk, jr, jbase, jG, jp),
+            f"B, G1 K = 1e6 (2^7 digits, {g1_st}-key tiles: the sorted route's)":
+                lambda: r.digit_histogram(k6, g1_nbits, rp.WINDOW_BITS, g1_st),
+            f"B, J1 big probe (2^14 digits, {j1_tile}-key tiles)": lambda: r.digit_histogram(
+                lk, j1_nbits, rp.WINDOW_BITS, j1_tile),
+            f"C, G1 K = 1e6 (int32 + f64 payloads, {g1_tile}-key tiles)": lambda: r.radix_scatter(
+                k6, q[1:], g1_off, g1_nbits, rp.WINDOW_BITS, g1_tile),
+            "C, J1 big probe (one int32 payload)": lambda: r.radix_scatter(
+                lk, [rows_i], j1_off, j1_nbits, rp.WINDOW_BITS, j1_tile),
         }
 
     calls = {"this": shapes(rp, ha), "beside": shapes(o_rp, o_ha)}
@@ -963,6 +1009,18 @@ def beside_phase(dev, gen, rp, ha, other_dir):
     for shape, times in out.items():
         log(f"beside {shape}: this {[round(t, 3) for t in times['this']]} ms, "
             f"{other_dir} {[round(t, 3) for t in times['beside']]} ms")
+    return out
+
+
+def ptxas_lines(report, kernel=None):
+    """ptxas's info and stack-frame lines, only those of the entry points
+    whose name holds ``kernel`` when it is given."""
+    out, keep = [], kernel is None
+    for line in report:
+        if "Compiling entry function" in line:
+            keep = kernel is None or kernel in line
+        if keep and ("ptxas info" in line or "stack frame" in line):
+            out.append(line)
     return out
 
 
@@ -996,19 +1054,22 @@ def main():
     t0 = time.perf_counter()
     reported = {"merge_scatter": "merge_scatter.cu", "bucket_aggregate": "radix_partition.cu",
                 "onehot_groupby_aggregate": "hash_aggregate.cu"}
-    with concurrent.futures.ThreadPoolExecutor(len(reported)) as pool:
-        # ptxas -v of G, D and A, and D's and A's shared atomics in SASS, beside the build
-        ptxas = {k: pool.submit(_build.ptxas_report, _build.CSRC / src)
-                 for k, src in reported.items()}
-        fns = {"bucket_aggregate": "bucket_aggregate_kernel",
-               "onehot_groupby_aggregate": "onehot_aggregate_kernel"}
-        sass = {k: pool.submit(_build.sass_opcodes, _build.CSRC / reported[k], "ATOMS")
-                for k in fns}
+    sources = sorted(set(reported.values()))
+    fns = {"bucket_aggregate": "bucket_aggregate_kernel",
+           "onehot_groupby_aggregate": "onehot_aggregate_kernel",
+           "digit_histogram": "digit_histogram_kernel", "radix_scatter": "radix_scatter_kernel"}
+    reported.update(digit_histogram="radix_partition.cu", radix_scatter="radix_partition.cu")
+    with concurrent.futures.ThreadPoolExecutor(2 * len(sources)) as pool:
+        # ptxas -v of G, D, A, B and C, and the shared atomics in SASS of D, A, B and C,
+        # beside the build: one compile of each source for each report
+        reports = {src: pool.submit(_build.ptxas_report, _build.CSRC / src) for src in sources}
+        opcodes = {src: pool.submit(_build.sass_opcodes, _build.CSRC / src, "ATOMS")
+                   for src in ("radix_partition.cu", "hash_aggregate.cu")}
         lib = _build.library()
-        ptxas = {k: [line for line in f.result() if "ptxas info" in line or "stack frame" in line]
-                 for k, f in ptxas.items()}
-        sass = {k: {fn: ops for fn, ops in f.result().items() if fns[k] in fn}
-                for k, f in sass.items()}
+        ptxas = {k: ptxas_lines(reports[src].result(), fns.get(k))
+                 for k, src in reported.items()}
+        sass = {k: {fn: ops for fn, ops in opcodes[reported[k]].result().items() if fn_name in fn}
+                for k, fn_name in fns.items()}
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s ({lib.path.name})")
     for k, lines in ptxas.items():
         for line in lines:

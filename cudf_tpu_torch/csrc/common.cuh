@@ -145,6 +145,144 @@ __device__ __forceinline__ void global_add(unsigned long long* dst, unsigned lon
   }
 }
 
+// cp.async copies of 4, 8 or 16 bytes from device to shared memory
+// (kernels C and G); cp_async_wait_all waits for the thread's own.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------
+// Stable block-wide ranking by digit, shared by kernel F (the tile sort,
+// csrc/tile_sort.cu) and kernel C (the stable scatter,
+// csrc/radix_partition.cu).  A block of kRankThreads threads holds
+// kRankTile items, kRankItems a thread, warp-striped: item j of lane l in
+// warp w is position w * kRankWarpItems + j * 32 + l.
+// ---------------------------------------------------------------------
+
+constexpr int kRankThreads = 512;
+constexpr int kRankItems = 8;
+constexpr int kRankTile = kRankThreads * kRankItems;
+constexpr int kRankWarps = kRankThreads / 32;
+constexpr int kRankWarpItems = 32 * kRankItems;
+constexpr int kRankDigitBits = 8;
+constexpr int kRankDigits = 1 << kRankDigitBits;
+constexpr int kRankScanWarps = kRankWarps / (kRankThreads / kRankDigits);   // warps a scan thread sums
+
+struct RankSmem {
+  unsigned key[kRankTile];
+  unsigned short idx[kRankTile];
+  unsigned count[kRankWarps * kRankDigits];     // [warp][digit]
+  unsigned warp_sum[kRankWarps];
+};
+
+// The lanes of the warp whose label equals this lane's, for labels of
+// kRankDigitBits bits: one ballot a bit (cub's MatchAny; __match_any_sync is
+// slower).
+__device__ __forceinline__ unsigned match_digit(unsigned label) {
+  unsigned peers = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < kRankDigitBits; ++b) {
+    const bool set = (label >> b) & 1u;
+    const unsigned vote = __ballot_sync(0xffffffffu, set);
+    peers &= set ? vote : ~vote;
+  }
+  return peers;
+}
+
+// Exclusive prefix of v over the block in thread order, via warp_sum.
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned up = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned w = lane < kRankWarps ? warp_sum[lane] : 0u;
+    unsigned wi = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned up = __shfl_up_sync(0xffffffffu, wi, d);
+      if (lane >= d) wi += up;
+    }
+    if (lane < kRankWarps) warp_sum[lane] = wi - w;
+  }
+  __syncthreads();
+  return warp_sum[warp] + incl - v;
+}
+
+// One stable pass on digit (k >> shift) & (2^nbits - 1): on return, item
+// j of this thread is the one of rank w * 256 + j * 32 + l.  The keys are
+// moved too unless this is the last pass.
+__device__ __forceinline__ void radix_pass(RankSmem& s, unsigned (&k)[kRankItems],
+                                           unsigned short (&idx)[kRankItems], int shift,
+                                           int nbits, bool last) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = (1u << nbits) - 1u;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned* cnt = s.count + warp * kRankDigits;
+  for (int d = lane; d < kRankDigits; d += 32) cnt[d] = 0;
+  __syncwarp();
+  unsigned short rank[kRankItems];
+#pragma unroll
+  for (int j = 0; j < kRankItems; ++j) {
+    const unsigned d = (k[j] >> shift) & mask;
+    const unsigned peers = match_digit(d);
+    const unsigned before = cnt[d];
+    __syncwarp();
+    if ((peers & below) == 0) cnt[d] = before + __popc(peers);
+    __syncwarp();
+    rank[j] = static_cast<unsigned short>(before + __popc(peers & below));
+  }
+  __syncthreads();
+
+  // counters, digit-major then warp, to each (warp, digit)'s first slot
+  const int d = threadIdx.x / (kRankThreads / kRankDigits);
+  const int w0 = (threadIdx.x % (kRankThreads / kRankDigits)) * kRankScanWarps;
+  unsigned c[kRankScanWarps], sum = 0;
+#pragma unroll
+  for (int u = 0; u < kRankScanWarps; ++u) {
+    c[u] = s.count[(w0 + u) * kRankDigits + d];
+    sum += c[u];
+  }
+  unsigned run = block_exclusive_scan(sum, s.warp_sum);
+#pragma unroll
+  for (int u = 0; u < kRankScanWarps; ++u) {
+    s.count[(w0 + u) * kRankDigits + d] = run;
+    run += c[u];
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < kRankItems; ++j) {
+    const int r = static_cast<int>(cnt[(k[j] >> shift) & mask] + rank[j]);
+    if (!last) s.key[r] = k[j];
+    s.idx[r] = idx[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kRankItems; ++j) {
+    const int p = warp * kRankWarpItems + j * 32 + lane;
+    if (!last) k[j] = s.key[p];
+    idx[j] = s.idx[p];
+  }
+}
+
 inline int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);

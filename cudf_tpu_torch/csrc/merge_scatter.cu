@@ -199,16 +199,6 @@ __device__ __forceinline__ void merge_level(const int* s_key, unsigned short* s_
   __syncthreads();
 }
 
-// cp.async copies of 4 or 16 bytes from device to shared memory.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
-}
-
 // One batch of a payload column in merged order: every row of the batch
 // is loaded (from its input position) before any is stored (at its slot),
 // so kLoads loads are in flight a thread.  to[k] < 0: nothing to write.

@@ -1,27 +1,69 @@
 // Kernels B, C and D: the radix-partition groupby tier for large key
 // domains (up to 2^27 keys), driven by kernels/radix_partition.py.
 //
-// B  digit_histogram   replaces cudf_tpu/kernels/radix_partition.py
-//    digit_histogram (Pallas body _hist_kernel).  One block per tile of
-//    `tile` keys counts the digit (key >> shift) & (2^nbits - 1) into a
-//    shared-memory histogram; negative keys are left out.  Bound: the
-//    4-byte key read per row; with B = 128 buckets shared-atomic
-//    contention is low, and the block writes its B counts once.
+// B  digit_histogram   replaces cudf_tpu/kernels/radix_partition.py:93
+//    digit_histogram (Pallas body _hist_kernel).  Per tile of `tile`
+//    keys, the count of each digit (key >> shift) & (2^nbits - 1) in a
+//    shared-memory histogram; negative keys are left out.  Bound: bytes,
+//    the 4-byte key read once and the histogram written once (~0.12 ms
+//    at 1e8 keys).  What held the first version at half of that was
+//    memory latency: one 4-byte load a thread in flight before each
+//    atomic.  Now each of 256 threads issues kHistBatch 16-byte loads (16
+//    keys) before its first atomic, and counts a run of equal digits in
+//    a register, adding it to the shared bin only when the digit changes:
+//    sorted input (the sorted route's second pass) takes about one shared
+//    atomic per four keys, random input one per key.  (Counting J1
+//    medium's 2^4 digits by warp ballots instead, one lane a bin, was
+//    slower: PERF.md.)  A tile whose blocks
+//    would not fill the card (the scatter route's 2^14 buckets: 191 tiles
+//    of 524,288 keys at 1e8) is cut into `parts` blocks of part_len keys
+//    (kernels/radix_partition.py tile_parts); each adds its non-zero bins
+//    into the tile's row, zeroed first, with global atomics.
 //
-// C  radix_scatter     replaces radix_partition.py radix_scatter (Pallas
-//    body _partition_kernel with an in-kernel bitonic sort and the
-//    covering-row DMAs of _scatter_runs), the reference's merge_tiles = 1
-//    route; the main path takes its merge_tiles = 4 route, kernels F and
-//    G (csrc/tile_sort.cu, csrc/merge_scatter.cu).  Hopper scatters single
-//    elements, so no sort is needed: each block re-derives its tile's
-//    digits and takes each element's output slot from a shared cursor
-//    per bucket, seeded with the exclusive scan of the histogram over
-//    (bucket, tile).  The partition is exact: no SENTINEL fill, no
-//    run-edge garbage, and the valid rows are the first sum(hist) of the
-//    output.  ORDER INSIDE A (tile, bucket) RUN IS UNSPECIFIED: slots go
-//    in shared-atomic order.  Bound: bytes moved per row (read and write
-//    the key and every payload); writes land in runs of about
-//    tile / B elements, so larger tiles coalesce better.
+// C  radix_scatter     replaces cudf_tpu/kernels/radix_partition.py:336
+//    radix_scatter (Pallas body _partition_kernel with an in-kernel
+//    bitonic sort and the covering-row DMAs of _scatter_runs), the
+//    reference's merge_tiles = 1 route; the main path takes its
+//    merge_tiles = 4 route, kernels F and G (csrc/tile_sort.cu,
+//    csrc/merge_scatter.cu).  STABLE: each (tile, bucket) run holds its
+//    rows in input order, so the first sum(hist) rows of every output
+//    equal radix_scatter_plain's (a stable argsort by digit) bit for bit,
+//    and there is no SENTINEL fill and no run-edge garbage.  Bound:
+//    bytes, the key and every payload read once and written once, plus
+//    `offsets` (0.956 ms at G1 K = 1e6 with int32 + f64 payloads, ~0.46
+//    at J1 big with one int32 payload).
+//    - What holds it: the write fan-out.  A block can hold only a few
+//      thousand rows, so at 2^7 buckets each run it writes is ~32 rows,
+//      and the card writes 128 interleaved streams a tile; the same
+//      ranking at 2 buckets takes about half the time (PERF.md).  The
+//      first version took each row's slot from a shared atomic cursor,
+//      one row a thread at a time (10x its bound), and at 2^14 buckets
+//      every row was its own partial-sector write.
+//    - A block of 512 threads walks its tile in chunks of kRankTile =
+//      4096 rows; the scatter route's tiles are one chunk
+//      (kernels/radix_partition.py choose_tile), so the blocks running
+//      at once write neighbouring runs of each bucket, and 1e8 rows make
+//      24,415 blocks.
+//      Each payload column of the chunk is copied to shared memory by
+//      cp.async first, then every key load is issued; the copies land
+//      while the chunk is ranked stably by digit, with negative keys and
+//      the chunk's padding as one more digit after the last, by the
+//      ballot-matched warp ranks and block scan of kernel F (common.cuh
+//      radix_pass): one 8-bit pass, so at most kScatterBits = 7 digit
+//      bits a launch.  Wider digits (the 2^14 route) are two launches,
+//      low bits then high, each stable, as an LSD radix sort
+//      (radix_scatter in kernels/radix_partition.py).
+//    - In ranked order a digit's rows form one run; its head, found from
+//      its neighbour, takes the run's first slot from the digit's shared
+//      cursor, every row adds its place in the run, and the run's last
+//      row advances the cursor: no atomics.  The cursors are seeded with
+//      the tile's offsets and carried across its chunks.
+//    - After one wait for the copies, every column is written in ranked
+//      order through the local index (the keys staged from the registers
+//      that ranked them), so consecutive threads store consecutive slots
+//      of one run.
+//    - Two blocks an SM: 63 registers, 40 KB of ranking buffers, the
+//      cursors and 4096 rows of each payload (48 KB at G1's int32 + f64).
 //
 // D  bucket_aggregate  replaces radix_partition.py bucket_aggregate in all
 //    four modes (Pallas body _agg_kernel, _dd_block_update): float and
@@ -56,8 +98,9 @@
 //      times G1 q5 also at one step a window (no global atomics, one
 //      block a window): the combine costs little there, and steps of
 //      agg_rows rows keep a skewed window spread over many blocks.
-//    - Order is free: the sorted route's runs, kernel C's shuffled ones
-//      and an unpartitioned single window give the same sums.  Float sums
+//    - Order is free: the sorted route's runs, kernel C's runs in input
+//      order, any other order of a window's rows and an unpartitioned
+//      single window give the same sums.  Float sums
 //      are taken in atomic order, which varies from run to run (rtol
 //      1e-12 against the plain version).
 
@@ -66,8 +109,10 @@
 namespace cudf_tpu_torch {
 namespace {
 
-constexpr int kHistThreads = 512;
-constexpr int kScatterThreads = 512;
+constexpr int kHistThreads = 256;
+constexpr int kHistBatch = 4;       // 16-byte key loads a thread issues before its first atomic
+constexpr unsigned kNoSlot = 0xffffffffu;
+constexpr int kScatterBits = 7;     // kernel C: one 8-bit ranking pass (kernels/radix_partition.py)
 constexpr int kAggThreads = 1024;   // 512 when two blocks fit in an SM's shared memory
 constexpr int kAggBatch = 4;        // rows a thread loads before its first atomic
 constexpr int kMaxAggColumns = 3;   // kernels/radix_partition.py MAX_AGG_COLUMNS
@@ -75,51 +120,203 @@ constexpr int kZeroThreads = 256;
 constexpr int kWindowBits = 13;
 constexpr int kSpan = 1 << kWindowBits;
 
-__global__ void __launch_bounds__(kHistThreads)
-digit_histogram_kernel(const int32_t* __restrict__ keys, long long n, int shift,
-                       int nbits, long long tile, int32_t* __restrict__ hist) {
-  extern __shared__ unsigned int s_hist[];
-  const int B = 1 << nbits;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) s_hist[b] = 0u;
-  __syncthreads();
-  const long long start = static_cast<long long>(blockIdx.x) * tile;
-  const long long end = start + tile < n ? start + tile : n;
-  for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    const int k = keys[i];
-    if (k < 0) continue;
-    atomicAdd(&s_hist[(k >> shift) & (B - 1)], 1u);
+// Adds one key to a thread's open run (cur, cnt) of equal digits; a run
+// goes into the shared histogram when the digit changes.
+__device__ __forceinline__ void count_key(int k, int shift, unsigned mask, unsigned* s_hist,
+                                          unsigned& cur, unsigned& cnt) {
+  if (k < 0) return;
+  const unsigned d = (static_cast<unsigned>(k) >> shift) & mask;
+  if (d == cur) {
+    ++cnt;
+    return;
   }
-  __syncthreads();
-  int32_t* row = hist + static_cast<long long>(blockIdx.x) * B;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) row[b] = static_cast<int32_t>(s_hist[b]);
+  if (cnt != 0u) atomicAdd(s_hist + cur, cnt);
+  cur = d;
+  cnt = 1u;
 }
 
-// Columns: the keys at 0, the payloads after them (common.cuh).
-__global__ void __launch_bounds__(kScatterThreads)
+// Rows [lo, hi) of part p of tile t, block t * parts + p.
+struct PartRows {
+  long long t, lo, hi;
+  int part;
+};
+__device__ __forceinline__ PartRows part_rows(long long n, long long tile, long long part_len,
+                                              int parts) {
+  PartRows r;
+  r.t = blockIdx.x / parts;
+  r.part = static_cast<int>(blockIdx.x % parts);
+  const long long end = min((r.t + 1) * tile, n);
+  r.lo = min(r.t * tile + r.part * part_len, end);
+  r.hi = min(r.lo + part_len, end);
+  return r;
+}
+
+// hist [tiles, 2^nbits]: with one part a tile, a block stores its tile's
+// row; with more, each adds its non-zero counts into the row, zeroed
+// before the launch.
+__global__ void __launch_bounds__(kHistThreads)
+digit_histogram_kernel(const int32_t* __restrict__ keys, long long n, int shift, int nbits,
+                       long long tile, long long part_len, int parts,
+                       int32_t* __restrict__ hist) {
+  extern __shared__ unsigned s_hist[];
+  const int B = 1 << nbits;
+  const unsigned mask = static_cast<unsigned>(B - 1);
+  for (int b = threadIdx.x; b < B; b += blockDim.x) s_hist[b] = 0u;
+  __syncthreads();
+  const PartRows r = part_rows(n, tile, part_len, parts);
+  // rows before the first 16-byte boundary and after the last go one a thread
+  const long long mis = static_cast<long long>((reinterpret_cast<uintptr_t>(keys + r.lo) >> 2) & 3u);
+  const long long a = min(r.hi, r.lo + ((4 - mis) & 3));
+  const long long nv = (r.hi - a) >> 2;
+  const long long b = a + 4 * nv;
+  unsigned cur = 0u, cnt = 0u;
+  if (threadIdx.x < a - r.lo) count_key(__ldg(keys + r.lo + threadIdx.x), shift, mask, s_hist, cur, cnt);
+  if (threadIdx.x < r.hi - b) count_key(__ldg(keys + b + threadIdx.x), shift, mask, s_hist, cur, cnt);
+  const int4* vec = reinterpret_cast<const int4*>(keys + a);
+  for (long long v0 = threadIdx.x; v0 < nv; v0 += kHistBatch * kHistThreads) {
+    int4 q[kHistBatch];
+#pragma unroll
+    for (int u = 0; u < kHistBatch; ++u) {   // every load of the batch first
+      const long long v = v0 + u * kHistThreads;
+      q[u] = v < nv ? __ldg(vec + v) : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int u = 0; u < kHistBatch; ++u) {
+      count_key(q[u].x, shift, mask, s_hist, cur, cnt);
+      count_key(q[u].y, shift, mask, s_hist, cur, cnt);
+      count_key(q[u].z, shift, mask, s_hist, cur, cnt);
+      count_key(q[u].w, shift, mask, s_hist, cur, cnt);
+    }
+  }
+  if (cnt != 0u) atomicAdd(s_hist + cur, cnt);
+  __syncthreads();
+  int32_t* row = hist + r.t * B;
+  if (parts > 1) {
+    for (int d = threadIdx.x; d < B; d += blockDim.x) {
+      const unsigned c = s_hist[d];
+      if (c != 0u) atomicAdd(row + d, static_cast<int32_t>(c));
+    }
+  } else {
+    for (int d = threadIdx.x; d < B; d += blockDim.x) row[d] = static_cast<int32_t>(s_hist[d]);
+  }
+}
+
+// Kernel C's cursors in dynamic shared memory, rounded up to 16 bytes:
+// the payload stages follow them.
+__host__ __device__ __forceinline__ size_t cursor_bytes(int nbits) {
+  return ((sizeof(unsigned) << nbits) + 15) & ~static_cast<size_t>(15);
+}
+
+__device__ __forceinline__ int chunk_pos(int j) {
+  return (threadIdx.x >> 5) * kRankWarpItems + j * 32 + (threadIdx.x & 31);
+}
+
+// Starts the copies of rows [start, start + len) of a 4- or 8-byte column
+// into stage (input order): 16 bytes a copy where the rows' address is
+// 16-byte aligned, else one row a copy.
+__device__ __forceinline__ void prefetch_column(const void* src, int width, char* stage,
+                                                long long start, int len) {
+  const char* from = static_cast<const char*>(src) + start * width;
+  const int bytes = len * width;
+  int b = threadIdx.x * 16;
+  if ((reinterpret_cast<uintptr_t>(from) & 15) == 0) {
+    for (; b + 16 <= bytes; b += kRankThreads * 16) cp_async16(stage + b, from + b);
+    b = (bytes & ~15) + threadIdx.x * width;
+  } else {
+    b = threadIdx.x * width;
+  }
+  for (; b < bytes; b += kRankThreads * width) {
+    if (width == 8) {
+      cp_async8(stage + b, from + b);
+    } else {
+      cp_async4(stage + b, from + b);
+    }
+  }
+}
+
+// Writes a staged column in ranked order: item j (ranked position
+// chunk_pos(j)) from its input position idx[j] to its slot.
+template <typename T>
+__device__ __forceinline__ void write_column(void* dst_v, const T* stage,
+                                             const unsigned short (&idx)[kRankItems],
+                                             const unsigned (&slot)[kRankItems]) {
+  T* dst = static_cast<T*>(dst_v);
+#pragma unroll
+  for (int j = 0; j < kRankItems; ++j) {
+    if (slot[j] != kNoSlot) dst[slot[j]] = stage[idx[j]];
+  }
+}
+
+// Columns: the keys at 0, the payloads after them (common.cuh).  Dynamic
+// shared memory: the 2^nbits cursors, then each payload's stage of
+// kRankTile rows.  One block a tile.
+__global__ void __launch_bounds__(kRankThreads, 2)
 radix_scatter_kernel(long long n, int shift, int nbits, long long tile,
                      const int32_t* __restrict__ offsets, Columns c) {
-  extern __shared__ unsigned int s_cursor[];
+  __shared__ RankSmem rank;                  // after the slots, rank.key stages the keys
+  extern __shared__ __align__(16) unsigned s_cursor[];
   const int B = 1 << nbits;
-  const int32_t* row = offsets + static_cast<long long>(blockIdx.x) * B;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) s_cursor[b] = static_cast<unsigned>(row[b]);
-  __syncthreads();
+  char* stage = reinterpret_cast<char*>(s_cursor) + cursor_bytes(nbits);
+  const PartRows r = part_rows(n, tile, tile, 1);
+  for (int d = threadIdx.x; d < B; d += blockDim.x) {
+    s_cursor[d] = static_cast<unsigned>(offsets[r.t * B + d]);
+  }
+  // (the ranking's __syncthreads publish the cursors before their first read)
+  const unsigned invalid = static_cast<unsigned>(B);   // negative keys and padding rank last
   const int32_t* keys = static_cast<const int32_t*>(c.src[0]);
-  const long long start = static_cast<long long>(blockIdx.x) * tile;
-  const long long end = start + tile < n ? start + tile : n;
-  for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    const int k = keys[i];
-    if (k < 0) continue;
-    const unsigned pos = atomicAdd(&s_cursor[(k >> shift) & (B - 1)], 1u);
-    static_cast<int32_t*>(c.dst[0])[pos] = k;
-    for (int j = 1; j < c.count; ++j) {
-      if (c.width[j] == 8) {
-        static_cast<unsigned long long*>(c.dst[j])[pos] =
-            static_cast<const unsigned long long*>(c.src[j])[i];
+  for (long long start = r.lo; start < r.hi; start += kRankTile) {
+    const int len = static_cast<int>(min(r.hi - start, static_cast<long long>(kRankTile)));
+    // every payload row of the chunk on its way to shared memory, then every key load
+    for (int col = 1, off = 0; col < c.count; off += kRankTile * c.width[col++]) {
+      prefetch_column(c.src[col], c.width[col], stage + off, start, len);
+    }
+    int raw[kRankItems];
+    unsigned k[kRankItems];
+    unsigned short idx[kRankItems];
+#pragma unroll
+    for (int j = 0; j < kRankItems; ++j) {
+      raw[j] = chunk_pos(j) < len ? __ldg(keys + start + chunk_pos(j)) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kRankItems; ++j) {
+      idx[j] = static_cast<unsigned short>(chunk_pos(j));
+      k[j] = raw[j] < 0 ? invalid : (static_cast<unsigned>(raw[j]) >> shift) & (invalid - 1u);
+    }
+    radix_pass(rank, k, idx, 0, nbits + 1, false);
+    // item j holds ranked position chunk_pos(j); rank.key the ranked digits
+    unsigned slot[kRankItems];
+    unsigned tails = 0u;
+#pragma unroll
+    for (int j = 0; j < kRankItems; ++j) {
+      const int p = chunk_pos(j);
+      const bool valid = k[j] < invalid;
+      const bool head = p == 0 || rank.key[p - 1] != k[j];
+      if (valid && (p == kRankTile - 1 || rank.key[p + 1] != k[j])) tails |= 1u << j;
+      if (valid && head) s_cursor[k[j]] -= static_cast<unsigned>(p);  // the run's first slot - p
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRankItems; ++j) {
+      slot[j] = k[j] < invalid ? s_cursor[k[j]] + static_cast<unsigned>(chunk_pos(j)) : kNoSlot;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRankItems; ++j) {
+      if ((tails >> j) & 1u) s_cursor[k[j]] = slot[j] + 1u;
+      if (chunk_pos(j) < len) rank.key[chunk_pos(j)] = static_cast<unsigned>(raw[j]);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    write_column<unsigned>(c.dst[0], rank.key, idx, slot);
+    for (int col = 1, off = 0; col < c.count; off += kRankTile * c.width[col++]) {
+      if (c.width[col] == 8) {
+        write_column(c.dst[col], reinterpret_cast<const unsigned long long*>(stage + off), idx,
+                     slot);
       } else {
-        static_cast<unsigned int*>(c.dst[j])[pos] =
-            static_cast<const unsigned int*>(c.src[j])[i];
+        write_column(c.dst[col], reinterpret_cast<const unsigned*>(stage + off), idx, slot);
       }
     }
+    __syncthreads();                         // before the next chunk reuses the buffers
   }
 }
 
@@ -226,45 +423,102 @@ bucket_aggregate_kernel(const int32_t* __restrict__ keys, AggColumns c,
 }  // namespace
 }  // namespace cudf_tpu_torch
 
-// keys int32[n]; hist int32[ceil(n / tile), 2^nbits].
-extern "C" int cudf_digit_histogram(const void* keys, long long n, int shift, int nbits,
-                                    long long tile, void* hist, void* stream) {
-  using namespace cudf_tpu_torch;
-  const size_t smem = sizeof(unsigned int) << nbits;
-  cudaError_t err = cudaFuncSetAttribute(
-      digit_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+namespace cudf_tpu_torch {
+namespace {
+
+bool valid_cut(long long n, int nbits, long long tile, long long part_len, int parts) {
+  if (nbits < 1 || nbits > 15 || tile < 1 || parts < 1 || part_len < 1) return false;
   const long long tiles = (n + tile - 1) / tile;
-  digit_histogram_kernel<<<static_cast<unsigned>(tiles), kHistThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), n, shift, nbits, tile,
+  return part_len * parts >= tile && tiles * parts < (1ll << 31);
+}
+
+// Kernel C's dynamic shared memory: the cursors, then a chunk of each payload.
+size_t scatter_smem_bytes(int nbits, const Columns& c) {
+  size_t bytes = cursor_bytes(nbits);
+  for (int col = 1; col < c.count; ++col) bytes += static_cast<size_t>(kRankTile) * c.width[col];
+  return bytes;
+}
+
+}  // namespace
+}  // namespace cudf_tpu_torch
+
+// keys int32[n]; hist int32[ceil(n / tile), 2^nbits], every entry written.
+// Each tile is counted by `parts` blocks of part_len keys (parts *
+// part_len >= tile); with more than one, hist is zeroed first and the
+// blocks add into it.
+extern "C" int cudf_digit_histogram(const void* keys, long long n, int shift, int nbits,
+                                    long long tile, long long part_len, int parts, void* hist,
+                                    void* stream) {
+  using namespace cudf_tpu_torch;
+  if (!valid_cut(n, nbits, tile, part_len, parts)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long tiles = (n + tile - 1) / tile;
+  cudaError_t err;
+  if (parts > 1) {
+    err = cudaMemsetAsync(hist, 0, static_cast<size_t>(tiles) * sizeof(int32_t) << nbits, s);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = sizeof(unsigned) << nbits;
+  err = cudaFuncSetAttribute(digit_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  digit_histogram_kernel<<<static_cast<unsigned>(tiles * parts), kHistThreads, smem, s>>>(
+      static_cast<const int32_t*>(keys), n, shift, nbits, tile, part_len, parts,
       static_cast<int32_t*>(hist));
   return cudaGetLastError();
 }
 
 // offsets int32[ceil(n / tile), 2^nbits] output slot of each (tile,
-// bucket) run; src / dst / widths are host arrays of n_payloads (<= 4)
-// device pointers and element widths (4 or 8 bytes).
+// bucket) run, nbits <= kScatterBits; src / dst / widths are host arrays
+// of n_payloads (<= 4) device pointers and element widths (4 or 8 bytes).
 extern "C" int cudf_radix_scatter(const void* keys, long long n, int shift, int nbits,
                                   long long tile, const void* offsets, void* out_keys,
                                   int n_payloads, const void* src, const void* dst,
                                   const void* widths, void* stream) {
   using namespace cudf_tpu_torch;
   Columns c{};
-  if (!make_columns(&c, keys, out_keys, n_payloads, src, dst, widths)) {
+  if (!make_columns(&c, keys, out_keys, n_payloads, src, dst, widths) ||
+      !valid_cut(n, nbits, tile, tile, 1) || nbits > kScatterBits) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(unsigned int) << nbits;
+  const size_t smem = scatter_smem_bytes(nbits, c);
   cudaError_t err = cudaFuncSetAttribute(
-      radix_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      radix_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long tiles = (n + tile - 1) / tile;
-  radix_scatter_kernel<<<static_cast<unsigned>(tiles), kScatterThreads, smem,
+  radix_scatter_kernel<<<static_cast<unsigned>(tiles), kRankThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       n, shift, nbits, tile, static_cast<const int32_t*>(offsets), c);
   return cudaGetLastError();
+}
+
+// Kernel B (which 0) or C (which 1, with payloads of payload_bytes a row
+// in all) at 2^nbits buckets: registers, resident blocks per SM, threads
+// and shared memory (static and dynamic, bytes) a block on the current
+// device.
+extern "C" int cudf_partition_occupancy(int which, int nbits, int payload_bytes, int* registers,
+                                        int* blocks_per_sm, int* threads, int* smem_bytes,
+                                        void* stream) {
+  using namespace cudf_tpu_torch;
+  (void)stream;
+  if (which < 0 || which > 1 || nbits < 1 || nbits > (which == 0 ? 15 : kScatterBits) ||
+      payload_bytes < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const void* fn = which == 0 ? reinterpret_cast<const void*>(digit_histogram_kernel)
+                              : reinterpret_cast<const void*>(radix_scatter_kernel);
+  const size_t smem = which == 0 ? sizeof(unsigned) << nbits
+                                 : cursor_bytes(nbits) + static_cast<size_t>(kRankTile) * payload_bytes;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  *threads = which == 0 ? kHistThreads : kRankThreads;
+  *registers = attr.numRegs;
+  *smem_bytes = static_cast<int>(attr.sharedSizeBytes + smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, *threads, smem);
 }
 
 // Per step s: window step_win[s] (-1: idle) over rows [step_lo[s],

@@ -28,13 +28,15 @@
 //    reference's) and the kernel matches a stable torch.sort bit for bit.
 //    Items sit warp-striped (item j of lane l in warp w is position
 //    w * 256 + j * 32 + l), so the keys load coalesced from device memory
-//    and every pass reads back coalesced from shared memory.  Each column
+//    and every pass reads back coalesced from shared memory (the ranking,
+//    match_digit / block_exclusive_scan / radix_pass, is in common.cuh:
+//    kernel C ranks with it too).  Each column
 //    is then staged whole in shared memory with coalesced loads and
 //    written out in rank order (reversed for a descending tile),
 //    gathering through the local index: every global access is coalesced.
 //    Bound: bytes, each column read once and written once; the passes
 //    over shared memory are the kernel's own cost beyond that.  Tiles hold
-//    at most kMaxTile = 4096 keys; a short tile is padded with keys above
+//    at most kRankTile = 4096 keys; a short tile is padded with keys above
 //    every real one, or equal to the greatest and after it, which the
 //    stable sort keeps last.
 
@@ -43,150 +45,39 @@
 namespace cudf_tpu_torch {
 namespace {
 
-constexpr int kSortThreads = 512;
-constexpr int kSortItems = 8;
-constexpr int kMaxTile = kSortThreads * kSortItems;
-constexpr int kWarps = kSortThreads / 32;
-constexpr int kWarpItems = 32 * kSortItems;
-constexpr int kDigitBits = 8;
-constexpr int kDigits = 1 << kDigitBits;
-constexpr int kScanWarps = kWarps / (kSortThreads / kDigits);   // warps a scan thread sums
-
-struct SortSmem {
-  unsigned key[kMaxTile];
-  unsigned short idx[kMaxTile];
-  unsigned count[kWarps * kDigits];     // [warp][digit]
-  unsigned warp_sum[kWarps];
-};
 union TileSmem {
-  SortSmem sort;
-  unsigned long long stage[kMaxTile];   // one column, after the sort
+  RankSmem sort;
+  unsigned long long stage[kRankTile];   // one column, after the sort
 };
-
-// The lanes of the warp whose label equals this lane's, for labels of
-// kDigitBits bits: one ballot a bit (cub's MatchAny; __match_any_sync is
-// slower).
-__device__ __forceinline__ unsigned match_digit(unsigned label) {
-  unsigned peers = 0xffffffffu;
-#pragma unroll
-  for (int b = 0; b < kDigitBits; ++b) {
-    const bool set = (label >> b) & 1u;
-    const unsigned vote = __ballot_sync(0xffffffffu, set);
-    peers &= set ? vote : ~vote;
-  }
-  return peers;
-}
-
-// Exclusive prefix of v over the block in thread order, via warp_sum.
-__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned up = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const unsigned w = lane < kWarps ? warp_sum[lane] : 0u;
-    unsigned wi = w;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned up = __shfl_up_sync(0xffffffffu, wi, d);
-      if (lane >= d) wi += up;
-    }
-    if (lane < kWarps) warp_sum[lane] = wi - w;
-  }
-  __syncthreads();
-  return warp_sum[warp] + incl - v;
-}
-
-// One stable pass on digit (k >> shift) & (2^nbits - 1): on return, item
-// j of this thread is the one of rank w * 256 + j * 32 + l.  The keys are
-// moved too unless this is the last pass.
-__device__ __forceinline__ void radix_pass(SortSmem& s, unsigned (&k)[kSortItems],
-                                           unsigned short (&idx)[kSortItems], int shift,
-                                           int nbits, bool last) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned mask = (1u << nbits) - 1u;
-  const unsigned below = (1u << lane) - 1u;
-  unsigned* cnt = s.count + warp * kDigits;
-  for (int d = lane; d < kDigits; d += 32) cnt[d] = 0;
-  __syncwarp();
-  unsigned short rank[kSortItems];
-#pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const unsigned d = (k[j] >> shift) & mask;
-    const unsigned peers = match_digit(d);
-    const unsigned before = cnt[d];
-    __syncwarp();
-    if ((peers & below) == 0) cnt[d] = before + __popc(peers);
-    __syncwarp();
-    rank[j] = static_cast<unsigned short>(before + __popc(peers & below));
-  }
-  __syncthreads();
-
-  // counters, digit-major then warp, to each (warp, digit)'s first slot
-  const int d = threadIdx.x / (kSortThreads / kDigits);
-  const int w0 = (threadIdx.x % (kSortThreads / kDigits)) * kScanWarps;
-  unsigned c[kScanWarps], sum = 0;
-#pragma unroll
-  for (int u = 0; u < kScanWarps; ++u) {
-    c[u] = s.count[(w0 + u) * kDigits + d];
-    sum += c[u];
-  }
-  unsigned run = block_exclusive_scan(sum, s.warp_sum);
-#pragma unroll
-  for (int u = 0; u < kScanWarps; ++u) {
-    s.count[(w0 + u) * kDigits + d] = run;
-    run += c[u];
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const int r = static_cast<int>(cnt[(k[j] >> shift) & mask] + rank[j]);
-    if (!last) s.key[r] = k[j];
-    s.idx[r] = idx[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const int p = warp * kWarpItems + j * 32 + lane;
-    if (!last) k[j] = s.key[p];
-    idx[j] = s.idx[p];
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ void permute_column(const void* src_v, void* dst_v, T* stage,
                                                long long start, int len, bool reverse,
-                                               const unsigned short (&idx)[kSortItems]) {
+                                               const unsigned short (&idx)[kRankItems]) {
   const T* src = static_cast<const T*>(src_v) + start;
   T* dst = static_cast<T*>(dst_v) + start;
-  T v[kSortItems];                             // all of a thread's loads in flight
+  T v[kRankItems];                             // all of a thread's loads in flight
 #pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const int i = j * kSortThreads + static_cast<int>(threadIdx.x);
+  for (int j = 0; j < kRankItems; ++j) {
+    const int i = j * kRankThreads + static_cast<int>(threadIdx.x);
     if (i < len) v[j] = src[i];
   }
 #pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const int i = j * kSortThreads + static_cast<int>(threadIdx.x);
+  for (int j = 0; j < kRankItems; ++j) {
+    const int i = j * kRankThreads + static_cast<int>(threadIdx.x);
     if (i < len) stage[i] = v[j];
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const int r = warp * kWarpItems + j * 32 + lane;
+  for (int j = 0; j < kRankItems; ++j) {
+    const int r = warp * kRankWarpItems + j * 32 + lane;
     if (r < len) dst[reverse ? len - 1 - r : r] = stage[idx[j]];
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kSortThreads, 2)
+__global__ void __launch_bounds__(kRankThreads, 2)
 tile_sort_kernel(long long n, int tile, int alternate, int mask_bits, Columns c) {
   __shared__ TileSmem smem;
   const long long start = static_cast<long long>(blockIdx.x) * tile;
@@ -196,16 +87,16 @@ tile_sort_kernel(long long n, int tile, int alternate, int mask_bits, Columns c)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   const int32_t* keys = static_cast<const int32_t*>(c.src[0]) + start;
-  unsigned k[kSortItems];
-  unsigned short idx[kSortItems];
+  unsigned k[kRankItems];
+  unsigned short idx[kRankItems];
 #pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {       // warp-striped, coalesced
-    const int p = warp * kWarpItems + j * 32 + lane;
+  for (int j = 0; j < kRankItems; ++j) {       // warp-striped, coalesced
+    const int p = warp * kRankWarpItems + j * 32 + lane;
     idx[j] = static_cast<unsigned short>(p);
     k[j] = p < len ? sort_key(keys[p], mask_bits) : pad;
   }
-  for (int shift = 0; shift < bits; shift += kDigitBits) {
-    const int nbits = bits - shift < kDigitBits ? bits - shift : kDigitBits;
+  for (int shift = 0; shift < bits; shift += kRankDigitBits) {
+    const int nbits = bits - shift < kRankDigitBits ? bits - shift : kRankDigitBits;
     radix_pass(smem.sort, k, idx, shift, nbits, shift + nbits >= bits);
   }
   __syncthreads();                             // the columns reuse the sort's buffers
@@ -237,11 +128,11 @@ extern "C" int cudf_tile_sort(const void* keys, long long n, int tile, int alter
   if (!make_columns(&c, keys, out_keys, n_payloads, src, dst, widths)) {
     return cudaErrorInvalidValue;
   }
-  if (tile < 1 || tile > kMaxTile || mask_bits < 0 || mask_bits > 30) {
+  if (tile < 1 || tile > kRankTile || mask_bits < 0 || mask_bits > 30) {
     return cudaErrorInvalidValue;
   }
   const long long tiles = (n + tile - 1) / tile;
-  tile_sort_kernel<<<static_cast<unsigned>(tiles), kSortThreads, 0,
+  tile_sort_kernel<<<static_cast<unsigned>(tiles), kRankThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(n, tile, alternate, mask_bits, c);
   return cudaGetLastError();
 }

@@ -72,19 +72,21 @@ WINDOW_BITS = 13
 SPAN = 1 << WINDOW_BITS          # keys per aggregation window
 MAX_DOMAIN_BITS = 27
 MAX_TABLE = 1 << 22              # histogram entries (16 MB of int32)
-MIN_TILE = 1 << 14               # keys per partition tile
+MIN_TILE = 1 << 12               # keys per scatter-route tile: one kernel C chunk
 AGG_ROWS = 1 << 17               # rows per aggregation step (kernel D)
 MAX_AGG_COLUMNS = 3              # value columns per kernel D launch (shared memory)
 MERGE_TILES = 4                  # sort tiles per supertile (the reference's default)
-SORT_TILE = 1 << 12              # keys per sort tile: MERGE_TILES * SORT_TILE = MIN_TILE
+SORT_TILE = 1 << 12              # keys per sort tile (kernel F)
 PASS_BITS = 7                    # digit bits per pass of the sorted route
 MAX_SUPER_TILE = 1 << 14         # keys per merge_scatter supertile (shared memory)
 MAX_MERGE_BITS = 10
 MAX_TABLES = 4                   # stacked id tables per probe (join fan-out)
 STAGE_MIN_ROWS = 512             # kernel H stages a window from this many rows in a block
+PART_BLOCKS_PER_SM = 2           # kernel B cuts tiles until this many blocks an SM have rows
+SCATTER_BITS = 7                 # digit bits of one kernel C pass (one 8-bit ranking pass)
 
 _HIST_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_longlong, ctypes.c_void_p]
+                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -105,12 +107,29 @@ _PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c
 # kernel B: per-tile digit histogram
 # ----------------------------------------------------------------------
 
+def tile_parts(n_tiles: int, tile: int, nbits: int, sms: int) -> Tuple[int, int]:
+    """(parts, part_len): the blocks kernel B gives each tile, of
+    part_len keys each (parts * part_len >= tile).  A tile is cut only
+    while the grid has fewer than PART_BLOCKS_PER_SM blocks for each of
+    the ``sms`` SMs, and never into parts below MIN_TILE keys or 8 keys a
+    bucket: each part adds its 2^nbits bins into the tile's row once (at
+    1e8 keys and 2^14 buckets: 191 tiles of 524,288 keys in 2 parts, one
+    wave of kernel B's three blocks an SM).
+    part_len is a multiple of 4 keys (B's 16-byte loads)."""
+    want = -(-PART_BLOCKS_PER_SM * sms // max(n_tiles, 1))
+    parts = max(1, min(want, tile // max(MIN_TILE, 8 << nbits)))
+    part_len = -(-tile // parts)
+    part_len = -(-part_len // 4) * 4
+    return -(-tile // part_len), part_len
+
+
 def digit_histogram(keys: torch.Tensor, nbits: int, shift: int,
                     tile: int) -> torch.Tensor:
     """hist int32[ceil(n / tile), 2^nbits]: per tile of ``tile`` keys, the
     count of each digit ``(key >> shift) & (2^nbits - 1)``.  Negative keys
     are not counted.  CUDA tensors launch kernel B, counted in
-    ``digit_histogram.launches``."""
+    ``digit_histogram.launches``; a tile is cut over several blocks as
+    :func:`tile_parts` says (the kernel zeroes and adds into it then)."""
     n = _build.check_keys(keys)
     if not 1 <= nbits <= MAX_DOMAIN_BITS - WINDOW_BITS or tile < 1:
         raise ValueError(f"nbits {nbits} / tile {tile} out of range")
@@ -119,8 +138,11 @@ def digit_histogram(keys: torch.Tensor, nbits: int, shift: int,
     hist = torch.empty((-(-n // tile), 1 << nbits), dtype=torch.int32,
                        device=keys.device)
     if n:
+        sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+        parts, part_len = tile_parts(-(-n // tile), tile, nbits, sms)
         _build.launch("cudf_digit_histogram", _HIST_ARGTYPES, keys.device,
-                      keys.data_ptr(), n, shift, nbits, tile, hist.data_ptr())
+                      keys.data_ptr(), n, shift, nbits, tile, part_len, parts,
+                      hist.data_ptr())
         digit_histogram.launches += 1
     return hist
 
@@ -158,7 +180,10 @@ def partition_offsets(hist: torch.Tensor, region_of_tile: Optional[torch.Tensor]
     """
     nt, B = hist.shape
     h = hist.long()
-    excl = torch.cumsum(h, 0) - h                    # over the tiles before
+    # over the tiles before, scanned along the inner dim of the transpose:
+    # torch scans dim 0 of [tiles, buckets] as an outer dim, far slower on
+    # the card (PERF.md, section 6)
+    excl = torch.cumsum(h.t().contiguous(), 1).t() - h
     if region_of_tile is None:
         totals = h.sum(dim=0)
         corr = 0
@@ -173,15 +198,16 @@ def partition_offsets(hist: torch.Tensor, region_of_tile: Optional[torch.Tensor]
     if align > 1:
         totals = (totals + align - 1) // align * align
     base = torch.cat([totals.new_zeros(1), torch.cumsum(totals, 0)])
-    offsets = (base[g] + excl - corr).to(torch.int32)
+    offsets = (base[g] + excl - corr).to(torch.int32).contiguous()
     return offsets, base
 
 
 def choose_tile(n: int, nbits: int) -> int:
-    """Keys per partition tile: at least MIN_TILE, and large enough that
-    the [tiles, 2^nbits] histogram has at most MAX_TABLE entries (for
-    n = 1e8: 16384 keys at 2^7 buckets, K = 1e6; 524288 at 2^14,
-    K = 2^27).  A power of two."""
+    """Keys per scatter-route tile: at least MIN_TILE (one kernel C chunk,
+    so that the blocks working at once write neighbouring runs of each
+    bucket), and large enough that the [tiles, 2^nbits] histogram has at
+    most MAX_TABLE entries (for n = 1e8: 4096 keys at 2^7 buckets,
+    K = 1e6; 524288 at 2^14, K = 2^27).  A power of two."""
     need = max(MIN_TILE, -(-n * (1 << nbits) // MAX_TABLE))
     return 1 << (need - 1).bit_length()
 
@@ -199,17 +225,52 @@ def radix_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
     histogram at the same ``tile``.  Payloads are 4- or 8-byte tensors
     [n] that travel with their keys (at most MAX_PAYLOADS).  Rows with a
     negative key are dropped; the valid rows are the first
-    ``offsets``-total of each output, and the order inside each
-    (tile, bucket) run is unspecified.  CUDA tensors launch kernel C,
-    counted in ``radix_scatter.launches``."""
+    ``offsets``-total of each output.  The scatter is stable: each
+    (tile, bucket) run holds its rows in input order, so the valid rows
+    equal :func:`radix_scatter_plain`'s bit for bit.
+
+    CUDA tensors launch kernel C, counted in ``radix_scatter.launches``:
+    one block a tile, and up to SCATTER_BITS digit bits one launch at
+    ``offsets``.  Wider digits take two stable passes, as an LSD radix
+    sort does: the low half of the digit bits, then the high half, each
+    with its own histogram (two :func:`digit_histogram` launches) at
+    :func:`choose_tile`'s tile, so that each pass writes runs that
+    coalesce; the result is the same stable order, and ``offsets`` is
+    only checked."""
     payloads = list(payloads)
     n = check_columns(keys, payloads)
+    if not 1 <= nbits <= MAX_DOMAIN_BITS - WINDOW_BITS or tile < 1:
+        raise ValueError(f"nbits {nbits} / tile {tile} out of range")
     nt = -(-n // tile)
     _build.check_vector("offsets", offsets.view(-1), torch.int32, nt << nbits,
                         keys.device)
     if keys.device.type == "cpu":
         return radix_scatter_plain(keys, payloads, offsets, nbits, shift, tile)
-    out_keys = torch.empty_like(keys)
+    if nbits <= SCATTER_BITS:
+        return _scatter_pass(keys, payloads, offsets, nbits, shift, tile)
+    return two_pass_scatter(keys, payloads, nbits, shift, _scatter_pass)
+
+
+def two_pass_scatter(keys, payloads, nbits, shift, one_pass):
+    """The stable partition by a digit of nbits bits as two stable passes
+    of ``one_pass`` (kernel C's launch, or radix_scatter_plain), low bits
+    first, each at its own histogram and choose_tile's tile.  The first
+    pass writes into keys prefilled with -1, so that the rows past its
+    valid ones are dropped by the second."""
+    n = keys.shape[0]
+    low = nbits // 2
+    tile = choose_tile(n, nbits - low)
+    offsets, _ = partition_offsets(digit_histogram(keys, low, shift, tile))
+    keys, payloads = one_pass(keys, payloads, offsets, low, shift, tile,
+                              torch.full_like(keys, -1))
+    offsets, _ = partition_offsets(digit_histogram(keys, nbits - low, shift + low, tile))
+    return one_pass(keys, payloads, offsets, nbits - low, shift + low, tile)
+
+
+def _scatter_pass(keys, payloads, offsets, nbits, shift, tile, out_keys=None):
+    """One launch of kernel C (nbits <= SCATTER_BITS)."""
+    n = keys.shape[0]
+    out_keys = torch.empty_like(keys) if out_keys is None else out_keys
     outs = [torch.empty_like(p) for p in payloads]
     if n:
         src, dst, widths = column_arrays(payloads, outs)
@@ -224,15 +285,31 @@ def radix_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
 radix_scatter.launches = 0
 
 
-def radix_scatter_plain(keys, payloads, offsets, nbits, shift, tile):
+def partition_occupancy(kernel: str, nbits: int, payload_bytes: int = 0) -> dict:
+    """Kernel B's (``"digit_histogram"``) or C's (``"radix_scatter"``, with
+    payloads of ``payload_bytes`` a row in all) registers, resident blocks
+    per SM, threads and shared memory per block (static and dynamic,
+    bytes) on the current CUDA device at 2^nbits buckets (C: at most
+    SCATTER_BITS, one pass)."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    which = ("digit_histogram", "radix_scatter").index(kernel)
+    _build.launch("cudf_partition_occupancy", [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 4, dev, which, nbits, payload_bytes,
+                  *[ctypes.addressof(v) for v in out])
+    return dict(zip(("registers", "blocks_per_sm", "threads", "smem_bytes"),
+                    (v.value for v in out)))
+
+
+def radix_scatter_plain(keys, payloads, offsets, nbits, shift, tile, out_keys=None):
     """The same partition in plain PyTorch: a stable argsort of the valid
     rows by digit places each (tile, bucket) run at its offset, in input
-    order."""
+    order.  The keys go into ``out_keys`` when it is given."""
     B = 1 << nbits
     keep = torch.nonzero(keys >= 0).squeeze(1)
     order = keep[torch.argsort((keys[keep] >> shift) & (B - 1), stable=True)]
     m = order.shape[0]
-    out_keys = torch.empty_like(keys)
+    out_keys = torch.empty_like(keys) if out_keys is None else out_keys
     out_keys[:m] = keys[order]
     outs = []
     for p in payloads:
@@ -427,8 +504,9 @@ def radix_partition(keys: torch.Tensor, vals: Sequence[torch.Tensor],
     dropped, and rows past ``base[-1]`` are unspecified.
 
     ``merge_tiles`` (a power of two) picks the reference's route.  At 1,
-    one pass of kernel C with ``tile`` keys per tile (default
-    :func:`choose_tile`); the order inside a run is unspecified.  Above 1
+    kernel C with ``tile`` keys per tile (default :func:`choose_tile`;
+    two stable passes above SCATTER_BITS digit bits); each window holds
+    its rows in input order.  Above 1
     (default 4), the sorted route: kernel F sorts tiles of ``tile`` keys
     (default SORT_TILE) and kernel G merges ``merge_tiles`` of them per
     supertile and writes its runs, each sorted by key; one pass to 2^20

@@ -77,11 +77,14 @@ def test_radix_kernels_match_plain(dev, n, K, tile):
     vals = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
     rows = torch.arange(n, device=dev, dtype=torch.int32)
     pk, (pr, pv) = rp.radix_scatter(keys, [rows, vals], offsets, nbits, rp.WINDOW_BITS, tile)
+    ek, (er, ev) = rp.radix_scatter_plain(keys, [rows, vals], offsets, nbits, rp.WINDOW_BITS,
+                                          tile)
     m = int(base[-1])
+    assert m == int((keys >= 0).sum())
     win = torch.repeat_interleave(torch.arange(1 << nbits, device=dev), base[1:] - base[:-1])
     assert torch.equal(pk[:m].long() >> rp.WINDOW_BITS, win)
-    assert torch.equal(keys[pr[:m].long()], pk[:m]) and torch.equal(vals[pr[:m].long()], pv[:m])
-    assert torch.equal(torch.sort(pr[:m]).values, torch.nonzero(keys >= 0).squeeze(1).int())
+    assert torch.equal(pk[:m], ek[:m]) and torch.equal(pr[:m], er[:m])   # stable: row for row
+    assert _same_bits(pv[:m], ev[:m])
     for agg_rows in (1000, rp.AGG_ROWS):
         s, c = rp.bucket_aggregate(pk, pv, base, 1 << nbits, agg_rows=agg_rows)
         es, ec = rp.bucket_aggregate_plain(pk, pv, base, 1 << nbits)
@@ -268,6 +271,82 @@ def test_radix_partition_routes_agree(dev, bits):
     m = int(ebase[-1])
     assert torch.equal(gbase.cpu(), ebase) and torch.equal(gk[:m].cpu(), ek[:m])
     assert torch.equal(gr[:m].cpu(), er[:m]) and _same_bits(gf[:m].cpu(), ef[:m])
+
+
+@pytest.mark.parametrize("nbits,n,tile", [(1, 50_001, 1000), (4, 100_003, 4096),
+                                          (7, 300_007, 16384), (7, 1_000_003, 1 << 19),
+                                          (8, 70_001, 50_001), (14, 400_003, 1 << 17),
+                                          (14, 2_100_003, 1 << 19)])
+@pytest.mark.parametrize("case", ["random", "one_bucket", "negative_tile"])
+@pytest.mark.parametrize("widths", [(4,), (8, 4), (4, 8, 8), (8, 4, 4, 8)])
+def test_radix_scatter_is_stable_and_matches_plain(dev, nbits, n, tile, case, widths):
+    """Kernel C bit for bit against its plain version (a stable argsort by
+    digit) in the valid rows: keys and every payload, 1 to 14 digit bits,
+    a ragged last tile, negative keys, every key of a tile in one bucket
+    or none valid, tiles of one chunk (1000 keys) and of many (up to
+    524,288 keys at 2^7), and above SCATTER_BITS the two stable passes
+    (two launches)."""
+    keys, cols = _sort_inputs(dev, n, nbits + n, None, widths, nbits=nbits)
+    if case == "one_bucket":
+        keys[:tile] = (keys[:tile] & (rp.SPAN - 1)) | (1 << rp.WINDOW_BITS)
+    elif case == "negative_tile":
+        keys[tile:2 * tile] = -1
+    hist = rp.digit_histogram(keys, nbits, rp.WINDOW_BITS, tile)
+    assert torch.equal(hist, rp.digit_histogram_plain(keys, nbits, rp.WINDOW_BITS, tile))
+    offsets, base = rp.partition_offsets(hist)
+    _fill_junk((n,), *[(n * c.element_size() // 4,) for c in cols])
+    before = rp.radix_scatter.launches
+    gk, gc = rp.radix_scatter(keys, cols, offsets, nbits, rp.WINDOW_BITS, tile)
+    assert rp.radix_scatter.launches == before + (1 if nbits <= rp.SCATTER_BITS else 2)
+    ek, ec = rp.radix_scatter_plain(keys, cols, offsets, nbits, rp.WINDOW_BITS, tile)
+    m = int(base[-1])
+    assert m == int((keys >= 0).sum())
+    assert torch.equal(gk[:m], ek[:m])
+    assert all(_same_bits(a[:m], b[:m]) for a, b in zip(gc, ec))
+
+
+@pytest.mark.parametrize("case", ["random", "sorted", "route_sorted", "equal", "unaligned"])
+@pytest.mark.parametrize("nbits,tile", [(1, 4096), (4, 16384), (5, 1001), (7, 16384),
+                                        (7, 1001), (8, 4096), (14, 1 << 19)])
+def test_digit_histogram_shapes_match_plain(dev, case, nbits, tile):
+    """Kernel B exact against its plain version over junk-filled memory,
+    1 to 14 digit bits: random keys, keys sorted whole and sorted per supertile by the sorted
+    route (kernel G's output, as the second pass reads it), every key
+    equal, and keys starting off a 16-byte boundary; at 2^14 buckets a
+    524,288-key tile is cut over several blocks that add into a zeroed
+    row."""
+    n = 2_100_003 if nbits == 14 else 300_001
+    g = torch.Generator(device=dev).manual_seed(n + nbits)
+    keys = torch.randint(0, 1 << (rp.WINDOW_BITS + nbits), (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    keys[::9] = -1
+    if case == "sorted":
+        keys = torch.sort(keys).values
+    elif case == "route_sorted":
+        keys = rp.radix_partition(keys, [], 21)[0]
+    elif case == "equal":
+        keys.fill_(5 << rp.WINDOW_BITS | 3)
+    elif case == "unaligned":
+        keys = keys[1:]
+    nt = -(-keys.numel() // tile)
+    _fill_junk((nt << nbits,))
+    before = rp.digit_histogram.launches
+    hist = rp.digit_histogram(keys, nbits, rp.WINDOW_BITS, tile)
+    assert rp.digit_histogram.launches == before + 1
+    assert torch.equal(hist, rp.digit_histogram_plain(keys, nbits, rp.WINDOW_BITS, tile))
+
+
+def test_partition_cut_fills_the_card(dev):
+    """The 2^14 scatter route's tiles are cut over several blocks for
+    kernel B; the sorted route's are not; kernels B and C report their
+    occupancy, C two blocks an SM at G1's payloads (4 + 8 bytes a row)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert rp.tile_parts(-(-10**8 // (1 << 19)), 1 << 19, 14, sms)[0] > 1
+    assert rp.tile_parts(-(-10**8 // 16384), 16384, 7, sms) == (1, 16384)
+    occ = rp.partition_occupancy("digit_histogram", 14)
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+    occ = rp.partition_occupancy("radix_scatter", 7, 12)
+    assert occ["blocks_per_sm"] == 2 and occ["registers"] > 0
 
 
 def _partitioned(dev, G, n, seed):
