@@ -17,9 +17,9 @@ result line is printed):
    source, all started together, sm_90a).
 
 The G1 groupby (data G1_1e8_1e2_0_0 of h2oai db-benchmark's
-groupby-datagen.R: id4 in 1..100, id6 in 1..1e6, v1 in 1..5, v2 in 1..15,
-v3 uniform in [0, 100)), 1e8 rows made on the card from a seeded
-torch.Generator:
+groupby-datagen.R: id4 and id5 in 1..100, id6 in 1..1e6, v1 in 1..5, v2
+in 1..15, v3 uniform in [0, 100)), 1e8 rows made on the card from a
+seeded torch.Generator:
 
 3. kernels: each kernel (A onehot_groupby_aggregate, B digit_histogram,
    C radix_scatter, F tile_sort_data, G merge_scatter, D
@@ -51,9 +51,23 @@ torch.Generator:
    each have been launched during this run.  Each query is then run
    alone with every count at 0 before it: q4 must launch A once and q5 D
    once.  Then the sum of six value columns by id6 (more than one
-   partition launch carries) is checked the same way.
+   partition launch carries) is checked the same way.  Then the sort
+   tier, in the forms of db-benchmark's pandas solution
+   (pandas/groupby-pandas.py): q6, the median and std of v3 by id4, id5
+   (as_index=False, sort=False, dropna=False), and q8, the two largest v3
+   of each id6 (sort_values, then groupby(...).head(2)), each run alone
+   with every count at 0 before it (they must launch none of A-H), each
+   against a plain PyTorch version written apart from the port (groups,
+   their order and medians exact, std rtol 1e-12; q8's rows, values and
+   index labels exact).  q6 runs again on a 1e7-row frame with 5% nulls
+   in id4, id5 and v3 (G1_1e7_1e2_5_0's shape; a null group for each
+   key), and once more under torch.profiler at 1e8 rows: device ms by
+   kind of kernel (sort, gather, reduce), the host's ms in synchronising
+   calls and the device's busy share of the wall time.  id5 (1..100)
+   comes from a generator of its own, so the other columns keep their
+   values.
 5. timings: median of 7 warm runs of each query and of its plain PyTorch
-   counterpart (CUDA events, then synchronize), as rows/s.
+   counterpart (CUDA events, then synchronize), as rows/s; q6 and q8 too.
 
 The G1 frame is then freed.  The J1 inner join (data J1_1e8_NA_0_0 of
 h2oai db-benchmark's join-datagen.R: a fact table of 1e8 rows, id int32
@@ -455,13 +469,16 @@ def d_check(rp, pk, vals, base, G, what):
 
 
 def g1_frame(ct, dev, gen):
-    def ints(lo, hi):
-        return torch.randint(lo, hi + 1, (N,), generator=gen, device=dev, dtype=torch.int32)
+    """id5 comes from a generator of its own, drawn after the others, so
+    every other column of every phase keeps the values it had before q6."""
+    def ints(lo, hi, g=gen):
+        return torch.randint(lo, hi + 1, (N,), generator=g, device=dev, dtype=torch.int32)
 
     return ct.DataFrame({
         "id4": ints(1, K_LOW), "id6": ints(1, K_HIGH),
         "v1": ints(1, 5), "v2": ints(1, 15),
         "v3": torch.rand(N, generator=gen, device=dev, dtype=torch.float64) * 100,
+        "id5": ints(1, K_LOW, torch.Generator(device=dev).manual_seed(SEED + 5)),
     })
 
 
@@ -474,7 +491,9 @@ QUERIES = {
 
 
 def plain_query(df, key, spec):
-    """The same groupby in plain PyTorch: (group keys, {name: tensor})."""
+    """The same groupby in plain PyTorch: (group keys, {name: tensor}).
+    An integer column's sums come in its own dtype when every sum fits
+    it, as pandas gives them."""
     k = df._table[key].data
     lo, hi = (int(x) for x in torch.aminmax(k))
     codes = (k - lo).long()
@@ -486,6 +505,11 @@ def plain_query(df, key, spec):
         v = df._table[col].data
         acc = torch.float64 if v.dtype.is_floating_point else torch.int64
         sums = torch.zeros(hi - lo + 1, dtype=acc, device=k.device).index_add_(0, codes, v.to(acc))
+        if not v.is_floating_point():        # pandas: the column's dtype when every sum fits
+            info = torch.iinfo(v.dtype)
+            s_lo, s_hi = (int(x) for x in torch.aminmax(sums[present]))
+            if info.min <= s_lo and s_hi <= info.max:
+                sums = sums.to(v.dtype)
         for agg in (aggs if isinstance(aggs, list) else [aggs]):
             res = {"sum": sums, "count": counts, "mean": sums.double() / counts}[agg]
             out[(col, agg) if multi else col] = res[present]
@@ -511,6 +535,172 @@ def check_query(name, res, exp):
         c = res._table[col]
         check(c.validity is None or bool(c.validity.all()), f"{name} {col}: nulls")
         same(c.data, want, f"{name} {col}")
+
+
+# ----------------------------------------------------------------------
+# G1 q6 and q8: the sort tier
+# ----------------------------------------------------------------------
+
+Q6_FORM = dict(as_index=False, sort=False, observed=True, dropna=False)
+
+
+def q6(df):
+    """db-benchmark G1 q6 in its pandas solution's form: median and std of
+    v3 by id4, id5."""
+    return df.groupby(["id4", "id5"], **Q6_FORM).agg({"v3": ["median", "std"]})
+
+
+def q8(df):
+    """db-benchmark G1 q8 in its pandas solution's form: the two largest v3
+    of each id6."""
+    return df[["id6", "v3"]].sort_values("v3", ascending=False).groupby(
+        "id6", sort=False, dropna=False).head(2)
+
+
+def _key_codes(col, domain):
+    """(int64 codes key - 1, with a null key at ``domain``)."""
+    codes = col.data.long() - 1
+    return codes if col.validity is None else torch.where(col.validity, codes, domain)
+
+
+def plain_q6(df):
+    """q6 in plain PyTorch, written apart from the port: codes (id4 - 1) *
+    width + (id5 - 1) (a null key its own code, last), groups in order of
+    first appearance by scatter_reduce_("amin") of row ids, medians from a
+    stable sort of v3 within codes (the midpoint of the middle two), std
+    in two passes (ddof 1).  Returns {name: (data, valid)}."""
+    t = df._table
+    width = K_LOW + 1 if t["id4"].validity is not None or t["id5"].validity is not None \
+        else K_LOW
+    codes = _key_codes(t["id4"], K_LOW) * width + _key_codes(t["id5"], K_LOW)
+    n, G = codes.numel(), width * width
+    dev = codes.device
+    first = torch.full((G,), n, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, codes, torch.arange(n, device=dev), "amin")
+    present = torch.nonzero(first < n).squeeze(1)
+    groups = present[torch.argsort(first[present])]
+    v3 = t["v3"].data
+    ok = torch.ones(n, dtype=torch.bool, device=dev) if t["v3"].validity is None \
+        else t["v3"].validity
+    vcodes = torch.where(ok, codes, G)                 # null values: a code of their own
+    cnt = torch.bincount(vcodes, minlength=G + 1)[:G]
+    perm = torch.sort(v3, stable=True).indices
+    perm = perm[torch.sort(vcodes[perm], stable=True).indices]
+    xs = v3[perm]
+    starts = torch.cumsum(cnt, 0) - cnt
+    lo = (starts + (cnt - 1).clamp(min=0) // 2).clamp(max=n - 1)
+    hi = (starts + cnt // 2).clamp(max=n - 1)
+    median = (xs[lo] + xs[hi]) / 2
+    s = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(0, codes[ok], v3[ok])
+    mean = s / cnt.clamp(min=1)
+    d = v3[ok] - mean[codes[ok]]
+    ss = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(0, codes[ok], d * d)
+    std = torch.sqrt(ss / (cnt - 1).clamp(min=1))
+    c = cnt[groups]
+    id4, id5 = groups // width, groups % width
+    return {("id4", ""): ((id4 + 1).int(), id4 < K_LOW),
+            ("id5", ""): ((id5 + 1).int(), id5 < K_LOW),
+            ("v3", "median"): (median[groups], c > 0),
+            ("v3", "std"): (std[groups], c > 1)}
+
+
+def plain_q8(df):
+    """q8 in plain PyTorch: a stable descending argsort of v3, ranks within
+    id6 by a stable sort of the reordered id6, ranks < 2 kept in the
+    sorted frame's order.  Returns (frame rows, {name: tensor})."""
+    t = df._table
+    perm = torch.sort(t["v3"].data, descending=True, stable=True).indices
+    ids = t["id6"].data[perm]
+    p2 = torch.sort(ids, stable=True).indices
+    s = ids[p2]
+    n = s.numel()
+    pos = torch.arange(n, device=s.device)
+    rank = pos - torch.searchsorted(s, s)             # each run's first position
+    keep = torch.zeros(n, dtype=torch.bool, device=s.device)
+    keep[p2] = rank < 2
+    rows = perm[torch.nonzero(keep).squeeze(1)]
+    return rows, {"id6": t["id6"].data[rows], "v3": t["v3"].data[rows]}
+
+
+def check_q6(name, res, exp):
+    check(list(res._table.names) == list(exp), f"{name}: columns {res._table.names}")
+    n = exp[("v3", "median")][0].numel()
+    check(len(res) == n, f"{name}: {len(res)} groups, expected {n}")
+    err = 0.0
+    for col, (want, valid) in exp.items():
+        c = res._table[col]
+        got_valid = c.validity if c.validity is not None else torch.ones_like(valid)
+        check(torch.equal(got_valid, valid), f"{name} {col}: nulls differ")
+        rtol = 1e-12 if col == ("v3", "std") else 0.0   # groups, order, medians exact
+        err = max(err, same(c.data[valid], want[valid], f"{name} {col}", float_rtol=rtol))
+    return err
+
+
+def check_q8(name, res, exp):
+    rows, cols = exp
+    check(len(res) == rows.numel(), f"{name}: {len(res)} rows, expected {rows.numel()}")
+    same(res.index.column().data, rows, f"{name} index labels")
+    for col, want in cols.items():
+        same(res._table[col].data, want, f"{name} {col}", float_rtol=0.0)
+    return rows.numel()
+
+
+def g1_null_frame(ct, dev, gen, n):
+    """G1_1e7_1e2_5_0's shape: n rows, 5% nulls in id4, id5 and v3."""
+    from cudf_tpu_torch.core import dtypes as dt
+    from cudf_tpu_torch.core.column import Column
+
+    def ints(hi):
+        return torch.randint(1, hi + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+
+    def valid():
+        return torch.rand(n, generator=gen, device=dev) >= 0.05
+
+    v3 = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * 100
+    return ct.DataFrame({"id4": Column(dt.INT32, n, ints(K_LOW), valid()),
+                         "id5": Column(dt.INT32, n, ints(K_LOW), valid()),
+                         "v3": Column(dt.FLOAT64, n, v3, valid())})
+
+
+def profile_split(fn):
+    """One warm run of fn under torch.profiler: device ms by kind of
+    kernel (sort, gather, reduce, other), the host's ms and calls in
+    synchronising CUDA calls (waiting for the device included), and the
+    device's busy share of the run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):           # the first profile also pays for starting the tracer
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"sort": 0.0, "gather": 0.0, "reduce": 0.0, "other": 0.0}
+    sync_ms, syncs, top = 0.0, 0, []
+    for e in prof.key_averages():
+        name = e.key.lower()
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if e.key.startswith("cuda") and ("synchronize" in name or "memcpy" in name):
+            sync_ms += e.cpu_time_total / 1e3
+            syncs += e.count
+        if "CUDA" not in str(getattr(e, "device_type", "")) or not dev_us or dev_us <= 0:
+            continue
+        kind = ("sort" if "sort" in name or "radix" in name else
+                "gather" if "index" in name and "add" not in name or "gather" in name else
+                "reduce" if any(w in name for w in ("scatter", "index_add", "reduce", "scan",
+                                                     "cumsum", "bincount")) else "other")
+        kinds[kind] += dev_us / 1e3
+        top.append((dev_us / 1e3, e.key[:90], e.count))
+    busy = sum(kinds.values())     # 0: the profiler saw no device time on this machine
+    top.sort(reverse=True)
+    return {"device_ms": kinds, "device_busy_ms": busy, "host_sync_ms": sync_ms,
+            "host_sync_calls": syncs, "wall_ms": wall_ms,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "top_kernels": [{"ms": round(t, 3), "kernel": k, "calls": c} for t, k, c in top[:8]]}
 
 
 # ----------------------------------------------------------------------
@@ -1146,12 +1336,40 @@ def main():
     torch.cuda.empty_cache()
     log("phase 4 G1 six value columns by id6 (more payloads than one partition "
         "launch carries) agree with plain torch")
+    sort_queries = {"q6": (q6, plain_q6, check_q6), "q8": (q8, plain_q8, check_q8)}
+    for name, (fn, plain, chk) in sort_queries.items():   # alone, every count at 0 before
+        for w in wrappers.values():
+            w.launches = 0
+        res = fn(df)
+        torch.cuda.synchronize()
+        by_query[name] = {k: w.launches for k, w in wrappers.items() if w.launches}
+        got = chk(name, res, plain(df))
+        del res
+        torch.cuda.empty_cache()
+        log(f"phase 4 G1 {name} (the sort tier) agrees with plain torch "
+            f"({'max abs err ' + str(got) if name == 'q6' else str(got) + ' rows'}); "
+            f"launches of A-H {by_query[name]}")
+    check(not by_query["q6"] and not by_query["q8"], "q6 or q8 launched a kernel of A-H")
+    nulls = g1_null_frame(ct, dev, torch.Generator(device=dev).manual_seed(SEED + 6), N // 10)
+    err = check_q6("q6 with 5% nulls", q6(nulls), plain_q6(nulls))
+    log(f"phase 4 G1 q6 at 1e7 rows with 5% nulls in id4, id5, v3 (G1_1e7_1e2_5_0's shape, "
+        f"dropna=False: a null group for each key) agrees with plain torch, max abs err {err}")
+    del nulls
+    torch.cuda.empty_cache()
+    log("phase 4 G1 q6 torch.profiler split: " + json.dumps(
+        {"q6_profile": profile_split(lambda: q6(df)), "card": smi}))
 
     for name, (key, spec) in QUERIES.items():
         ms = device_ms(lambda: df.groupby(key).agg(spec))
         plain = device_ms(lambda: plain_query(df, key, spec))
         log(f"phase 5 G1 {name}: {ms:.3f} ms = {N / ms * 1e3:.4g} rows/s; plain torch "
             f"{plain:.3f} ms = {N / plain * 1e3:.4g} rows/s [{smi}]")
+    for name, (fn, plain_fn, _) in sort_queries.items():
+        ms = device_ms(lambda: fn(df))
+        plain = device_ms(lambda: plain_fn(df))
+        log(f"phase 5 G1 {name} (sort tier): {ms:.3f} ms = {N / ms * 1e3:.4g} rows/s; plain "
+            f"torch {plain:.3f} ms = {N / plain * 1e3:.4g} rows/s [{smi}]")
+        torch.cuda.empty_cache()
     del df
     torch.cuda.empty_cache()
 

@@ -6,7 +6,9 @@ the db-benchmark G1 groupby and J1 join end to end:
 the radix-partition tier (kernels B, F, G and D), and
 ``DataFrame.merge`` on the radix tier (B, F, G, D and H), hand-written
 CUDA for Hopper (``csrc/``), each beside a plain PyTorch version that
-CPU tensors use.
+CPU tensors use.  Every other groupby takes the sort tier
+(``ops/row_ops.py``, ``ops/sort.py``, ``ops/groupby.py`` ``make_grouper``),
+which runs on PyTorch's own sorts, gathers and scatters.
 
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.

@@ -1,5 +1,6 @@
 """DataFrame (port of ``cudf_tpu/frame/dataframe.py``: construction,
-pandas round trip, column access, ``groupby``, ``merge`` and
+pandas round trip, column access, ``take``, ``head``, ``sort_values``,
+``sort_index``, ``drop_duplicates``, ``groupby``, ``merge`` and
 ``reset_index``).
 
 A frame lives where its tensors live.  Host data (numpy arrays, pandas
@@ -16,8 +17,12 @@ import torch
 
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
-from cudf_tpu_torch.frame.index import Index, RangeIndex, default_index
+from cudf_tpu_torch.frame.index import Index, MultiIndex, RangeIndex, default_index
 from cudf_tpu_torch.frame.series import Series
+from cudf_tpu_torch.ops import copying
+from cudf_tpu_torch.ops import sort as sort_ops
+from cudf_tpu_torch.ops import stream_compaction as sc
+from cudf_tpu_torch.ops.replace import nans_to_nulls
 
 
 def _as_column(value, device) -> Column:
@@ -99,19 +104,72 @@ class DataFrame:
         return Series._from(self._table[key], self._index, key)
 
     def reset_index(self, drop: bool = False) -> "DataFrame":
-        """The index becomes the first column (named after it, or
-        "index"), unless drop; the new index is a RangeIndex.  Beside
-        (column, agg) tuple names the new name is padded like pandas'
-        MultiIndex columns: ("k", "")."""
+        """The index becomes the first columns (a MultiIndex one a level),
+        named after it (or "index", "level_<i>"), unless drop; the new
+        index is a RangeIndex.  Beside (column, agg) tuple names a new
+        name is padded like pandas' MultiIndex columns: ("k", "")."""
         if drop:
             return DataFrame._from(self._table, default_index(len(self)))
-        name = self._index.name if self._index.name is not None else "index"
+        if isinstance(self._index, MultiIndex):
+            levels = [(name if name is not None else f"level_{i}", col)
+                      for i, (name, col) in enumerate(zip(self._index.names,
+                                                          self._index._columns))]
+        else:
+            name = self._index.name if self._index.name is not None else "index"
+            levels = [(name, self._index.column(self.device))]
         widths = {len(n) for n in self._table.names if isinstance(n, tuple)}
-        if widths:
-            name = (name,) + ("",) * (max(widths) - 1)
-        col = self._index.column(self.device)
-        return DataFrame._from(self._table.insert(name, col, loc=0),
-                               default_index(len(self)))
+        table = self._table
+        for loc, (name, col) in enumerate(levels):
+            if widths:
+                name = (name,) + ("",) * (max(widths) - 1)
+            table = table.insert(name, col, loc=loc)
+        return DataFrame._from(table, default_index(len(self)))
+
+    # ------------------------------------------------------------------
+    # row selection, sorting, dedup
+    # ------------------------------------------------------------------
+    def take(self, indices: torch.Tensor) -> "DataFrame":
+        """The rows at these positions (int64), with their index labels."""
+        indices = indices.long()
+        return DataFrame._from(copying.gather_table(self._table, indices, bounds_check=False),
+                               self._index.take(indices))
+
+    def head(self, n: int = 5) -> "DataFrame":
+        """The first n rows (all but the last -n when n < 0)."""
+        n = len(self) + n if n < 0 else n
+        n = max(0, min(n, len(self)))
+        table = Table({name: copying.slice(c, 0, n) for name, c in self._table.items()})
+        return DataFrame._from(table, self._index.slice(0, n))
+
+    def sort_values(self, by, ascending=True, na_position: str = "last",
+                    ignore_index: bool = False, kind=None) -> "DataFrame":
+        """A stable lexicographic sort by the named columns (any ``kind``
+        gives the stable order); NaN sorts as null, at ``na_position``
+        whatever the direction."""
+        by = [by] if not isinstance(by, (list, tuple)) else list(by)
+        asc = [ascending] * len(by) if isinstance(ascending, bool) else list(ascending)
+        keys = [nans_to_nulls(self._table[name]) for name in by]
+        out = self.take(sort_ops.sorted_order(keys, asc, na_position))
+        if ignore_index:
+            out._index = default_index(len(out))
+        return out
+
+    def sort_index(self, ascending: bool = True) -> "DataFrame":
+        idx = self._index
+        cols = list(idx._columns) if isinstance(idx, MultiIndex) else [idx.column(self.device)]
+        return self.take(sort_ops.sorted_order(cols, [ascending] * len(cols), "last"))
+
+    def drop_duplicates(self, subset=None, keep="first",
+                        ignore_index: bool = False) -> "DataFrame":
+        """The first (last; none when keep=False) row of each distinct
+        combination of the subset's values, in row order."""
+        names = ([subset] if subset is not None and not isinstance(subset, (list, tuple))
+                 else list(subset or self._table.names))
+        out = self.take(sc.distinct_indices([self._table[n] for n in names],
+                                            keep if keep is not False else "none"))
+        if ignore_index:
+            out._index = default_index(len(out))
+        return out
 
     def merge(self, right, on=None, how="inner", left_on=None, right_on=None,
               left_index=False, right_index=False, suffixes=("_x", "_y"), sort=False):
@@ -123,12 +181,14 @@ class DataFrame:
                       left_index=left_index, right_index=right_index,
                       suffixes=suffixes, sort=sort)
 
-    def groupby(self, by, dropna: bool = True, as_index: bool = True):
-        """Group by one key column (a name, or a one-name list).  Groups
-        come out in ascending key order, as pandas' default sort=True."""
+    def groupby(self, by, sort: bool = True, dropna: bool = True, as_index: bool = True,
+                observed: bool = True):
+        """Group by one key column or a list of them (see
+        ``frame/groupby.py``)."""
         from cudf_tpu_torch.frame.groupby import DataFrameGroupBy
 
-        return DataFrameGroupBy(self, by, dropna=dropna, as_index=as_index)
+        return DataFrameGroupBy(self, by, sort=sort, dropna=dropna, as_index=as_index,
+                                observed=observed)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}: {c.dtype!r}" for n, c in self._table.items())

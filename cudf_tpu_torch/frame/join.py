@@ -7,8 +7,8 @@ same column on both sides: that key is emitted once, from the left, as
 pandas does).  Other columns whose names
 appear on both sides get ``suffixes``.  Rows come in left-row order, with
 right-row order inside each left row, under a fresh RangeIndex.  Other
-``how`` values, ``sort=True`` and index joins need the sort-merge and
-sort tiers, which are not ported yet: they raise NotImplementedError.
+``how`` values, ``sort=True`` and index joins need the sort-merge tier,
+which is not ported yet: they raise NotImplementedError.
 """
 
 from __future__ import annotations

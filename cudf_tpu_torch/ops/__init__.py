@@ -1,1 +1,2 @@
-"""Column operations the groupby slice needs."""
+"""Column operations: the groupby and join tiers, sorting, row operators,
+compaction and copying."""

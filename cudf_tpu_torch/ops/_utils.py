@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from cudf_tpu_torch.core.column import Column
@@ -32,3 +34,35 @@ def dense_probe(tbl: torch.Tensor, lk: torch.Tensor, offset: int):
     ok = (pos >= 0) & (pos < domain)
     r = tbl[pos.clamp(0, domain - 1)]
     return r, ok & (r >= 0)
+
+
+def maybe_mask(validity: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Drop an all-valid mask back to None (one host sync)."""
+    if validity is None or bool(validity.all()):
+        return None
+    return validity
+
+
+def segment_expand(offsets: torch.Tensor, total: int) -> torch.Tensor:
+    """out[i] = j such that offsets[j] <= i < offsets[j + 1], for the flat
+    positions [0, total) of segments given by offsets[g + 1]."""
+    pos = torch.arange(total, dtype=offsets.dtype, device=offsets.device)
+    return torch.searchsorted(offsets[1:-1].contiguous(), pos, right=True)
+
+
+def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
+    """inv[order[i]] = i: one scatter (the reference sorts (order, iota)
+    pairs because scatter is slow on a TPU)."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], dtype=order.dtype, device=order.device)
+    return inv
+
+
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def signed_view(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as the signed int of its width when it is
+    uint16/32/64 (PyTorch indexes them on no CUDA device and scatters
+    into them on no CPU), else the tensor itself."""
+    return t.view(_SIGNED[t.dtype]) if t.dtype in _SIGNED else t

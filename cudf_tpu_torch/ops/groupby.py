@@ -1,8 +1,9 @@
-"""Groupby aggregation through the kernel tiers.
+"""Groupby aggregation: the kernel tiers, then the sort tier.
 
-Port of the dispatch in ``cudf_tpu/ops/groupby.py:862-1061``
-(``_try_onehot_fast_path`` and ``groupby_agg``).  One integer key column
-is reduced to int32 codes ``key - key_min`` over K = max - min + 1 slots:
+Port of ``cudf_tpu/ops/groupby.py``.  ``groupby_agg`` tries the kernel
+tiers first (``_try_onehot_fast_path``, the dispatch of ``:862-1061``).
+One integer key column is reduced to int32 codes ``key - key_min`` over
+K = max - min + 1 slots:
 
 - K <= 4096: the one-hot tier, kernel A
   (``kernels/hash_aggregate.py``);
@@ -10,24 +11,37 @@ is reduced to int32 codes ``key - key_min`` over K = max - min + 1 slots:
   (``kernels/radix_partition.py``); min/max there are a plain
   ``scatter_reduce_``, as the reference leaves them to XLA.
 
-The output holds the observed groups only, in ascending key order.
-Values keep their own width: integer and bool sums are exact int64,
-float sums and means are taken in float64 and come back in the column's
-float dtype (float32 stays float32, as in pandas), integer means are
-float64, min/max the column's dtype.  Unlike the reference,
-a group whose values are all null gives a null mean, min and max (its
-sum is 0 and its count 0, as in pandas), and min/max skip NaN as pandas
-does (a group of only NaN gives NaN) on both tiers.  NaN is otherwise a
-value: it is counted, and it makes its group's sum and mean NaN.
+The kernel tiers give the observed groups in ascending key order; they
+serve sum/count/mean/min/max/size of numeric (not uint64) and bool
+values whose float columns hold no NaN under sum/count/mean.
 
-The sort tier is not ported yet, so a request the kernel tiers cannot
-serve raises NotImplementedError.
+Every other request takes the sort tier: ``make_grouper`` sorts the key
+rows (``ops/row_ops.py``'s LSD chain of stable argsorts) into runs, one
+a group, in ascending key order with a null group last, and each
+aggregation reduces over the dense group ids with ``index_add_`` or
+``scatter_reduce_`` (Hopper has atomics; the reference's scatter-free
+prefix-sum differences and reset scans are a TPU workaround, and a
+prefix-sum difference loses the precision of a large running sum).
+Medians, quantiles, nunique and idxmin/idxmax sort by (group, value).
+These are PyTorch library calls: the sort tier reaches none of the
+kernels A-H, as the reference's reaches no Pallas kernel.
+
+Both tiers give pandas' dtypes and nulls.  Integer and bool sums are
+exact (int64 accumulation); an integer column's sum and prod come back
+in its own dtype when every result fits, else int64 (uint64 for
+unsigned), as pandas does.  Float sums are taken in float64; a float32
+column's sum, mean, var, std and median come back in float32.  A group
+whose values are all null gives a null mean, min, max, first, last and
+median, a sum of 0 and a count of 0.  min/max skip NaN on every tier;
+the sort tier treats NaN as null throughout, as pandas does.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cudf_tpu_torch.core import bitmask as bm
@@ -41,52 +55,120 @@ from cudf_tpu_torch.kernels.hash_aggregate import (MAX_GROUPS,
 from cudf_tpu_torch.kernels.radix_partition import (MAX_DOMAIN_BITS,
                                                     radix_groupby_sum_count)
 from cudf_tpu_torch.ops import copying
+from cudf_tpu_torch.ops.row_ops import (_float_to_ordered_int, equality_keys,
+                                        lex_sort_permutation, sort_operands)
 from cudf_tpu_torch.ops.stream_compaction import filter_indices
 from cudf_tpu_torch.utils.config import get_option
-
-SORT_TIER_MISSING = (
-    "this groupby needs the sort tier (make_grouper, ops/sort.py, "
-    "ops/row_ops.py), which is not ported yet: ROADMAP.md queue 1, item 2. "
-    "The kernel tiers serve one integer key column with at most 2^27 "
-    "distinct slots, numeric (not uint64) or bool values, and "
-    "sum/count/mean/min/max/size")
 
 SUPPORTED_AGGS = frozenset({"sum", "count", "mean", "min", "max", "size"})
 
 Request = Tuple[object, Column, str]
 
 
-def _key_range(key: Column, valid: Optional[torch.Tensor]) -> Tuple[int, int]:
-    """(min, max) over the rows that form groups; (0, -1) when none do."""
+def _not_ported(agg: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"groupby agg {agg!r} is not ported: collect/list/unique, histogram, "
+        "sum_of_squares, m2, bitwise_*, tdigest, cov/corr and ewm are ROADMAP.md "
+        "queue 1, item 4 (the rest of frame/groupby.py); the sort tier serves "
+        f"{', '.join(sorted(_AGG_DISPATCH))}")
+
+
+# ----------------------------------------------------------------------
+# pandas' result dtypes
+# ----------------------------------------------------------------------
+
+def _float_out(dtype: dt.DType) -> dt.DType:
+    """float32 stays float32; everything else gives float64."""
+    return dt.FLOAT32 if dtype == dt.FLOAT32 else dt.FLOAT64
+
+
+def _fit_int(col: Column, in_dtype: dt.DType) -> Column:
+    """One integer result in pandas' dtype (see ``_fit_int_results``)."""
+    res = {0: col}
+    _fit_int_results(res, {0: in_dtype})
+    return res[0]
+
+
+def _fit_int_results(results: Dict[object, Column], in_dtypes: Dict[object, dt.DType]) -> None:
+    """pandas' dtype for integer sums, prods and cumsums, in place: the
+    input's own dtype when every value fits it, else int64 (uint64 for an
+    unsigned input).  ``results`` hold int64 (two's-complement) values;
+    one host sync for all of them."""
+    todo = [(name, d) for name, d in in_dtypes.items()
+            if d.is_integer and d not in (dt.INT64,)]
+    if not todo:
+        return
+    ranges = []
+    for name, _ in todo:
+        c = results[name]
+        v = c.data if c.validity is None else torch.where(c.validity, c.data, 0)
+        ranges.append(torch.stack([v.min(), v.max()]) if v.numel() else
+                      torch.zeros(2, dtype=torch.int64, device=v.device))
+    bounds = torch.stack(ranges).tolist()
+    for (name, d), (lo, hi) in zip(todo, bounds):
+        c = results[name]
+        info = np.iinfo(d.storage)
+        if d != dt.UINT64 and int(info.min) <= lo and hi <= int(info.max):
+            results[name] = Column(d, c.length, c.data.to(d.torch_storage), c.validity)
+        elif d.is_unsigned_integer:
+            results[name] = Column(dt.UINT64, c.length, c.data.view(torch.uint64), c.validity)
+
+
+# ----------------------------------------------------------------------
+# the kernel tiers
+# ----------------------------------------------------------------------
+
+def _key_range(key: Column, valid: Optional[torch.Tensor],
+               nan_cols: Sequence[Column] = ()) -> Tuple[int, int, bool]:
+    """(min, max) over the rows that form groups ((0, -1) when none do),
+    and whether the valid rows of ``nan_cols`` may hold a NaN: one host
+    sync.  A column's sum over its valid rows is NaN when one of them is
+    (and when +inf meets -inf: those requests take the sort tier too)."""
+    if key.length == 0:
+        return 0, -1, False
     data = key.data if key.dtype.is_signed_integer else key.data.long()
-    if valid is not None:
-        data = data[valid]
-    if data.numel() == 0:
-        return 0, -1
-    lo, hi = torch.aminmax(data)
-    return int(lo), int(hi)
+    if valid is None:
+        lo, hi = torch.aminmax(data)
+        n = torch.tensor(key.length, device=data.device)
+    else:
+        info = torch.iinfo(data.dtype)
+        lo = torch.where(valid, data, info.max).min()
+        hi = torch.where(valid, data, info.min).max()
+        n = valid.sum()
+    flags = [torch.isnan((c.data if c.validity is None
+                          else torch.where(c.validity, c.data, 0)).sum()) for c in nan_cols]
+    lo, hi, n, *nan = torch.stack([lo.long(), hi.long(), n.long(),
+                                   *[f.long() for f in flags]]).tolist()
+    if n == 0:
+        return 0, -1, any(nan)
+    return lo, hi, any(nan)
 
 
 def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
                           dropna: bool) -> Optional[Tuple[Table, Table]]:
     """(group keys, aggregations) from the kernel tiers, or None when the
-    request is outside them (see SORT_TIER_MISSING)."""
+    request is outside them (the sort tier then serves it)."""
     if not get_option("groupby.onehot_fast_path"):
         return None
     key = keys.column(0) if keys.num_columns == 1 else None
     if key is None or key.length < int(get_option("groupby.fast_path_min_rows")):
         return None
-    if not key.dtype.is_integer:
+    if not key.dtype.is_integer or key.dtype == dt.UINT64:
         return None
     if key.has_nulls and not dropna:
-        return None          # the null-key group needs the sort tier
+        return None          # the null-key group is the sort tier's
+    nan_cols: Dict[int, Column] = {}
     for _, col, agg in values:
         if agg not in SUPPORTED_AGGS or not (col.dtype.is_numeric or col.dtype.is_bool):
             return None
         if col.dtype == dt.UINT64:
             return None      # the kernels take no uint64 values
+        if col.dtype.is_float and agg in ("sum", "count", "mean"):
+            nan_cols[id(col)] = col   # pandas skips NaN there: the sort tier does
     valid = key.validity if dropna else None
-    lo, hi = _key_range(key, valid)
+    lo, hi, has_nan = _key_range(key, valid, list(nan_cols.values()))
+    if has_nan:
+        return None
     K = max(hi - lo + 1, 1)
     if K > 1 << MAX_DOMAIN_BITS:
         return None
@@ -140,8 +222,9 @@ def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
         else:
             results[name] = Column(col.dtype, K, mn if agg == "min" else mx, c > 0)
     present = filter_indices(occupied > 0)
-    out_aggs = Table({n: copying.gather(c, present, bounds_check=False)
-                      for n, c in results.items()})
+    compact = {n: copying.gather(c, present, bounds_check=False) for n, c in results.items()}
+    _fit_int_results(compact, {name: col.dtype for name, col, agg in values if agg == "sum"})
+    out_aggs = Table(compact)
     key_col = Column(key.dtype, present.shape[0],
                      (present + key_lo).to(key.dtype.torch_storage))
     return Table({key_name: key_col}), out_aggs
@@ -191,13 +274,500 @@ def _segment_minmax(k_in: torch.Tensor, vals: torch.Tensor, K: int):
     return mins.to(vals.dtype), maxs.to(vals.dtype)
 
 
+# ----------------------------------------------------------------------
+# the sort tier: the grouper
+# ----------------------------------------------------------------------
+
+@dataclass
+class Grouper:
+    """The groups of the kept rows (sort::sort_groupby_helper): group ids,
+    the stable sort by key, and each group's run in it.  Every index but
+    ``kept_rows`` counts kept rows (the rows left after dropna drops
+    null and NaN keys), as in the reference."""
+
+    group_ids: torch.Tensor        # int64[n] dense group id a kept row
+    num_groups: int
+    key_rows: torch.Tensor         # int64[g] each group's first kept row
+    sorted_order: torch.Tensor     # int64[n] the stable sort of the kept rows by key
+    group_offsets: torch.Tensor    # int64[g + 1] each group's run in sorted order
+    row_mask: Optional[torch.Tensor] = None   # bool[frame rows], None: every row kept
+    kept_rows: Optional[torch.Tensor] = None  # int64[n] the frame row of each kept row
+    sorted_group_ids: Optional[torch.Tensor] = None   # group_ids[sorted_order]
+
+    def frame_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Kept-row indices as frame rows."""
+        return rows if self.kept_rows is None else self.kept_rows[rows]
+
+
+def _empty_grouper(device, row_mask=None) -> Grouper:
+    z = torch.zeros(0, dtype=torch.int64, device=device)
+    return Grouper(z, 0, z, z, torch.zeros(1, dtype=torch.int64, device=device),
+                   row_mask, None if row_mask is None else z, z)
+
+
+def make_grouper(keys: Sequence[Column], dropna: bool = True) -> Grouper:
+    """Group the rows of the key columns.  Groups are numbered in
+    ascending key order (lexicographic over the keys), a null key after
+    every value; with dropna, rows with a null or NaN key are left out.
+    One host sync (the group count and, under dropna, the kept-row
+    count)."""
+    keys = list(keys)
+    n, dev = keys[0].length, keys[0].device
+    row_mask = None
+    if dropna and any(k.validity is not None or k.dtype.is_float for k in keys):
+        row_mask = torch.ones(n, dtype=torch.bool, device=dev)
+        for k in keys:
+            if k.validity is not None:
+                row_mask &= k.validity
+            if k.dtype.is_float:
+                row_mask &= ~torch.isnan(k.data)
+    if n == 0:
+        return _empty_grouper(dev, row_mask)
+    ops = sort_operands(keys)
+    eq = [k for col in keys for k in equality_keys(col)]
+    if row_mask is not None:
+        # dropped rows sort last, as one run: their operands are zeroed
+        ops = [(~row_mask).to(torch.int8)] + [torch.where(row_mask, op, 0) for op in ops]
+    order = lex_sort_permutation(ops)
+    neq = torch.zeros(n, dtype=torch.bool, device=dev)
+    neq[:1] = True
+    for k in eq:
+        s = k[order]
+        neq[1:] |= s[1:] != s[:-1]
+    if row_mask is not None:
+        neq &= row_mask[order]
+        num_groups, n_kept = torch.stack([neq.sum(), row_mask.sum()]).tolist()
+    else:
+        num_groups, n_kept = int(neq.sum()), n
+    if n_kept == 0:
+        return _empty_grouper(dev, row_mask)
+    order = order[:n_kept]
+    gid_sorted = torch.cumsum(neq[:n_kept], 0) - 1
+    kept_rows = None
+    if n_kept == n:
+        row_mask = None
+    elif row_mask is not None:
+        rank = torch.cumsum(row_mask, 0) - 1           # frame row -> kept row
+        kept_rows = torch.empty(n_kept, dtype=torch.int64, device=dev)
+        kept_rows[rank[order]] = order
+        order = rank[order]
+    offsets = torch.searchsorted(gid_sorted, torch.arange(num_groups + 1, device=dev))
+    group_ids = torch.empty(n_kept, dtype=torch.int64, device=dev)
+    group_ids[order] = gid_sorted
+    return Grouper(group_ids, num_groups, order[offsets[:-1]], order, offsets,
+                   row_mask, kept_rows, gid_sorted)
+
+
+def group_keys_table(keys_table: Table, grouper: Grouper) -> Table:
+    """One row a group: the key values, in group order."""
+    return copying.gather_table(keys_table, grouper.frame_rows(grouper.key_rows),
+                                bounds_check=False)
+
+
+def _apply_row_mask(col: Column, grouper: Grouper) -> Column:
+    """The column's kept rows."""
+    if grouper.kept_rows is None:
+        return col
+    return copying.gather(col, grouper.kept_rows, bounds_check=False)
+
+
+# ----------------------------------------------------------------------
+# the sort tier: aggregations over the group ids
+# ----------------------------------------------------------------------
+
+def _segment_data(col: Column) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(data, valid) with NaN treated as null (pandas skipna)."""
+    v = col.validity
+    if col.dtype.is_float:
+        notnan = ~torch.isnan(col.data)
+        v = notnan if v is None else v & notnan
+    return col.data, v
+
+
+def _sizes(g: Grouper) -> torch.Tensor:
+    return g.group_offsets[1:] - g.group_offsets[:-1]
+
+
+def _group_sum(x: torch.Tensor, g: Grouper) -> torch.Tensor:
+    """Per-group sums of x (int64 or float64), one atomic add a row."""
+    return torch.zeros(g.num_groups, dtype=x.dtype, device=x.device).index_add_(
+        0, g.group_ids, x)
+
+
+def _valid_count(v: Optional[torch.Tensor], g: Grouper) -> torch.Tensor:
+    return _sizes(g) if v is None else _group_sum(v.long(), g)
+
+
+def _accumulate(data: torch.Tensor, v: Optional[torch.Tensor], fill) -> torch.Tensor:
+    """int64 (integers, bool) or float64 values, ``fill`` at invalid rows."""
+    x = data.double() if data.is_floating_point() else (
+        data.view(torch.int64) if data.dtype == torch.uint64 else data.long())
+    return x if v is None else torch.where(v, x, fill)
+
+
+def group_count(col: Column, grouper: Grouper) -> Column:
+    _, v = _segment_data(_apply_row_mask(col, grouper))
+    return Column(dt.INT64, grouper.num_groups, _valid_count(v, grouper))
+
+
+def group_size(grouper: Grouper) -> Column:
+    return Column(dt.INT64, grouper.num_groups, _sizes(grouper))
+
+
+def group_sum(col: Column, grouper: Grouper) -> Column:
+    """Sums; an all-null group sums to 0 (pandas min_count=0)."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    s = _group_sum(_accumulate(data, v, 0), grouper)
+    if col.dtype.is_float:
+        out_dt = _float_out(col.dtype)
+        return Column(out_dt, grouper.num_groups, s.to(out_dt.torch_storage))
+    return _fit_int(Column(dt.INT64, grouper.num_groups, s), col.dtype)
+
+
+def _minmax_values(data: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
+    """A tensor scatter_reduce_ takes on every device with the same order
+    as data, and the way back: bool as uint8, uint16/uint32 widened,
+    uint64 as order-preserving int64."""
+    if data.dtype == torch.bool:
+        return data.to(torch.uint8), (torch.bool, None)
+    if data.dtype in (torch.uint16, torch.uint32):
+        return data.long(), (data.dtype, None)
+    if data.dtype == torch.uint64:
+        return data.view(torch.int64) ^ (-(1 << 63)), (torch.uint64, -(1 << 63))
+    return data, (data.dtype, None)
+
+
+def _from_minmax(x: torch.Tensor, back) -> torch.Tensor:
+    dtype, flip = back
+    if flip is not None:
+        return (x ^ flip).view(dtype)
+    return x.to(dtype)
+
+
+def _group_minmax(col: Column, grouper: Grouper, which: str) -> Column:
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x, back = _minmax_values(data)
+    if x.is_floating_point():
+        lo, hi = float("-inf"), float("inf")
+    else:
+        info = torch.iinfo(x.dtype)
+        lo, hi = info.min, info.max
+    ident = hi if which == "min" else lo
+    if v is not None:
+        x = torch.where(v, x, ident)
+    out = torch.full((grouper.num_groups,), ident, dtype=x.dtype, device=x.device)
+    out.scatter_reduce_(0, grouper.group_ids, x, "amin" if which == "min" else "amax")
+    cnt = _valid_count(v, grouper)
+    out = torch.where(cnt > 0, out, torch.zeros_like(out))
+    return Column(col.dtype, grouper.num_groups, _from_minmax(out, back),
+                  None if v is None else cnt > 0)
+
+
+def group_min(col: Column, grouper: Grouper) -> Column:
+    return _group_minmax(col, grouper, "min")
+
+
+def group_max(col: Column, grouper: Grouper) -> Column:
+    return _group_minmax(col, grouper, "max")
+
+
+def group_mean(col: Column, grouper: Grouper) -> Column:
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    s = _group_sum(_accumulate(data, v, 0).double(), grouper)
+    cnt = _valid_count(v, grouper)
+    out_dt = _float_out(col.dtype)
+    mean = s / cnt.clamp(min=1)
+    return Column(out_dt, grouper.num_groups, mean.to(out_dt.torch_storage), cnt > 0)
+
+
+def group_var(col: Column, grouper: Grouper, ddof: int = 1) -> Column:
+    """Two passes in float64: the group means, then the squares of the
+    deviations from them."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = _accumulate(data, v, 0).double()
+    cnt = _valid_count(v, grouper)
+    mean = _group_sum(x, grouper) / cnt.clamp(min=1)
+    d = x - mean[grouper.group_ids]
+    if v is not None:
+        d = torch.where(v, d, 0.0)
+    ss = _group_sum(d * d, grouper)
+    denom = cnt - ddof
+    out = torch.where(denom > 0, ss / denom.clamp(min=1), float("nan"))
+    out_dt = _float_out(col.dtype)
+    return Column(out_dt, grouper.num_groups, out.to(out_dt.torch_storage), denom > 0)
+
+
+def group_std(col: Column, grouper: Grouper, ddof: int = 1) -> Column:
+    var = group_var(col, grouper, ddof)
+    return Column(var.dtype, var.length, torch.sqrt(var.data), var.validity)
+
+
+def group_prod(col: Column, grouper: Grouper) -> Column:
+    """Products; an all-null group gives 1 (pandas min_count=0)."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = _accumulate(data, v, 1)
+    out = torch.ones(grouper.num_groups, dtype=x.dtype, device=x.device)
+    out.scatter_reduce_(0, grouper.group_ids, x, "prod")
+    if col.dtype.is_float:
+        out_dt = _float_out(col.dtype)
+        return Column(out_dt, grouper.num_groups, out.to(out_dt.torch_storage))
+    return _fit_int(Column(dt.INT64, grouper.num_groups, out), col.dtype)
+
+
+def _group_bool(col: Column, grouper: Grouper, which: str) -> Column:
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    b = data != 0
+    if v is not None:
+        b = b & v if which == "any" else b | ~v
+    out = torch.full((grouper.num_groups,), 0 if which == "any" else 1, dtype=torch.uint8,
+                     device=b.device)
+    out.scatter_reduce_(0, grouper.group_ids, b.to(torch.uint8),
+                        "amax" if which == "any" else "amin")
+    return Column(dt.BOOL8, grouper.num_groups, out.bool())
+
+
+def group_any(col: Column, grouper: Grouper) -> Column:
+    return _group_bool(col, grouper, "any")
+
+
+def group_all(col: Column, grouper: Grouper) -> Column:
+    return _group_bool(col, grouper, "all")
+
+
+def _group_first_last(col: Column, grouper: Grouper, first: bool) -> Column:
+    """The first (last) valid value of each group in row order."""
+    col = _apply_row_mask(col, grouper)
+    n = col.length
+    _, v = _segment_data(col)
+    pos = torch.arange(n, dtype=torch.int64, device=col.device)
+    none = n if first else -1
+    if v is not None:
+        pos = torch.where(v, pos, none)
+    picked = torch.full((grouper.num_groups,), none, dtype=torch.int64, device=col.device)
+    picked.scatter_reduce_(0, grouper.group_ids, pos, "amin" if first else "amax")
+    return copying.gather(col, torch.where(picked == none, -1, picked), bounds_check=True)
+
+
+def group_first(col: Column, grouper: Grouper) -> Column:
+    return _group_first_last(col, grouper, first=True)
+
+
+def group_last(col: Column, grouper: Grouper) -> Column:
+    return _group_first_last(col, grouper, first=False)
+
+
+def group_nth(col: Column, grouper: Grouper, n: int) -> Column:
+    """Each group's n-th row (from the end for n < 0), null where the group
+    is shorter."""
+    col = _apply_row_mask(col, grouper)
+    starts = grouper.group_offsets[:-1]
+    sizes = _sizes(grouper)
+    nn = torch.full_like(sizes, n) if n >= 0 else sizes + n
+    ok = (nn >= 0) & (nn < sizes)
+    at = (starts + nn).clamp(0, max(col.length - 1, 0))
+    rows = torch.where(ok, grouper.sorted_order[at], -1)
+    return copying.gather(col, rows, bounds_check=True)
+
+
+def _valid_view(col: Column) -> Column:
+    """The column with NaN as null."""
+    _, v = _segment_data(col)
+    return Column(col.dtype, col.length, col.data, v)
+
+
+def _sort_within_groups(grouper: Grouper, operands: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The stable sort of the kept rows by (group, operands...)."""
+    gid = grouper.group_ids
+    if grouper.num_groups < 1 << 31:
+        gid = gid.int()
+    return lex_sort_permutation([gid, *operands])
+
+
+def group_nunique(col: Column, grouper: Grouper, dropna: bool = True) -> Column:
+    """Distinct values a group; with dropna, null and NaN are not counted."""
+    col = _valid_view(_apply_row_mask(col, grouper))
+    eq = equality_keys(col)
+    order = _sort_within_groups(grouper, eq)
+    gs = grouper.group_ids[order]
+    neq = torch.zeros(col.length, dtype=torch.bool, device=col.device)
+    neq[:1] = True
+    for k in [gs, *eq]:
+        s = k[order] if k is not gs else k
+        neq[1:] |= s[1:] != s[:-1]
+    counts = torch.zeros(grouper.num_groups, dtype=torch.int64, device=col.device).index_add_(
+        0, gs, neq.long())
+    if dropna and col.validity is not None:
+        counts = counts - (_group_sum((~col.validity).long(), grouper) > 0).long()
+    return Column(dt.INT64, grouper.num_groups, counts)
+
+
+def _value_sorted(col: Column, grouper: Grouper):
+    """(the kept rows' values as float64 sorted by (group, value) with
+    nulls and NaN last in each group, the valid count a group)."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = data.double()
+    key = _float_to_ordered_int(x)
+    if v is not None:
+        key = torch.where(v, key, torch.iinfo(torch.int64).max)
+    order = _sort_within_groups(grouper, [key])
+    return x[order], _valid_count(v, grouper)
+
+
+def group_quantile(col: Column, grouper: Grouper, q: float = 0.5,
+                   interpolation: str = "linear") -> Column:
+    """Per-group quantile of the valid values (float64), pandas'
+    interpolations; a group without valid values gives null."""
+    xs, cnt = _value_sorted(col, grouper)
+    return Column(dt.FLOAT64, grouper.num_groups,
+                  _interpolate(xs, cnt, grouper, q, interpolation), cnt > 0)
+
+
+def _interpolate(xs, cnt, grouper: Grouper, q: float, interpolation: str) -> torch.Tensor:
+    n = xs.shape[0]
+    starts = grouper.group_offsets[:-1]
+    pos = q * (cnt - 1).clamp(min=0).double()
+    lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
+    dlo = xs[(starts + lo).clamp(0, max(n - 1, 0))]
+    dhi = xs[(starts + hi).clamp(0, max(n - 1, 0))]
+    frac = pos - lo
+    if interpolation == "linear":
+        return dlo + frac * (dhi - dlo)
+    if interpolation == "lower":
+        return dlo
+    if interpolation == "higher":
+        return dhi
+    if interpolation == "midpoint":
+        return (dlo + dhi) / 2
+    if interpolation == "nearest":
+        return torch.where(frac <= 0.5, dlo, dhi)
+    raise ValueError(f"interpolation {interpolation!r}")
+
+
+def group_median(col: Column, grouper: Grouper) -> Column:
+    """The middle valid value, or the midpoint (a + b) / 2 of the middle
+    two, as pandas computes it; float32 values give float32."""
+    xs, cnt = _value_sorted(col, grouper)
+    out = _interpolate(xs, cnt, grouper, 0.5, "midpoint")
+    out_dt = _float_out(col.dtype)
+    return Column(out_dt, grouper.num_groups, out.to(out_dt.torch_storage), cnt > 0)
+
+
+def _group_arg_extreme_rows(col: Column, grouper: Grouper, which: str) -> torch.Tensor:
+    """Each group's kept row of its min (max) valid value, the first such
+    row on ties; -1 for a group without valid values."""
+    col = _valid_view(_apply_row_mask(col, grouper))
+    ops = sort_operands([col], [which == "min"], "last")
+    first = _sort_within_groups(grouper, ops)[grouper.group_offsets[:-1]]
+    if col.validity is None:
+        return first
+    return torch.where(_valid_count(col.validity, grouper) > 0, first, -1)
+
+
+def group_idxminmax(col: Column, grouper: Grouper, which: str) -> Column:
+    """The frame row of each group's min (max); null for a group without
+    valid values.  The frame layer maps rows to index labels."""
+    rows = _group_arg_extreme_rows(col, grouper, which)
+    ok = rows >= 0
+    rows = torch.where(ok, grouper.frame_rows(rows.clamp(min=0)), 0)
+    return Column(dt.INT64, grouper.num_groups, rows, ok)
+
+
+_AGG_DISPATCH = {
+    "sum": group_sum,
+    "count": group_count,
+    "size": lambda col, g: group_size(g),
+    "mean": group_mean,
+    "min": group_min,
+    "max": group_max,
+    "var": group_var,
+    "std": group_std,
+    "prod": group_prod,
+    "product": group_prod,
+    "any": group_any,
+    "all": group_all,
+    "first": group_first,
+    "last": group_last,
+    "nunique": group_nunique,
+    "median": group_median,
+    "quantile": group_quantile,
+    "idxmin": lambda col, g: group_idxminmax(col, g, "min"),
+    "idxmax": lambda col, g: group_idxminmax(col, g, "max"),
+}
+
+
+def aggregate(col: Column, grouper: Grouper, agg: str) -> Column:
+    """One sort-tier aggregation of col over the grouper's groups."""
+    fn = _AGG_DISPATCH.get(agg)
+    if fn is None:
+        raise _not_ported(agg)
+    return fn(col, grouper)
+
+
 def groupby_agg(keys: Table, values: Sequence[Request],
                 dropna: bool = True) -> Tuple[Table, Table]:
     """values: (output_name, column, agg) triples -> (group keys, aggs).
 
     Port of ``cudf_tpu/ops/groupby.py:1039``: the kernel tiers serve the
-    request, or NotImplementedError names the missing sort tier."""
-    fast = _try_onehot_fast_path(keys, list(values), dropna)
-    if fast is None:
-        raise NotImplementedError(SORT_TIER_MISSING)
-    return fast
+    request when they can, else the sort tier (groups in ascending key
+    order, a null group last)."""
+    values = list(values)
+    for _, _, agg in values:
+        if agg not in _AGG_DISPATCH:
+            raise _not_ported(agg)
+    fast = _try_onehot_fast_path(keys, values, dropna)
+    if fast is not None:
+        return fast
+    grouper = make_grouper(list(keys.columns), dropna=dropna)
+    return group_keys_table(keys, grouper), Table(
+        {name: aggregate(col, grouper, agg) for name, col, agg in values})
+
+
+# ----------------------------------------------------------------------
+# grouped scans and shifts, one value a kept row
+# ----------------------------------------------------------------------
+
+def _unsort(x_sorted: torch.Tensor, grouper: Grouper) -> torch.Tensor:
+    out = torch.empty_like(x_sorted)
+    out[grouper.sorted_order] = x_sorted
+    return out
+
+
+def group_cumsum(col: Column, grouper: Grouper) -> Column:
+    """Running sums within groups in row order; null (and NaN) rows give
+    null and add nothing.  Integers are exact; floats run in float64 as
+    one prefix sum less each group's start, so a float result carries the
+    rounding of the whole prefix."""
+    col = _apply_row_mask(col, grouper)
+    data, v = _segment_data(col)
+    x = _accumulate(data, v, 0)
+    xs = x[grouper.sorted_order]
+    cs = torch.cumsum(xs, 0)
+    starts = grouper.group_offsets[:-1]
+    base = (cs[starts] - xs[starts])[grouper.sorted_group_ids]
+    out = _unsort(cs - base, grouper)
+    if col.dtype.is_float:
+        out_dt = _float_out(col.dtype)
+        return Column(out_dt, col.length, out.to(out_dt.torch_storage), v)
+    return _fit_int(Column(dt.INT64, col.length, out, v), col.dtype)
+
+
+def group_cumcount(grouper: Grouper) -> Column:
+    """Each kept row's position in its group (0-based, row order)."""
+    n = grouper.sorted_order.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=grouper.sorted_order.device)
+    within = pos - grouper.group_offsets[:-1][grouper.sorted_group_ids]
+    return Column(dt.INT64, n, _unsort(within, grouper))
+
+
+def group_shift(col: Column, grouper: Grouper, periods: int = 1) -> Column:
+    """The value ``periods`` rows earlier in the group (later for
+    periods < 0), null where there is none."""
+    col = _apply_row_mask(col, grouper)
+    n = col.length
+    order = grouper.sorted_order
+    gs = grouper.sorted_group_ids
+    src = torch.arange(n, dtype=torch.int64, device=col.device) - periods
+    inb = (src >= 0) & (src < n)
+    srcc = src.clamp(0, max(n - 1, 0))
+    rows = torch.where(inb & (gs[srcc] == gs), order[srcc], -1)
+    return copying.gather(col, _unsort(rows, grouper), bounds_check=True)

@@ -37,9 +37,9 @@ from cudf_tpu_torch.ops.stream_compaction import filter_indices
 from cudf_tpu_torch.utils.config import get_option
 
 SORT_MERGE_MISSING = (
-    "this join needs the sort-merge tier (ops/join.py _probe_ranges, "
-    "ops/sort.py, ops/row_ops.py), which is not ported yet: ROADMAP.md "
-    "queue 1, items 2 and 4. The kernel and dense tiers serve inner joins "
+    "this join needs the sort-merge tier (ops/join.py _probe_ranges over "
+    "ops/sort.py), which is not ported yet: ROADMAP.md queue 1, item 3. "
+    "The kernel and dense tiers serve inner joins "
     "on one integer key column per side with null keys on at most one "
     "side, a build side (either side) with at most join.multi_fan_out_max "
     "rows per key over at most 2^27 key values, and probes of at least "

@@ -69,13 +69,13 @@ def option_context(*args):
 
 _register("groupby.onehot_fast_path", True,
           "dispatch groupby aggs to the kernel tiers (one-hot K <= 4096, "
-          "radix partition K <= 2^27); off, every groupby needs the sort "
-          "tier, which is not ported yet (ROADMAP.md queue 1, item 2)",
+          "radix partition K <= 2^27); off, every groupby takes the sort "
+          "tier (make_grouper)",
           lambda v: isinstance(v, bool))
 _register("groupby.fast_path_min_rows", 0,
           "minimum rows before groupby dispatches to the kernel tiers; "
-          "smaller frames need the sort tier, which is not ported yet, so "
-          "the default 0 serves every row count with the kernel tiers",
+          "smaller frames take the sort tier (the default 0 serves every "
+          "row count with the kernel tiers)",
           lambda v: isinstance(v, int) and v >= 0)
 _register("join.radix_fast_path", True,
           "radix-partition + window-probe tier (kernels B, F, G, D and H) for "

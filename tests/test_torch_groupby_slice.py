@@ -144,9 +144,12 @@ def test_high_k_matches_reference_and_pandas():
     _assert_frames(_port(pdf, SPEC), pdf.groupby("k").agg(SPEC), rtol=1e-12)
 
 
-def test_dropna_null_keys_via_reference_buffers(reference_kernel_tier):
-    """Null keys (pandas Int64 <NA>) are dropped.  The port's frame is
-    built from the reference frame's column buffers with from_buffers."""
+@pytest.mark.parametrize("dropna", [True, False])
+def test_dropna_null_keys_via_reference_buffers(reference_kernel_tier, dropna):
+    """Null keys (pandas Int64 <NA>) are dropped, or under dropna=False
+    form a group of their own, last (the sort tier; held to pandas).  The
+    port's frame is built from the reference frame's column buffers with
+    from_buffers."""
     pdf = _frame(3, 100)
     pdf["k"] = pd.array(pdf["k"], dtype="Int64")
     pdf.loc[pdf.index[::11], "k"] = pd.NA
@@ -160,12 +163,16 @@ def test_dropna_null_keys_via_reference_buffers(reference_kernel_tier):
                                      validity, device=CPU)
     port_df = ct.DataFrame(cols)
     spec = {"f": ["sum", "mean", "count"], "i": ["sum", "min", "max", "size"]}
-    got = port_df.groupby("k").agg(spec).to_pandas()
-    ref = ref_df.groupby("k").agg(spec).to_pandas()
-    _assert_frames(got, ref, rtol=1e-7)
-    _assert_frames(got, pdf.groupby("k").agg(spec), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="sort tier"):
-        port_df.groupby("k", dropna=False).agg(spec)
+    got = port_df.groupby("k", dropna=dropna).agg(spec).to_pandas()
+    exp = pdf.groupby("k", dropna=dropna).agg(spec)
+    if dropna:
+        ref = ref_df.groupby("k").agg(spec).to_pandas()
+        _assert_frames(got, ref, rtol=1e-7)
+        _assert_frames(got, exp, rtol=1e-12)
+        return
+    assert got.index[-1] != got.index[-1] and exp.index[-1] is pd.NA   # the null group, last
+    np.testing.assert_array_equal(got.index.to_numpy()[:-1], exp.index.to_numpy()[:-1])
+    _assert_frames(got.reset_index(drop=True), exp.reset_index(drop=True), rtol=1e-12)
 
 
 @pytest.mark.parametrize("K", [100, 50_000])
@@ -276,8 +283,11 @@ def test_as_index_false_and_wide_values(K):
         np.testing.assert_array_equal(got[col].to_numpy(), exp[col].to_numpy())
 
 
-def test_ops_groupby_agg_matches_reference(reference_kernel_tier):
-    """ops.groupby.groupby_agg on Tables, below the frame layer."""
+@pytest.mark.parametrize("tier", ["kernel", "sort"])
+def test_ops_groupby_agg_matches_reference(reference_kernel_tier, tier):
+    """ops.groupby.groupby_agg on Tables, below the frame layer: a request
+    the kernel tiers serve, and one with a median, std and nunique that
+    both packages send to their sort tier."""
     from cudf_tpu.core.column import Column as RefColumn
     from cudf_tpu.core.table import Table as RefTable
     from cudf_tpu.ops.groupby import groupby_agg as ref_groupby_agg
@@ -287,6 +297,9 @@ def test_ops_groupby_agg_matches_reference(reference_kernel_tier):
     pdf = _frame(9, 100)
     requests = [("s", "i", "sum"), ("m", "f", "mean"), ("c", "f", "count"),
                 ("x", "g", "max"), ("n", "b", "size")]
+    if tier == "sort":
+        requests = [("q", "i", "median"), ("d", "f", "std"), ("u", "i", "nunique"),
+                    ("s", "i", "sum"), ("c", "f", "count")]
     ref_cols = {c: RefColumn.from_numpy(pdf[c].to_numpy(), mask=pdf[c].notna().to_numpy())
                 for c in pdf.columns}
     port_cols = {c: ct.from_buffers(pdf[c].dtype, N, pdf[c].to_numpy(),
@@ -301,30 +314,50 @@ def test_ops_groupby_agg_matches_reference(reference_kernel_tier):
         got, exp = ga[o].to_numpy(), np.asarray(ra[o].to_numpy())
         if a == "mean":
             np.testing.assert_allclose(got, exp, rtol=1e-7, atol=0)
+        elif a in ("median", "std"):
+            np.testing.assert_allclose(got, exp, rtol=1e-12, atol=0)
         else:
             np.testing.assert_array_equal(got, exp)
-    with pytest.raises(NotImplementedError, match="sort tier"):
-        groupby_agg(Table({"k": port_cols["k"]}), [("q", port_cols["i"], "median")])
+    if tier == "sort":
+        exp = pdf.groupby("k").agg(q=("i", "median"), d=("f", "std"), u=("i", "nunique"))
+        for o in ("q", "d", "u"):
+            np.testing.assert_allclose(ga[o].to_numpy(), exp[o].to_numpy(), rtol=1e-12)
 
 
-def test_requests_outside_the_kernel_tiers_raise():
+@pytest.mark.parametrize("case", ["two_keys", "float_key", "median", "uint64_values",
+                                  "kernel_tiers_off", "below_min_rows", "unported_agg"])
+def test_requests_outside_the_kernel_tiers_raise(case):
+    """Requests outside the kernel tiers: the sort tier serves each, held
+    to pandas; an agg outside this slice still raises NotImplementedError
+    naming its ROADMAP item."""
     pdf = _frame(7, 100)
     df = ct.from_pandas(pdf, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        df.groupby(["k", "i"]).agg("sum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        df.groupby("f").agg({"i": "sum"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        df.groupby("k").agg({"i": "median"})
-    wide = ct.DataFrame({"k": torch.arange(4), "u": torch.arange(4).to(torch.uint64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wide.groupby("k").agg({"u": "count"})
-    with option_context("groupby.onehot_fast_path", False):
+    by, spec, options = "k", {"i": "sum"}, ()
+    if case == "two_keys":
+        by, spec = ["k", "i"], "sum"
+    elif case == "float_key":
+        by = "f"
+    elif case == "median":
+        spec = {"i": "median"}
+    elif case == "uint64_values":
+        pdf = pd.DataFrame({"k": np.arange(4), "u": np.arange(4, dtype=np.uint64)})
+        df = ct.DataFrame({"k": torch.arange(4), "u": torch.arange(4).to(torch.uint64)})
+        spec = {"u": "count"}
+    elif case == "kernel_tiers_off":
+        options = ("groupby.onehot_fast_path", False)
+    elif case == "below_min_rows":
+        options = ("groupby.fast_path_min_rows", N + 1)
+    elif case == "unported_agg":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            df.groupby("k").agg({"i": "sum"})
-    with option_context("groupby.fast_path_min_rows", N + 1):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            df.groupby("k").agg({"i": "sum"})
+            df.groupby("k").agg({"i": "collect"})
+        return
+    with option_context(*options):
+        got = df.groupby(by).agg(spec).to_pandas()
+    exp = pdf.groupby(by).agg(spec)
+    if isinstance(by, list):
+        assert got.index.tolist() == exp.index.tolist()
+        got, exp = got.reset_index(drop=True), exp.reset_index(drop=True)
+    _assert_frames(got, exp, rtol=1e-12)
 
 
 def test_two_pass_domain_matches_pandas(monkeypatch):

@@ -1,6 +1,6 @@
 """cudf_tpu_torch imports neither JAX nor the reference package, and the
-groupby and merge paths on CPU tensors touch neither pandas nor
-pyarrow."""
+groupby (both the kernel tiers and the sort tier) and merge paths on CPU
+tensors touch neither pandas nor pyarrow."""
 
 import ast
 import os
@@ -21,6 +21,10 @@ df = ct.DataFrame({"k": torch.tensor([3, 1, 3, 2], dtype=torch.int32),
 out = df.groupby("k").agg({"v": ["sum", "mean", "count"]})
 assert len(out) == 3, len(out)
 assert out._table[("v", "sum")].data.tolist() == [2.0, 4.0, 4.0]
+two = ct.DataFrame({"k": df._table["k"].data, "j": torch.tensor([0, 1, 0, 1]),
+                   "v": df._table["v"].data})
+med = two.groupby(["k", "j"], sort=False).agg({"v": ["median", "std"]})   # the sort tier
+assert med._table[("v", "median")].data.tolist() == [2.0, 2.0, 4.0], med
 fact = ct.DataFrame({"k": torch.arange(100, dtype=torch.int32) % 4,
                      "v": torch.arange(100.0)})
 dim = ct.DataFrame({"k": torch.tensor([3, 2]), "w": torch.tensor([5.0, 6.0])})
