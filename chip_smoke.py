@@ -109,6 +109,34 @@ card from the same generator:
    (gather maps only) at small, medium and big, beside plain PyTorch, as
    probe rows/s.
 
+The J1 frames are then freed.  TPC-H through the LazyFrame engine
+(``cudf_tpu_torch/models/tpch.py``): SF10 (6e7 lineitem rows, 1.5e7
+orders, 2e6 parts; ~5.3 GB on the card), then SF1 as a smaller second
+run, drawn on the card by ``generate_device`` from one seeded
+torch.Generator (int32 keys, dictionary codes over host key sets,
+datetime64[ns] dates):
+
+4. main path: q1 (temporal filter, arithmetic, groupby on two
+   dictionary keys through the sort tier, sort), q6 (five predicates, a
+   product, a sum), q12 (is_in on a dictionary, temporal comparisons,
+   a join against the 1.5e7 unique order keys on the radix tier, a CASE
+   count by one dictionary key on the one-hot tier) and q14 (a temporal
+   filter, a join against the 2e6 unique part keys on the radix tier, a
+   dictionary compared with a string, a CASE sum), all four with every
+   count at 0 before (kernels A, B, F, G, D and H must each have been
+   launched), each against its plain PyTorch version on the same
+   tensors (``tpch.PLAIN``: masks, dense lookup tables, bincounts):
+   keys, counts and row order exact, float sums rtol 1e-9.  Each query
+   then runs alone with every count at 0 before it: q12 must launch A,
+   B, F, G, D and H, q14 B, F, G, D and H, q1 and q6 none.  Every call
+   of those kernels in these runs is recorded with a copy of its
+   arguments (``KernelRecorder``) and replayed on the same inputs
+   against its plain version: bit for bit (A's and D's float sums rtol
+   1e-12; G in the rows its runs cover), each with its time and its
+   plain version's.  Then one torch.profiler split of q1 at SF10.
+5. timings: median of 7 warm runs of each query and of its plain
+   version, as lineitem rows/s, at SF10 and SF1.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -134,6 +162,7 @@ JSON line of the kernels, and the result line
 
 import argparse
 import concurrent.futures
+import inspect
 import json
 import statistics
 import subprocess
@@ -1214,6 +1243,206 @@ def ptxas_lines(report, kernel=None):
     return out
 
 
+# ----------------------------------------------------------------------
+# TPC-H through the LazyFrame engine
+# ----------------------------------------------------------------------
+
+TPCH_SCALES = (10, 1)
+TPCH_PATH = ["onehot_groupby_aggregate", "digit_histogram", "tile_sort_data", "merge_scatter",
+             "bucket_aggregate", "window_probe"]
+TPCH_NEEDS = {"q1": [], "q6": [], "q12": TPCH_PATH, "q14": TPCH_PATH[1:]}
+
+
+def tpch_answer(name, res):
+    """A query's answer in its plain version's form."""
+    if name in ("q6", "q14"):
+        return res if name == "q14" else float(res._table["revenue"].data[0])
+    t = res._table
+    if name == "q1":
+        keys = list(zip(t["l_returnflag"].to_numpy().tolist(),
+                        t["l_linestatus"].to_numpy().tolist()))
+        return keys, {n: t[n].data for n in t.names if n not in ("l_returnflag",
+                                                                  "l_linestatus")}
+    return t["l_shipmode"].to_numpy().tolist(), t["high_line_count"].data, \
+        t["low_line_count"].data
+
+
+def check_tpch(name, res, exp):
+    """Keys, counts and row order exact, float sums rtol 1e-9; returns
+    the max abs error."""
+    got = tpch_answer(name, res)
+    if name in ("q6", "q14"):
+        check(abs(got - exp) <= 1e-9 * abs(exp), f"TPC-H {name}: {got} vs {exp}")
+        return abs(got - exp)
+    check(got[0] == exp[0], f"TPC-H {name}: keys {got[0]} vs {exp[0]}")
+    if name == "q12":
+        return max(same(got[1], exp[1], "TPC-H q12 high"), same(got[2], exp[2], "TPC-H q12 low"))
+    check(sorted(got[1]) == sorted(exp[1]), f"TPC-H q1: columns {sorted(got[1])}")
+    return max(same(got[1][n], exp[1][n], f"TPC-H q1 {n}", float_rtol=1e-9) for n in exp[1])
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+class KernelRecorder:
+    """While active, every call of the named kernel wrappers, from any
+    module of cudf_tpu_torch that bound them, is recorded with a copy of
+    its arguments, so that each can be replayed against its plain version
+    at the shapes the main path gave it."""
+
+    def __init__(self, wrappers, names):
+        self.wrappers = {n: wrappers[n] for n in names}
+        self.calls = []
+        self.patched = []
+
+    class Recorded:
+        """Stands for one wrapper: records each call, then makes it; its
+        ``launches`` is the wrapper's own, which the wrapper counts."""
+
+        def __init__(self, fn, name, calls):
+            self.fn, self.name, self.calls = fn, name, calls
+
+        def __call__(self, *args, **kwargs):
+            bound = inspect.signature(self.fn).bind(*args, **kwargs)
+            bound.apply_defaults()
+            self.calls.append((self.name, _clone(dict(bound.arguments))))
+            return self.fn(*args, **kwargs)
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, value):
+            self.fn.launches = value
+
+    def __enter__(self):
+        for name, fn in self.wrappers.items():
+            record = self.Recorded(fn, name, self.calls)
+            for mod in [m for k, m in sys.modules.items() if k.startswith("cudf_tpu_torch")]:
+                if getattr(mod, name, None) is fn:
+                    setattr(mod, name, record)
+                    self.patched.append((mod, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.patched:
+            setattr(mod, name, fn)
+        self.patched = []
+
+
+def _flat(x):
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
+def _describe(args):
+    """A recorded call's arguments: tensors as dtype[shape], the rest as text."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return f"{v.dtype}{list(v.shape)}".replace("torch.", "")
+        return [one(t) for t in v] if isinstance(v, (list, tuple)) else str(v)
+    return {k: one(v) for k, v in args.items()}
+
+
+def replay_check(wrappers, plains, name, args, what):
+    """One recorded kernel call against its plain version on the same
+    inputs: bit for bit, apart from float sums of A and D (rtol 1e-12, the
+    order of atomic adds) and kernel G's rows no run covers; returns the
+    max abs error."""
+    kernel, plain = wrappers[name], plains[name]
+    got = _flat(kernel(**args))
+    params = inspect.signature(plain).parameters
+    exp = _flat(plain(**{k: v for k, v in args.items() if k in params}))
+    check(len(got) == len(exp), f"{what}: {len(got)} outputs vs {len(exp)}")
+    rows = None
+    if name == "merge_scatter":       # rows no run covers are unspecified without out_rows
+        rows = args["out_rows"] or int((args["keys"] >= 0).sum())
+    err = 0.0
+    for i, (g, e) in enumerate(zip(got, exp)):
+        check((g is None) == (e is None), f"{what}: output {i} missing")
+        if g is None:
+            continue
+        if rows is not None:
+            g, e = g[:rows], e[:rows]
+        if g.is_floating_point() and name in ("onehot_groupby_aggregate", "bucket_aggregate"):
+            err = max(err, same(g, e, f"{what} output {i}"))
+        else:
+            err = max(err, same_bits(g, e, f"{what} output {i}"))
+    return err
+
+
+def tpch_phase(dev, smi, wrappers, drive, plains):
+    """TPC-H q1, q6, q12 and q14 at SF10 (the main path) and SF1."""
+    from cudf_tpu_torch.models import tpch
+
+    by_query, tpch_calls = {}, {}
+    for scale in TPCH_SCALES:
+        t0 = time.perf_counter()
+        tables = tpch.generate_device(scale, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        n_li = len(tables["lineitem"])
+        log(f"phase 4 TPC-H SF{scale}: {n_li} lineitem, {len(tables['orders'])} orders, "
+            f"{len(tables['part'])} parts drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def run_all():
+            return {q: fn(tables) for q, fn in tpch.QUERIES.items()}
+
+        results = drive("tpch", run_all) if scale == TPCH_SCALES[0] else run_all()
+        for q, res in results.items():
+            err = check_tpch(q, res, tpch.PLAIN[q](tables))
+            log(f"phase 4 TPC-H SF{scale} {q} agrees with plain torch, max abs err {err}")
+        del results
+        if scale == TPCH_SCALES[0]:
+            recorded = {}
+            for q, fn in tpch.QUERIES.items():     # alone, every count at 0 before
+                for w in wrappers.values():
+                    w.launches = 0
+                with KernelRecorder(wrappers, TPCH_NEEDS[q]) as rec:
+                    fn(tables)
+                    torch.cuda.synchronize()
+                by_query[q] = {k: w.launches for k, w in wrappers.items() if w.launches}
+                recorded[q] = rec.calls
+                check(all(by_query[q].get(k, 0) >= 1 for k in TPCH_NEEDS[q]),
+                      f"TPC-H {q} launched {by_query[q]}, needs {TPCH_NEEDS[q]}")
+            check(not by_query["q1"] and not by_query["q6"], "TPC-H q1 or q6 launched A-H")
+            log(f"phase 4 TPC-H SF{scale} launches by query: {by_query}")
+            for q, calls in recorded.items():      # each kernel at the shapes q gave it
+                for i, (name, args) in enumerate(calls):
+                    what = f"TPC-H SF{scale} {q} call {i} of {name}"
+                    err = replay_check(wrappers, plains, name, args, what)
+                    row = dict(query=q, call=i, args=_describe(args), max_abs_err=err,
+                               ms=device_ms(lambda: wrappers[name](**args)),
+                               plain_ms=device_ms(lambda: plains[name](**{
+                                   k: v for k, v in args.items()
+                                   if k in inspect.signature(plains[name]).parameters})))
+                    tpch_calls.setdefault(name, []).append(row)
+                    log(f"phase 3 {what} agrees with its plain version: {json.dumps(row)}")
+                check(sorted({name for name, _ in calls}) == sorted(TPCH_NEEDS[q]),
+                      f"TPC-H {q}: replayed {sorted({name for name, _ in calls})}")
+            del recorded, calls
+            torch.cuda.empty_cache()
+            log("phase 4 TPC-H q1 torch.profiler split: " + json.dumps(
+                {"tpch_sf10_q1_profile": profile_split(lambda: tpch.q1(tables)),
+                 "card": smi}))
+        for q, fn in tpch.QUERIES.items():
+            ms = device_ms(lambda: fn(tables))
+            plain = device_ms(lambda: tpch.PLAIN[q](tables))
+            log(f"phase 5 TPC-H SF{scale} {q}: {ms:.3f} ms = {n_li / ms * 1e3:.4g} lineitem "
+                f"rows/s; plain torch {plain:.3f} ms = {n_li / plain * 1e3:.4g} rows/s [{smi}]")
+            torch.cuda.empty_cache()
+        del tables
+        torch.cuda.empty_cache()
+    return by_query, tpch_calls
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--beside", metavar="DIR",
@@ -1292,7 +1521,8 @@ def main():
     paths = {"g1": ["onehot_groupby_aggregate", "digit_histogram", "tile_sort_data",
                     "merge_scatter", "bucket_aggregate"],
              "j1": ["digit_histogram", "tile_sort_data", "merge_scatter", "bucket_aggregate",
-                    "window_probe"]}
+                    "window_probe"],
+             "tpch": TPCH_PATH}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -1415,6 +1645,18 @@ def main():
         log(f"phase 5 J1 j1_join {size}: {ms:.3f} ms = {N / ms * 1e3:.4g} probe rows/s; "
             f"plain torch {plain:.3f} ms = {N / plain * 1e3:.4g} probe rows/s [{smi}]")
 
+    del frames, rows_i, lf, rf, lcodes, rcodes
+    torch.cuda.empty_cache()
+    plains = {"onehot_groupby_aggregate": ha.onehot_groupby_aggregate_plain,
+              "digit_histogram": rp.digit_histogram_plain,
+              "tile_sort_data": ts.tile_sort_data_plain,
+              "merge_scatter": rp.merge_scatter_plain,
+              "bucket_aggregate": rp.bucket_aggregate_plain,
+              "window_probe": rp.window_probe_plain}
+    by_tpch_query, tpch_calls = tpch_phase(dev, smi, wrappers, drive, plains)
+    for name, calls in tpch_calls.items():
+        kernels[name]["tpch_calls"] = calls
+
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
                "merge_scatter": (rp.MERGE_SOURCE, rp.REPLACES["merge_scatter"])}
@@ -1429,7 +1671,8 @@ def main():
     for name, row in kernels.items():
         row.update(source=sources[name][0], replaces=sources[name][1],
                    launches=sum(launches[name].values()), launches_by_path=launches[name],
-                   launches_by_g1_query={q: c.get(name, 0) for q, c in by_query.items()})
+                   launches_by_g1_query={q: c.get(name, 0) for q, c in by_query.items()},
+                   launches_by_tpch_query={q: c.get(name, 0) for q, c in by_tpch_query.items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

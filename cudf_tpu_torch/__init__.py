@@ -8,7 +8,10 @@ the radix-partition tier (kernels B, F, G and D), and
 CUDA for Hopper (``csrc/``), each beside a plain PyTorch version that
 CPU tensors use.  Every other groupby takes the sort tier
 (``ops/row_ops.py``, ``ops/sort.py``, ``ops/groupby.py`` ``make_grouper``),
-which runs on PyTorch's own sorts, gathers and scatters.
+which runs on PyTorch's own sorts, gathers and scatters.  The LazyFrame
+engine (``cudf_tpu_torch.engine``) runs query plans over these, with
+temporal, string and dictionary columns; ``models/tpch.py`` holds TPC-H
+q1, q6, q12 and q14.
 
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.

@@ -1,17 +1,32 @@
-"""Column — a fixed-width columnar buffer over ``torch.Tensor``s.
+"""Column — a columnar buffer over ``torch.Tensor``s.
 
-Port of ``cudf_tpu/core/column.py`` for the fixed-width numeric and bool
-layouts: ``data`` is a 1-D tensor in the storage dtype, ``validity`` a
-``bool`` tensor of the same length or None (all valid).  String, list,
-struct, dictionary and temporal layouts come with later slices.
+Port of ``cudf_tpu/core/column.py`` for these layouts:
 
-A column lives where its tensors live.  Nothing here picks a device:
-constructors from host data take ``device=`` explicitly.
+- fixed width (numeric, bool): ``data`` is a 1-D tensor in the storage
+  dtype;
+- temporal (timestamps and durations in s, ms, us or ns): ``data`` holds
+  int64 ticks, the unit is the ``DType``'s;
+- STRING: ``data`` is a uint8 tensor of the UTF-8 bytes of every row and
+  ``offsets`` an int64[n + 1] tensor, row i being
+  ``data[offsets[i]:offsets[i + 1]]``;
+- DICTIONARY32: ``data`` holds int32 codes and ``children`` one column,
+  the dictionary's keys (STRING or numeric, no nulls).
+
+``validity`` is a ``bool`` tensor of the column's length or None (all
+valid).  List, struct, decimal and tz-aware columns are ROADMAP.md queue
+1, item 6.
+
+A column lives where its tensors live, its dictionary's keys included.
+Nothing here picks a device: constructors from host data take
+``device=`` explicitly.  A column is never modified after it is built,
+so it may cache what it derives from itself (a STRING column's Python
+strings, a dictionary's key ranks) in ``_cache``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import datetime as _datetime
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,33 +35,117 @@ from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.dtypes import DType
 
+_UNITS = ("s", "ms", "us", "ns")
+
 
 def _check_supported(dtype: DType) -> None:
-    if not (dtype.is_numeric or dtype.is_bool) or dtype.nullable or dtype.arrow:
+    if dtype.nullable or dtype.arrow:
         raise NotImplementedError(
-            f"column dtype {dtype!r}: only plain fixed-width numeric and bool "
-            "columns are ported so far (ROADMAP.md queue 1)")
+            f"column dtype {dtype!r}: pandas extension and Arrow dtypes are ROADMAP.md "
+            "queue 1, item 6")
+    if dtype.is_numeric or dtype.is_bool or dtype.is_string or dtype.is_dictionary:
+        return
+    if dtype.is_temporal and dtype.tz is None and dtype.time_unit in _UNITS:
+        return
+    raise NotImplementedError(
+        f"column dtype {dtype!r}: list, struct, decimal, day-unit and tz-aware "
+        "columns are ROADMAP.md queue 1, item 6")
+
+
+def is_null_scalar(v) -> bool:
+    """None, NaN, NaT, pandas NA (the reference's ``_is_null``)."""
+    if v is None:
+        return True
+    if isinstance(v, (float, np.floating)) and v != v:
+        return True
+    if isinstance(v, (np.datetime64, np.timedelta64)) and np.isnat(v):
+        return True
+    return type(v).__name__ in ("NAType", "NaTType")
+
+
+def infer_dtype(values: Sequence[Any]) -> DType:
+    """The column dtype of host scalars (the reference's
+    ``_infer_dtype``): strings, temporals, then float over int over bool."""
+    kinds = set()
+    for v in values:
+        if isinstance(v, str):
+            return dt.STRING
+        if isinstance(v, (np.datetime64, np.timedelta64)):
+            unit = np.datetime_data(v.dtype)[0]
+            return dt.unit_dtype("M" if isinstance(v, np.datetime64) else "m",
+                                 unit if unit in _UNITS else "s")
+        if isinstance(v, _datetime.datetime):
+            return dt.TIMESTAMP_NS
+        if isinstance(v, (bool, np.bool_)):
+            kinds.add("b")
+        elif isinstance(v, (int, np.integer)):
+            kinds.add("i")
+        elif isinstance(v, (float, np.floating)):
+            kinds.add("f")
+        else:
+            raise TypeError(f"cannot infer a column dtype from {type(v).__name__}")
+    if "f" in kinds:
+        return dt.FLOAT64
+    if "i" in kinds:
+        return dt.INT64
+    return dt.BOOL8 if kinds else dt.FLOAT64
+
+
+def to_ticks(value, dtype: DType) -> int:
+    """A host timestamp or duration as int ticks of ``dtype``'s unit."""
+    if isinstance(value, _datetime.datetime):
+        value = np.datetime64(value)
+    if isinstance(value, (np.datetime64, np.timedelta64)):
+        return int(value.astype(dtype.to_numpy()).astype(np.int64))
+    return int(value)
+
+
+def _encode(strings: Sequence[Optional[str]]):
+    enc = [("" if s is None else str(s)).encode("utf-8") for s in strings]
+    offsets = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(b) for b in enc], out=offsets[1:])
+    return np.frombuffer(b"".join(enc), np.uint8).copy(), offsets
 
 
 class Column:
-    __slots__ = ("dtype", "length", "data", "validity")
+    __slots__ = ("dtype", "length", "data", "validity", "offsets", "children", "_cache")
 
     def __init__(self, dtype: DType, length: int, data: torch.Tensor,
-                 validity: Optional[torch.Tensor] = None):
+                 validity: Optional[torch.Tensor] = None,
+                 offsets: Optional[torch.Tensor] = None, children: Sequence["Column"] = ()):
         _check_supported(dtype)
-        if data.dtype != dtype.torch_storage or data.shape != (length,):
-            raise ValueError(
-                f"data {tuple(data.shape)} {data.dtype} does not hold "
-                f"{length} values of {dtype!r}")
-        if validity is not None and (validity.dtype != torch.bool
-                                     or validity.shape != (length,)
-                                     or validity.device != data.device):
-            raise ValueError("validity must be a bool tensor of the column's "
-                             "length on the column's device")
         self.dtype = dtype
         self.length = int(length)
         self.data = data
         self.validity = validity
+        self.offsets = offsets
+        self.children = tuple(children)
+        self._cache = {}
+        self._check_layout()
+
+    def _check_layout(self) -> None:
+        n, dev = self.length, self.data.device
+        if self.dtype.is_string:
+            ok = (self.data.dtype == torch.uint8 and self.data.ndim == 1
+                  and self.offsets is not None and self.offsets.dtype == torch.int64
+                  and self.offsets.shape == (n + 1,) and self.offsets.device == dev)
+            what = "uint8 chars and int64[n + 1] offsets"
+        else:
+            ok = self.data.dtype == self.dtype.torch_storage and self.data.shape == (n,)
+            what = f"{n} values of {self.dtype!r}"
+            if self.dtype.is_dictionary:
+                ok = ok and len(self.children) == 1 and (
+                    self.children[0].dtype.is_string or self.children[0].dtype.is_numeric) and (
+                    self.children[0].validity is None and self.children[0].device == dev)
+                what += " and one keys column (STRING or numeric, no nulls, same device)"
+        if not ok:
+            raise ValueError(f"buffers {tuple(self.data.shape)} {self.data.dtype} do not "
+                             f"hold {what}")
+        if self.validity is not None and (self.validity.dtype != torch.bool
+                                          or self.validity.shape != (n,)
+                                          or self.validity.device != dev):
+            raise ValueError("validity must be a bool tensor of the column's "
+                             "length on the column's device")
 
     def __len__(self) -> int:
         return self.length
@@ -56,12 +155,20 @@ class Column:
         return self.data.device
 
     @property
+    def keys(self) -> "Column":
+        """A dictionary column's keys."""
+        return self.children[0]
+
+    @property
     def null_count(self) -> int:
         return bm.null_count(self.validity, self.length)
 
     @property
     def has_nulls(self) -> bool:
         return self.validity is not None and self.null_count > 0
+
+    def with_validity(self, validity: Optional[torch.Tensor]) -> "Column":
+        return Column(self.dtype, self.length, self.data, validity, self.offsets, self.children)
 
     # ------------------------------------------------------------------
     # construction
@@ -72,16 +179,29 @@ class Column:
         """Wrap a 1-D tensor (kept on its device, not copied)."""
         if data.ndim != 1:
             raise ValueError("Column.from_tensor expects a 1-D tensor")
-        return cls(dt.from_torch(data.dtype), data.shape[0], data.contiguous(),
-                   validity)
+        return cls(dt.from_torch(data.dtype), data.shape[0], data.contiguous(), validity)
 
     @classmethod
     def from_numpy(cls, arr: np.ndarray, *, device) -> "Column":
         """Build from a 1-D numpy array onto ``device``.  NaN in a float
-        array is a null, as in the reference's pandas path."""
+        array and NaT are nulls, as in the reference's pandas path; str
+        and object arrays become STRING columns (None and NaN nulls)."""
         arr = np.asarray(arr)
         if arr.ndim != 1:
             raise ValueError("Column.from_numpy expects a 1-D array")
+        if arr.dtype.kind in ("U", "S", "O"):
+            vals = arr.tolist()
+            return cls.from_strings([None if is_null_scalar(v) else v for v in vals],
+                                    device=device)
+        if arr.dtype.kind in ("M", "m"):
+            unit = np.datetime_data(arr.dtype)[0]
+            if unit not in _UNITS:
+                arr = arr.astype(("datetime64" if arr.dtype.kind == "M" else "timedelta64")
+                                 + "[s]")
+            logical = dt.dtype(arr.dtype)
+            mask = ~np.isnat(arr)
+            data = torch.from_numpy(arr.view(np.int64).copy()).to(device)
+            return cls(logical, arr.shape[0], data, bm.from_numpy_mask(mask, device))
         logical = dt.dtype(arr.dtype)
         _check_supported(logical)
         mask = ~np.isnan(arr) if logical.is_float else None
@@ -91,23 +211,137 @@ class Column:
         return cls(logical, arr.shape[0], data, bm.from_numpy_mask(mask, device))
 
     @classmethod
+    def from_strings(cls, strings: Sequence[Optional[str]], *, device) -> "Column":
+        """A STRING column from host strings (None: null), built on the
+        host and copied to ``device`` (cudf::make_strings_column)."""
+        strings = list(strings)
+        chars, offsets = _encode(strings)
+        mask = np.array([s is not None for s in strings], bool)
+        col = cls(dt.STRING, len(strings), torch.from_numpy(chars).to(device),
+                  bm.from_numpy_mask(mask, device), torch.from_numpy(offsets).to(device))
+        col._cache["strings"] = strings
+        return col
+
+    @classmethod
+    def from_pylist(cls, values: Sequence[Any], dtype=None, *, device) -> "Column":
+        """A column of host scalars (None, NaN and NaT are nulls), in
+        ``dtype`` or the one ``infer_dtype`` gives."""
+        values = list(values)
+        null = np.array([is_null_scalar(v) for v in values], bool)
+        want = infer_dtype([v for v, m in zip(values, null) if not m]) if dtype is None \
+            else dt.dtype(dtype)
+        if want.is_string:
+            return cls.from_strings([None if m else v for v, m in zip(values, null)],
+                                    device=device)
+        _check_supported(want)
+        if want.is_temporal:
+            host = np.array([0 if m else to_ticks(v, want) for v, m in zip(values, null)],
+                            np.int64)
+        else:
+            host = np.array([0 if m else v for v, m in zip(values, null)], want.storage)
+        return cls(want, len(values), torch.from_numpy(host).to(device),
+                   bm.from_numpy_mask(~null, device))
+
+    @classmethod
+    def from_dictionary(cls, codes: torch.Tensor, keys: "Column",
+                        validity: Optional[torch.Tensor] = None) -> "Column":
+        """A DICTIONARY32 column of int32 codes into ``keys``."""
+        value_type = keys.dtype if keys.dtype.is_numeric else dt.STRING
+        return cls(dt.dictionary_dtype(value_type), codes.shape[0], codes.to(torch.int32),
+                   validity, children=(keys,))
+
+    @classmethod
+    def full(cls, length: int, value: Any, dtype=None, *, device) -> "Column":
+        """``length`` copies of a host scalar (None: all null)."""
+        want = dt.dtype(dtype) if dtype is not None else infer_dtype(
+            [] if is_null_scalar(value) else [value])
+        if is_null_scalar(value):
+            if want.is_string:
+                return cls(dt.STRING, length, torch.zeros(0, dtype=torch.uint8, device=device),
+                           torch.zeros(length, dtype=torch.bool, device=device),
+                           torch.zeros(length + 1, dtype=torch.int64, device=device))
+            _check_supported(want)
+            return cls(want, length, torch.zeros(length, dtype=want.torch_storage, device=device),
+                       torch.zeros(length, dtype=torch.bool, device=device))
+        if want.is_string:
+            return cls.from_strings([str(value)] * length, device=device)
+        _check_supported(want)
+        v = to_ticks(value, want) if want.is_temporal else value
+        return cls(want, length, torch.full((length,), v, dtype=want.torch_storage,
+                                            device=device))
+
+    @classmethod
+    def empty(cls, dtype, *, device) -> "Column":
+        want = dt.dtype(dtype)
+        if want.is_string:
+            return cls.from_strings([], device=device)
+        return cls(want, 0, torch.zeros(0, dtype=want.torch_storage, device=device))
+
+    @classmethod
     def from_pandas(cls, series, *, device) -> "Column":
-        """A numpy-backed pandas Series (pandas itself is not imported)."""
-        dtype = series.dtype
-        if not isinstance(dtype, np.dtype):
+        """A pandas Series: numpy-backed numeric, bool and datetime64 /
+        timedelta64 columns, str or object strings (nulls from NaN and
+        None), and Categoricals as DICTIONARY32 over their categories (pandas
+        itself is not imported)."""
+        pdt = series.dtype
+        name = type(pdt).__name__
+        if name == "CategoricalDtype":
+            cat = series.array
+            codes = np.asarray(cat.codes).astype(np.int32)
+            keys = cls.from_numpy(np.asarray(cat.categories.to_numpy()), device=device)
+            if keys.validity is not None:
+                raise ValueError("a Categorical's categories hold no nulls")
+            valid = codes >= 0
+            codes_t = torch.from_numpy(np.where(valid, codes, 0)).to(device)
+            return cls.from_dictionary(codes_t, keys, bm.from_numpy_mask(valid, device))
+        if name == "StringDtype" or (isinstance(pdt, np.dtype) and pdt.kind == "O"):
+            return cls.from_numpy(series.to_numpy(dtype=object, na_value=None),
+                                  device=device)
+        if not isinstance(pdt, np.dtype):
             raise NotImplementedError(
-                f"pandas extension dtype {dtype}: only numpy-backed numeric "
-                "and bool columns are ported so far (ROADMAP.md queue 1)")
+                f"pandas extension dtype {pdt}: nullable, Arrow and tz-aware columns are "
+                "ROADMAP.md queue 1, item 6")
         return cls.from_numpy(series.to_numpy(), device=device)
 
     # ------------------------------------------------------------------
     # export
     # ------------------------------------------------------------------
+    def host_strings(self) -> List[Optional[str]]:
+        """A STRING column's rows as Python strings (None: null), read
+        once and cached."""
+        if "strings" not in self._cache:
+            chars = self.data.cpu().numpy().tobytes()
+            offs = self.offsets.cpu().tolist()
+            valid = None if self.validity is None else self.validity.cpu().tolist()
+            self._cache["strings"] = [
+                None if valid is not None and not valid[i]
+                else chars[offs[i]:offs[i + 1]].decode("utf-8")
+                for i in range(self.length)]
+        return self._cache["strings"]
+
+    def decode_dictionary(self) -> "Column":
+        """DICTIONARY32 -> the keys gathered by code (cudf::dictionary::decode)."""
+        if not self.dtype.is_dictionary:
+            return self
+        from cudf_tpu_torch.ops import copying
+
+        codes = self.data if self.validity is None else torch.where(self.validity, self.data, 0)
+        out = copying.gather(self.keys, codes.long(), bounds_check=False)
+        return out.with_validity(self.validity)
+
     def to_numpy(self) -> np.ndarray:
-        """Copy to host.  Nulls become NaN in float columns; an int column
-        with nulls becomes float64 with NaN (pandas' own representation);
-        a bool column with nulls becomes object with None."""
+        """Copy to host.  Nulls become NaN in float columns, NaT in
+        temporal ones and None in string ones; an int column with nulls
+        becomes float64 with NaN (pandas' own representation); a bool
+        column with nulls becomes object with None.  A dictionary column
+        gives its decoded values."""
+        if self.dtype.is_string:
+            return np.array(self.host_strings(), dtype=object)
+        if self.dtype.is_dictionary:
+            return self.decode_dictionary().to_numpy()
         data = self.data.cpu().numpy()
+        if self.dtype.is_temporal:
+            data = data.view(self.dtype.to_numpy())
         if self.validity is None:
             return data
         valid = self.validity.cpu().numpy()
@@ -117,14 +351,33 @@ class Column:
             out = data.astype(object)
             out[~valid] = None
             return out
+        if self.dtype.is_temporal:
+            out = data.copy()
+            out[~valid] = np.datetime64("NaT") if self.dtype.is_timestamp else np.timedelta64("NaT")
+            return out
         out = data.astype(np.float64) if self.dtype.is_integer else data.copy()
         out[~valid] = np.nan
         return out
 
+    def to_pandas_array(self):
+        """What the reference's ``column_to_pandas_array`` gives: numpy
+        values, datetime64 / timedelta64, strings as pandas infers them,
+        and a Categorical over a dictionary's keys."""
+        import pandas as pd
+
+        if self.dtype.is_dictionary:
+            codes = self.data.cpu().numpy().astype(np.int64)
+            if self.validity is not None:
+                codes = np.where(self.validity.cpu().numpy(), codes, -1)
+            return pd.Categorical.from_codes(codes, categories=pd.Index(self.keys.to_numpy()))
+        if self.dtype.is_string:
+            return pd.Series(self.to_numpy()).array
+        return self.to_numpy()
+
     def to_pandas(self):
         import pandas as pd
 
-        return pd.Series(self.to_numpy())
+        return pd.Series(self.to_pandas_array())
 
     def __repr__(self) -> str:
-        return (f"Column<{self.dtype!r}>[{self.length}] on {self.device}")
+        return f"Column<{self.dtype!r}>[{self.length}] on {self.device}"

@@ -32,6 +32,11 @@ class Table:
         return self._columns[0].length if self._columns else 0
 
     @property
+    def device(self):
+        """The device of the table's columns (None when it has none)."""
+        return self._columns[0].device if self._columns else None
+
+    @property
     def num_columns(self) -> int:
         return len(self._columns)
 

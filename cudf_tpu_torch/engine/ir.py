@@ -1,0 +1,394 @@
+"""Logical IR nodes and the in-memory executor (port of
+``cudf_tpu/engine/ir.py``).
+
+Every node has ``do_evaluate`` over its children's tables and a cached
+``evaluate`` (a node shared by two parents runs once).  The executor is
+the in-memory one: every table lives on the device of its source
+frames, and every node runs there through the ``ops`` layer.
+
+Not ported, and raising NotImplementedError when built: ``Scan`` and
+``Sink`` (file IO, ROADMAP.md queue 1, item 7), ``Rolling`` (frame
+windows, item 8), ``ConditionalJoin`` and ``MergeSorted`` (the join
+family, item 3), ``MapFunction`` and ``PythonScan`` (the engine's escape
+hatches, which come with the streaming executor, item 10).  ``Join``
+serves ``how="inner"``; the other join types are item 3.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from cudf_tpu_torch.core import dtypes as dt
+from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.core.table import Table
+from cudf_tpu_torch.engine.expr import Agg, Alias, Expr
+
+
+class IR:
+    children: Tuple["IR", ...] = ()
+
+    def schema(self) -> List[str]:
+        raise NotImplementedError
+
+    def do_evaluate(self, *child_tables: Table) -> Table:
+        raise NotImplementedError
+
+    def evaluate(self, cache: Optional[Dict[int, Table]] = None) -> Table:
+        cache = cache if cache is not None else {}
+        key = id(self)
+        if key in cache:
+            return cache[key]
+        out = self.do_evaluate(*[c.evaluate(cache) for c in self.children])
+        cache[key] = out
+        return out
+
+    def explain(self, depth: int = 0) -> str:
+        lines = [f"{'  ' * depth}{self.__class__.__name__}{self._explain_args()}"]
+        lines.extend(c.explain(depth + 1) for c in self.children)
+        return "\n".join(lines)
+
+    def _explain_args(self) -> str:
+        return ""
+
+
+def _not_ported(what: str, item: int, module: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: {module} is ROADMAP.md queue 1, item {item}")
+
+
+class DataFrameScan(IR):
+    """In-memory table source."""
+
+    def __init__(self, table: Table, projection: Optional[Sequence[str]] = None):
+        self.table = table
+        self.projection = list(projection) if projection is not None else None
+
+    def schema(self):
+        return self.projection or list(self.table.names)
+
+    def do_evaluate(self) -> Table:
+        return self.table.select(self.projection) if self.projection else self.table
+
+    def _explain_args(self):
+        return f"(cols={self.schema()})"
+
+
+class Scan(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("Scan (parquet and CSV sources)", 7, "the io package")
+
+
+class Sink(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("Sink (parquet and CSV writers)", 7, "the io package")
+
+
+class Rolling(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("Rolling", 8, "frame/window.py")
+
+
+class ConditionalJoin(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("ConditionalJoin", 3, "the join family (ops/join.py)")
+
+
+class MergeSorted(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("MergeSorted", 3, "the join family (ops/join.py merge_sorted)")
+
+
+class MapFunction(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("MapFunction", 10, "the streaming executor (engine/streaming.py)")
+
+
+class PythonScan(IR):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("PythonScan", 10, "the streaming executor (engine/streaming.py)")
+
+
+class Select(IR):
+    """Projection with expression evaluation."""
+
+    def __init__(self, child: IR, exprs: Sequence[Expr]):
+        self.children = (child,)
+        self.exprs = list(exprs)
+
+    def schema(self):
+        return [e.output_name for e in self.exprs]
+
+    def do_evaluate(self, t: Table) -> Table:
+        return Table.from_pairs([e.output_name for e in self.exprs],
+                                [e.evaluate(t) for e in self.exprs])
+
+    def _explain_args(self):
+        return f"({[e.output_name for e in self.exprs]})"
+
+
+class HStack(IR):
+    """with_columns: computed columns appended (or replaced by name),
+    each evaluated against the child's table."""
+
+    def __init__(self, child: IR, exprs: Sequence[Expr]):
+        self.children = (child,)
+        self.exprs = list(exprs)
+
+    def schema(self):
+        base = self.children[0].schema()
+        return base + [e.output_name for e in self.exprs if e.output_name not in base]
+
+    def do_evaluate(self, t: Table) -> Table:
+        out = t
+        for e in self.exprs:
+            out = out.insert(e.output_name, e.evaluate(t))
+        return out
+
+
+class Filter(IR):
+    def __init__(self, child: IR, predicate: Expr):
+        self.children = (child,)
+        self.predicate = predicate
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        return _filter_table(t, self.predicate)
+
+    def _explain_args(self):
+        return f"({self.predicate!r})"
+
+
+class GroupBy(IR):
+    """Keyed aggregation through ``ops/groupby.py`` ``groupby_agg``: the
+    kernel tiers (one integer or dictionary key) or the sort tier."""
+
+    def __init__(self, child: IR, keys: Sequence[str], aggs: Sequence[Expr]):
+        self.children = (child,)
+        self.keys = list(keys)
+        self.aggs = list(aggs)
+
+    def schema(self):
+        return self.keys + [a.output_name for a in self.aggs]
+
+    def do_evaluate(self, t: Table) -> Table:
+        from cudf_tpu_torch.ops import groupby as gb
+
+        specs = []
+        for a in self.aggs:
+            name, inner, kind = unwrap_agg(a)
+            specs.append((name, inner.evaluate(t), kind))
+        out_keys, out_aggs = gb.groupby_agg(t.select(self.keys), specs)
+        cols = dict(out_keys.items())
+        cols.update(dict(out_aggs.items()))
+        return Table(cols)
+
+    def _explain_args(self):
+        return f"(keys={self.keys}, aggs={[repr(a) for a in self.aggs]})"
+
+
+class Reduce(IR):
+    """Whole-table aggregation into a 1-row table."""
+
+    def __init__(self, child: IR, aggs: Sequence[Expr]):
+        self.children = (child,)
+        self.aggs = list(aggs)
+
+    def schema(self):
+        return [a.output_name for a in self.aggs]
+
+    def do_evaluate(self, t: Table) -> Table:
+        return Table.from_pairs([a.output_name for a in self.aggs],
+                                [a.evaluate(t) for a in self.aggs])
+
+
+class Join(IR):
+    """Equi-join through ``ops/join.py``; null keys never match (polars'
+    ``join_nulls=False``).  Pairs come in left-row order."""
+
+    def __init__(self, left: IR, right: IR, left_on: Sequence[str],
+                 right_on: Sequence[str], how: str = "inner", suffix: str = "_right"):
+        if how != "inner":
+            raise _not_ported(f"join how={how!r}", 3,
+                              "the sort-merge join tier (ops/join.py _probe_ranges)")
+        self.children = (left, right)
+        self.left_on = list(left_on)
+        self.right_on = list(right_on)
+        self.how = how
+        self.suffix = suffix
+
+    def schema(self):
+        ls = self.children[0].schema()
+        rs = [n for n in self.children[1].schema() if n not in self.right_on]
+        return ls + [n + self.suffix if n in ls else n for n in rs]
+
+    def do_evaluate(self, lt: Table, rt: Table) -> Table:
+        from cudf_tpu_torch.ops import copying, join as join_ops
+
+        li, ri = join_ops.inner_join([lt[k] for k in self.left_on],
+                                     [rt[k] for k in self.right_on], nulls_equal=False)
+        # an inner join's maps are in range: no bounds check, no masks
+        cols = {n: copying.gather(c, li, bounds_check=False) for n, c in lt.items()}
+        for n, c in rt.items():
+            if n not in self.right_on:
+                cols[n + self.suffix if n in cols else n] = copying.gather(
+                    c, ri, bounds_check=False)
+        return Table(cols)
+
+    def _explain_args(self):
+        return f"(how={self.how}, on={list(zip(self.left_on, self.right_on))})"
+
+
+class Sort(IR):
+    def __init__(self, child: IR, by: Sequence[str], descending: Sequence[bool] = (),
+                 nulls_last: bool = True):
+        self.children = (child,)
+        self.by = list(by)
+        self.descending = list(descending) or [False] * len(self.by)
+        self.nulls_last = nulls_last
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        from cudf_tpu_torch.ops import copying, sort as sort_ops
+
+        order = sort_ops.sorted_order([t[k] for k in self.by],
+                                      [not d for d in self.descending],
+                                      "last" if self.nulls_last else "first")
+        return copying.gather_table(t, order, bounds_check=False)
+
+    def _explain_args(self):
+        return f"(by={self.by}, desc={self.descending})"
+
+
+class Distinct(IR):
+    def __init__(self, child: IR, subset: Optional[Sequence[str]] = None, keep: str = "first"):
+        self.children = (child,)
+        self.subset = list(subset) if subset else None
+        self.keep = keep
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        from cudf_tpu_torch.ops import stream_compaction as sc
+
+        return sc.distinct(t, self.subset, "first" if self.keep == "any" else self.keep)
+
+
+class Slice(IR):
+    def __init__(self, child: IR, offset: int, length: Optional[int]):
+        self.children = (child,)
+        self.offset = offset
+        self.length = length
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        from cudf_tpu_torch.ops import copying
+
+        start = self.offset if self.offset >= 0 else max(t.num_rows + self.offset, 0)
+        stop = t.num_rows if self.length is None else start + self.length
+        return Table.from_pairs(t.names, [copying.slice(c, start, stop) for c in t.columns])
+
+
+class Projection(IR):
+    def __init__(self, child: IR, columns: Sequence[str]):
+        self.children = (child,)
+        self.columns = list(columns)
+
+    def schema(self):
+        return list(self.columns)
+
+    def do_evaluate(self, t: Table) -> Table:
+        return t.select(self.columns)
+
+    def _explain_args(self):
+        return f"({self.columns})"
+
+
+class Union(IR):
+    """Vertical concat."""
+
+    def __init__(self, *children: IR):
+        self.children = tuple(children)
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, *tables: Table) -> Table:
+        from cudf_tpu_torch.ops.copying import concatenate_tables
+
+        return concatenate_tables(list(tables))
+
+
+class HConcat(IR):
+    def __init__(self, *children: IR):
+        self.children = tuple(children)
+
+    def schema(self):
+        return [n for c in self.children for n in c.schema()]
+
+    def do_evaluate(self, *tables: Table) -> Table:
+        return Table({n: c for t in tables for n, c in t.items()})
+
+
+class Empty(IR):
+    """A table of empty float64 columns on ``device``."""
+
+    def __init__(self, names: Sequence[str] = (), *, device):
+        self.names = list(names)
+        self.device = device
+
+    def schema(self):
+        return list(self.names)
+
+    def do_evaluate(self) -> Table:
+        return Table({n: Column.empty(dt.FLOAT64, device=self.device) for n in self.names})
+
+
+class Cache(IR):
+    """Marks a shared subplan; ``evaluate`` already runs a node once."""
+
+    def __init__(self, child: IR):
+        self.children = (child,)
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        return t
+
+
+class ErrorNode(IR):
+    def __init__(self, message: str):
+        self.message = message
+
+    def schema(self):
+        return []
+
+    def do_evaluate(self) -> Table:
+        raise RuntimeError(self.message)
+
+
+# ----------------------------------------------------------------------
+# helpers
+# ----------------------------------------------------------------------
+
+def unwrap_agg(e: Expr):
+    """(output_name, inner_expr, agg_kind) from Agg or Alias(Agg)."""
+    name = e.output_name
+    while isinstance(e, Alias):
+        e = e.children[0]
+    if not isinstance(e, Agg):
+        raise TypeError(f"expected an aggregation expression, got {e!r}")
+    return name, e.children[0], e.agg
+
+
+def _filter_table(t: Table, predicate: Expr) -> Table:
+    from cudf_tpu_torch.ops.stream_compaction import apply_boolean_mask_table
+
+    return apply_boolean_mask_table(t, predicate.evaluate(t))
+

@@ -1,5 +1,6 @@
-"""DataFrame (port of ``cudf_tpu/frame/dataframe.py``: construction,
-pandas round trip, column access, ``take``, ``head``, ``sort_values``,
+"""DataFrame (port of ``cudf_tpu/frame/dataframe.py``: construction
+from tensors, numpy arrays (numeric, temporal, strings), lists and
+Categoricals, pandas round trip, column access, ``take``, ``head``, ``sort_values``,
 ``sort_index``, ``drop_duplicates``, ``groupby``, ``merge`` and
 ``reset_index``).
 
@@ -25,6 +26,16 @@ from cudf_tpu_torch.ops import stream_compaction as sc
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 
 
+def _on(have: torch.device, want: torch.device) -> bool:
+    """Whether a tensor on ``have`` is on ``want`` ("cuda" names the
+    current card, as torch.device("cuda") does)."""
+    if have.type != want.type:
+        return False
+    index = want.index if want.index is not None or want.type != "cuda" \
+        else torch.cuda.current_device()
+    return have.index == index
+
+
 def _as_column(value, device) -> Column:
     if isinstance(value, Series):
         value = value._column
@@ -32,13 +43,21 @@ def _as_column(value, device) -> Column:
         col = value
     elif isinstance(value, torch.Tensor):
         col = Column.from_tensor(value)
-    elif isinstance(value, np.ndarray):
+    elif isinstance(value, (np.ndarray, list)):
         if device is None:
-            raise ValueError("a numpy column needs an explicit device=")
+            raise ValueError("a host column needs an explicit device=")
+        if isinstance(value, list):
+            return Column.from_pylist(value, device=device)
         return Column.from_numpy(value, device=device)
+    elif type(value).__name__ == "Categorical":
+        if device is None:
+            raise ValueError("a host column needs an explicit device=")
+        import pandas as pd
+
+        return Column.from_pandas(pd.Series(value), device=device)
     else:
         raise TypeError(f"cannot build a column from {type(value).__name__}")
-    if device is not None and col.device != torch.device(device):
+    if device is not None and not _on(col.device, torch.device(device)):
         raise ValueError(f"column is on {col.device}, frame asked for {device}")
     return col
 
@@ -46,9 +65,11 @@ def _as_column(value, device) -> Column:
 class DataFrame:
     def __init__(self, data: Optional[Dict] = None, index: Optional[Index] = None,
                  *, device=None):
-        """data: {name: torch.Tensor | numpy array | Column | Series}.
-        Tensors and columns stay on their device; numpy arrays go to
-        ``device``, which they require."""
+        """data: {name: torch.Tensor | numpy array | list | pandas
+        Categorical | Column | Series}.  Tensors and columns stay on their
+        device; host data (numeric, bool, datetime64 / timedelta64, str or
+        object strings, Categoricals as dictionary columns) goes to
+        ``device``, which it requires."""
         self._table = Table({k: _as_column(v, device) for k, v in (data or {}).items()})
         self._index = index if index is not None else default_index(self._table.num_rows)
         if self._table.num_columns and len(self._index) != self._table.num_rows:
@@ -77,8 +98,9 @@ class DataFrame:
     # ------------------------------------------------------------------
     @classmethod
     def from_pandas(cls, pdf, *, device) -> "DataFrame":
-        """numpy-backed numeric/bool columns onto ``device``; NaN in a
-        float column is a null.  A non-range index becomes an Index."""
+        """numpy-backed numeric, bool and temporal columns, strings and
+        Categoricals onto ``device``; NaN in a float column and NaT are
+        nulls.  A non-range index becomes an Index."""
         cols = {name: Column.from_pandas(pdf.iloc[:, i], device=device)
                 for i, name in enumerate(pdf.columns)}
         pidx = pdf.index
@@ -92,7 +114,7 @@ class DataFrame:
     def to_pandas(self):
         import pandas as pd
 
-        data = {n: c.to_numpy() for n, c in self._table.items()}
+        data = {n: c.to_pandas_array() for n, c in self._table.items()}
         return pd.DataFrame(data, index=self._index.to_pandas())
 
     # ------------------------------------------------------------------

@@ -34,7 +34,7 @@ class Index:
     def to_pandas(self):
         import pandas as pd
 
-        return pd.Index(self._column.to_numpy(), name=self.name)
+        return pd.Index(self._column.to_pandas_array(), name=self.name)
 
     def __repr__(self):
         return f"Index({self._column!r}, name={self.name!r})"
@@ -106,7 +106,7 @@ class MultiIndex(Index):
     def to_pandas(self):
         import pandas as pd
 
-        return pd.MultiIndex.from_arrays([c.to_numpy() for c in self._columns],
+        return pd.MultiIndex.from_arrays([c.to_pandas_array() for c in self._columns],
                                          names=list(self.names))
 
     def __repr__(self):

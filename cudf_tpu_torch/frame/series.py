@@ -49,7 +49,7 @@ class Series:
     def to_pandas(self):
         import pandas as pd
 
-        return pd.Series(self._column.to_numpy(), index=self._index.to_pandas(),
+        return pd.Series(self._column.to_pandas_array(), index=self._index.to_pandas(),
                          name=self.name)
 
     def __repr__(self) -> str:

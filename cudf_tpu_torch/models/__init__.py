@@ -9,6 +9,9 @@
   tables built by kernel D, with the sorted partition route (kernels
   B, F and G; two passes above 2^20 keys) on both sides when the key
   domain spans more than one window.
+
+``models/tpch.py`` holds the TPC-H tables and queries q1, q6, q12 and q14
+on the LazyFrame engine.
 """
 
 from __future__ import annotations

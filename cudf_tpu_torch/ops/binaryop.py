@@ -1,0 +1,380 @@
+"""Binary operations with null propagation and type promotion (port of
+``cudf_tpu/ops/binaryop.py``: arithmetic, comparisons and logical ops).
+
+Result dtypes and null rules are the reference's (``_result_dtype``):
+a row is null when either operand's row is null (except the ``null_*``
+ops), a null scalar gives an all-null column, integer division by zero
+gives float64 inf/NaN as pandas does.  A host scalar takes its numpy
+dtype (a Python int is int64, a float float64), and the column side is
+cast to the common dtype, then the scalar is broadcast by PyTorch
+without a full column.
+
+Temporal operands compare and combine in ticks of their common (finer)
+unit: a ``np.datetime64('1994-01-01')`` literal has unit days, which the
+reference turns into seconds, and both sides are rescaled before the
+comparison.  A dictionary column compared with a string scalar is
+compared once per dictionary entry on the host, then the booleans are
+gathered by code: no row is decoded.
+"""
+
+from __future__ import annotations
+
+import operator
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from cudf_tpu_torch.core import bitmask as bm
+from cudf_tpu_torch.core import dtypes as dt
+from cudf_tpu_torch.core.column import Column, is_null_scalar, to_ticks
+
+_COMPARISONS = {"eq", "ne", "lt", "gt", "le", "ge"}
+_LOGICAL = {"and", "or"}
+
+
+def _f64(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float64)
+
+
+def _pair(fn):
+    """A torch function of two tensors, taking a host scalar on either side."""
+    def call(a, b):
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+        elif not isinstance(b, torch.Tensor):
+            b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+        return fn(a, b)
+    return call
+
+
+_ARITH_FNS = {
+    "add": operator.add,
+    "sub": operator.sub,
+    "mul": operator.mul,
+    "truediv": operator.truediv,
+    "floordiv": _pair(torch.floor_divide),
+    "mod": operator.mod,               # python/numpy sign-of-divisor (PYMOD)
+    "cmod": _pair(torch.fmod),         # C-style sign-of-dividend (MOD)
+    "pow": operator.pow,
+    "atan2": _pair(torch.atan2),
+    "logbase": lambda a, b: torch.log(_f64(a)) / torch.log(_f64(b)),
+    "bitand": operator.and_,
+    "bitor": operator.or_,
+    "bitxor": operator.xor,
+    "shiftleft": operator.lshift,
+    "shiftright": operator.rshift,
+    "min": _pair(torch.minimum),
+    "max": _pair(torch.maximum),
+}
+_CMP_FNS = {
+    "eq": operator.eq,
+    "ne": operator.ne,
+    "lt": operator.lt,
+    "gt": operator.gt,
+    "le": operator.le,
+    "ge": operator.ge,
+}
+_FLIPPED = {"eq": "eq", "ne": "ne", "lt": "gt", "gt": "lt", "le": "ge", "ge": "le"}
+
+
+def scalar_operand(x) -> Tuple[object, dt.DType]:
+    """(value, dtype) of a host scalar: the value as a Python scalar (int
+    ticks for a temporal one, None for a null), the dtype numpy's (a
+    ``datetime64[D]`` becomes seconds, as in the reference)."""
+    if isinstance(x, (np.datetime64, np.timedelta64)):
+        kind = "M" if isinstance(x, np.datetime64) else "m"
+        unit = np.datetime_data(x.dtype)[0]
+        d = dt.unit_dtype(kind, unit if unit in ("s", "ms", "us", "ns") else "s")
+        return (None if np.isnat(x) else to_ticks(x, d)), d
+    if isinstance(x, str):
+        return x, dt.STRING
+    if x is None or type(x).__name__ in ("NAType", "NaTType"):
+        return None, dt.FLOAT64
+    npv = np.asarray(x)
+    return npv.item(), dt.dtype(npv.dtype)
+
+
+def _operand(x):
+    """(data, validity, dtype): a column's buffers, or a host scalar."""
+    if isinstance(x, Column):
+        return x.data, x.validity, x.dtype
+    value, d = scalar_operand(x)
+    return value, None, d
+
+
+def binary_operation(lhs, rhs, op: str) -> Column:
+    """Evaluate ``lhs <op> rhs`` elementwise (cudf::binary_operation); at
+    least one side is a Column, the other may be a host scalar."""
+    lhs_col, rhs_col = isinstance(lhs, Column), isinstance(rhs, Column)
+    if not lhs_col and not rhs_col:
+        raise TypeError("at least one operand must be a Column")
+    col = lhs if lhs_col else rhs
+    n, dev = col.length, col.device
+
+    if op in ("truediv", "floordiv", "pow"):
+        def _is_bool(x):
+            return (x.dtype.is_bool if isinstance(x, Column)
+                    else isinstance(x, (bool, np.bool_)))
+
+        if _is_bool(lhs) and _is_bool(rhs):
+            # pandas raises for bool // bool etc.
+            raise NotImplementedError(f"operator '{op}' not implemented for bool dtypes")
+
+    # a null scalar gives an all-null column, except a NaN scalar compared
+    # with a float column, which is a real float comparison
+    scalar = rhs if lhs_col else lhs
+    if not (lhs_col and rhs_col) and is_null_scalar(scalar) and not (
+            isinstance(scalar, float) and col.dtype.is_float and op in _COMPARISONS):
+        out = dt.BOOL8 if op in _COMPARISONS or op in _LOGICAL else col.dtype
+        if out.is_dictionary:
+            out = dt.STRING
+        return Column.full(n, None, out, device=dev)
+
+    keyed = [isinstance(x, str) or (isinstance(x, Column)
+                                    and (x.dtype.is_string or x.dtype.is_dictionary))
+             for x in (lhs, rhs)]
+    if any(isinstance(x, Column) and x.dtype.is_dictionary for x in (lhs, rhs)) \
+            and not all(keyed):
+        # a dictionary against a non-string operand: decode, then operate
+        return binary_operation(lhs.decode_dictionary() if lhs_col else lhs,
+                                rhs.decode_dictionary() if rhs_col else rhs, op)
+    if any(keyed):
+        return _string_binary(lhs, rhs, op, n)
+
+    l_data, l_valid, l_dtype = _operand(lhs)
+    r_data, r_valid, r_dtype = _operand(rhs)
+    out_dtype = _result_dtype(l_dtype, r_dtype, op)
+
+    if op in _COMPARISONS:
+        if l_dtype.is_temporal or r_dtype.is_temporal:
+            common = dt.common_dtype(l_dtype, r_dtype)
+            l_data = _rescale_ticks(l_data, l_dtype, common)
+            r_data = _rescale_ticks(r_data, r_dtype, common)
+        else:
+            common = dt.common_dtype(l_dtype, r_dtype)
+            l_data, r_data = _to(l_data, common), _to(r_data, common)
+        data = _compare(l_data, r_data, op)
+        return Column(dt.BOOL8, n, data, bm.and_masks(l_valid, r_valid))
+
+    if op in _LOGICAL:
+        lb, rb = _to_bool(l_data), _to_bool(r_data)
+        data = (lb & rb) if op == "and" else (lb | rb)
+        if not isinstance(data, torch.Tensor):
+            data = torch.full((n,), bool(data), dtype=torch.bool, device=dev)
+        return Column(dt.BOOL8, n, data, bm.and_masks(l_valid, r_valid))
+
+    if op == "null_equals":
+        lv = _full_valid(l_valid, n, dev)
+        rv = _full_valid(r_valid, n, dev)
+        common = dt.common_dtype(l_dtype, r_dtype)
+        eq = _compare(_to(l_data, common), _to(r_data, common), "eq")
+        return Column(dt.BOOL8, n, torch.where(lv & rv, eq, lv == rv))
+
+    if op in ("null_max", "null_min"):
+        fn = _ARITH_FNS["max" if op == "null_max" else "min"]
+        lv = _full_valid(l_valid, n, dev)
+        rv = _full_valid(r_valid, n, dev)
+        st = out_dtype.torch_storage
+        lval = _dense(_to(l_data, out_dtype), n, dev, st)
+        rval = _dense(_to(r_data, out_dtype), n, dev, st)
+        data = torch.where(lv & rv, fn(lval, rval), torch.where(lv, lval, rval))
+        validity = lv | rv
+        return Column(out_dtype, n, data.to(out_dtype.torch_storage),
+                      None if bool(validity.all()) else validity)
+
+    if l_dtype.is_temporal or r_dtype.is_temporal:
+        data, out_dtype = _temporal_arith(l_data, l_dtype, r_data, r_dtype, op, out_dtype)
+    else:
+        data, out_dtype = _arith(l_data, r_data, op, out_dtype, n, dev)
+    data = _dense(data, n, dev, out_dtype.torch_storage).to(out_dtype.torch_storage)
+    return Column(out_dtype, n, data, bm.and_masks(l_valid, r_valid))
+
+
+def _to(x, d: dt.DType):
+    """A column's data in dtype d's storage (a scalar as its Python value)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(d.torch_storage)
+    return float(x) if d.is_float else (bool(x) if d.is_bool else int(x))
+
+
+def _to_bool(x):
+    return x.to(torch.bool) if isinstance(x, torch.Tensor) else bool(x)
+
+
+def _compare(a, b, op: str) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        return _CMP_FNS[_FLIPPED[op]](b, a)
+    return _CMP_FNS[op](a, b)
+
+
+def _dense(x, n: int, device, dtype=None) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.full((n,), x, dtype=dtype,
+                                                            device=device)
+
+
+def _full_valid(v: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
+    return v if v is not None else torch.ones(n, dtype=torch.bool, device=device)
+
+
+_BOOL_CLOSED = frozenset({"add", "mul", "min", "max", "bitand", "bitor", "bitxor"})
+
+
+def _arith(l_data, r_data, op: str, out_dtype: dt.DType, n: int, device):
+    fn = _ARITH_FNS[op]
+    if out_dtype.is_bool and op not in _BOOL_CLOSED:
+        if op == "sub":
+            raise TypeError("sub of two bool operands (numpy and the reference raise)")
+        # e.g. bool % bool: in int64, a zero divisor giving 0, then bool
+        l, r = (_dense(_to(x, dt.INT64), n, device, torch.int64) for x in (l_data, r_data))
+        rz = r == 0
+        data = fn(l, torch.where(rz, torch.ones_like(r), r))
+        return torch.where(rz, torch.zeros_like(data), data).to(torch.bool), out_dtype
+    l, r = _to(l_data, out_dtype), _to(r_data, out_dtype)
+    if op in ("floordiv", "mod", "cmod") and out_dtype.is_integer and (
+            isinstance(r, torch.Tensor) or r == 0):
+        st = out_dtype.torch_storage
+        l, r = _dense(l, n, device, st), _dense(r, n, device, st)
+        rz = r == 0
+        if op != "cmod" and bool(rz.any()):
+            # pandas: int // 0 gives float +-inf (NaN for 0 // 0), x % 0 NaN,
+            # and the result dtype becomes float64
+            lf, rf = l.double(), torch.where(rz, 1.0, r.double())
+            if op == "floordiv":
+                inf = torch.where(lf > 0, float("inf"),
+                                  torch.where(lf < 0, float("-inf"), float("nan")))
+                return torch.where(rz, inf, torch.floor_divide(lf, rf)), dt.FLOAT64
+            return torch.where(rz, float("nan"), torch.remainder(lf, rf)), dt.FLOAT64
+        data = fn(l, torch.where(rz, torch.ones_like(r), r))
+        return torch.where(rz, torch.zeros_like(data), data), out_dtype
+    return fn(l, r), out_dtype
+
+
+def _result_dtype(a: dt.DType, b: dt.DType, op: str) -> dt.DType:
+    if op in _COMPARISONS or op in _LOGICAL or op == "null_equals":
+        return dt.BOOL8
+    if op == "truediv" and not (a.is_temporal or b.is_temporal):
+        return dt.FLOAT64 if not (a.is_float or b.is_float) else dt.common_dtype(a, b)
+    if op in ("atan2", "logbase"):
+        return dt.FLOAT64
+    if a.is_temporal or b.is_temporal:
+        return _temporal_result_dtype(a, b, op)
+    if a.is_bool and b.is_bool and op in ("add", "mul", "min", "max"):
+        return dt.BOOL8
+    return dt.common_dtype(a, b)
+
+
+def _temporal_result_dtype(a: dt.DType, b: dt.DType, op: str) -> dt.DType:
+    if op == "sub":
+        if a.is_timestamp and b.is_timestamp:
+            return dt.unit_dtype("m", dt.common_dtype(a, b).time_unit or "s")
+        if a.is_timestamp:
+            return dt.common_dtype(a, dt.unit_dtype("M", b.time_unit or "s"))
+        if a.is_duration and b.is_duration:
+            return dt.common_dtype(a, b)
+    if op == "add":
+        if a.is_timestamp and b.is_duration:
+            return dt.common_dtype(a, dt.unit_dtype("M", b.time_unit or "s"))
+        if a.is_duration and b.is_timestamp:
+            return dt.common_dtype(dt.unit_dtype("M", a.time_unit or "s"), b)
+        if a.is_duration and b.is_duration:
+            return dt.common_dtype(a, b)
+    if op in ("mul", "truediv", "floordiv", "mod"):
+        if a.is_duration and b.is_numeric:
+            return a
+        if a.is_numeric and b.is_duration:
+            return b
+        if a.is_duration and b.is_duration:
+            return dt.FLOAT64 if op == "truediv" else a
+    if op in ("min", "max", "null_max", "null_min"):
+        return dt.common_dtype(a, b)
+    raise TypeError(f"unsupported temporal op {op} between {a} and {b}")
+
+
+_TICKS = {"s": 1, "ms": 1_000, "us": 1_000_000, "ns": 1_000_000_000}
+
+
+def _rescale_ticks(data, from_dtype: dt.DType, to_dtype: dt.DType):
+    """Ticks of from_dtype's unit in to_dtype's (downscales floor, as
+    pandas truncates toward negative infinity)."""
+    if not from_dtype.is_temporal:
+        return data
+    fa, fb = _TICKS[from_dtype.time_unit or "s"], _TICKS[to_dtype.time_unit or "s"]
+    if not isinstance(data, torch.Tensor):
+        return data * (fb // fa) if fb >= fa else data // (fa // fb)
+    data = data.to(torch.int64)
+    if fa == fb:
+        return data
+    if fb > fa:
+        return data * (fb // fa)
+    return torch.div(data, fa // fb, rounding_mode="floor")
+
+
+def _temporal_arith(l_data, l_dtype, r_data, r_dtype, op, out_dtype):
+    if op == "truediv" and l_dtype.is_duration and r_dtype.is_duration:
+        common = dt.common_dtype(l_dtype, r_dtype)
+        lv = _to(_rescale_ticks(l_data, l_dtype, common), dt.FLOAT64)
+        rv = _to(_rescale_ticks(r_data, r_dtype, common), dt.FLOAT64)
+        return lv / rv, dt.FLOAT64
+    if l_dtype.is_temporal and r_dtype.is_temporal:
+        tgt = dt.unit_dtype("m", out_dtype.time_unit or "s")
+        lv = _rescale_ticks(l_data, l_dtype, tgt)
+        rv = _rescale_ticks(r_data, r_dtype, tgt)
+        return _ARITH_FNS[op](lv, rv), out_dtype
+    # duration * / numeric
+    dur, num = (l_data, r_data) if l_dtype.is_temporal else (r_data, l_data)
+    dur, num = _to(dur, dt.INT64), _to(num, dt.INT64)
+    if op == "mul":
+        return dur * num, out_dtype
+    if op in ("truediv", "floordiv") and l_dtype.is_temporal:
+        return _ARITH_FNS["floordiv"](dur, num), out_dtype
+    raise TypeError(f"unsupported temporal op {op}")
+
+
+# ----------------------------------------------------------------------
+# strings and dictionaries
+# ----------------------------------------------------------------------
+
+def _string_binary(lhs, rhs, op: str, n: int) -> Column:
+    if op not in _COMPARISONS and op != "null_equals":
+        raise NotImplementedError(
+            f"string op {op!r}: ops/strings.py (concatenation and the rest) is ROADMAP.md "
+            "queue 1, item 6")
+    for a, b, flip in ((lhs, rhs, False), (rhs, lhs, True)):
+        if isinstance(a, Column) and a.dtype.is_dictionary and isinstance(b, str) \
+                and op != "null_equals":
+            return _dictionary_vs_scalar(a, b, _FLIPPED[op] if flip else op)
+    from cudf_tpu_torch.ops.row_ops import string_compare
+
+    dev = (lhs if isinstance(lhs, Column) else rhs).device
+    l, r = (x.decode_dictionary() if isinstance(x, Column)
+            else Column.from_strings([str(x)], device=dev) for x in (lhs, rhs))
+    if not (l.dtype.is_string and r.dtype.is_string):
+        raise TypeError(f"cannot compare {l.dtype!r} with {r.dtype!r}")
+    cmp = string_compare(l, r)                      # int8 in {-1, 0, 1}
+    data = _CMP_FNS["eq" if op == "null_equals" else op](cmp, 0)
+    if op == "null_equals":
+        lv = _full_valid(l.validity, n, dev)
+        rv = _full_valid(r.validity, n, dev) if r.length == n else torch.ones_like(lv)
+        return Column(dt.BOOL8, n, torch.where(lv & rv, data, lv == rv))
+    validity = bm.and_masks(l.validity, r.validity if r.length == n else None)
+    return Column(dt.BOOL8, n, data, validity)
+
+
+def _dictionary_vs_scalar(col: Column, value: str, op: str) -> Column:
+    """``codes <op> value``: the comparison once per dictionary entry on
+    the host, then the booleans gathered by code."""
+    keys = col.keys
+    if not keys.dtype.is_string:
+        raise TypeError(f"cannot compare a {keys.dtype!r} dictionary with a string")
+    per_key = [_CMP_FNS[op](k.encode("utf-8"), value.encode("utf-8"))
+               for k in keys.host_strings()]
+    if not per_key:
+        data = torch.zeros(col.length, dtype=torch.bool, device=col.device)
+    else:
+        table = torch.tensor(per_key, dtype=torch.bool).to(col.device)
+        codes = col.data
+        safe = codes if col.validity is None else torch.where(col.validity, codes, 0)
+        data = table[safe.long()]
+    return Column(dt.BOOL8, col.length, data, col.validity)
+

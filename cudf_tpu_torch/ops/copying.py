@@ -1,6 +1,12 @@
-"""Copying (port of ``cudf_tpu/ops/copying.py`` for fixed-width columns:
-``gather``, ``gather_table``, ``scatter``, ``slice``, ``split``,
-``concatenate``, ``concatenate_tables``, ``sequence`` and ``reverse``)."""
+"""Copying (port of ``cudf_tpu/ops/copying.py``: ``gather``,
+``gather_table``, ``scatter``, ``slice``, ``split``, ``concatenate``,
+``concatenate_tables``, ``copy_if_else``, ``sequence`` and ``reverse``).
+
+Fixed-width and temporal columns gather their data; a dictionary column
+gathers its int32 codes and keeps its keys; a STRING column gathers row
+lengths, scans them into new offsets (one host sync for the byte count)
+and gathers its bytes.
+"""
 
 from __future__ import annotations
 
@@ -11,7 +17,11 @@ import torch
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
-from cudf_tpu_torch.ops._utils import materialize_validity, signed_view
+from cudf_tpu_torch.ops._utils import materialize_validity, segment_expand, signed_view
+
+_DICTIONARIES_DIFFER = (
+    "dictionary columns over different keys: ops/dictionary.py match_dictionaries is "
+    "ROADMAP.md queue 1, item 2")
 
 
 def gather(col: Column, gather_map: torch.Tensor, bounds_check: bool = True) -> Column:
@@ -19,18 +29,43 @@ def gather(col: Column, gather_map: torch.Tensor, bounds_check: bool = True) -> 
     out-of-range indices give nulls (libcudf out_of_bounds_policy::NULLIFY);
     without it the map must be in range."""
     m = gather_map.shape[0]
-    if not bounds_check:
-        validity = None if col.validity is None else col.validity[gather_map]
-        return Column(col.dtype, m, _take(col.data, gather_map), validity)
-    in_range = (gather_map >= 0) & (gather_map < col.length)
-    if col.length == 0:
-        # every row is out of range: all nulls
-        return Column(col.dtype, m,
-                      torch.zeros(m, dtype=col.data.dtype, device=col.device),
-                      torch.zeros(m, dtype=torch.bool, device=col.device))
-    safe = torch.where(in_range, gather_map, 0)
-    validity = materialize_validity(col)[safe] & in_range
-    return Column(col.dtype, m, _take(col.data, safe), validity)
+    in_range = None
+    if bounds_check:
+        in_range = (gather_map >= 0) & (gather_map < col.length)
+        if col.length == 0:
+            # every row is out of range: all nulls
+            return _all_null(col, m)
+        gather_map = torch.where(in_range, gather_map, 0)
+    validity = None if col.validity is None else col.validity[gather_map]
+    if in_range is not None:
+        validity = in_range if validity is None else validity & in_range
+    if col.dtype.is_string:
+        return _gather_strings(col, gather_map, in_range, validity)
+    return Column(col.dtype, m, _take(col.data, gather_map), validity, children=col.children)
+
+
+def _all_null(col: Column, m: int) -> Column:
+    dev = col.device
+    none = torch.zeros(m, dtype=torch.bool, device=dev)
+    if col.dtype.is_string:
+        return Column(col.dtype, m, torch.zeros(0, dtype=torch.uint8, device=dev), none,
+                      torch.zeros(m + 1, dtype=torch.int64, device=dev))
+    return Column(col.dtype, m, torch.zeros(m, dtype=col.data.dtype, device=dev), none,
+                  children=col.children)
+
+
+def _gather_strings(col: Column, rows: torch.Tensor, in_range, validity) -> Column:
+    """The rows' bytes, one after another, and their new offsets."""
+    starts = col.offsets[rows]
+    lengths = col.offsets[rows + 1] - starts
+    if in_range is not None:
+        lengths = torch.where(in_range, lengths, 0)
+    offsets = torch.zeros(rows.shape[0] + 1, dtype=torch.int64, device=col.device)
+    torch.cumsum(lengths, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    row = segment_expand(offsets, total)
+    pos = torch.arange(total, dtype=torch.int64, device=col.device) - offsets[row] + starts[row]
+    return Column(dt.STRING, rows.shape[0], col.data[pos], validity, offsets)
 
 
 def _take(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -44,9 +79,18 @@ def gather_table(table: Table, gather_map: torch.Tensor, bounds_check: bool = Tr
                             [gather(c, gather_map, bounds_check) for c in table.columns])
 
 
+def _fixed_width(col: Column, what: str) -> None:
+    if col.dtype.is_string:
+        raise NotImplementedError(f"{what} of a STRING column: ops/strings.py is ROADMAP.md "
+                                  "queue 1, item 6")
+
+
 def scatter(source: Column, scatter_map: torch.Tensor, target: Column) -> Column:
     """target[scatter_map[i]] = source[i] (cudf::scatter), in target's
     dtype; the target is not modified."""
+    _fixed_width(target, "scatter")
+    if target.dtype.is_dictionary and source.keys is not target.keys:
+        raise NotImplementedError(_DICTIONARIES_DIFFER)
     smap = scatter_map.long()
     data = target.data.clone()
     signed_view(data)[smap] = signed_view(source.data.to(target.data.dtype))
@@ -54,14 +98,17 @@ def scatter(source: Column, scatter_map: torch.Tensor, target: Column) -> Column
     if target.validity is not None or source.validity is not None:
         validity = materialize_validity(target).clone()
         validity[smap] = materialize_validity(source)
-    return Column(target.dtype, target.length, data, validity)
+    return Column(target.dtype, target.length, data, validity, children=target.children)
 
 
 def slice(col: Column, start: int, stop: int) -> Column:  # noqa: A001
     start = max(0, min(start, col.length))
     stop = max(start, min(stop, col.length))
+    if col.dtype.is_string:
+        return gather(col, torch.arange(start, stop, device=col.device), bounds_check=False)
     validity = None if col.validity is None else col.validity[start:stop]
-    return Column(col.dtype, stop - start, col.data[start:stop], validity)
+    return Column(col.dtype, stop - start, col.data[start:stop], validity,
+                  children=col.children)
 
 
 def split(col: Column, splits: Sequence[int]) -> List[Column]:
@@ -70,26 +117,105 @@ def split(col: Column, splits: Sequence[int]) -> List[Column]:
 
 
 def concatenate(cols: Sequence[Column]) -> Column:
-    """Vertical concat; mixed dtypes are promoted as numpy promotes them."""
+    """Vertical concat; mixed numeric dtypes are promoted as numpy
+    promotes them, temporal units to the finest; dictionary columns must
+    share their keys column."""
     cols = list(cols)
     if not cols:
         raise ValueError("need at least one column")
     if len(cols) == 1:
         return cols[0]
-    target = cols[0].dtype
-    for c in cols[1:]:
-        target = dt.common_dtype(target, c.dtype)
-    data = torch.cat([signed_view(c.data.to(target.torch_storage)) for c in cols])
-    data = data.view(target.torch_storage)
     validity = None
     if any(c.validity is not None for c in cols):
         validity = torch.cat([materialize_validity(c) for c in cols])
+    first = cols[0]
+    if first.dtype.is_string:
+        if not all(c.dtype.is_string for c in cols):
+            raise TypeError("cannot concatenate STRING and non-STRING columns")
+        shift, offsets = 0, [first.offsets[:1]]
+        for c in cols:
+            offsets.append(c.offsets[1:] + shift)
+            shift = shift + c.offsets[-1]
+        off = torch.cat(offsets)
+        return Column(dt.STRING, off.shape[0] - 1, torch.cat([c.data for c in cols]),
+                      validity, off)
+    if first.dtype.is_dictionary:
+        if any(c.children[0] is not first.keys for c in cols):
+            raise NotImplementedError(_DICTIONARIES_DIFFER)
+        data = torch.cat([c.data for c in cols])
+        return Column(first.dtype, data.shape[0], data, validity, children=first.children)
+    target = first.dtype
+    for c in cols[1:]:
+        target = dt.common_dtype(target, c.dtype)
+    if target.is_temporal:
+        from cudf_tpu_torch.ops.unary import cast
+
+        cols = [cast(c, target) for c in cols]
+    data = torch.cat([signed_view(c.data.to(target.torch_storage)) for c in cols])
+    data = data.view(target.torch_storage)
     return Column(target, data.shape[0], data, validity)
 
 
 def concatenate_tables(tables: Sequence[Table]) -> Table:
     names = tables[0].names
     return Table.from_pairs(names, [concatenate([t[n] for t in tables]) for n in names])
+
+
+def copy_if_else(mask: torch.Tensor, lhs, rhs) -> Column:
+    """out[i] = mask[i] ? lhs[i] : rhs[i] (cudf::copy_if_else).  Either
+    side may be a host scalar, which broadcasts without a full column.
+    Columns and scalars meet in their common dtype, as in the reference;
+    two dictionaries over the same keys select codes."""
+    from cudf_tpu_torch.ops.binaryop import scalar_operand
+    from cudf_tpu_torch.ops.unary import cast
+
+    n = mask.shape[0]
+    sides = [x if isinstance(x, Column) else scalar_operand(x) for x in (lhs, rhs)]
+    dtypes = [s.dtype if isinstance(s, Column) else s[1] for s in sides]
+    if any(d.is_string or d.is_dictionary for d in dtypes):
+        return _select_keyed(mask, sides, n)
+    target = dt.common_dtype(*dtypes)
+    vals, valids = [], []
+    for s in sides:
+        if isinstance(s, Column):
+            c = cast(s, target)
+            vals.append(c.data)
+            valids.append(c.validity)
+        elif s[0] is None:
+            vals.append(0)
+            valids.append(torch.zeros(n, dtype=torch.bool, device=mask.device))
+        else:
+            vals.append(s[0])
+            valids.append(None)
+    if not isinstance(vals[0], torch.Tensor) and not isinstance(vals[1], torch.Tensor):
+        vals[0] = torch.full((n,), vals[0], dtype=target.torch_storage, device=mask.device)
+    data = torch.where(mask, vals[0], vals[1]).to(target.torch_storage)
+    validity = None
+    if valids[0] is not None or valids[1] is not None:
+        ones = torch.ones(n, dtype=torch.bool, device=mask.device)
+        validity = torch.where(mask, ones if valids[0] is None else valids[0],
+                               ones if valids[1] is None else valids[1])
+    return Column(target, n, data, validity)
+
+
+def _select_keyed(mask: torch.Tensor, sides, n: int) -> Column:
+    """copy_if_else of dictionary and string sides: codes when both are
+    dictionaries over one keys column, else the decoded strings' rows."""
+    if all(isinstance(s, Column) and s.dtype.is_dictionary for s in sides) \
+            and sides[0].keys is sides[1].keys:
+        codes = copy_if_else(mask, Column(dt.INT32, n, sides[0].data, sides[0].validity),
+                             Column(dt.INT32, n, sides[1].data, sides[1].validity))
+        return Column(sides[0].dtype, n, codes.data, codes.validity, children=sides[0].children)
+    cols = []
+    for s in sides:
+        if not isinstance(s, Column):
+            s = Column.full(n, s[0], dt.STRING, device=mask.device)
+        cols.append(s.decode_dictionary())
+    if not all(c.dtype.is_string for c in cols):
+        raise TypeError("copy_if_else of a string and a non-string side")
+    both = concatenate(cols)
+    rows = torch.arange(n, device=mask.device)
+    return gather(both, torch.where(mask, rows, rows + n), bounds_check=False)
 
 
 def sequence(length: int, start=0, step=1, dtype=dt.INT64, *, device) -> Column:
@@ -102,4 +228,3 @@ def sequence(length: int, start=0, step=1, dtype=dt.INT64, *, device) -> Column:
 def reverse(col: Column) -> Column:
     idx = torch.arange(col.length - 1, -1, -1, dtype=torch.int64, device=col.device)
     return gather(col, idx, bounds_check=False)
-

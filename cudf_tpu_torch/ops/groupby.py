@@ -3,7 +3,9 @@
 Port of ``cudf_tpu/ops/groupby.py``.  ``groupby_agg`` tries the kernel
 tiers first (``_try_onehot_fast_path``, the dispatch of ``:862-1061``).
 One integer key column is reduced to int32 codes ``key - key_min`` over
-K = max - min + 1 slots:
+K = max - min + 1 slots, and a dictionary key column's codes serve as
+they are, over K = its number of entries (its output key is then the
+observed entries' keys, as in the reference):
 
 - K <= 4096: the one-hot tier, kernel A
   (``kernels/hash_aggregate.py``);
@@ -135,8 +137,7 @@ def _key_range(key: Column, valid: Optional[torch.Tensor],
         lo = torch.where(valid, data, info.max).min()
         hi = torch.where(valid, data, info.min).max()
         n = valid.sum()
-    flags = [torch.isnan((c.data if c.validity is None
-                          else torch.where(c.validity, c.data, 0)).sum()) for c in nan_cols]
+    flags = _nan_flags(nan_cols)
     lo, hi, n, *nan = torch.stack([lo.long(), hi.long(), n.long(),
                                    *[f.long() for f in flags]]).tolist()
     if n == 0:
@@ -153,7 +154,7 @@ def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
     key = keys.column(0) if keys.num_columns == 1 else None
     if key is None or key.length < int(get_option("groupby.fast_path_min_rows")):
         return None
-    if not key.dtype.is_integer or key.dtype == dt.UINT64:
+    if not (key.dtype.is_integer or key.dtype.is_dictionary) or key.dtype == dt.UINT64:
         return None
     if key.has_nulls and not dropna:
         return None          # the null-key group is the sort tier's
@@ -166,6 +167,13 @@ def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
         if col.dtype.is_float and agg in ("sum", "count", "mean"):
             nan_cols[id(col)] = col   # pandas skips NaN there: the sort tier does
     valid = key.validity if dropna else None
+    if key.dtype.is_dictionary:
+        # the codes are the key, over K = the dictionary's entries (the
+        # reference's ``:892-895``); a null code's row is masked out
+        K = key.keys.length
+        if K == 0 or K > 1 << MAX_DOMAIN_BITS or _may_hold_nan(nan_cols.values()):
+            return None
+        return _aggregate(keys.names[0], key, key.data, K, 0, valid, list(values))
     lo, hi, has_nan = _key_range(key, valid, list(nan_cols.values()))
     if has_nan:
         return None
@@ -175,6 +183,19 @@ def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
     src = key.data if key.dtype.is_signed_integer else key.data.long()
     codes = (src - lo).to(torch.int32)
     return _aggregate(keys.names[0], key, codes, K, lo, valid, list(values))
+
+
+def _nan_flags(cols) -> List[torch.Tensor]:
+    """A flag a column: whether the sum of its valid rows is NaN (one of
+    them is NaN, or +inf meets -inf)."""
+    return [torch.isnan((c.data if c.validity is None
+                         else torch.where(c.validity, c.data, 0)).sum()) for c in cols]
+
+
+def _may_hold_nan(cols) -> bool:
+    """``_nan_flags`` read in one host sync (none without a column)."""
+    flags = _nan_flags(cols)
+    return bool(torch.stack(flags).any()) if flags else False
 
 
 def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
@@ -225,8 +246,12 @@ def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
     compact = {n: copying.gather(c, present, bounds_check=False) for n, c in results.items()}
     _fit_int_results(compact, {name: col.dtype for name, col, agg in values if agg == "sum"})
     out_aggs = Table(compact)
-    key_col = Column(key.dtype, present.shape[0],
-                     (present + key_lo).to(key.dtype.torch_storage))
+    if key.dtype.is_dictionary:
+        # the observed entries' keys, a STRING (or numeric) column
+        key_col = copying.gather(key.keys, present, bounds_check=False)
+    else:
+        key_col = Column(key.dtype, present.shape[0],
+                         (present + key_lo).to(key.dtype.torch_storage))
     return Table({key_name: key_col}), out_aggs
 
 

@@ -156,19 +156,20 @@ def _radix_inner_multi(lcodes: torch.Tensor, rows: torch.Tensor, rcodes: torch.T
 def _try_dense_inner(lc: Column, rc: Column) -> Optional[Maps]:
     """Direct-address inner join for one integer key whose build side
     ``rc`` is unique over a dense domain: one gather per probe row.
-    Pairs come in left-row order; None when the shape does not qualify."""
+    Pairs come in left-row order; None when the shape does not qualify.
+    Unlike the reference, it also serves probes of fewer than 64 rows,
+    which the reference leaves to its sort-merge tier (not ported)."""
     if not get_option("join.dense_fast_path"):
         return None
     if not (lc.dtype.is_integer and rc.dtype.is_integer):
         return None
-    nl, nr = lc.length, rc.length
-    if nr < 2 or nl < 64:
+    if rc.length < 2:
         return None
     rmin, rmax, n_rvalid = _build_stats(rc)
     if n_rvalid == 0:
         return _empty(lc.device)
     domain = rmax - rmin + 1
-    if domain > max(4 * nr, 1 << 16) or domain > 1 << MAX_DOMAIN_BITS:
+    if domain > max(4 * rc.length, 1 << 16) or domain > 1 << MAX_DOMAIN_BITS:
         return None
     rcodes = _codes(rc, rmin, rmax)
     counts = torch.bincount(rcodes.long() + 1, minlength=domain + 1)[1:]

@@ -1,5 +1,6 @@
 """Row-wise comparators and hashers over column sets (port of
-``cudf_tpu/ops/row_ops.py`` for fixed-width columns).
+``cudf_tpu/ops/row_ops.py`` for fixed-width, temporal, STRING and
+DICTIONARY32 columns).
 
 Every column is lowered to a short list of flat orderable tensors, the
 "key operands":
@@ -11,6 +12,17 @@ Every column is lowered to a short list of flat orderable tensors, the
 - ``equality_keys``: operands whose tuple equality is row equality with
   pandas' rules (null == null, NaN == NaN, -0.0 == +0.0).
 - ``row_hash``: one 64-bit splitmix hash a row.
+
+Temporal columns order as their int64 ticks.  A STRING column becomes
+the reference's operands: its bytes packed big-endian into 8-byte int64
+chunks (top bit flipped, so signed order is byte order), then its
+length.  A dictionary column is not decoded: its operand is one int32 a
+row, the rank of the row's key among the distinct keys in UTF-8 byte
+order, gathered by code from a table of K ranks computed once a
+dictionary (``dictionary_ranks``).  It gives the order the reference's
+decoded strings give, and equal keys share a rank, so equality holds
+even when a dictionary repeats a key.  (Row hashes of a dictionary
+column therefore hash ranks, not the reference's decoded bytes.)
 
 Every transform works on int8/int32/int64 tensors and ``.view``s, since
 PyTorch's unsigned types have almost no bitwise or shift support on CUDA.
@@ -38,10 +50,75 @@ _F32_NAN_BITS = 0x7FC00000
 
 
 def _refuse_layout(col: Column) -> None:
-    if not (col.dtype.is_numeric or col.dtype.is_bool):
+    d = col.dtype
+    if not (d.is_numeric or d.is_bool or d.is_temporal or d.is_string or d.is_dictionary):
         raise NotImplementedError(
-            f"row operators over {col.dtype!r} columns: string and dictionary "
-            "layouts are ROADMAP.md queue 1, item 2")
+            f"row operators over {d!r} columns: list, struct and decimal layouts are "
+            "ROADMAP.md queue 1, item 6")
+
+
+def string_chunks(col: Column, nchunks: Optional[int] = None) -> List[torch.Tensor]:
+    """A STRING column's order operands: ceil(max_len / 8) int64 chunks of
+    its bytes, big-endian with the top bit flipped (signed order is byte
+    order; bytes past a row's end are 0), then the int64 length.  One
+    host sync for the longest row unless ``nchunks`` is given."""
+    starts = col.offsets[:-1]
+    lens = col.offsets[1:] - starts
+    if nchunks is None:
+        nchunks = max(1, -(-int(lens.max()) // 8)) if col.length else 1
+    chars = col.data if col.data.shape[0] else torch.zeros(1, dtype=torch.uint8,
+                                                           device=col.device)
+    out = []
+    for c in range(nchunks):
+        word = torch.zeros(col.length, dtype=torch.int64, device=col.device)
+        for b in range(8):
+            pos = c * 8 + b
+            idx = (starts + pos).clamp(max=chars.shape[0] - 1)
+            byte = torch.where(pos < lens, chars[idx].to(torch.int64), 0)
+            # the first byte carries the flipped top bit: (byte - 128) * 2^56
+            # is the signed value of its bits, with no shift into the sign
+            word = word + (byte - 128 if b == 0 else byte) * (1 << (8 * (7 - b)))
+        out.append(word)
+    out.append(lens)
+    return out
+
+
+def string_compare(l: Column, r: Column) -> torch.Tensor:
+    """int8 in {-1, 0, 1}: l's rows against r's in UTF-8 byte order (r may
+    be one row, compared with every row of l)."""
+    n = max(int((c.offsets[1:] - c.offsets[:-1]).max()) if c.length else 0 for c in (l, r))
+    k = max(1, -(-n // 8))
+    cmp = torch.zeros(l.length, dtype=torch.int8, device=l.device)
+    for a, b in zip(string_chunks(l, k), string_chunks(r, k)):
+        step = (a > b).to(torch.int8) - (a < b).to(torch.int8)
+        cmp = torch.where(cmp == 0, step, cmp)
+    return cmp
+
+
+def dictionary_ranks(keys: Column) -> torch.Tensor:
+    """int32[K]: each key's rank among the distinct keys, ascending (UTF-8
+    byte order for strings), equal keys equal; computed on the keys'
+    device with no host sync and cached on the keys column."""
+    if "ranks" not in keys._cache:
+        if keys.length == 0:
+            ranks = torch.zeros(0, dtype=torch.int32, device=keys.device)
+        else:
+            ops = string_chunks(keys) if keys.dtype.is_string else _order_operands(
+                keys, True, "last", narrow=False)
+            order = lex_sort_permutation(ops)
+            new = torch.zeros(keys.length, dtype=torch.int32, device=keys.device)
+            for op in ops:
+                s = op[order]
+                new[1:] |= (s[1:] != s[:-1]).to(torch.int32)
+            ranks = torch.empty_like(new)
+            ranks[order] = torch.cumsum(new, 0, dtype=torch.int32)
+        keys._cache["ranks"] = ranks
+    return keys._cache["ranks"]
+
+
+def _dictionary_operand(col: Column) -> torch.Tensor:
+    codes = col.data if col.validity is None else torch.where(col.validity, col.data, 0)
+    return dictionary_ranks(col.keys)[codes.long()]
 
 
 def _canonical_float_bits(x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +143,8 @@ def _order_value(col: Column, narrow: bool) -> torch.Tensor:
     columns of up to 32 bits sort as int32 (the same order, half the
     bytes); else every integer widens to int64, as in the reference."""
     d = col.data
+    if col.dtype.is_dictionary:
+        return _dictionary_operand(col)
     if col.dtype.is_float:
         return _float_to_ordered_int(d)
     if col.dtype.is_bool:
@@ -85,6 +164,14 @@ def _order_operands(col: Column, ascending: bool, na_position: str,
                     narrow: bool) -> List[torch.Tensor]:
     _refuse_layout(col)
     ops: List[torch.Tensor] = []
+    if col.dtype.is_string:
+        if col.validity is not None:
+            flag = (~col.validity).to(torch.int8)
+            ops.append(-flag if na_position == "first" else flag)
+        for c in string_chunks(col):
+            c = c if col.validity is None else torch.where(col.validity, c, 0)
+            ops.append(c if ascending else ~c)
+        return ops
     v = _order_value(col, narrow)
     if col.validity is not None:
         flag = (~col.validity).to(torch.int8)
@@ -115,7 +202,13 @@ def equality_keys(col: Column) -> List[torch.Tensor]:
     ops: List[torch.Tensor] = []
     if col.validity is not None:
         ops.append(col.validity.to(torch.int8))
-    if col.dtype.is_float:
+    if col.dtype.is_string:
+        chunks = string_chunks(col)
+        return ops + (chunks if col.validity is None else
+                      [torch.where(col.validity, c, 0) for c in chunks])
+    if col.dtype.is_dictionary:
+        v = _dictionary_operand(col)
+    elif col.dtype.is_float:
         v = _canonical_float_bits(col.data)
     elif col.data.dtype == torch.uint64:
         v = col.data.view(torch.int64)

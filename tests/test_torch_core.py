@@ -118,8 +118,10 @@ def test_column_rejects_bad_buffers():
     with pytest.raises(ValueError):
         Column(dt.INT32, 3, torch.zeros(3, dtype=torch.int32),
                torch.ones(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):              # a STRING column needs its offsets
         Column(dt.STRING, 0, torch.zeros(0, dtype=torch.uint8))
+    with pytest.raises(NotImplementedError):     # decimals: ROADMAP.md queue 1, item 6
+        Column(dt.decimal_dtype(2), 3, torch.zeros(3, dtype=torch.int64))
 
 
 def test_torch_storage_mapping():
@@ -165,5 +167,8 @@ def test_dataframe_device_is_explicit():
     assert df.device == CPU
     df2 = ct.DataFrame({"a": torch.arange(3), "b": torch.ones(3)})
     assert df2._table.names == ("a", "b")
+    with pytest.raises(ValueError, match="device"):
+        ct.DataFrame({"a": [1, 2, 3]})
+    assert ct.DataFrame({"a": [1, 2, 3]}, device=CPU)._table["a"].data.tolist() == [1, 2, 3]
     with pytest.raises(TypeError):
-        ct.DataFrame({"a": [1, 2, 3]}, device=CPU)
+        ct.DataFrame({"a": {1, 2, 3}}, device=CPU)

@@ -1,6 +1,8 @@
-"""cudf_tpu_torch imports neither JAX nor the reference package, and the
-groupby (both the kernel tiers and the sort tier) and merge paths on CPU
-tensors touch neither pandas nor pyarrow."""
+"""cudf_tpu_torch imports neither JAX nor the reference package (its
+engine, models and ops modules included), and the groupby (both the
+kernel tiers and the sort tier), merge and LazyFrame engine paths on CPU
+tensors (TPC-H q1, q6, q12 and q14 over dictionary, string and temporal
+columns) touch neither pandas nor pyarrow."""
 
 import ast
 import os
@@ -32,6 +34,10 @@ for rows in (0, 1 << 16):               # the radix tier, then the dense tier
     with option_context("join.fast_path_min_rows", rows):
         joined = fact.merge(dim, on="k")
     assert joined._table["w"].data.tolist() == [6.0, 5.0] * 25, rows
+from cudf_tpu_torch.models import tpch
+tables = tpch.generate_device(0.002, seed=1, device="cpu")
+assert len(tpch.q1(tables)) == 6 and tpch.q14(tables) > 0
+assert tpch.q6(tables)._table.names == ("revenue",) and len(tpch.q12(tables)) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu", "pandas", "pyarrow"))
 print("LOADED", bad)
