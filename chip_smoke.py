@@ -109,31 +109,57 @@ card from the same generator:
    (gather maps only) at small, medium and big, beside plain PyTorch, as
    probe rows/s.
 
-The J1 frames are then freed.  TPC-H through the LazyFrame engine
+Then the sort-merge tier at J1 scale (no kernel of A-H may launch):
+4. main path: fact.merge(dim, on="id", how="left") at medium and big,
+   ops/join.py full_join at medium and semi_join and anti_join at big,
+   each equal to plain PyTorch (a dense table over the unique dim keys:
+   every left row in order, v2 null where no dim row matches; the full
+   join's unmatched dim rows at the end), row order included.
+5. timings of each beside plain PyTorch.
+
+The J1 frames are then freed, but for v1.  J1's dictionary-string key in
+bench.py's bench_join_dict shape: 1e8 fact rows of codes over 1e5
+strings, a dim of 1e5 rows whose dictionary is a permutation of the same
+strings (each key once):
+4. main path: fact.merge(dim, on="key"): the dim's codes recoded into
+   the fact's code space (ops/join.py _dict_code_pair), then the radix
+   tier (B, F, G, D and H must launch); equal to plain PyTorch (the dim
+   keys' fact codes from a host dictionary, a dense table over the
+   codes): key codes, v1, v2 and row order exact.
+5. timing beside plain PyTorch.
+
+TPC-H through the LazyFrame engine
 (``cudf_tpu_torch/models/tpch.py``): SF10 (6e7 lineitem rows, 1.5e7
 orders, 2e6 parts; ~5.3 GB on the card), then SF1 as a smaller second
 run, drawn on the card by ``generate_device`` from one seeded
 torch.Generator (int32 keys, dictionary codes over host key sets,
 datetime64[ns] dates):
 
-4. main path: q1 (temporal filter, arithmetic, groupby on two
-   dictionary keys through the sort tier, sort), q6 (five predicates, a
-   product, a sum), q12 (is_in on a dictionary, temporal comparisons,
-   a join against the 1.5e7 unique order keys on the radix tier, a CASE
-   count by one dictionary key on the one-hot tier) and q14 (a temporal
-   filter, a join against the 2e6 unique part keys on the radix tier, a
-   dictionary compared with a string, a CASE sum), all four with every
+4. main path: the nine queries of benchmarks/tpch.py: q1 (temporal
+   filter, arithmetic, groupby on two dictionary keys through the sort
+   tier, sort), q6 (five predicates, a product, a sum), q12 (is_in on a
+   dictionary, a join against the 1.5e7 unique order keys on the radix
+   tier, a CASE count by one dictionary key on the one-hot tier), q14 (a
+   join against the 2e6 part keys, a dictionary compared with a string),
+   q3 (customer, orders and lineitem joins, revenue by two keys on the
+   sort tier, top 10), q4 (a semi join against the late lineitems on the
+   sort-merge tier, counts by priority), q5 (five joins, the last on two
+   keys on the sort-merge tier), q9 (green parts through lineitem,
+   supplier, nation and orders) and q10 (customer, orders, lineitem and
+   nation, revenue by four keys on the sort tier, top 20), all with every
    count at 0 before (kernels A, B, F, G, D and H must each have been
    launched), each against its plain PyTorch version on the same
-   tensors (``tpch.PLAIN``: masks, dense lookup tables, bincounts):
-   keys, counts and row order exact, float sums rtol 1e-9.  Each query
-   then runs alone with every count at 0 before it: q12 must launch A,
-   B, F, G, D and H, q14 B, F, G, D and H, q1 and q6 none.  Every call
-   of those kernels in these runs is recorded with a copy of its
-   arguments (``KernelRecorder``) and replayed on the same inputs
-   against its plain version: bit for bit (A's and D's float sums rtol
-   1e-12; G in the rows its runs cover), each with its time and its
-   plain version's.  Then one torch.profiler split of q1 at SF10.
+   tensors (``tpch.PLAIN``: masks, dense lookup tables, bincounts,
+   index_add_): keys, counts and row order exact, float sums rtol 1e-9.
+   Each query then runs alone with every count at 0 before it and must
+   launch exactly the kernels ``TPCH_NEEDS`` names.  Every call of those
+   kernels in that run is recorded with a copy of its arguments
+   (``KernelRecorder``) and replayed on the same inputs against its
+   plain version: bit for bit (A's and D's float sums rtol 1e-12; G in
+   the rows its runs cover), each with its time and its plain version's.
+   Then torch.profiler splits of q1, q3 and q9 at SF10, and the times of q3's
+   failed multi-tier attempt against lineitem, of q4's semi join and of
+   the sort of its late keys, on the queries' own inputs.
 5. timings: median of 7 warm runs of each query and of its plain
    version, as lineitem rows/s, at SF10 and SF1.
 
@@ -1145,6 +1171,159 @@ def check_j1_model(j1_join, rows, lcodes, rcodes, n_dim, size):
     check(torch.equal(bid[found][order], exp[exp >= 0]), f"j1_join {size}: build rows differ")
 
 
+def plain_lookup(lk, rk):
+    """Per left key the row of the (unique) right key equal to it, or -1:
+    a dense table over keys >= 0."""
+    size = int(torch.maximum(lk.max(), rk.max())) + 1
+    tbl = torch.full((size,), -1, dtype=torch.int64, device=lk.device)
+    tbl[rk.long()] = torch.arange(rk.numel(), device=lk.device)
+    return tbl[lk.long()]
+
+
+def plain_left_merge(left, right):
+    """fact.merge(dim, on="id", how="left") in plain PyTorch: every left
+    row in order, v2 NaN where no dim row matches."""
+    r = plain_lookup(left._table["id"].data, right._table["id"].data)
+    v2 = right._table["v2"].data
+    return {"id": left._table["id"].data, "v1": left._table["v1"].data,
+            "v2": torch.where(r >= 0, v2[r.clamp(min=0)], float("nan"))}
+
+
+def check_left_merge(name, res, exp):
+    check(list(res._table.names) == list(exp), f"{name}: columns {res._table.names}")
+    for col, want in exp.items():
+        c = res._table[col]
+        valid = ~torch.isnan(want) if want.is_floating_point() else torch.ones_like(
+            want, dtype=torch.bool)
+        check(torch.equal(valid, torch.ones_like(valid) if c.validity is None else c.validity),
+              f"{name} {col}: nulls differ")
+        same(c.data[valid], want[valid], f"{name} {col}", float_rtol=0.0)
+    return len(res)
+
+
+def plain_full_join(lk, rk):
+    """full_join maps of a unique right side: every left row with its
+    match or -1, then the right rows no left row matched, in order."""
+    r = plain_lookup(lk, rk)
+    hit = torch.zeros(rk.numel(), dtype=torch.bool, device=lk.device)
+    hit[r[r >= 0]] = True
+    miss = torch.nonzero(~hit).squeeze(1)
+    li = torch.cat([torch.arange(lk.numel(), device=lk.device),
+                    torch.full_like(miss, -1)])
+    return li, torch.cat([r, miss])
+
+
+def j1_sort_merge_phase(ct, frames, drive, smi):
+    """J1's left, outer, semi and anti joins through the sort-merge tier at
+    1e8 fact rows, each against plain PyTorch (row order included) and
+    timed beside it."""
+    from cudf_tpu_torch.ops import join
+
+    def key(name):
+        return frames[name]._table["id"]
+
+    runs = {
+        "left_medium": (lambda: frames["fact_medium"].merge(frames["dim_medium"], on="id",
+                                                            how="left"),
+                        lambda: plain_left_merge(frames["fact_medium"], frames["dim_medium"])),
+        "left_big": (lambda: frames["fact_big"].merge(frames["dim_big"], on="id", how="left"),
+                     lambda: plain_left_merge(frames["fact_big"], frames["dim_big"])),
+        "outer_medium": (lambda: join.full_join([key("fact_medium")], [key("dim_medium")]),
+                         lambda: plain_full_join(key("fact_medium").data,
+                                                 key("dim_medium").data)),
+        "semi_big": (lambda: join.semi_join([key("fact_big")], [key("dim_big")]),
+                     lambda: torch.nonzero(plain_lookup(key("fact_big").data,
+                                                        key("dim_big").data) >= 0).squeeze(1)),
+        "anti_big": (lambda: join.anti_join([key("fact_big")], [key("dim_big")]),
+                     lambda: torch.nonzero(plain_lookup(key("fact_big").data,
+                                                        key("dim_big").data) < 0).squeeze(1)),
+    }
+    results = drive("j1_sort_merge", lambda: {n: run() for n, (run, _) in runs.items()})
+    for name, (_, plain) in runs.items():
+        got, exp = results.pop(name), plain()
+        if name.startswith("left"):
+            rows = check_left_merge(f"J1 {name}", got, exp)
+        else:
+            got, exp = (got if isinstance(got, tuple) else (got,)), (
+                exp if isinstance(exp, tuple) else (exp,))
+            for g, e in zip(got, exp):
+                same(g, e, f"J1 {name}")
+            rows = got[0].numel()
+        log(f"phase 4 J1 sort-merge {name}: {rows} rows, equal to plain torch")
+        torch.cuda.empty_cache()
+    for name, (run, plain) in runs.items():
+        ms, plain_ms = device_ms(run), device_ms(plain)
+        log(f"phase 5 J1 sort-merge {name}: {ms:.3f} ms = {N / ms * 1e3:.4g} probe rows/s; "
+            f"plain torch {plain_ms:.3f} ms = {N / plain_ms * 1e3:.4g} probe rows/s [{smi}]")
+        torch.cuda.empty_cache()
+
+
+J1_DICT_KEYS = 100_000
+
+
+def j1_dict_frames(ct, dev, gen, v1):
+    """bench.py's bench_join_dict shape: 1e8 fact rows of codes over 1e5
+    strings; a dim of 1e5 rows whose dictionary is a permutation of the
+    same strings, each key once.  Returns (fact, dim)."""
+    from cudf_tpu_torch.core.column import Column
+
+    strings = [f"key{i:09d}" for i in range(J1_DICT_KEYS)]
+    perm = torch.randperm(J1_DICT_KEYS, generator=gen, device=dev)
+    dim_strings = [strings[i] for i in perm.tolist()]
+    fact = ct.DataFrame({
+        "key": Column.from_dictionary(
+            torch.randint(0, J1_DICT_KEYS, (N,), generator=gen, device=dev, dtype=torch.int32),
+            Column.from_strings(strings, device=dev)),
+        "v1": v1})
+    dim = ct.DataFrame({
+        "key": Column.from_dictionary(
+            torch.randperm(J1_DICT_KEYS, generator=gen, device=dev, dtype=torch.int32),
+            Column.from_strings(dim_strings, device=dev)),
+        "v2": torch.randn(J1_DICT_KEYS, generator=gen, device=dev, dtype=torch.float64)})
+    return fact, dim
+
+
+def plain_dict_merge(fact, dim):
+    """fact.merge(dim, on="key") in plain PyTorch: the dim keys' fact
+    codes from a host dictionary of the fact keys, then a dense table over
+    the fact codes."""
+    fk, dk = fact._table["key"], dim._table["key"]
+    pos = {s: i for i, s in enumerate(fk.keys.host_strings())}
+    remap = torch.tensor([pos.get(s, -1) for s in dk.keys.host_strings()],
+                         dtype=torch.int64).to(fk.data.device)
+    r = plain_lookup(fk.data, remap[dk.data.long()])
+    li = torch.nonzero(r >= 0).squeeze(1)
+    return {"key": fk.data[li], "v1": fact._table["v1"].data[li],
+            "v2": dim._table["v2"].data[r[li]]}
+
+
+def check_dict_merge(res, exp, fact):
+    check(list(res._table.names) == list(exp), f"J1 dict: columns {res._table.names}")
+    key = res._table["key"]
+    check(key.dtype.is_dictionary and key.keys is fact._table["key"].keys,
+          "J1 dict: the key is not the fact's dictionary column")
+    same(key.data, exp["key"], "J1 dict key codes")
+    for col in ("v1", "v2"):
+        same(res._table[col].data, exp[col], f"J1 dict {col}", float_rtol=0.0)
+    return len(res)
+
+
+def j1_dict_phase(ct, dev, gen, v1, drive, smi):
+    fact, dim = j1_dict_frames(ct, dev, gen, v1)
+    res = drive("j1_dict", lambda: fact.merge(dim, on="key"))
+    rows = check_dict_merge(res, plain_dict_merge(fact, dim), fact)
+    del res
+    log(f"phase 4 J1 dictionary-string key (bench_join_dict's shape): {rows} rows, equal to "
+        "plain torch")
+    ms, plain_ms = device_ms(lambda: fact.merge(dim, on="key")), device_ms(
+        lambda: plain_dict_merge(fact, dim))
+    log(f"phase 5 J1 dictionary-string merge: {ms:.3f} ms = {N / ms * 1e3:.4g} probe rows/s; "
+        f"plain torch (host remap of 1e5 keys included) {plain_ms:.3f} ms = "
+        f"{N / plain_ms * 1e3:.4g} probe rows/s [{smi}]")
+    del fact, dim
+    torch.cuda.empty_cache()
+
+
 def beside_phase(dev, gen, rp, ha, other_dir):
     """Kernels A, D, B and C at their main shapes beside another checkout's
     (``--beside DIR``, e.g. the parent unpacked by ``git archive``), in
@@ -1250,35 +1429,37 @@ def ptxas_lines(report, kernel=None):
 TPCH_SCALES = (10, 1)
 TPCH_PATH = ["onehot_groupby_aggregate", "digit_histogram", "tile_sort_data", "merge_scatter",
              "bucket_aggregate", "window_probe"]
-TPCH_NEEDS = {"q1": [], "q6": [], "q12": TPCH_PATH, "q14": TPCH_PATH[1:]}
+# the kernels each query must launch at SF10 (as the card counts them):
+# the radix tier's joins B, F, G, D and H; the one-hot tier's A where a
+# query groups by one dictionary key (q4, q5, q9, q12); q4's semi join
+# and q5's two-key join take the sort-merge tier, which launches none
+TPCH_NEEDS = {"q1": [], "q3": TPCH_PATH[1:], "q4": TPCH_PATH[:1], "q5": TPCH_PATH,
+              "q6": [], "q9": TPCH_PATH, "q10": TPCH_PATH[1:], "q12": TPCH_PATH,
+              "q14": TPCH_PATH[1:]}
 
 
-def tpch_answer(name, res):
-    """A query's answer in its plain version's form."""
-    if name in ("q6", "q14"):
-        return res if name == "q14" else float(res._table["revenue"].data[0])
-    t = res._table
-    if name == "q1":
-        keys = list(zip(t["l_returnflag"].to_numpy().tolist(),
-                        t["l_linestatus"].to_numpy().tolist()))
-        return keys, {n: t[n].data for n in t.names if n not in ("l_returnflag",
-                                                                  "l_linestatus")}
-    return t["l_shipmode"].to_numpy().tolist(), t["high_line_count"].data, \
-        t["low_line_count"].data
+def agree(what, got, exp):
+    """A query's answer against its plain version's (``tpch.answer``'s
+    forms): keys, counts, strings and row order exact, floats rtol 1e-9;
+    returns the max abs error."""
+    if isinstance(exp, float):
+        check(abs(got - exp) <= 1e-9 * abs(exp), f"{what}: {got} vs {exp}")
+        return abs(got - exp)
+    if isinstance(exp, torch.Tensor):
+        return same(got, exp, what, float_rtol=1e-9)
+    if isinstance(exp, dict):
+        check(list(got) == list(exp), f"{what}: columns {list(got)}")
+        return max(agree(f"{what} {k}", got[k], exp[k]) for k in exp)
+    if isinstance(exp, tuple):
+        return max(agree(f"{what}[{i}]", g, e) for i, (g, e) in enumerate(zip(got, exp)))
+    check(got == exp, f"{what}: {got} vs {exp}")
+    return 0.0
 
 
 def check_tpch(name, res, exp):
-    """Keys, counts and row order exact, float sums rtol 1e-9; returns
-    the max abs error."""
-    got = tpch_answer(name, res)
-    if name in ("q6", "q14"):
-        check(abs(got - exp) <= 1e-9 * abs(exp), f"TPC-H {name}: {got} vs {exp}")
-        return abs(got - exp)
-    check(got[0] == exp[0], f"TPC-H {name}: keys {got[0]} vs {exp[0]}")
-    if name == "q12":
-        return max(same(got[1], exp[1], "TPC-H q12 high"), same(got[2], exp[2], "TPC-H q12 low"))
-    check(sorted(got[1]) == sorted(exp[1]), f"TPC-H q1: columns {sorted(got[1])}")
-    return max(same(got[1][n], exp[1][n], f"TPC-H q1 {n}", float_rtol=1e-9) for n in exp[1])
+    from cudf_tpu_torch.models import tpch
+
+    return agree(f"TPC-H {name}", tpch.answer(name, res), exp)
 
 
 def _clone(x):
@@ -1379,7 +1560,7 @@ def replay_check(wrappers, plains, name, args, what):
 
 
 def tpch_phase(dev, smi, wrappers, drive, plains):
-    """TPC-H q1, q6, q12 and q14 at SF10 (the main path) and SF1."""
+    """The nine TPC-H queries at SF10 (the main path) and SF1."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -1401,7 +1582,6 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
             log(f"phase 4 TPC-H SF{scale} {q} agrees with plain torch, max abs err {err}")
         del results
         if scale == TPCH_SCALES[0]:
-            recorded = {}
             for q, fn in tpch.QUERIES.items():     # alone, every count at 0 before
                 for w in wrappers.values():
                     w.launches = 0
@@ -1409,13 +1589,11 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
                     fn(tables)
                     torch.cuda.synchronize()
                 by_query[q] = {k: w.launches for k, w in wrappers.items() if w.launches}
-                recorded[q] = rec.calls
                 check(all(by_query[q].get(k, 0) >= 1 for k in TPCH_NEEDS[q]),
                       f"TPC-H {q} launched {by_query[q]}, needs {TPCH_NEEDS[q]}")
-            check(not by_query["q1"] and not by_query["q6"], "TPC-H q1 or q6 launched A-H")
-            log(f"phase 4 TPC-H SF{scale} launches by query: {by_query}")
-            for q, calls in recorded.items():      # each kernel at the shapes q gave it
-                for i, (name, args) in enumerate(calls):
+                check(sorted(by_query[q]) == sorted(TPCH_NEEDS[q]),
+                      f"TPC-H {q} launched {by_query[q]}, expected only {TPCH_NEEDS[q]}")
+                for i, (name, args) in enumerate(rec.calls):   # at the shapes q gave it
                     what = f"TPC-H SF{scale} {q} call {i} of {name}"
                     err = replay_check(wrappers, plains, name, args, what)
                     row = dict(query=q, call=i, args=_describe(args), max_abs_err=err,
@@ -1425,13 +1603,18 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
                                    if k in inspect.signature(plains[name]).parameters})))
                     tpch_calls.setdefault(name, []).append(row)
                     log(f"phase 3 {what} agrees with its plain version: {json.dumps(row)}")
-                check(sorted({name for name, _ in calls}) == sorted(TPCH_NEEDS[q]),
-                      f"TPC-H {q}: replayed {sorted({name for name, _ in calls})}")
-            del recorded, calls
-            torch.cuda.empty_cache()
-            log("phase 4 TPC-H q1 torch.profiler split: " + json.dumps(
-                {"tpch_sf10_q1_profile": profile_split(lambda: tpch.q1(tables)),
-                 "card": smi}))
+                check(sorted({name for name, _ in rec.calls}) == sorted(TPCH_NEEDS[q]),
+                      f"TPC-H {q}: replayed {sorted({name for name, _ in rec.calls})}")
+                rec.calls.clear()
+                torch.cuda.empty_cache()
+            check(not by_query["q1"] and not by_query["q6"], "TPC-H q1 or q6 launched A-H")
+            log(f"phase 4 TPC-H SF{scale} launches by query: {by_query}")
+            for q in ("q1", "q3", "q9"):
+                log(f"phase 4 TPC-H {q} torch.profiler split: " + json.dumps(
+                    {f"tpch_sf10_{q}_profile": profile_split(lambda: tpch.QUERIES[q](tables)),
+                     "card": smi}))
+            log("phase 4 TPC-H SF10 join parts: " + json.dumps(
+                dict(tpch_join_parts(tables), card=smi)))
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -1441,6 +1624,36 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
         del tables
         torch.cuda.empty_cache()
     return by_query, tpch_calls
+
+
+def tpch_join_parts(tables):
+    """ms of two parts of the join queries at SF10, on the queries' own
+    inputs: q3's (and q10's) attempt of the multi tier with lineitem as
+    the build side, which fails on fan-out before the swapped build runs;
+    q4's semi join against the late lineitems, and the sort of their keys
+    inside it."""
+    from cudf_tpu_torch.engine import col, from_dataframe, lit
+    from cudf_tpu_torch.models import tpch
+    from cudf_tpu_torch.ops import join
+
+    li, o, c = tables["lineitem"], tables["orders"], tables["customer"]
+    q3_orders = (from_dataframe(c).filter(col("c_mktsegment") == lit("BUILDING"))
+                 .join(from_dataframe(o), left_on="c_custkey", right_on="o_custkey")
+                 .filter(col("o_orderdate") < lit(tpch.Q3_CUTOFF)).collect())
+    ok, lk = q3_orders._table["o_orderkey"], li._table["l_orderkey"]
+    check(join._try_radix_inner(ok, lk) is None, "q3: the multi tier served lineitem's build")
+    lo, hi = tpch.Q4_RANGE
+    q4_orders = from_dataframe(o).filter(
+        (col("o_orderdate") >= lit(lo)) & (col("o_orderdate") < lit(hi))).collect()
+    late = from_dataframe(li).filter(col("l_commitdate") < col("l_receiptdate")).collect()
+    qk, late_k = q4_orders._table["o_orderkey"], late._table["l_orderkey"]
+    return {"q3_probe_rows": ok.length, "q3_multi_tier_attempt_ms": device_ms(
+                lambda: join._try_radix_inner(ok, lk)),
+            "q3_swapped_build_ms": device_ms(lambda: join._try_radix_inner(lk, ok, False)),
+            "q4_orders": qk.length, "q4_late_lineitems": late_k.length,
+            "q4_semi_join_ms": device_ms(lambda: join.semi_join([qk], [late_k], False)),
+            "q4_sort_of_late_keys_ms": device_ms(
+                lambda: torch.sort(late_k.data, stable=True))}
 
 
 def main():
@@ -1522,6 +1735,9 @@ def main():
                     "merge_scatter", "bucket_aggregate"],
              "j1": ["digit_histogram", "tile_sort_data", "merge_scatter", "bucket_aggregate",
                     "window_probe"],
+             "j1_sort_merge": [],
+             "j1_dict": ["digit_histogram", "tile_sort_data", "merge_scatter",
+                         "bucket_aggregate", "window_probe"],
              "tpch": TPCH_PATH}
     launches = {name: {} for name in wrappers}
     second_pass = {}
@@ -1645,7 +1861,16 @@ def main():
         log(f"phase 5 J1 j1_join {size}: {ms:.3f} ms = {N / ms * 1e3:.4g} probe rows/s; "
             f"plain torch {plain:.3f} ms = {N / plain * 1e3:.4g} probe rows/s [{smi}]")
 
-    del frames, rows_i, lf, rf, lcodes, rcodes
+    del rows_i, lf, rf, lcodes, rcodes
+    torch.cuda.empty_cache()
+    j1_sort_merge_phase(ct, frames, drive, smi)
+    check(not any(launches[n]["j1_sort_merge"] for n in wrappers),
+          "the J1 sort-merge joins launched a kernel of A-H")
+    v1 = frames["fact_big"]._table["v1"].data
+    del frames
+    torch.cuda.empty_cache()
+    j1_dict_phase(ct, dev, gen, v1, drive, smi)
+    del v1
     torch.cuda.empty_cache()
     plains = {"onehot_groupby_aggregate": ha.onehot_groupby_aggregate_plain,
               "digit_histogram": rp.digit_histogram_plain,

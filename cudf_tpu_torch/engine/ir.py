@@ -8,10 +8,8 @@ frames, and every node runs there through the ``ops`` layer.
 
 Not ported, and raising NotImplementedError when built: ``Scan`` and
 ``Sink`` (file IO, ROADMAP.md queue 1, item 7), ``Rolling`` (frame
-windows, item 8), ``ConditionalJoin`` and ``MergeSorted`` (the join
-family, item 3), ``MapFunction`` and ``PythonScan`` (the engine's escape
-hatches, which come with the streaming executor, item 10).  ``Join``
-serves ``how="inner"``; the other join types are item 3.
+windows, item 8), ``MapFunction`` and ``PythonScan`` (the engine's escape
+hatches, which come with the streaming executor, item 10).
 """
 
 from __future__ import annotations
@@ -85,16 +83,6 @@ class Sink(IR):
 class Rolling(IR):
     def __init__(self, *args, **kwargs):
         raise _not_ported("Rolling", 8, "frame/window.py")
-
-
-class ConditionalJoin(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("ConditionalJoin", 3, "the join family (ops/join.py)")
-
-
-class MergeSorted(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("MergeSorted", 3, "the join family (ops/join.py merge_sorted)")
 
 
 class MapFunction(IR):
@@ -202,15 +190,27 @@ class Reduce(IR):
                                 [a.evaluate(t) for a in self.aggs])
 
 
+def _pair_device(lt: Table, rt: Table):
+    """The device of a join's tables, which a cross join's maps go to."""
+    dev = lt.device or rt.device
+    if dev is None:
+        raise ValueError("a cross join of two tables without columns has no device")
+    return dev
+
+
 class Join(IR):
-    """Equi-join through ``ops/join.py``; null keys never match (polars'
-    ``join_nulls=False``).  Pairs come in left-row order."""
+    """Equi-join through ``ops/join.py``: ``how`` is inner, left, outer
+    (or full), cross, semi or anti.  Null keys never match (polars'
+    ``join_nulls=False``).  The right side's key columns are dropped; an
+    outer join fills a key that both sides name alike from the right
+    where the left has none.  Semi and anti joins give left rows only."""
+
+    HOWS = ("inner", "left", "outer", "full", "cross", "semi", "anti")
 
     def __init__(self, left: IR, right: IR, left_on: Sequence[str],
                  right_on: Sequence[str], how: str = "inner", suffix: str = "_right"):
-        if how != "inner":
-            raise _not_ported(f"join how={how!r}", 3,
-                              "the sort-merge join tier (ops/join.py _probe_ranges)")
+        if how not in self.HOWS:
+            raise ValueError(f"unknown join how={how!r}")
         self.children = (left, right)
         self.left_on = list(left_on)
         self.right_on = list(right_on)
@@ -219,24 +219,74 @@ class Join(IR):
 
     def schema(self):
         ls = self.children[0].schema()
+        if self.how in ("semi", "anti"):
+            return ls
         rs = [n for n in self.children[1].schema() if n not in self.right_on]
         return ls + [n + self.suffix if n in ls else n for n in rs]
 
     def do_evaluate(self, lt: Table, rt: Table) -> Table:
         from cudf_tpu_torch.ops import copying, join as join_ops
+        from cudf_tpu_torch.ops.replace import replace_nulls_column
 
-        li, ri = join_ops.inner_join([lt[k] for k in self.left_on],
-                                     [rt[k] for k in self.right_on], nulls_equal=False)
-        # an inner join's maps are in range: no bounds check, no masks
-        cols = {n: copying.gather(c, li, bounds_check=False) for n, c in lt.items()}
+        lk = [lt[k] for k in self.left_on]
+        rk = [rt[k] for k in self.right_on]
+        if self.how in ("semi", "anti"):
+            pick = join_ops.semi_join if self.how == "semi" else join_ops.anti_join
+            return copying.gather_table(lt, pick(lk, rk, nulls_equal=False),
+                                        bounds_check=False)
+        if self.how == "cross":
+            li, ri = join_ops.cross_join(lt.num_rows, rt.num_rows, device=_pair_device(lt, rt))
+        else:
+            li, ri = join_ops._join(lk, rk, "outer" if self.how == "full" else self.how,
+                                    nulls_equal=False)
+        # an inner or cross join's maps are in range: no bounds check, no masks
+        check = self.how in ("left", "outer", "full")
+        cols = {}
+        for n, c in lt.items():
+            col = copying.gather(c, li, bounds_check=check)
+            if self.how in ("outer", "full") and n in self.left_on and n in self.right_on:
+                col = replace_nulls_column(col, copying.gather(rt[n], ri, bounds_check=True))
+            cols[n] = col
         for n, c in rt.items():
             if n not in self.right_on:
                 cols[n + self.suffix if n in cols else n] = copying.gather(
-                    c, ri, bounds_check=False)
+                    c, ri, bounds_check=check)
         return Table(cols)
 
     def _explain_args(self):
         return f"(how={self.how}, on={list(zip(self.left_on, self.right_on))})"
+
+
+class ConditionalJoin(IR):
+    """An inner join on a predicate over pairs of rows: ``predicate(lt,
+    rt)`` gets the left and right tables gathered to every (left, right)
+    pair (left-major) and returns a BOOL8 column; the pairs where it is
+    true (not null) are kept.  A right column whose name the left has
+    gets ``_right``."""
+
+    def __init__(self, left: IR, right: IR, predicate, how: str = "inner"):
+        if how != "inner":
+            raise ValueError(f"a conditional join is inner, not {how!r}")
+        self.children = (left, right)
+        self.predicate = predicate
+        self.how = how
+
+    def schema(self):
+        ls = self.children[0].schema()
+        return ls + [n + "_right" if n in ls else n for n in self.children[1].schema()]
+
+    def do_evaluate(self, lt: Table, rt: Table) -> Table:
+        from cudf_tpu_torch.ops import copying, join as join_ops
+        from cudf_tpu_torch.ops.stream_compaction import _mask_of, filter_indices
+
+        li, ri = join_ops.cross_join(lt.num_rows, rt.num_rows, device=_pair_device(lt, rt))
+        lg = copying.gather_table(lt, li, bounds_check=False)
+        rg = copying.gather_table(rt, ri, bounds_check=False)
+        keep = filter_indices(_mask_of(self.predicate(lg, rg)))
+        cols = dict(copying.gather_table(lg, keep, bounds_check=False).items())
+        for n, c in copying.gather_table(rg, keep, bounds_check=False).items():
+            cols[n + "_right" if n in cols else n] = c
+        return Table(cols)
 
 
 class Sort(IR):
@@ -333,6 +383,28 @@ class HConcat(IR):
 
     def do_evaluate(self, *tables: Table) -> Table:
         return Table({n: c for t in tables for n, c in t.items()})
+
+
+class MergeSorted(IR):
+    """A merge of inputs each sorted by the column ``by`` (ascending,
+    nulls last): their rows in one sorted order, ties in input order."""
+
+    def __init__(self, by: str, *children: IR):
+        self.children = tuple(children)
+        self.by = by
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, *tables: Table) -> Table:
+        from cudf_tpu_torch.ops import copying, join as join_ops
+
+        order = join_ops.merge_sorted([[t[self.by]] for t in tables])
+        merged = copying.concatenate_tables(list(tables))
+        return copying.gather_table(merged, order, bounds_check=False)
+
+    def _explain_args(self):
+        return f"(by={self.by})"
 
 
 class Empty(IR):

@@ -46,11 +46,12 @@ class LazyFrame:
 
     def join(self, other: "LazyFrame", on=None, left_on=None, right_on=None,
              how: str = "inner", suffix: str = "_right") -> "LazyFrame":
+        """``how``: inner, left, outer (full), cross (no keys), semi or anti."""
         if on is not None:
             left_on = right_on = [on] if isinstance(on, str) else list(on)
         else:
-            left_on = [left_on] if isinstance(left_on, str) else list(left_on)
-            right_on = [right_on] if isinstance(right_on, str) else list(right_on)
+            left_on = [left_on] if isinstance(left_on, str) else list(left_on or [])
+            right_on = [right_on] if isinstance(right_on, str) else list(right_on or [])
         return LazyFrame(IRs.Join(self._node, other._node, left_on, right_on, how, suffix))
 
     def sort(self, by, descending=False, nulls_last: bool = True) -> "LazyFrame":

@@ -109,8 +109,14 @@ def push_projections(node: IRs.IR, needed: Optional[Set[str]]) -> IRs.IR:
     if isinstance(node, IRs.Join):
         ln = rn = None
         if needed is not None:
-            ln = set(node.left_on) | set(needed)
-            rn = set(node.right_on) | set(needed)
+            # a right column read as <name><suffix> needs <name> on both
+            # sides: the clash is what suffixes it (the reference keeps
+            # only the suffixed name and loses the column)
+            k = len(node.suffix)
+            clashes = {n[:-k] for n in needed
+                       if k and isinstance(n, str) and n.endswith(node.suffix)}
+            ln = set(node.left_on) | set(needed) | clashes
+            rn = set(node.right_on) | set(needed) | clashes
         return IRs.Join(push_projections(node.children[0], ln),
                         push_projections(node.children[1], rn),
                         node.left_on, node.right_on, node.how, node.suffix)

@@ -1,8 +1,8 @@
 """DataFrame (port of ``cudf_tpu/frame/dataframe.py``: construction
 from tensors, numpy arrays (numeric, temporal, strings), lists and
 Categoricals, pandas round trip, column access, ``take``, ``head``, ``sort_values``,
-``sort_index``, ``drop_duplicates``, ``groupby``, ``merge`` and
-``reset_index``).
+``sort_index``, ``drop_duplicates``, ``groupby``, ``merge`` (every join
+type) and ``reset_index``, of some index levels too).
 
 A frame lives where its tensors live.  Host data (numpy arrays, pandas
 frames) needs an explicit ``device=``; nothing picks one by looking for
@@ -125,27 +125,40 @@ class DataFrame:
             return DataFrame._from(self._table.select(key), self._index)
         return Series._from(self._table[key], self._index, key)
 
-    def reset_index(self, drop: bool = False) -> "DataFrame":
+    def reset_index(self, level=None, drop: bool = False) -> "DataFrame":
         """The index becomes the first columns (a MultiIndex one a level),
         named after it (or "index", "level_<i>"), unless drop; the new
-        index is a RangeIndex.  Beside (column, agg) tuple names a new
-        name is padded like pandas' MultiIndex columns: ("k", "")."""
-        if drop:
-            return DataFrame._from(self._table, default_index(len(self)))
+        index is a RangeIndex.  ``level`` (names or positions) resets
+        only those levels of a MultiIndex: the others stay the index.
+        Beside (column, agg) tuple names a new name is padded like
+        pandas' MultiIndex columns: ("k", "")."""
+        index = default_index(len(self))
         if isinstance(self._index, MultiIndex):
             levels = [(name if name is not None else f"level_{i}", col)
                       for i, (name, col) in enumerate(zip(self._index.names,
                                                           self._index._columns))]
+            if level is not None:
+                names = list(self._index.names)
+                sel = {names[lv] if isinstance(lv, int) else lv
+                       for lv in (level if isinstance(level, (list, tuple)) else [level])}
+                keep = [(c, n) for c, n in zip(self._index._columns, names) if n not in sel]
+                levels = [lv for lv, n in zip(levels, names) if n in sel]
+                if len(keep) == 1:
+                    index = Index(keep[0][0], name=keep[0][1])
+                elif keep:
+                    index = MultiIndex([c for c, _ in keep], [n for _, n in keep])
         else:
             name = self._index.name if self._index.name is not None else "index"
             levels = [(name, self._index.column(self.device))]
+        if drop:
+            return DataFrame._from(self._table, index)
         widths = {len(n) for n in self._table.names if isinstance(n, tuple)}
         table = self._table
         for loc, (name, col) in enumerate(levels):
             if widths:
                 name = (name,) + ("",) * (max(widths) - 1)
             table = table.insert(name, col, loc=loc)
-        return DataFrame._from(table, default_index(len(self)))
+        return DataFrame._from(table, index)
 
     # ------------------------------------------------------------------
     # row selection, sorting, dedup
@@ -195,8 +208,8 @@ class DataFrame:
 
     def merge(self, right, on=None, how="inner", left_on=None, right_on=None,
               left_index=False, right_index=False, suffixes=("_x", "_y"), sort=False):
-        """Inner join with ``right`` on one integer key column (see
-        ``frame/join.py``)."""
+        """Join with ``right`` (see ``frame/join.py``): inner, left,
+        right, outer, cross, semi and anti, on columns or both indexes."""
         from cudf_tpu_torch.frame.join import merge as _merge
 
         return _merge(self, right, on=on, how=how, left_on=left_on, right_on=right_on,

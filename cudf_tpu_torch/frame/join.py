@@ -1,14 +1,22 @@
-"""DataFrame merge with pandas semantics, for inner joins (port of
-``cudf_tpu/frame/join.py`` ``merge``).
+"""DataFrame merge with pandas semantics (port of
+``cudf_tpu/frame/join.py`` ``merge``) over ``ops/join.py``'s gather maps.
 
-The key columns are given by ``on`` (emitted once, from the left), or by
-``left_on`` / ``right_on`` (both emitted, except a pair that names the
-same column on both sides: that key is emitted once, from the left, as
-pandas does).  Other columns whose names
-appear on both sides get ``suffixes``.  Rows come in left-row order, with
-right-row order inside each left row, under a fresh RangeIndex.  Other
-``how`` values, ``sort=True`` and index joins need the sort-merge tier,
-which is not ported yet: they raise NotImplementedError.
+- ``how``: inner, left, right, outer (or full), cross, and the
+  reference's semi (leftsemi) and anti (leftanti), which return the left
+  rows with (without) a match under their own index labels.
+- Keys: ``on``, ``left_on`` with ``right_on``, the index on both sides
+  (``left_index`` and ``right_index``), or else the columns both sides
+  share.  A key may name an index level instead of a column; the levels
+  used become columns first.
+- A key given by ``on`` (or a ``left_on`` / ``right_on`` pair naming the
+  same column on both sides) comes out once, from the left; an outer or
+  right join fills its nulls from the right side's key.  Other columns
+  whose names appear on both sides get ``suffixes``.
+- Null keys match null keys, as in pandas.  Rows come in left-row order,
+  with right-row order inside each left row (a right join the other way
+  round; an outer join appends the unmatched right rows), under a fresh
+  RangeIndex, or the joined index when both sides join on theirs.
+  ``sort=True`` orders the rows by the keys (stably).
 """
 
 from __future__ import annotations
@@ -17,41 +25,123 @@ from typing import Tuple
 
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.dataframe import DataFrame
-from cudf_tpu_torch.frame.index import default_index
+from cudf_tpu_torch.frame.index import Index, MultiIndex, default_index
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops import join as join_ops
+from cudf_tpu_torch.ops.replace import replace_nulls_column
 
 
 def _names(keys):
+    if keys is None:
+        return []
     return [keys] if isinstance(keys, str) else list(keys)
+
+
+def _materialize_levels(df: DataFrame, keys) -> DataFrame:
+    """The index levels that ``keys`` name (and no column does) as columns."""
+    missing = [k for k in keys if k not in df._table.names]
+    idx = df._index
+    idx_names = [n for n in (idx.names if isinstance(idx, MultiIndex) else [idx.name])
+                 if n is not None]
+    used = [k for k in missing if k in idx_names]
+    if not used:
+        return df
+    return df.reset_index(level=used if len(used) != len(idx_names) else None)
+
+
+def _index_column(df: DataFrame):
+    if isinstance(df._index, MultiIndex):
+        raise NotImplementedError("a join on a MultiIndex (left_index/right_index over "
+                                  "several levels) is ROADMAP.md queue 1, item 4")
+    return df._index.column(df.device)
 
 
 def merge(left: DataFrame, right: DataFrame, on=None, how: str = "inner",
           left_on=None, right_on=None, left_index: bool = False,
           right_index: bool = False, suffixes: Tuple[str, str] = ("_x", "_y"),
           sort: bool = False) -> DataFrame:
-    if how != "inner" or sort or left_index or right_index:
-        raise NotImplementedError(join_ops.SORT_MERGE_MISSING)
-    if on is not None:
-        lnames = rnames = _names(on)
-        key_names = set(lnames)
-    elif left_on is not None and right_on is not None:
-        lnames, rnames = _names(left_on), _names(right_on)
-        # a key that names the same column on both sides comes out once
-        key_names = {a for a, b in zip(lnames, rnames) if a == b}
-    else:
-        raise NotImplementedError("merge needs on= or both left_on= and right_on= "
-                                  "(keys from the common columns are not ported yet)")
-    li, ri = join_ops.inner_join([left._table[k] for k in lnames],
-                                 [right._table[k] for k in rnames])
+    how = "outer" if how == "full" else how
+    if how not in ("inner", "left", "right", "outer", "cross", "semi", "leftsemi", "anti",
+                   "leftanti"):
+        raise ValueError(f"unknown how={how!r}")
+    both_index = left_index and right_index
+    key_union = _names(on) + _names(left_on) + _names(right_on)
+    if key_union and not both_index:
+        left, right = _materialize_levels(left, key_union), _materialize_levels(right, key_union)
     left_names, right_names = set(left._table.names), set(right._table.names)
+    if how == "cross":
+        if key_union or left_index or right_index:
+            raise ValueError("a cross merge takes no on, left_on, right_on, left_index "
+                             "or right_index")
+        device = left.device or right.device
+        if device is None:
+            raise ValueError("a cross merge of two frames without columns has no device")
+        li, ri = join_ops.cross_join(len(left), len(right), device=device)
+        out = {}
+        for n, col in left._table.items():
+            out[f"{n}{suffixes[0]}" if n in right_names else n] = copying.gather(
+                col, li, bounds_check=False)
+        for n, col in right._table.items():
+            out[f"{n}{suffixes[1]}" if n in left_names else n] = copying.gather(
+                col, ri, bounds_check=False)
+        return DataFrame._from(Table(out), default_index(li.shape[0]))
+
+    if left_index != right_index:
+        raise NotImplementedError("a merge of one side's index with the other side's "
+                                  "columns is ROADMAP.md queue 1, item 4")
+    if both_index:
+        lkeys, rkeys = [_index_column(left)], [_index_column(right)]
+        lnames, key_names = [], set()
+    else:
+        if on is not None:
+            lnames = rnames = _names(on)
+            key_names = set(lnames)
+        elif left_on is not None and right_on is not None:
+            lnames, rnames = _names(left_on), _names(right_on)
+            # a key that names the same column on both sides comes out once
+            key_names = {a for a, b in zip(lnames, rnames) if a == b}
+        elif left_on is None and right_on is None:
+            lnames = rnames = [n for n in left._table.names if n in right_names]
+            if not lnames:
+                raise ValueError("no common columns to merge on")
+            key_names = set(lnames)
+        else:
+            raise ValueError("left_on and right_on go together")
+        lkeys = [left._table[k] for k in lnames]
+        rkeys = [right._table[k] for k in rnames]
+
+    if how in ("semi", "leftsemi"):
+        return left.take(join_ops.semi_join(lkeys, rkeys))
+    if how in ("anti", "leftanti"):
+        return left.take(join_ops.anti_join(lkeys, rkeys))
+    if how == "right":
+        ri, li = join_ops.left_join(rkeys, lkeys)
+    else:
+        li, ri = join_ops._join(lkeys, rkeys, how)
+    coalesce = how in ("outer", "right")
     out = {}
     for n, col in left._table.items():
-        name = f"{n}{suffixes[0]}" if n in right_names and n not in key_names else n
-        out[name] = copying.gather(col, li, bounds_check=True)
+        col = copying.gather(col, li, bounds_check=True)
+        if coalesce and n in key_names and n in right_names:
+            col = replace_nulls_column(col, copying.gather(right._table[n], ri,
+                                                           bounds_check=True))
+        out[f"{n}{suffixes[0]}" if n in right_names and n not in key_names else n] = col
     for n, col in right._table.items():
         if n in key_names and n in left_names:
             continue                                   # the key, emitted from the left
         name = f"{n}{suffixes[1]}" if n in left_names else n
         out[name] = copying.gather(col, ri, bounds_check=True)
-    return DataFrame._from(Table(out), default_index(li.shape[0]))
+    if both_index:
+        idx = copying.gather(lkeys[0], li, bounds_check=True)
+        if coalesce:
+            idx = replace_nulls_column(idx, copying.gather(rkeys[0], ri, bounds_check=True))
+        index = Index(idx, name=left._index.name)
+    else:
+        index = default_index(li.shape[0])
+    res = DataFrame._from(Table(out), index)
+    if not sort:
+        return res
+    if both_index:
+        return res.sort_index()
+    keys = [k for k in lnames if k in res._table.names]
+    return res.sort_values(keys, ignore_index=True) if keys else res

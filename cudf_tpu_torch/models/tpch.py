@@ -1,5 +1,6 @@
-"""TPC-H tables and queries q1, q6, q12 and q14 on the port's LazyFrame
-engine (the port's counterpart of ``benchmarks/tpch.py``).
+"""TPC-H tables and the nine queries of ``benchmarks/tpch.py`` (q1, q3,
+q4, q5, q6, q9, q10, q12 and q14) on the port's LazyFrame engine (the
+port's counterpart of ``benchmarks/tpch.py``).
 
 The tables follow the TPC-H schema with its cardinality ratios: scale
 factor 1 is 6e6 lineitem rows, 1.5e6 orders and 2e5 parts.  Like the
@@ -14,10 +15,13 @@ dbgen.
   ``torch.Generator`` (no bulk copy from the host) in the reference
   ``generate_device``'s layouts: int32 keys, dictionary codes over keys
   from a small host set, ``datetime64[ns]`` dates.
-- ``q1``, ``q6``, ``q12`` and ``q14`` are the reference's plans.
-- ``pandas_reference`` is the reference's pandas version of those four.
-- ``plain_q1`` ... ``plain_q14`` compute the same answers in plain
-  PyTorch over the tables' tensors, apart from the engine.
+- ``q1`` ... ``q14`` are the reference's plans; ``QUERIES`` maps their
+  names to them.
+- ``pandas_reference`` is the reference's pandas version of each.
+- ``plain_q1`` ... ``plain_q14`` (``PLAIN``) compute the same answers in
+  plain PyTorch over the tables' tensors, apart from the engine: masks,
+  dense lookup tables over the build keys, ``index_add_`` and
+  ``bincount``.
 """
 
 from __future__ import annotations
@@ -43,7 +47,12 @@ Q1_CUTOFF = np.datetime64("1998-09-02")
 Q6_RANGE = (np.datetime64("1994-01-01"), np.datetime64("1995-01-01"))
 Q12_RANGE = Q6_RANGE
 Q14_RANGE = (np.datetime64("1995-09-01"), np.datetime64("1995-10-01"))
+Q3_CUTOFF = np.datetime64("1995-03-15")
+Q4_RANGE = (np.datetime64("1993-07-01"), np.datetime64("1993-10-01"))
+Q5_RANGE = Q6_RANGE
+Q10_RANGE = (np.datetime64("1993-10-01"), np.datetime64("1994-01-01"))
 PROMO = "PROMO BURNISHED NICKEL"
+Q9_PARTS = ["green apple", "green forest"]
 
 
 def _sizes(scale: float):
@@ -305,14 +314,132 @@ def q14(tables, no_optimization: bool = False):
     return 100.0 * promo / total if total else 0.0
 
 
-QUERIES = {"q1": q1, "q6": q6, "q12": q12, "q14": q14}
+def q3(tables, no_optimization: bool = False):
+    """Shipping priority: a customer filter on a dictionary, two joins
+    (customer-orders, orders-lineitem), revenue by order on two keys (the
+    sort tier), the top 10 by revenue."""
+    c = from_dataframe(tables["customer"])
+    o = from_dataframe(tables["orders"])
+    li = from_dataframe(tables["lineitem"])
+    plan = (
+        c.filter(col("c_mktsegment") == lit("BUILDING"))
+        .join(o, left_on="c_custkey", right_on="o_custkey")
+        .filter(col("o_orderdate") < lit(Q3_CUTOFF))
+        .join(li, left_on="o_orderkey", right_on="l_orderkey")
+        .filter(col("l_shipdate") > lit(Q3_CUTOFF))
+        .with_columns((col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+                      .alias("revenue"))
+        .group_by("o_orderkey", "o_orderdate")
+        .agg(col("revenue").sum().alias("revenue"))
+        .sort(["revenue", "o_orderdate"], descending=[True, False])
+        .head(10)
+    )
+    return plan.collect(no_optimization=no_optimization)
+
+
+def q4(tables, no_optimization: bool = False):
+    """Order priority checking: a semi join of a quarter's orders against
+    the late lineitems (the sort-merge tier), counts by priority."""
+    o = from_dataframe(tables["orders"])
+    li = from_dataframe(tables["lineitem"])
+    lo, hi = Q4_RANGE
+    late = li.filter(col("l_commitdate") < col("l_receiptdate"))
+    plan = (
+        o.filter((col("o_orderdate") >= lit(lo)) & (col("o_orderdate") < lit(hi)))
+        .join(late, left_on="o_orderkey", right_on="l_orderkey", how="semi")
+        .group_by("o_orderpriority")
+        .agg(col("o_orderkey").count().alias("order_count"))
+        .sort("o_orderpriority")
+    )
+    return plan.collect(no_optimization=no_optimization)
+
+
+def q5(tables, no_optimization: bool = False):
+    """Local supplier volume: five joins from region down to lineitem,
+    the last on two keys (supplier and nation: the sort-merge tier),
+    revenue by nation."""
+    li = from_dataframe(tables["lineitem"])
+    o = from_dataframe(tables["orders"])
+    c = from_dataframe(tables["customer"])
+    s = from_dataframe(tables["supplier"])
+    n = from_dataframe(tables["nation"])
+    r = from_dataframe(tables["region"])
+    lo, hi = Q5_RANGE
+    plan = (
+        r.filter(col("r_name") == lit("ASIA"))
+        .join(n, left_on="r_regionkey", right_on="n_regionkey")
+        .join(c, left_on="n_nationkey", right_on="c_nationkey")
+        .join(o.filter((col("o_orderdate") >= lit(lo)) & (col("o_orderdate") < lit(hi))),
+              left_on="c_custkey", right_on="o_custkey")
+        .join(li, left_on="o_orderkey", right_on="l_orderkey")
+        .join(s, left_on=["l_suppkey", "n_nationkey"], right_on=["s_suppkey", "s_nationkey"])
+        .with_columns(
+            (col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias("volume"))
+        .group_by("n_name")
+        .agg(col("volume").sum().alias("revenue"))
+        .sort("revenue", descending=True)
+    )
+    return plan.collect(no_optimization=no_optimization)
+
+
+def q9(tables, no_optimization: bool = False):
+    """Product type profit: green parts joined to lineitem, supplier,
+    nation and orders; profit by nation."""
+    li = from_dataframe(tables["lineitem"])
+    s = from_dataframe(tables["supplier"])
+    n = from_dataframe(tables["nation"])
+    p = from_dataframe(tables["part"])
+    o = from_dataframe(tables["orders"])
+    plan = (
+        p.filter(col("p_name").is_in(Q9_PARTS))
+        .join(li, left_on="p_partkey", right_on="l_partkey")
+        .join(s, left_on="l_suppkey", right_on="s_suppkey")
+        .join(n, left_on="s_nationkey", right_on="n_nationkey")
+        .join(o, left_on="l_orderkey", right_on="o_orderkey")
+        .with_columns(
+            (col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+             - lit(10.0) * col("l_quantity")).alias("amount"))
+        .group_by("n_name")
+        .agg(col("amount").sum().alias("sum_profit"))
+        .sort("n_name")
+    )
+    return plan.collect(no_optimization=no_optimization)
+
+
+def q10(tables, no_optimization: bool = False):
+    """Returned item reporting: customer-orders-lineitem-nation joins,
+    lost revenue by four keys (the sort tier: an int, a dictionary, a
+    float and a dictionary), the top 20 customers."""
+    c = from_dataframe(tables["customer"])
+    o = from_dataframe(tables["orders"])
+    li = from_dataframe(tables["lineitem"])
+    n = from_dataframe(tables["nation"])
+    lo, hi = Q10_RANGE
+    plan = (
+        c.join(o, left_on="c_custkey", right_on="o_custkey")
+        .filter((col("o_orderdate") >= lit(lo)) & (col("o_orderdate") < lit(hi)))
+        .join(li, left_on="o_orderkey", right_on="l_orderkey")
+        .filter(col("l_returnflag") == lit("R"))
+        .join(n, left_on="c_nationkey", right_on="n_nationkey")
+        .with_columns((col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+                      .alias("revenue"))
+        .group_by("c_custkey", "c_name", "c_acctbal", "n_name")
+        .agg(col("revenue").sum().alias("revenue"))
+        .sort(["revenue", "c_custkey"], descending=[True, False])
+        .head(20)
+    )
+    return plan.collect(no_optimization=no_optimization)
+
+
+QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q9": q9, "q10": q10,
+           "q12": q12, "q14": q14}
 
 
 def pandas_reference(tables, query: str):
     """The same query in pandas, over the tables' ``to_pandas()``."""
     import pandas as pd
 
-    t = {k: tables[k].to_pandas() for k in ("lineitem", "orders", "part")}
+    t = {k: v.to_pandas() for k, v in tables.items()}
     li = t["lineitem"]
     if query == "q1":
         li = li[li.l_shipdate <= pd.Timestamp("1998-09-02")].copy()
@@ -356,6 +483,65 @@ def pandas_reference(tables, query: str):
         rev = df.l_extendedprice * (1 - df.l_discount)
         promo = rev[df.p_type == PROMO].sum()
         return 100.0 * promo / rev.sum() if rev.sum() else 0.0
+    return _pandas_join_queries(t, query)
+
+
+def _pandas_join_queries(t, query: str):
+    """q3, q4, q5, q9 and q10 in pandas (the reference's versions)."""
+    import pandas as pd
+
+    o, li, c, n = t["orders"], t["lineitem"], t["customer"], t["nation"]
+    if query == "q3":
+        cutoff = pd.Timestamp(Q3_CUTOFF)
+        df = c[c.c_mktsegment == "BUILDING"].merge(
+            o[o.o_orderdate < cutoff], left_on="c_custkey", right_on="o_custkey")
+        df = df.merge(li[li.l_shipdate > cutoff], left_on="o_orderkey", right_on="l_orderkey")
+        df["revenue"] = df.l_extendedprice * (1 - df.l_discount)
+        out = (df.groupby(["o_orderkey", "o_orderdate"]).agg(revenue=("revenue", "sum"))
+               .reset_index().sort_values(["revenue", "o_orderdate"], ascending=[False, True])
+               .head(10).reset_index(drop=True))
+        return out[["o_orderkey", "o_orderdate", "revenue"]]
+    if query == "q4":
+        lo, hi = (pd.Timestamp(d) for d in Q4_RANGE)
+        late = li[li.l_commitdate < li.l_receiptdate]
+        sel = o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)]
+        sel = sel[sel.o_orderkey.isin(late.l_orderkey)]
+        return (sel.groupby("o_orderpriority", observed=True)
+                .agg(order_count=("o_orderkey", "count")).reset_index()
+                .sort_values("o_orderpriority").reset_index(drop=True))
+    if query == "q5":
+        r, s = t["region"], t["supplier"]
+        lo, hi = (pd.Timestamp(d) for d in Q5_RANGE)
+        df = r[r.r_name == "ASIA"].merge(n, left_on="r_regionkey", right_on="n_regionkey")
+        df = df.merge(c, left_on="n_nationkey", right_on="c_nationkey")
+        df = df.merge(o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)],
+                      left_on="c_custkey", right_on="o_custkey")
+        df = df.merge(li, left_on="o_orderkey", right_on="l_orderkey")
+        df = df.merge(s, left_on=["l_suppkey", "n_nationkey"],
+                      right_on=["s_suppkey", "s_nationkey"])
+        df["volume"] = df.l_extendedprice * (1 - df.l_discount)
+        return (df.groupby("n_name", observed=True).agg(revenue=("volume", "sum"))
+                .reset_index().sort_values("revenue", ascending=False).reset_index(drop=True))
+    if query == "q9":
+        p, s = t["part"], t["supplier"]
+        df = p[p.p_name.isin(Q9_PARTS)].merge(li, left_on="p_partkey", right_on="l_partkey")
+        df = df.merge(s, left_on="l_suppkey", right_on="s_suppkey")
+        df = df.merge(n, left_on="s_nationkey", right_on="n_nationkey")
+        df = df.merge(o, left_on="l_orderkey", right_on="o_orderkey")
+        df["amount"] = df.l_extendedprice * (1 - df.l_discount) - 10.0 * df.l_quantity
+        return (df.groupby("n_name", observed=True).agg(sum_profit=("amount", "sum"))
+                .reset_index().sort_values("n_name").reset_index(drop=True))
+    if query == "q10":
+        lo, hi = (pd.Timestamp(d) for d in Q10_RANGE)
+        df = c.merge(o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)],
+                     left_on="c_custkey", right_on="o_custkey")
+        df = df.merge(li[li.l_returnflag == "R"], left_on="o_orderkey", right_on="l_orderkey")
+        df = df.merge(n, left_on="c_nationkey", right_on="n_nationkey")
+        df["revenue"] = df.l_extendedprice * (1 - df.l_discount)
+        return (df.groupby(["c_custkey", "c_name", "c_acctbal", "n_name"], observed=True)
+                .agg(revenue=("revenue", "sum")).reset_index()
+                .sort_values(["revenue", "c_custkey"], ascending=[False, True])
+                .head(20).reset_index(drop=True))
     raise ValueError(query)
 
 
@@ -378,6 +564,15 @@ def _codes_of(df, name, wanted):
     """The codes whose keys are in ``wanted``."""
     keys = df._table[name].keys.host_strings()
     return [i for i, k in enumerate(keys) if k in wanted]
+
+
+def _in_codes(df, name, wanted) -> torch.Tensor:
+    """bool per row: whether the dictionary column's key is in ``wanted``."""
+    codes = _data(df, name)
+    hit = torch.zeros_like(codes, dtype=torch.bool)
+    for c in _codes_of(df, name, wanted):
+        hit |= codes == c
+    return hit
 
 
 def _dense_lookup(build: torch.Tensor, probe: torch.Tensor):
@@ -441,16 +636,10 @@ def plain_q12(tables):
     mode = _data(li, "l_shipmode")
     lo, hi = Q12_RANGE
     m = (cd < rd) & (sd < cd) & (rd >= _ns(lo)) & (rd < _ns(hi))
-    wanted = torch.zeros_like(m)
-    for c in _codes_of(li, "l_shipmode", {"MAIL", "SHIP"}):
-        wanted |= mode == c
-    rows = torch.nonzero(m & wanted).squeeze(1)
+    rows = torch.nonzero(m & _in_codes(li, "l_shipmode", {"MAIL", "SHIP"})).squeeze(1)
     found, orow = _dense_lookup(_data(o, "o_orderkey"), _data(li, "l_orderkey")[rows])
     rows, orow = rows[found], orow[found]
-    prio = _data(o, "o_orderpriority")[orow]
-    high = torch.zeros_like(prio, dtype=torch.bool)
-    for c in _codes_of(o, "o_orderpriority", {"1-URGENT", "2-HIGH"}):
-        high |= prio == c
+    high = _in_codes(o, "o_orderpriority", {"1-URGENT", "2-HIGH"})[orow]
     keys = li._table["l_shipmode"].keys.host_strings()
     g = mode[rows].long()
     hi_cnt = torch.bincount(g, weights=high.double(), minlength=len(keys)).long()
@@ -469,12 +658,169 @@ def plain_q14(tables) -> float:
     found, prow = _dense_lookup(_data(p, "p_partkey"), _data(li, "l_partkey")[rows])
     rows, prow = rows[found], prow[found]
     rev = _data(li, "l_extendedprice")[rows] * (1.0 - _data(li, "l_discount")[rows])
-    ptype = _data(p, "p_type")[prow]
-    promo_hit = torch.zeros_like(ptype, dtype=torch.bool)
-    for c in _codes_of(p, "p_type", {PROMO}):
-        promo_hit |= ptype == c
+    promo_hit = _in_codes(p, "p_type", {PROMO})[prow]
     promo, total = torch.stack([torch.where(promo_hit, rev, 0.0).sum(), rev.sum()]).tolist()
     return 100.0 * promo / total if total else 0.0
 
 
-PLAIN = {"q1": plain_q1, "q6": plain_q6, "q12": plain_q12, "q14": plain_q14}
+def _top(keys, n):
+    """Row positions in ascending lexicographic order of the key tensors
+    (the first one most significant), the first n."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order[:n]
+
+
+def plain_q3(tables):
+    """{o_orderkey, o_orderdate (ns ticks), revenue}: the top 10 orders."""
+    c, o, li = tables["customer"], tables["orders"], tables["lineitem"]
+    cut = _ns(Q3_CUTOFF)
+    found, crow = _dense_lookup(_data(c, "c_custkey"), _data(o, "o_custkey"))
+    building = _in_codes(c, "c_mktsegment", {"BUILDING"})
+    o_ok = found & building[crow.clamp(min=0)] & (_data(o, "o_orderdate") < cut)
+    found, orow = _dense_lookup(_data(o, "o_orderkey"), _data(li, "l_orderkey"))
+    rows = torch.nonzero(found & (_data(li, "l_shipdate") > cut)).squeeze(1)
+    orow = orow[rows]
+    keep = o_ok[orow]
+    rows, orow = rows[keep], orow[keep]
+    rev = _data(li, "l_extendedprice")[rows] * (1.0 - _data(li, "l_discount")[rows])
+    total = torch.zeros(len(o), dtype=torch.float64, device=rev.device).index_add_(0, orow, rev)
+    hit = torch.nonzero(torch.bincount(orow, minlength=len(o))).squeeze(1)
+    key, date, revenue = _data(o, "o_orderkey")[hit], _data(o, "o_orderdate")[hit], total[hit]
+    top = _top([-revenue, date, key.long()], 10)
+    return {"o_orderkey": key[top], "o_orderdate": date[top], "revenue": revenue[top]}
+
+
+def plain_q4(tables):
+    """(priorities in sorted order, order counts)."""
+    o, li = tables["orders"], tables["lineitem"]
+    late = _data(li, "l_commitdate") < _data(li, "l_receiptdate")
+    found, orow = _dense_lookup(_data(o, "o_orderkey"), _data(li, "l_orderkey")[late])
+    has_late = torch.zeros(len(o), dtype=torch.bool, device=orow.device)
+    has_late[orow[found]] = True
+    lo, hi = Q4_RANGE
+    od = _data(o, "o_orderdate")
+    m = has_late & (od >= _ns(lo)) & (od < _ns(hi))
+    keys = o._table["o_orderpriority"].keys.host_strings()
+    cnt = torch.bincount(_data(o, "o_orderpriority")[m].long(), minlength=len(keys))
+    present = sorted(torch.nonzero(cnt).squeeze(1).tolist(), key=lambda i: keys[i].encode())
+    return [keys[i] for i in present], cnt[torch.tensor(present, dtype=torch.int64,
+                                                         device=cnt.device)]
+
+
+def _by_nation(tables, nation_row, values, order):
+    """(nation names, sums) over the nations a value falls in, ordered by
+    ``order(names, sums)`` -> positions."""
+    n = tables["nation"]
+    total = torch.zeros(len(n), dtype=torch.float64, device=values.device).index_add_(
+        0, nation_row, values)
+    present = torch.nonzero(torch.bincount(nation_row, minlength=len(n))).squeeze(1)
+    names = n._table["n_name"].to_numpy().tolist()
+    sums = total[present]
+    picked = order([names[i] for i in present.tolist()], sums)
+    return [names[i] for i in present[picked].tolist()], sums[picked]
+
+
+def plain_q5(tables):
+    """(nation names by revenue, descending; revenues)."""
+    li, o, c, s, n, r = (tables[k] for k in ("lineitem", "orders", "customer", "supplier",
+                                             "nation", "region"))
+    asia_region = _in_codes(r, "r_name", {"ASIA"})
+    found, rrow = _dense_lookup(_data(r, "r_regionkey"), _data(n, "n_regionkey"))
+    asia = found & asia_region[rrow.clamp(min=0)]                  # by nation row
+    found, nrow_c = _dense_lookup(_data(n, "n_nationkey"), _data(c, "c_nationkey"))
+    c_ok = found & asia[nrow_c.clamp(min=0)]
+    lo, hi = Q5_RANGE
+    od = _data(o, "o_orderdate")
+    found, crow = _dense_lookup(_data(c, "c_custkey"), _data(o, "o_custkey"))
+    crow = crow.clamp(min=0)
+    o_ok = found & c_ok[crow] & (od >= _ns(lo)) & (od < _ns(hi))
+    o_nation = nrow_c.clamp(min=0)[crow]                           # the order's nation row
+    found, orow = _dense_lookup(_data(o, "o_orderkey"), _data(li, "l_orderkey"))
+    orow = orow.clamp(min=0)
+    sfound, srow = _dense_lookup(_data(s, "s_suppkey"), _data(li, "l_suppkey"))
+    _, snrow = _dense_lookup(_data(n, "n_nationkey"), _data(s, "s_nationkey"))
+    s_nation = snrow[srow.clamp(min=0)]
+    rows = torch.nonzero(found & o_ok[orow] & sfound & (s_nation == o_nation[orow])
+                         ).squeeze(1)
+    vol = _data(li, "l_extendedprice")[rows] * (1.0 - _data(li, "l_discount")[rows])
+    return _by_nation(tables, o_nation[orow[rows]], vol,
+                      lambda names, sums: torch.sort(sums, descending=True, stable=True).indices)
+
+
+def plain_q9(tables):
+    """(nation names in sorted order, profits)."""
+    li, s, n, p, o = (tables[k] for k in ("lineitem", "supplier", "nation", "part", "orders"))
+    green = _in_codes(p, "p_name", set(Q9_PARTS))
+    pfound, prow = _dense_lookup(_data(p, "p_partkey"), _data(li, "l_partkey"))
+    sfound, srow = _dense_lookup(_data(s, "s_suppkey"), _data(li, "l_suppkey"))
+    nfound, snrow = _dense_lookup(_data(n, "n_nationkey"), _data(s, "s_nationkey"))
+    ofound, _ = _dense_lookup(_data(o, "o_orderkey"), _data(li, "l_orderkey"))
+    srow = srow.clamp(min=0)
+    rows = torch.nonzero(pfound & green[prow.clamp(min=0)] & sfound & nfound[srow]
+                         & ofound).squeeze(1)
+    amount = (_data(li, "l_extendedprice")[rows] * (1.0 - _data(li, "l_discount")[rows])
+              - 10.0 * _data(li, "l_quantity")[rows])
+    return _by_nation(tables, snrow[srow[rows]], amount,
+                      lambda names, sums: torch.tensor(
+                          sorted(range(len(names)), key=lambda i: names[i].encode()),
+                          dtype=torch.int64, device=sums.device))
+
+
+def plain_q10(tables):
+    """{c_custkey, c_name (strings), c_acctbal, n_name (strings), revenue}:
+    the top 20 customers."""
+    c, o, li, n = (tables[k] for k in ("customer", "orders", "lineitem", "nation"))
+    lo, hi = Q10_RANGE
+    od = _data(o, "o_orderdate")
+    cfound, crow = _dense_lookup(_data(c, "c_custkey"), _data(o, "o_custkey"))
+    o_ok = cfound & (od >= _ns(lo)) & (od < _ns(hi))
+    found, orow = _dense_lookup(_data(o, "o_orderkey"), _data(li, "l_orderkey"))
+    orow = orow.clamp(min=0)
+    nfound, nrow = _dense_lookup(_data(n, "n_nationkey"), _data(c, "c_nationkey"))
+    crow_li = crow.clamp(min=0)[orow]
+    rows = torch.nonzero(found & o_ok[orow] & _in_codes(li, "l_returnflag", {"R"})
+                         & nfound[crow_li]).squeeze(1)
+    cust = crow_li[rows]
+    rev = _data(li, "l_extendedprice")[rows] * (1.0 - _data(li, "l_discount")[rows])
+    total = torch.zeros(len(c), dtype=torch.float64, device=rev.device).index_add_(0, cust, rev)
+    hit = torch.nonzero(torch.bincount(cust, minlength=len(c))).squeeze(1)
+    key = _data(c, "c_custkey")[hit]
+    top = hit[_top([-total[hit], key.long()], 20)]
+    names = c._table["c_name"].keys.host_strings()
+    nations = n._table["n_name"].to_numpy().tolist()
+    return {"c_custkey": _data(c, "c_custkey")[top],
+            "c_name": [names[i] for i in _data(c, "c_name")[top].tolist()],
+            "c_acctbal": _data(c, "c_acctbal")[top],
+            "n_name": [nations[i] for i in nrow[top].tolist()],
+            "revenue": total[top]}
+
+
+def answer(query: str, res):
+    """A query's result in its plain version's form: q6 and q14 a float;
+    q1 (keys, {column: tensor}); q12 (modes, high, low); q4, q5 and q9
+    (keys, values); q3 and q10 {column: tensor, or strings for a
+    dictionary column}."""
+    if query == "q14":
+        return res
+    t = res._table
+    if query == "q6":
+        return float(t["revenue"].data[0])
+    if query == "q1":
+        keys = list(zip(t["l_returnflag"].to_numpy().tolist(),
+                        t["l_linestatus"].to_numpy().tolist()))
+        return keys, {n: t[n].data for n in t.names if n not in ("l_returnflag",
+                                                                  "l_linestatus")}
+    if query == "q12":
+        return (t["l_shipmode"].to_numpy().tolist(), t["high_line_count"].data,
+                t["low_line_count"].data)
+    if query in ("q4", "q5", "q9"):
+        key, value = t.names
+        return t[key].to_numpy().tolist(), t[value].data
+    return {n: c.to_numpy().tolist() if c.dtype.is_dictionary else c.data
+            for n, c in t.items()}
+
+
+PLAIN = {"q1": plain_q1, "q3": plain_q3, "q4": plain_q4, "q5": plain_q5, "q6": plain_q6,
+         "q9": plain_q9, "q10": plain_q10, "q12": plain_q12, "q14": plain_q14}

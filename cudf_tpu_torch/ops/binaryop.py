@@ -77,6 +77,81 @@ _CMP_FNS = {
 }
 _FLIPPED = {"eq": "eq", "ne": "ne", "lt": "gt", "gt": "lt", "le": "ge", "ge": "le"}
 
+# ----------------------------------------------------------------------
+# uint16/32/64: PyTorch has no CPU (nor CUDA) kernel for most arithmetic
+# and comparisons on them.  uint16 and uint32 values fit int64, where
+# they are computed, then wrapped back by the cast to the result dtype.
+# uint64 travels as its int64 bits: add, sub, mul, pow, the bitwise ops
+# and the left shift give the same bits; the ops that depend on order or
+# divide are done unsigned (``_U64_FNS``).
+# ----------------------------------------------------------------------
+
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+_I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+
+def _i64(x):
+    """An unsigned operand (tensor or Python int) as int64: uint64 as its
+    bits, the others widened."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int64) if x.dtype == torch.uint64 else x.long()
+    x = int(x)
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b for uint64 values held as int64 bits."""
+    return (a ^ _I64_MIN) < (b ^ _I64_MIN)
+
+
+def _ushr(a: torch.Tensor, s) -> torch.Tensor:
+    """Logical right shift of uint64 values held as int64 bits."""
+    if not isinstance(s, torch.Tensor):
+        return a if s == 0 else ((a >> 1) & _I64_MAX) >> (s - 1)
+    return torch.where(s == 0, a, ((a >> 1) & _I64_MAX) >> (s - 1).clamp(min=0))
+
+
+def _udivmod(a: torch.Tensor, b: torch.Tensor):
+    """(a // b, a % b) of uint64 values held as int64 bits, b != 0: for a
+    divisor below 2^63, half of a divided signed, doubled and corrected
+    once; a larger divisor goes at most once."""
+    big = b < 0
+    bs = torch.where(big, 1, b)
+    q = torch.div(_ushr(a, 1), bs, rounding_mode="floor") << 1
+    r = a - q * bs
+    fix = ~_ult(r, bs)
+    q, r = q + fix.long(), r - torch.where(fix, bs, 0)
+    qb = (~_ult(a, b)).long()
+    return torch.where(big, qb, q), torch.where(big, a - qb * b, r)
+
+
+_U64_FNS = {
+    "floordiv": _pair(lambda a, b: _udivmod(a, b)[0]),
+    "mod": _pair(lambda a, b: _udivmod(a, b)[1]),
+    "cmod": _pair(lambda a, b: _udivmod(a, b)[1]),
+    "shiftright": lambda a, b: _ushr(a, b) if isinstance(a, torch.Tensor) else _ushr(
+        torch.as_tensor(a, dtype=torch.int64, device=b.device), b),
+    "min": _pair(lambda a, b: torch.where(_ult(b, a), b, a)),
+    "max": _pair(lambda a, b: torch.where(_ult(a, b), b, a)),
+}
+
+
+def _arith_fn(op: str, storage: torch.dtype):
+    return _U64_FNS.get(op, _ARITH_FNS[op]) if storage == torch.uint64 else _ARITH_FNS[op]
+
+
+def _ordered(x, storage: torch.dtype):
+    """A comparison operand of an unsigned dtype as int64 of the same
+    order (uint64 bits with the top bit flipped)."""
+    x = _i64(x)
+    return x ^ _I64_MIN if storage == torch.uint64 else x
+
+
+def _as_f64(x, storage: torch.dtype):
+    """An int64-held operand's value as float64 (uint64 bits unsigned)."""
+    return x.view(torch.uint64).double() if storage == torch.uint64 else x.double()
+
 
 def scalar_operand(x) -> Tuple[object, dt.DType]:
     """(value, dtype) of a host scalar: the value as a Python scalar (int
@@ -154,6 +229,9 @@ def binary_operation(lhs, rhs, op: str) -> Column:
         else:
             common = dt.common_dtype(l_dtype, r_dtype)
             l_data, r_data = _to(l_data, common), _to(r_data, common)
+            if common.torch_storage in _WIDE_UNSIGNED:
+                st = common.torch_storage
+                l_data, r_data = _ordered(l_data, st), _ordered(r_data, st)
         data = _compare(l_data, r_data, op)
         return Column(dt.BOOL8, n, data, bm.and_masks(l_valid, r_valid))
 
@@ -172,12 +250,14 @@ def binary_operation(lhs, rhs, op: str) -> Column:
         return Column(dt.BOOL8, n, torch.where(lv & rv, eq, lv == rv))
 
     if op in ("null_max", "null_min"):
-        fn = _ARITH_FNS["max" if op == "null_max" else "min"]
+        st = out_dtype.torch_storage
+        fn = _arith_fn("max" if op == "null_max" else "min", st)
         lv = _full_valid(l_valid, n, dev)
         rv = _full_valid(r_valid, n, dev)
-        st = out_dtype.torch_storage
         lval = _dense(_to(l_data, out_dtype), n, dev, st)
         rval = _dense(_to(r_data, out_dtype), n, dev, st)
+        if st in _WIDE_UNSIGNED:
+            lval, rval = _i64(lval), _i64(rval)
         data = torch.where(lv & rv, fn(lval, rval), torch.where(lv, lval, rval))
         validity = lv | rv
         return Column(out_dtype, n, data.to(out_dtype.torch_storage),
@@ -221,25 +301,29 @@ _BOOL_CLOSED = frozenset({"add", "mul", "min", "max", "bitand", "bitor", "bitxor
 
 
 def _arith(l_data, r_data, op: str, out_dtype: dt.DType, n: int, device):
-    fn = _ARITH_FNS[op]
     if out_dtype.is_bool and op not in _BOOL_CLOSED:
         if op == "sub":
             raise TypeError("sub of two bool operands (numpy and the reference raise)")
         # e.g. bool % bool: in int64, a zero divisor giving 0, then bool
         l, r = (_dense(_to(x, dt.INT64), n, device, torch.int64) for x in (l_data, r_data))
         rz = r == 0
-        data = fn(l, torch.where(rz, torch.ones_like(r), r))
+        data = _ARITH_FNS[op](l, torch.where(rz, torch.ones_like(r), r))
         return torch.where(rz, torch.zeros_like(data), data).to(torch.bool), out_dtype
     l, r = _to(l_data, out_dtype), _to(r_data, out_dtype)
+    st = out_dtype.torch_storage
+    fn = _arith_fn(op, st)
+    if st in _WIDE_UNSIGNED:
+        l, r = _i64(l), _i64(r)
+        st = torch.int64
     if op in ("floordiv", "mod", "cmod") and out_dtype.is_integer and (
             isinstance(r, torch.Tensor) or r == 0):
-        st = out_dtype.torch_storage
         l, r = _dense(l, n, device, st), _dense(r, n, device, st)
         rz = r == 0
         if op != "cmod" and bool(rz.any()):
             # pandas: int // 0 gives float +-inf (NaN for 0 // 0), x % 0 NaN,
             # and the result dtype becomes float64
-            lf, rf = l.double(), torch.where(rz, 1.0, r.double())
+            u = out_dtype.torch_storage
+            lf, rf = _as_f64(l, u), torch.where(rz, 1.0, _as_f64(r, u))
             if op == "floordiv":
                 inf = torch.where(lf > 0, float("inf"),
                                   torch.where(lf < 0, float("-inf"), float("nan")))

@@ -720,11 +720,38 @@ _AGG_DISPATCH = {
 }
 
 
+_TEMPORAL_AS_TICKS = frozenset({"mean", "median", "std"})
+
+
+def _temporal_aggregate(col: Column, grouper: Grouper, agg: str) -> Optional[Column]:
+    """pandas' temporal results, or None where the plain dispatch serves:
+    mean and median of timestamps (durations) are timestamps (durations)
+    and std a duration, in the column's unit, their float ticks truncated
+    toward zero; a duration sums to a duration; timestamps do not sum or
+    multiply, and no temporal column has a var (pandas raises TypeError)."""
+    if agg == "var" or (agg in ("sum", "prod", "product") and col.dtype.is_timestamp) or (
+            agg in ("prod", "product")):
+        raise TypeError(f"a {col.dtype!r} column does not support groupby {agg!r}")
+    if agg == "sum":
+        res = group_sum(Column(dt.INT64, col.length, col.data, col.validity), grouper)
+        return Column(col.dtype, res.length, res.data.to(torch.int64), res.validity)
+    if agg not in _TEMPORAL_AS_TICKS:
+        return None
+    res = _AGG_DISPATCH[agg](Column(dt.INT64, col.length, col.data, col.validity), grouper)
+    ticks = torch.where(res.validity, res.data, 0) if res.validity is not None else res.data
+    out = dt.unit_dtype("m", col.dtype.time_unit) if agg == "std" else col.dtype
+    return Column(out, res.length, ticks.to(torch.int64), res.validity)
+
+
 def aggregate(col: Column, grouper: Grouper, agg: str) -> Column:
     """One sort-tier aggregation of col over the grouper's groups."""
     fn = _AGG_DISPATCH.get(agg)
     if fn is None:
         raise _not_ported(agg)
+    if col.dtype.is_temporal:
+        out = _temporal_aggregate(col, grouper, agg)
+        if out is not None:
+            return out
     return fn(col, grouper)
 
 

@@ -37,12 +37,24 @@ def count(col: Column) -> int:
     return col.length if v is None else int(v.sum())
 
 
-def _accumulated(col: Column, fill):
-    """The values in int64 (integers, bool) or float64, fill where skipped."""
+def _accumulated(col: Column, fill, as_float: bool = False):
+    """The values in int64 (integers, bool; uint64 as its bits, which
+    add and multiply as uint64 does) or float64 (floats, or any column
+    with as_float), fill where skipped."""
     _numeric(col, "sum")
     v = _nan_aware_validity(col)
-    x = col.data.double() if col.dtype.is_float else col.data.long()
+    if col.dtype.is_float or as_float:
+        x = col.data.double()
+    elif col.data.dtype == torch.uint64:
+        x = col.data.view(torch.int64)
+    else:
+        x = col.data.long()
     return x if v is None else torch.where(v, x, fill), v
+
+
+def _int_result(col: Column, total: int) -> int:
+    """An int64-held total as the column's integer (uint64 modulo 2^64)."""
+    return int(total) % (1 << 64) if col.data.dtype == torch.uint64 else int(total)
 
 
 def sum(col: Column, min_count: int = 0):  # noqa: A001
@@ -51,17 +63,17 @@ def sum(col: Column, min_count: int = 0):  # noqa: A001
     total, n = torch.stack([x.sum(), n.to(x.dtype)]).tolist()
     if min_count > 0 and n < min_count:
         return None
-    return float(total) if col.dtype.is_float else int(total)
+    return float(total) if col.dtype.is_float else _int_result(col, total)
 
 
 def product(col: Column, min_count: int = 0):
     x, _ = _accumulated(col, 1)
-    return float(x.prod()) if col.dtype.is_float else int(x.prod())
+    return float(x.prod()) if col.dtype.is_float else _int_result(col, x.prod())
 
 
 def sum_of_squares(col: Column):
     x, _ = _accumulated(col, 0)
-    return float((x * x).sum()) if col.dtype.is_float else int((x * x).sum())
+    return float((x * x).sum()) if col.dtype.is_float else _int_result(col, (x * x).sum())
 
 
 def minmax(col: Column):
@@ -94,11 +106,16 @@ def _minmax(col: Column, which: str):
     else:
         info = torch.iinfo(d.dtype if d.dtype != torch.uint64 else torch.int64)
         fill = info.max if which == "min" else info.min
+    flip = d.dtype == torch.uint64        # order-preserving int64: bits ^ 2^63
     if d.dtype in (torch.uint16, torch.uint32):
         d = d.long()
+    elif flip:
+        d = d.view(torch.int64) ^ (-(1 << 63))
     if v is not None:
         d = torch.where(v, d, torch.tensor(fill, dtype=d.dtype, device=d.device))
     val = (d.min() if which == "min" else d.max()).item()
+    if flip:
+        val = (val ^ (-(1 << 63))) % (1 << 64)
     if col.dtype.is_temporal:
         return np.int64(val).astype(col.dtype.to_numpy())
     if col.dtype.is_bool:
@@ -117,6 +134,8 @@ def mean(col: Column):
     n = count(col)
     if n == 0:
         return float("nan")
+    if col.data.dtype == torch.uint64:     # its exact sum wraps at 2^64
+        return float(_accumulated(col, 0, as_float=True)[0].sum()) / n
     return float(sum(col)) / n
 
 
@@ -124,8 +143,7 @@ def var(col: Column, ddof: int = 1):
     n = count(col)
     if n - ddof <= 0:
         return float("nan")
-    x, v = _accumulated(col, 0)
-    x = x.double()
+    x, v = _accumulated(col, 0, as_float=True)
     centered = x - x.sum() / n
     if v is not None:
         centered = torch.where(v, centered, 0.0)
@@ -146,7 +164,12 @@ def all(col: Column) -> bool:  # noqa: A001
 
 def _arg_extreme(col: Column, which: str) -> int:
     v = _nan_aware_validity(col)
-    data = col.data.double() if col.dtype.is_float else col.data.long()
+    if col.dtype.is_float:
+        data = col.data.double()
+    elif col.data.dtype == torch.uint64:           # order-preserving int64
+        data = col.data.view(torch.int64) ^ (-(1 << 63))
+    else:
+        data = col.data.long()
     if v is not None:
         fill = (float("inf") if which == "min" else float("-inf")) if col.dtype.is_float else (
             torch.iinfo(torch.int64).max if which == "min" else torch.iinfo(torch.int64).min)
@@ -203,8 +226,7 @@ def median(col: Column):
 
 
 def _moments(col: Column, orders):
-    x, v = _accumulated(col, 0)
-    x = x.double()
+    x, v = _accumulated(col, 0, as_float=True)
     n = count(col)
     d = x - x.sum() / n
     if v is not None:

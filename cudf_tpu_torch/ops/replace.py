@@ -1,7 +1,7 @@
 """Null fills and NaN and signed-zero normalisation (port of
 ``cudf_tpu/ops/replace.py`` ``replace_nulls_scalar``,
-``normalize_nans_and_zeros`` and ``nans_to_nulls``; the rest is ROADMAP.md
-queue 1, item 6)."""
+``replace_nulls_column``, ``normalize_nans_and_zeros`` and
+``nans_to_nulls``; the rest is ROADMAP.md queue 1, item 1)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,16 @@ def replace_nulls_scalar(col: Column, value) -> Column:
     data = torch.where(col.validity, col.data,
                        torch.tensor(fill, dtype=col.data.dtype, device=col.device))
     return Column(col.dtype, col.length, data)
+
+
+def replace_nulls_column(col: Column, other: Column) -> Column:
+    """cudf::replace_nulls with a column: each null row takes ``other``'s
+    row (which may be null too), in the two columns' common dtype."""
+    if col.validity is None:
+        return col
+    from cudf_tpu_torch.ops.copying import copy_if_else
+
+    return copy_if_else(col.validity, col, other)
 
 
 def normalize_nans_and_zeros(col: Column) -> Column:

@@ -193,17 +193,18 @@ def order_keys(col: Column, ascending: bool = True,
     return _order_operands(col, ascending, na_position, narrow=False)
 
 
-def equality_keys(col: Column) -> List[torch.Tensor]:
+def equality_keys(col: Column, nchunks: Optional[int] = None) -> List[torch.Tensor]:
     """Operands whose tuple equality is row equality (pandas' null and NaN
     rules): the validity as int8 when masked, then the value with nulls
     zeroed (floats as canonical bits, uint64 as its int64 view, uint16 and
-    uint32 widened to int64)."""
+    uint32 widened to int64; a STRING column's ``nchunks`` chunks, by
+    default as many as its longest row needs, then its length)."""
     _refuse_layout(col)
     ops: List[torch.Tensor] = []
     if col.validity is not None:
         ops.append(col.validity.to(torch.int8))
     if col.dtype.is_string:
-        chunks = string_chunks(col)
+        chunks = string_chunks(col, nchunks)
         return ops + (chunks if col.validity is None else
                       [torch.where(col.validity, c, 0) for c in chunks])
     if col.dtype.is_dictionary:

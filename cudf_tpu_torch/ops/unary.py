@@ -58,6 +58,31 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
 
 
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """numpy's sign: NaN stays NaN (torch.sign gives 0)."""
+    s = torch.sign(x)
+    return torch.where(torch.isnan(x), x, s) if x.is_floating_point() else s
+
+
+_UNSIGNED_WIDE = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def _as_i64(x: torch.Tensor) -> torch.Tensor:
+    """uint16/uint32 values widened to int64, uint64 as its int64 bits."""
+    return x.view(torch.int64) if x.dtype == torch.uint64 else x.long()
+
+
+# uint16/32/64 have no PyTorch kernels for these: abs is the identity,
+# sign 0 or 1, and negate and bit_invert go through int64 (the same low
+# bits), then are wrapped back by the cast to the column's dtype
+_UNSIGNED_FNS = {
+    "abs": lambda x: x,
+    "sign": lambda x: (x != 0).to(x.dtype),
+    "negate": lambda x: -_as_i64(x),
+    "bit_invert": lambda x: ~_as_i64(x),
+}
+
+
 _UNARY_FNS = {
     "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
     "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
@@ -67,7 +92,7 @@ _UNARY_FNS = {
     "log1p": torch.log1p, "expm1": torch.expm1,
     "sqrt": torch.sqrt, "cbrt": _cbrt,
     "ceil": torch.ceil, "floor": torch.floor, "rint": torch.round,
-    "abs": torch.abs, "negate": torch.neg, "sign": torch.sign,
+    "abs": torch.abs, "negate": torch.neg, "sign": _sign,
     "bit_invert": torch.bitwise_not, "not": torch.logical_not,
 }
 _FLOAT_ONLY = frozenset(_UNARY_FNS) - {"ceil", "floor", "rint", "abs", "negate", "sign",
@@ -78,6 +103,10 @@ def unary_operation(col: Column, op: str) -> Column:
     """cudf::unary_operation: integer inputs of the float functions give
     float64, ``not`` gives bool, the rest keep the dtype."""
     fn = _UNARY_FNS[op]
+    if col.dtype.is_bool and op in ("abs", "cbrt"):
+        return col                       # as the reference (torch.abs has no bool kernel)
+    if col.data.dtype in _UNSIGNED_WIDE and op in _UNSIGNED_FNS:
+        fn = _UNSIGNED_FNS[op]
     if op in _FLOAT_ONLY and col.dtype.is_integer:
         data, out = fn(col.data.double()), dt.FLOAT64
     elif op == "not":
@@ -91,17 +120,38 @@ def unary_operation(col: Column, op: str) -> Column:
 
 def round(col: Column, decimals: int = 0, how: str = "half_even") -> Column:  # noqa: A001
     """cudf::round: half_even (pandas') or half_up, to ``decimals``
-    places (an integer column only to negative ones)."""
+    places (an integer column only to negative ones, in its dtype; the
+    reference adds half a step away from zero before flooring, which
+    takes negative values a step too far and halves away from zero)."""
     if col.dtype.is_integer and decimals >= 0:
         return col
     x = col.data
     if col.dtype.is_integer:
-        iscale = 10 ** (-decimals)
-        q = torch.div(x + torch.sign(x) * (iscale // 2), iscale, rounding_mode="floor") * iscale
-        return Column(col.dtype, col.length, q.to(x.dtype), col.validity)
+        return Column(col.dtype, col.length, _round_int(x, 10 ** (-decimals), how).to(x.dtype),
+                      col.validity)
     scale = 10.0 ** decimals
     if how == "half_even":
         data = torch.round(x * scale) / scale
     else:
         data = torch.floor(torch.abs(x) * scale + 0.5) / scale * torch.sign(x)
     return Column(col.dtype, col.length, data.to(x.dtype), col.validity)
+
+
+def _round_int(x: torch.Tensor, step: int, how: str) -> torch.Tensor:
+    """Integers to a multiple of step, halves to the even multiple
+    (half_even) or away from zero (half_up), in int64 (uint64 as its
+    bits, divided unsigned)."""
+    from cudf_tpu_torch.ops.binaryop import _udivmod
+
+    v = _as_i64(x)
+    if x.dtype == torch.uint64:
+        q, r = _udivmod(v, torch.full_like(v, step))
+    else:
+        q = torch.div(v, step, rounding_mode="floor")
+        r = v - q * step                 # 0 <= r < step
+    twice = 2 * r
+    if how == "half_even":
+        up = (twice > step) | ((twice == step) & (q % 2 != 0))
+    else:                                # half away from zero: q < 0 means v < 0
+        up = (twice > step) | ((twice == step) & (q >= 0))
+    return (q + up.long()) * step

@@ -114,3 +114,73 @@ def test_dictionary_gather_binaryop_and_row_ops_match_cpu(dev):
                        binaryop.binary_operation(t_cpu, lit, "lt").data)
     assert torch.equal(row_ops.lex_sort_indices([t_card, card]).cpu(),
                        row_ops.lex_sort_indices([t_cpu, cpu]))
+
+
+UNSIGNED_BINARY = ["add", "sub", "mul", "floordiv", "mod", "pow", "bitand", "bitxor",
+                   "shiftleft", "shiftright", "lt", "ge", "eq", "min", "max", "null_max"]
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_unsigned_scalar_ops_match_cpu(dev, dtype):
+    """Port faults 1, 2, 5 and 6 on the card: every unsigned binary op
+    (values over the whole range, small right operands where they shift,
+    raise or divide, zero divisors among them), abs, negate, sign,
+    bit_invert and round(-1), and the reductions; sign of NaN and abs and
+    cbrt of bool."""
+    from cudf_tpu_torch.ops import reductions, unary
+
+    rng = np.random.default_rng(3)
+    info = np.iinfo(dtype)
+    big = rng.integers(0, int(info.max), 4000, dtype=np.uint64, endpoint=True).astype(dtype)
+    small = rng.integers(0, 6, 4000).astype(dtype)
+    mask = torch.from_numpy(rng.random(4000) > 0.1)
+
+    def cols(device):
+        return (Column.from_numpy(big, device=device).with_validity(mask.to(device)),
+                Column.from_numpy(small, device=device))
+
+    (a, s), (ac, sc) = cols(dev), cols(CPU)
+    for op in UNSIGNED_BINARY:
+        got, exp = binaryop.binary_operation(a, s, op), binaryop.binary_operation(ac, sc, op)
+        assert got.dtype == exp.dtype, op
+        gv = torch.ones(4000, dtype=torch.bool) if got.validity is None else got.validity.cpu()
+        ev = torch.ones(4000, dtype=torch.bool) if exp.validity is None else exp.validity
+        assert torch.equal(gv, ev), op
+        torch.testing.assert_close(got.data.cpu()[ev], exp.data[ev], rtol=0, atol=0,
+                                   equal_nan=True, msg=op)
+    for op in ("abs", "negate", "sign", "bit_invert"):
+        assert torch.equal(unary.unary_operation(a, op).data.cpu(),
+                           unary.unary_operation(ac, op).data), op
+    assert torch.equal(unary.round(a, -1).data.cpu(), unary.round(ac, -1).data)
+    for fn in ("min", "max", "sum", "argmin", "argmax", "product"):
+        assert getattr(reductions, fn)(a) == getattr(reductions, fn)(ac), fn
+    for fn in ("mean", "var", "skew"):
+        np.testing.assert_allclose(getattr(reductions, fn)(a), getattr(reductions, fn)(ac),
+                                   rtol=RTOL)
+    f = np.array([np.nan, -2.5, 0.0, 3.0])
+    assert np.array_equal(unary.unary_operation(Column.from_numpy(f, device=dev), "sign")
+                          .data.cpu().numpy(), np.sign(f), equal_nan=True)
+    b = Column.from_numpy(np.array([True, False, True]), device=dev)
+    for op in ("abs", "cbrt"):
+        assert unary.unary_operation(b, op) is b
+
+
+def test_temporal_group_aggregations_match_cpu(dev):
+    """Port fault 4 on the card: group mean / median / std of timestamps
+    as timestamps and a duration, as on the CPU (mean and std to rtol
+    1e-12: their float64 sums add in another order on the card)."""
+    import cudf_tpu_torch as ct
+
+    rng = np.random.default_rng(4)
+    ticks = rng.integers(0, 10**17, 5000).astype("datetime64[ns]")
+    keys = rng.integers(0, 40, 5000)
+    for agg in ("mean", "median", "std", "min", "max"):
+        got = ct.DataFrame({"k": keys, "t": ticks}, device=dev).groupby("k").agg({"t": agg})
+        exp = ct.DataFrame({"k": keys, "t": ticks}, device=CPU).groupby("k").agg({"t": agg})
+        g, e = got._table["t"], exp._table["t"]
+        assert g.dtype == e.dtype, agg
+        if agg in ("mean", "std"):     # float64 sums of ~1e17 ticks, atomic order on the card
+            np.testing.assert_allclose(g.data.cpu().double().numpy(), e.data.double().numpy(),
+                                       rtol=1e-12, err_msg=agg)
+        else:
+            assert torch.equal(g.data.cpu(), e.data), agg

@@ -251,14 +251,9 @@ def test_unported_paths_raise_naming_their_item(data):
         (lambda: pe.scan_csv("x.csv"), "item 7"),
         (lambda: lf.sink_parquet("x.parquet"), "item 7"),
         (lambda: lf.map_batches(lambda t: t), "item 10"),
-        (lambda: lf.join(lf, on="k", how="left"), "item 3"),
-        (lambda: lf.join(lf, on="k", how="semi"), "item 3"),
         (lambda: pe.col("q").sum().over("k"), "item 8"),
         (lambda: IRs.Rolling(lf._node, "k", 3, []), "item 8"),
-        (lambda: IRs.ConditionalJoin(lf._node, lf._node, None), "item 3"),
-        (lambda: IRs.MergeSorted("k", lf._node), "item 3"),
         (lambda: IRs.PythonScan(lambda: None), "item 10"),
-        (lambda: lf.join(lf, on=["k", "j"]).collect(), "item 3"),
     ]
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -1,7 +1,8 @@
 """cudf_tpu_torch imports neither JAX nor the reference package (its
-engine, models and ops modules included), and the groupby (both the
-kernel tiers and the sort tier), merge and LazyFrame engine paths on CPU
-tensors (TPC-H q1, q6, q12 and q14 over dictionary, string and temporal
+engine, models and ops modules included, the join family's too), and
+the groupby (both the kernel tiers and the sort tier), merge (every
+``how``, the sort-merge tier included) and LazyFrame engine paths on CPU
+tensors (the nine TPC-H queries over dictionary, string and temporal
 columns) touch neither pandas nor pyarrow."""
 
 import ast
@@ -34,10 +35,16 @@ for rows in (0, 1 << 16):               # the radix tier, then the dense tier
     with option_context("join.fast_path_min_rows", rows):
         joined = fact.merge(dim, on="k")
     assert joined._table["w"].data.tolist() == [6.0, 5.0] * 25, rows
+for how in ("left", "outer", "right", "semi", "anti", "cross"):  # the sort-merge tier
+    fact.merge(dim, how=how, **({} if how == "cross" else {"on": "k"}))
+two = fact.merge(fact, on=["k", "v"], how="left", sort=True)
+assert len(two) == 100, len(two)
 from cudf_tpu_torch.models import tpch
 tables = tpch.generate_device(0.002, seed=1, device="cpu")
 assert len(tpch.q1(tables)) == 6 and tpch.q14(tables) > 0
 assert tpch.q6(tables)._table.names == ("revenue",) and len(tpch.q12(tables)) == 2
+for q in ("q3", "q4", "q5", "q9", "q10"):
+    tpch.QUERIES[q](tables)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu", "pandas", "pyarrow"))
 print("LOADED", bad)

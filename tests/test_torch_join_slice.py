@@ -207,23 +207,26 @@ def test_no_matches(kernel_tiers, tier):
 
 
 def test_requests_outside_the_tiers_raise():
+    """The requests the kernel and dense tiers do not serve (a left join,
+    two keys, sort=True, fan-out 9 on both sides, null keys on both sides)
+    raised while the sort-merge tier was missing; they now take it, and
+    each equals pandas."""
     fact, dim = _j1(7)
     f, d = ct.from_pandas(fact, device=CPU), ct.from_pandas(dim, device=CPU)
-    with pytest.raises(NotImplementedError, match="sort-merge tier"):
-        f.merge(d, on="id", how="left")
-    with pytest.raises(NotImplementedError, match="sort-merge tier"):
-        f.merge(f, on=["id", "v1"])
-    with pytest.raises(NotImplementedError, match="sort-merge tier"):
-        f.merge(d, on="id", sort=True)
+    _check(f.merge(d, on="id", how="left").to_pandas(), fact.merge(dim, on="id", how="left"))
+    _check(f.merge(f, on=["id", "v1"]).to_pandas(), fact.merge(fact, on=["id", "v1"]))
+    _check(f.merge(d, on="id", sort=True).to_pandas(), fact.merge(dim, on="id", sort=True))
     many = pd.DataFrame({"id": np.repeat(np.arange(1, 11), 9), "v2": np.arange(90.0)})
-    with pytest.raises(NotImplementedError, match="sort-merge tier"):     # fan-out 9 both ways
-        f.merge(ct.from_pandas(many, device=CPU), on="id")
+    _check(f.merge(ct.from_pandas(many, device=CPU), on="id").to_pandas(),
+           fact.merge(many, on="id"))
     both = pd.DataFrame({"id": pd.array([1, None, 3] * 30, dtype="Int64"), "v2": np.arange(90.0)})
     fact["id"] = pd.array(fact["id"], dtype="Int64")
     fact.loc[::5, "id"] = pd.NA
-    with pytest.raises(NotImplementedError, match="sort-merge tier"):
-        _port(cudf_tpu.DataFrame.from_pandas(fact)).merge(
-            _port(cudf_tpu.DataFrame.from_pandas(both)), on="id")
+    got = _port(cudf_tpu.DataFrame.from_pandas(fact)).merge(
+        _port(cudf_tpu.DataFrame.from_pandas(both)), on="id").to_pandas()
+    exp = fact.merge(both, on="id")                  # pandas pairs the null keys
+    assert exp["id"].isna().any()
+    _check(got, exp.astype({"id": "float64"}))
 
 
 @pytest.mark.parametrize("n_dim", [ND, 30_000])
