@@ -163,6 +163,34 @@ datetime64[ns] dates):
 5. timings: median of 7 warm runs of each query and of its plain
    version, as lineitem rows/s, at SF10 and SF1.
 
+TPC-H in pandas' API, on the same SF10 tables (the slice's main path):
+4. main path: the nine ``tpch.FRAME_QUERIES`` (pandas_reference's bodies
+   over the port's DataFrames: masks, ``__setitem__``, ``assign``,
+   ``isin``, ``merge``, named ``groupby().agg``, ``sort_values``,
+   ``head``, ``Series.sum``), all with every count at 0 before (A, B,
+   F, G, D and H must each have been launched); each answer equal to
+   its LazyFrame query's and to the plain version's (keys, counts and
+   order exact, float sums rtol 1e-9); each query alone, every count at
+   0 before it, must launch exactly the kernels ``TPCH_NEEDS`` names,
+   and every call of them is recorded and replayed against its plain
+   version as in the LazyFrame phase (the frame forms join in another
+   order, so the kernels see other shapes: ``tpch_frame_calls`` in each
+   kernel's row); torch.profiler splits of q1 and q3.
+5. timings: each query beside its LazyFrame form and plain version.
+Then ``agg().over(keys)`` over the 6e7-row lineitem: the mean quantity
+over l_partkey (TPC-H q17's window, 2e6 partitions) and the extended
+price summed over l_returnflag, l_linestatus, each against a plain
+index_add_ / bincount and gather (rtol 1e-9), and timed.
+
+The column primitives under the pandas API at G1_1e8_1e2_5_0's shape
+(groupby-datagen.R with 5% NA: 1e8 rows of id4, id6, v1 and v3, each
+null in 5% of rows): fillna, ffill, bfill, dropna, isna().sum(), cumsum,
+cummax, shift, diff, clip, where, isin, astype, replace, value_counts,
+nunique, astype("category") and a Series sum over one index and over two
+filtered indexes, each against a plain PyTorch expression on the card
+(exact; float scans rtol 1e-9) and timed; ops.scan.ewm_mean at 1e7 rows
+against the same call on the CPU.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -1559,6 +1587,37 @@ def replay_check(wrappers, plains, name, args, what):
     return err
 
 
+def run_replayed(what, q, run, wrappers, plains, calls):
+    """Runs one TPC-H query alone, every launch count at 0 before it, with
+    every call of ``TPCH_NEEDS[q]``'s kernels recorded; checks that it
+    launched exactly those kernels, then replays each recorded call on
+    the card against its plain version at the shapes the query gave it,
+    adding a row for each to ``calls`` by kernel.  Returns the launches."""
+    for w in wrappers.values():
+        w.launches = 0
+    with KernelRecorder(wrappers, TPCH_NEEDS[q]) as rec:
+        run()
+        torch.cuda.synchronize()
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(sorted(launched) == sorted(TPCH_NEEDS[q]),
+          f"{what} launched {launched}, expected {TPCH_NEEDS[q]}")
+    for i, (name, args) in enumerate(rec.calls):   # at the shapes q gave it
+        call = f"{what} call {i} of {name}"
+        err = replay_check(wrappers, plains, name, args, call)
+        params = inspect.signature(plains[name]).parameters
+        row = dict(query=q, call=i, args=_describe(args), max_abs_err=err,
+                   ms=device_ms(lambda: wrappers[name](**args)),
+                   plain_ms=device_ms(lambda: plains[name](**{
+                       k: v for k, v in args.items() if k in params})))
+        calls.setdefault(name, []).append(row)
+        log(f"phase 3 {call} agrees with its plain version: {json.dumps(row)}")
+    replayed = sorted({name for name, _ in rec.calls})
+    check(replayed == sorted(TPCH_NEEDS[q]), f"{what}: replayed {replayed}")
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def tpch_phase(dev, smi, wrappers, drive, plains):
     """The nine TPC-H queries at SF10 (the main path) and SF1."""
     from cudf_tpu_torch.models import tpch
@@ -1583,30 +1642,8 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
         del results
         if scale == TPCH_SCALES[0]:
             for q, fn in tpch.QUERIES.items():     # alone, every count at 0 before
-                for w in wrappers.values():
-                    w.launches = 0
-                with KernelRecorder(wrappers, TPCH_NEEDS[q]) as rec:
-                    fn(tables)
-                    torch.cuda.synchronize()
-                by_query[q] = {k: w.launches for k, w in wrappers.items() if w.launches}
-                check(all(by_query[q].get(k, 0) >= 1 for k in TPCH_NEEDS[q]),
-                      f"TPC-H {q} launched {by_query[q]}, needs {TPCH_NEEDS[q]}")
-                check(sorted(by_query[q]) == sorted(TPCH_NEEDS[q]),
-                      f"TPC-H {q} launched {by_query[q]}, expected only {TPCH_NEEDS[q]}")
-                for i, (name, args) in enumerate(rec.calls):   # at the shapes q gave it
-                    what = f"TPC-H SF{scale} {q} call {i} of {name}"
-                    err = replay_check(wrappers, plains, name, args, what)
-                    row = dict(query=q, call=i, args=_describe(args), max_abs_err=err,
-                               ms=device_ms(lambda: wrappers[name](**args)),
-                               plain_ms=device_ms(lambda: plains[name](**{
-                                   k: v for k, v in args.items()
-                                   if k in inspect.signature(plains[name]).parameters})))
-                    tpch_calls.setdefault(name, []).append(row)
-                    log(f"phase 3 {what} agrees with its plain version: {json.dumps(row)}")
-                check(sorted({name for name, _ in rec.calls}) == sorted(TPCH_NEEDS[q]),
-                      f"TPC-H {q}: replayed {sorted({name for name, _ in rec.calls})}")
-                rec.calls.clear()
-                torch.cuda.empty_cache()
+                by_query[q] = run_replayed(f"TPC-H SF{scale} {q}", q, lambda: fn(tables),
+                                           wrappers, plains, tpch_calls)
             check(not by_query["q1"] and not by_query["q6"], "TPC-H q1 or q6 launched A-H")
             log(f"phase 4 TPC-H SF{scale} launches by query: {by_query}")
             for q in ("q1", "q3", "q9"):
@@ -1615,6 +1652,9 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
                      "card": smi}))
             log("phase 4 TPC-H SF10 join parts: " + json.dumps(
                 dict(tpch_join_parts(tables), card=smi)))
+            frame_by_query, frame_calls, frame_times = tpch_frame_phase(
+                tables, smi, wrappers, drive, plains)
+            over_rows = over_phase(tables, smi)
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -1623,7 +1663,7 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
             torch.cuda.empty_cache()
         del tables
         torch.cuda.empty_cache()
-    return by_query, tpch_calls
+    return by_query, tpch_calls, frame_by_query, frame_calls, frame_times, over_rows
 
 
 def tpch_join_parts(tables):
@@ -1654,6 +1694,264 @@ def tpch_join_parts(tables):
             "q4_semi_join_ms": device_ms(lambda: join.semi_join([qk], [late_k], False)),
             "q4_sort_of_late_keys_ms": device_ms(
                 lambda: torch.sort(late_k.data, stable=True))}
+
+
+# ----------------------------------------------------------------------
+# TPC-H through the pandas API (the slice's main path), Over, and the
+# column primitives at G1 scale with nulls
+# ----------------------------------------------------------------------
+
+def tpch_frame_phase(tables, smi, wrappers, drive, plains):
+    """The nine queries of ``tpch.FRAME_QUERIES`` (pandas' code over the
+    port's DataFrames) at SF10: each answer equal to the LazyFrame
+    query's and the plain version's, each alone launching exactly
+    ``TPCH_NEEDS``' kernels, whose every call is replayed against its
+    plain version at the shapes the frame form gives it (they differ from
+    the LazyFrame form's: the joins run in another order), each timed
+    beside both; profiles of q1 and q3.  Returns the launches by query,
+    the replayed calls by kernel and the times."""
+    from cudf_tpu_torch.models import tpch
+
+    n_li = len(tables["lineitem"])
+    results = drive("tpch_frame", lambda: {q: fn(tables)
+                                           for q, fn in tpch.FRAME_QUERIES.items()})
+    for q, res in results.items():
+        got = tpch.answer(q, res)
+        err = agree(f"TPC-H frame {q} vs plain", got, tpch.PLAIN[q](tables))
+        agree(f"TPC-H frame {q} vs LazyFrame", got, tpch.answer(q, tpch.QUERIES[q](tables)))
+        log(f"phase 4 TPC-H frame SF10 {q} agrees with its LazyFrame form and plain torch, "
+            f"max abs err {err}")
+    del results
+    torch.cuda.empty_cache()
+    by_query, times, calls = {}, {}, {}
+    for q, fn in tpch.FRAME_QUERIES.items():      # alone, every count at 0 before
+        by_query[q] = run_replayed(f"TPC-H frame SF10 {q}", q, lambda: fn(tables),
+                                   wrappers, plains, calls)
+    log(f"phase 4 TPC-H frame SF10 launches by query: {by_query}")
+    for q in ("q1", "q3"):
+        log(f"phase 4 TPC-H frame {q} torch.profiler split: " + json.dumps(
+            {f"tpch_frame_sf10_{q}_profile": profile_split(
+                lambda: tpch.FRAME_QUERIES[q](tables)), "card": smi}))
+    for q, fn in tpch.FRAME_QUERIES.items():
+        row = {"frame_ms": device_ms(lambda: fn(tables)),
+               "lazy_ms": device_ms(lambda: tpch.QUERIES[q](tables)),
+               "plain_ms": device_ms(lambda: tpch.PLAIN[q](tables))}
+        times[q] = row
+        log(f"phase 5 TPC-H frame SF10 {q}: {row['frame_ms']:.3f} ms = "
+            f"{n_li / row['frame_ms'] * 1e3:.4g} lineitem rows/s; LazyFrame "
+            f"{row['lazy_ms']:.3f} ms; plain torch {row['plain_ms']:.3f} ms [{smi}]")
+        torch.cuda.empty_cache()
+    return by_query, calls, times
+
+
+def over_phase(tables, smi):
+    """``agg().over(keys)`` at SF10 over the 6e7-row lineitem: q17's
+    per-part mean quantity (2e6 partitions) and the extended price summed
+    over returnflag, linestatus (6 partitions), each against a plain
+    PyTorch index_add_ / bincount and gather written apart from the port."""
+    from cudf_tpu_torch.engine import col, from_dataframe
+
+    li = tables["lineitem"]
+    t = li._table
+    lf = from_dataframe(li)
+    part = lambda: lf.with_columns(col("l_quantity").mean().over("l_partkey")  # noqa: E731
+                                   .alias("avg_qty")).collect()
+    flags = lambda: lf.with_columns(  # noqa: E731
+        col("l_extendedprice").sum().over("l_returnflag", "l_linestatus")
+        .alias("flag_price")).collect()
+
+    def plain_part():
+        k = t["l_partkey"].data.long()
+        q = t["l_quantity"].data
+        g = int(k.max()) + 1
+        s = torch.zeros(g, dtype=torch.float64, device=q.device).index_add_(0, k, q)
+        c = torch.bincount(k, minlength=g)
+        return (s / c)[k]
+
+    def plain_flags():
+        rf, ls = t["l_returnflag"], t["l_linestatus"]
+        k = rf.data.long() * ls.keys.length + ls.data.long()
+        s = torch.bincount(k, weights=t["l_extendedprice"].data,
+                           minlength=rf.keys.length * ls.keys.length)
+        return s[k]
+
+    rows = {}
+    for name, fn, plain in (("q17_avg_qty_over_partkey", part, plain_part),
+                            ("price_over_flag_status", flags, plain_flags)):
+        out = fn()._table
+        got = out[out.names[-1]]
+        check(got.validity is None or bool(got.validity.all()), f"Over {name}: nulls")
+        err = same(got.data, plain(), f"Over {name}", float_rtol=1e-9)
+        del out, got
+        rows[name] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain),
+                      "rows": len(li)}
+        log(f"phase 4 Over {name} agrees with plain torch: {json.dumps(rows[name])} [{smi}]")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def g1_nulls_series(ct, dev, gen, n):
+    """G1_1e8_1e2_5_0's shape (groupby-datagen.R with 5% NA): n rows of
+    id4 (1..100), id6 (1..1e6), v1 (1..5) and v3 (U[0, 100)), each null
+    in 5% of rows."""
+    from cudf_tpu_torch.core import dtypes as dt
+    from cudf_tpu_torch.core.column import Column
+
+    def valid():
+        return torch.rand(n, generator=gen, device=dev) >= 0.05
+
+    def ints(hi):
+        return Column(dt.INT32, n, torch.randint(1, hi + 1, (n,), generator=gen, device=dev,
+                                                 dtype=torch.int32), valid())
+
+    v3 = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * 100
+    return ct.DataFrame({"id4": ints(K_LOW), "id6": ints(K_HIGH), "v1": ints(5),
+                         "v3": Column(dt.FLOAT64, n, v3, valid())})
+
+
+def _filled(c, fill):
+    return torch.where(c.validity, c.data, torch.tensor(fill, dtype=c.data.dtype,
+                                                        device=c.device))
+
+
+def _plain_ffill(c):
+    pos = torch.arange(c.length, device=c.device)
+    last = torch.cummax(torch.where(c.validity, pos, -1), 0).values
+    return c.data[last.clamp(min=0)], last >= 0
+
+
+def _plain_value_counts(c):
+    """(keys, counts) of the valid rows: by first appearance, then stably
+    by count, descending."""
+    k = c.data.long()[c.validity]
+    counts = torch.bincount(k)
+    pos = torch.arange(k.shape[0], device=k.device)
+    first = torch.full_like(counts, k.shape[0]).scatter_reduce_(0, k, pos, "amin")
+    keys = torch.nonzero(counts).squeeze(1)
+    keys = keys[torch.argsort(first[keys], stable=True)]
+    keys = keys[torch.argsort(counts[keys], descending=True, stable=True)]
+    return keys, counts[keys]
+
+
+def primitives_phase(ct, dev, gen, smi):
+    """The column primitives under the pandas API at 1e8 G1 rows with 5%
+    nulls, each held against a plain PyTorch expression on the card and
+    timed; ops.scan.ewm_mean at 1e7 rows held to the same call on the CPU."""
+    from cudf_tpu_torch.ops import scan
+
+    df = g1_nulls_series(ct, dev, gen, N)
+    t = df._table
+    v3c, v1c, id4c, id6c = t["v3"], t["v1"], t["id4"], t["id6"]
+    v3, v1, id4, id6 = df["v3"], df["v1"], df["id4"], df["id6"]
+    inf = torch.iinfo(torch.int32)
+    nulls = ~v3c.validity
+
+    def col(s):
+        return s._column
+
+    def data_valid(s):
+        c = col(s)
+        return c.data, c.validity
+
+    def shifted(c):
+        data = torch.cat([c.data.new_zeros(1), c.data[:-1]])
+        valid = torch.cat([c.validity.new_zeros(1), c.validity[:-1]])
+        return data, valid
+
+    def vc_check(s):
+        keys, counts = _plain_value_counts(id4c)
+        return (s._index.column().data.long(), s._column.data), (keys, counts)
+
+    m = v3 > 50.0
+    a, b = v3[m], v1[m]                        # two indexes of one set of labels
+    cases = {
+        "fillna(0)": (lambda: v3.fillna(0.0), lambda: (_filled(v3c, 0.0), None)),
+        "ffill": (lambda: v3.ffill(), lambda: _plain_ffill(v3c)),
+        "bfill": (lambda: v3.bfill(), lambda: tuple(
+            x.flip(0) for x in _plain_ffill(type(v3c)(v3c.dtype, N, v3c.data.flip(0),
+                                                      v3c.validity.flip(0))))),
+        "dropna": (lambda: df.dropna()["v3"], lambda: (v3c.data[
+            v3c.validity & v1c.validity & id4c.validity & id6c.validity], None)),
+        "isna().sum()": (lambda: v3.isna().sum(), lambda: int(nulls.sum())),
+        "cumsum": (lambda: v3.cumsum(), lambda: (torch.cumsum(_filled(v3c, 0.0), 0),
+                                                 v3c.validity)),
+        "cummax": (lambda: v1.cummax(), lambda: (torch.cummax(_filled(v1c, inf.min), 0).values,
+                                                 v1c.validity)),
+        "shift(1)": (lambda: v3.shift(1), lambda: shifted(v3c)),
+        "diff": (lambda: v3.diff(), lambda: (v3c.data - shifted(v3c)[0],
+                                             v3c.validity & shifted(v3c)[1])),
+        "clip": (lambda: v3.clip(10.0, 90.0), lambda: (v3c.data.clamp(10.0, 90.0),
+                                                       v3c.validity)),
+        "where": (lambda: v3.where(v3 > 50.0, 0.0), lambda: (
+            torch.where(v3c.validity & (v3c.data > 50.0), v3c.data, 0.0), None)),
+        "isin": (lambda: id4.isin([1, 2, 3]), lambda: (
+            ((id4c.data >= 1) & (id4c.data <= 3)) & id4c.validity, None)),
+        "astype(float64)": (lambda: v1.astype("float64"), lambda: (v1c.data.double(),
+                                                                   v1c.validity)),
+        "replace": (lambda: v1.replace({1: 100}), lambda: (
+            torch.where(v1c.data == 1, 100, v1c.data).int(), v1c.validity)),
+        "value_counts(id4)": (lambda: id4.value_counts(), None),
+        "nunique(id6)": (lambda: id6.nunique(), lambda: int(
+            (torch.bincount(id6c.data.long()[id6c.validity]) > 0).sum())),
+        "astype(category)": (lambda: id4.astype("category"), lambda: torch.unique(
+            id4c.data[id4c.validity], sorted=True, return_inverse=True)),
+        "v3 + v1 (one index)": (lambda: v3 + v1, lambda: (v3c.data + v1c.data,
+                                                          v3c.validity & v1c.validity)),
+        "v3[m] + v1[m] (two indexes, one set of labels)": (
+            lambda: a + b, lambda: (a._column.data + b._column.data,
+                                    a._column.validity & b._column.validity)),
+    }
+    rows = {}
+    for name, (fn, plain) in cases.items():
+        res = fn()
+        if name == "value_counts(id4)":
+            (gk, gc), (ek, ec) = vc_check(res)
+            err = same(gk, ek, name) + same(gc, ec, name)
+            plain = lambda: _plain_value_counts(id4c)  # noqa: E731
+        elif name == "astype(category)":
+            c = col(res)
+            decoded = c.keys.data[c.data.long()]
+            check(torch.equal(c.validity, id4c.validity), f"{name}: validity")
+            err = same(torch.where(c.validity, decoded, 0), _filled(id4c, 0), name)
+        elif isinstance(res, ct.Series):
+            got_d, got_v = data_valid(res)
+            exp_d, exp_v = plain()
+            if exp_v is None:
+                check(got_v is None or bool(got_v.all()), f"{name}: unexpected nulls")
+                err = same(got_d, exp_d, name, float_rtol=1e-9)
+            else:
+                check(torch.equal(got_v, exp_v), f"{name}: validity differs")
+                err = same(torch.where(got_v, got_d, 0), torch.where(exp_v, exp_d, 0), name,
+                           float_rtol=1e-9)
+        else:
+            check(res == plain(), f"{name}: {res} vs {plain()}")
+            err = 0.0
+        del res
+        rows[name] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain)}
+        log(f"phase 4 primitive {name} at 1e8 G1 rows with 5% nulls agrees with plain torch: "
+            f"{json.dumps(rows[name])} [{smi}]")
+        torch.cuda.empty_cache()
+    del df, t, v3c, v1c, id4c, id6c, v3, v1, id4, id6, a, b, m, cases
+    torch.cuda.empty_cache()
+    x = torch.rand(N // 10, generator=gen, device=dev, dtype=torch.float64)
+    valid = torch.rand(N // 10, generator=gen, device=dev) >= 0.05
+    from cudf_tpu_torch.core import dtypes as dt
+    from cudf_tpu_torch.core.column import Column
+
+    for adjust in (True, False):
+        c = Column(dt.FLOAT64, x.shape[0], x, valid)
+        got = scan.ewm_mean(c, 0.1, adjust=adjust)
+        exp = scan.ewm_mean(Column(dt.FLOAT64, x.shape[0], x.cpu(), valid.cpu()), 0.1,
+                            adjust=adjust)
+        check(torch.equal(got.validity.cpu(), exp.validity), "ewm_mean validity")
+        err = same(got.data.cpu(), exp.data, f"ewm_mean adjust={adjust}", float_rtol=1e-9)
+        row = {"max_abs_err": err, "ms": device_ms(lambda: scan.ewm_mean(c, 0.1, adjust)),
+               "rows": x.shape[0]}
+        rows[f"ewm_mean adjust={adjust}"] = row
+        log(f"phase 4 ops.scan.ewm_mean adjust={adjust} at 1e7 rows on the card agrees with "
+            f"the CPU: {json.dumps(row)} [{smi}]")
+    return rows
+
 
 
 def main():
@@ -1738,7 +2036,7 @@ def main():
              "j1_sort_merge": [],
              "j1_dict": ["digit_histogram", "tile_sort_data", "merge_scatter",
                          "bucket_aggregate", "window_probe"],
-             "tpch": TPCH_PATH}
+             "tpch": TPCH_PATH, "tpch_frame": TPCH_PATH}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -1878,9 +2176,17 @@ def main():
               "merge_scatter": rp.merge_scatter_plain,
               "bucket_aggregate": rp.bucket_aggregate_plain,
               "window_probe": rp.window_probe_plain}
-    by_tpch_query, tpch_calls = tpch_phase(dev, smi, wrappers, drive, plains)
+    (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
+     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains)
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
+    for name, calls in frame_calls.items():
+        kernels[name]["tpch_frame_calls"] = calls
+    log("phase 5 TPC-H frame SF10 times: " + json.dumps({"card": smi, "ms": frame_times,
+                                                         "over": over_rows}))
+    prim = primitives_phase(ct, dev, torch.Generator(device=dev).manual_seed(SEED + 12), smi)
+    log("phase 5 primitives at 1e8 G1 rows with 5% nulls: " + json.dumps(
+        {"card": smi, "ms": prim}))
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -1897,7 +2203,9 @@ def main():
         row.update(source=sources[name][0], replaces=sources[name][1],
                    launches=sum(launches[name].values()), launches_by_path=launches[name],
                    launches_by_g1_query={q: c.get(name, 0) for q, c in by_query.items()},
-                   launches_by_tpch_query={q: c.get(name, 0) for q, c in by_tpch_query.items()})
+                   launches_by_tpch_query={q: c.get(name, 0) for q, c in by_tpch_query.items()},
+                   launches_by_tpch_frame_query={q: c.get(name, 0)
+                                                 for q, c in by_frame_query.items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

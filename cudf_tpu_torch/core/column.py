@@ -13,8 +13,10 @@ Port of ``cudf_tpu/core/column.py`` for these layouts:
   the dictionary's keys (STRING or numeric, no nulls).
 
 ``validity`` is a ``bool`` tensor of the column's length or None (all
-valid).  List, struct, decimal and tz-aware columns are ROADMAP.md queue
-1, item 6.
+valid).  A numeric or bool dtype may carry pandas' nullable provenance
+(``Int64``, ``boolean``, ``Float32`` ...): the layout is the same, and
+``to_pandas_array`` gives the masked pandas array back.  List, struct,
+decimal and tz-aware columns are ROADMAP.md queue 1, item 6.
 
 A column lives where its tensors live, its dictionary's keys included.
 Nothing here picks a device: constructors from host data take
@@ -26,6 +28,7 @@ strings, a dictionary's key ranks) in ``_cache``.
 from __future__ import annotations
 
 import datetime as _datetime
+import numbers
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -39,10 +42,10 @@ _UNITS = ("s", "ms", "us", "ns")
 
 
 def _check_supported(dtype: DType) -> None:
-    if dtype.nullable or dtype.arrow:
+    if dtype.arrow or (dtype.nullable and not (dtype.is_numeric or dtype.is_bool)):
         raise NotImplementedError(
-            f"column dtype {dtype!r}: pandas extension and Arrow dtypes are ROADMAP.md "
-            "queue 1, item 6")
+            f"column dtype {dtype!r}: Arrow and nullable string dtypes are ROADMAP.md "
+            "queue 1, item 2")
     if dtype.is_numeric or dtype.is_bool or dtype.is_string or dtype.is_dictionary:
         return
     if dtype.is_temporal and dtype.tz is None and dtype.time_unit in _UNITS:
@@ -60,7 +63,7 @@ def is_null_scalar(v) -> bool:
         return True
     if isinstance(v, (np.datetime64, np.timedelta64)) and np.isnat(v):
         return True
-    return type(v).__name__ in ("NAType", "NaTType")
+    return type(v).__name__ in ("NAType", "_NAType", "NaTType")
 
 
 def infer_dtype(values: Sequence[Any]) -> DType:
@@ -76,6 +79,8 @@ def infer_dtype(values: Sequence[Any]) -> DType:
                                  unit if unit in _UNITS else "s")
         if isinstance(v, _datetime.datetime):
             return dt.TIMESTAMP_NS
+        if isinstance(v, _datetime.timedelta):
+            return dt.DURATION_NS
         if isinstance(v, (bool, np.bool_)):
             kinds.add("b")
         elif isinstance(v, (int, np.integer)):
@@ -92,12 +97,59 @@ def infer_dtype(values: Sequence[Any]) -> DType:
 
 
 def to_ticks(value, dtype: DType) -> int:
-    """A host timestamp or duration as int ticks of ``dtype``'s unit."""
-    if isinstance(value, _datetime.datetime):
+    """A host timestamp or duration (numpy's, the standard library's or
+    pandas') as int ticks of ``dtype``'s unit."""
+    if hasattr(value, "to_datetime64"):          # pandas' Timestamp, to the ns
+        value = value.to_datetime64()
+    elif hasattr(value, "to_timedelta64"):       # pandas' Timedelta
+        value = value.to_timedelta64()
+    elif isinstance(value, _datetime.datetime):
         value = np.datetime64(value)
+    elif isinstance(value, _datetime.timedelta):
+        value = np.timedelta64(value)
     if isinstance(value, (np.datetime64, np.timedelta64)):
         return int(value.astype(dtype.to_numpy()).astype(np.int64))
     return int(value)
+
+
+# At most this many host values are matched by one equality pass each
+# (``isin``, ``replace``) rather than by a search.
+FEW_VALUES = 16
+
+
+def plain_fixed(dtype: DType) -> bool:
+    """Fixed-width dtypes whose values PyTorch compares on both devices."""
+    return (dtype.is_numeric or dtype.is_bool or dtype.is_temporal) and \
+        dtype.torch_storage not in (torch.uint16, torch.uint32, torch.uint64)
+
+
+def holds(dtype: DType, value) -> bool:
+    """Whether a column of ``dtype`` holds the host scalar without a change
+    of dtype (pandas keeps the dtype then).  A timestamp column holds
+    numpy's, the standard library's and pandas' timestamps without a time
+    zone; a duration column their durations."""
+    if isinstance(value, _datetime.datetime):
+        return dtype.is_timestamp and value.tzinfo is None
+    if isinstance(value, np.datetime64):
+        return dtype.is_timestamp
+    if isinstance(value, (np.timedelta64, _datetime.timedelta)):   # numpy's is Integral
+        return dtype.is_duration
+    if isinstance(value, (bool, np.bool_)):
+        return dtype.is_bool
+    if isinstance(value, numbers.Integral):
+        if not dtype.is_integer:
+            return dtype.is_float
+        info = np.iinfo(dtype.storage)
+        return info.min <= int(value) <= info.max
+    if isinstance(value, numbers.Real):
+        return dtype.is_float or (dtype.is_integer and float(value).is_integer()
+                                  and np.isfinite(value))
+    return isinstance(value, str) and (dtype.is_string or dtype.is_dictionary)
+
+
+_NULLABLE_PANDAS = frozenset(f"{k}Dtype" for k in (
+    "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64", "Boolean",
+    "Float32", "Float64"))
 
 
 def _encode(strings: Sequence[Optional[str]]):
@@ -280,7 +332,8 @@ class Column:
     @classmethod
     def from_pandas(cls, series, *, device) -> "Column":
         """A pandas Series: numpy-backed numeric, bool and datetime64 /
-        timedelta64 columns, str or object strings (nulls from NaN and
+        timedelta64 columns, pandas' nullable integer, boolean and float
+        columns (pd.NA is null), str or object strings (nulls from NaN and
         None), and Categoricals as DICTIONARY32 over their categories (pandas
         itself is not imported)."""
         pdt = series.dtype
@@ -297,10 +350,22 @@ class Column:
         if name == "StringDtype" or (isinstance(pdt, np.dtype) and pdt.kind == "O"):
             return cls.from_numpy(series.to_numpy(dtype=object, na_value=None),
                                   device=device)
+        if name in _NULLABLE_PANDAS:
+            # Int8-Int64, UInt8-UInt64, boolean, Float32/Float64: pd.NA is null
+            # (a NaN a Float column computed stays a value), the dtype keeps
+            # its pandas name
+            logical = dt.dtype(pdt)
+            arr = series.array
+            values = np.asarray(arr.to_numpy(dtype=logical.storage, na_value=0))
+            valid = ~np.asarray(arr.isna(), dtype=bool)
+            if logical.is_float:
+                valid |= np.isnan(values)
+            return cls(logical, values.shape[0], torch.from_numpy(values.copy()).to(device),
+                       bm.from_numpy_mask(valid, device))
         if not isinstance(pdt, np.dtype):
             raise NotImplementedError(
-                f"pandas extension dtype {pdt}: nullable, Arrow and tz-aware columns are "
-                "ROADMAP.md queue 1, item 6")
+                f"pandas extension dtype {pdt}: Arrow and tz-aware columns are "
+                "ROADMAP.md queue 1, item 2")
         return cls.from_numpy(series.to_numpy(), device=device)
 
     # ------------------------------------------------------------------
@@ -365,6 +430,15 @@ class Column:
         and a Categorical over a dictionary's keys."""
         import pandas as pd
 
+        if self.dtype.nullable:
+            values = self.data.cpu().numpy()
+            mask = np.zeros(self.length, bool) if self.validity is None else \
+                ~self.validity.cpu().numpy()
+            if self.dtype.is_bool:
+                return pd.arrays.BooleanArray(values, mask)
+            if self.dtype.is_float:
+                return pd.arrays.FloatingArray(values, mask)
+            return pd.arrays.IntegerArray(values, mask)
         if self.dtype.is_dictionary:
             codes = self.data.cpu().numpy().astype(np.int64)
             if self.validity is not None:

@@ -73,6 +73,17 @@ class Table:
             cols.insert(loc, column)
         return Table.from_pairs(names, cols)
 
+    def drop(self, names: Sequence) -> "Table":
+        gone = set(names)
+        return Table.from_pairs([n for n in self._names if n not in gone],
+                                [c for n, c in self.items() if n not in gone])
+
+    def rename(self, mapping: Dict) -> "Table":
+        return Table.from_pairs([mapping.get(n, n) for n in self._names], self._columns)
+
+    def __contains__(self, name) -> bool:
+        return name in self._names
+
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}: {c.dtype!r}" for n, c in self.items())
         return f"Table[{self.num_rows} rows]({cols})"

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from cudf_tpu_torch.core import dtypes as dt
-from cudf_tpu_torch.core.column import Column, is_null_scalar
+from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 
 
@@ -322,38 +322,10 @@ class IsIn(Expr):
         self._name = child.output_name
 
     def evaluate(self, table: Table) -> Column:
-        from cudf_tpu_torch.ops.search import contains
+        from cudf_tpu_torch.ops.search import is_in_list
 
         v = self.children[0].evaluate(table)
-        km = self._dict_key_mask(v)
-        if km is not None:
-            matched = [i for i, hit in enumerate(km) if hit]
-            codes = v.data
-            if len(matched) <= 16:
-                mask = torch.zeros(v.length, dtype=torch.bool, device=v.device)
-                for c in matched:
-                    mask |= codes == c
-            else:
-                table_ = torch.tensor(km, dtype=torch.bool).to(v.device)
-                mask = table_[codes.clamp(min=0).long()]
-            if v.validity is not None:
-                mask = mask & v.validity
-            return Column(dt.BOOL8, v.length, mask)
-        needles = Column.from_pylist(self.values, device=v.device)
-        return Column(dt.BOOL8, v.length, contains(needles, v))
-
-    def _dict_key_mask(self, v: Column):
-        """Each dictionary entry's membership (a list of K bools), or None
-        when v is not a dictionary or a value is null (the generic path
-        then gives null semantics)."""
-        if not v.dtype.is_dictionary or any(is_null_scalar(x) for x in self.values):
-            return None
-        keys = v.keys
-        if keys.dtype.is_string:
-            vals = {str(x) for x in self.values}
-            return [k in vals for k in keys.host_strings()]
-        vals = set(self.values)
-        return [k in vals for k in keys.data.tolist()]
+        return Column(dt.BOOL8, v.length, is_in_list(v, self.values))
 
     def __repr__(self):
         return f"{self.children[0]!r}.is_in({self.values!r})"
@@ -389,13 +361,31 @@ class Agg(Expr):
 
 
 class Over(Expr):
-    """``agg().over(keys)``: the reference's per-row windowed aggregate.
-    Window expressions come with frame/window.py, ROADMAP.md queue 1,
-    item 8."""
+    """``agg().over(keys)``: a per-row windowed aggregate (SQL ``agg()
+    OVER (PARTITION BY keys)``): the aggregate of each partition, the
+    null-key partition included, gathered back to every member row by
+    its group id."""
 
     def __init__(self, agg: Agg, keys):
-        raise NotImplementedError("agg().over(...) window expressions: frame/window.py is "
-                                  "ROADMAP.md queue 1, item 8")
+        self.children = (agg,)
+        self.keys = list(keys)
+        self._name = agg.output_name
+
+    def evaluate(self, table: Table) -> Column:
+        from cudf_tpu_torch.ops import copying
+        from cudf_tpu_torch.ops import groupby as gb
+
+        agg = self.children[0]
+        value = agg.children[0].evaluate(table)
+        grouper = gb.make_grouper([table[k] for k in self.keys], dropna=False)
+        per_group = gb.aggregate(value, grouper, agg.agg)
+        return copying.gather(per_group, grouper.group_ids, bounds_check=False)
+
+    def references(self):
+        return self.children[0].references() | set(self.keys)
+
+    def __repr__(self):
+        return f"{self.children[0]!r}.over({self.keys})"
 
 
 class Ternary(Expr):

@@ -1,12 +1,25 @@
-"""DataFrame (port of ``cudf_tpu/frame/dataframe.py``: construction
-from tensors, numpy arrays (numeric, temporal, strings), lists and
-Categoricals, pandas round trip, column access, ``take``, ``head``, ``sort_values``,
-``sort_index``, ``drop_duplicates``, ``groupby``, ``merge`` (every join
-type) and ``reset_index``, of some index levels too).
+"""DataFrame (port of ``cudf_tpu/frame/dataframe.py``): a Table of
+columns and an index, with pandas' frame API.
+
+- Construction from tensors, numpy arrays (numeric, temporal, strings),
+  lists, Categoricals, Columns and Series; ``from_pandas`` and
+  ``to_pandas``.
+- Column access: ``df[name]``, ``df.name``, ``df[[names]]``, a boolean
+  mask Series or list, a row slice; ``__setitem__`` aligns a Series by
+  label as pandas does and broadcasts a scalar on the frame's device;
+  ``assign``, ``insert``, ``pop``, ``rename``, ``drop``.
+- Rows: ``iloc``, ``loc``, ``head``, ``tail``, ``take``, ``set_index``,
+  ``reset_index``, sorts, ``drop_duplicates``, ``nlargest``.
+- Per column: missing data, ``astype``, ``clip``, ``where``, scans,
+  arithmetic and comparisons; reductions by column or by row (axis=1).
+- ``groupby`` and ``merge`` (``frame/groupby.py``, ``frame/join.py``).
 
 A frame lives where its tensors live.  Host data (numpy arrays, pandas
 frames) needs an explicit ``device=``; nothing picks one by looking for
-a GPU.  pandas is imported only inside ``to_pandas``.
+a GPU.  pandas is imported only inside ``to_pandas``.  ``__setitem__``
+never writes into a column's buffers: it rebinds the table's column, so
+a frame and a frame filtered from it never share a buffer one of them
+changes; ``copy()`` clones the buffers, as pandas does.
 """
 
 from __future__ import annotations
@@ -16,62 +29,48 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.core import dtypes as dt
+from cudf_tpu_torch.core.column import Column, is_null_scalar
 from cudf_tpu_torch.core.table import Table
-from cudf_tpu_torch.frame.index import Index, MultiIndex, RangeIndex, default_index
-from cudf_tpu_torch.frame.series import Series
+from cudf_tpu_torch.frame.index import Index, MultiIndex, RangeIndex, as_index, default_index
+from cudf_tpu_torch.frame.series import (Series, _bool_array, _clone, _is_listlike, _scalar,
+                                         aligned_mask, column_of, not_ported)
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops import sort as sort_ops
 from cudf_tpu_torch.ops import stream_compaction as sc
+from cudf_tpu_torch.ops._utils import materialize_validity
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 
+# pandas methods the port does not have yet, and the ROADMAP.md item
+# that brings each
+_NOT_PORTED = {
+    "rolling": 8, "resample": 8, "ewm": 8, "map": 4, "apply": 4, "applymap": 4, "agg": 4,
+    "aggregate": 4, "transform": 4, "pipe": 4, "query": 8, "eval": 8, "melt": 8, "stack": 8,
+    "unstack": 8, "transpose": 8, "pivot_table": 8, "pivot": 8, "interpolate": 4,
+    "describe": 4, "corr": 4, "cov": 4, "combine_first": 4, "update": 4, "join": 4,
+    "hash_values": 5, "explode": 6, "to_arrow": 8, "to_csv": 7, "to_json": 7,
+    "to_parquet": 7, "to_orc": 7, "to_feather": 7,
+}
 
-def _on(have: torch.device, want: torch.device) -> bool:
-    """Whether a tensor on ``have`` is on ``want`` ("cuda" names the
-    current card, as torch.device("cuda") does)."""
-    if have.type != want.type:
-        return False
-    index = want.index if want.index is not None or want.type != "cuda" \
-        else torch.cuda.current_device()
-    return have.index == index
 
-
-def _as_column(value, device) -> Column:
-    if isinstance(value, Series):
-        value = value._column
-    if isinstance(value, Column):
-        col = value
-    elif isinstance(value, torch.Tensor):
-        col = Column.from_tensor(value)
-    elif isinstance(value, (np.ndarray, list)):
-        if device is None:
-            raise ValueError("a host column needs an explicit device=")
-        if isinstance(value, list):
-            return Column.from_pylist(value, device=device)
-        return Column.from_numpy(value, device=device)
-    elif type(value).__name__ == "Categorical":
-        if device is None:
-            raise ValueError("a host column needs an explicit device=")
-        import pandas as pd
-
-        return Column.from_pandas(pd.Series(value), device=device)
-    else:
-        raise TypeError(f"cannot build a column from {type(value).__name__}")
-    if device is not None and not _on(col.device, torch.device(device)):
-        raise ValueError(f"column is on {col.device}, frame asked for {device}")
-    return col
+def _names_of(key) -> list:
+    return [key] if not isinstance(key, (list, tuple)) else list(key)
 
 
 class DataFrame:
-    def __init__(self, data: Optional[Dict] = None, index: Optional[Index] = None,
-                 *, device=None):
+    def __init__(self, data: Optional[Dict] = None, index=None, *, device=None):
         """data: {name: torch.Tensor | numpy array | list | pandas
         Categorical | Column | Series}.  Tensors and columns stay on their
         device; host data (numeric, bool, datetime64 / timedelta64, str or
         object strings, Categoricals as dictionary columns) goes to
         ``device``, which it requires."""
-        self._table = Table({k: _as_column(v, device) for k, v in (data or {}).items()})
-        self._index = index if index is not None else default_index(self._table.num_rows)
+        self._table = Table({k: column_of(v, device) for k, v in (data or {}).items()})
+        if index is None:
+            series_index = [v._index for v in (data or {}).values() if isinstance(v, Series)
+                            and not isinstance(v._index, RangeIndex)]
+            index = series_index[0] if series_index else None
+        self._index = as_index(index, device or self.device) if index is not None \
+            else default_index(self._table.num_rows)
         if self._table.num_columns and len(self._index) != self._table.num_rows:
             raise ValueError("index length mismatch")
 
@@ -82,25 +81,107 @@ class DataFrame:
         df._index = index
         return df
 
+    def _new(self, table: Table, index: Optional[Index] = None) -> "DataFrame":
+        return DataFrame._from(table, self._index if index is None else index)
+
+    # ------------------------------------------------------------------
+    # attributes
+    # ------------------------------------------------------------------
     @property
     def index(self) -> Index:
         return self._index
 
+    @index.setter
+    def index(self, value):
+        idx = as_index(value, self.device)
+        if len(idx) != len(self):
+            raise ValueError("length mismatch")
+        self._index = idx
+
     @property
     def device(self) -> Optional[torch.device]:
-        return self._table.column(0).device if self._table.num_columns else None
+        if self._table.num_columns:
+            return self._table.column(0).device
+        return self._index.device
+
+    @property
+    def columns(self) -> list:
+        return list(self._table.names)
+
+    @columns.setter
+    def columns(self, names):
+        names = list(names)
+        if len(names) != self._table.num_columns:
+            raise ValueError("length mismatch")
+        self._table = Table.from_pairs(names, self._table.columns)
+
+    @property
+    def dtypes(self) -> Dict:
+        return {n: c.dtype for n, c in self._table.items()}
+
+    @property
+    def shape(self):
+        return (len(self), self._table.num_columns)
+
+    @property
+    def size(self) -> int:
+        return len(self) * self._table.num_columns
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def empty(self) -> bool:
+        return len(self) == 0 or self._table.num_columns == 0
+
+    @property
+    def values(self) -> np.ndarray:
+        return np.column_stack([c.to_numpy() for c in self._table.columns])
+
+    def to_numpy(self) -> np.ndarray:
+        return self.values
 
     def __len__(self) -> int:
-        return self._table.num_rows
+        return self._table.num_rows if self._table.num_columns else len(self._index)
+
+    def __contains__(self, name) -> bool:
+        return name in self._table
+
+    def __iter__(self):
+        return iter(self._table.names)
+
+    def keys(self) -> list:
+        return self.columns
+
+    def items(self):
+        for n in self._table.names:
+            yield n, self[n]
+
+    def copy(self, deep: bool = True) -> "DataFrame":
+        """A frame over clones of the buffers (views of them unless deep)."""
+        table = Table.from_pairs(self._table.names, [_clone(c) if deep else c
+                                                     for c in self._table.columns])
+        return self._new(table, self._index.copy())
+
+    def to_dict(self, orient: str = "dict") -> Dict:
+        if orient != "list":
+            labels = self._index.to_pylist()
+            return {n: dict(zip(labels, c.to_numpy().tolist())) for n, c in self._table.items()}
+        return {n: c.to_numpy().tolist() for n, c in self._table.items()}
+
+    def __repr__(self) -> str:
+        cols = ", ".join(f"{n}: {c.dtype!r}" for n, c in self._table.items())
+        return f"DataFrame[{len(self)} rows on {self.device}]({cols})"
 
     # ------------------------------------------------------------------
     # pandas round trip
     # ------------------------------------------------------------------
     @classmethod
     def from_pandas(cls, pdf, *, device) -> "DataFrame":
-        """numpy-backed numeric, bool and temporal columns, strings and
-        Categoricals onto ``device``; NaN in a float column and NaT are
-        nulls.  A non-range index becomes an Index."""
+        """numpy-backed numeric, bool and temporal columns, pandas' nullable
+        columns, strings and Categoricals onto ``device``; NaN in a float
+        column and NaT are nulls.  A non-range index becomes an Index."""
         cols = {name: Column.from_pandas(pdf.iloc[:, i], device=device)
                 for i, name in enumerate(pdf.columns)}
         pidx = pdf.index
@@ -115,15 +196,204 @@ class DataFrame:
         import pandas as pd
 
         data = {n: c.to_pandas_array() for n, c in self._table.items()}
-        return pd.DataFrame(data, index=self._index.to_pandas())
+        return pd.DataFrame(data, index=self._index.to_pandas(), columns=self.columns)
 
     # ------------------------------------------------------------------
-    # access
+    # column access
     # ------------------------------------------------------------------
     def __getitem__(self, key):
+        if isinstance(key, Series) and key.dtype.is_bool:
+            return self._filter(key)
+        if isinstance(key, slice):
+            return self.iloc[key]
+        if _is_listlike(key) and len(key) and _bool_array(key):
+            return self._filter(Series._from(column_of(key, self.device), self._index))
         if isinstance(key, list):
-            return DataFrame._from(self._table.select(key), self._index)
+            return self._new(self._table.select(key))
         return Series._from(self._table[key], self._index, key)
+
+    def __getattr__(self, name):
+        try:
+            table = object.__getattribute__(self, "_table")
+        except AttributeError:
+            raise AttributeError(name) from None
+        if name in table.names:
+            return self[name]
+        raise AttributeError(name)
+
+    def _column_for(self, value) -> Column:
+        """A value for a new column: a Series aligned to the frame's labels
+        (a label it lacks null), a scalar broadcast on the frame's device,
+        or an array of the frame's length."""
+        n, dev = len(self), self.device
+        if isinstance(value, Series):
+            if value._index.equals(self._index) or self._table.num_columns == 0 and \
+                    isinstance(self._index, RangeIndex) and len(self._index) == 0:
+                return value._column
+            pos = value._index.get_indexer_for(self._index.column(value.device), value.device)
+            return copying.gather(value._column, pos, bounds_check=True)
+        if _scalar(value):
+            if dev is None:
+                raise ValueError("a scalar column of a frame without columns needs a device")
+            return Column.full(n, value, dt.FLOAT64 if is_null_scalar(value) else None,
+                               device=dev)
+        col = column_of(value, dev)
+        if self._table.num_columns and col.length != n:
+            raise ValueError(f"Length of values ({col.length}) does not match length of "
+                             f"index ({n})")
+        return col
+
+    def __setitem__(self, key, value):
+        if isinstance(key, list):
+            if not isinstance(value, DataFrame):
+                raise NotImplementedError("several columns take a DataFrame")
+            for k, vn in zip(key, value._table.names):
+                self[k] = value[vn]
+            return
+        col = self._column_for(value)
+        if self._table.num_columns == 0 and len(self._index) == 0:
+            self._index = value._index if isinstance(value, Series) else \
+                default_index(col.length)
+        self._table = self._table.insert(key, col)
+
+    def __delitem__(self, key):
+        if key not in self._table:
+            raise KeyError(key)
+        self._table = self._table.drop([key])
+
+    def pop(self, key) -> Series:
+        s = self[key]
+        del self[key]
+        return s
+
+    def insert(self, loc: int, column, value, allow_duplicates: bool = False):
+        if column in self._table and not allow_duplicates:
+            raise ValueError(f"cannot insert {column}, already exists")
+        self._table = self._table.insert(column, self._column_for(value), loc=loc)
+
+    def assign(self, **kwargs) -> "DataFrame":
+        """A new frame with these columns set (a callable takes the frame)."""
+        out = self._new(self._table)
+        for k, v in kwargs.items():
+            out[k] = v(out) if callable(v) else v
+        return out
+
+    def rename(self, mapper=None, columns=None, index=None, axis=0) -> "DataFrame":
+        if mapper is not None:
+            if axis in (1, "columns"):
+                columns = mapper
+            else:
+                index = mapper
+        if index is not None:
+            raise NotImplementedError("rename of index labels: ROADMAP.md queue 1, item 4")
+        m = columns if isinstance(columns, dict) else {c: columns(c) for c in self._table.names}
+        return self._new(self._table.rename(m))
+
+    def drop(self, labels=None, axis=0, columns=None, index=None,
+             errors: str = "raise") -> "DataFrame":
+        if columns is not None or axis in (1, "columns"):
+            names = _names_of(columns if columns is not None else labels)
+            if errors == "raise":
+                missing = [n for n in names if n not in self._table]
+                if missing:
+                    raise KeyError(f"{missing} not found in axis")
+            return self._new(self._table.drop(names))
+        labels = _names_of(index if index is not None else labels)
+        pos = self._index.get_indexer_for(labels, self.device)
+        if errors == "raise" and bool((pos < 0).any()):
+            raise KeyError(f"{labels} not found in axis")
+        keep = torch.ones(len(self), dtype=torch.bool, device=self.device)
+        keep[pos[pos >= 0]] = False
+        return self.take(sc.filter_indices(keep))
+
+    def select_dtypes(self, include=None, exclude=None) -> "DataFrame":
+        def matches(d: dt.DType, spec) -> bool:
+            for s in (spec if isinstance(spec, (list, tuple)) else [spec]):
+                if s in ("number", np.number):
+                    hit = d.is_numeric
+                elif s in ("object", str, "str", "string"):
+                    hit = d.is_string
+                elif s in ("bool", bool):
+                    hit = d.is_bool
+                elif s in ("datetime", "datetime64"):
+                    hit = d.is_timestamp
+                elif s == "category":
+                    hit = d.is_dictionary
+                else:
+                    try:
+                        hit = dt.dtype(s) == d
+                    except TypeError:
+                        hit = False
+                if hit:
+                    return True
+            return False
+
+        names = list(self._table.names)
+        if include is not None:
+            names = [n for n in names if matches(self._table[n].dtype, include)]
+        if exclude is not None:
+            names = [n for n in names if not matches(self._table[n].dtype, exclude)]
+        return self._new(self._table.select(names))
+
+    # ------------------------------------------------------------------
+    # rows
+    # ------------------------------------------------------------------
+    @property
+    def iloc(self):
+        return _DataFrameILoc(self)
+
+    @property
+    def loc(self):
+        return _DataFrameLoc(self)
+
+    @property
+    def at(self):
+        return self.loc
+
+    @property
+    def iat(self):
+        return self.iloc
+
+    def take(self, indices) -> "DataFrame":
+        """The rows at these positions (int64), with their index labels."""
+        indices = torch.as_tensor(indices, device=self.device).long().reshape(-1)
+        return self._new(copying.gather_table(self._table, indices, bounds_check=False),
+                         self._index.take(indices))
+
+    def _slice(self, start: int, stop: int) -> "DataFrame":
+        table = Table.from_pairs(self._table.names, [copying.slice(c, start, stop)
+                                                     for c in self._table.columns])
+        return self._new(table, self._index.slice(start, stop))
+
+    def head(self, n: int = 5) -> "DataFrame":
+        """The first n rows (all but the last -n when n < 0)."""
+        n = len(self) + n if n < 0 else n
+        return self._slice(0, max(0, min(n, len(self))))
+
+    def tail(self, n: int = 5) -> "DataFrame":
+        """The last n rows (all but the first -n when n < 0)."""
+        start = -n if n < 0 else len(self) - min(n, len(self))
+        return self._slice(start, len(self))
+
+    def _filter(self, mask: Series) -> "DataFrame":
+        """The rows where the mask (aligned by label) is True."""
+        return self.take(sc.filter_indices(aligned_mask(self._index, self.device, mask)))
+
+    def set_index(self, keys, drop: bool = True) -> "DataFrame":
+        keys = _names_of(keys)
+        idx = Index(self._table[keys[0]], keys[0]) if len(keys) == 1 else \
+            MultiIndex([self._table[k] for k in keys], keys)
+        return self._new(self._table.drop(keys) if drop else self._table, idx)
+
+    def set_axis(self, labels, axis=0) -> "DataFrame":
+        if axis in (0, "index"):
+            idx = as_index(labels, self.device)
+            if len(idx) != len(self):
+                raise ValueError("length mismatch")
+            return self._new(self._table, idx)
+        out = self._new(self._table)
+        out.columns = labels
+        return out
 
     def reset_index(self, level=None, drop: bool = False) -> "DataFrame":
         """The index becomes the first columns (a MultiIndex one a level),
@@ -151,37 +421,222 @@ class DataFrame:
             name = self._index.name if self._index.name is not None else "index"
             levels = [(name, self._index.column(self.device))]
         if drop:
-            return DataFrame._from(self._table, index)
+            return self._new(self._table, index)
         widths = {len(n) for n in self._table.names if isinstance(n, tuple)}
         table = self._table
         for loc, (name, col) in enumerate(levels):
             if widths:
                 name = (name,) + ("",) * (max(widths) - 1)
             table = table.insert(name, col, loc=loc)
-        return DataFrame._from(table, index)
+        return self._new(table, index)
 
     # ------------------------------------------------------------------
-    # row selection, sorting, dedup
+    # missing data
     # ------------------------------------------------------------------
-    def take(self, indices: torch.Tensor) -> "DataFrame":
-        """The rows at these positions (int64), with their index labels."""
-        indices = indices.long()
-        return DataFrame._from(copying.gather_table(self._table, indices, bounds_check=False),
-                               self._index.take(indices))
+    def _per_column(self, fn, numeric_only: bool = False) -> "DataFrame":
+        cols = []
+        for n, c in self._table.items():
+            s = Series._from(c, self._index, n)
+            keep = numeric_only and not (c.dtype.is_numeric or c.dtype.is_bool)
+            cols.append(c if keep else fn(s)._column)
+        return self._new(Table.from_pairs(self._table.names, cols))
 
-    def head(self, n: int = 5) -> "DataFrame":
-        """The first n rows (all but the last -n when n < 0)."""
-        n = len(self) + n if n < 0 else n
-        n = max(0, min(n, len(self)))
-        table = Table({name: copying.slice(c, 0, n) for name, c in self._table.items()})
-        return DataFrame._from(table, self._index.slice(0, n))
+    def isna(self) -> "DataFrame":
+        return self._per_column(lambda s: s.isna())
 
+    isnull = isna
+
+    def notna(self) -> "DataFrame":
+        return self._per_column(lambda s: s.notna())
+
+    notnull = notna
+
+    def fillna(self, value=None, method=None, limit=None) -> "DataFrame":
+        if isinstance(value, dict):
+            out = self._new(self._table)
+            for k, v in value.items():
+                if k in out._table:
+                    out[k] = out[k].fillna(v)
+            return out
+        return self._per_column(lambda s: s.fillna(value, method, limit))
+
+    def ffill(self, limit=None) -> "DataFrame":
+        return self._per_column(lambda s: s.ffill(limit))
+
+    def bfill(self, limit=None) -> "DataFrame":
+        return self._per_column(lambda s: s.bfill(limit))
+
+    def dropna(self, axis=0, how: str = "any", subset=None, thresh=None) -> "DataFrame":
+        """Rows with a missing value (NaN or null) in any (``how="any"``) or
+        every (``"all"``) column of ``subset``, or with fewer than
+        ``thresh`` present."""
+        if axis not in (0, "index"):
+            raise NotImplementedError("dropna(axis=1): ROADMAP.md queue 1, item 4")
+        names = _names_of(subset) if subset is not None else list(self._table.names)
+        masks = [materialize_validity(nans_to_nulls(self._table[n])) for n in names]
+        if thresh is not None:
+            keep = torch.stack([m.long() for m in masks]).sum(0) >= thresh
+        else:
+            keep = masks[0]
+            for m in masks[1:]:
+                keep = keep & m if how == "any" else keep | m
+        return self.take(sc.filter_indices(keep))
+
+    # ------------------------------------------------------------------
+    # per column
+    # ------------------------------------------------------------------
+    def astype(self, dtype, copy=None, errors: str = "raise") -> "DataFrame":
+        if isinstance(dtype, dict):
+            out = self._new(self._table)
+            for k, v in dtype.items():
+                out[k] = out[k].astype(v, errors=errors)
+            return out
+        return self._per_column(lambda s: s.astype(dtype, errors=errors))
+
+    def abs(self) -> "DataFrame":
+        return self._per_column(lambda s: s.abs())
+
+    def round(self, decimals: int = 0) -> "DataFrame":
+        return self._per_column(lambda s: s.round(decimals), numeric_only=True)
+
+    def clip(self, lower=None, upper=None) -> "DataFrame":
+        return self._per_column(lambda s: s.clip(lower, upper))
+
+    def where(self, cond, other=None) -> "DataFrame":
+        if isinstance(cond, DataFrame):
+            return self._new(Table.from_pairs(self._table.names, [
+                self[n].where(cond[n], other)._column for n in self._table.names]))
+        return self._per_column(lambda s: s.where(cond, other))
+
+    def mask(self, cond, other=None) -> "DataFrame":
+        if isinstance(cond, DataFrame):
+            return self.where(~cond, other)
+        return self._per_column(lambda s: s.mask(cond, other))
+
+    def __invert__(self) -> "DataFrame":
+        return self._per_column(lambda s: ~s)
+
+    def __neg__(self) -> "DataFrame":
+        return self._per_column(lambda s: -s)
+
+    def replace(self, to_replace, value=None) -> "DataFrame":
+        return self._per_column(lambda s: s.replace(to_replace, value))
+
+    def shift(self, periods: int = 1, fill_value=None) -> "DataFrame":
+        return self._per_column(lambda s: s.shift(periods, fill_value=fill_value))
+
+    def diff(self, periods: int = 1) -> "DataFrame":
+        return self._per_column(lambda s: s.diff(periods))
+
+    def cumsum(self) -> "DataFrame":
+        return self._per_column(lambda s: s.cumsum(), numeric_only=True)
+
+    def cumprod(self) -> "DataFrame":
+        return self._per_column(lambda s: s.cumprod(), numeric_only=True)
+
+    def cummin(self) -> "DataFrame":
+        return self._per_column(lambda s: s.cummin(), numeric_only=True)
+
+    def cummax(self) -> "DataFrame":
+        return self._per_column(lambda s: s.cummax(), numeric_only=True)
+
+    def _binop(self, other, op: str, reflect: bool = False) -> "DataFrame":
+        if isinstance(other, DataFrame):
+            names = [n for n in self._table.names if n in other._table]
+            return self._new(Table.from_pairs(names, [
+                self[n]._binop(other[n], op, reflect)._column for n in names]))
+        if isinstance(other, Series):
+            raise NotImplementedError("a frame with a Series broadcast over its columns: "
+                                      "ROADMAP.md queue 1, item 4")
+        return self._per_column(lambda s: s._binop(other, op, reflect))
+
+    # ------------------------------------------------------------------
+    # reductions
+    # ------------------------------------------------------------------
+    def _reduce(self, name: str, numeric_only: bool = False, **kw) -> Series:
+        vals, names = [], []
+        for n, c in self._table.items():
+            if (numeric_only or name not in ("min", "max", "count", "nunique", "idxmin",
+                                             "idxmax", "any", "all")) and \
+                    not (c.dtype.is_numeric or c.dtype.is_bool):
+                continue
+            vals.append(getattr(Series._from(c, self._index, n), name)(**kw))
+            names.append(n)
+        dev = self.device
+        return Series(vals, index=Index(Column.from_pylist(names, device=dev)), device=dev)
+
+    def _row_reduce(self, name: str) -> Series:
+        """sum or mean of each row over the numeric columns (missing skipped)."""
+        num = [c for c in self._table.columns if c.dtype.is_numeric or c.dtype.is_bool]
+        n = len(self)
+        total = torch.zeros(n, dtype=torch.float64, device=self.device)
+        cnt = torch.zeros(n, dtype=torch.int64, device=self.device)
+        for c in num:
+            v = materialize_validity(nans_to_nulls(c)) if c.dtype.is_float \
+                else materialize_validity(c)
+            total += torch.where(v, c.data.double(), 0.0)
+            cnt += v.long()
+        out = total if name == "sum" else total / cnt.clamp(min=1)
+        validity = None if name == "sum" else cnt > 0
+        return Series._from(Column(dt.FLOAT64, n, out, validity), self._index, None)
+
+    def quantile(self, q=0.5, numeric_only: bool = True) -> Series:
+        num = [n for n, c in self._table.items() if c.dtype.is_numeric]
+        if not np.isscalar(q):
+            raise NotImplementedError("DataFrame.quantile of several q: ROADMAP.md queue 1, "
+                                      "item 4")
+        dev = self.device
+        return Series([self[n].quantile(q) for n in num],
+                      index=Index(Column.from_pylist(num, device=dev)), name=q, device=dev)
+
+    def nlargest(self, n: int, columns, keep: str = "first") -> "DataFrame":
+        return self._nselect(n, columns, largest=True)
+
+    def nsmallest(self, n: int, columns, keep: str = "first") -> "DataFrame":
+        return self._nselect(n, columns, largest=False)
+
+    def _nselect(self, n: int, columns, largest: bool) -> "DataFrame":
+        cols = _names_of(columns)
+        for c in cols:
+            d = self._table[c].dtype
+            if d.is_string or d.is_dictionary:
+                raise TypeError(f"Column {c!r} has dtype {d!r}, cannot use method "
+                                f"{'nlargest' if largest else 'nsmallest'!r} with this dtype")
+        return self.sort_values(cols, ascending=not largest).head(max(int(n), 0))
+
+    def duplicated(self, subset=None, keep="first") -> Series:
+        names = _names_of(subset) if subset is not None else list(self._table.names)
+        mask = sc.duplicated_mask([self._table[n] for n in names],
+                                  keep if keep is not False else "none")
+        return Series._from(Column(dt.BOOL8, len(self), mask), self._index, None)
+
+    def value_counts(self, subset=None, normalize: bool = False, sort: bool = True,
+                     ascending: bool = False, dropna: bool = True) -> Series:
+        names = _names_of(subset) if subset is not None else list(self._table.names)
+        out = self.groupby(names if len(names) > 1 else names[0], dropna=dropna,
+                           sort=False).size()
+        if normalize:
+            out = out / len(self)
+        if sort:
+            out = out.sort_values(ascending=ascending)
+        out.name = "proportion" if normalize else "count"
+        return out
+
+    def equals(self, other) -> bool:
+        if not isinstance(other, DataFrame) or self._table.names != other._table.names \
+                or len(self) != len(other):
+            return False
+        return all(self[n].equals(other[n]) for n in self._table.names)
+
+    # ------------------------------------------------------------------
+    # sorting, dedup, joins, groups
+    # ------------------------------------------------------------------
     def sort_values(self, by, ascending=True, na_position: str = "last",
                     ignore_index: bool = False, kind=None) -> "DataFrame":
         """A stable lexicographic sort by the named columns (any ``kind``
         gives the stable order); NaN sorts as null, at ``na_position``
         whatever the direction."""
-        by = [by] if not isinstance(by, (list, tuple)) else list(by)
+        by = _names_of(by)
         asc = [ascending] * len(by) if isinstance(ascending, bool) else list(ascending)
         keys = [nans_to_nulls(self._table[name]) for name in by]
         out = self.take(sort_ops.sorted_order(keys, asc, na_position))
@@ -198,8 +653,7 @@ class DataFrame:
                         ignore_index: bool = False) -> "DataFrame":
         """The first (last; none when keep=False) row of each distinct
         combination of the subset's values, in row order."""
-        names = ([subset] if subset is not None and not isinstance(subset, (list, tuple))
-                 else list(subset or self._table.names))
+        names = _names_of(subset) if subset is not None else list(self._table.names)
         out = self.take(sc.distinct_indices([self._table[n] for n in names],
                                             keep if keep is not False else "none"))
         if ignore_index:
@@ -225,6 +679,145 @@ class DataFrame:
         return DataFrameGroupBy(self, by, sort=sort, dropna=dropna, as_index=as_index,
                                 observed=observed)
 
-    def __repr__(self) -> str:
-        cols = ", ".join(f"{n}: {c.dtype!r}" for n, c in self._table.items())
-        return f"DataFrame[{len(self)} rows on {self.device}]({cols})"
+
+def _reduction(name: str):
+    def method(self, axis=0, numeric_only: bool = False, **kw):
+        if axis in (1, "columns"):
+            if name not in ("sum", "mean"):
+                raise NotImplementedError(f"DataFrame.{name}(axis=1): ROADMAP.md queue 1, "
+                                          "item 4")
+            return self._row_reduce(name)
+        return self._reduce(name, numeric_only, **kw)
+    method.__name__ = name
+    method.__doc__ = f"pandas' {name} of each column (axis=0), as a Series"
+    return method
+
+
+for _name in ("sum", "prod", "mean", "min", "max", "std", "var", "median", "count",
+              "nunique", "any", "all", "idxmin", "idxmax", "skew", "kurtosis", "sem"):
+    setattr(DataFrame, _name, _reduction(_name))
+
+for _name, _item in _NOT_PORTED.items():
+    setattr(DataFrame, _name, not_ported(_name, _item))
+
+for _dunder, _op in (("__add__", "add"), ("__sub__", "sub"), ("__mul__", "mul"),
+                     ("__truediv__", "truediv"), ("__floordiv__", "floordiv"),
+                     ("__mod__", "mod"), ("__pow__", "pow"), ("__eq__", "eq"),
+                     ("__ne__", "ne"), ("__lt__", "lt"), ("__gt__", "gt"), ("__le__", "le"),
+                     ("__ge__", "ge"), ("__and__", "bitand"), ("__or__", "bitor"),
+                     ("__xor__", "bitxor")):
+    def _mk(op=_op):
+        def f(self, other):
+            return self._binop(other, op)
+        return f
+
+    def _mk_r(op=_op):
+        def f(self, other):
+            return self._binop(other, op, reflect=True)
+        return f
+    setattr(DataFrame, _dunder, _mk())
+    if _op not in ("eq", "ne", "lt", "gt", "le", "ge"):
+        setattr(DataFrame, "__r" + _dunder[2:], _mk_r())
+
+
+class _DataFrameILoc:
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def __getitem__(self, key):
+        df = self._df
+        if isinstance(key, tuple):
+            rows, cols = key
+            names = list(df._table.names)
+            if isinstance(cols, (int, np.integer)):
+                if isinstance(rows, (int, np.integer)):
+                    return copying.get_element(df._table.column(int(cols)), int(rows))
+                return df[names[cols]].iloc[rows]
+            sel = names[cols] if isinstance(cols, slice) else [names[c] for c in cols]
+            return df[sel].iloc[rows]
+        if isinstance(key, (int, np.integer)):
+            i = int(key) + (len(df) if key < 0 else 0)
+            return _row(df, i, df._index[i])
+        if isinstance(key, slice):
+            start, stop, step = key.indices(len(df))
+            if step == 1:
+                return df._slice(start, stop)
+            return df.take(torch.arange(start, stop, step, device=df.device))
+        if _bool_array(key):
+            return df._filter(Series._from(column_of(key, df.device), df._index))
+        return df.take(key)
+
+    def __setitem__(self, key, value):
+        df = self._df
+        if not isinstance(key, tuple):
+            raise NotImplementedError("iloc setitem of whole rows: ROADMAP.md queue 1, item 4")
+        rows, col = key
+        name = list(df._table.names)[col] if isinstance(col, (int, np.integer)) else col
+        s = df[name]
+        s.iloc[rows] = value
+        df[name] = s
+
+
+class _DataFrameLoc:
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def __getitem__(self, key):
+        df = self._df
+        if isinstance(key, tuple):
+            rows, cols = key
+            if np.isscalar(rows) and not isinstance(cols, (list, tuple, slice)):
+                return df[cols].loc[rows]
+            sub = df.loc[rows]
+            if not isinstance(sub, DataFrame):
+                return sub[cols] if not isinstance(cols, slice) else sub
+            if isinstance(cols, slice):
+                names = list(df._table.names)
+                s = names.index(cols.start) if cols.start is not None else 0
+                e = names.index(cols.stop) + 1 if cols.stop is not None else len(names)
+                return sub[names[s:e]]
+            return sub[cols] if not isinstance(cols, (list, tuple)) else sub[list(cols)]
+        if isinstance(key, Series) and key.dtype.is_bool:
+            return df._filter(key)
+        if isinstance(key, slice):
+            if key.start is None and key.stop is None:
+                return df._new(df._table)
+            start = 0 if key.start is None else df._index.get_loc(key.start)
+            stop = len(df) - 1 if key.stop is None else df._index.get_loc(key.stop)
+            return df._slice(int(start), int(stop) + 1)
+        if np.isscalar(key):
+            pos = df._index._positions_of(key, df.device)
+            if pos.shape[0] == 0:
+                raise KeyError(key)
+            if pos.shape[0] == 1:
+                return _row(df, int(pos[0]), key)
+            return df.take(pos)
+        if _is_listlike(key) and _bool_array(key):
+            return df._filter(Series._from(column_of(key, df.device), df._index))
+        pos = df._index.get_indexer_for(key, df.device)
+        if bool((pos < 0).any()):
+            raise KeyError(f"labels not in the index: "
+                           f"{np.asarray(key)[(pos < 0).cpu().numpy()]}")
+        return df.take(pos)
+
+    def __setitem__(self, key, value):
+        df = self._df
+        if not isinstance(key, tuple):
+            raise NotImplementedError("loc setitem of whole rows: ROADMAP.md queue 1, item 4")
+        rows, col = key
+        if col in df._table:
+            s = df[col]
+        else:
+            s = Series._from(Column.full(len(df), None, dt.FLOAT64, device=df.device),
+                             df._index, col)
+        s.loc[rows] = value
+        df[col] = s
+
+
+def _row(df: DataFrame, i: int, label) -> Series:
+    """Row i as a Series over the column names (values of mixed columns
+    in their common dtype, strings as strings)."""
+    vals = [copying.get_element(c, i) for c in df._table.columns]
+    return Series(vals, index=Index(Column.from_pylist(list(df._table.names),
+                                                       device=df.device)),
+                  name=label, device=df.device)

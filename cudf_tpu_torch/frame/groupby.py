@@ -35,8 +35,8 @@ _SIMPLE_AGGS = ("sum", "mean", "min", "max", "count", "var", "std", "prod", "any
 class DataFrameGroupBy:
     def __init__(self, obj: DataFrame, by, sort: bool = True, dropna: bool = True,
                  as_index: bool = True, observed: bool = True):
-        """``observed`` is accepted for pandas' signature: the port has no
-        categorical keys."""
+        """``observed`` is accepted for pandas' signature: a dictionary key
+        gives the groups its rows hold, as pandas' observed=True does."""
         by_list = list(by) if isinstance(by, (list, tuple)) else [by]
         if not by_list:
             raise ValueError("groupby needs at least one key")
@@ -64,11 +64,18 @@ class DataFrameGroupBy:
     # ------------------------------------------------------------------
     # aggregation
     # ------------------------------------------------------------------
-    def agg(self, func):
-        """func: 'sum' | ['sum', 'mean'] | {col: agg or [aggs]}.
+    def agg(self, func=None, **named):
+        """func: 'sum' | ['sum', 'mean'] | {col: agg or [aggs]}, or pandas'
+        named aggregation: ``agg(out=(column, agg), ...)``, one output
+        column each, in the order given.
 
         A list, or a dict with any list value, gives (column, agg) tuple
         names, which pandas shows as MultiIndex columns."""
+        if func is None:
+            if not named:
+                raise TypeError("agg needs a spec or named aggregations")
+            return self._run_aggs([(out, col_name, agg)
+                                   for out, (col_name, agg) in named.items()])
         if isinstance(func, str):
             return self.size() if func == "size" else self._apply_simple(func)
         specs: List = []  # (out_name, col_name, agg)

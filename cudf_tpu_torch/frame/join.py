@@ -119,9 +119,12 @@ def merge(left: DataFrame, right: DataFrame, on=None, how: str = "inner",
     else:
         li, ri = join_ops._join(lkeys, rkeys, how)
     coalesce = how in ("outer", "right")
+    # a side's map holds -1 (no match: null) only where the join keeps the
+    # other side's unmatched rows; elsewhere its gathers need no check
+    l_nulls, r_nulls = how in ("outer", "right"), how in ("outer", "left")
     out = {}
     for n, col in left._table.items():
-        col = copying.gather(col, li, bounds_check=True)
+        col = copying.gather(col, li, bounds_check=l_nulls)
         if coalesce and n in key_names and n in right_names:
             col = replace_nulls_column(col, copying.gather(right._table[n], ri,
                                                            bounds_check=True))
@@ -130,9 +133,9 @@ def merge(left: DataFrame, right: DataFrame, on=None, how: str = "inner",
         if n in key_names and n in left_names:
             continue                                   # the key, emitted from the left
         name = f"{n}{suffixes[1]}" if n in left_names else n
-        out[name] = copying.gather(col, ri, bounds_check=True)
+        out[name] = copying.gather(col, ri, bounds_check=r_nulls)
     if both_index:
-        idx = copying.gather(lkeys[0], li, bounds_check=True)
+        idx = copying.gather(lkeys[0], li, bounds_check=l_nulls)
         if coalesce:
             idx = replace_nulls_column(idx, copying.gather(rkeys[0], ri, bounds_check=True))
         index = Index(idx, name=left._index.name)

@@ -1,50 +1,274 @@
-"""Series (port of ``cudf_tpu/frame/series.py``: construction,
-``to_pandas``, ``take`` and ``sort_values``).  Its index may
-be a MultiIndex, as a multi-key groupby's ``size()`` gives."""
+"""Series (port of ``cudf_tpu/frame/series.py``): one column and its
+index, with pandas' column API.
+
+- ``Series(data, index, dtype, name, *, device)`` is pandas' constructor.
+  A tensor, Column or Series stays on its device; host data (lists,
+  numpy arrays, scalars, dicts) needs an explicit ``device``.
+  ``Series._from(column, index, name)`` wraps parts without a copy.
+- Operators align the two indexes by label first (``_align``): one
+  index object, or two views of one range, costs nothing; other
+  indexes are compared once, and differing ones meet over the sorted
+  union of their labels, missing labels null.  Comparisons follow
+  pandas' numpy-dtype rule: a missing value compares False (True for
+  ``!=``); nullable dtypes keep null.
+- Reductions return a host scalar through one sync; NaT for temporal
+  columns and the port's own ``NA`` (``utils/missing.py``) for nullable
+  ones where pandas gives pd.NA.  pandas is imported only by
+  ``to_pandas``.
+- ``__setitem__`` never writes into a buffer: it rebinds the Series to a
+  new column, so a Series and any other holder of the old column never
+  see each other's writes.
+
+Its index may be a MultiIndex, as a multi-key groupby's ``size()`` gives.
+The ``str``, ``dt``, ``cat``, ``list`` and ``struct`` accessors, windows
+(``rolling``, ``resample``, ``ewm``), UDFs (``map``, ``apply``, ``agg``,
+``transform``, ``pipe``) and the methods in ``_NOT_PORTED`` raise
+NotImplementedError naming their ROADMAP.md item.
+"""
 
 from __future__ import annotations
 
+import numbers
+from typing import Optional
+
+import numpy as np
 import torch
 
-from cudf_tpu_torch.core.column import Column
-from cudf_tpu_torch.frame.index import Index, default_index
-from cudf_tpu_torch.ops import copying
+from cudf_tpu_torch.core import dtypes as dt
+from cudf_tpu_torch.core.column import Column, holds, is_null_scalar
+from cudf_tpu_torch.frame.index import Index, MultiIndex, as_index, default_index
+from cudf_tpu_torch.ops import binaryop, copying, reductions
+from cudf_tpu_torch.ops import replace as replace_ops
+from cudf_tpu_torch.ops import scan as scan_ops
 from cudf_tpu_torch.ops import sort as sort_ops
+from cudf_tpu_torch.ops import stream_compaction as sc
+from cudf_tpu_torch.ops import unary
+from cudf_tpu_torch.ops._utils import materialize_validity
 from cudf_tpu_torch.ops.replace import nans_to_nulls
+from cudf_tpu_torch.utils.missing import NA
+
+_BINOPS = {
+    "__add__": "add", "__sub__": "sub", "__mul__": "mul",
+    "__truediv__": "truediv", "__floordiv__": "floordiv", "__mod__": "mod",
+    "__pow__": "pow",
+    "__eq__": "eq", "__ne__": "ne", "__lt__": "lt", "__gt__": "gt",
+    "__le__": "le", "__ge__": "ge",
+    "__and__": "bitand", "__or__": "bitor", "__xor__": "bitxor",
+}
+_RBINOPS = {
+    "__radd__": "add", "__rsub__": "sub", "__rmul__": "mul",
+    "__rtruediv__": "truediv", "__rfloordiv__": "floordiv", "__rmod__": "mod",
+    "__rpow__": "pow", "__rand__": "bitand", "__ror__": "bitor", "__rxor__": "bitxor",
+}
+_COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
+
+# pandas methods the port does not have yet, and the ROADMAP.md item
+# that brings each
+_NOT_PORTED = {
+    "str": 6, "dt": 6, "cat": 8, "list": 6, "struct": 6,
+    "rolling": 8, "resample": 8, "ewm": 8,
+    "map": 4, "apply": 4, "agg": 4, "aggregate": 4, "transform": 4, "pipe": 4,
+    "interpolate": 4, "describe": 4, "corr": 4, "cov": 4, "autocorr": 4,
+    "combine_first": 4, "update": 4, "explode": 6, "hash_values": 5,
+    "groupby": 4, "to_arrow": 8, "to_csv": 7, "to_json": 7, "to_parquet": 7,
+}
+
+
+def not_ported(name: str, item: int):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"{type(self).__name__}.{name}: ROADMAP.md queue 1, "
+                                  f"item {item}")
+    method.__name__ = name
+    return method
+
+
+def _is_listlike(x) -> bool:
+    return isinstance(x, (list, tuple, np.ndarray, torch.Tensor))
+
+
+def column_of(data, device=None, dtype=None) -> Column:
+    """A column from a tensor (kept on its device), a Column, or host data
+    (a list, tuple or numpy array), which needs ``device``."""
+    if isinstance(data, Series):
+        col = data._column
+    elif isinstance(data, Column):
+        col = data
+    elif isinstance(data, torch.Tensor):
+        col = Column.from_tensor(data.reshape(-1))
+    elif isinstance(data, (list, tuple, np.ndarray)):
+        if device is None:
+            raise ValueError("host data needs an explicit device=")
+        if isinstance(data, np.ndarray):
+            col = Column.from_numpy(data, device=device)
+        else:
+            target = dt.dtype(dtype) if dtype is not None and not _is_category(dtype) else None
+            col = Column.from_pylist(list(data), target, device=device)
+    elif type(data).__name__ in ("Series", "Categorical") and hasattr(data, "dtype"):
+        if device is None:
+            raise ValueError("host data needs an explicit device=")
+        import pandas as pd
+
+        col = Column.from_pandas(pd.Series(data), device=device)
+    else:
+        raise TypeError(f"cannot build a column from {type(data).__name__}")
+    if device is not None and not _on(col.device, torch.device(device)):
+        raise ValueError(f"data is on {col.device}, asked for {device}")
+    if dtype is not None:
+        col = unary.cast(col, dt.dtype(dtype))
+    return col
+
+
+def _is_category(dtype) -> bool:
+    return isinstance(dtype, str) and dtype == "category" or (
+        isinstance(dtype, dt.DType) and dtype.is_dictionary)
+
+
+def _on(have: torch.device, want: torch.device) -> bool:
+    """Whether a tensor on ``have`` is on ``want`` ("cuda" names the
+    current card, as torch.device("cuda") does)."""
+    if have.type != want.type:
+        return False
+    index = want.index if want.index is not None or want.type != "cuda" \
+        else torch.cuda.current_device()
+    return have.index == index
+
+
+def _clone(col: Column) -> Column:
+    return Column(col.dtype, col.length, col.data.clone(),
+                  None if col.validity is None else col.validity.clone(),
+                  None if col.offsets is None else col.offsets.clone(), col.children)
 
 
 class Series:
-    def __init__(self, column: Column, index: Index, name=None):
-        if len(index) != column.length:
+    def __init__(self, data=None, index=None, dtype=None, name=None, *, device=None):
+        if isinstance(index, (list, tuple, np.ndarray)) and device is None \
+                and isinstance(data, (torch.Tensor, Column, Series)):
+            device = data.device
+        if index is not None:
+            index = as_index(index, device)
+            if device is None and index.device is not None:
+                device = index.device
+        if isinstance(data, Series):
+            col = data._column if dtype is None else unary.cast(data._column, dt.dtype(dtype))
+            index = index if index is not None else data._index
+            name = name if name is not None else data.name
+        elif isinstance(data, dict):
+            index = as_index(list(data.keys()), device) if index is None else index
+            col = column_of(list(data.values()), device, dtype)
+        elif data is None or np.isscalar(data) or is_null_scalar(data):
+            if device is None:
+                raise ValueError("a scalar Series needs an explicit device=")
+            n = len(index) if index is not None else (0 if data is None else 1)
+            col = Column.full(n, data, dt.dtype(dtype) if dtype is not None else (
+                dt.FLOAT64 if data is None else None), device=device)
+        else:
+            col = column_of(data, device, dtype)
+        self._column = col
+        self._index = index if index is not None else default_index(col.length)
+        if len(self._index) != col.length:
             raise ValueError("index length mismatch")
-        self._column = column
-        self._index = index
         self.name = name
 
     @classmethod
     def _from(cls, column: Column, index: Index, name=None) -> "Series":
-        return cls(column, index, name)
+        s = cls.__new__(cls)
+        s._column = column
+        s._index = index
+        s.name = name
+        return s
 
+    def _new(self, column: Column, index: Optional[Index] = None) -> "Series":
+        return Series._from(column, self._index if index is None else index, self.name)
+
+    # ------------------------------------------------------------------
+    # attributes
+    # ------------------------------------------------------------------
     @property
     def index(self) -> Index:
         return self._index
 
+    @index.setter
+    def index(self, value):
+        idx = as_index(value, self.device)
+        if len(idx) != len(self):
+            raise ValueError("length mismatch")
+        self._index = idx
+
+    @property
+    def device(self) -> torch.device:
+        return self._column.device
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self._column.dtype
+
+    @property
+    def shape(self):
+        return (len(self),)
+
+    @property
+    def size(self) -> int:
+        return len(self)
+
+    @property
+    def ndim(self) -> int:
+        return 1
+
+    @property
+    def empty(self) -> bool:
+        return len(self) == 0
+
+    @property
+    def values(self) -> np.ndarray:
+        return self._column.to_numpy()
+
+    @property
+    def hasnans(self) -> bool:
+        return self._has_nulls_or_nans()
+
+    @property
+    def nbytes(self) -> int:
+        col = self._column
+        return sum(t.numel() * t.element_size() for t in (col.data, col.validity, col.offsets)
+                   if t is not None)
+
     def __len__(self) -> int:
         return self._column.length
 
-    def take(self, indices: torch.Tensor) -> "Series":
-        """The rows at these positions, with their index labels."""
-        return Series(copying.gather(self._column, indices, bounds_check=False),
-                      self._index.take(indices), self.name)
+    def __iter__(self):
+        return iter(self.tolist())
 
-    def sort_values(self, ascending: bool = True, na_position: str = "last",
-                    ignore_index: bool = False, kind=None) -> "Series":
-        """A stable sort (any ``kind``); NaN sorts as null."""
-        order = sort_ops.sorted_order([nans_to_nulls(self._column)], [ascending], na_position)
-        out = self.take(order)
-        if ignore_index:
-            out._index = default_index(len(out))
-        return out
+    def __array__(self, dtype=None, copy=None):
+        arr = self._column.to_numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __bool__(self):
+        raise ValueError("The truth value of a Series is ambiguous.")
+
+    def copy(self, deep: bool = True) -> "Series":
+        return self._new(_clone(self._column) if deep else self._column, self._index.copy())
+
+    def rename(self, name=None) -> "Series":
+        if callable(name) or isinstance(name, dict):
+            raise NotImplementedError("Series.rename of the index labels: ROADMAP.md queue 1, "
+                                      "item 4")
+        return Series._from(self._column, self._index, name)
+
+    def to_numpy(self) -> np.ndarray:
+        return self._column.to_numpy()
+
+    def tolist(self) -> list:
+        return self._column.to_numpy().tolist()
+
+    to_list = tolist
+    to_pylist = tolist
+
+    def to_frame(self, name=None):
+        from cudf_tpu_torch.core.table import Table
+        from cudf_tpu_torch.frame.dataframe import DataFrame
+
+        nm = name if name is not None else (self.name if self.name is not None else 0)
+        return DataFrame._from(Table({nm: self._column}), self._index)
 
     def to_pandas(self):
         import pandas as pd
@@ -54,3 +278,762 @@ class Series:
 
     def __repr__(self) -> str:
         return f"Series({self.name!r}, {self._column!r})"
+
+    # ------------------------------------------------------------------
+    # operators
+    # ------------------------------------------------------------------
+    def _operand(self, other):
+        """other as a Series aligned to self, or a host scalar."""
+        if isinstance(other, Series):
+            return other
+        if isinstance(other, Column) or _is_listlike(other):
+            return Series._from(column_of(other, self.device), self._index)
+        return other
+
+    def _binop(self, other, op: str, reflect: bool = False) -> "Series":
+        other = self._operand(other)
+        if isinstance(other, Series):
+            lhs, rhs, index = _align(self, other)
+        else:
+            lhs, rhs, index = self._column, other, self._index
+        if reflect:
+            lhs, rhs = rhs, lhs
+        out = binaryop.binary_operation(lhs, rhs, op)
+        if op in _COMPARISONS and out.validity is not None:
+            # pandas' numpy dtypes: a missing value compares False (True
+            # for !=); nullable dtypes keep null
+            nullable = self.dtype.nullable or (isinstance(other, Series)
+                                               and other.dtype.nullable)
+            if not nullable:
+                out = Column(dt.BOOL8, out.length,
+                             torch.where(out.validity, out.data, op == "ne"))
+        name = self.name if not isinstance(other, Series) or other.name == self.name else None
+        return Series._from(out, index, name)
+
+    def __invert__(self) -> "Series":
+        return self._new(unary.unary_operation(self._column,
+                                               "not" if self.dtype.is_bool else "bit_invert"))
+
+    def __neg__(self) -> "Series":
+        return self._new(unary.unary_operation(self._column, "negate"))
+
+    def __abs__(self) -> "Series":
+        return self.abs()
+
+    def abs(self) -> "Series":
+        return self._new(unary.unary_operation(self._column, "abs"))
+
+    def _fill_binop(self, other, op: str, fill_value, reflect: bool = False) -> "Series":
+        """pandas' flex arithmetic: align first, then fill_value stands for
+        a value missing on one side (missing on both stays missing)."""
+        if fill_value is None:
+            return self._binop(other, op, reflect)
+        other = self._operand(other)
+        if not isinstance(other, Series):
+            return self.fillna(fill_value)._binop(other, op, reflect)
+        lhs, rhs, index = _align(self, other)
+        both_missing = None
+        if lhs.validity is not None and rhs.validity is not None:
+            both_missing = ~(lhs.validity | rhs.validity)
+        a = Series._from(lhs, index, self.name).fillna(fill_value)
+        b = Series._from(rhs, index, other.name).fillna(fill_value)
+        out = a._binop(b, op, reflect)
+        if both_missing is not None:
+            col = out._column
+            out = Series._from(col.with_validity(materialize_validity(col) & ~both_missing),
+                               index, out.name)
+        return out
+
+    # ------------------------------------------------------------------
+    # indexing
+    # ------------------------------------------------------------------
+    @property
+    def iloc(self):
+        return _SeriesILoc(self)
+
+    @property
+    def loc(self):
+        return _SeriesLoc(self)
+
+    @property
+    def at(self):
+        return self.loc
+
+    @property
+    def iat(self):
+        return self.iloc
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            return self.iloc[key]
+        if isinstance(key, Series) and key.dtype.is_bool:
+            return self._filter(key)
+        if _is_listlike(key) and _bool_array(key):
+            return self._filter(Series._from(column_of(key, self.device), self._index))
+        return self.loc[key]
+
+    def __setitem__(self, key, value):
+        check_setitem_compat(self.dtype, value)
+        if _is_listlike(key) and not isinstance(key, Series) and _bool_array(key):
+            key = Series._from(column_of(key, self.device), self._index)
+        if isinstance(key, Series) and key.dtype.is_bool:
+            mask = self._aligned_mask(key)
+            if _scalar(value):
+                self._column = replace_ops.replace_where(self._column, mask, value)
+            elif isinstance(value, Series) and len(value) == len(self):
+                _, vcol, _ = _align(self, value)
+                self._column = copying.copy_if_else(mask, vcol, self._column)
+            else:
+                vals = column_of(value, self.device)
+                sel = sc.filter_indices(mask)
+                if vals.length != sel.shape[0]:
+                    raise ValueError("cannot set using a list-like indexer with a different "
+                                     "length than the value")
+                self._column = copying.scatter(vals, sel, self._column)
+            return
+        if isinstance(key, slice):
+            start, stop, step = key.indices(len(self))
+            idx = torch.arange(start, stop, step, device=self.device)
+        else:
+            pos = self._index.get_indexer_for([key] if np.isscalar(key) else key, self.device)
+            idx = pos[pos >= 0]
+        self._set_positions(idx, value)
+
+    def _set_positions(self, idx: torch.Tensor, value):
+        if _scalar(value):
+            self._column = copying.scatter_scalar(value, idx, self._column)
+        else:
+            self._column = copying.scatter(column_of(value, self.device), idx, self._column)
+
+    def _aligned_mask(self, mask: "Series") -> torch.Tensor:
+        return aligned_mask(self._index, self.device, mask)
+
+    def _filter(self, mask: "Series") -> "Series":
+        return self.take(sc.filter_indices(self._aligned_mask(mask)))
+
+    def take(self, indices) -> "Series":
+        """The rows at these positions, with their index labels."""
+        idx = torch.as_tensor(indices, device=self.device).long().reshape(-1)
+        return self._new(copying.gather(self._column, idx, bounds_check=False),
+                         self._index.take(idx))
+
+    def head(self, n: int = 5) -> "Series":
+        return self.iloc[:n]
+
+    def tail(self, n: int = 5) -> "Series":
+        if n == 0:
+            return self.iloc[0:0]
+        return self.iloc[-n:] if n > 0 else self.iloc[-n:]
+
+    def reset_index(self, drop: bool = False, name=None):
+        if drop:
+            return self._new(self._column, default_index(len(self)))
+        from cudf_tpu_torch.core.table import Table
+        from cudf_tpu_torch.frame.dataframe import DataFrame
+
+        idx_name = self._index.name if self._index.name is not None else "index"
+        nm = name if name is not None else (self.name if self.name is not None else 0)
+        return DataFrame._from(Table({idx_name: self._index.column(self.device),
+                                      nm: self._column}), default_index(len(self)))
+
+    def set_axis(self, labels, axis=0) -> "Series":
+        idx = as_index(labels, self.device)
+        if len(idx) != len(self):
+            raise ValueError("length mismatch")
+        return self._new(self._column, idx)
+
+    # ------------------------------------------------------------------
+    # missing data
+    # ------------------------------------------------------------------
+    def isna(self) -> "Series":
+        missing = ~materialize_validity(self._column)
+        if self.dtype.is_float:
+            missing = missing | torch.isnan(self._column.data)
+        return self._new(Column(dt.BOOL8, len(self), missing))
+
+    isnull = isna
+
+    def notna(self) -> "Series":
+        return self._new(Column(dt.BOOL8, len(self), ~self.isna()._column.data))
+
+    notnull = notna
+
+    def _nan_null(self) -> Column:
+        return nans_to_nulls(self._column) if self.dtype.is_float else self._column
+
+    def fillna(self, value=None, method=None, limit=None) -> "Series":
+        if method is not None:
+            return self.ffill(limit) if method in ("ffill", "pad") else self.bfill(limit)
+        col = self._nan_null()
+        if isinstance(value, Series):
+            lhs, rhs, index = _align(self._new(col), value)
+            return self._new(replace_ops.replace_nulls_column(lhs, rhs), index)
+        return self._new(replace_ops.replace_nulls_scalar(col, value))
+
+    def ffill(self, limit=None) -> "Series":
+        return self._new(replace_ops.ffill(self._nan_null(), limit))
+
+    pad = ffill
+
+    def bfill(self, limit=None) -> "Series":
+        return self._new(replace_ops.bfill(self._nan_null(), limit))
+
+    backfill = bfill
+
+    def dropna(self) -> "Series":
+        col = self._nan_null()
+        if col.validity is None:
+            return self.copy(deep=False)
+        return self.take(sc.filter_indices(col.validity))
+
+    def first_valid_index(self):
+        v = self._nan_null().validity
+        if v is None:
+            return self._index[0] if len(self) else None
+        pos = sc.filter_indices(v)
+        return self._index[int(pos[0])] if pos.shape[0] else None
+
+    def last_valid_index(self):
+        v = self._nan_null().validity
+        if v is None:
+            return self._index[len(self) - 1] if len(self) else None
+        pos = sc.filter_indices(v)
+        return self._index[int(pos[-1])] if pos.shape[0] else None
+
+    # ------------------------------------------------------------------
+    # reductions: a host scalar through one sync each
+    # ------------------------------------------------------------------
+    def _has_nulls_or_nans(self) -> bool:
+        col = self._column
+        missing = ~materialize_validity(col)
+        if col.dtype.is_float:
+            missing = missing | torch.isnan(col.data)
+        return bool(missing.any())
+
+    def _reduce_scalar(self, value, skipna: bool = True):
+        """pandas' scalar conventions: NaT for temporal columns, NA for
+        nullable ones, NaN otherwise where nothing was left to reduce."""
+        if not skipna and self._has_nulls_or_nans():
+            value = None
+        if value is None or (isinstance(value, float) and np.isnan(value)):
+            if self.dtype.is_timestamp:
+                return np.datetime64("NaT")
+            if self.dtype.is_duration:
+                return np.timedelta64("NaT")
+            return NA if self.dtype.nullable else float("nan")
+        return value
+
+    def sum(self, skipna: bool = True, min_count: int = 0):
+        return self._reduce_scalar(reductions.sum(self._column, min_count), skipna)
+
+    def prod(self, skipna: bool = True, min_count: int = 0):
+        return self._reduce_scalar(reductions.product(self._column, min_count), skipna)
+
+    product = prod
+
+    def mean(self, skipna: bool = True):
+        return self._reduce_scalar(reductions.mean(self._column), skipna)
+
+    def min(self, skipna: bool = True):
+        return self._reduce_scalar(reductions.min(self._column), skipna)
+
+    def max(self, skipna: bool = True):
+        return self._reduce_scalar(reductions.max(self._column), skipna)
+
+    def var(self, ddof: int = 1, skipna: bool = True):
+        return self._reduce_scalar(reductions.var(self._column, ddof), skipna)
+
+    def std(self, ddof: int = 1, skipna: bool = True):
+        return self._reduce_scalar(reductions.std(self._column, ddof), skipna)
+
+    def median(self, skipna: bool = True):
+        return self._reduce_scalar(reductions.median(self._column), skipna)
+
+    def sem(self, ddof: int = 1):
+        n = self.count()
+        return float(np.sqrt(reductions.var(self._column, ddof) / n)) if n > ddof \
+            else float("nan")
+
+    def skew(self):
+        return reductions.skew(self._column)
+
+    def kurtosis(self):
+        return reductions.kurtosis(self._column)
+
+    kurt = kurtosis
+
+    def any(self, skipna: bool = True):
+        return reductions.any(self._column)
+
+    def all(self, skipna: bool = True):
+        return reductions.all(self._column)
+
+    def count(self) -> int:
+        return reductions.count(self._column)
+
+    def nunique(self, dropna: bool = True) -> int:
+        return reductions.nunique(self._column, dropna)
+
+    def quantile(self, q=0.5, interpolation: str = "linear"):
+        col = self._column
+        temporal = col.dtype.is_temporal
+        if temporal:
+            col = Column(dt.INT64, col.length, col.data, col.validity)
+        out = reductions.quantile(col, q, interpolation)
+
+        def fix(v):
+            if not temporal:
+                return self._reduce_scalar(v)
+            if np.isnan(v):
+                return self._reduce_scalar(None)
+            return np.array(int(round(v)), np.int64).view(self.dtype.to_numpy())[()]
+
+        if np.isscalar(q):
+            return fix(out)
+        vals = [fix(v) for v in np.atleast_1d(out).tolist()]
+        return Series(vals, index=[float(x) for x in np.atleast_1d(q)], name=self.name,
+                      device=self.device)
+
+    def idxmin(self):
+        return self._index[reductions.argmin(self._column)]
+
+    def idxmax(self):
+        return self._index[reductions.argmax(self._column)]
+
+    def argmin(self) -> int:
+        return reductions.argmin(self._column)
+
+    def argmax(self) -> int:
+        return reductions.argmax(self._column)
+
+    def mode(self, dropna: bool = True) -> "Series":
+        """The most frequent values, ascending."""
+        vc = self.value_counts(dropna=dropna, sort=False)
+        top = vc[vc == vc.max()]
+        return Series._from(sort_ops.sort(top._index.column(self.device)),
+                            default_index(len(top)), self.name)
+
+    # ------------------------------------------------------------------
+    # scans and shifts
+    # ------------------------------------------------------------------
+    def cumsum(self) -> "Series":
+        return self._new(scan_ops.cumsum(self._column))
+
+    def cumprod(self) -> "Series":
+        return self._new(scan_ops.cumprod(self._column))
+
+    def cummin(self) -> "Series":
+        return self._new(scan_ops.cummin(self._column))
+
+    def cummax(self) -> "Series":
+        return self._new(scan_ops.cummax(self._column))
+
+    def shift(self, periods: int = 1, freq=None, fill_value=None) -> "Series":
+        if freq is not None:
+            raise NotImplementedError("shift(freq=...) moves a temporal index: ROADMAP.md "
+                                      "queue 1, item 8")
+        return self._new(copying.shift(self._column, periods, fill_value))
+
+    def diff(self, periods: int = 1) -> "Series":
+        return self - self.shift(periods)
+
+    def pct_change(self, periods: int = 1) -> "Series":
+        prev = self.shift(periods)
+        return (self - prev) / prev
+
+    # ------------------------------------------------------------------
+    # order and sets
+    # ------------------------------------------------------------------
+    def argsort(self, ascending: bool = True) -> "Series":
+        order = sort_ops.sorted_order([self._nan_null()], [ascending], "last")
+        return self._new(Column(dt.INT64, len(self), order))
+
+    def rank(self, method: str = "average", ascending: bool = True, na_option: str = "keep",
+             pct: bool = False) -> "Series":
+        return self._new(sort_ops.rank(self._nan_null(), method, ascending, na_option, pct))
+
+    def sort_values(self, ascending: bool = True, na_position: str = "last",
+                    ignore_index: bool = False, kind=None) -> "Series":
+        """A stable sort (any ``kind``); NaN sorts as null."""
+        out = self.take(sort_ops.sorted_order([self._nan_null()], [ascending], na_position))
+        if ignore_index:
+            out._index = default_index(len(out))
+        return out
+
+    def sort_index(self, ascending: bool = True) -> "Series":
+        idx = self._index
+        cols = list(idx._columns) if isinstance(idx, MultiIndex) else [idx.column(self.device)]
+        return self.take(sort_ops.sorted_order(cols, [ascending] * len(cols), "last"))
+
+    def _nselect(self, n: int, largest: bool) -> "Series":
+        if not (self.dtype.is_numeric or self.dtype.is_bool or self.dtype.is_temporal):
+            raise TypeError(f"Cannot use method 'nlargest/nsmallest' with dtype {self.dtype}")
+        return self.dropna().sort_values(ascending=not largest).head(max(int(n), 0))
+
+    def nlargest(self, n: int = 5, keep: str = "first") -> "Series":
+        return self._nselect(n, True)
+
+    def nsmallest(self, n: int = 5, keep: str = "first") -> "Series":
+        return self._nselect(n, False)
+
+    def unique(self) -> np.ndarray:
+        idx = sc.distinct_indices([self._column], "first")
+        return copying.gather(self._column, idx, bounds_check=False).to_numpy()
+
+    def drop_duplicates(self, keep="first", ignore_index: bool = False) -> "Series":
+        out = self.take(sc.distinct_indices([self._column],
+                                            keep if keep is not False else "none"))
+        if ignore_index:
+            out._index = default_index(len(out))
+        return out
+
+    def duplicated(self, keep="first") -> "Series":
+        mask = sc.duplicated_mask([self._column], keep if keep is not False else "none")
+        return self._new(Column(dt.BOOL8, len(self), mask))
+
+    def value_counts(self, normalize: bool = False, sort: bool = True,
+                     ascending: bool = False, dropna: bool = True) -> "Series":
+        """Rows a distinct value, named "count" ("proportion" with
+        normalize), the values in order of first appearance, then stably
+        by count (descending unless ``ascending``) with ``sort``."""
+        from cudf_tpu_torch.ops import groupby as gb
+
+        g = gb.make_grouper([self._nan_null()], dropna=dropna)
+        counts = gb.group_size(g)
+        first = g.frame_rows(g.key_rows)
+        appear = torch.argsort(first)
+        keys = copying.gather(self._column, first[appear], bounds_check=False)
+        counts = copying.gather(counts, appear, bounds_check=False)
+        out = Series._from(counts, Index(keys, self.name), "count")
+        if normalize:
+            total = float(counts.data.sum())
+            out = Series._from(Column(dt.FLOAT64, counts.length, counts.data.double() / total),
+                               out._index, "proportion")
+        if sort:
+            out = out.take(sort_ops.sorted_order([out._column], [ascending], "last"))
+        return out
+
+    def isin(self, values) -> "Series":
+        """Membership in a list (a dictionary column decided per key) or in
+        a Series, Index or Column; a missing row matches a missing value."""
+        from cudf_tpu_torch.ops.search import contains, is_in_list
+
+        col = self._nan_null()
+        if isinstance(values, (Series, Index, Column, torch.Tensor)):
+            vals = values._column if isinstance(values, Series) else (
+                values.column(self.device) if isinstance(values, Index)
+                else column_of(values, self.device))
+            mask = contains(vals, col)
+        else:
+            mask = is_in_list(col, list(values))
+        return self._new(Column(dt.BOOL8, len(self), mask))
+
+    def between(self, left, right, inclusive: str = "both") -> "Series":
+        lo = self >= left if inclusive in ("both", "left") else self > left
+        hi = self <= right if inclusive in ("both", "right") else self < right
+        return lo & hi
+
+    def searchsorted(self, value, side: str = "left"):
+        from cudf_tpu_torch.ops.search import lower_bound
+
+        scalar = np.isscalar(value)
+        needles = column_of([value] if scalar else value, self.device)
+        out = lower_bound(self._column, needles, side)
+        return int(out[0]) if scalar else out.cpu().numpy()
+
+    def factorize(self, sort: bool = False):
+        """(int64 codes, -1 for a missing row; the distinct values as an
+        Index), in order of first appearance unless ``sort``."""
+        from cudf_tpu_torch.ops.dictionary import factorize
+
+        col = self._nan_null()
+        codes, keys = factorize(col, sort=sort)
+        codes = codes.long()
+        if col.validity is not None:
+            codes = torch.where(col.validity, codes, -1)
+        return codes.cpu().numpy(), Index(keys)
+
+    # ------------------------------------------------------------------
+    # elementwise
+    # ------------------------------------------------------------------
+    def astype(self, dtype, copy=None, errors: str = "raise") -> "Series":
+        target = dt.dtype(dtype)
+        col = self._column
+        if errors == "raise" and target.is_integer and not target.nullable \
+                and not col.dtype.is_integer and self._has_nulls_or_nans():
+            raise ValueError("Cannot convert non-finite values (NA or inf) to integer")
+        if errors == "raise" and target.is_integer and col.dtype.is_float \
+                and bool(torch.isinf(col.data).any()):
+            raise ValueError("Cannot convert non-finite values (NA or inf) to integer")
+        try:
+            out = unary.cast(col, target)
+        except (TypeError, NotImplementedError):
+            if errors == "ignore":
+                return self.copy(deep=False)
+            raise
+        return self._new(out)
+
+    def where(self, cond, other=None) -> "Series":
+        if not isinstance(cond, Series):
+            cond = Series._from(column_of(cond, self.device), self._index)
+        keep = self._aligned_mask(cond)
+        if other is None or is_null_scalar(other):
+            return self._new(replace_ops.replace_where(self._column, ~keep, None))
+        if _scalar(other):
+            return self._new(replace_ops.replace_where(self._column, ~keep, other))
+        other = self._operand(other)
+        _, ocol, _ = _align(self, other)
+        return self._new(copying.copy_if_else(keep, self._column, ocol))
+
+    def mask(self, cond, other=None) -> "Series":
+        if not isinstance(cond, Series):
+            cond = Series._from(column_of(cond, self.device), self._index)
+        return self.where(~cond, other)
+
+    def clip(self, lower=None, upper=None) -> "Series":
+        return self._new(replace_ops.clamp(self._column, lower, upper))
+
+    def round(self, decimals: int = 0) -> "Series":
+        return self._new(unary.round(self._column, decimals))
+
+    def replace(self, to_replace, value=None) -> "Series":
+        if isinstance(to_replace, dict):
+            olds, news = list(to_replace.keys()), list(to_replace.values())
+        elif isinstance(to_replace, (list, tuple, np.ndarray)):
+            olds = list(to_replace)
+            news = list(value) if isinstance(value, (list, tuple, np.ndarray)) \
+                else [value] * len(olds)
+        else:
+            olds, news = [to_replace], [value]
+        col = self._column
+        keyed = col.dtype.is_string or col.dtype.is_dictionary
+        pairs = [(o, v) for o, v in zip(olds, news)
+                 if is_null_scalar(o) or isinstance(o, str) == keyed]
+        if not pairs:                       # no value of the column's kind to find
+            return self._new(col)
+        olds, news = [o for o, _ in pairs], [v for _, v in pairs]
+        if col.dtype.is_dictionary:
+            from cudf_tpu_torch.ops.dictionary import _remap, encode
+
+            keys = replace_ops.replace_values(col.keys, _host_column(olds, col.keys),
+                                              _host_column(news, col.keys))
+            enc = encode(keys)
+            return self._new(_remap(col, enc.data.long(), enc.keys))
+        few = replace_ops.replace_scalars(col, olds, news)
+        if few is not None:
+            return self._new(few)
+        return self._new(replace_ops.replace_values(col, _host_column(olds, col),
+                                                    _host_column(news, col)))
+
+    def repeat(self, repeats) -> "Series":
+        col = copying.repeat(self._column, repeats)
+        idx = Index(copying.repeat(self._index.column(self.device), repeats),
+                    self._index.name)
+        return self._new(col, idx)
+
+    def sample(self, n=None, frac=None, replace: bool = False, random_state=0) -> "Series":
+        """Rows drawn as ``ops/copying.py`` ``sample`` draws them (a
+        torch.Generator seeded with ``random_state``: not pandas' rows)."""
+        n = int(round((frac or 1.0) * len(self))) if n is None else n
+        return self.take(copying.sample_rows(len(self), n, int(random_state or 0), replace,
+                                             self.device))
+
+    def equals(self, other) -> bool:
+        if not isinstance(other, Series) or len(self) != len(other):
+            return False
+        if len(self) == 0:
+            return True
+        try:
+            eq = binaryop.binary_operation(self._column, other._column, "null_equals")
+        except TypeError:
+            return False
+        return bool(eq.data.all())
+
+
+for _name, _item in _NOT_PORTED.items():
+    setattr(Series, _name, not_ported(_name, _item))
+
+for _dunder, _op in _BINOPS.items():
+    def _make(op=_op):
+        def f(self, other):
+            return self._binop(other, op)
+        return f
+    setattr(Series, _dunder, _make())
+
+for _dunder, _op in _RBINOPS.items():
+    def _make_r(op=_op):
+        def f(self, other):
+            return self._binop(other, op, reflect=True)
+        return f
+    setattr(Series, _dunder, _make_r())
+
+for _named, _op in (("add", "add"), ("sub", "sub"), ("subtract", "sub"), ("mul", "mul"),
+                    ("multiply", "mul"), ("div", "truediv"), ("truediv", "truediv"),
+                    ("divide", "truediv"), ("floordiv", "floordiv"), ("mod", "mod"),
+                    ("pow", "pow")):
+    def _make_named(op=_op):
+        def f(self, other, fill_value=None):
+            return self._fill_binop(other, op, fill_value)
+        return f
+
+    def _make_rnamed(op=_op):
+        def f(self, other, fill_value=None):
+            return self._fill_binop(other, op, fill_value, reflect=True)
+        return f
+    setattr(Series, _named, _make_named())
+    setattr(Series, "r" + _named, _make_rnamed())
+
+for _named in _COMPARISONS:
+    def _make_cmp(op=_named):
+        def f(self, other):
+            return self._binop(other, op)
+        return f
+    setattr(Series, _named, _make_cmp())
+
+
+def _scalar(value) -> bool:
+    return value is None or np.isscalar(value) or is_null_scalar(value) or \
+        isinstance(value, (np.datetime64, np.timedelta64))
+
+
+def _bool_array(key) -> bool:
+    if isinstance(key, torch.Tensor):
+        return key.dtype == torch.bool
+    if isinstance(key, np.ndarray):
+        return key.dtype == bool
+    return len(key) > 0 and all(isinstance(v, (bool, np.bool_)) for v in key)
+
+
+def _host_column(values, like: Column) -> Column:
+    """Host values as a column on ``like``'s device, in its dtype where
+    they fit it (strings and dictionaries as strings)."""
+    if like.dtype.is_string or like.dtype.is_dictionary:
+        return Column.from_pylist(values, dt.STRING if all(
+            isinstance(v, str) or is_null_scalar(v) for v in values) else None,
+            device=like.device)
+    fits = all(is_null_scalar(v) or holds(like.dtype, v) for v in values)
+    return Column.from_pylist(values, like.dtype if fits else None, device=like.device)
+
+
+# ----------------------------------------------------------------------
+# indexers
+# ----------------------------------------------------------------------
+
+class _SeriesILoc:
+    def __init__(self, s: Series):
+        self._s = s
+
+    def __getitem__(self, key):
+        s = self._s
+        if isinstance(key, (int, np.integer)):
+            return copying.get_element(s._column, int(key))
+        if isinstance(key, slice):
+            start, stop, step = key.indices(len(s))
+            if step == 1:
+                return s._new(copying.slice(s._column, start, stop),
+                              s._index.slice(start, stop))
+            return s.take(torch.arange(start, stop, step, device=s.device))
+        if _bool_array(key):
+            return s._filter(Series._from(column_of(key, s.device), s._index))
+        return s.take(key)
+
+    def __setitem__(self, key, value):
+        s = self._s
+        check_setitem_compat(s.dtype, value)
+        if isinstance(key, (int, np.integer)):
+            key = [int(key)]
+        if isinstance(key, slice):
+            start, stop, step = key.indices(len(s))
+            idx = torch.arange(start, stop, step, device=s.device)
+        else:
+            idx = torch.as_tensor(key, device=s.device).long()
+        s._set_positions(idx, value)
+
+
+class _SeriesLoc:
+    def __init__(self, s: Series):
+        self._s = s
+
+    def __getitem__(self, key):
+        s = self._s
+        if isinstance(key, Series) and key.dtype.is_bool:
+            return s._filter(key)
+        if isinstance(key, slice):
+            if key.start is None and key.stop is None:
+                return s.copy(deep=False)
+            start = 0 if key.start is None else s._index.get_loc(key.start)
+            stop = len(s) - 1 if key.stop is None else s._index.get_loc(key.stop)
+            return s.iloc[int(start):int(stop) + 1]
+        if np.isscalar(key) or key is None:
+            pos = s._index._positions_of(key, s.device)
+            if pos.shape[0] == 0:
+                raise KeyError(key)
+            if pos.shape[0] == 1:
+                return copying.get_element(s._column, int(pos[0]))
+            return s.take(pos)
+        if _is_listlike(key) and _bool_array(key):
+            return s._filter(Series._from(column_of(key, s.device), s._index))
+        pos = s._index.get_indexer_for(key, s.device)
+        missing = pos < 0
+        if bool(missing.any()):
+            raise KeyError(f"labels not in the index: {np.asarray(key)[missing.cpu().numpy()]}")
+        return s.take(pos)
+
+    def __setitem__(self, key, value):
+        self._s[key] = value
+
+
+# ----------------------------------------------------------------------
+# alignment
+# ----------------------------------------------------------------------
+
+def aligned_mask(index: Index, device, mask: Series) -> torch.Tensor:
+    """A boolean Series as bool[len(index)] by label (missing or null:
+    False); a mask over this very index is taken as it is."""
+    m = mask._column
+    if not mask._index.equals(index):
+        pos = mask._index.get_indexer_for(index.column(device), device)
+        m = copying.gather(m, pos, bounds_check=True)
+    return sc._mask_of(m)
+
+
+def _align(a: Series, b: Series):
+    """pandas' alignment: equal indexes as they are (one index object
+    costs nothing), else the sorted union of the labels, a label missing
+    on one side null there."""
+    if a._index.equals(b._index):
+        return a._column, b._column, a._index
+    union = a._index.union(b._index)
+    dev = a.device
+    labels = union.column(dev)
+    ca = copying.gather(a._column, a._index.get_indexer_for(labels, dev), bounds_check=True)
+    cb = copying.gather(b._column, b._index.get_indexer_for(labels, dev), bounds_check=True)
+    return ca, cb, union
+
+
+def check_setitem_compat(dtype: dt.DType, value) -> None:
+    """pandas 3's setitem strictness: a value the column's dtype cannot
+    hold without loss raises instead of changing the dtype."""
+    def one(v):
+        if is_null_scalar(v):
+            if (dtype.is_integer or dtype.is_bool) and not dtype.nullable:
+                raise TypeError(f"Invalid value {v!r} for dtype {dtype}")
+            return
+        if dtype.is_bool:
+            if not isinstance(v, (bool, np.bool_)):
+                raise TypeError(f"Invalid value {v!r} for dtype bool")
+        elif dtype.is_integer:
+            if isinstance(v, (bool, np.bool_)) or not isinstance(v, numbers.Real) or (
+                    not isinstance(v, numbers.Integral) and float(v) != int(v)):
+                raise TypeError(f"Invalid value {v!r} for dtype {dtype}")
+        elif dtype.is_float:
+            if isinstance(v, (bool, np.bool_)) or not isinstance(v, numbers.Real):
+                raise TypeError(f"Invalid value {v!r} for dtype {dtype}")
+        elif dtype.is_string and not isinstance(v, str):
+            raise TypeError(f"Invalid value {v!r} for dtype str")
+
+    if _scalar(value):
+        one(value)
+    elif isinstance(value, (list, tuple)) and len(value) <= 64:
+        for v in value:
+            one(v)

@@ -17,7 +17,10 @@ dbgen.
   from a small host set, ``datetime64[ns]`` dates.
 - ``q1`` ... ``q14`` are the reference's plans; ``QUERIES`` maps their
   names to them.
-- ``pandas_reference`` is the reference's pandas version of each.
+- ``FRAME_QUERIES`` are the bodies of the reference's pandas version of
+  each over a dict of frames, which run on the port's ``DataFrame`` (its
+  pandas API) as they run on pandas; ``pandas_reference`` runs them on
+  the tables' ``to_pandas()``.
 - ``plain_q1`` ... ``plain_q14`` (``PLAIN``) compute the same answers in
   plain PyTorch over the tables' tensors, apart from the engine: masks,
   dense lookup tables over the build keys, ``index_add_`` and
@@ -435,114 +438,139 @@ QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q9": q9, "q10": q1
            "q12": q12, "q14": q14}
 
 
-def pandas_reference(tables, query: str):
-    """The same query in pandas, over the tables' ``to_pandas()``."""
-    import pandas as pd
+# ----------------------------------------------------------------------
+# the queries in pandas' API: the bodies of the reference's
+# ``pandas_reference`` over a dict of frames, dates as np.datetime64,
+# nothing brought to the host.  They call pandas methods only, so one
+# function runs on the port's frames, the reference's cudf_tpu.DataFrame
+# tables and pandas frames alike.
+# ----------------------------------------------------------------------
 
-    t = {k: v.to_pandas() for k, v in tables.items()}
+def frame_q1(t):
     li = t["lineitem"]
-    if query == "q1":
-        li = li[li.l_shipdate <= pd.Timestamp("1998-09-02")].copy()
-        li["disc_price"] = li.l_extendedprice * (1 - li.l_discount)
-        li["charge"] = li.disc_price * (1 + li.l_tax)
-        return li.groupby(["l_returnflag", "l_linestatus"], observed=True).agg(
-            sum_qty=("l_quantity", "sum"),
-            sum_base_price=("l_extendedprice", "sum"),
-            sum_disc_price=("disc_price", "sum"),
-            sum_charge=("charge", "sum"),
-            avg_qty=("l_quantity", "mean"),
-            avg_price=("l_extendedprice", "mean"),
-            avg_disc=("l_discount", "mean"),
-            count_order=("l_quantity", "count"),
-        ).reset_index().sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
-    if query == "q6":
-        m = ((li.l_shipdate >= pd.Timestamp("1994-01-01"))
-             & (li.l_shipdate < pd.Timestamp("1995-01-01"))
-             & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
-             & (li.l_quantity < 24))
-        return float((li[m].l_extendedprice * li[m].l_discount).sum())
-    if query == "q12":
-        o = t["orders"]
-        lo, hi = pd.Timestamp("1994-01-01"), pd.Timestamp("1995-01-01")
-        m = (li.l_shipmode.isin(["MAIL", "SHIP"])
-             & (li.l_commitdate < li.l_receiptdate)
-             & (li.l_shipdate < li.l_commitdate)
-             & (li.l_receiptdate >= lo) & (li.l_receiptdate < hi))
-        df = li[m].merge(o, left_on="l_orderkey", right_on="o_orderkey")
-        high = df.o_orderpriority.isin(["1-URGENT", "2-HIGH"])
-        df = df.assign(high_line=high.astype(int), low_line=(~high).astype(int))
-        return (df.groupby("l_shipmode", observed=True)
-                .agg(high_line_count=("high_line", "sum"),
-                     low_line_count=("low_line", "sum")).reset_index()
-                .sort_values("l_shipmode").reset_index(drop=True))
-    if query == "q14":
-        p = t["part"]
-        lo, hi = pd.Timestamp("1995-09-01"), pd.Timestamp("1995-10-01")
-        df = li[(li.l_shipdate >= lo) & (li.l_shipdate < hi)].merge(
-            p, left_on="l_partkey", right_on="p_partkey")
-        rev = df.l_extendedprice * (1 - df.l_discount)
-        promo = rev[df.p_type == PROMO].sum()
-        return 100.0 * promo / rev.sum() if rev.sum() else 0.0
-    return _pandas_join_queries(t, query)
+    li = li[li.l_shipdate <= Q1_CUTOFF].copy()
+    li["disc_price"] = li.l_extendedprice * (1 - li.l_discount)
+    li["charge"] = li.disc_price * (1 + li.l_tax)
+    return li.groupby(["l_returnflag", "l_linestatus"], observed=True).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        sum_disc_price=("disc_price", "sum"),
+        sum_charge=("charge", "sum"),
+        avg_qty=("l_quantity", "mean"),
+        avg_price=("l_extendedprice", "mean"),
+        avg_disc=("l_discount", "mean"),
+        count_order=("l_quantity", "count"),
+    ).reset_index().sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
 
 
-def _pandas_join_queries(t, query: str):
-    """q3, q4, q5, q9 and q10 in pandas (the reference's versions)."""
-    import pandas as pd
+def frame_q6(t):
+    li = t["lineitem"]
+    lo, hi = Q6_RANGE
+    m = ((li.l_shipdate >= lo) & (li.l_shipdate < hi)
+         & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
+         & (li.l_quantity < 24))
+    return float((li[m].l_extendedprice * li[m].l_discount).sum())
 
-    o, li, c, n = t["orders"], t["lineitem"], t["customer"], t["nation"]
-    if query == "q3":
-        cutoff = pd.Timestamp(Q3_CUTOFF)
-        df = c[c.c_mktsegment == "BUILDING"].merge(
-            o[o.o_orderdate < cutoff], left_on="c_custkey", right_on="o_custkey")
-        df = df.merge(li[li.l_shipdate > cutoff], left_on="o_orderkey", right_on="l_orderkey")
-        df["revenue"] = df.l_extendedprice * (1 - df.l_discount)
-        out = (df.groupby(["o_orderkey", "o_orderdate"]).agg(revenue=("revenue", "sum"))
-               .reset_index().sort_values(["revenue", "o_orderdate"], ascending=[False, True])
-               .head(10).reset_index(drop=True))
-        return out[["o_orderkey", "o_orderdate", "revenue"]]
-    if query == "q4":
-        lo, hi = (pd.Timestamp(d) for d in Q4_RANGE)
-        late = li[li.l_commitdate < li.l_receiptdate]
-        sel = o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)]
-        sel = sel[sel.o_orderkey.isin(late.l_orderkey)]
-        return (sel.groupby("o_orderpriority", observed=True)
-                .agg(order_count=("o_orderkey", "count")).reset_index()
-                .sort_values("o_orderpriority").reset_index(drop=True))
-    if query == "q5":
-        r, s = t["region"], t["supplier"]
-        lo, hi = (pd.Timestamp(d) for d in Q5_RANGE)
-        df = r[r.r_name == "ASIA"].merge(n, left_on="r_regionkey", right_on="n_regionkey")
-        df = df.merge(c, left_on="n_nationkey", right_on="c_nationkey")
-        df = df.merge(o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)],
-                      left_on="c_custkey", right_on="o_custkey")
-        df = df.merge(li, left_on="o_orderkey", right_on="l_orderkey")
-        df = df.merge(s, left_on=["l_suppkey", "n_nationkey"],
-                      right_on=["s_suppkey", "s_nationkey"])
-        df["volume"] = df.l_extendedprice * (1 - df.l_discount)
-        return (df.groupby("n_name", observed=True).agg(revenue=("volume", "sum"))
-                .reset_index().sort_values("revenue", ascending=False).reset_index(drop=True))
-    if query == "q9":
-        p, s = t["part"], t["supplier"]
-        df = p[p.p_name.isin(Q9_PARTS)].merge(li, left_on="p_partkey", right_on="l_partkey")
-        df = df.merge(s, left_on="l_suppkey", right_on="s_suppkey")
-        df = df.merge(n, left_on="s_nationkey", right_on="n_nationkey")
-        df = df.merge(o, left_on="l_orderkey", right_on="o_orderkey")
-        df["amount"] = df.l_extendedprice * (1 - df.l_discount) - 10.0 * df.l_quantity
-        return (df.groupby("n_name", observed=True).agg(sum_profit=("amount", "sum"))
-                .reset_index().sort_values("n_name").reset_index(drop=True))
-    if query == "q10":
-        lo, hi = (pd.Timestamp(d) for d in Q10_RANGE)
-        df = c.merge(o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)],
-                     left_on="c_custkey", right_on="o_custkey")
-        df = df.merge(li[li.l_returnflag == "R"], left_on="o_orderkey", right_on="l_orderkey")
-        df = df.merge(n, left_on="c_nationkey", right_on="n_nationkey")
-        df["revenue"] = df.l_extendedprice * (1 - df.l_discount)
-        return (df.groupby(["c_custkey", "c_name", "c_acctbal", "n_name"], observed=True)
-                .agg(revenue=("revenue", "sum")).reset_index()
-                .sort_values(["revenue", "c_custkey"], ascending=[False, True])
-                .head(20).reset_index(drop=True))
-    raise ValueError(query)
+
+def frame_q12(t):
+    o, li = t["orders"], t["lineitem"]
+    lo, hi = Q12_RANGE
+    m = (li.l_shipmode.isin(["MAIL", "SHIP"])
+         & (li.l_commitdate < li.l_receiptdate)
+         & (li.l_shipdate < li.l_commitdate)
+         & (li.l_receiptdate >= lo) & (li.l_receiptdate < hi))
+    df = li[m].merge(o, left_on="l_orderkey", right_on="o_orderkey")
+    high = df.o_orderpriority.isin(["1-URGENT", "2-HIGH"])
+    df = df.assign(high_line=high.astype(int), low_line=(~high).astype(int))
+    return (df.groupby("l_shipmode", observed=True)
+            .agg(high_line_count=("high_line", "sum"),
+                 low_line_count=("low_line", "sum")).reset_index()
+            .sort_values("l_shipmode").reset_index(drop=True))
+
+
+def frame_q14(t):
+    li, p = t["lineitem"], t["part"]
+    lo, hi = Q14_RANGE
+    df = li[(li.l_shipdate >= lo) & (li.l_shipdate < hi)].merge(
+        p, left_on="l_partkey", right_on="p_partkey")
+    rev = df.l_extendedprice * (1 - df.l_discount)
+    promo = rev[df.p_type == PROMO].sum()
+    return 100.0 * promo / rev.sum() if rev.sum() else 0.0
+
+
+def frame_q3(t):
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    df = c[c.c_mktsegment == "BUILDING"].merge(
+        o[o.o_orderdate < Q3_CUTOFF], left_on="c_custkey", right_on="o_custkey")
+    df = df.merge(li[li.l_shipdate > Q3_CUTOFF], left_on="o_orderkey", right_on="l_orderkey")
+    df["revenue"] = df.l_extendedprice * (1 - df.l_discount)
+    out = (df.groupby(["o_orderkey", "o_orderdate"]).agg(revenue=("revenue", "sum"))
+           .reset_index().sort_values(["revenue", "o_orderdate"], ascending=[False, True])
+           .head(10).reset_index(drop=True))
+    return out[["o_orderkey", "o_orderdate", "revenue"]]
+
+
+def frame_q4(t):
+    o, li = t["orders"], t["lineitem"]
+    lo, hi = Q4_RANGE
+    late = li[li.l_commitdate < li.l_receiptdate]
+    sel = o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)]
+    sel = sel[sel.o_orderkey.isin(late.l_orderkey)]
+    return (sel.groupby("o_orderpriority", observed=True)
+            .agg(order_count=("o_orderkey", "count")).reset_index()
+            .sort_values("o_orderpriority").reset_index(drop=True))
+
+
+def frame_q5(t):
+    r, n, c, o, li, s = (t[k] for k in ("region", "nation", "customer", "orders",
+                                          "lineitem", "supplier"))
+    lo, hi = Q5_RANGE
+    df = r[r.r_name == "ASIA"].merge(n, left_on="r_regionkey", right_on="n_regionkey")
+    df = df.merge(c, left_on="n_nationkey", right_on="c_nationkey")
+    df = df.merge(o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)],
+                  left_on="c_custkey", right_on="o_custkey")
+    df = df.merge(li, left_on="o_orderkey", right_on="l_orderkey")
+    df = df.merge(s, left_on=["l_suppkey", "n_nationkey"],
+                  right_on=["s_suppkey", "s_nationkey"])
+    df["volume"] = df.l_extendedprice * (1 - df.l_discount)
+    return (df.groupby("n_name", observed=True).agg(revenue=("volume", "sum"))
+            .reset_index().sort_values("revenue", ascending=False).reset_index(drop=True))
+
+
+def frame_q9(t):
+    p, li, s, n, o = (t[k] for k in ("part", "lineitem", "supplier", "nation", "orders"))
+    df = p[p.p_name.isin(Q9_PARTS)].merge(li, left_on="p_partkey", right_on="l_partkey")
+    df = df.merge(s, left_on="l_suppkey", right_on="s_suppkey")
+    df = df.merge(n, left_on="s_nationkey", right_on="n_nationkey")
+    df = df.merge(o, left_on="l_orderkey", right_on="o_orderkey")
+    df["amount"] = df.l_extendedprice * (1 - df.l_discount) - 10.0 * df.l_quantity
+    return (df.groupby("n_name", observed=True).agg(sum_profit=("amount", "sum"))
+            .reset_index().sort_values("n_name").reset_index(drop=True))
+
+
+def frame_q10(t):
+    c, o, li, n = (t[k] for k in ("customer", "orders", "lineitem", "nation"))
+    lo, hi = Q10_RANGE
+    df = c.merge(o[(o.o_orderdate >= lo) & (o.o_orderdate < hi)],
+                 left_on="c_custkey", right_on="o_custkey")
+    df = df.merge(li[li.l_returnflag == "R"], left_on="o_orderkey", right_on="l_orderkey")
+    df = df.merge(n, left_on="c_nationkey", right_on="n_nationkey")
+    df["revenue"] = df.l_extendedprice * (1 - df.l_discount)
+    return (df.groupby(["c_custkey", "c_name", "c_acctbal", "n_name"], observed=True)
+            .agg(revenue=("revenue", "sum")).reset_index()
+            .sort_values(["revenue", "c_custkey"], ascending=[False, True])
+            .head(20).reset_index(drop=True))
+
+
+FRAME_QUERIES = {"q1": frame_q1, "q3": frame_q3, "q4": frame_q4, "q5": frame_q5,
+                 "q6": frame_q6, "q9": frame_q9, "q10": frame_q10, "q12": frame_q12,
+                 "q14": frame_q14}
+
+
+def pandas_reference(tables, query: str):
+    """The same query computed by pandas: ``FRAME_QUERIES[query]`` over the
+    tables' ``to_pandas()``."""
+    return FRAME_QUERIES[query]({k: v.to_pandas() for k, v in tables.items()})
 
 
 # ----------------------------------------------------------------------
@@ -798,11 +826,12 @@ def plain_q10(tables):
 
 
 def answer(query: str, res):
-    """A query's result in its plain version's form: q6 and q14 a float;
+    """A query's result (a LazyFrame query's or a frame query's) in its
+    plain version's form: q6 and q14 a float;
     q1 (keys, {column: tensor}); q12 (modes, high, low); q4, q5 and q9
     (keys, values); q3 and q10 {column: tensor, or strings for a
     dictionary column}."""
-    if query == "q14":
+    if query == "q14" or isinstance(res, float):
         return res
     t = res._table
     if query == "q6":

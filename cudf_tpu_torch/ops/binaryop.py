@@ -164,7 +164,7 @@ def scalar_operand(x) -> Tuple[object, dt.DType]:
         return (None if np.isnat(x) else to_ticks(x, d)), d
     if isinstance(x, str):
         return x, dt.STRING
-    if x is None or type(x).__name__ in ("NAType", "NaTType"):
+    if x is None or type(x).__name__ in ("NAType", "_NAType", "NaTType"):
         return None, dt.FLOAT64
     npv = np.asarray(x)
     return npv.item(), dt.dtype(npv.dtype)
@@ -263,12 +263,30 @@ def binary_operation(lhs, rhs, op: str) -> Column:
         return Column(out_dtype, n, data.to(out_dtype.torch_storage),
                       None if bool(validity.all()) else validity)
 
+    if op == "pow" and out_dtype.is_integer:
+        _refuse_negative_exponent(r_data, r_valid, r_dtype)
     if l_dtype.is_temporal or r_dtype.is_temporal:
         data, out_dtype = _temporal_arith(l_data, l_dtype, r_data, r_dtype, op, out_dtype)
     else:
         data, out_dtype = _arith(l_data, r_data, op, out_dtype, n, dev)
     data = _dense(data, n, dev, out_dtype.torch_storage).to(out_dtype.torch_storage)
     return Column(out_dtype, n, data, bm.and_masks(l_valid, r_valid))
+
+
+def _refuse_negative_exponent(r_data, r_valid, r_dtype: dt.DType) -> None:
+    """numpy and pandas raise for an integer power with a negative integer
+    exponent (a column exponent costs one host sync)."""
+    if not r_dtype.is_signed_integer:
+        return
+    if isinstance(r_data, torch.Tensor):
+        neg = r_data < 0
+        if r_valid is not None:
+            neg &= r_valid
+        negative = bool(neg.any())
+    else:
+        negative = r_data < 0
+    if negative:
+        raise ValueError("Integers to negative integer powers are not allowed.")
 
 
 def _to(x, d: dt.DType):

@@ -1,28 +1,27 @@
 """Copying (port of ``cudf_tpu/ops/copying.py``: ``gather``,
-``gather_table``, ``scatter``, ``slice``, ``split``, ``concatenate``,
-``concatenate_tables``, ``copy_if_else``, ``sequence`` and ``reverse``).
+``gather_table``, ``scatter``, ``scatter_scalar``, ``slice``, ``split``,
+``concatenate``, ``concatenate_tables``, ``copy_if_else``, ``shift``,
+``repeat``, ``tile``, ``interleave_columns``, ``get_element``,
+``sample``, ``sequence`` and ``reverse``).
 
 Fixed-width and temporal columns gather their data; a dictionary column
 gathers its int32 codes and keeps its keys; a STRING column gathers row
 lengths, scans them into new offsets (one host sync for the byte count)
-and gathers its bytes.
+and gathers its bytes.  Dictionaries over different keys meet over the
+union of their keys (``ops/dictionary.py`` ``match_dictionaries``).
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.ops._utils import materialize_validity, segment_expand, signed_view
-
-_DICTIONARIES_DIFFER = (
-    "dictionary columns over different keys: ops/dictionary.py match_dictionaries is "
-    "ROADMAP.md queue 1, item 2")
-
 
 def gather(col: Column, gather_map: torch.Tensor, bounds_check: bool = True) -> Column:
     """out[i] = col[gather_map[i]].  With bounds_check, negative or
@@ -89,8 +88,12 @@ def scatter(source: Column, scatter_map: torch.Tensor, target: Column) -> Column
     """target[scatter_map[i]] = source[i] (cudf::scatter), in target's
     dtype; the target is not modified."""
     _fixed_width(target, "scatter")
-    if target.dtype.is_dictionary and source.keys is not target.keys:
-        raise NotImplementedError(_DICTIONARIES_DIFFER)
+    if target.dtype.is_dictionary:
+        from cudf_tpu_torch.ops.dictionary import encode, match_dictionaries
+
+        source = encode(source)
+        if source.keys is not target.keys:
+            target, source = match_dictionaries(target, source)
     smap = scatter_map.long()
     data = target.data.clone()
     signed_view(data)[smap] = signed_view(source.data.to(target.data.dtype))
@@ -140,8 +143,11 @@ def concatenate(cols: Sequence[Column]) -> Column:
         return Column(dt.STRING, off.shape[0] - 1, torch.cat([c.data for c in cols]),
                       validity, off)
     if first.dtype.is_dictionary:
-        if any(c.children[0] is not first.keys for c in cols):
-            raise NotImplementedError(_DICTIONARIES_DIFFER)
+        if any(not c.dtype.is_dictionary or c.keys is not first.keys for c in cols):
+            from cudf_tpu_torch.ops.dictionary import unify_dictionaries
+
+            cols = unify_dictionaries(cols)
+            first = cols[0]
         data = torch.cat([c.data for c in cols])
         return Column(first.dtype, data.shape[0], data, validity, children=first.children)
     target = first.dtype
@@ -201,8 +207,11 @@ def copy_if_else(mask: torch.Tensor, lhs, rhs) -> Column:
 def _select_keyed(mask: torch.Tensor, sides, n: int) -> Column:
     """copy_if_else of dictionary and string sides: codes when both are
     dictionaries over one keys column, else the decoded strings' rows."""
-    if all(isinstance(s, Column) and s.dtype.is_dictionary for s in sides) \
-            and sides[0].keys is sides[1].keys:
+    if all(isinstance(s, Column) and s.dtype.is_dictionary for s in sides):
+        if sides[0].keys is not sides[1].keys:
+            from cudf_tpu_torch.ops.dictionary import match_dictionaries
+
+            sides = list(match_dictionaries(*sides))
         codes = copy_if_else(mask, Column(dt.INT32, n, sides[0].data, sides[0].validity),
                              Column(dt.INT32, n, sides[1].data, sides[1].validity))
         return Column(sides[0].dtype, n, codes.data, codes.validity, children=sides[0].children)
@@ -228,3 +237,110 @@ def sequence(length: int, start=0, step=1, dtype=dt.INT64, *, device) -> Column:
 def reverse(col: Column) -> Column:
     idx = torch.arange(col.length - 1, -1, -1, dtype=torch.int64, device=col.device)
     return gather(col, idx, bounds_check=False)
+
+
+def scatter_scalar(value, scatter_map: torch.Tensor, target: Column) -> Column:
+    """target[scatter_map[i]] = value (a null value nulls the rows)."""
+    from cudf_tpu_torch.core.column import is_null_scalar
+
+    m = scatter_map.shape[0]
+    if target.dtype.is_dictionary and not is_null_scalar(value):
+        src = Column.from_pylist([value] * m, device=target.device)
+    else:
+        dtype = target.dtype.value_type if target.dtype.is_dictionary else target.dtype
+        src = Column.full(m, value, dtype, device=target.device)
+    return scatter(src, scatter_map, target)
+
+
+def shift(col: Column, periods: int, fill_value=None) -> Column:
+    """cudf::shift: row i takes row i - periods; the rows shifted in are
+    null, or ``fill_value``."""
+    n, p = col.length, int(periods)
+    if col.dtype.is_string:
+        idx = torch.arange(n, dtype=torch.int64, device=col.device) - p
+        out = gather(col, idx, bounds_check=True)
+    else:
+        k = min(abs(p), n)
+        blank = torch.zeros(k, dtype=col.data.dtype, device=col.device)
+        valid = materialize_validity(col)
+        none = torch.zeros(k, dtype=torch.bool, device=col.device)
+        if p >= 0:
+            data = torch.cat([blank, col.data[:n - k]])
+            validity = torch.cat([none, valid[:n - k]])
+        else:
+            data = torch.cat([col.data[k:], blank])
+            validity = torch.cat([valid[k:], none])
+        out = Column(col.dtype, n, data, validity, children=col.children)
+    if fill_value is not None:
+        from cudf_tpu_torch.ops.replace import replace_where
+
+        pos = torch.arange(n, dtype=torch.int64, device=col.device) - p
+        out = replace_where(out, (pos < 0) | (pos >= n), fill_value)
+    return out
+
+
+def repeat(col: Column, counts) -> Column:
+    """Row i repeated counts[i] times (cudf::repeat): an int repeats every
+    row; a tensor of counts costs one host sync for the total."""
+    if isinstance(counts, int):
+        idx = torch.arange(col.length, dtype=torch.int64,
+                           device=col.device).repeat_interleave(counts)
+        return gather(col, idx, bounds_check=False)
+    counts = torch.as_tensor(counts, dtype=torch.int64, device=col.device)
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64, device=col.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return gather(col, segment_expand(offsets, int(offsets[-1])), bounds_check=False)
+
+
+def tile(col: Column, count: int) -> Column:
+    """The whole column, ``count`` times over."""
+    idx = torch.arange(col.length, dtype=torch.int64, device=col.device).repeat(count)
+    return gather(col, idx, bounds_check=False)
+
+
+def interleave_columns(cols: Sequence[Column]) -> Column:
+    """Row-major interleave of k same-length columns
+    (cudf::interleave_columns): c0[0], c1[0], ..., c0[1], c1[1], ..."""
+    k, n = len(cols), cols[0].length
+    pos = torch.arange(n * k, dtype=torch.int64, device=cols[0].device)
+    return gather(concatenate(cols), (pos % k) * n + pos // k, bounds_check=False)
+
+
+def get_element(col: Column, i: int):
+    """Row i as a host scalar (None when null): a Python int, float or
+    bool, a numpy datetime64 / timedelta64, a str (a dictionary's key)."""
+    i = int(i) + (col.length if i < 0 else 0)
+    if not 0 <= i < col.length:
+        raise IndexError(f"row {i} of a {col.length}-row column")
+    return slice(col, i, i + 1).to_numpy().tolist()[0] if col.dtype.is_string or \
+        col.dtype.is_dictionary else _fixed_element(col, i)
+
+
+def _fixed_element(col: Column, i: int):
+    if col.validity is not None and not bool(col.validity[i]):
+        return None
+    v = col.data[i].item()
+    if col.dtype.is_temporal:
+        return np.array(v, dtype=np.int64).view(col.dtype.to_numpy())[()]
+    if col.data.dtype == torch.uint64 and v < 0:
+        v += 1 << 64
+    return v
+
+
+def sample(col: Column, n: int, seed: int = 0, replace: bool = False) -> Column:
+    """n rows drawn from an explicit ``torch.Generator`` seeded with
+    ``seed`` on the column's device: with ``replace`` uniformly, else the
+    head of a random permutation (no row twice).  The rows are not the
+    reference's, which draws with ``jax.random``."""
+    return gather(col, sample_rows(col.length, n, seed, replace, col.device),
+                  bounds_check=False)
+
+
+def sample_rows(rows: int, n: int, seed: int, replace: bool, device) -> torch.Tensor:
+    """The n row positions ``sample`` takes out of ``rows``."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    if replace:
+        return torch.randint(0, rows, (n,), generator=gen, device=device)
+    if n > rows:
+        raise ValueError("cannot take a larger sample than the column without replace")
+    return torch.randperm(rows, generator=gen, device=device)[:n]

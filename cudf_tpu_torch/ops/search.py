@@ -16,7 +16,8 @@ from typing import List
 import torch
 
 from cudf_tpu_torch.core import dtypes as dt
-from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.core.column import (
+    FEW_VALUES, Column, holds, is_null_scalar, plain_fixed, to_ticks)
 from cudf_tpu_torch.ops.row_ops import equality_keys, lex_sort_permutation, order_keys
 
 _EMPTY_CHUNK = -(1 << 63)
@@ -116,3 +117,59 @@ def contains(haystack: Column, needles: Column) -> torch.Tensor:
     order = lex_sort_permutation(h_ops)
     sorted_ops = [k[order] for k in h_ops]
     return _search(sorted_ops, n_ops, "right") > _search(sorted_ops, n_ops, "left")
+
+
+def first_match(haystack: Column, needles: Column) -> torch.Tensor:
+    """int64[len(needles)]: the first haystack row equal to each needle
+    (a null needle equals a null row), -1 where none is."""
+    from cudf_tpu_torch.ops.join import _aligned_keys, _probe_ranges
+
+    if haystack.length == 0 or needles.length == 0:
+        return torch.full((needles.length,), -1, dtype=torch.int64, device=needles.device)
+    h_ops, n_ops = _aligned_keys([haystack], [needles], nulls_equal=True)
+    order, lo, hi = _probe_ranges(n_ops, h_ops)
+    return torch.where(hi > lo, order[lo.clamp(max=order.shape[0] - 1)], -1)
+
+
+def is_in_list(col: Column, values) -> torch.Tensor:
+    """bool[n]: the row's value is one of the host values (a null row
+    matches a null value).  Over a dictionary column it is decided once
+    per dictionary entry on the host, then by code on the device (one
+    equality a matching code, up to FEW_VALUES; else a gather from a table
+    of K booleans): no row is decoded.  Up to FEW_VALUES values over a
+    fixed-width column are one equality pass each; more take a sorted
+    search."""
+    values = list(values)
+    if col.dtype.is_dictionary and not any(is_null_scalar(x) for x in values):
+        keys = col.keys
+        if keys.dtype.is_string:
+            want = {str(x) for x in values}
+            km = [k in want for k in keys.host_strings()]
+        else:
+            want = set(values)
+            km = [k in want for k in keys.data.tolist()]
+        matched = [i for i, hit in enumerate(km) if hit]
+        if len(matched) <= FEW_VALUES:
+            mask = torch.zeros(col.length, dtype=torch.bool, device=col.device)
+            for c in matched:
+                mask |= col.data == c
+        else:
+            mask = torch.tensor(km, dtype=torch.bool).to(col.device)[
+                col.data.clamp(min=0).long()]
+        return mask if col.validity is None else mask & col.validity
+    if not values:
+        return torch.zeros(col.length, dtype=torch.bool, device=col.device)
+    if len(values) <= FEW_VALUES and plain_fixed(col.dtype) and not any(
+            is_null_scalar(x) for x in values):
+        # a few values: one equality pass each, no search (a value the
+        # column cannot hold matches no row)
+        mask = torch.zeros(col.length, dtype=torch.bool, device=col.device)
+        for x in values:
+            if holds(col.dtype, x):
+                mask |= col.data == (to_ticks(x, col.dtype) if col.dtype.is_temporal else x)
+        return mask if col.validity is None else mask & col.validity
+    needles = Column.from_pylist(values, device=col.device)
+    if needles.validity is None and col.validity is not None:
+        # no null value to match: search the values alone, then mask
+        return contains(needles, col.with_validity(None)) & col.validity
+    return contains(needles, col)

@@ -1,6 +1,8 @@
 """Stream compaction (port of ``cudf_tpu/ops/stream_compaction.py``):
-boolean-mask filters, null drops, and the sort-based distinct family over
-``row_ops`` (one lexicographic sort, then adjacent compares)."""
+boolean-mask filters, null drops, the sort-based distinct family over
+``row_ops`` (one lexicographic sort, then adjacent compares) and the
+HyperLogLog ``approx_distinct_count`` over ``row_ops.hash_column``, whose
+hashes are the reference's bit for bit (so is the estimate)."""
 
 from __future__ import annotations
 
@@ -117,3 +119,33 @@ def distinct_count(col: Column, dropna: bool = True) -> int:
         flags.append((torch.isnan(col.data) & valid).any())
     total, *drops = (int(x) for x in torch.stack([f.long() for f in flags]).tolist())
     return total - sum(drops) if dropna else total
+
+
+def approx_distinct_count(col: Column, precision: int = 12) -> int:
+    """HyperLogLog estimate (the reference's): bucket = the hash's top
+    ``precision`` bits, rank = 1 + the leading zeros of the rest (the
+    reference's six-step count, kept as it is), one scatter-max into the
+    registers, then the estimate on the host."""
+    import numpy as np
+
+    from cudf_tpu_torch.ops.row_ops import _shr, hash_column
+
+    h = hash_column(col)                      # the uint64 hash as int64 bits
+    m = 1 << precision
+    bucket = _shr(h, 64 - precision)
+    x = (h << precision) | ((1 << precision) - 1)
+    lz = torch.zeros_like(h)
+    for shift in (32, 16, 8, 4, 2, 1):
+        zero_top = _shr(x, 64 - shift) == 0
+        lz = lz + torch.where(zero_top, shift, 0)
+        x = torch.where(zero_top, x << shift, x)
+    regs = torch.zeros(m, dtype=torch.int64, device=h.device).scatter_reduce_(
+        0, bucket, lz + 1, "amax")
+    regs_np = regs.cpu().numpy().astype(np.float64)
+    alpha = 0.7213 / (1 + 1.079 / m)
+    est = alpha * m * m / np.sum(2.0 ** (-regs_np))
+    if est <= 2.5 * m:
+        zeros = int(np.sum(regs_np == 0))
+        if zeros:
+            est = m * np.log(m / zeros)
+    return int(round(est))

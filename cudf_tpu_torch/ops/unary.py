@@ -14,15 +14,24 @@ from cudf_tpu_torch.ops.binaryop import _rescale_ticks
 def cast(col: Column, target) -> Column:
     """cudf::cast: numeric, bool and temporal columns into each other (a
     temporal unit change rescales the ticks, a downscale floors), a
-    dictionary column through its decoded values."""
+    dictionary column through its decoded values, and any column into a
+    dictionary (``ops/dictionary.py`` ``encode``)."""
     target = dt.dtype(target)
     if col.dtype == target:
         return col
+    if target.is_dictionary:
+        from cudf_tpu_torch.ops.dictionary import encode, set_keys
+
+        if col.dtype.is_dictionary:
+            vt = target.value_type
+            if vt is None or vt == col.keys.dtype or (vt.is_string and col.keys.dtype.is_string):
+                return col
+            return set_keys(col, cast(col.keys, vt))
+        if target.value_type is not None and not target.value_type.is_string:
+            col = cast(col, target.value_type)
+        return encode(col)
     if col.dtype.is_dictionary:
         return cast(col.decode_dictionary(), target)
-    if target.is_dictionary:
-        raise NotImplementedError("cast to a dictionary: ops/dictionary.py encode is "
-                                  "ROADMAP.md queue 1, item 2")
     if col.dtype.is_string or target.is_string:
         raise NotImplementedError(f"cast between {col.dtype!r} and {target!r}: "
                                   "ops/strings.py is ROADMAP.md queue 1, item 6")

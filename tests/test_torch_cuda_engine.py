@@ -1,6 +1,8 @@
 """The LazyFrame engine and the new layouts on the card: TPC-H q1, q6,
 q12 and q14, dictionary ``gather``, ``binaryop`` and ``row_ops`` on CUDA
-tensors against the same calls on CPU tensors.
+tensors against the same calls on CPU tensors; and the pandas API slice:
+the nine TPC-H queries in pandas' API, the scan, copying, replace and
+dictionary primitives, Series and DataFrame methods and ``Over``.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 the fixture, never at import).  On a machine with a card run
@@ -9,6 +11,8 @@ Keys, counts, masks and permutations are exact; float aggregates rtol
 1e-9 (atomic adds on the card add in a varying order).  Every output
 stays on the card.
 """
+
+import datetime
 
 import numpy as np
 import pytest
@@ -184,3 +188,199 @@ def test_temporal_group_aggregations_match_cpu(dev):
                                        rtol=1e-12, err_msg=agg)
         else:
             assert torch.equal(g.data.cpu(), e.data), agg
+
+
+# ----------------------------------------------------------------------
+# the pandas API slice: TPC-H's pandas form, the column primitives,
+# Series and DataFrame methods and Over, on the card against the CPU
+# ----------------------------------------------------------------------
+
+def _values(col: Column):
+    """A column's rows as host values (nulls NaN or None), no pandas: the
+    card's machine has none."""
+    return col.to_numpy().tolist()
+
+
+def _host_of(x):
+    """A result (Column, Series, DataFrame, Index, tensor, tuple, scalar) as
+    host values."""
+    import cudf_tpu_torch as ct
+
+    if isinstance(x, Column):
+        return ("column", str(x.dtype), _values(x))
+    if isinstance(x, ct.Series):
+        return ("series", x.name, x.index.to_pylist(), _values(x._column))
+    if isinstance(x, ct.DataFrame):
+        return ("frame", list(x._table.names), x.index.to_pylist(),
+                tuple(_values(c) for c in x._table.columns))
+    if isinstance(x, ct.Index):
+        return ("index", x.to_pylist())
+    if isinstance(x, torch.Tensor):
+        return ("tensor", x.cpu().numpy().tolist())
+    if isinstance(x, (tuple, list)):
+        return tuple(_host_of(v) for v in x)
+    if isinstance(x, np.ndarray):
+        return ("array", x.tolist())
+    return x
+
+
+def _assert_host_equal(got, exp):
+    """Equal host values: floats rtol 1e-9 (NaN equal to NaN), the rest exact."""
+    if isinstance(exp, (tuple, list)):
+        assert isinstance(got, (tuple, list)) and len(got) == len(exp), (got, exp)
+        flat = all(v is None or isinstance(v, (int, float)) for v in exp)
+        if flat and any(isinstance(v, float) for v in exp):
+            np.testing.assert_allclose(np.asarray(got, dtype=float),
+                                       np.asarray(exp, dtype=float), rtol=RTOL)
+            return
+        for g, e in zip(got, exp):
+            _assert_host_equal(g, e)
+    elif isinstance(exp, float):
+        np.testing.assert_allclose(got, exp, rtol=RTOL)
+    else:
+        assert got == exp or (got != got and exp != exp), (got, exp)
+
+
+def _columns(device):
+    """The same seeded columns on ``device``: int32 and float64 with nulls
+    (5000 rows: more than one 4096-row scan block), strings, a dictionary."""
+    rng = np.random.default_rng(9)
+    n = 5000
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(device)
+    from cudf_tpu_torch.core import dtypes as dt
+
+    return {
+        "i32": Column(dt.INT32, n, torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32))
+                      .to(device), valid),
+        "f64": Column(dt.FLOAT64, n, torch.from_numpy(rng.normal(1, 0.1, n)).to(device), valid),
+        "str": Column.from_strings([str(v) for v in rng.choice(["a", "bb", "ccc"], 300)],
+                                   device=device),
+        "dict": tpch._encoded(rng.choice(["MAIL", "SHIP", "AIR"], 300), device),
+    }
+
+
+def _primitive_cases():
+    from cudf_tpu_torch.ops import dictionary, replace, scan
+    from cudf_tpu_torch.ops import stream_compaction as sc
+
+    def idx(c, *rows):
+        return torch.tensor(rows, device=c.device)
+
+    other = {"dict": lambda d: tpch._encoded(["ZIP", "AIR"] * 10, d)}
+    return {
+        "cumsum": lambda c: scan.cumsum(c["f64"]),
+        "cumprod": lambda c: scan.cumprod(copying.slice(c["f64"], 0, 50)),
+        "cummin": lambda c: scan.cummin(c["i32"]),
+        "cummax": lambda c: scan.cummax(c["f64"]),
+        "cumcount": lambda c: scan.cumcount(c["i32"]),
+        "ewm_mean": lambda c: (scan.ewm_mean(c["f64"], 0.2), scan.ewm_mean(c["f64"], 0.2, False)),
+        "shift": lambda c: (copying.shift(c["i32"], 3), copying.shift(c["f64"], -2, 0.5),
+                            copying.shift(c["str"], 1)),
+        "repeat_tile_interleave": lambda c: (
+            copying.repeat(c["str"], 2), copying.repeat(c["i32"], torch.arange(
+                5000, device=c["i32"].device) % 3), copying.tile(c["dict"], 2),
+            copying.interleave_columns([c["i32"], c["i32"]]),
+            copying.get_element(c["f64"], 7), copying.get_element(c["dict"], 3)),
+        "scatter_scalar": lambda c: (copying.scatter_scalar(4, idx(c["i32"], 0, 9), c["i32"]),
+                                     copying.scatter_scalar("ZIP", idx(c["dict"], 1),
+                                                            c["dict"])),
+        "ffill_bfill": lambda c: (replace.ffill(c["f64"]), replace.bfill(c["i32"], 1)),
+        "replace": lambda c: (
+            replace.replace_values(c["i32"], Column.from_pylist([1, 2], device=c["i32"].device),
+                                   Column.from_pylist([10, 20], device=c["i32"].device)),
+            replace.replace_where(c["f64"], c["f64"].data > 1.0, 0.0),
+            replace.clamp(c["f64"], 0.9, 1.1)),
+        "dictionary": lambda c: (
+            dictionary.encode(c["str"]), dictionary.factorize(c["i32"], sort=False),
+            dictionary.match_dictionaries(c["dict"], other["dict"](c["dict"].device)),
+            dictionary.set_keys(c["dict"], Column.from_strings(["AIR", "ZIP"],
+                                                               device=c["dict"].device)),
+            copying.concatenate([c["dict"], other["dict"](c["dict"].device)])),
+        "approx_distinct_count": lambda c: (sc.approx_distinct_count(c["i32"]),
+                                            sc.approx_distinct_count(c["str"])),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_primitive_cases()))
+def test_column_primitives_on_the_card_match_cpu(dev, name):
+    fn = _primitive_cases()[name]
+    _assert_host_equal(_host_of(fn(_columns(dev))), _host_of(fn(_columns(CPU))))
+
+
+def _method_cases():
+    return {
+        "arith_align": lambda s, g, df: (1 - s) * g + s.sort_values(),
+        "compare_logic": lambda s, g, df: ((s > 1.0) & (g < 0.5)) | ~(s < 0.9),
+        "missing": lambda s, g, df: (s.isna(), s.fillna(0.0), s.ffill(), s.bfill(), s.dropna()),
+        "scans": lambda s, g, df: (s.cumsum(), s.cummax(), s.shift(2), s.diff()),
+        "reductions": lambda s, g, df: (s.sum(), s.mean(), s.min(), s.max(), s.std(), s.count(),
+                                        s.nunique(), s.quantile(0.3), s.idxmax()),
+        "order_sets": lambda s, g, df: (s.rank(), s.nlargest(3), s.value_counts().head(5),
+                                        s.isin([1.0]), s.drop_duplicates().head(5),
+                                        s.astype("category").astype("float64")),
+        "indexing": lambda s, g, df: (s.iloc[3:9], s.loc[[4, 2]], s[s > 1.0].head(),
+                                      s.iloc[5], s.where(s > 1.0, 0.0), s.clip(0.9, 1.1)),
+        "frame_ops": lambda s, g, df: (
+            df.assign(h=df.a * (1 - df.b)), df[df.a > 0].reset_index(), df.dropna(),
+            df.fillna({"b": 0.0}), df.sort_values(["a", "b"]), df.sum(),
+            df.groupby("a").agg(m=("b", "mean"), n=("b", "count")), df.loc[3:6],
+            df.nlargest(4, "b")),
+    }
+
+
+def _method_inputs(device):
+    import cudf_tpu_torch as ct
+
+    cols = _columns(device)
+    s = ct.Series._from(cols["f64"], ct.RangeIndex(5000), "s")
+    g = ct.Series(torch.from_numpy(np.random.default_rng(2).normal(size=5000)).to(device),
+                  name="g")
+    df = ct.DataFrame({"a": cols["i32"], "b": cols["f64"]})
+    return s, g, df
+
+
+@pytest.mark.parametrize("name", sorted(_method_cases()))
+def test_series_and_frame_methods_on_the_card_match_cpu(dev, name):
+    fn = _method_cases()[name]
+    _assert_host_equal(_host_of(fn(*_method_inputs(dev))), _host_of(fn(*_method_inputs(CPU))))
+
+
+def test_temporal_isin_and_replace_on_the_card_match_cpu(dev):
+    """numpy's and the standard library's timestamps and durations, a few
+    (one equality pass each) and 40 (the search)."""
+    import cudf_tpu_torch as ct
+
+    start = np.datetime64("2020-01-01", "ns")
+    stamps = start + (np.arange(5000) % 50).astype("timedelta64[D]")
+    spans = (np.arange(5000) % 30).astype("timedelta64[s]").astype("timedelta64[ns]")
+    few = [datetime.datetime(2020, 1, 3), np.datetime64("2020-01-09")]
+    many = [datetime.datetime(2019, 12, 20) + datetime.timedelta(days=d) for d in range(40)]
+    gaps = [datetime.timedelta(seconds=4), np.timedelta64(7, "s")]
+
+    def run(device):
+        s = ct.Series(stamps, name="t", device=device)
+        d = ct.Series(spans, name="d", device=device)
+        return (s.isin(few), s.isin(many), d.isin(gaps),
+                s.replace(few[0], datetime.datetime(2021, 1, 1)), d.replace(gaps[0], gaps[1]))
+
+    _assert_host_equal(_host_of(run(dev)), _host_of(run(CPU)))
+
+
+@pytest.mark.parametrize("query", sorted(tpch.FRAME_QUERIES))
+def test_frame_queries_on_the_card_match_cpu(dev, query):
+    on_card = tpch.generate(0.01, seed=5, device=dev)
+    on_cpu = tpch.generate(0.01, seed=5, device=CPU)
+    _same(tpch.FRAME_QUERIES[query](on_card), tpch.FRAME_QUERIES[query](on_cpu))
+
+
+def test_over_on_the_card_matches_cpu(dev):
+    from cudf_tpu_torch.engine import col, from_dataframe
+
+    def run(device):
+        t = tpch.generate(0.01, seed=5, device=device)
+        return from_dataframe(t["lineitem"]).with_columns(
+            col("l_quantity").mean().over("l_partkey").alias("q"),
+            col("l_extendedprice").sum().over("l_returnflag", "l_linestatus").alias("p")
+        ).collect()
+
+    _same(run(dev), run(CPU))

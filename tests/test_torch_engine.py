@@ -8,6 +8,8 @@ Tolerances: counts, integer, bool, temporal and key results exact;
 float aggregates rtol 1e-12.  Also: the raises of what is not ported.
 """
 
+import datetime
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -241,6 +243,26 @@ def test_dictionary_groupby_takes_the_onehot_tier(monkeypatch):
     assert calls == [len(MODES)] * 3 and res._table["m"].dtype.is_string
 
 
+def _stamps(days, kind):
+    if kind == "datetime":
+        return [d.astype("datetime64[us]").item() for d in days]
+    return list(days) if kind == "datetime64" else [pd.Timestamp(d) for d in days]
+
+
+@pytest.mark.parametrize("kind", ["datetime64", "datetime", "timestamp"])
+@pytest.mark.parametrize("count", [3, 40])
+def test_temporal_is_in_matches_pandas(data, kind, count):
+    """``is_in`` over a timestamp column takes numpy's, the standard
+    library's and pandas' timestamps as pandas' ``isin`` does: by one
+    equality pass a value up to 16 values, by the search past them."""
+    pdf, port, _, _ = data
+    days = np.unique(pdf["d"].to_numpy())[::7][:count]
+    values = _stamps(days, kind)
+    got = (pe.from_dataframe(port).filter(pe.col("d").is_in(values))
+           .select(pe.col("k"), pe.col("d")).collect().to_pandas())
+    check(got, pdf.loc[pdf["d"].isin(values), ["k", "d"]])
+
+
 def test_unported_paths_raise_naming_their_item(data):
     pdf, port, ref, _ = data
     lf = pe.from_dataframe(port)
@@ -251,7 +273,6 @@ def test_unported_paths_raise_naming_their_item(data):
         (lambda: pe.scan_csv("x.csv"), "item 7"),
         (lambda: lf.sink_parquet("x.parquet"), "item 7"),
         (lambda: lf.map_batches(lambda t: t), "item 10"),
-        (lambda: pe.col("q").sum().over("k"), "item 8"),
         (lambda: IRs.Rolling(lf._node, "k", 3, []), "item 8"),
         (lambda: IRs.PythonScan(lambda: None), "item 10"),
     ]

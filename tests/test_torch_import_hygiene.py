@@ -3,7 +3,9 @@ engine, models and ops modules included, the join family's too), and
 the groupby (both the kernel tiers and the sort tier), merge (every
 ``how``, the sort-merge tier included) and LazyFrame engine paths on CPU
 tensors (the nine TPC-H queries over dictionary, string and temporal
-columns) touch neither pandas nor pyarrow."""
+columns) and the nine TPC-H queries in pandas' API over the port's frames
+(``tpch.FRAME_QUERIES``), Series methods among them, touch neither
+pandas nor pyarrow."""
 
 import ast
 import os
@@ -45,6 +47,11 @@ assert len(tpch.q1(tables)) == 6 and tpch.q14(tables) > 0
 assert tpch.q6(tables)._table.names == ("revenue",) and len(tpch.q12(tables)) == 2
 for q in ("q3", "q4", "q5", "q9", "q10"):
     tpch.QUERIES[q](tables)
+for q, fn in tpch.FRAME_QUERIES.items():       # the pandas API on the port's frames
+    fn(tables)
+s = ct.Series(torch.tensor([1.0, float("nan"), 3.0]), name="s")
+s.isin([1.0]).sum(), s.fillna(0.0).cumsum().max(), s.value_counts(), s.astype("category")
+s.where(s > 1, 0.0).shift(1).ffill().dropna().sort_values().head(2).quantile(0.5)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu", "pandas", "pyarrow"))
 print("LOADED", bad)
