@@ -17,9 +17,12 @@ result line is printed):
    source, all started together, sm_90a).
 
 The G1 groupby (data G1_1e8_1e2_0_0 of h2oai db-benchmark's
-groupby-datagen.R: id4 and id5 in 1..100, id6 in 1..1e6, v1 in 1..5, v2
-in 1..15, v3 uniform in [0, 100)), 1e8 rows made on the card from a
-seeded torch.Generator:
+groupby-datagen.R: id1 and id2 over "id001".."id100" and id3 over
+"id0000000001".."id0001000000" as DICTIONARY32 categories, id4 and id5
+in 1..100, id6 in 1..1e6, v1 in 1..5, v2 in 1..15, v3 uniform in
+[0, 100)), 1e8 rows made on the card from seeded torch.Generators (id5,
+and id1-id3, from generators of their own, so every other column keeps
+its values):
 
 3. kernels: each kernel (A onehot_groupby_aggregate, B digit_histogram,
    C radix_scatter, F tile_sort_data, G merge_scatter, D
@@ -68,6 +71,27 @@ seeded torch.Generator:
    values.
 5. timings: median of 7 warm runs of each query and of its plain PyTorch
    counterpart (CUDA events, then synchronize), as rows/s; q6 and q8 too.
+4. the ten questions (``models/g1.py``, the pandas solution's
+   ``groupby(..., as_index=False, sort=False, observed=True,
+   dropna=False)``; q7 with its ``assign``, q8 with its ``isna`` filter,
+   q9 the (v1, v2) cell of the grouped ``corr``, squared), all ten with
+   every count at 0 before (A, B, F, G and D must each launch), each
+   answer against ``plain_g1`` (codes, groups by first appearance,
+   bincount / index_add_ / scatter_reduce_; q9 in two passes; q10 over two
+   packed int64 keys with a stable sort): keys, group order, counts and
+   integer sums exact, float sums rtol 1e-12, means and r2 rtol 1e-9.
+   Each alone, every count at 0 before it, must launch exactly
+   ``G1_NEEDS``' kernels (q1, q4 A; q3, q5, q7 B, F, G, D; the rest
+   none), and every call of them is recorded and replayed against its
+   plain version.  q9's apply form (a host loop over 1e4 groups) at 1e7
+   rows must equal its corr form (one timed run); torch.profiler splits of
+   q2 and q10.  Then the groupby API (``api_cases``): a SeriesGroupBy sum
+   (A), ``transform("mean")`` by id4 (A) and id6 (B, F, G, D), ``corr``,
+   ``cov``, ``describe``, ``rank``, ``ngroup``, ``filter``, ``ewm`` (at
+   1e7) and the ops aggregations sum_of_squares, m2 and bitwise_or by
+   id4, id5, each alone with its launches checked and its kernel calls
+   replayed, against a plain PyTorch version.
+5. timings of each question and API call beside its plain version.
 
 The G1 frame is then freed.  The J1 inner join (data J1_1e8_NA_0_0 of
 h2oai db-benchmark's join-datagen.R: a fact table of 1e8 rows, id int32
@@ -209,6 +233,9 @@ Library calls: H's m = 3 row times tables.index_select(1, idx), all
 three lookups; no single call gives H's ids and payload together, so
 that row has none and records torch.take of each as two_calls_ms.
 
+Each kernel's row also carries its launches by G1 question and API call
+and, in ``g1_calls``, each replayed call of those.
+
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -289,13 +316,14 @@ def max_abs_err(got, exp):
     return float((got.double() - exp.double()).abs().max())
 
 
-def same(got, exp, what, float_rtol=1e-12):
-    """Exact for integers, rtol for floats; returns the max abs error."""
+def same(got, exp, what, float_rtol=1e-12, float_atol=0.0):
+    """Exact for integers, rtol (and atol) for floats; returns the max abs
+    error."""
     check(got.dtype == exp.dtype and got.shape == exp.shape,
           f"{what}: {got.dtype}{list(got.shape)} vs {exp.dtype}{list(exp.shape)}")
     if got.dtype.is_floating_point:
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
-        check(torch.allclose(got, exp, rtol=float_rtol, atol=0), f"{what}: differs")
+        check(torch.allclose(got, exp, rtol=float_rtol, atol=float_atol), f"{what}: differs")
     else:
         check(torch.equal(got, exp), f"{what}: differs")
     return max_abs_err(got, exp)
@@ -553,16 +581,27 @@ def d_check(rp, pk, vals, base, G, what):
 
 def g1_frame(ct, dev, gen):
     """id5 comes from a generator of its own, drawn after the others, so
-    every other column of every phase keeps the values it had before q6."""
+    every other column of every phase keeps the values it had before q6;
+    id1, id2 and id3 from another, drawn last."""
     def ints(lo, hi, g=gen):
         return torch.randint(lo, hi + 1, (N,), generator=g, device=dev, dtype=torch.int32)
 
-    return ct.DataFrame({
+    from cudf_tpu_torch.core.column import Column
+
+    df = ct.DataFrame({
         "id4": ints(1, K_LOW), "id6": ints(1, K_HIGH),
         "v1": ints(1, 5), "v2": ints(1, 15),
         "v3": torch.rand(N, generator=gen, device=dev, dtype=torch.float64) * 100,
         "id5": ints(1, K_LOW, torch.Generator(device=dev).manual_seed(SEED + 5)),
     })
+    # groupby-datagen.R's categories: id1, id2 over "id001".."id100", id3 over
+    # "id0000000001".."id0001000000", DICTIONARY32 codes over the sorted keys
+    cats = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for name, k, width in (("id1", K_LOW, 3), ("id2", K_LOW, 3), ("id3", N // K_LOW, 10)):
+        keys = Column.from_strings([f"id{i:0{width}d}" for i in range(1, k + 1)], device=dev)
+        df[name] = Column.from_dictionary(
+            torch.randint(0, k, (N,), generator=cats, device=dev, dtype=torch.int32), keys)
+    return df
 
 
 QUERIES = {
@@ -624,13 +663,12 @@ def check_query(name, res, exp):
 # G1 q6 and q8: the sort tier
 # ----------------------------------------------------------------------
 
-Q6_FORM = dict(as_index=False, sort=False, observed=True, dropna=False)
-
-
 def q6(df):
     """db-benchmark G1 q6 in its pandas solution's form: median and std of
-    v3 by id4, id5."""
-    return df.groupby(["id4", "id5"], **Q6_FORM).agg({"v3": ["median", "std"]})
+    v3 by id4, id5 (``models/g1.py``)."""
+    from cudf_tpu_torch.models import g1
+
+    return g1.q6(df)
 
 
 def q8(df):
@@ -784,6 +822,399 @@ def profile_split(fn):
             "host_sync_calls": syncs, "wall_ms": wall_ms,
             "device_busy_share": busy / wall_ms if wall_ms else None,
             "top_kernels": [{"ms": round(t, 3), "kernel": k, "calls": c} for t, k, c in top[:8]]}
+
+
+# ----------------------------------------------------------------------
+# G1: the ten questions in the pandas solution's form, and the groupby API
+# ----------------------------------------------------------------------
+
+RADIX_TIER = ["digit_histogram", "tile_sort_data", "merge_scatter", "bucket_aggregate"]
+ONEHOT_TIER = ["onehot_groupby_aggregate"]
+# the kernels each question (cudf_tpu_torch/models/g1.py) must launch at
+# 1e8 rows: one dictionary or integer key takes the one-hot tier at K <= 4096
+# (q1 id1, q4 id4) and the radix tier above (q3 and q7 id3, q5 id6); two or
+# more keys take the sort tier, which launches none
+G1_NEEDS = {"q1": ONEHOT_TIER, "q2": [], "q3": RADIX_TIER, "q4": ONEHOT_TIER,
+            "q5": RADIX_TIER, "q6": [], "q7": RADIX_TIER, "q8": [], "q9": [], "q10": []}
+
+
+def _first_groups(codes, G):
+    """Plain: the codes in [0, G) that occur, in order of first appearance
+    (scatter_reduce_ "amin" of row ids), and each row's position among them."""
+    n, dev = codes.numel(), codes.device
+    first = torch.full((G,), n, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, codes, torch.arange(n, device=dev), "amin")
+    present = torch.nonzero(first < n).squeeze(1)
+    groups = present[torch.argsort(first[present])]
+    pos = torch.empty(G, dtype=torch.int64, device=dev)
+    pos[groups] = torch.arange(groups.numel(), device=dev)
+    return groups, pos[codes]
+
+
+def _sums(gpos, G, v):
+    """Plain index_add_ sums: int64 (in v's dtype when every sum fits, as
+    pandas gives them) or float64."""
+    acc = torch.float64 if v.is_floating_point() else torch.int64
+    s = torch.zeros(G, dtype=acc, device=v.device).index_add_(0, gpos, v.to(acc))
+    if not v.is_floating_point():
+        info = torch.iinfo(v.dtype)
+        lo, hi = (int(x) for x in torch.aminmax(s))
+        if info.min <= lo and hi <= info.max:
+            s = s.to(v.dtype)
+    return s
+
+
+def _counts(gpos, G):
+    return torch.bincount(gpos, minlength=G)
+
+
+def _col(df, name):
+    return df._table[name].data
+
+
+def plain_g1(q, df):
+    """The ten questions in plain PyTorch, written apart from the port:
+    codes (dictionary codes, id - 1, packed for several keys), groups by
+    first appearance, index_add_ / bincount / scatter_reduce_ per group;
+    q9 in two passes; q10 over two packed int64 keys (id1, id2, id3) and
+    (id4, id5, id6) with a stable sort.  {column: tensor}, dictionary keys
+    as their codes."""
+    id1, id2, id3 = (_col(df, n).long() for n in ("id1", "id2", "id3"))
+    K3 = df._table["id3"].keys.length
+    if q == "q1":
+        groups, gpos = _first_groups(id1, K_LOW)
+        return {"id1": groups.int(), "v1": _sums(gpos, groups.numel(), _col(df, "v1"))}
+    if q == "q2":
+        groups, gpos = _first_groups(id1 * K_LOW + id2, K_LOW * K_LOW)
+        return {"id1": (groups // K_LOW).int(), "id2": (groups % K_LOW).int(),
+                "v1": _sums(gpos, groups.numel(), _col(df, "v1"))}
+    if q in ("q3", "q7"):
+        groups, gpos = _first_groups(id3, K3)
+        G = groups.numel()
+        if q == "q3":
+            return {"id3": groups.int(), "v1": _sums(gpos, G, _col(df, "v1")),
+                    "v3": _sums(gpos, G, _col(df, "v3")) / _counts(gpos, G)}
+        v1, v2 = _col(df, "v1"), _col(df, "v2")
+        mx = torch.full((G,), torch.iinfo(v1.dtype).min, dtype=v1.dtype,
+                        device=v1.device).scatter_reduce_(0, gpos, v1, "amax")
+        mn = torch.full((G,), torch.iinfo(v2.dtype).max, dtype=v2.dtype,
+                        device=v2.device).scatter_reduce_(0, gpos, v2, "amin")
+        return {"id3": groups.int(), "range_v1_v2": mx - mn}
+    if q in ("q4", "q5"):
+        key = "id4" if q == "q4" else "id6"
+        groups, gpos = _first_groups(_col(df, key).long() - 1, K_LOW if q == "q4" else K_HIGH)
+        G = groups.numel()
+        out = {key: (groups + 1).int()}
+        for v in ("v1", "v2", "v3"):
+            s = _sums(gpos, G, _col(df, v))
+            out[v] = s.double() / _counts(gpos, G) if q == "q4" else s
+        return out
+    if q == "q9":
+        groups, gpos = _first_groups(id2 * K_LOW + _col(df, "id4").long() - 1, K_LOW * K_LOW)
+        G = groups.numel()
+        cnt = _counts(gpos, G)
+        x, y = _col(df, "v1").double(), _col(df, "v2").double()
+        dx = x - (_sums(gpos, G, x) / cnt)[gpos]
+        dy = y - (_sums(gpos, G, y) / cnt)[gpos]
+        r = _sums(gpos, G, dx * dy) / torch.sqrt(_sums(gpos, G, dx * dx) * _sums(gpos, G, dy * dy))
+        return {"id2": (groups // K_LOW).int(), "id4": (groups % K_LOW + 1).int(), "r2": r * r}
+    if q == "q10":
+        k1 = (id1 * K_LOW + id2) * K3 + id3
+        k2 = ((_col(df, "id4").long() - 1) * K_LOW + _col(df, "id5").long() - 1) * K_HIGH \
+            + _col(df, "id6").long() - 1
+        perm = torch.sort(k2, stable=True).indices
+        perm = perm[torch.sort(k1[perm], stable=True).indices]
+        s1, s2 = k1[perm], k2[perm]
+        new = torch.ones_like(s1, dtype=torch.bool)
+        new[1:] = (s1[1:] != s1[:-1]) | (s2[1:] != s2[:-1])
+        run = torch.cumsum(new, 0) - 1
+        starts = torch.nonzero(new).squeeze(1)
+        first_row = perm[starts]                  # stable: each run's first row
+        order = torch.argsort(first_row)          # groups by first appearance
+        G = starts.numel()
+        gpos = torch.empty_like(run)
+        gpos[perm] = run
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(G, device=order.device)
+        gpos = rank[gpos]
+        a, b = k1[first_row[order]], k2[first_row[order]]
+        return {"id1": (a // (K_LOW * K3)).int(), "id2": (a // K3 % K_LOW).int(),
+                "id3": (a % K3).int(), "id4": (b // (K_LOW * K_HIGH) + 1).int(),
+                "id5": (b // K_HIGH % K_LOW + 1).int(), "id6": (b % K_HIGH + 1).int(),
+                "v3": _sums(gpos, G, _col(df, "v3")), "v1": _counts(gpos, G)}
+    if q == "q6":
+        return plain_q6(df)
+    return plain_q8(df)
+
+
+G1_RTOL = {"q3": 1e-9, "q4": 1e-9, "q9": 1e-9}     # means and corr of float sums
+# r and r2 near 0: the rounding of the centred sums is absolute (~1e-16 of
+# sqrt(sxx * syy)), so r2 = r * r also gets an atol of 1e-15
+CORR_ATOL = 1e-15
+
+
+def answer_g1(q, res):
+    """A question's result in plain_g1's form (q6 and q8 keep the port's
+    frame, which check_q6 and check_q8 read)."""
+    if q == "q9":
+        idx = res.index
+        return {"id2": idx._columns[0].data, "id4": idx._columns[1].data,
+                "r2": res._column.data}
+    return res
+
+
+def check_g1(q, res, exp):
+    """Keys, group order, counts and integer sums exact; float sums rtol
+    1e-12, means and corr rtol 1e-9; returns the max abs error."""
+    if q == "q6":
+        return check_q6(f"G1 {q}", res, exp)
+    if q == "q8":
+        check_q8(f"G1 {q}", res, exp)
+        return 0.0
+    got = answer_g1(q, res)
+    got = got if isinstance(got, dict) else {n: got._table[n] for n in got._table.names}
+    check(list(got) == list(exp), f"G1 {q}: columns {list(got)}, expected {list(exp)}")
+    err = 0.0
+    for name, want in exp.items():
+        g = got[name]
+        if not isinstance(g, torch.Tensor):
+            check(g.validity is None or bool(g.validity.all()), f"G1 {q} {name}: nulls")
+            g = g.data
+        err = max(err, same(g, want, f"G1 {q} {name}", float_rtol=G1_RTOL.get(q, 1e-12),
+                            float_atol=CORR_ATOL if q == "q9" else 0.0))
+    return err
+
+
+def g1_question_phase(df, smi, wrappers, drive, plains):
+    """The ten questions at 1e8 rows: together (the path's launches), then
+    each alone with every count at 0 before it, launching exactly
+    G1_NEEDS' kernels, each call of which is replayed against its plain
+    version; each answer against plain_g1; q9's apply form at 1e7 rows
+    against its corr form; profiles of q2 and q10; medians of 7 warm runs
+    beside plain PyTorch.  Returns the launches by question, the replayed
+    calls by kernel and the times."""
+    from cudf_tpu_torch.models import g1
+
+    results = drive("g1_questions", lambda: {q: fn(df) for q, fn in g1.QUESTIONS.items()})
+    for q in g1.QUESTIONS:
+        err = check_g1(q, results.pop(q), plain_g1(q, df))
+        log(f"phase 4 G1 question {q} (pandas solution form) agrees with plain torch, "
+            f"max abs err {err}")
+    torch.cuda.empty_cache()
+    by_q, calls = {}, {}
+    for q, fn in g1.QUESTIONS.items():            # alone, every count at 0 before
+        by_q[q] = run_replayed(f"G1 {q}", q, lambda: fn(df), wrappers, plains, calls,
+                               needs=G1_NEEDS[q])
+    log(f"phase 4 G1 questions: launches by question {by_q}")
+    small = df.head(N // 10)
+    t0 = time.perf_counter()
+    by_apply = g1.q9_apply(small)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    by_corr = g1.q9(small)
+    keys = [by_apply._table[n].data for n in ("id2", "id4")]
+    for got, want in zip(keys, by_corr.index._columns[:2]):
+        same(got, want.data, "q9 apply form keys")
+    err = same(by_apply._table[0].data, by_corr._column.data, "q9 apply form r2", 1e-9,
+               CORR_ATOL)
+    log(f"phase 4 G1 q9's apply form at 1e7 rows ({len(by_apply)} groups, a host loop) "
+        f"equals its corr form, max abs err {err}; one run {apply_s:.3f} s [{smi}]")
+    del small, by_apply, by_corr
+    for q in ("q2", "q10"):
+        log(f"phase 4 G1 {q} torch.profiler split: " + json.dumps(
+            {f"g1_{q}_profile": profile_split(lambda: g1.QUESTIONS[q](df)), "card": smi}))
+    times = {"q9_apply_1e7_s": apply_s}
+    for q, fn in g1.QUESTIONS.items():
+        ms = device_ms(lambda: fn(df))
+        plain = device_ms(lambda: plain_g1(q, df))
+        times[q] = {"ms": ms, "plain_ms": plain}
+        log(f"phase 5 G1 question {q}: {ms:.3f} ms = {N / ms * 1e3:.4g} rows/s; plain torch "
+            f"{plain:.3f} ms = {N / plain * 1e3:.4g} rows/s [{smi}]")
+        torch.cuda.empty_cache()
+    return by_q, calls, times
+
+
+def _plain_ewm(codes, x, alpha):
+    """Plain: each row's adjusted weighted mean within its group (no nulls),
+    the rows group by group in row order: a stable sort by code, then
+    num and den of the recurrence s_t = x_t + (1 - alpha) s_{t-1}, each a
+    segmented doubling sum (at distance d a row adds (1 - alpha)^d times
+    the row d before, within its group)."""
+    order = torch.sort(codes, stable=True).indices
+    c, xs = codes[order], x[order]
+    num, den = xs.clone(), torch.ones_like(xs)
+    d, n = 1, xs.numel()
+    while d < n:
+        same_g = c[d:] == c[:-d]
+        w = (1.0 - alpha) ** d
+        num = torch.cat([num[:d], num[d:] + torch.where(same_g, w * num[:-d], 0.0)])
+        den = torch.cat([den[:d], den[d:] + torch.where(same_g, w * den[:-d], 0.0)])
+        d *= 2
+    return order, num / den
+
+
+def api_cases(df, dev):
+    """name: (call, its answer as {name: tensor}, plain version, rtol,
+    kernels it must launch) for the groupby API phase at G1 1e8 (ewm at
+    1e7)."""
+    from cudf_tpu_torch.ops import groupby as gb
+
+    id4c, id6c = _col(df, "id4").long() - 1, _col(df, "id6").long() - 1
+    v1, v2, v3 = _col(df, "v1"), _col(df, "v2"), _col(df, "v3")
+    small = df.head(N // 10)
+    m = int(torch.bincount(id4c).median())
+
+    def sorted_groups(codes, G):
+        cnt = torch.bincount(codes, minlength=G)
+        present = torch.nonzero(cnt).squeeze(1)
+        return present, cnt
+
+    def p_sum():
+        present, _ = sorted_groups(id4c, K_LOW)
+        return {"id4": (present + 1).int(), "v3": _sums(id4c, K_LOW, v3)[present]}
+
+    def p_transform(codes, G):
+        return {"v3": (_sums(codes, G, v3) / torch.bincount(codes, minlength=G).clamp(min=1))[
+            codes]}
+
+    def moments():
+        cnt = torch.bincount(id4c, minlength=K_LOW)
+        x, y = v1.double(), v2.double()
+        dx = x - (_sums(id4c, K_LOW, x) / cnt)[id4c]
+        dy = y - (_sums(id4c, K_LOW, y) / cnt)[id4c]
+        return cnt, [_sums(id4c, K_LOW, a * b) for a, b in ((dx, dx), (dx, dy), (dy, dy))]
+
+    def p_pair(which):
+        cnt, (sxx, sxy, syy) = moments()
+        if which == "corr":
+            r = sxy / torch.sqrt(sxx * syy)
+            cells = [torch.ones_like(r), r, r, torch.ones_like(r)]
+        else:
+            cells = [s / (cnt - 1) for s in (sxx, sxy, sxy, syy)]
+        return {"v1": torch.stack(cells[:2], 1).reshape(-1),
+                "v2": torch.stack(cells[2:], 1).reshape(-1)}
+
+    def p_describe():
+        cnt = torch.bincount(id4c, minlength=K_LOW)
+        perm = torch.sort(v3, stable=True).indices
+        perm = perm[torch.sort(id4c[perm], stable=True).indices]
+        xs = v3[perm]
+        starts = torch.cumsum(cnt, 0) - cnt
+        mean = _sums(id4c, K_LOW, v3) / cnt
+        d = v3 - mean[id4c]
+        out = {"count": cnt.double(), "mean": mean,
+               "std": torch.sqrt(_sums(id4c, K_LOW, d * d) / (cnt - 1)), "min": xs[starts]}
+        for q in (0.25, 0.5, 0.75):
+            pos = q * (cnt - 1).double()
+            lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
+            a, b = xs[starts + lo], xs[starts + hi]
+            out[f"{int(q * 100)}%"] = a + (pos - lo) * (b - a)
+        out["max"] = xs[starts + cnt - 1]
+        return out
+
+    def p_rank():
+        pair = id4c * 5 + (v1.long() - 1)               # v1 in 1..5
+        cnt = torch.bincount(pair, minlength=K_LOW * 5).view(K_LOW, 5)
+        less = (torch.cumsum(cnt, 1) - cnt).reshape(-1)
+        return {"v1": less[pair].double() + (cnt.reshape(-1)[pair].double() + 1) / 2}
+
+    def p_ngroup():
+        present = torch.bincount(id6c, minlength=K_HIGH) > 0
+        return {"ngroup": (torch.cumsum(present.long(), 0) - 1)[id6c]}
+
+    def p_filter():
+        keep = torch.bincount(id4c, minlength=K_LOW)[id4c] > m
+        rows = torch.nonzero(keep).squeeze(1)
+        return {"rows": rows, "v3": v3[rows]}
+
+    def p_ewm():
+        c = _col(small, "id4").long()
+        order, vals = _plain_ewm(c, _col(small, "v3"), 0.1)
+        return {"id4": _col(small, "id4")[order], "label": order, "v3": vals}
+
+    pair_codes = id4c * K_LOW + _col(df, "id5").long() - 1
+
+    def p_ops(agg):
+        present, cnt = sorted_groups(pair_codes, K_LOW * K_LOW)
+        gpos = torch.searchsorted(present, pair_codes)
+        G = present.numel()
+        if agg == "sum_of_squares":
+            return {agg: _sums(gpos, G, v2.double() ** 2)}
+        if agg == "m2":
+            x = v2.double()
+            d = x - (_sums(gpos, G, x) / cnt[present])[gpos]
+            return {agg: _sums(gpos, G, d * d)}
+        bits = torch.zeros(G, dtype=torch.int32, device=v2.device)
+        for b in range(4):                               # v2 in 1..15
+            hit = torch.zeros(G, dtype=torch.int32, device=v2.device).scatter_reduce_(
+                0, gpos, (v2 >> b) & 1, "amax")
+            bits |= hit << b
+        return {agg: bits}
+
+    def ops_call(agg):
+        g = gb.make_grouper([df._table["id4"], df._table["id5"]])
+        return gb.aggregate(df._table["v2"], g, agg)
+
+    def frame_cols(res):
+        return {n: res._table[n].data for n in res._table.names}
+
+    return {
+        "sum_id4": (lambda: df.groupby("id4")["v3"].sum(),
+                    lambda r: {"id4": r.index.column().data, "v3": r._column.data},
+                    p_sum, 1e-12, ONEHOT_TIER),
+        "transform_mean_id4": (lambda: df.groupby("id4")["v3"].transform("mean"),
+                               lambda r: {"v3": r._column.data},
+                               lambda: p_transform(id4c, K_LOW), 1e-9, ONEHOT_TIER),
+        "transform_mean_id6": (lambda: df.groupby("id6")["v3"].transform("mean"),
+                               lambda r: {"v3": r._column.data},
+                               lambda: p_transform(id6c, K_HIGH), 1e-9, RADIX_TIER),
+        "corr_id4": (lambda: df.groupby("id4")[["v1", "v2"]].corr(), frame_cols,
+                     lambda: p_pair("corr"), 1e-9, []),
+        "cov_id4": (lambda: df.groupby("id4")[["v1", "v2"]].cov(), frame_cols,
+                    lambda: p_pair("cov"), 1e-9, []),
+        "describe_id4": (lambda: df.groupby("id4")["v3"].describe(), frame_cols,
+                         p_describe, 1e-9, []),
+        "rank_average_id4": (lambda: df.groupby("id4")["v1"].rank(method="average"),
+                             lambda r: {"v1": r._column.data}, p_rank, 0.0, []),
+        "ngroup_id6": (lambda: df.groupby("id6").ngroup(),
+                       lambda r: {"ngroup": r._column.data}, p_ngroup, 0.0, []),
+        "filter_id4": (lambda: df.groupby("id4").filter(lambda g: len(g) > m),
+                       lambda r: {"rows": r.index.column().data, "v3": r._table["v3"].data},
+                       p_filter, 0.0, []),
+        "ewm_mean_id4_1e7": (lambda: small.groupby("id4")["v3"].ewm(alpha=0.1).mean(),
+                             lambda r: {"id4": r.index._columns[0].data,
+                                        "label": r.index._columns[1].data,
+                                        "v3": r._column.data}, p_ewm, 1e-9, []),
+        **{f"ops_{agg}_id4_id5": ((lambda a=agg: ops_call(a)),
+                                  (lambda r, a=agg: {a: r.data}),
+                                  (lambda a=agg: p_ops(a)), 1e-9 if agg == "m2" else 1e-12, [])
+           for agg in ("sum_of_squares", "m2", "bitwise_or")},
+    }
+
+
+def g1_api_phase(df, smi, wrappers, plains):
+    """Each groupby API call at G1 1e8 (ewm at 1e7) alone, every count at 0
+    before it, launching exactly its kernels (each call replayed against
+    its plain version), its answer against a plain PyTorch version, then
+    timed beside it.  Returns the launches by call, the replayed calls by
+    kernel and the times."""
+    by_call, calls, times = {}, {}, {}
+    for name, (run, answer, plain, rtol, needs) in api_cases(df, df.device).items():
+        by_call[name] = run_replayed(f"G1 API {name}", name, run, wrappers, plains, calls,
+                                     needs=needs)
+        got, exp = answer(run()), plain()
+        check(list(got) == list(exp), f"G1 API {name}: {list(got)} vs {list(exp)}")
+        err = max(same(got[k], exp[k], f"G1 API {name} {k}", float_rtol=rtol,
+                       float_atol=CORR_ATOL if name.startswith("corr") else 0.0)
+                  for k in exp)
+        del got, exp
+        row = {"ms": device_ms(run), "plain_ms": device_ms(plain), "max_abs_err": err}
+        times[name] = row
+        log(f"phase 4/5 G1 API {name} agrees with plain torch (max abs err {err}), launches "
+            f"{by_call[name]}: {row['ms']:.3f} ms; plain torch {row['plain_ms']:.3f} ms "
+            f"[{smi}]")
+        torch.cuda.empty_cache()
+    return by_call, calls, times
 
 
 # ----------------------------------------------------------------------
@@ -1587,20 +2018,21 @@ def replay_check(wrappers, plains, name, args, what):
     return err
 
 
-def run_replayed(what, q, run, wrappers, plains, calls):
-    """Runs one TPC-H query alone, every launch count at 0 before it, with
-    every call of ``TPCH_NEEDS[q]``'s kernels recorded; checks that it
-    launched exactly those kernels, then replays each recorded call on
-    the card against its plain version at the shapes the query gave it,
-    adding a row for each to ``calls`` by kernel.  Returns the launches."""
+def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
+    """Runs one query alone, every launch count at 0 before it, with every
+    call of its kernels (``needs``, by default ``TPCH_NEEDS[q]``) recorded;
+    checks that it launched exactly those kernels, then replays each
+    recorded call on the card against its plain version at the shapes the
+    query gave it, adding a row for each to ``calls`` by kernel.  Returns
+    the launches."""
+    needs = TPCH_NEEDS[q] if needs is None else needs
     for w in wrappers.values():
         w.launches = 0
-    with KernelRecorder(wrappers, TPCH_NEEDS[q]) as rec:
+    with KernelRecorder(wrappers, needs) as rec:
         run()
         torch.cuda.synchronize()
     launched = {k: w.launches for k, w in wrappers.items() if w.launches}
-    check(sorted(launched) == sorted(TPCH_NEEDS[q]),
-          f"{what} launched {launched}, expected {TPCH_NEEDS[q]}")
+    check(sorted(launched) == sorted(needs), f"{what} launched {launched}, expected {needs}")
     for i, (name, args) in enumerate(rec.calls):   # at the shapes q gave it
         call = f"{what} call {i} of {name}"
         err = replay_check(wrappers, plains, name, args, call)
@@ -1612,7 +2044,7 @@ def run_replayed(what, q, run, wrappers, plains, calls):
         calls.setdefault(name, []).append(row)
         log(f"phase 3 {call} agrees with its plain version: {json.dumps(row)}")
     replayed = sorted({name for name, _ in rec.calls})
-    check(replayed == sorted(TPCH_NEEDS[q]), f"{what}: replayed {replayed}")
+    check(replayed == sorted(needs), f"{what}: replayed {replayed}")
     rec.calls.clear()
     torch.cuda.empty_cache()
     return launched
@@ -2036,7 +2468,8 @@ def main():
              "j1_sort_merge": [],
              "j1_dict": ["digit_histogram", "tile_sort_data", "merge_scatter",
                          "bucket_aggregate", "window_probe"],
-             "tpch": TPCH_PATH, "tpch_frame": TPCH_PATH}
+             "tpch": TPCH_PATH, "tpch_frame": TPCH_PATH,
+             "g1_questions": ONEHOT_TIER + RADIX_TIER}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -2114,6 +2547,18 @@ def main():
         log(f"phase 5 G1 {name} (sort tier): {ms:.3f} ms = {N / ms * 1e3:.4g} rows/s; plain "
             f"torch {plain:.3f} ms = {N / plain * 1e3:.4g} rows/s [{smi}]")
         torch.cuda.empty_cache()
+    plains = {"onehot_groupby_aggregate": ha.onehot_groupby_aggregate_plain,
+              "digit_histogram": rp.digit_histogram_plain,
+              "tile_sort_data": ts.tile_sort_data_plain,
+              "merge_scatter": rp.merge_scatter_plain,
+              "bucket_aggregate": rp.bucket_aggregate_plain,
+              "window_probe": rp.window_probe_plain}
+    by_question, g1_calls, question_times = g1_question_phase(df, smi, wrappers, drive, plains)
+    by_api, api_calls, api_times = g1_api_phase(df, smi, wrappers, plains)
+    for name, rows in api_calls.items():
+        g1_calls.setdefault(name, []).extend(rows)
+    log("phase 5 G1 questions and API times: " + json.dumps(
+        {"card": smi, "questions": question_times, "api": api_times}))
     del df
     torch.cuda.empty_cache()
 
@@ -2170,18 +2615,14 @@ def main():
     j1_dict_phase(ct, dev, gen, v1, drive, smi)
     del v1
     torch.cuda.empty_cache()
-    plains = {"onehot_groupby_aggregate": ha.onehot_groupby_aggregate_plain,
-              "digit_histogram": rp.digit_histogram_plain,
-              "tile_sort_data": ts.tile_sort_data_plain,
-              "merge_scatter": rp.merge_scatter_plain,
-              "bucket_aggregate": rp.bucket_aggregate_plain,
-              "window_probe": rp.window_probe_plain}
     (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
      over_rows) = tpch_phase(dev, smi, wrappers, drive, plains)
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
         kernels[name]["tpch_frame_calls"] = calls
+    for name, calls in g1_calls.items():
+        kernels[name]["g1_calls"] = calls
     log("phase 5 TPC-H frame SF10 times: " + json.dumps({"card": smi, "ms": frame_times,
                                                          "over": over_rows}))
     prim = primitives_phase(ct, dev, torch.Generator(device=dev).manual_seed(SEED + 12), smi)
@@ -2205,7 +2646,9 @@ def main():
                    launches_by_g1_query={q: c.get(name, 0) for q, c in by_query.items()},
                    launches_by_tpch_query={q: c.get(name, 0) for q, c in by_tpch_query.items()},
                    launches_by_tpch_frame_query={q: c.get(name, 0)
-                                                 for q, c in by_frame_query.items()})
+                                                 for q, c in by_frame_query.items()},
+                   launches_by_g1_question={q: c.get(name, 0) for q, c in by_question.items()},
+                   launches_by_g1_api={q: c.get(name, 0) for q, c in by_api.items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

@@ -12,6 +12,8 @@ columns and an index, with pandas' frame API.
   ``reset_index``, sorts, ``drop_duplicates``, ``nlargest``.
 - Per column: missing data, ``astype``, ``clip``, ``where``, scans,
   arithmetic and comparisons; reductions by column or by row (axis=1).
+- ``agg``, ``transform``, ``pipe``, ``describe``, ``corr`` and ``cov``
+  (pairwise-complete rows, two passes a pair), as pandas'.
 - ``groupby`` and ``merge`` (``frame/groupby.py``, ``frame/join.py``).
 
 A frame lives where its tensors live.  Host data (numpy arrays, pandas
@@ -44,10 +46,10 @@ from cudf_tpu_torch.ops.replace import nans_to_nulls
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
 _NOT_PORTED = {
-    "rolling": 8, "resample": 8, "ewm": 8, "map": 4, "apply": 4, "applymap": 4, "agg": 4,
-    "aggregate": 4, "transform": 4, "pipe": 4, "query": 8, "eval": 8, "melt": 8, "stack": 8,
+    "rolling": 8, "resample": 8, "ewm": 8, "map": 4, "apply": 4, "applymap": 4,
+    "query": 8, "eval": 8, "melt": 8, "stack": 8,
     "unstack": 8, "transpose": 8, "pivot_table": 8, "pivot": 8, "interpolate": 4,
-    "describe": 4, "corr": 4, "cov": 4, "combine_first": 4, "update": 4, "join": 4,
+    "combine_first": 4, "update": 4, "join": 4,
     "hash_values": 5, "explode": 6, "to_arrow": 8, "to_csv": 7, "to_json": 7,
     "to_parquet": 7, "to_orc": 7, "to_feather": 7,
 }
@@ -187,6 +189,8 @@ class DataFrame:
         pidx = pdf.index
         if type(pidx).__name__ == "RangeIndex":
             index = RangeIndex(pidx.start, pidx.stop, pidx.step, name=pidx.name)
+        elif type(pidx).__name__ == "MultiIndex":
+            index = as_index(pidx, device)
         else:
             index = Index(Column.from_numpy(np.asarray(pidx), device=device),
                           name=pidx.name)
@@ -195,8 +199,15 @@ class DataFrame:
     def to_pandas(self):
         import pandas as pd
 
-        data = {n: c.to_pandas_array() for n, c in self._table.items()}
-        return pd.DataFrame(data, index=self._index.to_pandas(), columns=self.columns)
+        names = self.columns
+        columns = names
+        if names and all(isinstance(n, tuple) for n in names) \
+                and len({len(n) for n in names}) == 1:
+            columns = pd.MultiIndex.from_tuples(names)     # (column, agg) names
+        out = pd.DataFrame({i: c.to_pandas_array() for i, c in enumerate(self._table.columns)},
+                           index=self._index.to_pandas())
+        out.columns = columns
+        return out
 
     # ------------------------------------------------------------------
     # column access
@@ -589,6 +600,87 @@ class DataFrame:
         return Series([self[n].quantile(q) for n in num],
                       index=Index(Column.from_pylist(num, device=dev)), name=q, device=dev)
 
+    def _numeric_names(self) -> list:
+        return [n for n, c in self._table.items() if c.dtype.is_numeric]
+
+    def agg(self, func, axis=0):
+        """A name: each column's reduction (a Series over the columns); a
+        list: a frame of the names by the numeric and bool columns; a
+        dict {column: name or [names]}: a Series over the columns when
+        every value is a name, else a frame of the names (in order of first
+        appearance) by the columns, NaN where a name was not asked."""
+        if axis not in (0, "index"):
+            raise NotImplementedError("DataFrame.agg(axis=1): ROADMAP.md queue 1, item 4")
+        dev = self.device
+        if isinstance(func, str):
+            return getattr(self, func)()
+        if isinstance(func, (list, tuple)):
+            names = [n for n, c in self._table.items() if c.dtype.is_numeric or c.dtype.is_bool]
+            return DataFrame({n: Series([self[n].agg(f) for f in func], device=dev)._column
+                              for n in names}, index=list(func), device=dev)
+        if isinstance(func, dict):
+            if all(isinstance(f, str) for f in func.values()):
+                return Series([self[n].agg(f) for n, f in func.items()], index=list(func),
+                              device=dev)
+            rows = []
+            for f in func.values():
+                for a in ([f] if isinstance(f, str) else f):
+                    if a not in rows:
+                        rows.append(a)
+            data = {}
+            for n, f in func.items():
+                asked = [f] if isinstance(f, str) else list(f)
+                data[n] = Series([float(self[n].agg(a)) if a in asked else None
+                                  for a in rows], dtype="float64", device=dev)._column
+            return DataFrame(data, index=rows, device=dev)
+        return func(self)
+
+    aggregate = agg
+
+    def transform(self, func, *args, **kwargs) -> "DataFrame":
+        """Each column's transform (``Series.transform``), the frame's rows
+        and index kept."""
+        return self._new(Table.from_pairs(self._table.names, [
+            self[n].transform(func, *args, **kwargs)._column for n in self._table.names]))
+
+    def pipe(self, func, *args, **kwargs):
+        """func(self, ...); a (func, keyword) pair passes self as that
+        keyword."""
+        if isinstance(func, tuple):
+            func, target = func
+            kwargs[target] = self
+            return func(*args, **kwargs)
+        return func(self, *args, **kwargs)
+
+    def describe(self) -> "DataFrame":
+        """pandas' count, mean, std, min, quartiles and max of each numeric
+        column, float64."""
+        dev = self.device
+        return DataFrame({n: self[n].describe()._column for n in self._numeric_names()},
+                         index=["count", "mean", "std", "min", "25%", "50%", "75%", "max"],
+                         device=dev)
+
+    def _pairwise(self, fn) -> "DataFrame":
+        names = self._numeric_names()
+        k = len(names)
+        out = np.full((k, k), np.nan)
+        for i in range(k):
+            for j in range(i, k):
+                out[i, j] = out[j, i] = fn(self[names[i]], self[names[j]])
+        dev = self.device
+        return DataFrame({n: torch.tensor(out[:, i], dtype=torch.float64, device=dev)
+                          for i, n in enumerate(names)}, index=list(names), device=dev)
+
+    def corr(self, method: str = "pearson", min_periods: int = 1) -> "DataFrame":
+        """Pearson correlations of the numeric columns, each pair over the
+        rows where both are present."""
+        return self._pairwise(lambda a, b: a.corr(b, method, min_periods))
+
+    def cov(self, min_periods=None, ddof: int = 1) -> "DataFrame":
+        """Covariances of the numeric columns, each pair over the rows where
+        both are present."""
+        return self._pairwise(lambda a, b: a.cov(b, min_periods, ddof))
+
     def nlargest(self, n: int, columns, keep: str = "first") -> "DataFrame":
         return self._nselect(n, columns, largest=True)
 
@@ -670,14 +762,14 @@ class DataFrame:
                       left_index=left_index, right_index=right_index,
                       suffixes=suffixes, sort=sort)
 
-    def groupby(self, by, sort: bool = True, dropna: bool = True, as_index: bool = True,
-                observed: bool = True):
-        """Group by one key column or a list of them (see
+    def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
+                as_index: bool = True, observed: bool = True):
+        """Group by key columns, Series, or index levels (see
         ``frame/groupby.py``)."""
         from cudf_tpu_torch.frame.groupby import DataFrameGroupBy
 
-        return DataFrameGroupBy(self, by, sort=sort, dropna=dropna, as_index=as_index,
-                                observed=observed)
+        return DataFrameGroupBy(self, by, level=level, sort=sort, dropna=dropna,
+                                as_index=as_index, observed=observed)
 
 
 def _reduction(name: str):

@@ -20,10 +20,13 @@ index, with pandas' column API.
   see each other's writes.
 
 Its index may be a MultiIndex, as a multi-key groupby's ``size()`` gives.
-The ``str``, ``dt``, ``cat``, ``list`` and ``struct`` accessors, windows
-(``rolling``, ``resample``, ``ewm``), UDFs (``map``, ``apply``, ``agg``,
-``transform``, ``pipe``) and the methods in ``_NOT_PORTED`` raise
-NotImplementedError naming their ROADMAP.md item.
+``groupby`` gives a SeriesGroupBy (``frame/groupby.py``); ``corr``,
+``cov`` and ``autocorr`` take two passes over the pairwise-complete rows;
+``agg``, ``transform``, ``pipe`` and ``describe`` are pandas'.  The
+``str``, ``dt``, ``cat``, ``list`` and ``struct`` accessors, windows
+(``rolling``, ``resample``, ``ewm``), row UDFs (``map``, ``apply``) and
+the other methods in ``_NOT_PORTED`` raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -67,11 +70,11 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 _NOT_PORTED = {
     "str": 6, "dt": 6, "cat": 8, "list": 6, "struct": 6,
     "rolling": 8, "resample": 8, "ewm": 8,
-    "map": 4, "apply": 4, "agg": 4, "aggregate": 4, "transform": 4, "pipe": 4,
-    "interpolate": 4, "describe": 4, "corr": 4, "cov": 4, "autocorr": 4,
+    "map": 4, "apply": 4, "interpolate": 4,
     "combine_first": 4, "update": 4, "explode": 6, "hash_values": 5,
-    "groupby": 4, "to_arrow": 8, "to_csv": 7, "to_json": 7, "to_parquet": 7,
+    "to_arrow": 8, "to_csv": 7, "to_json": 7, "to_parquet": 7,
 }
+_DESCRIBE = ("count", "mean", "std", "min", "25%", "50%", "75%", "max")
 
 
 def not_ported(name: str, item: int):
@@ -428,13 +431,8 @@ class Series:
     def reset_index(self, drop: bool = False, name=None):
         if drop:
             return self._new(self._column, default_index(len(self)))
-        from cudf_tpu_torch.core.table import Table
-        from cudf_tpu_torch.frame.dataframe import DataFrame
-
-        idx_name = self._index.name if self._index.name is not None else "index"
         nm = name if name is not None else (self.name if self.name is not None else 0)
-        return DataFrame._from(Table({idx_name: self._index.column(self.device),
-                                      nm: self._column}), default_index(len(self)))
+        return self.to_frame(nm).reset_index()
 
     def set_axis(self, labels, axis=0) -> "Series":
         idx = as_index(labels, self.device)
@@ -612,6 +610,103 @@ class Series:
         top = vc[vc == vc.max()]
         return Series._from(sort_ops.sort(top._index.column(self.device)),
                             default_index(len(top)), self.name)
+
+    def _pair(self, other: "Series"):
+        """(x, y, the rows where both are present) as float64, aligned by
+        label; NaN is missing."""
+        a, b, _ = _align(self, other)
+        for c in (a, b):
+            if not (c.dtype.is_numeric or c.dtype.is_bool):
+                raise TypeError(f"corr/cov of a {c.dtype!r} column")
+        x, y = unary.cast(a, dt.FLOAT64).data, unary.cast(b, dt.FLOAT64).data
+        ok = materialize_validity(a) & materialize_validity(b) & ~torch.isnan(x) \
+            & ~torch.isnan(y)
+        return torch.where(ok, x, 0.0), torch.where(ok, y, 0.0), ok
+
+    def _centred_pair(self, other: "Series"):
+        """(x less its mean, y less its mean, count): the first of two
+        passes over the pairwise-complete rows."""
+        x, y, ok = self._pair(other)
+        n = ok.sum()
+        mx, my = x.sum() / n.clamp(min=1), y.sum() / n.clamp(min=1)
+        return torch.where(ok, x - mx, 0.0), torch.where(ok, y - my, 0.0), n
+
+    def corr(self, other: "Series", method: str = "pearson", min_periods=None) -> float:
+        """Pearson correlation over the rows where both are present; NaN
+        with fewer than two (or ``min_periods``) or a constant side."""
+        if method != "pearson":
+            raise NotImplementedError(f"Series.corr(method={method!r}): pearson only")
+        dx, dy, n = self._centred_pair(other)
+        sxy, sxx, syy, cnt = torch.stack([(dx * dy).sum(), (dx * dx).sum(), (dy * dy).sum(),
+                                          n.double()]).tolist()
+        den = float(np.sqrt(sxx * syy))
+        if cnt < max(2, min_periods or 1) or den == 0.0:
+            return float("nan")
+        return sxy / den
+
+    def cov(self, other: "Series", min_periods=None, ddof: int = 1) -> float:
+        """Covariance over the rows where both are present, over count -
+        ddof; NaN where that is below 1 (or fewer than ``min_periods``)."""
+        dx, dy, n = self._centred_pair(other)
+        sxy, cnt = torch.stack([(dx * dy).sum(), n.double()]).tolist()
+        if cnt - ddof < 1 or cnt < (min_periods or 0):
+            return float("nan")
+        return sxy / (cnt - ddof)
+
+    def autocorr(self, lag: int = 1) -> float:
+        return self.corr(self.shift(lag))
+
+    def describe(self) -> "Series":
+        """pandas' count, mean, std, min, quartiles and max of a numeric
+        column, float64."""
+        if not self.dtype.is_numeric:
+            raise NotImplementedError(
+                "describe of a non-numeric column (count, unique, top and freq: values of "
+                "mixed types) is not ported: ROADMAP.md queue 1, item 4")
+        vals = [float(self.count()), self.mean(), self.std(), self.min(),
+                *[self.quantile(q) for q in (0.25, 0.5, 0.75)], self.max()]
+        return Series([float(v) for v in vals], index=list(_DESCRIBE), name=self.name,
+                      device=self.device)
+
+    def agg(self, func, *args, **kwargs):
+        """A name (a scalar, or the method's Series), a list of names (a
+        Series over them) or a callable (func(self))."""
+        if isinstance(func, str):
+            return getattr(self, func)(*args, **kwargs)
+        if isinstance(func, (list, tuple)):
+            vals = [self.agg(f) for f in func]
+            names = [f if isinstance(f, str) else f.__name__ for f in func]
+            return Series(vals, index=names, name=self.name, device=self.device)
+        return func(self, *args, **kwargs)
+
+    aggregate = agg
+
+    def transform(self, func, *args, **kwargs) -> "Series":
+        """func (a name or a callable) of the Series, which must keep its
+        length."""
+        out = getattr(self, func)(*args, **kwargs) if isinstance(func, str) \
+            else func(self, *args, **kwargs)
+        if not isinstance(out, Series) or len(out) != len(self):
+            raise ValueError("Function did not transform")
+        return out
+
+    def pipe(self, func, *args, **kwargs):
+        """func(self, ...); a (func, keyword) pair passes self as that
+        keyword."""
+        if isinstance(func, tuple):
+            func, target = func
+            kwargs[target] = self
+            return func(*args, **kwargs)
+        return func(self, *args, **kwargs)
+
+    def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
+                as_index: bool = True, observed: bool = True):
+        """Group by Series, host arrays of this length, or index levels
+        (see ``frame/groupby.py``)."""
+        from cudf_tpu_torch.frame.groupby import SeriesGroupBy
+
+        return SeriesGroupBy(self, by, level=level, sort=sort, dropna=dropna,
+                             as_index=as_index, observed=observed)
 
     # ------------------------------------------------------------------
     # scans and shifts

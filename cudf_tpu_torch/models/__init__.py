@@ -11,7 +11,8 @@
   domain spans more than one window.
 
 ``models/tpch.py`` holds the TPC-H tables and queries q1, q6, q12 and q14
-on the LazyFrame engine.
+on the LazyFrame engine; ``models/g1.py`` the ten db-benchmark G1
+groupby questions in the form of its pandas solution.
 """
 
 from __future__ import annotations

@@ -28,6 +28,24 @@ Medians, quantiles, nunique and idxmin/idxmax sort by (group, value).
 These are PyTorch library calls: the sort tier reaches none of the
 kernels A-H, as the reference's reaches no Pallas kernel.
 
+``transform_kernel_tier`` serves a groupby transform of
+sum/count/mean/min/max/size on the same tiers: the K-slot results, read
+before they are compacted, are gathered back by each row's code; no
+grouper sort is built.  The rest of the family runs on the sort tier:
+sum_of_squares, m2 and bitwise_and/or/xor (in ``_AGG_DISPATCH``), and the
+two-column ``group_cov``/``group_corr`` and the per-row ``group_ewma``,
+which the frame layer calls by name.  cov and corr take two passes (the
+group means by ``index_add_``, gathered back by group id, then the
+centred sums), never the reference's one-pass ``sxy - sx*sy/n``, which
+cancels catastrophically for values far from zero.  The bitwise
+aggregations take a segmented doubling scan over the values sorted by
+group (log2 of the largest group's size passes of a shift, a compare and
+a select, then each run's last row): PyTorch has no bitwise
+``scatter_reduce_``, and per-bit counts would take one ``index_add_``
+pass a bit (64 for int64).  Aggregations that return LIST or STRUCT
+columns (collect/list, unique/collect_set, topk, histogram, tdigest)
+wait for those layouts (ROADMAP.md queue 1, item 6).
+
 Both tiers give pandas' dtypes and nulls.  Integer and bool sums are
 exact (int64 accumulation); an integer column's sum and prod come back
 in its own dtype when every result fits, else int64 (uint64 for
@@ -67,12 +85,19 @@ SUPPORTED_AGGS = frozenset({"sum", "count", "mean", "min", "max", "size"})
 Request = Tuple[object, Column, str]
 
 
+_LIST_AGGS = frozenset({"collect", "list", "unique", "collect_set", "topk", "histogram",
+                        "tdigest"})
+
+
 def _not_ported(agg: str) -> NotImplementedError:
+    if agg in _LIST_AGGS:
+        return NotImplementedError(
+            f"groupby agg {agg!r} returns a LIST or STRUCT column, which the port does not "
+            "have yet: ROADMAP.md queue 1, item 6 (ops/lists.py, structs.py)")
     return NotImplementedError(
-        f"groupby agg {agg!r} is not ported: collect/list/unique, histogram, "
-        "sum_of_squares, m2, bitwise_*, tdigest, cov/corr and ewm are ROADMAP.md "
-        "queue 1, item 4 (the rest of frame/groupby.py); the sort tier serves "
-        f"{', '.join(sorted(_AGG_DISPATCH))}")
+        f"groupby agg {agg!r} is not an aggregation of one column (cov, corr and ewm are "
+        "the groupby's own methods; ROADMAP.md queue 1 lists what the port lacks); the sort "
+        f"tier serves {', '.join(sorted(_AGG_DISPATCH))}")
 
 
 # ----------------------------------------------------------------------
@@ -145,10 +170,9 @@ def _key_range(key: Column, valid: Optional[torch.Tensor],
     return lo, hi, any(nan)
 
 
-def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
-                          dropna: bool) -> Optional[Tuple[Table, Table]]:
-    """(group keys, aggregations) from the kernel tiers, or None when the
-    request is outside them (the sort tier then serves it)."""
+def _kernel_codes(keys: Table, values: Sequence[Request], dropna: bool):
+    """(key, int32 codes, K, key_lo, valid) when the kernel tiers serve
+    the request, else None (the sort tier then serves it)."""
     if not get_option("groupby.onehot_fast_path"):
         return None
     key = keys.column(0) if keys.num_columns == 1 else None
@@ -173,7 +197,7 @@ def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
         K = key.keys.length
         if K == 0 or K > 1 << MAX_DOMAIN_BITS or _may_hold_nan(nan_cols.values()):
             return None
-        return _aggregate(keys.names[0], key, key.data, K, 0, valid, list(values))
+        return key, key.data, K, 0, valid
     lo, hi, has_nan = _key_range(key, valid, list(nan_cols.values()))
     if has_nan:
         return None
@@ -181,8 +205,79 @@ def _try_onehot_fast_path(keys: Table, values: Sequence[Request],
     if K > 1 << MAX_DOMAIN_BITS:
         return None
     src = key.data if key.dtype.is_signed_integer else key.data.long()
-    codes = (src - lo).to(torch.int32)
-    return _aggregate(keys.names[0], key, codes, K, lo, valid, list(values))
+    return key, (src - lo).to(torch.int32), K, lo, valid
+
+
+def _try_onehot_fast_path(keys: Table, values: Sequence[Request], dropna: bool,
+                          dictionary_codes: bool = False,
+                          first_appearance: bool = False) -> Optional[Tuple[Table, Table]]:
+    """(group keys, aggregations) from the kernel tiers, or None when the
+    request is outside them.  Groups come in ascending key order, or with
+    ``first_appearance`` in order of each one's first row (pandas'
+    sort=False).  A dictionary key comes back as the observed entries'
+    keys (the reference's form), or with ``dictionary_codes`` as a
+    dictionary column of their codes (pandas' categorical, observed=True)."""
+    req = _kernel_codes(keys, values, dropna)
+    if req is None:
+        return None
+    key, codes, K, key_lo, valid = req
+    results, occupied = _slot_results(codes, K, valid, list(values))
+    present = filter_indices(occupied > 0)
+    if first_appearance:
+        present = present[torch.argsort(_first_rows(codes, K, valid, present))]
+    compact = {n: copying.gather(c, present, bounds_check=False) for n, c in results.items()}
+    _fit_int_results(compact, {name: col.dtype for name, col, agg in values if agg == "sum"})
+    if key.dtype.is_dictionary:
+        key_col = Column.from_dictionary(present, key.keys) if dictionary_codes else \
+            copying.gather(key.keys, present, bounds_check=False)
+    else:
+        key_col = Column(key.dtype, present.shape[0],
+                         (present + key_lo).to(key.dtype.torch_storage))
+    return Table({keys.names[0]: key_col}), Table(compact)
+
+
+def _first_rows(codes: torch.Tensor, K: int, valid: Optional[torch.Tensor],
+                present: torch.Tensor) -> torch.Tensor:
+    """Each present slot's first row with a valid key: scatter_reduce_
+    "amin" of row ids over a prefix of the rows that grows eightfold until
+    every present slot has its row there (keys drawn at random meet every
+    group early; the whole column at worst).  A scatter over every row puts
+    all of them on the K slots' addresses: 1e8 rows on 100 slots take ~60
+    ms of contention on an H100, a 65536-row prefix a fraction of one.
+    One host sync a round."""
+    n = codes.shape[0]
+    p = min(n, 1 << 16)
+    while True:
+        c = codes[:p].long()
+        if valid is not None:
+            c = torch.where(valid[:p], c, K)
+        first = torch.full((K + 1,), n, dtype=torch.int64, device=codes.device)
+        first.scatter_reduce_(0, c, torch.arange(p, device=codes.device), "amin")
+        rows = first[present]
+        if p == n or bool((rows < n).all()):
+            return rows
+        p = min(n, p * 8)
+
+
+def transform_kernel_tier(key: Column, values: Sequence[Request],
+                          dropna: bool = True) -> Optional[Dict[object, Column]]:
+    """A groupby transform on the kernel tiers: {name: one value a row},
+    each row its group's result (null where the row's key is null), or
+    None when the request is outside the tiers.  The K-slot results are
+    gathered by each row's code before any compaction: no grouper sort."""
+    values = list(values)
+    req = _kernel_codes(Table({"__key__": key}), values, dropna)
+    if req is None:
+        return None
+    _, codes, K, _, valid = req
+    results, _ = _slot_results(codes, K, valid, values)
+    _fit_int_results(results, {name: col.dtype for name, col, agg in values if agg == "sum"})
+    rows = (codes if valid is None else torch.where(valid, codes, 0)).long()
+    out = {}
+    for name, col in results.items():
+        spread = copying.gather(col, rows, bounds_check=False)
+        out[name] = spread.with_validity(bm.and_masks(spread.validity, valid))
+    return out
 
 
 def _nan_flags(cols) -> List[torch.Tensor]:
@@ -198,9 +293,10 @@ def _may_hold_nan(cols) -> bool:
     return bool(torch.stack(flags).any()) if flags else False
 
 
-def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
-               valid: Optional[torch.Tensor],
-               values: List[Request]) -> Tuple[Table, Table]:
+def _slot_results(codes: torch.Tensor, K: int, valid: Optional[torch.Tensor],
+                  values: List[Request]) -> Tuple[Dict[object, Column], torch.Tensor]:
+    """({name: its result in each of the K slots}, each slot's count of
+    rows with a valid key) on the one-hot or the radix tier."""
     radix_tier = K > MAX_GROUPS
     # the rows each request aggregates: the key's valid rows, and for
     # every agg but size the value's valid rows too
@@ -242,17 +338,7 @@ def _aggregate(key_name, key: Column, codes: torch.Tensor, K: int, key_lo: int,
             results[name] = Column(float_dt, K, mean.to(float_dt.torch_storage), c > 0)
         else:
             results[name] = Column(col.dtype, K, mn if agg == "min" else mx, c > 0)
-    present = filter_indices(occupied > 0)
-    compact = {n: copying.gather(c, present, bounds_check=False) for n, c in results.items()}
-    _fit_int_results(compact, {name: col.dtype for name, col, agg in values if agg == "sum"})
-    out_aggs = Table(compact)
-    if key.dtype.is_dictionary:
-        # the observed entries' keys, a STRING (or numeric) column
-        key_col = copying.gather(key.keys, present, bounds_check=False)
-    else:
-        key_col = Column(key.dtype, present.shape[0],
-                         (present + key_lo).to(key.dtype.torch_storage))
-    return Table({key_name: key_col}), out_aggs
+    return results, occupied
 
 
 def _by_mask(runs: Dict[Tuple, dict]) -> List[List[dict]]:
@@ -285,17 +371,19 @@ def _run_radix(codes: torch.Tensor, K: int, runs: Dict[Tuple, dict]) -> None:
         for run, s in zip(group, sums):
             mn = mx = None
             if run["minmax"]:
-                mn, mx = _segment_minmax(k_in, run["col"].data, K)
+                mn, mx = _segment_minmax(k_in, run["col"].data, K, mask is not None)
             run["out"] = (s, counts, mn, mx)
 
 
-def _segment_minmax(k_in: torch.Tensor, vals: torch.Tensor, K: int):
+def _segment_minmax(k_in: torch.Tensor, vals: torch.Tensor, K: int, masked: bool):
     """Per-group min and max in vals' dtype, skipping NaN as kernel A
     does (plain scatter_reduce_; an empty group's entries are masked by
-    its zero count)."""
+    its zero count).  Masked-out rows (code -1) are left out."""
     kv, _, _ = _build.kernel_values(vals)
-    ok = k_in >= 0
-    mins, maxs = segment_minmax_plain(k_in[ok].long(), kv[ok], K)
+    if masked:
+        ok = k_in >= 0
+        k_in, kv = k_in[ok], kv[ok]
+    mins, maxs = segment_minmax_plain(k_in.long(), kv, K)
     return mins.to(vals.dtype), maxs.to(vals.dtype)
 
 
@@ -642,9 +730,16 @@ def group_quantile(col: Column, grouper: Grouper, q: float = 0.5,
                    interpolation: str = "linear") -> Column:
     """Per-group quantile of the valid values (float64), pandas'
     interpolations; a group without valid values gives null."""
+    return group_quantiles(col, grouper, [q], interpolation)[0]
+
+
+def group_quantiles(col: Column, grouper: Grouper, qs: Sequence[float],
+                    interpolation: str = "linear") -> List[Column]:
+    """``group_quantile`` at each of ``qs`` from one sort by (group,
+    value); q = 0 and 1 are each group's min and max (float64)."""
     xs, cnt = _value_sorted(col, grouper)
-    return Column(dt.FLOAT64, grouper.num_groups,
-                  _interpolate(xs, cnt, grouper, q, interpolation), cnt > 0)
+    return [Column(dt.FLOAT64, grouper.num_groups,
+                   _interpolate(xs, cnt, grouper, q, interpolation), cnt > 0) for q in qs]
 
 
 def _interpolate(xs, cnt, grouper: Grouper, q: float, interpolation: str) -> torch.Tensor:
@@ -697,6 +792,209 @@ def group_idxminmax(col: Column, grouper: Grouper, which: str) -> Column:
     return Column(dt.INT64, grouper.num_groups, rows, ok)
 
 
+# ----------------------------------------------------------------------
+# the rest of the family: sum_of_squares, m2, cov/corr, ewma, bitwise
+# ----------------------------------------------------------------------
+
+def group_sum_of_squares(col: Column, grouper: Grouper) -> Column:
+    """Sums of x * x in float64; null for a group without valid values."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = _accumulate(data, v, 0).double()
+    out = _group_sum(x * x, grouper)
+    return Column(dt.FLOAT64, grouper.num_groups, out,
+                  None if v is None else _valid_count(v, grouper) > 0)
+
+
+def _centred(x: torch.Tensor, v: Optional[torch.Tensor], cnt: torch.Tensor,
+             grouper: Grouper) -> torch.Tensor:
+    """x less its group's mean over the valid rows (0 at invalid rows):
+    the first of two passes."""
+    mean = _group_sum(x, grouper) / cnt.clamp(min=1)
+    d = x - mean[grouper.group_ids]
+    return d if v is None else torch.where(v, d, 0.0)
+
+
+def group_m2(col: Column, grouper: Grouper) -> Column:
+    """The sum of squared deviations from the group mean (cuDF's M2, what
+    Chan's merge of partial variances takes), in two passes; null for a
+    group without valid values."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = _accumulate(data, v, 0).double()
+    cnt = _valid_count(v, grouper)
+    d = _centred(x, v, cnt, grouper)
+    return Column(dt.FLOAT64, grouper.num_groups, _group_sum(d * d, grouper),
+                  None if v is None else cnt > 0)
+
+
+def _pair(cx: Column, cy: Column, grouper: Grouper):
+    """(x, y, the rows where both are valid, their count a group): float64
+    values, NaN as null, the invalid rows' values 0."""
+    dx, vx = _segment_data(_apply_row_mask(cx, grouper))
+    dy, vy = _segment_data(_apply_row_mask(cy, grouper))
+    v = bm.and_masks(vx, vy)
+    x, y = _accumulate(dx, v, 0).double(), _accumulate(dy, v, 0).double()
+    return x, y, v, _valid_count(v, grouper)
+
+
+def _cov_of(sxy: torch.Tensor, cnt: torch.Tensor, ddof: int) -> Column:
+    denom = cnt - ddof
+    ok = denom > 0
+    return Column(dt.FLOAT64, sxy.shape[0], torch.where(ok, sxy / denom.clamp(min=1),
+                                                        float("nan")), ok)
+
+
+def _corr_of(sxy, sxx, syy, cnt) -> Column:
+    denom = torch.sqrt(sxx * syy)
+    ok = (cnt > 1) & (denom > 0)
+    return Column(dt.FLOAT64, sxy.shape[0],
+                  torch.where(ok, sxy / torch.where(ok, denom, 1.0), float("nan")), ok)
+
+
+def group_cov(cx: Column, cy: Column, grouper: Grouper, ddof: int = 1) -> Column:
+    """Each group's covariance of x and y over the rows where both are
+    valid (pandas' pairwise-complete rows), in two passes: the centred
+    products' sum over count - ddof; null (NaN) where count - ddof < 1."""
+    x, y, v, cnt = _pair(cx, cy, grouper)
+    sxy = _group_sum(_centred(x, v, cnt, grouper) * _centred(y, v, cnt, grouper), grouper)
+    return _cov_of(sxy, cnt, ddof)
+
+
+def group_corr(cx: Column, cy: Column, grouper: Grouper) -> Column:
+    """Each group's Pearson correlation over the pairwise-complete rows, in
+    two passes; null (NaN) where a group has fewer than two such rows or
+    either column is constant there, as pandas gives NaN."""
+    x, y, v, cnt = _pair(cx, cy, grouper)
+    dx, dy = _centred(x, v, cnt, grouper), _centred(y, v, cnt, grouper)
+    return _corr_of(*(_group_sum(a * b, grouper) for a, b in ((dx, dy), (dx, dx), (dy, dy))),
+                    cnt)
+
+
+def group_pairwise(cols: Sequence[Column], grouper: Grouper, which: str = "cov",
+                   ddof: int = 1) -> Dict[Tuple[int, int], Column]:
+    """``group_cov`` (or ``group_corr``) of every pair i <= j of the
+    columns.  Columns without nulls or NaN share one centring and one sum
+    of squares each (every row is pairwise-complete); a pair with missing
+    values takes its own pairwise-complete rows."""
+    full = {}
+    for i, c in enumerate(cols):
+        data, v = _segment_data(_apply_row_mask(c, grouper))
+        if v is not None and not bool(v.all()):
+            continue
+        full[i] = _centred(_accumulate(data, None, 0).double(), None, _sizes(grouper), grouper)
+    squares = {i: _group_sum(d * d, grouper) for i, d in full.items()}
+    out = {}
+    for i in range(len(cols)):
+        for j in range(i, len(cols)):
+            if i in full and j in full:
+                sxy = squares[i] if i == j else _group_sum(full[i] * full[j], grouper)
+                cnt = _sizes(grouper)
+                out[i, j] = _cov_of(sxy, cnt, ddof) if which == "cov" else \
+                    _corr_of(sxy, squares[i], squares[j], cnt)
+            else:
+                out[i, j] = group_cov(cols[i], cols[j], grouper, ddof) if which == "cov" \
+                    else group_corr(cols[i], cols[j], grouper)
+    return out
+
+
+def group_ewma(col: Column, grouper: Grouper, alpha: float, adjust: bool = True,
+               ignore_na: bool = False) -> Column:
+    """The exponentially weighted mean of each kept row within its group,
+    in row order (``ops/scan.py`` ``ewm_mean``'s semantics a group): the
+    doubling affine scan over the rows sorted by group, each group's first
+    row resetting it (its multiplier 0).  Rows before a group's first
+    valid value are null; later null rows carry the running mean."""
+    from cudf_tpu_torch.ops.scan import affine_scan, running_extreme
+
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    n, dev = data.shape[0], data.device
+    order = grouper.sorted_order
+    x = data.double()[order]
+    valid = torch.ones(n, dtype=torch.bool, device=dev) if v is None else v[order]
+    start = torch.zeros(n, dtype=torch.bool, device=dev)
+    start[grouper.group_offsets[:-1]] = True
+    # valid rows of the group before this one
+    inc = torch.cumsum(valid.long(), 0)
+    first = grouper.group_offsets[:-1][grouper.sorted_group_ids]
+    seen_before = (inc - valid.long() - (inc[first] - valid[first].long())) > 0
+    xv = torch.where(valid, x, 0.0)
+    one_m = 1.0 - alpha
+    if adjust:
+        a = torch.full((n,), one_m, dtype=torch.float64, device=dev)
+        if ignore_na:
+            a = torch.where(valid, a, 1.0)
+        a = torch.where(start, 0.0, a)
+        w = valid.double()
+        out = affine_scan(a, w * xv) / affine_scan(a, w)
+    else:
+        if ignore_na:
+            beta = torch.full((n,), alpha, dtype=torch.float64, device=dev)
+        else:
+            pos = torch.arange(n, dtype=torch.int64, device=dev)
+            # the last valid row of the group at or before each row (-1: none)
+            last = running_extreme(torch.where(valid, pos, -1), "cummax")
+            last = torch.where(last >= first, last, -1)
+            prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+            prev = torch.where(start, -1, prev)
+            beta = alpha / (one_m ** ((pos - 1 - prev).double() + 1.0) + alpha)
+        a = torch.where(valid, torch.where(seen_before, 1.0 - beta, 0.0), 1.0)
+        a = torch.where(start, 0.0, a)
+        b = torch.where(valid, torch.where(seen_before, beta * xv, xv), 0.0)
+        out = affine_scan(a, b)
+    ok = seen_before | valid
+    out = torch.where(ok, out, float("nan"))
+    res = torch.empty_like(out)
+    res[order] = out
+    keep = torch.empty_like(ok)
+    keep[order] = ok
+    return Column(dt.FLOAT64, n, res, keep)
+
+
+_BITWISE = {"and": torch.bitwise_and, "or": torch.bitwise_or, "xor": torch.bitwise_xor}
+
+
+def _group_bitwise(col: Column, grouper: Grouper, op: str) -> Column:
+    """A segmented Hillis-Steele scan over the values sorted by group: at
+    distance d a row takes op(itself, the row d before) when that row is of
+    its group, for d = 1, 2, 4, ... up to the largest group (one host
+    sync for its size); each group's last row then holds the result.
+    Values run as int64 bits (uint64 as its bits); null rows hold the
+    op's identity; a group without valid values is null."""
+    if not (col.dtype.is_integer or col.dtype.is_bool):
+        raise TypeError(f"groupby bitwise_{op} of a {col.dtype!r} column")
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = _accumulate(data, v, -1 if op == "and" else 0)
+    order, gs = grouper.sorted_order, grouper.sorted_group_ids
+    x = x[order]
+    fn = _BITWISE[op]
+    sizes = _sizes(grouper)
+    d, largest = 1, int(sizes.max()) if grouper.num_groups else 0
+    while d < largest:
+        same = gs[d:] == gs[:-d]
+        x = torch.cat([x[:d], torch.where(same, fn(x[d:], x[:-d]), x[d:])])
+        d *= 2
+    out = x[(grouper.group_offsets[1:] - 1).clamp(min=0)] if grouper.num_groups else x[:0]
+    if col.dtype.is_bool:
+        data_out = out != 0
+    elif col.dtype == dt.UINT64:
+        data_out = out.view(torch.uint64)
+    else:
+        data_out = out.to(col.dtype.torch_storage)
+    return Column(col.dtype, grouper.num_groups, data_out,
+                  None if v is None else _valid_count(v, grouper) > 0)
+
+
+def group_bitwise_and(col: Column, grouper: Grouper) -> Column:
+    return _group_bitwise(col, grouper, "and")
+
+
+def group_bitwise_or(col: Column, grouper: Grouper) -> Column:
+    return _group_bitwise(col, grouper, "or")
+
+
+def group_bitwise_xor(col: Column, grouper: Grouper) -> Column:
+    return _group_bitwise(col, grouper, "xor")
+
+
 _AGG_DISPATCH = {
     "sum": group_sum,
     "count": group_count,
@@ -717,6 +1015,11 @@ _AGG_DISPATCH = {
     "quantile": group_quantile,
     "idxmin": lambda col, g: group_idxminmax(col, g, "min"),
     "idxmax": lambda col, g: group_idxminmax(col, g, "max"),
+    "sum_of_squares": group_sum_of_squares,
+    "m2": group_m2,
+    "bitwise_and": group_bitwise_and,
+    "bitwise_or": group_bitwise_or,
+    "bitwise_xor": group_bitwise_xor,
 }
 
 
