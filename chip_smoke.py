@@ -215,6 +215,32 @@ filtered indexes, each against a plain PyTorch expression on the card
 (exact; float scans rtol 1e-9) and timed; ops.scan.ewm_mean at 1e7 rows
 against the same call on the CPU.
 
+The frame API (``cudf_tpu_torch/models/frame_api.py``: ``REQUESTS``,
+``PLAIN``, ``NEEDS``), in three parts, each a main path of its own (every
+count at 0 before it, its kernels each launched in it):
+4. over G1 at 1e8 rows, after its groupby API: ``concat`` of the two
+   halves (which must equal the table) then q1 (A), ``pivot_table`` of v1
+   by id1 (A), of v1 and v3 by id6 (B, F, G, D) and the mean of v3 by
+   id4 x id5 (a 100 x 100 grid, the sort tier), ``crosstab(id4, id5)``,
+   ``melt`` of id6, v1, v2, v3 (3e8 rows), ``get_dummies`` of id1's first
+   1e7 rows (100 columns), ``cut(v3, 10)``, ``qcut(v3, 4)``, the vmapped
+   UDFs ``v3.apply`` and a row ``apply(axis=1, engine="torch")`` over v1,
+   v2, v3, ``id4.map`` of a dict, and ``map`` of a callable over 1e5 rows
+   (a host loop); after the J1 sort-merge phase, J1 in pandas' ``join``
+   form: ``fact.join(dim.set_index("id"), on="id", how="inner")`` at
+   small, medium and big (each launching what the same ``merge``
+   launches), ``how="left"`` at big and the index join at medium; after
+   the primitives, over G1's 5%-null columns: a ``masked=True`` UDF,
+   ``interpolate``, ``combine_first``, ``update`` by 1e6 labels,
+   ``dropna(axis=1)``, ``quantile`` of three q and ``agg("max", axis=1)``.
+   Each answer against its plain PyTorch version (keys, order, counts and
+   codes exact; sums rtol 1e-12, means 1e-9); each request alone, every
+   count at 0 before it, launching exactly its ``NEEDS`` (each kernel call
+   recorded and replayed against its plain version: ``frame_api_calls``
+   in the kernels line), each UDF taking its route (``UDF_ROUTES``: vmap,
+   or host for the callable map) and no other.
+5. timings of each request beside its plain version.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -233,8 +259,9 @@ Library calls: H's m = 3 row times tables.index_select(1, idx), all
 three lookups; no single call gives H's ids and payload together, so
 that row has none and records torch.take of each as two_calls_ms.
 
-Each kernel's row also carries its launches by G1 question and API call
-and, in ``g1_calls``, each replayed call of those.
+Each kernel's row also carries its launches by G1 question, API call and
+frame API request and, in ``g1_calls`` and ``frame_api_calls``, each
+replayed call of those.
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -2386,6 +2413,102 @@ def primitives_phase(ct, dev, gen, smi):
 
 
 
+# ----------------------------------------------------------------------
+# the frame API: join in J1's form, reshapes and UDFs over G1, missing data
+# ----------------------------------------------------------------------
+
+def check_frame_api(name, got, exp, rtol):
+    """A request's answer against its plain version's: the same keys;
+    integers, bools and validity exact, floats at the request's rtol
+    (0: exact); returns the max abs error."""
+    check(list(got) == list(exp), f"frame API {name}: {list(got)} vs {list(exp)}")
+    return max(same(got[k], exp[k], f"frame API {name} {k}", float_rtol=rtol) for k in exp)
+
+
+def launch_set(wrappers, run):
+    """The kernels one run launches, every count at 0 before it."""
+    for w in wrappers.values():
+        w.launches = 0
+    run()
+    torch.cuda.synchronize()
+    return {k: w.launches for k, w in wrappers.items() if w.launches}
+
+
+def frame_api_phase(group, frames, smi, wrappers, drive, plains):
+    """The frame API's requests on one table (``models/frame_api.py``
+    ``GROUPS[group]``): all of them as one main path, each answer against
+    its plain version; then each alone, every count at 0 before it,
+    launching exactly its ``NEEDS`` (every kernel call replayed against
+    its plain version), a UDF taking its ``ROUTE`` and no other, an inner
+    join launching what the same merge launches; then each timed beside
+    its plain version.  Returns the launches by request, the replayed
+    calls by kernel and the times."""
+    from cudf_tpu_torch.frame.series import UDF_ROUTES
+    from cudf_tpu_torch.models import frame_api as fa
+
+    names = fa.GROUPS[group]
+    results = drive(f"frame_api_{group}", lambda: {n: fa.REQUESTS[n](frames) for n in names})
+    errs = {}
+    for n in names:
+        errs[n] = check_frame_api(n, fa.ANSWERS[n](results.pop(n), frames), fa.PLAIN[n](frames),
+                                  fa.RTOL[n])
+        torch.cuda.empty_cache()
+    log(f"phase 4 frame API {group}: every request equals its plain version, max abs err "
+        f"{json.dumps(errs)}")
+    by_request, calls, times = {}, {}, {}
+    for n in names:
+        run = (lambda n=n: fa.REQUESTS[n](frames))
+        before = dict(UDF_ROUTES)
+        by_request[n] = run_replayed(f"frame API {n}", n, run, wrappers, plains, calls,
+                                     needs=fa.NEEDS[n])
+        took = {k: UDF_ROUTES[k] - before[k] for k in before}
+        if n in fa.ROUTE:
+            check(took == {k: int(k == fa.ROUTE[n]) for k in took},
+                  f"frame API {n}: UDF routes {took}, expected {fa.ROUTE[n]}")
+        else:
+            check(not any(took.values()), f"frame API {n}: UDF routes {took}")
+        if n.startswith("join_inner") or n == "join_index_medium":
+            size = n.rsplit("_", 1)[1]
+            merged = launch_set(wrappers, lambda: frames[f"fact_{size}"].merge(
+                frames[f"dim_{size}"], on="id"))
+            check(merged == by_request[n], f"frame API {n} launched {by_request[n]}, the same "
+                                           f"merge {merged}")
+        row = {"ms": device_ms(run), "plain_ms": device_ms(lambda n=n: fa.PLAIN[n](frames)),
+               "max_abs_err": errs[n], "launches": by_request[n], "udf_routes": took}
+        times[n] = row
+        log(f"phase 4/5 frame API {n}: {json.dumps(row)} [{smi}]")
+        torch.cuda.empty_cache()
+    return by_request, calls, times
+
+
+def add_frame_api(acc, out):
+    """One frame API phase's (launches by request, replayed calls by
+    kernel, times) added to the run's."""
+    acc[0].update(out[0])
+    for name, rows in out[1].items():
+        acc[1].setdefault(name, []).extend(rows)
+    acc[2].update(out[2])
+
+
+def frame_api_null_frames(ct, dev, gen):
+    """G1_1e8_1e2_5_0's columns (id4, id6, v1, v3, each null in 5% of
+    rows) with v2 (1..15, no nulls), and the Series of 1e6 distinct labels
+    of that frame (values U[0, 100), 5% null) that ``update`` applies."""
+    from cudf_tpu_torch.core import dtypes as dt
+    from cudf_tpu_torch.core.column import Column
+    from cudf_tpu_torch.frame.index import Index
+    from cudf_tpu_torch.models.frame_api import UPDATE_ROWS
+
+    nulls = g1_nulls_series(ct, dev, gen, N)
+    nulls["v2"] = torch.randint(1, 16, (N,), generator=gen, device=dev, dtype=torch.int32)
+    labels = torch.randperm(N, generator=gen, device=dev)[:UPDATE_ROWS]
+    values = Column(dt.FLOAT64, UPDATE_ROWS,
+                    torch.rand(UPDATE_ROWS, generator=gen, device=dev, dtype=torch.float64) * 100,
+                    torch.rand(UPDATE_ROWS, generator=gen, device=dev) >= 0.05)
+    return {"nulls": nulls, "update": ct.Series._from(values, Index(Column.from_tensor(labels)),
+                                                      "v3")}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--beside", metavar="DIR",
@@ -2469,7 +2592,9 @@ def main():
              "j1_dict": ["digit_histogram", "tile_sort_data", "merge_scatter",
                          "bucket_aggregate", "window_probe"],
              "tpch": TPCH_PATH, "tpch_frame": TPCH_PATH,
-             "g1_questions": ONEHOT_TIER + RADIX_TIER}
+             "g1_questions": ONEHOT_TIER + RADIX_TIER,
+             "frame_api_g1": ONEHOT_TIER + RADIX_TIER,
+             "frame_api_j1": RADIX_TIER + ["window_probe"], "frame_api_nulls": []}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -2559,6 +2684,8 @@ def main():
         g1_calls.setdefault(name, []).extend(rows)
     log("phase 5 G1 questions and API times: " + json.dumps(
         {"card": smi, "questions": question_times, "api": api_times}))
+    frame_api = ({}, {}, {})            # launches by request, replayed calls, times
+    add_frame_api(frame_api, frame_api_phase("g1", {"g1": df}, smi, wrappers, drive, plains))
     del df
     torch.cuda.empty_cache()
 
@@ -2609,6 +2736,7 @@ def main():
     j1_sort_merge_phase(ct, frames, drive, smi)
     check(not any(launches[n]["j1_sort_merge"] for n in wrappers),
           "the J1 sort-merge joins launched a kernel of A-H")
+    add_frame_api(frame_api, frame_api_phase("j1", frames, smi, wrappers, drive, plains))
     v1 = frames["fact_big"]._table["v1"].data
     del frames
     torch.cuda.empty_cache()
@@ -2628,6 +2756,15 @@ def main():
     prim = primitives_phase(ct, dev, torch.Generator(device=dev).manual_seed(SEED + 12), smi)
     log("phase 5 primitives at 1e8 G1 rows with 5% nulls: " + json.dumps(
         {"card": smi, "ms": prim}))
+    torch.cuda.empty_cache()
+    null_frames = frame_api_null_frames(ct, dev, torch.Generator(device=dev).manual_seed(
+        SEED + 14))
+    add_frame_api(frame_api, frame_api_phase("nulls", null_frames, smi, wrappers, drive, plains))
+    del null_frames
+    torch.cuda.empty_cache()
+    log("phase 5 frame API times: " + json.dumps({"card": smi, "ms": frame_api[2]}))
+    for name, calls in frame_api[1].items():
+        kernels[name]["frame_api_calls"] = calls
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -2648,7 +2785,8 @@ def main():
                    launches_by_tpch_frame_query={q: c.get(name, 0)
                                                  for q, c in by_frame_query.items()},
                    launches_by_g1_question={q: c.get(name, 0) for q, c in by_question.items()},
-                   launches_by_g1_api={q: c.get(name, 0) for q, c in by_api.items()})
+                   launches_by_g1_api={q: c.get(name, 0) for q, c in by_api.items()},
+                   launches_by_frame_api={q: c.get(name, 0) for q, c in frame_api[0].items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

@@ -10,8 +10,11 @@ CPU tensors use.  Every other groupby takes the sort tier
 (``ops/row_ops.py``, ``ops/sort.py``, ``ops/groupby.py`` ``make_grouper``),
 which runs on PyTorch's own sorts, gathers and scatters.  The LazyFrame
 engine (``cudf_tpu_torch.engine``) runs query plans over these, with
-temporal, string and dictionary columns; ``models/tpch.py`` holds TPC-H
-q1, q6, q12 and q14.
+temporal, string and dictionary columns; ``models/tpch.py`` holds the
+TPC-H queries.  The pandas API (``frame/``) adds the reference's
+top-level reshapes (``concat``, ``pivot_table``, ``melt`` ...) and tools
+(``cut``, ``to_datetime`` ...), and row UDFs (``Series.apply``,
+``utils/masked.py`` ``Masked``).
 
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.
@@ -22,8 +25,16 @@ from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.dataframe import DataFrame
 from cudf_tpu_torch.frame.groupby import DataFrameGroupBy
 from cudf_tpu_torch.frame.index import Index, RangeIndex
+from cudf_tpu_torch.frame.reshape import (concat, crosstab, get_dummies, melt, merge,
+                                          pivot_table)
 from cudf_tpu_torch.frame.series import Series
+from cudf_tpu_torch.frame.tools import (cut, date_range, factorize, isna, isnull, notna,
+                                        notnull, qcut, to_datetime, to_numeric, unique)
 from cudf_tpu_torch.interop import from_buffers, from_pandas, to_pandas
+from cudf_tpu_torch.utils.masked import Masked
 
-__all__ = ["Column", "Table", "DataFrame", "DataFrameGroupBy", "Index",
-           "RangeIndex", "Series", "from_buffers", "from_pandas", "to_pandas"]
+__all__ = ["Column", "Table", "DataFrame", "DataFrameGroupBy", "Index", "Masked",
+           "RangeIndex", "Series", "concat", "crosstab", "cut", "date_range", "factorize",
+           "from_buffers", "from_pandas", "get_dummies", "isna", "isnull", "melt", "merge",
+           "notna", "notnull", "pivot_table", "qcut", "to_datetime", "to_numeric",
+           "to_pandas", "unique"]

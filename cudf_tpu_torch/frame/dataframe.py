@@ -14,7 +14,11 @@ columns and an index, with pandas' frame API.
   arithmetic and comparisons; reductions by column or by row (axis=1).
 - ``agg``, ``transform``, ``pipe``, ``describe``, ``corr`` and ``cov``
   (pairwise-complete rows, two passes a pair), as pandas'.
-- ``groupby`` and ``merge`` (``frame/groupby.py``, ``frame/join.py``).
+- ``groupby``, ``merge`` and ``join`` (``frame/groupby.py``,
+  ``frame/join.py``); ``pivot_table``, ``melt``, ``stack``, ``unstack``
+  and ``transpose`` (``frame/reshape.py``, on the device); ``apply`` of a
+  column UDF, or of a row UDF vmapped on the device (``engine="torch"``)
+  or looped on the host.
 
 A frame lives where its tensors live.  Host data (numpy arrays, pandas
 frames) needs an explicit ``device=``; nothing picks one by looking for
@@ -35,24 +39,28 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, is_null_scalar
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.index import Index, MultiIndex, RangeIndex, as_index, default_index
-from cudf_tpu_torch.frame.series import (Series, _bool_array, _clone, _is_listlike, _scalar,
-                                         aligned_mask, column_of, not_ported)
+from cudf_tpu_torch.frame.series import (BEYOND, UDF_ROUTES, Series, _bool_array, _clone,
+                                         _is_listlike, _scalar, aligned_mask, column_of,
+                                         not_ported, relabel, udf_column, vmap_udf)
 from cudf_tpu_torch.ops import copying
+from cudf_tpu_torch.ops import replace as replace_ops
 from cudf_tpu_torch.ops import sort as sort_ops
 from cudf_tpu_torch.ops import stream_compaction as sc
-from cudf_tpu_torch.ops._utils import materialize_validity
+from cudf_tpu_torch.ops import unary
+from cudf_tpu_torch.ops._utils import materialize_validity, maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
 _NOT_PORTED = {
-    "rolling": 8, "resample": 8, "ewm": 8, "map": 4, "apply": 4, "applymap": 4,
-    "query": 8, "eval": 8, "melt": 8, "stack": 8,
-    "unstack": 8, "transpose": 8, "pivot_table": 8, "pivot": 8, "interpolate": 4,
-    "combine_first": 4, "update": 4, "join": 4,
+    "rolling": 8, "resample": 8, "ewm": 8, "query": 8, "eval": 8,
+    "map": BEYOND, "applymap": BEYOND, "interpolate": BEYOND, "update": BEYOND,
     "hash_values": 5, "explode": 6, "to_arrow": 8, "to_csv": 7, "to_json": 7,
     "to_parquet": 7, "to_orc": 7, "to_feather": 7,
 }
+# the row reductions of agg(axis=1), by name
+_ROW_REDUCTIONS = ("sum", "prod", "mean", "min", "max", "std", "var", "median", "count",
+                   "any", "all", "sem")
 
 
 def _names_of(key) -> list:
@@ -60,6 +68,10 @@ def _names_of(key) -> list:
 
 
 class DataFrame:
+    # the names of the columns axis' levels (pandas' ``columns.names``),
+    # which reshapes give; None: unnamed
+    _columns_names = None
+
     def __init__(self, data: Optional[Dict] = None, index=None, *, device=None):
         """data: {name: torch.Tensor | numpy array | list | pandas
         Categorical | Column | Series}.  Tensors and columns stay on their
@@ -207,6 +219,8 @@ class DataFrame:
         out = pd.DataFrame({i: c.to_pandas_array() for i, c in enumerate(self._table.columns)},
                            index=self._index.to_pandas())
         out.columns = columns
+        if self._columns_names is not None:
+            out.columns.names = list(self._columns_names)
         return out
 
     # ------------------------------------------------------------------
@@ -295,10 +309,14 @@ class DataFrame:
                 columns = mapper
             else:
                 index = mapper
+        out = self._new(self._table)
         if index is not None:
-            raise NotImplementedError("rename of index labels: ROADMAP.md queue 1, item 4")
-        m = columns if isinstance(columns, dict) else {c: columns(c) for c in self._table.names}
-        return self._new(self._table.rename(m))
+            out._index = relabel(self._index, index, self.device)
+        if columns is not None:
+            m = columns if isinstance(columns, dict) else {c: columns(c)
+                                                           for c in self._table.names}
+            out._table = out._table.rename(m)
+        return out
 
     def drop(self, labels=None, axis=0, columns=None, index=None,
              errors: str = "raise") -> "DataFrame":
@@ -480,9 +498,18 @@ class DataFrame:
     def dropna(self, axis=0, how: str = "any", subset=None, thresh=None) -> "DataFrame":
         """Rows with a missing value (NaN or null) in any (``how="any"``) or
         every (``"all"``) column of ``subset``, or with fewer than
-        ``thresh`` present."""
-        if axis not in (0, "index"):
-            raise NotImplementedError("dropna(axis=1): ROADMAP.md queue 1, item 4")
+        ``thresh`` present; with ``axis=1`` the columns with a missing
+        value among the rows (labels in ``subset``), in one host sync."""
+        if axis in (1, "columns"):
+            rows = self if subset is None else self.loc[_names_of(subset)]
+            cols = [nans_to_nulls(c) for c in rows._table.columns]
+            present = torch.stack([materialize_validity(c).sum() for c in cols]).tolist() \
+                if cols else []
+            n = len(rows)
+            keep = [(p >= thresh) if thresh is not None else (p == n if how == "any" else p > 0)
+                    for p in present]
+            return self._new(self._table.select([nm for nm, k in zip(self._table.names, keep)
+                                                 if k]))
         names = _names_of(subset) if subset is not None else list(self._table.names)
         masks = [materialize_validity(nans_to_nulls(self._table[n])) for n in names]
         if thresh is not None:
@@ -557,9 +584,37 @@ class DataFrame:
             return self._new(Table.from_pairs(names, [
                 self[n]._binop(other[n], op, reflect)._column for n in names]))
         if isinstance(other, Series):
-            raise NotImplementedError("a frame with a Series broadcast over its columns: "
-                                      "ROADMAP.md queue 1, item 4")
+            return self._series_binop(other, op, reflect)
         return self._per_column(lambda s: s._binop(other, op, reflect))
+
+    def _series_binop(self, other: Series, op: str, reflect: bool) -> "DataFrame":
+        """pandas' broadcast of a Series over the columns: its labels align
+        with the column names (the sorted union when they differ), each
+        column meets its label's value (one host read of them); a column
+        or label on one side only gives missing values (False for a
+        comparison, True for ``!=``)."""
+        names, labels = list(self._table.names), other._index.to_pylist()
+        if labels == names:
+            out_names = names
+        else:
+            union = names + [lb for lb in labels if lb not in names]
+            try:
+                out_names = sorted(union)
+            except TypeError:
+                out_names = union
+        pos = other._index.get_indexer_for(
+            Column.from_pylist(out_names, device=other.device), other.device)
+        vals = copying.gather(other._column, pos, bounds_check=True).to_numpy().tolist()
+        n, dev = len(self), self.device
+        cols = []
+        for name, v in zip(out_names, vals):
+            if name in self._table and not is_null_scalar(v):
+                cols.append(self[name]._binop(v, op, reflect)._column)
+            elif op in ("eq", "ne", "lt", "gt", "le", "ge"):
+                cols.append(Column.full(n, op == "ne", dt.BOOL8, device=dev))
+            else:
+                cols.append(Column.full(n, None, dt.FLOAT64, device=dev))
+        return self._new(Table.from_pairs(out_names, cols))
 
     # ------------------------------------------------------------------
     # reductions
@@ -576,27 +631,78 @@ class DataFrame:
         dev = self.device
         return Series(vals, index=Index(Column.from_pylist(names, device=dev)), device=dev)
 
-    def _row_reduce(self, name: str) -> Series:
-        """sum or mean of each row over the numeric columns (missing skipped)."""
-        num = [c for c in self._table.columns if c.dtype.is_numeric or c.dtype.is_bool]
-        n = len(self)
-        total = torch.zeros(n, dtype=torch.float64, device=self.device)
-        cnt = torch.zeros(n, dtype=torch.int64, device=self.device)
-        for c in num:
-            v = materialize_validity(nans_to_nulls(c)) if c.dtype.is_float \
-                else materialize_validity(c)
-            total += torch.where(v, c.data.double(), 0.0)
-            cnt += v.long()
-        out = total if name == "sum" else total / cnt.clamp(min=1)
-        validity = None if name == "sum" else cnt > 0
-        return Series._from(Column(dt.FLOAT64, n, out, validity), self._index, None)
+    def _row_reduce(self, name: str, ddof: int = 1) -> Series:
+        """pandas' reduction of each row over the numeric and bool columns,
+        missing values skipped: the columns stacked as float64 rows with
+        NaN for a missing value, reduced along them on the device.  Integer
+        and bool frames without nulls keep an integer sum, prod, min and
+        max (bool for any and all); the rest are float64 (count int64)."""
+        if name not in _ROW_REDUCTIONS:
+            raise NotImplementedError(f"DataFrame.{name}(axis=1): {BEYOND}")
+        cols = [c for c in self._table.columns if c.dtype.is_numeric or c.dtype.is_bool]
+        n, dev = len(self), self.device
+        exact = bool(cols) and all((c.dtype.is_integer or c.dtype.is_bool)
+                                   and c.validity is None for c in cols)
+        if exact and name in ("sum", "prod", "min", "max"):
+            m = torch.stack([c.data.long() for c in cols], 1)
+            out = {"sum": lambda: m.sum(1), "prod": lambda: m.prod(1),
+                   "min": lambda: m.min(1).values, "max": lambda: m.max(1).values}[name]()
+            target = dt.INT64
+            if name in ("min", "max"):              # the columns' common dtype
+                target = cols[0].dtype
+                for c in cols[1:]:
+                    target = dt.common_dtype(target, c.dtype)
+            return Series._from(Column(target, n, out.to(target.torch_storage)), self._index)
+        if not cols:
+            m = torch.zeros((n, 0), dtype=torch.float64, device=dev)
+        else:
+            m = torch.stack([torch.where(materialize_validity(c), c.data.double(), float("nan"))
+                             for c in cols], 1)
+        ok = ~torch.isnan(m)
+        cnt = ok.sum(1)
+        if name in ("any", "all"):
+            hit = (m != 0) & ok
+            out = hit.any(1) if name == "any" else (hit | ~ok).all(1)
+            return Series._from(Column(dt.BOOL8, n, out), self._index)
+        if name == "count":
+            return Series._from(Column(dt.INT64, n, cnt), self._index)
+        total = torch.where(ok, m, 0.0).sum(1)
+        if name == "sum":
+            return Series._from(Column(dt.FLOAT64, n, total), self._index)
+        if name == "prod":
+            return Series._from(Column(dt.FLOAT64, n, torch.where(ok, m, 1.0).prod(1)),
+                                self._index)
+        if name in ("min", "max"):
+            fill = float("inf") if name == "min" else float("-inf")
+            filled = torch.where(ok, m, fill)
+            out = filled.min(1).values if name == "min" else filled.max(1).values
+            return Series._from(Column(dt.FLOAT64, n, out, maybe_mask(cnt > 0)), self._index)
+        if name == "median":
+            srt = torch.sort(torch.where(ok, m, float("inf")), 1).values
+            lo = ((cnt - 1).clamp(min=0) // 2)[:, None]
+            hi = (cnt // 2).clamp(max=max(m.shape[1] - 1, 0))[:, None]
+            out = (srt.gather(1, lo) + srt.gather(1, hi)).squeeze(1) / 2 if m.shape[1] \
+                else total
+            return Series._from(Column(dt.FLOAT64, n, out, maybe_mask(cnt > 0)), self._index)
+        mean = total / cnt.clamp(min=1)
+        if name == "mean":
+            return Series._from(Column(dt.FLOAT64, n, mean, maybe_mask(cnt > 0)), self._index)
+        d = torch.where(ok, m - mean[:, None], 0.0)
+        var = (d * d).sum(1) / (cnt - ddof).clamp(min=1)
+        out = {"var": var, "std": torch.sqrt(var),
+               "sem": torch.sqrt(var / cnt.clamp(min=1))}[name]
+        return Series._from(Column(dt.FLOAT64, n, out, maybe_mask(cnt - ddof > 0)),
+                            self._index)
 
-    def quantile(self, q=0.5, numeric_only: bool = True) -> Series:
+    def quantile(self, q=0.5, numeric_only: bool = True):
+        """Each numeric column's quantile: a Series named q, or for several
+        q a frame indexed by them."""
         num = [n for n, c in self._table.items() if c.dtype.is_numeric]
-        if not np.isscalar(q):
-            raise NotImplementedError("DataFrame.quantile of several q: ROADMAP.md queue 1, "
-                                      "item 4")
         dev = self.device
+        if not np.isscalar(q):
+            qs = [float(x) for x in np.atleast_1d(q)]
+            return DataFrame._from(Table({n: self[n].quantile(qs)._column for n in num}),
+                                   Index(Column.from_pylist(qs, dt.FLOAT64, device=dev)))
         return Series([self[n].quantile(q) for n in num],
                       index=Index(Column.from_pylist(num, device=dev)), name=q, device=dev)
 
@@ -608,10 +714,18 @@ class DataFrame:
         list: a frame of the names by the numeric and bool columns; a
         dict {column: name or [names]}: a Series over the columns when
         every value is a name, else a frame of the names (in order of first
-        appearance) by the columns, NaN where a name was not asked."""
-        if axis not in (0, "index"):
-            raise NotImplementedError("DataFrame.agg(axis=1): ROADMAP.md queue 1, item 4")
+        appearance) by the columns, NaN where a name was not asked.  With
+        ``axis=1`` a name reduces each row (a list: a frame of one column
+        a name)."""
         dev = self.device
+        if axis in (1, "columns"):
+            if isinstance(func, str):
+                return getattr(self, func)(axis=1)
+            if isinstance(func, (list, tuple)):
+                return DataFrame._from(Table({f: getattr(self, f)(axis=1)._column
+                                              for f in func}), self._index)
+            raise NotImplementedError(f"DataFrame.agg({type(func).__name__}, axis=1): "
+                                      f"{BEYOND}")
         if isinstance(func, str):
             return getattr(self, func)()
         if isinstance(func, (list, tuple)):
@@ -762,6 +876,120 @@ class DataFrame:
                       left_index=left_index, right_index=right_index,
                       suffixes=suffixes, sort=sort)
 
+    def join(self, other, on=None, how: str = "left", lsuffix: str = "", rsuffix: str = "",
+             sort: bool = False) -> "DataFrame":
+        """pandas' join: the ``on`` column (or the index) against ``other``'s
+        index (see ``frame/join.py`` ``join``)."""
+        from cudf_tpu_torch.frame.join import join as _join
+
+        return _join(self, other, on=on, how=how, lsuffix=lsuffix, rsuffix=rsuffix, sort=sort)
+
+    def combine_first(self, other: "DataFrame") -> "DataFrame":
+        """Each missing value from ``other`` at the same label and column
+        (``Series.combine_first``), over the union of the two indexes (sorted
+        when they differ) and of the columns (self's, then other's new
+        ones), as pandas gives it."""
+        index = self._index if self._index.equals(other._index) else \
+            self._index.union(other._index)
+        names = list(self._table.names) + [n for n in other._table.names
+                                           if n not in self._table]
+        dev = self.device
+        labels = index.column(dev)
+
+        def at(df: "DataFrame", n) -> Column:
+            col = df._table[n]
+            if df._index.equals(index):
+                return col
+            return copying.gather(col, df._index.get_indexer_for(labels, dev),
+                                  bounds_check=True)
+
+        cols = {}
+        for n in names:
+            if n in self._table and n in other._table:
+                a, b = nans_to_nulls(at(self, n)), at(other, n)
+                if a.dtype != b.dtype and a.dtype.is_numeric and b.dtype.is_numeric:
+                    target = dt.common_dtype(a.dtype, b.dtype)     # as pandas promotes
+                    a, b = unary.cast(a, target), unary.cast(b, target)
+                cols[n] = replace_ops.replace_nulls_column(a, b)
+            else:
+                cols[n] = at(self if n in self._table else other, n)
+        return DataFrame._from(Table(cols), index)
+
+    def apply(self, func, axis=0, args=(), engine=None, masked: bool = False, **kwargs):
+        """``axis=0``: func of each column (a Series over the column names
+        when every result is a scalar, else a frame of the results).
+        ``axis=1``: func of each row; ``engine="torch"`` vmaps it over a
+        dict of the numeric and bool columns' tensors on their device
+        (``masked=True``: ``Masked`` fields), else it loops over the rows on
+        the host, each row a dict {column: value} built from each column's
+        values.  ``frame/series.py`` ``UDF_ROUTES`` counts the route."""
+        fn = (lambda x: func(x, *args, **kwargs)) if args or kwargs else func
+        if axis in (0, "index"):
+            out = {n: fn(self[n]) for n in self._table.names}
+            if all(_scalar(v) for v in out.values()):
+                return Series(list(out.values()), index=list(out), device=self.device)
+            return DataFrame({n: v for n, v in out.items()})
+        if engine == "torch":
+            from cudf_tpu_torch.utils.masked import Masked
+
+            cols = {n: c for n, c in self._table.items() if c.dtype.is_numeric
+                    or c.dtype.is_bool}
+            arg = {n: (Masked(c.data, materialize_validity(c)) if masked else c.data)
+                   for n, c in cols.items()}
+            res = vmap_udf(fn, arg, self.device)
+            if res is not None:
+                UDF_ROUTES["vmap"] += 1
+                return Series._from(udf_column(res, len(self)), self._index)
+        elif engine is not None:
+            raise ValueError(f"engine={engine!r}: 'torch' or None")
+        UDF_ROUTES["host"] += 1
+        names = list(self._table.names)
+        columns = [c.to_numpy().tolist() for c in self._table.columns]
+        vals = [fn(dict(zip(names, row))) for row in zip(*columns)]
+        return Series(vals, index=self._index, device=self.device)
+
+    def pivot_table(self, values=None, index=None, columns=None, aggfunc="mean",
+                    fill_value=None) -> "DataFrame":
+        from cudf_tpu_torch.frame.reshape import pivot_table
+
+        return pivot_table(self, values=values, index=index, columns=columns, aggfunc=aggfunc,
+                           fill_value=fill_value)
+
+    def pivot(self, index=None, columns=None, values=None) -> "DataFrame":
+        from cudf_tpu_torch.frame.reshape import pivot
+
+        return pivot(self, index=index, columns=columns, values=values)
+
+    def melt(self, id_vars=None, value_vars=None, var_name=None,
+             value_name="value") -> "DataFrame":
+        from cudf_tpu_torch.frame.reshape import melt
+
+        return melt(self, id_vars=id_vars, value_vars=value_vars, var_name=var_name,
+                    value_name=value_name)
+
+    def stack(self) -> Series:
+        """The columns moved into a last index level: a Series under a
+        MultiIndex of (the index, the column names), row by row, for a
+        numeric or bool frame (an interleave on the device); other frames
+        take pandas on the host in the reference and raise here."""
+        from cudf_tpu_torch.frame.reshape import stack
+
+        return stack(self)
+
+    def unstack(self, level=-1, fill_value=None) -> "DataFrame":
+        from cudf_tpu_torch.frame.reshape import unstack
+
+        return unstack(self, level=level, fill_value=fill_value)
+
+    def transpose(self) -> "DataFrame":
+        from cudf_tpu_torch.frame.reshape import transpose
+
+        return transpose(self)
+
+    @property
+    def T(self) -> "DataFrame":
+        return self.transpose()
+
     def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
                 as_index: bool = True, observed: bool = True):
         """Group by key columns, Series, or index levels (see
@@ -775,13 +1003,10 @@ class DataFrame:
 def _reduction(name: str):
     def method(self, axis=0, numeric_only: bool = False, **kw):
         if axis in (1, "columns"):
-            if name not in ("sum", "mean"):
-                raise NotImplementedError(f"DataFrame.{name}(axis=1): ROADMAP.md queue 1, "
-                                          "item 4")
-            return self._row_reduce(name)
+            return self._row_reduce(name, **kw)
         return self._reduce(name, numeric_only, **kw)
     method.__name__ = name
-    method.__doc__ = f"pandas' {name} of each column (axis=0), as a Series"
+    method.__doc__ = f"pandas' {name} of each column (axis=0) or row (axis=1), as a Series"
     return method
 
 
@@ -842,7 +1067,7 @@ class _DataFrameILoc:
     def __setitem__(self, key, value):
         df = self._df
         if not isinstance(key, tuple):
-            raise NotImplementedError("iloc setitem of whole rows: ROADMAP.md queue 1, item 4")
+            raise NotImplementedError(f"iloc setitem of whole rows: {BEYOND}")
         rows, col = key
         name = list(df._table.names)[col] if isinstance(col, (int, np.integer)) else col
         s = df[name]
@@ -895,7 +1120,7 @@ class _DataFrameLoc:
     def __setitem__(self, key, value):
         df = self._df
         if not isinstance(key, tuple):
-            raise NotImplementedError("loc setitem of whole rows: ROADMAP.md queue 1, item 4")
+            raise NotImplementedError(f"loc setitem of whole rows: {BEYOND}")
         rows, col = key
         if col in df._table:
             s = df[col]

@@ -45,7 +45,7 @@ from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.dataframe import DataFrame
 from cudf_tpu_torch.frame.index import Index, MultiIndex
-from cudf_tpu_torch.frame.series import Series, column_of
+from cudf_tpu_torch.frame.series import BEYOND, Series, column_of
 from cudf_tpu_torch.ops import binaryop, copying, unary
 from cudf_tpu_torch.ops import groupby as gb_ops
 from cudf_tpu_torch.ops._utils import inverse_permutation, materialize_validity, signed_view
@@ -320,8 +320,7 @@ class _GroupBy:
         """Frame rows (idxmin/idxmax) as the frame's index labels."""
         index = self._obj.index
         if isinstance(index, MultiIndex):
-            raise NotImplementedError("idxmin/idxmax over a MultiIndex frame: ROADMAP.md "
-                                      "queue 1, item 4")
+            raise NotImplementedError(f"idxmin/idxmax over a MultiIndex frame: {BEYOND}")
         labels = index.take(rows.data).column()
         return Column(labels.dtype, labels.length, labels.data, rows.validity)
 
@@ -814,8 +813,7 @@ class _GroupbyEWM:
         index = sgb._series.index
         labels = index.take(rows)
         if isinstance(labels, MultiIndex):
-            raise NotImplementedError("groupby ewm over a MultiIndex: ROADMAP.md queue 1, "
-                                      "item 4")
+            raise NotImplementedError(f"groupby ewm over a MultiIndex: {BEYOND}")
         idx = MultiIndex([*keys, labels.column(sgb._series.device)],
                          [*sgb._key_names, index.name])
         return Series._from(copying.gather(out, kept, bounds_check=False), idx, sgb._name)

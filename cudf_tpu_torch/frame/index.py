@@ -114,8 +114,17 @@ class Index:
             return self.take(torch.arange(start, stop, step, device=self.device))
         return copying.get_element(self._column, int(i))
 
-    def append(self, other: "Index") -> "Index":
-        return Index(copying.concatenate([self._column, other.column(self.device)]), self.name)
+    def append(self, other: "Index", device=None) -> "Index":
+        """The labels of both, in order (numeric dtypes promoted, strings
+        beside a dictionary decoded), on ``device`` (by default the first
+        that either index has); the name when both share it."""
+        if isinstance(other, MultiIndex):
+            raise TypeError("append of a MultiIndex to an Index")
+        dev = device or self.device or other.device
+        cols = [self.column(dev), other.column(dev)]
+        if len({c.dtype.is_dictionary for c in cols}) > 1:
+            cols = [c.decode_dictionary() for c in cols]
+        return Index(copying.concatenate(cols), self.name if self.name == other.name else None)
 
     # ------------------------------------------------------------------
     # comparisons and lookups
@@ -298,6 +307,21 @@ class RangeIndex(Index):
         data = self.start + indices.long() * self.step
         return Index(Column(dt.INT64, data.shape[0], data), self.name)
 
+    def append(self, other: Index, device=None) -> Index:
+        """A RangeIndex when ``other`` is one that continues this one (or
+        either is empty), else the labels of both as an Index."""
+        if isinstance(other, RangeIndex):
+            name = self.name if self.name == other.name else None
+            if len(other) == 0 or len(self) == 0:
+                keep = self if len(other) == 0 else other
+                return RangeIndex(keep.start, keep.stop, keep.step, name)
+            if other.start == self.start + len(self) * self.step and (
+                    other.step == self.step or len(other) == 1):
+                return RangeIndex(self.start, other.start + other.step * len(other) if
+                                  other.step == self.step else other.start + self.step,
+                                  self.step, name)
+        return super().append(other, device)
+
     def slice(self, start: int, stop: int) -> "RangeIndex":
         r = range(self.start, self.stop, self.step)[start:stop]
         return RangeIndex(r.start, r.stop, r.step, self.name)
@@ -382,6 +406,14 @@ class MultiIndex(Index):
 
     def slice(self, start: int, stop: int) -> "MultiIndex":
         return MultiIndex([copying.slice(c, start, stop) for c in self._columns], self.names)
+
+    def append(self, other: Index, device=None) -> "MultiIndex":
+        """Both indexes' rows, level by level (names kept where equal)."""
+        if not isinstance(other, MultiIndex) or other.nlevels != self.nlevels:
+            raise TypeError("append of a MultiIndex and an index of other levels")
+        return MultiIndex([copying.concatenate([a, b]) for a, b in zip(self._columns,
+                                                                       other._columns)],
+                          [a if a == b else None for a, b in zip(self.names, other.names)])
 
     def equals(self, other) -> bool:
         if other is self:

@@ -17,6 +17,13 @@
   round; an outer join appends the unmatched right rows), under a fresh
   RangeIndex, or the joined index when both sides join on theirs.
   ``sort=True`` orders the rows by the keys (stably).
+
+``join`` is pandas' ``DataFrame.join``: the left frame's ``on`` column,
+or its index, against the other frame's index, over the same gather maps
+(an inner join reaches the same kernel tiers as ``merge``).  It keeps the
+left frame's index labels (the other's for ``how="right"``), puts the
+columns both sides hold under ``lsuffix`` and ``rsuffix``, and sorts an
+outer join by the key, as pandas does.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Tuple
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.dataframe import DataFrame
 from cudf_tpu_torch.frame.index import Index, MultiIndex, default_index
+from cudf_tpu_torch.frame.series import BEYOND, Series
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops import join as join_ops
 from cudf_tpu_torch.ops.replace import replace_nulls_column
@@ -51,8 +59,7 @@ def _materialize_levels(df: DataFrame, keys) -> DataFrame:
 
 def _index_column(df: DataFrame):
     if isinstance(df._index, MultiIndex):
-        raise NotImplementedError("a join on a MultiIndex (left_index/right_index over "
-                                  "several levels) is ROADMAP.md queue 1, item 4")
+        raise NotImplementedError(f"a join on a MultiIndex of several levels: {BEYOND}")
     return df._index.column(df.device)
 
 
@@ -87,8 +94,8 @@ def merge(left: DataFrame, right: DataFrame, on=None, how: str = "inner",
         return DataFrame._from(Table(out), default_index(li.shape[0]))
 
     if left_index != right_index:
-        raise NotImplementedError("a merge of one side's index with the other side's "
-                                  "columns is ROADMAP.md queue 1, item 4")
+        raise NotImplementedError(f"a merge of one side's index with the other side's "
+                                  f"columns: {BEYOND}")
     if both_index:
         lkeys, rkeys = [_index_column(left)], [_index_column(right)]
         lnames, key_names = [], set()
@@ -148,3 +155,57 @@ def merge(left: DataFrame, right: DataFrame, on=None, how: str = "inner",
         return res.sort_index()
     keys = [k for k in lnames if k in res._table.names]
     return res.sort_values(keys, ignore_index=True) if keys else res
+
+
+def join(left: DataFrame, other, on=None, how: str = "left", lsuffix: str = "",
+         rsuffix: str = "", sort: bool = False) -> DataFrame:
+    """pandas' ``DataFrame.join``: ``on`` (a column of ``left``) or
+    ``left``'s index against ``other``'s index.  Rows come in left-row
+    order (right-row order for ``how="right"``; an outer join sorted by
+    the key) under the left index's labels, null where a row has no left
+    side (the other's labels for an index join with ``how="right"``)."""
+    if isinstance(other, Series):
+        other = other.to_frame()
+    if how not in ("inner", "left", "right", "outer"):
+        raise ValueError(f"unknown how={how!r}")
+    rkey = _index_column(other)
+    if on is not None:
+        on = _names(on)
+        if len(on) != 1:
+            raise NotImplementedError(f"a join of several columns on a MultiIndex: {BEYOND}")
+        lkey = left._table[on[0]]
+    else:
+        lkey = _index_column(left)
+    overlap = [n for n in left._table.names if n in other._table]
+    if overlap and not (lsuffix or rsuffix):
+        raise ValueError(f"columns overlap but no suffix specified: {overlap}")
+    if how == "right":
+        ri, li = join_ops.left_join([rkey], [lkey])
+    else:
+        li, ri = join_ops._join([lkey], [rkey], how)
+    l_nulls, r_nulls = how in ("outer", "right"), how in ("outer", "left")
+    key = copying.gather(lkey, li, bounds_check=l_nulls)
+    if l_nulls:                                       # a row without a left side: other's key
+        key = replace_nulls_column(key, copying.gather(rkey, ri, bounds_check=True))
+    out = {}
+    for n, col in left._table.items():
+        col = key if on is not None and n == on[0] else copying.gather(col, li,
+                                                                       bounds_check=l_nulls)
+        out[f"{n}{lsuffix}" if n in overlap else n] = col
+    for n, col in other._table.items():
+        out[f"{n}{rsuffix}" if n in overlap else n] = copying.gather(col, ri,
+                                                                     bounds_check=r_nulls)
+    if on is not None:
+        index = left._index.take(li) if not l_nulls else Index(
+            copying.gather(left._index.column(left.device), li, bounds_check=True),
+            left._index.name)
+    else:
+        lname, rname = left._index.name, other._index.name
+        name = {"left": lname, "right": rname}.get(how, lname if lname == rname else None)
+        index = Index(key, name)
+    res = DataFrame._from(Table(out), index)
+    if how == "outer" or sort:
+        from cudf_tpu_torch.ops import sort as sort_ops
+
+        res = res.take(sort_ops.sorted_order([key]))
+    return res

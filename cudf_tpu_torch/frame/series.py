@@ -22,11 +22,16 @@ index, with pandas' column API.
 Its index may be a MultiIndex, as a multi-key groupby's ``size()`` gives.
 ``groupby`` gives a SeriesGroupBy (``frame/groupby.py``); ``corr``,
 ``cov`` and ``autocorr`` take two passes over the pairwise-complete rows;
-``agg``, ``transform``, ``pipe`` and ``describe`` are pandas'.  The
-``str``, ``dt``, ``cat``, ``list`` and ``struct`` accessors, windows
-(``rolling``, ``resample``, ``ewm``), row UDFs (``map``, ``apply``) and
-the other methods in ``_NOT_PORTED`` raise NotImplementedError naming
-their ROADMAP.md item.
+``agg``, ``transform``, ``pipe`` and ``describe`` are pandas'.
+``map`` of a dict or Series is a sorted search on the device; ``apply``
+runs the UDF under ``torch.func.vmap`` (``masked=True`` hands it a
+``utils/masked.py`` ``Masked``), and ``map`` of a callable, or a UDF vmap
+cannot trace, loops on the host, as the reference's does; ``UDF_ROUTES``
+counts each route.  ``interpolate`` (linear), ``combine_first`` and
+``update`` are pandas'.  The ``str``, ``dt``, ``cat``, ``list`` and
+``struct`` accessors, windows (``rolling``, ``resample``, ``ewm``) and the
+other methods in ``_NOT_PORTED`` raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,14 +44,15 @@ import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, holds, is_null_scalar
-from cudf_tpu_torch.frame.index import Index, MultiIndex, as_index, default_index
+from cudf_tpu_torch.frame.index import (Index, MultiIndex, as_index, default_index,
+                                         label_column)
 from cudf_tpu_torch.ops import binaryop, copying, reductions
 from cudf_tpu_torch.ops import replace as replace_ops
 from cudf_tpu_torch.ops import scan as scan_ops
 from cudf_tpu_torch.ops import sort as sort_ops
 from cudf_tpu_torch.ops import stream_compaction as sc
 from cudf_tpu_torch.ops import unary
-from cudf_tpu_torch.ops._utils import materialize_validity
+from cudf_tpu_torch.ops._utils import materialize_validity, maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 from cudf_tpu_torch.utils.missing import NA
 
@@ -69,20 +75,75 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 # that brings each
 _NOT_PORTED = {
     "str": 6, "dt": 6, "cat": 8, "list": 6, "struct": 6,
-    "rolling": 8, "resample": 8, "ewm": 8,
-    "map": 4, "apply": 4, "interpolate": 4,
-    "combine_first": 4, "update": 4, "explode": 6, "hash_values": 5,
+    "rolling": 8, "resample": 8, "ewm": 8, "explode": 6, "hash_values": 5,
     "to_arrow": 8, "to_csv": 7, "to_json": 7, "to_parquet": 7,
 }
 _DESCRIBE = ("count", "mean", "std", "min", "25%", "50%", "75%", "max")
+# what the reference package lacks too: ROADMAP.md's line for it
+BEYOND = "ROADMAP.md, beyond the reference"
+# how many UDFs took each route: "vmap" (torch.func.vmap on the column's
+# device) or "host" (a Python loop over the values)
+UDF_ROUTES = {"vmap": 0, "host": 0}
 
 
-def not_ported(name: str, item: int):
+def where_ported(item) -> str:
+    """The ROADMAP.md place of something not ported: a queue 1 item
+    number, or a line's text."""
+    return f"ROADMAP.md queue 1, item {item}" if isinstance(item, int) else item
+
+
+def not_ported(name: str, item):
     def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__}.{name}: ROADMAP.md queue 1, "
-                                  f"item {item}")
+        raise NotImplementedError(f"{type(self).__name__}.{name}: {where_ported(item)}")
     method.__name__ = name
     return method
+
+
+def _vmap_error(err: Exception) -> bool:
+    """torch.func.vmap's own refusal (data-dependent control flow, .item(),
+    a result that is not a tensor), which sends a UDF to the host; any
+    other error is the UDF's and propagates."""
+    return str(err).startswith("vmap")
+
+
+def vmap_udf(func, arg, device):
+    """func vmapped over arg's first dimension (a tensor, a Masked, or a
+    dict of them) on ``device``: Python floats promote integers to float64
+    as in numpy and pandas, and a Python number the UDF returns becomes a
+    tensor.  None when vmap cannot trace the UDF (the host route)."""
+    from torch.func import vmap
+
+    from cudf_tpu_torch.utils.masked import Masked
+
+    def one(x):
+        out = func(x)
+        if isinstance(out, (torch.Tensor, Masked)):
+            return out
+        if isinstance(out, (bool, int, float, np.number, np.bool_)):
+            return torch.as_tensor(out, device=device)
+        raise ValueError(f"vmap: the UDF returned a {type(out).__name__}")
+
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return vmap(one)(arg)
+    except (RuntimeError, ValueError, TypeError) as err:
+        if not _vmap_error(err):
+            raise
+        return None
+    finally:
+        torch.set_default_dtype(default)
+
+
+def udf_column(out, n: int, validity=None) -> Column:
+    """A vmapped UDF's result as a column: a Masked gives its validity, a
+    tensor keeps ``validity`` (the input's nulls)."""
+    from cudf_tpu_torch.utils.masked import Masked
+
+    if isinstance(out, Masked):
+        return Column(dt.from_torch(out.value.dtype), n, out.value.reshape(n).contiguous(),
+                      maybe_mask(out.valid.reshape(n)))
+    return Column(dt.from_torch(out.dtype), n, out.reshape(n).contiguous(), validity)
 
 
 def _is_listlike(x) -> bool:
@@ -166,6 +227,10 @@ class Series:
                 dt.FLOAT64 if data is None else None), device=device)
         else:
             col = column_of(data, device, dtype)
+            if type(data).__name__ == "Series" and hasattr(data, "index"):
+                # a pandas Series keeps its labels and name, as in pandas
+                index = as_index(data.index, device) if index is None else index
+                name = data.name if name is None else name
         self._column = col
         self._index = index if index is not None else default_index(col.length)
         if len(self._index) != col.length:
@@ -252,9 +317,11 @@ class Series:
         return self._new(_clone(self._column) if deep else self._column, self._index.copy())
 
     def rename(self, name=None) -> "Series":
+        """A new name, or with a dict or callable new index labels (each
+        label mapped on the host, a label a dict lacks kept)."""
         if callable(name) or isinstance(name, dict):
-            raise NotImplementedError("Series.rename of the index labels: ROADMAP.md queue 1, "
-                                      "item 4")
+            return Series._from(self._column, relabel(self._index, name, self.device),
+                                self.name)
         return Series._from(self._column, self._index, name)
 
     def to_numpy(self) -> np.ndarray:
@@ -658,11 +725,18 @@ class Series:
 
     def describe(self) -> "Series":
         """pandas' count, mean, std, min, quartiles and max of a numeric
-        column, float64."""
+        column, float64; of a string, dictionary or bool column its count,
+        unique, top and freq, as text (the reference's values: the port
+        has no column of mixed types)."""
+        if self.dtype.is_temporal:
+            raise NotImplementedError(f"describe of a temporal column: {BEYOND}")
         if not self.dtype.is_numeric:
-            raise NotImplementedError(
-                "describe of a non-numeric column (count, unique, top and freq: values of "
-                "mixed types) is not ported: ROADMAP.md queue 1, item 4")
+            vc = self.value_counts()
+            top, freq = (vc._index[0], int(vc.iloc[0])) if len(vc) else (None, None)
+            vals = [self.count(), self.nunique(), top, freq]
+            return Series([None if v is None else str(v) for v in vals],
+                          index=["count", "unique", "top", "freq"], name=self.name,
+                          dtype="str", device=self.device)
         vals = [float(self.count()), self.mean(), self.std(), self.min(),
                 *[self.quantile(q) for q in (0.25, 0.5, 0.75)], self.max()]
         return Series([float(v) for v in vals], index=list(_DESCRIBE), name=self.name,
@@ -920,6 +994,125 @@ class Series:
         return self._new(replace_ops.replace_values(col, _host_column(olds, col),
                                                     _host_column(news, col)))
 
+    def map(self, arg, na_action=None) -> "Series":
+        """Values looked up in a dict or a Series (by its index), null
+        where a value has no entry: the mapper's keys sorted once, then a
+        left and a right search of every row and one gather, on the
+        column's device.  A callable runs on the host, value by value (the
+        reference's loop; ``apply`` vmaps one on the device)."""
+        if isinstance(arg, Series):
+            keys, values = arg._index.column(self.device), arg._column
+        elif isinstance(arg, dict):
+            if not arg:
+                return self._new(Column.full(len(self), None, dt.FLOAT64, device=self.device))
+            keys = _host_column(list(arg.keys()), self._column)
+            values = Column.from_pylist(list(arg.values()), device=self.device)
+        elif callable(arg):
+            return self._host_map(arg, na_action)
+        else:
+            raise TypeError(f"map takes a dict, a Series or a callable, not "
+                            f"{type(arg).__name__}")
+        from cudf_tpu_torch.ops.join import _aligned_keys, _lex_searchsorted, _sorted_build
+
+        col = self._nan_null()
+        l_ops, k_ops = _aligned_keys([col], [keys])
+        k_sorted, k_order = _sorted_build(k_ops)
+        lo = _lex_searchsorted(k_sorted, l_ops, "left")
+        found = _lex_searchsorted(k_sorted, l_ops, "right") > lo
+        if col.validity is not None:
+            found &= col.validity
+        pick = torch.where(found, k_order[lo.clamp(max=max(keys.length - 1, 0))], -1)
+        return self._new(copying.gather(values, pick, bounds_check=True))
+
+    def _host_map(self, func, na_action=None) -> "Series":
+        UDF_ROUTES["host"] += 1
+        missing = self.isna()._column.data.cpu().tolist()
+        vals = [None if m and na_action == "ignore" else func(v)
+                for v, m in zip(self.tolist(), missing)]
+        return Series(vals, index=self._index, name=self.name, device=self.device)
+
+    def apply(self, func, args=(), masked: bool = False, **kwargs) -> "Series":
+        """A UDF of each value, vmapped over the column on its device
+        (``torch.func.vmap``; a missing float is NaN to the UDF, as in
+        pandas, and another column's null row stays null).  ``masked=True``
+        hands it a ``Masked`` (value, valid) pair instead, and the result's
+        nulls are its own.  A UDF vmap cannot trace (Python control flow on
+        a value, ``.item()``, a result that is not a number) runs on the
+        host, value by value, as the reference's does.  ``UDF_ROUTES``
+        counts the route taken."""
+        fn = (lambda x: func(x, *args, **kwargs)) if args or kwargs else func
+        col = self._column
+        validity = col.validity
+        if masked:
+            from cudf_tpu_torch.utils.masked import Masked
+
+            arg, validity = Masked(col.data, materialize_validity(col)), None
+        elif col.dtype.is_float and validity is not None:
+            # pandas hands the UDF NaN for a missing float: its result stands
+            arg = torch.where(validity, col.data, float("nan"))
+            validity = None
+        else:
+            arg = col.data
+        out = vmap_udf(fn, arg, self.device)
+        if out is None:
+            return self._host_map(fn)
+        UDF_ROUTES["vmap"] += 1
+        return self._new(udf_column(out, len(self), validity))
+
+    def interpolate(self, method: str = "linear", **kwargs) -> "Series":
+        """Linear interpolation over positions between the valid values
+        around each missing one; leading missing values stay missing,
+        trailing ones take the last valid value (pandas' default
+        ``limit_direction="forward"``).  The previous and next valid
+        positions come from blocked running maxima, with no loop over the
+        rows."""
+        if method != "linear" or kwargs:
+            raise NotImplementedError(f"interpolate(method={method!r}, {sorted(kwargs)}): "
+                                      f"linear only, as the reference; {BEYOND}")
+        col = self._nan_null()
+        if col.validity is None:
+            return self.copy(deep=False)
+        n, dev = len(self), self.device
+        valid = col.validity
+        pos = torch.arange(n, device=dev)
+        prev = scan_ops.running_extreme(torch.where(valid, pos, -1), "cummax")
+        after = scan_ops.running_extreme(torch.where(valid.flip(0), pos, -1), "cummax")
+        nxt = (n - 1) - after.flip(0)                 # n where no valid value follows
+        x = col.data.double()
+        pv, nv = x[prev.clamp(0, n - 1)], x[nxt.clamp(0, n - 1)]
+        has_prev, has_next = prev >= 0, nxt < n
+        step = (pos - prev).double() / (nxt - prev).clamp(min=1).double()
+        out = torch.where(valid, x, torch.where(has_next, pv + (nv - pv) * step, pv))
+        target = self.dtype if self.dtype.is_float else dt.FLOAT64
+        return self._new(Column(target, n, out.to(target.torch_storage),
+                                maybe_mask(valid | has_prev)))
+
+    def combine_first(self, other: "Series") -> "Series":
+        """Aligned by label (the sorted union when the indexes differ);
+        each missing value of self takes other's."""
+        lhs, rhs, index = _align(self._new(self._nan_null()), other)
+        return Series._from(replace_ops.replace_nulls_column(lhs, rhs), index, self.name)
+
+    def update(self, other) -> None:
+        """In place, as pandas: each non-missing value of ``other`` (a
+        Series by label, or an array by position) overwrites self's value
+        at its label; labels self lacks are ignored, and the dtype stays
+        self's."""
+        if not isinstance(other, Series):
+            other = Series._from(column_of(other, self.device), self._index)
+        pos = self._index.get_indexer_for(other._index.column(self.device), self.device)
+        src = other._nan_null()
+        keep = sc.filter_indices((pos >= 0) & materialize_validity(src))
+        self._column = copying.scatter(copying.gather(src, keep, bounds_check=False),
+                                       pos[keep], self._column)
+
+    def unstack(self, level=-1, fill_value=None):
+        """A MultiIndex level moved into the columns (``frame/reshape.py``
+        ``unstack``)."""
+        from cudf_tpu_torch.frame.reshape import unstack
+
+        return unstack(self, level=level, fill_value=fill_value)
+
     def repeat(self, repeats) -> "Series":
         col = copying.repeat(self._column, repeats)
         idx = Index(copying.repeat(self._index.column(self.device), repeats),
@@ -997,6 +1190,16 @@ def _bool_array(key) -> bool:
     if isinstance(key, np.ndarray):
         return key.dtype == bool
     return len(key) > 0 and all(isinstance(v, (bool, np.bool_)) for v in key)
+
+
+def relabel(index: Index, mapper, device) -> Index:
+    """New index labels: each label (a MultiIndex's, level by level)
+    through a dict (a label it lacks kept) or a callable, on the host."""
+    fn = (lambda v: mapper.get(v, v)) if isinstance(mapper, dict) else mapper
+    if isinstance(index, MultiIndex):
+        return MultiIndex([label_column([fn(v) for v in c.to_numpy().tolist()], device)
+                           for c in index._columns], index.names)
+    return Index(label_column([fn(v) for v in index.to_pylist()], device), index.name)
 
 
 def _host_column(values, like: Column) -> Column:

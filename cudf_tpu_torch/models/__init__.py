@@ -10,9 +10,11 @@
   B, F and G; two passes above 2^20 keys) on both sides when the key
   domain spans more than one window.
 
-``models/tpch.py`` holds the TPC-H tables and queries q1, q6, q12 and q14
-on the LazyFrame engine; ``models/g1.py`` the ten db-benchmark G1
-groupby questions in the form of its pandas solution.
+``models/tpch.py`` holds the TPC-H tables and queries on the LazyFrame
+engine and in pandas' form; ``models/g1.py`` the ten db-benchmark G1
+groupby questions in the form of its pandas solution;
+``models/frame_api.py`` the reshape, UDF, join-form and missing-data
+requests the card runs, each beside its plain PyTorch version.
 """
 
 from __future__ import annotations

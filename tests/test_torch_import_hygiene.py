@@ -66,6 +66,41 @@ def test_groupby_on_cpu_tensors_imports_no_jax_reference_or_pandas():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+_FRAME_API_PROBE = """
+import sys
+sys.modules["pandas"] = None            # neither can be imported from here on
+sys.modules["jax"] = None
+import torch
+import cudf_tpu_torch as ct
+df = ct.DataFrame({"k": torch.tensor([1, 2, 1, 2], dtype=torch.int32),
+                   "c": torch.tensor([5, 5, 6, 6]), "v": torch.tensor([1.0, 2.0, 3.0, 4.0])})
+grid = ct.pivot_table(df, values="v", index="k", columns="c", aggfunc="sum")
+assert grid._table[5].data.tolist() == [1.0, 2.0], grid
+assert ct.crosstab(df["k"], df["c"])._table[6].data.tolist() == [1, 1]
+assert df.groupby(["k", "c"])["v"].sum().unstack()._table[6].data.tolist() == [3.0, 4.0]
+assert len(ct.melt(df, id_vars="k")) == 8
+assert len(ct.concat([df, df.iloc[:2]])) == 6
+days = ct.date_range("2020-01-01", periods=3, freq="D", device="cpu")
+assert days._column.data.tolist() == [(1577836800 + 86400 * i) * 10**6 for i in range(3)]
+assert ct.cut(df["v"], 2, labels=False)._column.data.tolist() == [0, 0, 1, 1]
+assert ct.cut(df["v"], 2).to_numpy().tolist() == ["(0.997, 2.5]"] * 2 + ["(2.5, 4.0]"] * 2
+assert df["v"].apply(lambda x: x * 2.0 + 1.0)._column.data.tolist() == [3.0, 5.0, 7.0, 9.0]
+assert ct.frame.series.UDF_ROUTES == {"vmap": 1, "host": 0}
+print("FRAME API OK")
+"""
+
+
+def test_reshapes_tools_and_udfs_run_without_pandas_or_jax():
+    """pivot_table, crosstab, unstack, melt, concat, date_range of a fixed
+    frequency, cut and a vmapped Series.apply with pandas and jax
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _FRAME_API_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FRAME API OK" in proc.stdout, proc.stdout
+
+
 def test_package_sources_import_no_jax_or_reference():
     sources = sorted(PACKAGE.rglob("*.py"))
     assert sources
