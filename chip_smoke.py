@@ -241,6 +241,32 @@ count at 0 before it, its kernels each launched in it):
    or host for the callable map) and no other.
 5. timings of each request beside its plain version.
 
+Strings and temporals (``cudf_tpu_torch/models/strings_dt.py``:
+``REQUESTS``, ``PLAIN``, ``NEEDS``), three main paths of their own:
+4. over G1 at 1e8 rows, after the frame API's G1 part: ``id3.astype(str)``
+   (1e8 rows of 12 bytes) and on it ``str.len``, ``slice(2)`` as int64
+   and through ``to_numeric``, ``contains`` of a literal and of
+   ``^id0+[1-9]\\d{2}$`` (the device DFA), ``startswith``, ``upper``,
+   ``replace(r"0+", "-")`` (the span engine), ``split("0000", n=1,
+   expand=True)``, ``id1.astype(str) + "_" + v1.astype(str)``, v3 summed
+   by ``str.slice(0, 8)`` (a STRING key: the sort tier, no kernel), by
+   the same as a category (101 keys: A) and by ``slice(0, 10)`` as a
+   category (10 001 keys: B, F, G, D), ``cat.codes`` and
+   ``cat.categories``; then the same ``str`` requests on the dictionary
+   ``id3`` itself; over TPC-H SF10's lineitem (6e7 rows), after its
+   ``Over`` phase: ``l_shipdate.dt`` year, month, day, dayofweek,
+   quarter, dayofyear, is_month_end, ``floor("D")``, ``ceil("h")``,
+   ``strftime("%Y-%m-%d")`` and ``to_datetime`` of that text, the hour
+   in America/New_York (``tz_localize("UTC").dt.tz_convert``), and the
+   revenue summed by ``dt.year`` (A) and by ``strftime("%Y-%m")`` as a
+   category (A).  Each answer against its plain PyTorch version (text by
+   bytes and offsets, integers, bools and ticks exact, sums rtol 1e-12);
+   each request alone launching exactly its ``NEEDS`` (every call
+   replayed: ``strings_dt_calls`` in the kernels line), with
+   ``STRING_ROUTES["host"]`` unmoved across the phases, and its host
+   syncs counted (``torch.cuda.set_sync_debug_mode``).
+5. timings of each request beside its plain version.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -2077,8 +2103,9 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     return launched
 
 
-def tpch_phase(dev, smi, wrappers, drive, plains):
-    """The nine TPC-H queries at SF10 (the main path) and SF1."""
+def tpch_phase(dev, smi, wrappers, drive, plains, strings):
+    """The nine TPC-H queries at SF10 (the main path) and SF1, and at SF10
+    the string and temporal requests over lineitem (into ``strings``)."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -2114,6 +2141,8 @@ def tpch_phase(dev, smi, wrappers, drive, plains):
             frame_by_query, frame_calls, frame_times = tpch_frame_phase(
                 tables, smi, wrappers, drive, plains)
             over_rows = over_phase(tables, smi)
+            strings_dt_phase("lineitem", {"lineitem": tables["lineitem"]}, smi, wrappers,
+                             drive, plains, strings)
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -2490,6 +2519,63 @@ def add_frame_api(acc, out):
     acc[2].update(out[2])
 
 
+def count_syncs(run):
+    """The host syncs one run makes, as torch's sync debug mode reports
+    them (a warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def strings_dt_phase(group, frames, smi, wrappers, drive, plains, acc):
+    """The string and temporal requests of one table
+    (``models/strings_dt.py`` ``GROUPS[group]``): all of them as one main
+    path, each answer against its plain version; then each alone, every
+    count at 0 before it, launching exactly its ``NEEDS`` (every kernel
+    call replayed against its plain version) and taking the device route
+    (``STRING_ROUTES["host"]`` unmoved); its host syncs counted; then each
+    timed beside its plain version.  Adds (launches, calls, times) by
+    request to ``acc``."""
+    from cudf_tpu_torch.models import strings_dt as sd
+    from cudf_tpu_torch.ops.strings import STRING_ROUTES
+
+    host = STRING_ROUTES["host"]
+    names = sd.GROUPS[group]
+    sd.prepare(frames)
+    results = drive(f"strings_{group}", lambda: {n: sd.REQUESTS[n](frames) for n in names})
+    errs = {}
+    for n in names:
+        errs[n] = check_frame_api(n, sd.ANSWERS[n](results.pop(n), frames), sd.PLAIN[n](frames),
+                                  sd.RTOL[n])
+    check(STRING_ROUTES["host"] == host, f"strings {group}: a request took the host route")
+    log(f"phase 4 strings {group}: every request equals its plain version, max abs err "
+        f"{json.dumps(errs)}")
+    torch.cuda.empty_cache()
+    for n in names:
+        run = (lambda n=n: sd.REQUESTS[n](frames))
+        before = dict(STRING_ROUTES)
+        acc[0][n] = run_replayed(f"strings {n}", n, run, wrappers, plains, acc[1],
+                                 needs=sd.NEEDS[n])
+        took = {k: STRING_ROUTES[k] - before[k] for k in before}
+        check(took["host"] == 0, f"strings {n}: routes {took}, expected {sd.ROUTE[n]}")
+        row = {"ms": device_ms(run, reps=3),
+               "plain_ms": device_ms(lambda n=n: sd.PLAIN[n](frames), reps=3),
+               "host_syncs": count_syncs(run), "max_abs_err": errs[n],
+               "launches": acc[0][n]}
+        acc[2][n] = row
+        log(f"phase 4/5 strings {n}: {json.dumps(row)} [{smi}]")
+        torch.cuda.empty_cache()
+    check(STRING_ROUTES["host"] == host, f"strings {group}: a request took the host route")
+
+
 def frame_api_null_frames(ct, dev, gen):
     """G1_1e8_1e2_5_0's columns (id4, id6, v1, v3, each null in 5% of
     rows) with v2 (1..15, no nulls), and the Series of 1e6 distinct labels
@@ -2594,7 +2680,9 @@ def main():
              "tpch": TPCH_PATH, "tpch_frame": TPCH_PATH,
              "g1_questions": ONEHOT_TIER + RADIX_TIER,
              "frame_api_g1": ONEHOT_TIER + RADIX_TIER,
-             "frame_api_j1": RADIX_TIER + ["window_probe"], "frame_api_nulls": []}
+             "frame_api_j1": RADIX_TIER + ["window_probe"], "frame_api_nulls": [],
+             "strings_g1": ONEHOT_TIER + RADIX_TIER, "strings_g1_dict": [],
+             "strings_lineitem": ONEHOT_TIER}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -2686,7 +2774,11 @@ def main():
         {"card": smi, "questions": question_times, "api": api_times}))
     frame_api = ({}, {}, {})            # launches by request, replayed calls, times
     add_frame_api(frame_api, frame_api_phase("g1", {"g1": df}, smi, wrappers, drive, plains))
-    del df
+    strings = ({}, {}, {})              # launches by request, replayed calls, times
+    g1_text = {"g1": df}
+    for group in ("g1", "g1_dict"):
+        strings_dt_phase(group, g1_text, smi, wrappers, drive, plains, strings)
+    del df, g1_text
     torch.cuda.empty_cache()
 
     j1_rows, j1_modes, route_ms = j1_kernel_phase(dev, gen, rp, ts)
@@ -2744,7 +2836,7 @@ def main():
     del v1
     torch.cuda.empty_cache()
     (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
-     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains)
+     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings)
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
@@ -2765,6 +2857,9 @@ def main():
     log("phase 5 frame API times: " + json.dumps({"card": smi, "ms": frame_api[2]}))
     for name, calls in frame_api[1].items():
         kernels[name]["frame_api_calls"] = calls
+    log("phase 5 strings and temporals times: " + json.dumps({"card": smi, "ms": strings[2]}))
+    for name, calls in strings[1].items():
+        kernels[name]["strings_dt_calls"] = calls
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -2786,7 +2881,8 @@ def main():
                                                  for q, c in by_frame_query.items()},
                    launches_by_g1_question={q: c.get(name, 0) for q, c in by_question.items()},
                    launches_by_g1_api={q: c.get(name, 0) for q, c in by_api.items()},
-                   launches_by_frame_api={q: c.get(name, 0) for q, c in frame_api[0].items()})
+                   launches_by_frame_api={q: c.get(name, 0) for q, c in frame_api[0].items()},
+                   launches_by_strings_dt={q: c.get(name, 0) for q, c in strings[0].items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

@@ -15,8 +15,12 @@ Port of ``cudf_tpu/core/column.py`` for these layouts:
 ``validity`` is a ``bool`` tensor of the column's length or None (all
 valid).  A numeric or bool dtype may carry pandas' nullable provenance
 (``Int64``, ``boolean``, ``Float32`` ...): the layout is the same, and
-``to_pandas_array`` gives the masked pandas array back.  List, struct,
-decimal and tz-aware columns are ROADMAP.md queue 1, item 6.
+``to_pandas_array`` gives the masked pandas array back; so may a STRING
+dtype (pandas' ``string``, pd.NA for null) and any dtype may carry Arrow
+provenance (``int64[pyarrow]``, ``string[pyarrow]`` ...: an
+``ArrowExtensionArray`` back).  A tz-aware timestamp holds UTC ticks and
+its zone in ``DType.tz``, as Arrow does.  List, struct, decimal and
+day-unit columns are ROADMAP.md queue 1, item 6.
 
 A column lives where its tensors live, its dictionary's keys included.
 Nothing here picks a device: constructors from host data take
@@ -42,17 +46,14 @@ _UNITS = ("s", "ms", "us", "ns")
 
 
 def _check_supported(dtype: DType) -> None:
-    if dtype.arrow or (dtype.nullable and not (dtype.is_numeric or dtype.is_bool)):
-        raise NotImplementedError(
-            f"column dtype {dtype!r}: Arrow and nullable string dtypes are ROADMAP.md "
-            "queue 1, item 2")
     if dtype.is_numeric or dtype.is_bool or dtype.is_string or dtype.is_dictionary:
         return
-    if dtype.is_temporal and dtype.tz is None and dtype.time_unit in _UNITS:
+    if dtype.is_temporal and dtype.time_unit in _UNITS and (dtype.tz is None
+                                                            or dtype.is_timestamp):
         return
     raise NotImplementedError(
-        f"column dtype {dtype!r}: list, struct, decimal, day-unit and tz-aware "
-        "columns are ROADMAP.md queue 1, item 6")
+        f"column dtype {dtype!r}: list, struct, decimal and day-unit columns are "
+        "ROADMAP.md queue 1, item 6")
 
 
 def is_null_scalar(v) -> bool:
@@ -348,8 +349,10 @@ class Column:
             codes_t = torch.from_numpy(np.where(valid, codes, 0)).to(device)
             return cls.from_dictionary(codes_t, keys, bm.from_numpy_mask(valid, device))
         if name == "StringDtype" or (isinstance(pdt, np.dtype) and pdt.kind == "O"):
-            return cls.from_numpy(series.to_numpy(dtype=object, na_value=None),
-                                  device=device)
+            col = cls.from_numpy(series.to_numpy(dtype=object, na_value=None), device=device)
+            if name == "StringDtype" and pdt.na_value is not np.nan:
+                col = col._as(dt.DType(dt.TypeId.STRING, nullable=True))
+            return col
         if name in _NULLABLE_PANDAS:
             # Int8-Int64, UInt8-UInt64, boolean, Float32/Float64: pd.NA is null
             # (a NaN a Float column computed stays a value), the dtype keeps
@@ -362,11 +365,68 @@ class Column:
                 valid |= np.isnan(values)
             return cls(logical, values.shape[0], torch.from_numpy(values.copy()).to(device),
                        bm.from_numpy_mask(valid, device))
+        if name == "ArrowDtype":
+            col = cls.from_arrow(series.array._pa_array, device=device)
+            return col._as(dt.dtype(pdt)) if not col.dtype.is_dictionary else col
+        if name == "DatetimeTZDtype":
+            # the UTC instants' ticks, the zone in the dtype
+            utc = np.asarray(series.dt.tz_convert(None).to_numpy())
+            col = cls.from_numpy(utc, device=device)
+            return col._as(dt.DType(col.dtype.id, tz=str(pdt.tz)))
         if not isinstance(pdt, np.dtype):
             raise NotImplementedError(
-                f"pandas extension dtype {pdt}: Arrow and tz-aware columns are "
-                "ROADMAP.md queue 1, item 2")
+                f"pandas extension dtype {pdt}: interval, period, sparse and decimal "
+                "columns are ROADMAP.md queue 1, item 6")
         return cls.from_numpy(series.to_numpy(), device=device)
+
+    @classmethod
+    def from_arrow(cls, arr, *, device) -> "Column":
+        """A pyarrow Array or ChunkedArray of a fixed-width, temporal (a
+        tz-aware timestamp keeps its UTC ticks and its zone), string or
+        dictionary type (the reference's ``Column.from_arrow`` for those
+        layouts)."""
+        import pyarrow as pa
+
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        t = arr.type
+        valid = None if arr.null_count == 0 else ~np.asarray(arr.is_null())
+        if pa.types.is_dictionary(t):
+            keys = cls.from_arrow(arr.dictionary, device=device)
+            codes = np.asarray(arr.indices.fill_null(0).to_numpy(zero_copy_only=False))
+            return cls.from_dictionary(torch.from_numpy(codes.astype(np.int32)).to(device),
+                                       keys, bm.from_numpy_mask(valid, device))
+        if pa.types.is_string(t) or pa.types.is_large_string(t):
+            arr = arr.cast(pa.large_string())
+            _, offbuf, charbuf = arr.buffers()
+            n = len(arr)
+            off = np.frombuffer(offbuf, np.int64, count=n + 1 + arr.offset)[arr.offset:]
+            chars = np.zeros(0, np.uint8) if charbuf is None else \
+                np.frombuffer(charbuf, np.uint8)[off[0]:off[-1]]
+            return cls(dt.STRING, n, torch.from_numpy(chars.copy()).to(device),
+                       bm.from_numpy_mask(valid, device),
+                       torch.from_numpy((off - off[0]).copy()).to(device))
+        if pa.types.is_timestamp(t) or pa.types.is_duration(t):
+            if t.unit not in _UNITS:
+                raise NotImplementedError(f"arrow {t}: day-unit columns are ROADMAP.md "
+                                          "queue 1, item 6")
+            ticks = np.asarray(arr.cast(pa.int64()).fill_null(0).to_numpy(zero_copy_only=False))
+            base = dt.unit_dtype("M" if pa.types.is_timestamp(t) else "m", t.unit)
+            tz = getattr(t, "tz", None)
+            return cls(dt.DType(base.id, tz=None if tz is None else str(tz)), len(arr),
+                       torch.from_numpy(ticks.astype(np.int64)).to(device),
+                       bm.from_numpy_mask(valid, device))
+        if not (pa.types.is_integer(t) or pa.types.is_floating(t) or pa.types.is_boolean(t)):
+            raise NotImplementedError(f"arrow {t}: list, struct and decimal columns are "
+                                      "ROADMAP.md queue 1, item 6")
+        filled = arr if valid is None else arr.fill_null(False if pa.types.is_boolean(t) else 0)
+        values = np.ascontiguousarray(filled.to_numpy(zero_copy_only=False))
+        return cls(dt.dtype(values.dtype), len(arr), torch.from_numpy(values.copy()).to(device),
+                   bm.from_numpy_mask(valid, device))
+
+    def _as(self, dtype: DType) -> "Column":
+        """The same buffers under another logical dtype of the same layout."""
+        return Column(dtype, self.length, self.data, self.validity, self.offsets, self.children)
 
     # ------------------------------------------------------------------
     # export
@@ -424,12 +484,42 @@ class Column:
         out[~valid] = np.nan
         return out
 
+    def to_arrow(self):
+        """A pyarrow Array (the reference's ``Column.to_arrow`` for the
+        fixed-width, temporal, string and dictionary layouts)."""
+        import pyarrow as pa
+
+        mask = None if self.validity is None else ~self.validity.cpu().numpy()
+        if self.dtype.is_string:
+            offs = self.offsets.cpu().numpy()
+            buf = None if mask is None else pa.py_buffer(np.packbits(~mask, bitorder="little"))
+            arr = pa.LargeStringArray.from_buffers(
+                self.length, pa.py_buffer(offs), pa.py_buffer(self.data.cpu().numpy()), buf,
+                int(mask.sum()) if mask is not None else 0)
+            return arr.cast(pa.string()) if offs[-1] < 2 ** 31 else arr
+        if self.dtype.is_dictionary:
+            return pa.DictionaryArray.from_arrays(
+                pa.array(self.data.cpu().numpy(), mask=mask), self.keys.to_arrow())
+        data = self.data.cpu().numpy()
+        if self.dtype.is_temporal:
+            unit = self.dtype.time_unit
+            typ = pa.duration(unit) if self.dtype.is_duration else pa.timestamp(unit,
+                                                                               tz=self.dtype.tz)
+            return pa.array(data.astype(np.int64), mask=mask).cast(typ)
+        return pa.array(data, mask=mask)
+
     def to_pandas_array(self):
         """What the reference's ``column_to_pandas_array`` gives: numpy
-        values, datetime64 / timedelta64, strings as pandas infers them,
-        and a Categorical over a dictionary's keys."""
+        values, datetime64 / timedelta64 (tz-aware: in their zone), strings
+        as pandas infers them (``string``: pd.NA for null), a Categorical over
+        a dictionary's keys, and an ``ArrowExtensionArray`` for Arrow
+        provenance."""
         import pandas as pd
 
+        if self.dtype.arrow:
+            return pd.arrays.ArrowExtensionArray(self.to_arrow())
+        if self.dtype.is_string and self.dtype.nullable:
+            return pd.array(self.host_strings(), dtype="string")
         if self.dtype.nullable:
             values = self.data.cpu().numpy()
             mask = np.zeros(self.length, bool) if self.validity is None else \
@@ -446,6 +536,9 @@ class Column:
             return pd.Categorical.from_codes(codes, categories=pd.Index(self.keys.to_numpy()))
         if self.dtype.is_string:
             return pd.Series(self.to_numpy()).array
+        if self.dtype.tz is not None:
+            return pd.DatetimeIndex(self.to_numpy()).tz_localize("UTC").tz_convert(
+                self.dtype.tz).array
         return self.to_numpy()
 
     def to_pandas(self):

@@ -313,11 +313,14 @@ class DType:
             if self.is_string:
                 base = "string"
             if self.is_timestamp:
-                base = f"timestamp[{self.time_unit or 'ns'}]"
+                tz = "" if self.tz is None else f", tz={self.tz}"
+                base = f"timestamp[{self.time_unit or 'ns'}{tz}]"
             return f"{base}[pyarrow]"
         if self.nullable:
             if self.id == TypeId.BOOL8:
                 return "boolean"
+            if self.is_string:
+                return "string"
             base = _CANONICAL_NAMES.get(self.id, self.id.name.lower())
             return base.title().replace("Uint", "UInt")  # pandas-style Int64/UInt8
         if self.tz is not None:
@@ -485,11 +488,13 @@ def dtype(obj: Any) -> DType:
         # "string"/"string[pyarrow]" (pd.NA) keep extension provenance;
         # the pandas-3 default "str" (na_value=nan) maps to plain STRING
         return DType(TypeId.STRING, nullable=str(obj).startswith("string"))
-    if tname == "ArrowDtype" and "string" in str(obj):
-        return STRING
     if tname == "ArrowDtype":
+        pa_type = obj.pyarrow_dtype
+        if "string" in str(pa_type):
+            return DType(TypeId.STRING, arrow=True)
         base = dtype(obj.numpy_dtype)
-        return DType(base.id, tz=base.tz, arrow=True)
+        tz = getattr(pa_type, "tz", None)
+        return DType(base.id, tz=None if tz is None else str(tz), arrow=True)
     npd = np.dtype(obj) if not isinstance(obj, np.dtype) else obj
     if npd.kind in ("M", "m"):
         unit = np.datetime_data(npd)[0]

@@ -269,9 +269,21 @@ def _spread(row_keys: List[Column], row_names: List, col_keys: List[Column],
              for k in col_keys]
     heads = heads[0] if len(col_keys) == 1 else list(zip(*heads))
     out = {}
+
+    def label(vname, j):
+        key = heads[j] if len(col_keys) == 1 else tuple(heads[j])
+        return ((vname,) + (key if isinstance(key, tuple) else (key,))) if multi else key
+
     for vname, col in values.items():
-        if col.dtype.is_string:
-            raise NotImplementedError("a pivot of STRING values: ROADMAP.md queue 1, item 6")
+        if col.dtype.is_string:             # the rows gathered into the cells, null where none
+            cell = torch.full((R * C,), -1, dtype=torch.int64, device=col.device)
+            cell[pos] = torch.arange(col.length, device=col.device)
+            grid = copying.gather(col, cell)
+            if fill_value is not None:
+                grid = copying.copy_if_else(materialize_validity(grid), grid, fill_value)
+            for j in range(len(heads)):
+                out[label(vname, j)] = copying.slice(grid, j * R, (j + 1) * R)
+            continue
         data = torch.zeros(R * C, dtype=col.data.dtype, device=col.device)
         valid = torch.zeros(R * C, dtype=torch.bool, device=col.device)
         signed_view(data)[pos] = signed_view(col.data)
@@ -284,13 +296,11 @@ def _spread(row_keys: List[Column], row_names: List, col_keys: List[Column],
         if fill_value is None and not all(full) and dtype.is_integer:
             # pandas' unstack makes the whole block float64 when a cell is missing
             data, dtype = data.double(), dt.FLOAT64
-        for j, head in enumerate(heads):
-            key = head if len(col_keys) == 1 else tuple(head)
-            name = ((vname,) + (key if isinstance(key, tuple) else (key,))) if multi else key
+        for j in range(len(heads)):
             cell = valid[j * R:(j + 1) * R]
-            out[name] = Column(dtype, R, data[j * R:(j + 1) * R],
-                               None if fill_value is not None or full[j] else cell,
-                               children=col.children)
+            out[label(vname, j)] = Column(dtype, R, data[j * R:(j + 1) * R],
+                                          None if fill_value is not None or full[j] else cell,
+                                          children=col.children)
     res = DataFrame._from(Table(out), index)
     res._columns_names = tuple(([None] if multi else []) + list(col_names))
     return res

@@ -28,10 +28,10 @@ runs the UDF under ``torch.func.vmap`` (``masked=True`` hands it a
 ``utils/masked.py`` ``Masked``), and ``map`` of a callable, or a UDF vmap
 cannot trace, loops on the host, as the reference's does; ``UDF_ROUTES``
 counts each route.  ``interpolate`` (linear), ``combine_first`` and
-``update`` are pandas'.  The ``str``, ``dt``, ``cat``, ``list`` and
-``struct`` accessors, windows (``rolling``, ``resample``, ``ewm``) and the
-other methods in ``_NOT_PORTED`` raise NotImplementedError naming their
-ROADMAP.md item.
+``update`` are pandas'.  The ``str``, ``dt`` and ``cat`` accessors are
+``frame/accessors.py``'s.  The ``list`` and ``struct`` accessors, windows
+(``rolling``, ``resample``, ``ewm``) and the other methods in
+``_NOT_PORTED`` raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
 _NOT_PORTED = {
-    "str": 6, "dt": 6, "cat": 8, "list": 6, "struct": 6,
+    "list": 6, "struct": 6,
     "rolling": 8, "resample": 8, "ewm": 8, "explode": 6, "hash_values": 5,
     "to_arrow": 8, "to_csv": 7, "to_json": 7, "to_parquet": 7,
 }
@@ -247,6 +247,24 @@ class Series:
 
     def _new(self, column: Column, index: Optional[Index] = None) -> "Series":
         return Series._from(column, self._index if index is None else index, self.name)
+
+    @property
+    def str(self):
+        from cudf_tpu_torch.frame.accessors import StringMethods
+
+        return StringMethods(self)
+
+    @property
+    def dt(self):
+        from cudf_tpu_torch.frame.accessors import DatetimeProperties
+
+        return DatetimeProperties(self)
+
+    @property
+    def cat(self):
+        from cudf_tpu_torch.frame.accessors import CategoricalAccessor
+
+        return CategoricalAccessor(self)
 
     # ------------------------------------------------------------------
     # attributes

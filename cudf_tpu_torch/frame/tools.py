@@ -7,8 +7,10 @@ the values over the bin edges, its result a DICTIONARY32 over pandas'
 interval labels (``labels=False``: the bin numbers); ``date_range`` is a
 ``torch.arange`` over the ticks of a fixed frequency.  pandas is imported
 only for host input to ``to_datetime`` (lists and scalars), as the
-reference does; string columns wait on ``ops/strings.py`` (ROADMAP.md
-queue 1, item 6) and calendar frequencies on ``ops/datetime.py`` (item 2).
+reference does.  ``to_datetime`` and ``to_numeric`` of string columns
+parse on the device (``ops/strings.py``); the calendar frequencies of
+``date_range`` (month, quarter and year starts and ends) add months on
+the device (``ops/datetime.py`` ``add_calendrical_months``).
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ import torch
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, is_null_scalar
 from cudf_tpu_torch.frame.index import Index
-from cudf_tpu_torch.frame.series import Series, where_ported
+from cudf_tpu_torch.frame.series import BEYOND, Series
 from cudf_tpu_torch.ops import reductions
 from cudf_tpu_torch.ops._utils import maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 
-STRINGS = where_ported(6)
-CALENDAR = where_ported(2)
+# a calendar frequency: (months a step, anchored at the month's "start" or "end")
+_CALENDAR = {"MS": (1, "start"), "ME": (1, "end"), "QS": (3, "start"), "QE": (3, "end"),
+             "YS": (12, "start"), "YE": (12, "end")}
 # a numeric to_datetime unit: (the timestamp unit it lands in, ticks a step)
 _TO_DATETIME_UNITS = {"D": ("s", 86400), "h": ("s", 3600), "m": ("s", 60), "min": ("s", 60),
                       "s": ("s", 1), "ms": ("ms", 1), "us": ("us", 1), "ns": ("ns", 1)}
@@ -44,17 +47,29 @@ def _as_series(values, device=None) -> Series:
 
 
 def to_datetime(arg, format=None, errors: str = "raise", unit=None, *, device=None):
-    """A Series of timestamps as it is; of numbers, ticks of ``unit``
-    ("ns" by default; D, h and min land in seconds, as pandas gives
-    them), a float's fraction kept in nanoseconds.  Host lists and
-    scalars go through pandas' own ``to_datetime`` on the host (a list
-    comes back as an Index on ``device``)."""
+    """A Series of timestamps as it is; of strings (or a dictionary of
+    them), parsed on its device by ``ops/strings.py`` ``to_timestamps``
+    (ISO 8601 or ``format``'s fixed-width fields; ``errors="coerce"``:
+    NaT where a row does not parse, ``"ignore"``: the input back); of
+    numbers, ticks of ``unit`` ("ns" by default; D, h and min land in
+    seconds, as pandas gives them), a float's fraction kept in
+    nanoseconds.  Host lists and scalars go through pandas' own
+    ``to_datetime`` on the host (a list comes back as an Index on
+    ``device``)."""
     if isinstance(arg, Series):
         col = arg._column
         if col.dtype.is_timestamp:
             return arg
         if col.dtype.is_string or col.dtype.is_dictionary:
-            raise NotImplementedError(f"to_datetime of strings: {STRINGS}")
+            from cudf_tpu_torch.ops.strings import over_keys, to_timestamps
+
+            try:
+                return arg._new(over_keys(col, lambda c: to_timestamps(
+                    c, format, "raise" if errors == "ignore" else errors)))
+            except ValueError:
+                if errors == "ignore":
+                    return arg
+                raise
         if not (col.dtype.is_numeric or col.dtype.is_bool):
             raise TypeError(f"to_datetime of a {col.dtype!r} column")
         land, step = _TO_DATETIME_UNITS[unit or "ns"]
@@ -80,16 +95,44 @@ def to_datetime(arg, format=None, errors: str = "raise", unit=None, *, device=No
 
 def to_numeric(arg, errors: str = "raise"):
     """Numbers as they are (a Series, or a host array or list of numbers
-    as a numpy array), whatever ``errors`` says, as in pandas; strings
-    wait on ``ops/strings.py``."""
+    as a numpy array), whatever ``errors`` says, as in pandas.  A Series of
+    strings is parsed on its device (``ops/strings.py``
+    ``parse_numbers``): int64 when every row is an integer and none is
+    missing, else float64; a row that is no number raises ValueError, is
+    NaN under ``errors="coerce"``, and gives the input back under
+    ``"ignore"`` (pandas 2's option)."""
+    if errors not in ("raise", "coerce", "ignore"):
+        raise ValueError("invalid error value specified")
     if isinstance(arg, Series):
         if arg.dtype.is_numeric or arg.dtype.is_bool:
             return arg
-        raise NotImplementedError(f"to_numeric of a {arg.dtype!r} column: {STRINGS}")
+        if not (arg.dtype.is_string or arg.dtype.is_dictionary):
+            raise TypeError(f"to_numeric of a {arg.dtype!r} column")
+        from cudf_tpu_torch.ops.strings import first_unparsed, over_keys, parse_numbers
+
+        def parsed(col):
+            ints, ok = parse_numbers(col, floats=False)
+            if col.validity is None and bool(ok.all()):
+                return Column(dt.INT64, col.length, ints)
+            vals, ok = parse_numbers(col, floats=True)
+            bad = None if errors == "coerce" else first_unparsed(col, ok)
+            if bad is not None:
+                if errors == "ignore":
+                    raise _Unparsed
+                raise ValueError(f'Unable to parse string "{bad[1]}" at position {bad[0]}')
+            return Column(dt.FLOAT64, col.length, vals, maybe_mask(ok))
+        try:
+            return arg._new(over_keys(arg._column, parsed))
+        except _Unparsed:
+            return arg
     arr = np.asarray(arg)
     if arr.dtype.kind in "biuf":
         return arr
-    raise NotImplementedError(f"to_numeric of {arr.dtype} values: {STRINGS}")
+    raise TypeError(f"to_numeric of host {arr.dtype} values: make a Series on a device first")
+
+
+class _Unparsed(Exception):
+    """A string that is no number under ``errors="ignore"``."""
 
 
 def _round_frac(x, precision: int):
@@ -212,9 +255,12 @@ def date_range(start=None, end=None, periods=None, freq=None, name=None, *,
         ticks = torch.from_numpy(np.linspace(a, b, int(periods)).astype(np.int64)).to(device)
         return Index(Column(dt.unit_dtype("M", unit), int(periods), ticks), name)
     m = re.fullmatch(r"(\d*)([A-Za-z]+)", freq or "D")
+    if m is not None and m.group(2) in _CALENDAR:
+        return _calendar_range(stamps, start, end, periods, int(m.group(1) or 1),
+                               *_CALENDAR[m.group(2)], name, device)
     if m is None or m.group(2) not in _FIXED:
-        raise NotImplementedError(f"date_range(freq={freq!r}): fixed frequencies only; "
-                                  f"calendar frequencies are {CALENDAR} (ops/datetime.py)")
+        raise NotImplementedError(f"date_range(freq={freq!r}): fixed and month, quarter and "
+                                  f"year frequencies; business days and weeks are {BEYOND}")
     funit, per = _FIXED[m.group(2)]
     unit = max(units + [funit], key=_UNIT_ORDER.index)
     step = int(m.group(1) or 1) * per * _NS_PER[funit] // _NS_PER[unit]
@@ -229,6 +275,57 @@ def date_range(start=None, end=None, periods=None, freq=None, name=None, *,
         raise ValueError("date_range needs two of start, end and periods")
     data = first + step * torch.arange(max(count, 0), dtype=torch.int64, device=device)
     return Index(Column(dt.unit_dtype("M", unit), data.shape[0], data), name)
+
+
+def _calendar_range(stamps, start, end, periods, mult, months, side, name, device):
+    """Month, quarter or year starts or ends (``mult`` of them a step)
+    from ``start`` rolled forward, or back from ``end``: the anchors'
+    months found on the host, their ticks made on the device by
+    ``add_calendrical_months`` (an end is the next month's start less a
+    day), each keeping the time of day of the endpoint, as pandas does."""
+    from cudf_tpu_torch.ops.datetime import add_calendrical_months
+
+    unit = max([np.datetime_data(st.dtype)[0] for st in stamps], key=_UNIT_ORDER.index)
+    step = months * mult
+    ends = side == "end"
+
+    def anchor(month: int, tod) -> np.datetime64:    # months since 1970-01
+        first = np.datetime64(month + ends, "M").astype("datetime64[D]")
+        return (first - int(ends)).astype(f"datetime64[{unit}]") + tod
+
+    def on_grid(month: int) -> bool:
+        return (month + ends) % months == 0
+
+    ref = stamps[0]
+    tod = ref - ref.astype("datetime64[D]")
+    month = int(ref.astype("datetime64[M]").astype(np.int64))
+    if start is not None:
+        while not on_grid(month) or anchor(month, tod) < ref:
+            month += 1
+        first = month
+        if end is not None:
+            count = 0
+            while anchor(first + count * step, tod) <= stamps[1]:
+                count += 1
+        else:
+            count = int(periods)
+    elif end is not None:
+        while not on_grid(month) or anchor(month, tod) > ref:
+            month -= 1
+        count = int(periods)
+        first = month - (count - 1) * step
+    else:
+        raise ValueError("date_range needs two of start, end and periods")
+    base = anchor(first, tod) + (np.timedelta64(1, "D") if ends else np.timedelta64(0, "D"))
+    target = dt.unit_dtype("M", unit)
+    col = Column(target, count, torch.full((count,), int(base.astype(np.int64)),
+                                           dtype=torch.int64, device=device))
+    steps = Column(dt.INT64, count, torch.arange(count, device=device) * step)
+    out = add_calendrical_months(col, steps)
+    if ends:
+        day = int(np.timedelta64(1, "D").astype(f"timedelta64[{unit}]").astype(np.int64))
+        out = Column(target, count, out.data - day)
+    return Index(out, name)
 
 
 def factorize(values, sort: bool = False, *, device=None):

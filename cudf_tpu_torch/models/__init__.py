@@ -14,7 +14,8 @@
 engine and in pandas' form; ``models/g1.py`` the ten db-benchmark G1
 groupby questions in the form of its pandas solution;
 ``models/frame_api.py`` the reshape, UDF, join-form and missing-data
-requests the card runs, each beside its plain PyTorch version.
+requests the card runs, and ``models/strings_dt.py`` the string and
+temporal ones, each beside its plain PyTorch version.
 """
 
 from __future__ import annotations

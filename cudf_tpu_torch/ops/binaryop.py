@@ -438,10 +438,15 @@ def _temporal_arith(l_data, l_dtype, r_data, r_dtype, op, out_dtype):
 # ----------------------------------------------------------------------
 
 def _string_binary(lhs, rhs, op: str, n: int) -> Column:
+    if op == "add":                                 # concatenation (ops/strings.py)
+        from cudf_tpu_torch.ops.strings import concat
+
+        parts = [x.decode_dictionary() if isinstance(x, Column) else x for x in (lhs, rhs)]
+        if not all(isinstance(x, str) or x.dtype.is_string for x in parts):
+            raise TypeError("can only concatenate strings with strings")
+        return concat(parts)
     if op not in _COMPARISONS and op != "null_equals":
-        raise NotImplementedError(
-            f"string op {op!r}: ops/strings.py (concatenation and the rest) is ROADMAP.md "
-            "queue 1, item 6")
+        raise TypeError(f"string op {op!r}: strings take + and the comparisons only")
     for a, b, flip in ((lhs, rhs, False), (rhs, lhs, True)):
         if isinstance(a, Column) and a.dtype.is_dictionary and isinstance(b, str) \
                 and op != "null_equals":

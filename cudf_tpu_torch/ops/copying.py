@@ -61,10 +61,10 @@ def _gather_strings(col: Column, rows: torch.Tensor, in_range, validity) -> Colu
         lengths = torch.where(in_range, lengths, 0)
     offsets = torch.zeros(rows.shape[0] + 1, dtype=torch.int64, device=col.device)
     torch.cumsum(lengths, 0, out=offsets[1:])
-    total = int(offsets[-1])
-    row = segment_expand(offsets, total)
-    pos = torch.arange(total, dtype=torch.int64, device=col.device) - offsets[row] + starts[row]
-    return Column(dt.STRING, rows.shape[0], col.data[pos], validity, offsets)
+    from cudf_tpu_torch.ops.strings import gather_ranges
+
+    return Column(dt.STRING, rows.shape[0], gather_ranges(col.data, starts, offsets), validity,
+                  offsets)
 
 
 def _take(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,16 +78,17 @@ def gather_table(table: Table, gather_map: torch.Tensor, bounds_check: bool = Tr
                             [gather(c, gather_map, bounds_check) for c in table.columns])
 
 
-def _fixed_width(col: Column, what: str) -> None:
-    if col.dtype.is_string:
-        raise NotImplementedError(f"{what} of a STRING column: ops/strings.py is ROADMAP.md "
-                                  "queue 1, item 6")
-
-
 def scatter(source: Column, scatter_map: torch.Tensor, target: Column) -> Column:
     """target[scatter_map[i]] = source[i] (cudf::scatter), in target's
-    dtype; the target is not modified."""
-    _fixed_width(target, "scatter")
+    dtype; the target is not modified.  A STRING target gathers its rows
+    and the source's, one after the other."""
+    if target.dtype.is_string:
+        from cudf_tpu_torch.ops.unary import cast
+
+        rows = torch.arange(target.length, device=target.device)
+        rows[scatter_map.long()] = target.length + torch.arange(
+            scatter_map.shape[0], device=target.device)
+        return gather(concatenate([target, cast(source, dt.STRING)]), rows, bounds_check=False)
     if target.dtype.is_dictionary:
         from cudf_tpu_torch.ops.dictionary import encode, match_dictionaries
 

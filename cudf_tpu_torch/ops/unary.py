@@ -14,8 +14,10 @@ from cudf_tpu_torch.ops.binaryop import _rescale_ticks
 def cast(col: Column, target) -> Column:
     """cudf::cast: numeric, bool and temporal columns into each other (a
     temporal unit change rescales the ticks, a downscale floors), a
-    dictionary column through its decoded values, and any column into a
-    dictionary (``ops/dictionary.py`` ``encode``)."""
+    dictionary column through its decoded values, any column into a
+    dictionary (``ops/dictionary.py`` ``encode``), and strings to and from
+    numbers and timestamps (``ops/strings.py``: a string that is no number
+    raises ValueError, as pandas' ``astype``)."""
     target = dt.dtype(target)
     if col.dtype == target:
         return col
@@ -33,8 +35,16 @@ def cast(col: Column, target) -> Column:
     if col.dtype.is_dictionary:
         return cast(col.decode_dictionary(), target)
     if col.dtype.is_string or target.is_string:
-        raise NotImplementedError(f"cast between {col.dtype!r} and {target!r}: "
-                                  "ops/strings.py is ROADMAP.md queue 1, item 6")
+        from cudf_tpu_torch.ops import strings
+
+        if target.is_string:
+            out = col if col.dtype.is_string else strings.from_column(col)
+            return out if out.dtype == target else out._as(target)
+        if target.is_numeric:
+            return strings.to_numbers(col, target)
+        if target.is_timestamp:
+            return strings.to_timestamps(col, target=target)
+        raise TypeError(f"cannot cast strings to {target!r}")
     if col.dtype.is_temporal and target.is_temporal:
         data = _rescale_ticks(col.data, col.dtype, target)
         return Column(target, col.length, data, col.validity)

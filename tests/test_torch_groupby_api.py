@@ -450,7 +450,7 @@ def test_what_stays_unported_raises_naming_its_item():
                         ("hash_values", "item 5"), ("query", "item 8")):
         with pytest.raises(NotImplementedError, match=where):
             getattr(df, name)()
-    for name, item in (("explode", 6), ("hash_values", 5), ("ewm", 8), ("str", 6),
+    for name, item in (("explode", 6), ("hash_values", 5), ("ewm", 8), ("struct", 6),
                        ("to_csv", 7)):
         with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
             getattr(df["v"], name)()

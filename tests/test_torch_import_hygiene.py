@@ -5,7 +5,10 @@ the groupby (both the kernel tiers and the sort tier), merge (every
 tensors (the nine TPC-H queries over dictionary, string and temporal
 columns) and the nine TPC-H queries in pandas' API over the port's frames
 (``tpch.FRAME_QUERIES``), Series methods among them, touch neither
-pandas nor pyarrow."""
+pandas nor pyarrow; nor do the string and temporal modules (``ops/strings.py``,
+``regex_engine.py``, ``string_spans.py``, ``unicode_case.py``,
+``datetime.py``, ``timezone.py``, ``frame/accessors.py``,
+``models/strings_dt.py``)."""
 
 import ast
 import os
@@ -99,6 +102,49 @@ def test_reshapes_tools_and_udfs_run_without_pandas_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "FRAME API OK" in proc.stdout, proc.stdout
+
+
+_STRINGS_PROBE = """
+import sys
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+import torch
+import cudf_tpu_torch as ct
+from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.models import strings_dt as sd, tpch
+from cudf_tpu_torch.ops.strings import STRING_ROUTES
+s = ct.Series(Column.from_strings(["id0000000123", "ñandú", None], device="cpu"))
+assert s.str.len()._column.data.tolist()[:2] == [12, 5]
+assert s.str.fullmatch(r".{5}")._column.data.tolist() == [False, True, False]
+assert s.str.replace(r"0+", "-", regex=True)._column.host_strings()[0] == "id-123"
+assert ct.to_numeric(s.str.slice(2), errors="coerce")._column.data[0].item() == 123.0
+g = torch.Generator().manual_seed(1)
+df = ct.DataFrame({"v1": torch.randint(1, 6, (400,), generator=g, dtype=torch.int32),
+                   "v3": torch.rand(400, generator=g, dtype=torch.float64)})
+for name, k, w in (("id1", 100, 3), ("id3", 80, 10)):
+    keys = Column.from_strings([f"id{i:0{w}d}" for i in range(1, k + 1)], device="cpu")
+    df[name] = Column.from_dictionary(torch.randint(0, k, (400,), generator=g,
+                                                    dtype=torch.int32), keys)
+li = tpch.generate_device(0.0002, seed=1, device="cpu")["lineitem"]
+frames = sd.prepare({"g1": df, "lineitem": li})
+for name, request in sd.REQUESTS.items():
+    request(frames)
+assert STRING_ROUTES["host"] == 0, STRING_ROUTES
+print("STRINGS OK", sorted(m for m, mod in sys.modules.items()
+                           if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu")))
+"""
+
+
+def test_strings_and_temporals_run_without_pandas_pyarrow_or_jax():
+    """The ``str``, ``dt`` and ``cat`` accessors, the device regex, the
+    parsers and every ``models/strings_dt.py`` request with pandas,
+    pyarrow and jax unimportable, none taking the host route."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _STRINGS_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "STRINGS OK []" in proc.stdout, proc.stdout
 
 
 def test_package_sources_import_no_jax_or_reference():
