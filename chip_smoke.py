@@ -267,6 +267,31 @@ Strings and temporals (``cudf_tpu_torch/models/strings_dt.py``:
    syncs counted (``torch.cuda.set_sync_debug_mode``).
 5. timings of each request beside its plain version.
 
+LIST, STRUCT and decimal columns (``cudf_tpu_torch/models/nested.py``:
+``REQUESTS``, ``PLAIN``, ``NEEDS``), two main paths of their own:
+4. over G1 at 1e8 rows, after its strings phases: ``groupby("id1").v1``
+   ``.agg(list)`` (100 lists holding the 1e8 values) and its ``explode``
+   (the multiset of (id1, v1) pairs must be the input's),
+   ``groupby("id4").v2.agg("collect_set")`` (value-ordered) and its
+   ``.list.len()``, the (id4, v1) histogram exploded to
+   ``.struct.field("count")`` (equal to value_counts by (id4, v1)), G1 q8
+   as ``ops.groupby.group_topk(k=2)`` exploded (equal, as a multiset of
+   (id6, v3) pairs, to the sort-tier q8's answer), and
+   ``str.split("d")`` / ``str.findall(r"[1-9]+")`` over id3 as text with
+   ``.list.len()`` and ``.list.get(-1)``; over TPC-H SF10's lineitem
+   after its strings phase: ``l_extendedprice``, ``l_discount`` and
+   ``l_tax`` cast to decimal64 at scale -2 (DECIMAL(15,2)), q1's
+   ``disc_price`` (scale -4) and ``charge`` (scale -6) and q6's
+   predicate in decimal (bit for bit the int64 arithmetic on
+   round(x * 100); the rows where the float64 mask differs are counted),
+   the Arrow decimal128 round trip of ``charge`` where pyarrow is
+   installed, and a DECIMAL128 product of two 1e7-row columns past 2^63
+   (its low limb equal to the int64 product, both limbs equal to Python
+   ints on 1e4 rows).  Each request alone must launch none of A-H, take
+   no host route (``STRING_ROUTES``, ``HOST_ROUTES``), and has its host
+   syncs counted.
+5. timings of each request beside its plain version.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -2103,9 +2128,10 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     return launched
 
 
-def tpch_phase(dev, smi, wrappers, drive, plains, strings):
+def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested):
     """The nine TPC-H queries at SF10 (the main path) and SF1, and at SF10
-    the string and temporal requests over lineitem (into ``strings``)."""
+    the string and temporal requests over lineitem (into ``strings``) and
+    the decimal ones (into ``nested``)."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -2143,6 +2169,11 @@ def tpch_phase(dev, smi, wrappers, drive, plains, strings):
             over_rows = over_phase(tables, smi)
             strings_dt_phase("lineitem", {"lineitem": tables["lineitem"]}, smi, wrappers,
                              drive, plains, strings)
+            money = {"lineitem": tables["lineitem"]}
+            kept = nested_phase("lineitem", money, smi, wrappers, drive, plains, nested)
+            nested[2].update(nested_lineitem_checks(money, kept, smi))
+            del kept, money
+            torch.cuda.empty_cache()
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -2576,6 +2607,111 @@ def strings_dt_phase(group, frames, smi, wrappers, drive, plains, acc):
     check(STRING_ROUTES["host"] == host, f"strings {group}: a request took the host route")
 
 
+def nested_phase(group, frames, smi, wrappers, drive, plains, acc):
+    """The LIST, STRUCT and decimal requests of one table
+    (``models/nested.py`` ``GROUPS[group]``): all of them as one main path,
+    each answer against its plain version (exact); then each alone, every
+    count at 0 before it, launching exactly its ``NEEDS`` (none) and no
+    host route, its host syncs counted, timed beside its plain version.
+    Adds (launches, calls, times) by request to ``acc``; returns the
+    results the group's own checks read."""
+    from cudf_tpu_torch.models import nested
+    from cudf_tpu_torch.ops._utils import HOST_ROUTES
+    from cudf_tpu_torch.ops.strings import STRING_ROUTES
+
+    routes = (dict(STRING_ROUTES), dict(HOST_ROUTES))
+    names = nested.GROUPS[group]
+    results = drive(f"nested_{group}", lambda: {n: nested.REQUESTS[n](frames) for n in names})
+    errs, kept = {}, {}
+    for n in names:
+        res = results.pop(n)
+        if n in ("topk2_id6", "q1_charge"):
+            kept[n] = res
+        errs[n] = check_frame_api(n, nested.ANSWERS[n](res, frames), nested.PLAIN[n](frames),
+                                  nested.RTOL[n])
+        del res
+        torch.cuda.empty_cache()
+    check(STRING_ROUTES["host"] == routes[0]["host"] and HOST_ROUTES == routes[1],
+          f"nested {group}: a request took a host route ({STRING_ROUTES}, {HOST_ROUTES})")
+    log(f"phase 4 nested {group}: every request equals its plain version, max abs err "
+        f"{json.dumps(errs)}")
+    for n in names:
+        run = (lambda n=n: nested.REQUESTS[n](frames))
+        before = dict(STRING_ROUTES)
+        acc[0][n] = run_replayed(f"nested {n}", n, run, wrappers, plains, acc[1],
+                                 needs=nested.NEEDS[n])
+        check(STRING_ROUTES["host"] == before["host"] and HOST_ROUTES == routes[1],
+              f"nested {n}: took a host route")
+        row = {"ms": device_ms(run, reps=3),
+               "plain_ms": device_ms(lambda n=n: nested.PLAIN[n](frames), reps=3),
+               "host_syncs": count_syncs(run), "max_abs_err": errs[n],
+               "launches": acc[0][n]}
+        acc[2][n] = row
+        log(f"phase 4/5 nested {n}: {json.dumps(row)} [{smi}]")
+        torch.cuda.empty_cache()
+    return kept
+
+
+def nested_g1_checks(df, kept):
+    """q8 through group_topk must hold the sort-tier q8's (id6, v3) pairs."""
+    rows, cols = plain_q8(df)
+    top = kept["topk2_id6"]
+    got = torch.stack([top.index.column(top.device).data.double(), top._column.data], 1)
+    exp = torch.stack([cols["id6"].double(), cols["v3"]], 1)
+    order_g = torch.sort(got[:, 1], stable=True).indices
+    order_g = order_g[torch.sort(got[order_g, 0], stable=True).indices]
+    order_e = torch.sort(exp[:, 1], stable=True).indices
+    order_e = order_e[torch.sort(exp[order_e, 0], stable=True).indices]
+    same(got[order_g], exp[order_e], "nested q8 by group_topk vs the sort tier's q8",
+         float_rtol=0.0)
+    log(f"phase 4 nested q8: group_topk(k=2) exploded holds the sort tier's {rows.numel()} "
+        "(id6, v3) pairs exactly")
+
+
+def nested_lineitem_checks(frames, kept, smi):
+    """The float64 q6 mask beside the decimal one, the Arrow round trip of
+    charge (where pyarrow is installed) and the two-limb product past
+    2^63 on 1e7 rows."""
+    import importlib.util
+
+    from cudf_tpu_torch.core.column import Column
+    from cudf_tpu_torch.models import nested
+    from cudf_tpu_torch.ops import decimal128 as d128
+
+    exact = nested.PLAIN["q6_mask"](frames)["values"]
+    differ = int((nested.float_q6_mask(frames) != exact).sum())
+    log(f"phase 4 nested q6: the decimal mask selects {int(exact.sum())} rows; the float64 "
+        f"mask differs from it in {differ} rows")
+    charge = kept["q1_charge"]
+    if importlib.util.find_spec("pyarrow") is None:
+        log("phase 4 nested arrow: pyarrow is not installed on this machine; the decimal128 "
+            "round trip of charge is left to the CPU tests")
+    else:
+        t0 = time.perf_counter()
+        back = Column.from_arrow(charge._column.to_arrow(), device=charge.device)
+        check(back.dtype.scale == -6 and not back.children and
+              torch.equal(back.data, charge._column.data), "nested arrow round trip of charge")
+        log(f"phase 4 nested arrow: charge through pa.decimal128(38, 6) and back, equal, "
+            f"{time.perf_counter() - t0:.3f} s on the host")
+    rows = min(10_000_000, len(charge))
+    a, b, prod = nested.decimal128_product(charge, rows)
+    hi, lo = d128.limbs(prod)
+    check(torch.equal(lo, a.data * b.data), "decimal128 product: low limb")
+    passed = int((hi != torch.where(lo < 0, -1, 0)).sum())
+    check(passed > 0, "decimal128 product: no product passed 2^63")
+    pick = torch.randperm(rows, generator=torch.Generator(device=lo.device).manual_seed(SEED),
+                          device=lo.device)[:min(10_000, rows)]
+    xs, ys = a.data[pick].tolist(), b.data[pick].tolist()
+    got = d128.to_ints128(d128.make_decimal128(hi[pick], lo[pick], prod.dtype.scale))
+    check(got == [x * y for x, y in zip(xs, ys)], "decimal128 product vs Python ints")
+    row = {"ms": device_ms(lambda: d128.binary128(a, b, "mul"), reps=3),
+           "plain_ms": device_ms(lambda: a.data * b.data, reps=3),
+           "plain": "the int64 product (its low limb)", "products_past_2^63": passed,
+           "host_syncs": count_syncs(lambda: d128.binary128(a, b, "mul"))}
+    log(f"phase 4/5 nested decimal128_mul_1e7: {json.dumps(row)} [{smi}]")
+    return {"decimal128_mul_1e7": row, "q6_float_mask_rows_differing": differ}
+
+
 def frame_api_null_frames(ct, dev, gen):
     """G1_1e8_1e2_5_0's columns (id4, id6, v1, v3, each null in 5% of
     rows) with v2 (1..15, no nulls), and the Series of 1e6 distinct labels
@@ -2682,7 +2818,7 @@ def main():
              "frame_api_g1": ONEHOT_TIER + RADIX_TIER,
              "frame_api_j1": RADIX_TIER + ["window_probe"], "frame_api_nulls": [],
              "strings_g1": ONEHOT_TIER + RADIX_TIER, "strings_g1_dict": [],
-             "strings_lineitem": ONEHOT_TIER}
+             "strings_lineitem": ONEHOT_TIER, "nested_g1": [], "nested_lineitem": []}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -2778,6 +2914,8 @@ def main():
     g1_text = {"g1": df}
     for group in ("g1", "g1_dict"):
         strings_dt_phase(group, g1_text, smi, wrappers, drive, plains, strings)
+    nested = ({}, {}, {})               # launches by request, replayed calls, times
+    nested_g1_checks(df, nested_phase("g1", g1_text, smi, wrappers, drive, plains, nested))
     del df, g1_text
     torch.cuda.empty_cache()
 
@@ -2836,7 +2974,7 @@ def main():
     del v1
     torch.cuda.empty_cache()
     (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
-     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings)
+     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested)
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
@@ -2858,6 +2996,12 @@ def main():
     for name, calls in frame_api[1].items():
         kernels[name]["frame_api_calls"] = calls
     log("phase 5 strings and temporals times: " + json.dumps({"card": smi, "ms": strings[2]}))
+    from cudf_tpu_torch.ops._utils import HOST_ROUTES
+    from cudf_tpu_torch.ops.strings import STRING_ROUTES
+
+    log("phase 5 nested and decimal times: " + json.dumps(
+        {"card": smi, "ms": nested[2], "string_routes": STRING_ROUTES,
+         "host_routes": HOST_ROUTES}))
     for name, calls in strings[1].items():
         kernels[name]["strings_dt_calls"] = calls
 
@@ -2882,7 +3026,8 @@ def main():
                    launches_by_g1_question={q: c.get(name, 0) for q, c in by_question.items()},
                    launches_by_g1_api={q: c.get(name, 0) for q, c in by_api.items()},
                    launches_by_frame_api={q: c.get(name, 0) for q, c in frame_api[0].items()},
-                   launches_by_strings_dt={q: c.get(name, 0) for q, c in strings[0].items()})
+                   launches_by_strings_dt={q: c.get(name, 0) for q, c in strings[0].items()},
+                   launches_by_nested={q: c.get(name, 0) for q, c in nested[0].items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

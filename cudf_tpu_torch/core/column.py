@@ -10,7 +10,18 @@ Port of ``cudf_tpu/core/column.py`` for these layouts:
   ``offsets`` an int64[n + 1] tensor, row i being
   ``data[offsets[i]:offsets[i + 1]]``;
 - DICTIONARY32: ``data`` holds int32 codes and ``children`` one column,
-  the dictionary's keys (STRING or numeric, no nulls).
+  the dictionary's keys (STRING or numeric, no nulls);
+- LIST: no ``data``, ``offsets`` int64[n + 1] starting at 0 and one
+  child column, the values of every row one after another (Arrow's list
+  layout; row i is ``child[offsets[i]:offsets[i + 1]]``);
+- STRUCT: no ``data``, one child column a field, each of the column's
+  length, and the row mask in ``validity`` (a field's own nulls stay in
+  the field);
+- DECIMAL32/64/128: ``data`` holds the unscaled values (int32, int64),
+  the value being ``data * 10 ** dtype.scale`` (libcudf's fixed_point).
+  A DECIMAL128 column whose values pass int64 holds two limbs: ``data``
+  the low 64 bits (as int64 bits) and one child, the high int64 limb
+  (``ops/decimal128.py``).
 
 ``validity`` is a ``bool`` tensor of the column's length or None (all
 valid).  A numeric or bool dtype may carry pandas' nullable provenance
@@ -19,8 +30,8 @@ valid).  A numeric or bool dtype may carry pandas' nullable provenance
 dtype (pandas' ``string``, pd.NA for null) and any dtype may carry Arrow
 provenance (``int64[pyarrow]``, ``string[pyarrow]`` ...: an
 ``ArrowExtensionArray`` back).  A tz-aware timestamp holds UTC ticks and
-its zone in ``DType.tz``, as Arrow does.  List, struct, decimal and
-day-unit columns are ROADMAP.md queue 1, item 6.
+its zone in ``DType.tz``, as Arrow does.  Day-unit columns are
+ROADMAP.md queue 1, item 6c.
 
 A column lives where its tensors live, its dictionary's keys included.
 Nothing here picks a device: constructors from host data take
@@ -32,6 +43,7 @@ strings, a dictionary's key ranks) in ``_cache``.
 from __future__ import annotations
 
 import datetime as _datetime
+import decimal as _pydec
 import numbers
 from typing import Any, List, Optional, Sequence
 
@@ -43,17 +55,19 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.dtypes import DType
 
 _UNITS = ("s", "ms", "us", "ns")
+_BEYOND = "ROADMAP.md, beyond the reference"
 
 
 def _check_supported(dtype: DType) -> None:
-    if dtype.is_numeric or dtype.is_bool or dtype.is_string or dtype.is_dictionary:
+    if dtype.is_numeric or dtype.is_bool or dtype.is_string or dtype.is_dictionary or \
+            dtype.is_nested or dtype.is_decimal:
         return
     if dtype.is_temporal and dtype.time_unit in _UNITS and (dtype.tz is None
                                                             or dtype.is_timestamp):
         return
     raise NotImplementedError(
-        f"column dtype {dtype!r}: list, struct, decimal and day-unit columns are "
-        "ROADMAP.md queue 1, item 6")
+        f"column dtype {dtype!r}: day-unit and interval columns are ROADMAP.md queue 1, "
+        "item 6c")
 
 
 def is_null_scalar(v) -> bool:
@@ -74,6 +88,8 @@ def infer_dtype(values: Sequence[Any]) -> DType:
     for v in values:
         if isinstance(v, str):
             return dt.STRING
+        if isinstance(v, _pydec.Decimal):
+            return dt.decimal_dtype(int(v.as_tuple().exponent))
         if isinstance(v, (np.datetime64, np.timedelta64)):
             unit = np.datetime_data(v.dtype)[0]
             return dt.unit_dtype("M" if isinstance(v, np.datetime64) else "m",
@@ -160,10 +176,32 @@ def _encode(strings: Sequence[Optional[str]]):
     return np.frombuffer(b"".join(enc), np.uint8).copy(), offsets
 
 
-class Column:
-    __slots__ = ("dtype", "length", "data", "validity", "offsets", "children", "_cache")
+def _missing(v) -> bool:
+    """A null among nested host values (a list or dict is never null)."""
+    return not isinstance(v, (list, tuple, np.ndarray, dict)) and is_null_scalar(v)
 
-    def __init__(self, dtype: DType, length: int, data: torch.Tensor,
+
+def host_layout(values: Sequence[Any], want: Optional[DType] = None) -> Optional[str]:
+    """"list", "struct" or "decimal" when host values (or ``want``) call
+    for that layout, else None."""
+    if want is not None:
+        return "list" if want.is_list else "struct" if want.is_struct else \
+            "decimal" if want.is_decimal else None
+    for v in values:
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return "list"
+        if isinstance(v, dict):
+            return "struct"
+        if isinstance(v, _pydec.Decimal):
+            return "decimal"
+    return None
+
+
+class Column:
+    __slots__ = ("dtype", "length", "data", "validity", "offsets", "children", "_cache",
+                 "_device")
+
+    def __init__(self, dtype: DType, length: int, data: Optional[torch.Tensor],
                  validity: Optional[torch.Tensor] = None,
                  offsets: Optional[torch.Tensor] = None, children: Sequence["Column"] = ()):
         _check_supported(dtype)
@@ -174,11 +212,20 @@ class Column:
         self.offsets = offsets
         self.children = tuple(children)
         self._cache = {}
+        held = [t for t in (data, offsets, validity) if t is not None]
+        if held:
+            self._device = held[0].device
+        elif self.children:
+            self._device = self.children[0].device
+        else:
+            raise ValueError(f"a {dtype!r} column needs a buffer or a child to live on")
         self._check_layout()
 
     def _check_layout(self) -> None:
-        n, dev = self.length, self.data.device
-        if self.dtype.is_string:
+        n, dev = self.length, self._device
+        if self.dtype.is_nested:
+            self._check_nested_layout()
+        elif self.dtype.is_string:
             ok = (self.data.dtype == torch.uint8 and self.data.ndim == 1
                   and self.offsets is not None and self.offsets.dtype == torch.int64
                   and self.offsets.shape == (n + 1,) and self.offsets.device == dev)
@@ -191,7 +238,12 @@ class Column:
                     self.children[0].dtype.is_string or self.children[0].dtype.is_numeric) and (
                     self.children[0].validity is None and self.children[0].device == dev)
                 what += " and one keys column (STRING or numeric, no nulls, same device)"
-        if not ok:
+            elif self.dtype.is_decimal and self.children:
+                hi = self.children[0]
+                ok = ok and self.dtype.id == dt.TypeId.DECIMAL128 and len(self.children) == 1 \
+                    and hi.dtype == dt.INT64 and hi.length == n and hi.device == dev
+                what += " and, for two limbs, one int64 high-limb column"
+        if not self.dtype.is_nested and not ok:
             raise ValueError(f"buffers {tuple(self.data.shape)} {self.data.dtype} do not "
                              f"hold {what}")
         if self.validity is not None and (self.validity.dtype != torch.bool
@@ -200,12 +252,27 @@ class Column:
             raise ValueError("validity must be a bool tensor of the column's "
                              "length on the column's device")
 
+    def _check_nested_layout(self) -> None:
+        n, dev = self.length, self._device
+        if self.data is not None:
+            raise ValueError(f"a {self.dtype!r} column holds no data buffer")
+        if any(c.device != dev for c in self.children):
+            raise ValueError("a nested column's children live on its device")
+        if self.dtype.is_list:
+            if not (len(self.children) == 1 and self.offsets is not None
+                    and self.offsets.dtype == torch.int64 and self.offsets.shape == (n + 1,)
+                    and self.offsets.device == dev):
+                raise ValueError("a LIST column holds int64[n + 1] offsets and one child")
+        elif len(self.children) != len(self.dtype.fields) or any(
+                c.length != n for c in self.children):
+            raise ValueError("a STRUCT column holds one child of its length a field")
+
     def __len__(self) -> int:
         return self.length
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        return self._device
 
     @property
     def keys(self) -> "Column":
@@ -243,7 +310,9 @@ class Column:
         if arr.ndim != 1:
             raise ValueError("Column.from_numpy expects a 1-D array")
         if arr.dtype.kind in ("U", "S", "O"):
-            vals = arr.tolist()
+            vals = list(arr) if arr.dtype.kind == "O" else arr.tolist()
+            if arr.dtype.kind == "O" and host_layout(vals):
+                return cls.from_pylist(vals, device=device)
             return cls.from_strings([None if is_null_scalar(v) else v for v in vals],
                                     device=device)
         if arr.dtype.kind in ("M", "m"):
@@ -280,6 +349,22 @@ class Column:
         """A column of host scalars (None, NaN and NaT are nulls), in
         ``dtype`` or the one ``infer_dtype`` gives."""
         values = list(values)
+        layout = host_layout(values, None if dtype is None else dt.dtype(dtype))
+        if layout == "list":
+            from cudf_tpu_torch.ops.lists import from_pylists
+
+            vt = None if dtype is None else dt.dtype(dtype).value_type
+            return from_pylists([None if _missing(v) else v for v in values], vt,
+                                device=device)
+        if layout == "struct":
+            from cudf_tpu_torch.ops.structs import from_pydicts
+
+            return from_pydicts([None if _missing(v) else v for v in values], device=device)
+        if layout == "decimal":
+            from cudf_tpu_torch.ops.decimal import cast_to_decimal, from_decimals
+
+            col = from_decimals(values, device=device)
+            return col if dtype is None else cast_to_decimal(col, dt.dtype(dtype))
         null = np.array([is_null_scalar(v) for v in values], bool)
         want = infer_dtype([v for v, m in zip(values, null) if not m]) if dtype is None \
             else dt.dtype(dtype)
@@ -328,6 +413,12 @@ class Column:
         want = dt.dtype(dtype)
         if want.is_string:
             return cls.from_strings([], device=device)
+        if want.is_list:
+            return cls(want, 0, None, offsets=torch.zeros(1, dtype=torch.int64, device=device),
+                       children=[cls.empty(want.value_type, device=device)])
+        if want.is_struct:
+            return cls(want, 0, None, torch.zeros(0, dtype=torch.bool, device=device),
+                       children=[cls.empty(t, device=device) for _, t in want.fields])
         return cls(want, 0, torch.zeros(0, dtype=want.torch_storage, device=device))
 
     @classmethod
@@ -347,7 +438,9 @@ class Column:
                 raise ValueError("a Categorical's categories hold no nulls")
             valid = codes >= 0
             codes_t = torch.from_numpy(np.where(valid, codes, 0)).to(device)
-            return cls.from_dictionary(codes_t, keys, bm.from_numpy_mask(valid, device))
+            col = cls.from_dictionary(codes_t, keys, bm.from_numpy_mask(valid, device))
+            return col._as(dt.DType(col.dtype.id, value_type=col.dtype.value_type,
+                                    ordered=True)) if cat.ordered else col
         if name == "StringDtype" or (isinstance(pdt, np.dtype) and pdt.kind == "O"):
             col = cls.from_numpy(series.to_numpy(dtype=object, na_value=None), device=device)
             if name == "StringDtype" and pdt.na_value is not np.nan:
@@ -367,7 +460,8 @@ class Column:
                        bm.from_numpy_mask(valid, device))
         if name == "ArrowDtype":
             col = cls.from_arrow(series.array._pa_array, device=device)
-            return col._as(dt.dtype(pdt)) if not col.dtype.is_dictionary else col
+            keep = col.dtype.is_dictionary or col.dtype.is_nested or col.dtype.is_decimal
+            return col if keep else col._as(dt.dtype(pdt))
         if name == "DatetimeTZDtype":
             # the UTC instants' ticks, the zone in the dtype
             utc = np.asarray(series.dt.tz_convert(None).to_numpy())
@@ -375,8 +469,8 @@ class Column:
             return col._as(dt.DType(col.dtype.id, tz=str(pdt.tz)))
         if not isinstance(pdt, np.dtype):
             raise NotImplementedError(
-                f"pandas extension dtype {pdt}: interval, period, sparse and decimal "
-                "columns are ROADMAP.md queue 1, item 6")
+                f"pandas extension dtype {pdt}: interval, period and sparse columns are "
+                "ROADMAP.md queue 1, item 6c")
         return cls.from_numpy(series.to_numpy(), device=device)
 
     @classmethod
@@ -396,6 +490,10 @@ class Column:
             codes = np.asarray(arr.indices.fill_null(0).to_numpy(zero_copy_only=False))
             return cls.from_dictionary(torch.from_numpy(codes.astype(np.int32)).to(device),
                                        keys, bm.from_numpy_mask(valid, device))
+        if pa.types.is_list(t) or pa.types.is_large_list(t) or pa.types.is_struct(t):
+            return cls._from_arrow_nested(pa.concat_arrays([arr]), device)
+        if pa.types.is_decimal(t):
+            return cls._from_arrow_decimal(arr, valid, device)
         if pa.types.is_string(t) or pa.types.is_large_string(t):
             arr = arr.cast(pa.large_string())
             _, offbuf, charbuf = arr.buffers()
@@ -409,7 +507,7 @@ class Column:
         if pa.types.is_timestamp(t) or pa.types.is_duration(t):
             if t.unit not in _UNITS:
                 raise NotImplementedError(f"arrow {t}: day-unit columns are ROADMAP.md "
-                                          "queue 1, item 6")
+                                          "queue 1, item 6c")
             ticks = np.asarray(arr.cast(pa.int64()).fill_null(0).to_numpy(zero_copy_only=False))
             base = dt.unit_dtype("M" if pa.types.is_timestamp(t) else "m", t.unit)
             tz = getattr(t, "tz", None)
@@ -417,12 +515,61 @@ class Column:
                        torch.from_numpy(ticks.astype(np.int64)).to(device),
                        bm.from_numpy_mask(valid, device))
         if not (pa.types.is_integer(t) or pa.types.is_floating(t) or pa.types.is_boolean(t)):
-            raise NotImplementedError(f"arrow {t}: list, struct and decimal columns are "
-                                      "ROADMAP.md queue 1, item 6")
+            raise NotImplementedError(f"arrow {t}: ROADMAP.md queue 1, item 6c")
         filled = arr if valid is None else arr.fill_null(False if pa.types.is_boolean(t) else 0)
         values = np.ascontiguousarray(filled.to_numpy(zero_copy_only=False))
         return cls(dt.dtype(values.dtype), len(arr), torch.from_numpy(values.copy()).to(device),
                    bm.from_numpy_mask(valid, device))
+
+    @classmethod
+    def _from_arrow_nested(cls, arr, device) -> "Column":
+        """A list, large list or struct array at offset 0."""
+        import pyarrow as pa
+
+        validity = None if arr.null_count == 0 else \
+            torch.from_numpy(~np.asarray(arr.is_null())).to(device)
+        if pa.types.is_struct(arr.type):
+            from cudf_tpu_torch.ops.structs import make_struct_column
+
+            fields = [(arr.type.field(i).name, cls.from_arrow(arr.field(i), device=device))
+                      for i in range(arr.type.num_fields)]
+            if not fields and validity is None:
+                validity = torch.ones(len(arr), dtype=torch.bool, device=device)
+            return make_struct_column(fields, validity)
+        from cudf_tpu_torch.ops.lists import make_list_column
+
+        off = np.asarray(arr.offsets).astype(np.int64)
+        child = cls.from_arrow(arr.values.slice(int(off[0]), int(off[-1] - off[0])),
+                               device=device)
+        return make_list_column(torch.from_numpy(off - off[0]).to(device), child, validity)
+
+    @classmethod
+    def _from_arrow_decimal(cls, arr, valid, device) -> "Column":
+        """A decimal128 array as DECIMAL128 at scale ``-arrow scale``: one
+        int64 limb when every value fits it, else two (its 16-byte values
+        read as (lo, hi) pairs, no Python Decimals)."""
+        import pyarrow as pa
+
+        t = arr.type
+        if t.bit_width != 128:
+            if t.bit_width > 128:
+                raise NotImplementedError(f"arrow {t}: 256-bit decimals: {_BEYOND}")
+            arr = arr.cast(pa.decimal128(38, t.scale))
+        n = len(arr)
+        raw = np.frombuffer(arr.buffers()[1], np.int64, count=2 * (n + arr.offset))
+        pairs = raw[2 * arr.offset:].reshape(n, 2).copy()
+        if valid is not None:
+            pairs[~valid] = 0
+        lo, hi = pairs[:, 0], pairs[:, 1]
+        scale = -t.scale
+        validity = bm.from_numpy_mask(valid, device)
+        if (hi == (lo >> 63)).all():
+            return cls(dt.decimal_dtype(scale, 128), n, torch.from_numpy(lo).to(device),
+                       validity)
+        from cudf_tpu_torch.ops.decimal128 import make_decimal128
+
+        return make_decimal128(torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+                               scale, validity)
 
     def _as(self, dtype: DType) -> "Column":
         """The same buffers under another logical dtype of the same layout."""
@@ -464,6 +611,10 @@ class Column:
             return np.array(self.host_strings(), dtype=object)
         if self.dtype.is_dictionary:
             return self.decode_dictionary().to_numpy()
+        if self.dtype.is_nested or self.dtype.is_decimal:
+            out = np.empty(self.length, dtype=object)
+            out[:] = self.to_pylist()
+            return out
         data = self.data.cpu().numpy()
         if self.dtype.is_temporal:
             data = data.view(self.dtype.to_numpy())
@@ -484,12 +635,60 @@ class Column:
         out[~valid] = np.nan
         return out
 
+    def to_pylist(self) -> list:
+        """The rows as Python values, None for nulls: lists, dicts and
+        Decimals for the nested and decimal layouts, strings, numbers,
+        numpy datetime64 / timedelta64 (counted host routes for the
+        nested ones, as in the reference)."""
+        if self.dtype.is_list:
+            from cudf_tpu_torch.ops.lists import to_pylists
+
+            return to_pylists(self)
+        if self.dtype.is_struct:
+            from cudf_tpu_torch.ops.structs import to_pydicts
+
+            return to_pydicts(self)
+        if self.dtype.is_decimal:
+            from cudf_tpu_torch.ops.decimal import to_decimals
+
+            return to_decimals(self)
+        if self.dtype.is_dictionary:
+            return self.decode_dictionary().to_pylist()
+        if self.dtype.is_string:
+            return list(self.host_strings())
+        if self.dtype.is_float and not self.dtype.nullable:
+            return self.to_numpy().tolist()          # pandas' NaN for a missing float
+        data = self.data.cpu().numpy()
+        vals = list(data.view(self.dtype.to_numpy())) if self.dtype.is_temporal else \
+            data.tolist()
+        if self.validity is None:
+            return vals
+        return [v if ok else None for v, ok in zip(vals, self.validity.cpu().tolist())]
+
     def to_arrow(self):
-        """A pyarrow Array (the reference's ``Column.to_arrow`` for the
-        fixed-width, temporal, string and dictionary layouts)."""
+        """A pyarrow Array (the reference's ``Column.to_arrow``): a LIST
+        column as a large list, a STRUCT as a struct array, a decimal as
+        decimal128(38, -scale) from its limbs."""
         import pyarrow as pa
 
         mask = None if self.validity is None else ~self.validity.cpu().numpy()
+        if self.dtype.is_list:
+            offs = pa.array(self.offsets.cpu().numpy(), pa.int64())
+            return pa.LargeListArray.from_arrays(
+                offs, self.children[0].to_arrow(), mask=None if mask is None else pa.array(mask))
+        if self.dtype.is_struct:
+            return pa.StructArray.from_arrays(
+                [c.to_arrow() for c in self.children], [n for n, _ in self.dtype.fields],
+                mask=None if mask is None else pa.array(mask))
+        if self.dtype.is_decimal:
+            from cudf_tpu_torch.ops.decimal128 import limbs
+
+            hi, lo = limbs(self)
+            pairs = np.stack([lo.cpu().numpy(), hi.cpu().numpy()], 1).reshape(-1)
+            buf = None if mask is None else pa.py_buffer(np.packbits(~mask, bitorder="little"))
+            return pa.Array.from_buffers(pa.decimal128(38, -self.dtype.scale), self.length,
+                                         [buf, pa.py_buffer(pairs.copy())],
+                                         0 if mask is None else int(mask.sum()))
         if self.dtype.is_string:
             offs = self.offsets.cpu().numpy()
             buf = None if mask is None else pa.py_buffer(np.packbits(~mask, bitorder="little"))
@@ -518,6 +717,8 @@ class Column:
 
         if self.dtype.arrow:
             return pd.arrays.ArrowExtensionArray(self.to_arrow())
+        if self.dtype.is_nested or self.dtype.is_decimal:
+            return self.to_numpy()
         if self.dtype.is_string and self.dtype.nullable:
             return pd.array(self.host_strings(), dtype="string")
         if self.dtype.nullable:
@@ -533,7 +734,8 @@ class Column:
             codes = self.data.cpu().numpy().astype(np.int64)
             if self.validity is not None:
                 codes = np.where(self.validity.cpu().numpy(), codes, -1)
-            return pd.Categorical.from_codes(codes, categories=pd.Index(self.keys.to_numpy()))
+            return pd.Categorical.from_codes(codes, categories=pd.Index(self.keys.to_numpy()),
+                                             ordered=self.dtype.ordered)
         if self.dtype.is_string:
             return pd.Series(self.to_numpy()).array
         if self.dtype.tz is not None:

@@ -14,6 +14,7 @@ offsets, uint8 chars) buffers.  DType is frozen and hashable.
 from __future__ import annotations
 
 import enum
+import re
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -181,6 +182,9 @@ class DType:
     # provenance marker: column came from a pandas ArrowDtype
     # ("uint64[pyarrow]" ...) — to_pandas round-trips as ArrowExtensionArray
     arrow: bool = False
+    # a DICTIONARY32 column's categories are ordered (pandas' ordered
+    # Categorical): ``cat.as_ordered`` sets it, ``to_pandas`` keeps it
+    ordered: bool = False
 
     # ---- classification -------------------------------------------------
     @property
@@ -430,6 +434,10 @@ _STR_ALIASES = {
 }
 
 
+# a decimal dtype's own name ("decimal64(scale=-2)"), as ``repr`` gives it
+_DECIMAL_NAME = re.compile(r"decimal(32|64|128)\(scale=(-?\d+)\)")
+
+
 def dtype(obj: Any) -> DType:
     """Coerce numpy/pandas/python dtype-likes to a DType."""
     if isinstance(obj, DType):
@@ -461,6 +469,9 @@ def dtype(obj: Any) -> DType:
             unit, tzname = obj[len("datetime64["):-1].split(",", 1)
             base = _FROM_NP_KIND_UNIT.get(("M", unit.strip()), TIMESTAMP_NS)
             return DType(base.id, tz=tzname.strip())
+        dec = _DECIMAL_NAME.fullmatch(obj)
+        if dec:
+            return decimal_dtype(int(dec.group(2)), int(dec.group(1)))
         if obj.endswith("[pyarrow]"):
             base = dtype(obj[:-len("[pyarrow]")].strip())
             return DType(base.id, tz=base.tz, arrow=True)
@@ -490,6 +501,8 @@ def dtype(obj: Any) -> DType:
         return DType(TypeId.STRING, nullable=str(obj).startswith("string"))
     if tname == "ArrowDtype":
         pa_type = obj.pyarrow_dtype
+        if str(pa_type).startswith("decimal"):
+            return decimal_dtype(-pa_type.scale, 128)
         if "string" in str(pa_type):
             return DType(TypeId.STRING, arrow=True)
         base = dtype(obj.numpy_dtype)

@@ -347,7 +347,8 @@ class Agg(Expr):
         fn = getattr(reductions, self.agg, None)
         if fn is None:
             raise NotImplementedError(f"whole-table {self.agg!r}: ops/reductions.py has no "
-                                      "such reduction (ROADMAP.md queue 1, item 6)")
+                                      "such reduction, nor has the reference's (ROADMAP.md, "
+                                      "beyond the reference)")
         return Column.full(1, fn(v), device=v.device)
 
     def __repr__(self):

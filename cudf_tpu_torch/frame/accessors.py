@@ -10,8 +10,12 @@ dtype give False for a missing value; a Series of pandas' nullable
 (null stays null).  Unlike the reference, ``dt.is_leap_year``,
 ``is_month_start`` and ``is_month_end`` of NaT are False and
 ``cat.codes`` is the narrowest signed integer that holds the codes, as
-in pandas.  ``.list`` and ``.struct`` wait for LIST and STRUCT columns
-(ROADMAP.md queue 1, item 6).
+in pandas; ``cat.as_ordered`` sets pandas' ``ordered`` flag (the
+reference returns a copy), and ``str.extract`` names its columns by the
+pattern's named groups, as pandas does.  ``str.split(expand=False)`` and
+``str.findall`` give LIST<STRING> Series, on the device where the span
+engine takes the pattern.  ``.list`` and ``.struct`` are the accessors of
+LIST and STRUCT Series over ``ops/lists.py`` and ``ops/structs.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops import datetime as dt_ops
+from cudf_tpu_torch.ops import lists as list_ops
 from cudf_tpu_torch.ops import strings as str_ops
+from cudf_tpu_torch.ops import structs as struct_ops
 from cudf_tpu_torch.ops import timezone as tz_ops
 from cudf_tpu_torch.ops import unary
 from cudf_tpu_torch.ops._utils import materialize_validity
@@ -65,13 +71,14 @@ class StringMethods:
             col = Column(dt.BOOL8, col.length, col.data & col.validity)
         return self._wrap(col)
 
-    def _frame(self, cols):
+    def _frame(self, cols, names=None):
         from cudf_tpu_torch.core.table import Table
         from cudf_tpu_torch.frame.dataframe import DataFrame
 
         if self._nullable:
             cols = [c._as(_NULLABLE[dt.TypeId.STRING]) for c in cols]
-        return DataFrame._from(Table({i: c for i, c in enumerate(cols)}), self._s._index)
+        names = range(len(cols)) if names is None else names
+        return DataFrame._from(Table(dict(zip(names, cols))), self._s._index)
 
     # -- attributes and case -------------------------------------------
     def len(self):
@@ -203,14 +210,25 @@ class StringMethods:
         cols = self._run(str_ops.extract_re, pat, flags)
         if len(cols) == 1 and not expand:
             return self._wrap(cols[0])
-        return self._frame(cols)
+        by_group = {g: name for name, g in re.compile(pat, flags).groupindex.items()}
+        return self._frame(cols, [by_group.get(i + 1, i) for i in range(len(cols))])
 
     def split(self, pat=None, n=-1, expand=False, regex=None):
-        if not expand:
-            raise NotImplementedError("str.split(expand=False) gives lists: LIST columns are "
-                                      "ROADMAP.md queue 1, item 6")
         regex = bool(pat) and len(pat) > 1 and _is_regex(pat) if regex is None else regex
+        if not expand:
+            return self._wrap(self._run(str_ops.split_record, pat, n, regex))
         return self._frame(self._run(str_ops.split_expand, pat, n, regex))
+
+    def findall(self, pat, flags=0):
+        return self._wrap(self._run(str_ops.findall_re, pat, flags))
+
+    def wrap(self, width, **kwargs):
+        """Lines of at most ``width`` characters joined by newlines
+        (``textwrap.wrap``, on the host as in the reference)."""
+        import textwrap
+
+        return self._wrap(str_ops.host_map(
+            self._strings(), lambda s: "\n".join(textwrap.wrap(s, width, **kwargs)), dt.STRING))
 
     def pad(self, width, side="left", fillchar=" "):
         return self._wrap(self._run(str_ops.pad, width, side, fillchar))
@@ -326,8 +344,8 @@ class DatetimeProperties:
     def tz(self):
         return self._s.dtype.tz
 
-    def tz_localize(self, tz):
-        return self._wrap(tz_ops.tz_localize(self._s._column, tz))
+    def tz_localize(self, tz, ambiguous="raise", nonexistent="raise"):
+        return self._wrap(tz_ops.tz_localize(self._s._column, tz, ambiguous, nonexistent))
 
     def tz_convert(self, tz):
         return self._wrap(tz_ops.tz_convert(self._s._column, tz))
@@ -413,7 +431,21 @@ class CategoricalAccessor:
 
     @property
     def ordered(self):
-        return False
+        return self._s.dtype.ordered
+
+    def _with_ordered(self, ordered: bool):
+        from cudf_tpu_torch.frame.series import Series
+
+        col = self._s._column
+        d = col.dtype
+        return Series._from(col._as(dt.DType(d.id, value_type=d.value_type, ordered=ordered)),
+                            self._s._index, self._s.name)
+
+    def as_ordered(self):
+        return self._with_ordered(True)
+
+    def as_unordered(self):
+        return self._with_ordered(False)
 
     def set_categories(self, new_categories):
         from cudf_tpu_torch.frame.series import Series
@@ -426,3 +458,75 @@ class CategoricalAccessor:
     def add_categories(self, new_categories):
         return self.set_categories(self._s._column.keys.to_numpy().tolist()
                                    + list(new_categories))
+
+
+class ListMethods:
+    """The ``.list`` accessor of a LIST Series (``ops/lists.py``)."""
+
+    def __init__(self, s):
+        if not s.dtype.is_list:
+            raise AttributeError("Can only use .list accessor with a list dtype")
+        self._s = s
+
+    def _wrap(self, col: Column):
+        from cudf_tpu_torch.frame.series import Series
+
+        return Series._from(col, self._s._index, self._s.name)
+
+    def len(self):
+        return self._wrap(list_ops.count_elements(self._s._column))
+
+    def get(self, i: int):
+        return self._wrap(list_ops.extract_list_element(self._s._column, i))
+
+    def __getitem__(self, i: int):
+        return self.get(i)
+
+    def contains(self, value):
+        return self._wrap(list_ops.contains(self._s._column, value))
+
+    def index(self, value):
+        return self._wrap(list_ops.index_of(self._s._column, value))
+
+    def sort_values(self, ascending: bool = True):
+        return self._wrap(list_ops.segmented_sort(self._s._column, ascending))
+
+    def unique(self):
+        return self._wrap(list_ops.unique_per_row(self._s._column))
+
+    def concat(self, other):
+        return self._wrap(list_ops.concatenate_rows([self._s._column, other._column]))
+
+    @property
+    def leaves(self):
+        from cudf_tpu_torch.frame.index import default_index
+        from cudf_tpu_torch.frame.series import Series
+
+        child = self._s._column.children[0]
+        return Series._from(child, default_index(child.length), self._s.name)
+
+
+class StructMethods:
+    """The ``.struct`` accessor of a STRUCT Series (``ops/structs.py``)."""
+
+    def __init__(self, s):
+        if not s.dtype.is_struct:
+            raise AttributeError("Can only use .struct accessor with a struct dtype")
+        self._s = s
+
+    @property
+    def dtypes(self):
+        return dict(self._s.dtype.fields)
+
+    def field(self, name_or_index):
+        from cudf_tpu_torch.frame.series import Series
+
+        name = name_or_index if isinstance(name_or_index, str) else \
+            self._s.dtype.fields[name_or_index][0]
+        return Series._from(struct_ops.field(self._s._column, name_or_index), self._s._index,
+                            name)
+
+    def explode(self):
+        from cudf_tpu_torch.frame.dataframe import DataFrame
+
+        return DataFrame._from(struct_ops.explode_to_table(self._s._column), self._s._index)

@@ -55,7 +55,7 @@ from cudf_tpu_torch.ops.replace import nans_to_nulls
 _NOT_PORTED = {
     "rolling": 8, "resample": 8, "ewm": 8, "query": 8, "eval": 8,
     "map": BEYOND, "applymap": BEYOND, "interpolate": BEYOND, "update": BEYOND,
-    "hash_values": 5, "explode": 6, "to_arrow": 8, "to_csv": 7, "to_json": 7,
+    "hash_values": 5, "to_arrow": 8, "to_csv": 7, "to_json": 7,
     "to_parquet": 7, "to_orc": 7, "to_feather": 7,
 }
 # the row reductions of agg(axis=1), by name
@@ -959,6 +959,21 @@ class DataFrame:
         from cudf_tpu_torch.frame.reshape import pivot
 
         return pivot(self, index=index, columns=columns, values=values)
+
+    def explode(self, column, ignore_index: bool = False) -> "DataFrame":
+        """One row an element of the LIST column ``column`` (an empty or
+        null list one null row), the other columns and the labels
+        repeated by row (``ops/lists.py`` ``explode(outer=True)``)."""
+        col = self._table[column]
+        if not col.dtype.is_list:
+            return self.copy()
+        from cudf_tpu_torch.ops import lists
+
+        child, rows = lists.explode(col, outer=True)
+        cols = {n: child if n == column else copying.gather(c, rows, bounds_check=False)
+                for n, c in self._table.items()}
+        index = default_index(child.length) if ignore_index else self._index.take(rows)
+        return DataFrame._from(Table(cols), index)
 
     def melt(self, id_vars=None, value_vars=None, var_name=None,
              value_name="value") -> "DataFrame":

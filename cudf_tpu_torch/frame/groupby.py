@@ -24,6 +24,8 @@ iteration, ``apply`` and ``describe`` follow the same order.
 else the sort tier, and broadcasts to the rows; ``transform`` of a
 callable, ``apply`` and ``filter`` call the function once a group on the
 host (``filter`` then masks the rows by group id on the device).
+``agg(list)``, ``agg(set)``, "collect", "unique", "collect_set" and
+"histogram" give LIST columns (``SeriesGroupBy.unique`` too).
 ``rank`` ranks within groups with pandas' ties; ``describe`` gives
 pandas' eight statistics under (column, statistic) names; ``cov`` and
 ``corr`` pandas' (keys..., column) rows by the numeric columns, in two
@@ -288,6 +290,7 @@ class _GroupBy:
     # aggregation
     # ------------------------------------------------------------------
     def _run_aggs(self, specs) -> DataFrame:
+        specs = [(out, col_name, _norm_agg(agg)) for out, col_name, agg in specs]
         for _, _, agg in specs:
             if agg not in gb_ops._AGG_DISPATCH:
                 raise gb_ops._not_ported(agg)
@@ -657,6 +660,7 @@ class DataFrameGroupBy(_GroupBy):
                 raise TypeError("agg needs a spec or named aggregations")
             return self._run_aggs([(out, col_name, agg)
                                    for out, (col_name, agg) in named.items()])
+        func = _norm_agg(func)
         if isinstance(func, str):
             return self.size() if func == "size" else self._apply_simple(func)
         specs: List = []  # (out_name, col_name, agg)
@@ -743,6 +747,7 @@ class SeriesGroupBy(_GroupBy):
             if not named:
                 raise TypeError("agg needs a spec or named aggregations")
             return self._run_aggs([(out, self._name, a) for out, a in named.items()])
+        func = _norm_agg(func)
         if isinstance(func, str):
             if func in ("size", "nunique", "describe"):
                 return getattr(self, func)()
@@ -757,6 +762,11 @@ class SeriesGroupBy(_GroupBy):
 
     def quantile(self, q: float = 0.5, interpolation: str = "linear"):
         return self._one(super().quantile(q, interpolation))
+
+    def unique(self):
+        """Each group's distinct values in order of appearance (a LIST
+        Series)."""
+        return self._apply_simple("unique")
 
     def describe(self) -> DataFrame:
         df = DataFrame._from(Table(self._describe_columns(self._name)),
@@ -817,6 +827,12 @@ class _GroupbyEWM:
         idx = MultiIndex([*keys, labels.column(sgb._series.device)],
                          [*sgb._key_names, index.name])
         return Series._from(copying.gather(out, kept, bounds_check=False), idx, sgb._name)
+
+
+def _norm_agg(agg):
+    """pandas' ``agg(list)`` and ``agg(set)`` as the aggregations "list"
+    and "collect_set"."""
+    return "list" if agg is list else "collect_set" if agg is set else agg
 
 
 def _simple(agg: str):

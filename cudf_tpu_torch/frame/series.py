@@ -29,9 +29,10 @@ runs the UDF under ``torch.func.vmap`` (``masked=True`` hands it a
 cannot trace, loops on the host, as the reference's does; ``UDF_ROUTES``
 counts each route.  ``interpolate`` (linear), ``combine_first`` and
 ``update`` are pandas'.  The ``str``, ``dt`` and ``cat`` accessors are
-``frame/accessors.py``'s.  The ``list`` and ``struct`` accessors, windows
-(``rolling``, ``resample``, ``ewm``) and the other methods in
-``_NOT_PORTED`` raise NotImplementedError naming their ROADMAP.md item.
+``frame/accessors.py``'s, and so are ``list`` and ``struct`` of LIST and
+STRUCT Series; ``explode`` unnests a LIST Series.  Windows (``rolling``,
+``resample``, ``ewm``) and the other methods in ``_NOT_PORTED`` raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -74,9 +75,8 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
 _NOT_PORTED = {
-    "list": 6, "struct": 6,
-    "rolling": 8, "resample": 8, "ewm": 8, "explode": 6, "hash_values": 5,
-    "to_arrow": 8, "to_csv": 7, "to_json": 7, "to_parquet": 7,
+    "rolling": 8, "resample": 8, "ewm": 8, "hash_values": 5,
+    "to_csv": 7, "to_json": 7, "to_parquet": 7,
 }
 _DESCRIBE = ("count", "mean", "std", "min", "25%", "50%", "75%", "max")
 # what the reference package lacks too: ROADMAP.md's line for it
@@ -198,9 +198,10 @@ def _on(have: torch.device, want: torch.device) -> bool:
 
 
 def _clone(col: Column) -> Column:
-    return Column(col.dtype, col.length, col.data.clone(),
-                  None if col.validity is None else col.validity.clone(),
-                  None if col.offsets is None else col.offsets.clone(), col.children)
+    def copy(t):
+        return None if t is None else t.clone()
+    return Column(col.dtype, col.length, copy(col.data), copy(col.validity), copy(col.offsets),
+                  col.children)
 
 
 class Series:
@@ -265,6 +266,33 @@ class Series:
         from cudf_tpu_torch.frame.accessors import CategoricalAccessor
 
         return CategoricalAccessor(self)
+
+    @property
+    def list(self):
+        from cudf_tpu_torch.frame.accessors import ListMethods
+
+        return ListMethods(self)
+
+    @property
+    def struct(self):
+        from cudf_tpu_torch.frame.accessors import StructMethods
+
+        return StructMethods(self)
+
+    def explode(self, ignore_index: bool = False) -> "Series":
+        """One row an element of a LIST Series, an empty or null list one
+        null row, each under its row's label (``ops/lists.py``
+        ``explode(outer=True)``); any other Series as it is."""
+        if not self.dtype.is_list:
+            return self.copy(deep=False)
+        from cudf_tpu_torch.ops import lists
+
+        child, rows = lists.explode(self._column, outer=True)
+        index = default_index(child.length) if ignore_index else self._index.take(rows)
+        return Series._from(child, index, self.name)
+
+    def to_arrow(self):
+        return self._column.to_arrow()
 
     # ------------------------------------------------------------------
     # attributes
@@ -606,7 +634,36 @@ class Series:
             return NA if self.dtype.nullable else float("nan")
         return value
 
+    def _ticks(self) -> Column:
+        """A temporal column's ticks as an INT64 column."""
+        col = self._column
+        return Column(dt.INT64, col.length, col.data, col.validity)
+
+    def _temporal(self, ticks, duration: bool = False, skipna: bool = True):
+        """A temporal reduction's ticks (float or int, truncated toward
+        zero) as pandas gives it: a timestamp in the column's unit (a
+        tz-aware one as a ``datetime`` in its zone, to the microsecond), a
+        duration for ``duration``; NaT where nothing was reduced."""
+        if ticks is None or (isinstance(ticks, float) and np.isnan(ticks)) or (
+                not skipna and self._has_nulls_or_nans()):
+            return np.timedelta64("NaT") if duration else self._reduce_scalar(None)
+        unit = self.dtype.time_unit
+        if duration:
+            return np.timedelta64(int(ticks), unit)
+        value = np.datetime64(int(ticks), unit)
+        if self.dtype.tz is None:
+            return value
+        import datetime as _datetime
+        import zoneinfo
+
+        utc = value.astype("datetime64[us]").item().replace(tzinfo=_datetime.timezone.utc)
+        return utc.astimezone(zoneinfo.ZoneInfo(self.dtype.tz))
+
     def sum(self, skipna: bool = True, min_count: int = 0):
+        if self.dtype.is_timestamp:
+            raise TypeError(f"a {self.dtype!r} column does not sum")
+        if self.dtype.is_duration:
+            return self._temporal(reductions.sum(self._ticks(), min_count), True, skipna)
         return self._reduce_scalar(reductions.sum(self._column, min_count), skipna)
 
     def prod(self, skipna: bool = True, min_count: int = 0):
@@ -615,21 +672,32 @@ class Series:
     product = prod
 
     def mean(self, skipna: bool = True):
+        if self.dtype.is_temporal:
+            return self._temporal(reductions.mean(self._ticks()), self.dtype.is_duration, skipna)
         return self._reduce_scalar(reductions.mean(self._column), skipna)
 
     def min(self, skipna: bool = True):
+        if self.dtype.is_temporal:
+            return self._temporal(reductions.min(self._ticks()), self.dtype.is_duration, skipna)
         return self._reduce_scalar(reductions.min(self._column), skipna)
 
     def max(self, skipna: bool = True):
+        if self.dtype.is_temporal:
+            return self._temporal(reductions.max(self._ticks()), self.dtype.is_duration, skipna)
         return self._reduce_scalar(reductions.max(self._column), skipna)
 
     def var(self, ddof: int = 1, skipna: bool = True):
         return self._reduce_scalar(reductions.var(self._column, ddof), skipna)
 
     def std(self, ddof: int = 1, skipna: bool = True):
+        if self.dtype.is_temporal:
+            return self._temporal(reductions.std(self._ticks(), ddof), True, skipna)
         return self._reduce_scalar(reductions.std(self._column, ddof), skipna)
 
     def median(self, skipna: bool = True):
+        if self.dtype.is_temporal:
+            return self._temporal(reductions.median(self._ticks()), self.dtype.is_duration,
+                                  skipna)
         return self._reduce_scalar(reductions.median(self._column), skipna)
 
     def sem(self, ddof: int = 1):
@@ -947,11 +1015,16 @@ class Series:
         target = dt.dtype(dtype)
         col = self._column
         if errors == "raise" and target.is_integer and not target.nullable \
-                and not col.dtype.is_integer and self._has_nulls_or_nans():
+                and not (col.dtype.is_integer or col.dtype.is_temporal) \
+                and self._has_nulls_or_nans():
             raise ValueError("Cannot convert non-finite values (NA or inf) to integer")
         if errors == "raise" and target.is_integer and col.dtype.is_float \
                 and bool(torch.isinf(col.data).any()):
             raise ValueError("Cannot convert non-finite values (NA or inf) to integer")
+        if col.dtype.is_temporal and target == dt.INT64 and col.validity is not None:
+            # pandas' astype gives NaT as iNaT (INT64_MIN); the column cast keeps it null
+            return self._new(Column(target, col.length, torch.where(
+                col.validity, col.data, torch.iinfo(torch.int64).min)))
         try:
             out = unary.cast(col, target)
         except (TypeError, NotImplementedError):

@@ -66,3 +66,13 @@ def signed_view(t: torch.Tensor) -> torch.Tensor:
     uint16/32/64 (PyTorch indexes them on no CUDA device and scatters
     into them on no CPU), else the tensor itself."""
     return t.view(_SIGNED[t.dtype]) if t.dtype in _SIGNED else t
+
+
+# how many calls took a host route, by function: the host factories and
+# exports of LIST and STRUCT columns and the decimal text casts, where
+# the reference goes to the host too
+HOST_ROUTES = {}
+
+
+def count_host_route(name: str) -> None:
+    HOST_ROUTES[name] = HOST_ROUTES.get(name, 0) + 1

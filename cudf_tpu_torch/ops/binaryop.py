@@ -157,6 +157,7 @@ def scalar_operand(x) -> Tuple[object, dt.DType]:
     """(value, dtype) of a host scalar: the value as a Python scalar (int
     ticks for a temporal one, None for a null), the dtype numpy's (a
     ``datetime64[D]`` becomes seconds, as in the reference)."""
+    x = _numpy_temporal(x)
     if isinstance(x, (np.datetime64, np.timedelta64)):
         kind = "M" if isinstance(x, np.datetime64) else "m"
         unit = np.datetime_data(x.dtype)[0]
@@ -168,6 +169,29 @@ def scalar_operand(x) -> Tuple[object, dt.DType]:
         return None, dt.FLOAT64
     npv = np.asarray(x)
     return npv.item(), dt.dtype(npv.dtype)
+
+
+def _numpy_temporal(x):
+    """pandas' Timestamp / Timedelta (in their own unit) and the standard
+    library's datetime / timedelta (microseconds) as numpy scalars; a
+    tz-aware instant as its UTC wall clock; anything else as it is."""
+    import datetime as _datetime
+
+    if type(x).__name__ in ("NaTType",):
+        return x
+    if hasattr(x, "to_datetime64"):                # pandas' Timestamp
+        if getattr(x, "tzinfo", None) is not None:
+            x = x.tz_convert("UTC").tz_localize(None)
+        return x.to_datetime64().astype(f"datetime64[{x.unit}]")
+    if hasattr(x, "to_timedelta64"):               # pandas' Timedelta
+        return x.to_timedelta64().astype(f"timedelta64[{x.unit}]")
+    if isinstance(x, _datetime.datetime):
+        if x.tzinfo is not None:
+            x = x.astimezone(_datetime.timezone.utc).replace(tzinfo=None)
+        return np.datetime64(x, "us")
+    if isinstance(x, _datetime.timedelta):
+        return np.timedelta64(x, "us")
+    return x
 
 
 def _operand(x):
@@ -205,6 +229,16 @@ def binary_operation(lhs, rhs, op: str) -> Column:
         if out.is_dictionary:
             out = dt.STRING
         return Column.full(n, None, out, device=dev)
+
+    if any(isinstance(x, Column) and x.dtype.is_decimal for x in (lhs, rhs)):
+        from cudf_tpu_torch.ops.decimal import decimal_binary_operation
+
+        return decimal_binary_operation(lhs, rhs, op)
+
+    if isinstance(scalar, str) and col.dtype.is_timestamp and op in _COMPARISONS:
+        # an ISO 8601 text against timestamps is a timestamp, as in pandas
+        parsed = np.datetime64(scalar)
+        lhs, rhs = (lhs, parsed) if lhs_col else (parsed, rhs)
 
     keyed = [isinstance(x, str) or (isinstance(x, Column)
                                     and (x.dtype.is_string or x.dtype.is_dictionary))

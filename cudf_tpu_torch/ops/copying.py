@@ -7,8 +7,12 @@
 Fixed-width and temporal columns gather their data; a dictionary column
 gathers its int32 codes and keeps its keys; a STRING column gathers row
 lengths, scans them into new offsets (one host sync for the byte count)
-and gathers its bytes.  Dictionaries over different keys meet over the
-union of their keys (``ops/dictionary.py`` ``match_dictionaries``).
+and gathers its bytes; a LIST column does the same with its lengths and
+its child, a STRUCT column gathers each field, and a two-limb decimal its
+high limb beside its data.  Dictionaries over different keys meet over
+the union of their keys (``ops/dictionary.py`` ``match_dictionaries``).
+``scatter`` into a STRING, LIST, STRUCT or two-limb decimal target gathers
+the target's rows and the source's, one after the other.
 """
 
 from __future__ import annotations
@@ -40,7 +44,19 @@ def gather(col: Column, gather_map: torch.Tensor, bounds_check: bool = True) -> 
         validity = in_range if validity is None else validity & in_range
     if col.dtype.is_string:
         return _gather_strings(col, gather_map, in_range, validity)
-    return Column(col.dtype, m, _take(col.data, gather_map), validity, children=col.children)
+    if col.dtype.is_list:
+        return _gather_lists(col, gather_map, in_range, validity)
+    if col.dtype.is_struct:
+        return Column(col.dtype, m, None, validity, children=[
+            gather(c, gather_map, bounds_check=False) for c in col.children])
+    return Column(col.dtype, m, _take(col.data, gather_map), validity,
+                  children=_row_children(col, lambda c: gather(c, gather_map, False)))
+
+
+def _row_children(col: Column, fn):
+    """A column's children after a row op: a two-limb decimal's high limb
+    takes the op, a dictionary's keys stay."""
+    return [fn(c) for c in col.children] if col.dtype.is_decimal else col.children
 
 
 def _all_null(col: Column, m: int) -> Column:
@@ -49,8 +65,30 @@ def _all_null(col: Column, m: int) -> Column:
     if col.dtype.is_string:
         return Column(col.dtype, m, torch.zeros(0, dtype=torch.uint8, device=dev), none,
                       torch.zeros(m + 1, dtype=torch.int64, device=dev))
+    if col.dtype.is_list:
+        return Column(col.dtype, m, None, none, torch.zeros(m + 1, dtype=torch.int64, device=dev),
+                      [slice(col.children[0], 0, 0)])
+    if col.dtype.is_struct:
+        return Column(col.dtype, m, None, none, children=[_all_null(c, m) for c in col.children])
     return Column(col.dtype, m, torch.zeros(m, dtype=col.data.dtype, device=dev), none,
-                  children=col.children)
+                  children=_row_children(col, lambda c: _all_null(c, m)))
+
+
+def _gather_lists(col: Column, rows: torch.Tensor, in_range, validity) -> Column:
+    """The rows' lists, one after another: new offsets from the gathered
+    lengths (one host sync for the element count), then one gather of
+    the child."""
+    from cudf_tpu_torch.ops.lists import make_list_column, offsets_of
+
+    starts = col.offsets[rows]
+    lens = col.offsets[rows + 1] - starts
+    if in_range is not None:
+        lens = torch.where(in_range, lens, 0)
+    offsets = offsets_of(lens)
+    total = int(offsets[-1])
+    elem = segment_expand(offsets, total)
+    src = starts[elem] + torch.arange(total, dtype=torch.int64, device=col.device) - offsets[elem]
+    return make_list_column(offsets, gather(col.children[0], src, bounds_check=False), validity)
 
 
 def _gather_strings(col: Column, rows: torch.Tensor, in_range, validity) -> Column:
@@ -82,13 +120,15 @@ def scatter(source: Column, scatter_map: torch.Tensor, target: Column) -> Column
     """target[scatter_map[i]] = source[i] (cudf::scatter), in target's
     dtype; the target is not modified.  A STRING target gathers its rows
     and the source's, one after the other."""
-    if target.dtype.is_string:
+    if target.dtype.is_string or target.dtype.is_nested or (
+            target.dtype.is_decimal and (target.children or source.children)):
         from cudf_tpu_torch.ops.unary import cast
 
         rows = torch.arange(target.length, device=target.device)
         rows[scatter_map.long()] = target.length + torch.arange(
             scatter_map.shape[0], device=target.device)
-        return gather(concatenate([target, cast(source, dt.STRING)]), rows, bounds_check=False)
+        return gather(concatenate([target, cast(source, target.dtype)]), rows,
+                      bounds_check=False)
     if target.dtype.is_dictionary:
         from cudf_tpu_torch.ops.dictionary import encode, match_dictionaries
 
@@ -111,8 +151,16 @@ def slice(col: Column, start: int, stop: int) -> Column:  # noqa: A001
     if col.dtype.is_string:
         return gather(col, torch.arange(start, stop, device=col.device), bounds_check=False)
     validity = None if col.validity is None else col.validity[start:stop]
+    if col.dtype.is_list:
+        offs = col.offsets[start:stop + 1]
+        c0, c1 = offs[[0, -1]].tolist()
+        return Column(col.dtype, stop - start, None, validity, offs - c0,
+                      [slice(col.children[0], c0, c1)])
+    if col.dtype.is_struct:
+        return Column(col.dtype, stop - start, None, validity,
+                      children=[slice(c, start, stop) for c in col.children])
     return Column(col.dtype, stop - start, col.data[start:stop], validity,
-                  children=col.children)
+                  children=_row_children(col, lambda c: slice(c, start, stop)))
 
 
 def split(col: Column, splits: Sequence[int]) -> List[Column]:
@@ -143,6 +191,10 @@ def concatenate(cols: Sequence[Column]) -> Column:
         off = torch.cat(offsets)
         return Column(dt.STRING, off.shape[0] - 1, torch.cat([c.data for c in cols]),
                       validity, off)
+    if first.dtype.is_nested:
+        return _concatenate_nested(cols, validity)
+    if first.dtype.is_decimal:
+        return _concatenate_decimals(cols, validity)
     if first.dtype.is_dictionary:
         if any(not c.dtype.is_dictionary or c.keys is not first.keys for c in cols):
             from cudf_tpu_torch.ops.dictionary import unify_dictionaries
@@ -161,6 +213,46 @@ def concatenate(cols: Sequence[Column]) -> Column:
     data = torch.cat([signed_view(c.data.to(target.torch_storage)) for c in cols])
     data = data.view(target.torch_storage)
     return Column(target, data.shape[0], data, validity)
+
+
+def _concatenate_nested(cols: Sequence[Column], validity) -> Column:
+    """LIST columns: the children one after another, the offsets shifted;
+    STRUCT columns: field by field.  The dtypes must agree."""
+    first = cols[0]
+    if any(c.dtype.id != first.dtype.id for c in cols):
+        raise TypeError(f"cannot concatenate {first.dtype!r} with other layouts")
+    n = sum(c.length for c in cols)
+    if first.dtype.is_struct:
+        if any(c.dtype != first.dtype for c in cols):
+            raise TypeError("cannot concatenate STRUCT columns of different fields")
+        return Column(first.dtype, n, None, validity, children=[
+            concatenate([c.children[i] for c in cols]) for i in range(len(first.children))])
+    from cudf_tpu_torch.ops.lists import make_list_column
+
+    shift, offsets = 0, [first.offsets[:1]]
+    for c in cols:
+        offsets.append(c.offsets[1:] + shift)
+        shift = shift + c.offsets[-1]
+    return make_list_column(torch.cat(offsets), concatenate([c.children[0] for c in cols]),
+                            validity)
+
+
+def _concatenate_decimals(cols: Sequence[Column], validity) -> Column:
+    """Decimal columns at the finest of their scales, in the widest of
+    their widths (two limbs when any has two)."""
+    from cudf_tpu_torch.ops.decimal import bits_of, rescale
+
+    if not all(c.dtype.is_decimal for c in cols):
+        raise TypeError("cannot concatenate decimal and non-decimal columns")
+    scale = min(c.dtype.scale for c in cols)
+    target = dt.decimal_dtype(scale, max(bits_of(c.dtype) for c in cols))
+    cols = [rescale(c, scale) for c in cols]
+    data = torch.cat([c.data.to(target.torch_storage) for c in cols])
+    if not any(c.children for c in cols):
+        return Column(target, data.shape[0], data, validity)
+    from cudf_tpu_torch.ops.decimal128 import limbs, make_decimal128
+
+    return make_decimal128(torch.cat([limbs(c)[0] for c in cols]), data, scale, validity)
 
 
 def concatenate_tables(tables: Sequence[Table]) -> Table:

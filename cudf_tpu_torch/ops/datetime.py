@@ -195,8 +195,8 @@ def strftime_parts(col: Column) -> dict:
     """Every field a strftime format reads, int64 [n], of a timestamp
     column's wall clock (a tz-aware column's in its zone): the calendar
     and clock fields, ``year2``, ``hour12``, ``doy``, ``weekday``, ``ampm``,
-    the sub-second ``milli`` / ``micro`` / ``nano`` and ``offset_min`` (the
-    UTC offset in minutes)."""
+    the sub-second ``milli`` / ``micro`` / ``nano`` and ``offset_sec`` (the
+    UTC offset in seconds: local mean time offsets have seconds)."""
     ticks = col.data
     if col.dtype.tz is not None:
         from cudf_tpu_torch.ops import timezone
@@ -211,4 +211,4 @@ def strftime_parts(col: Column) -> dict:
             "doy": days - days_from_civil(y, torch.ones_like(m), torch.ones_like(d)) + 1,
             "micro": ns // 1000, "milli": ns // 10 ** 6, "nano": ns,
             "weekday": (days + 3) % 7, "ampm": (hour >= 12).long(),
-            "offset_min": (ticks - col.data) // (tps * 60)}
+            "offset_sec": (ticks - col.data) // tps}

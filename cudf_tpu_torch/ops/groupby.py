@@ -42,9 +42,12 @@ aggregations take a segmented doubling scan over the values sorted by
 group (log2 of the largest group's size passes of a shift, a compare and
 a select, then each run's last row): PyTorch has no bitwise
 ``scatter_reduce_``, and per-bit counts would take one ``index_add_``
-pass a bit (64 for int64).  Aggregations that return LIST or STRUCT
-columns (collect/list, unique/collect_set, topk, histogram, tdigest)
-wait for those layouts (ROADMAP.md queue 1, item 6).
+pass a bit (64 for int64).  The aggregations that return LIST columns
+(``group_collect_list``, ``group_unique``, ``group_collect_set``,
+``group_topk``, ``group_histogram``) sort the kept rows by (group, value)
+with the same LSD chain, mark where each distinct (group, value) run
+starts, and gather; tdigest waits for ``ops/tdigest.py`` (ROADMAP.md
+queue 1, item 6c).
 
 Both tiers give pandas' dtypes and nulls.  Integer and bool sums are
 exact (int64 accumulation); an integer column's sum and prod come back
@@ -76,7 +79,7 @@ from cudf_tpu_torch.kernels.radix_partition import (MAX_DOMAIN_BITS,
                                                     radix_groupby_sum_count)
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops.row_ops import (_float_to_ordered_int, equality_keys,
-                                        lex_sort_permutation, sort_operands)
+                                        lex_sort_permutation, order_keys, sort_operands)
 from cudf_tpu_torch.ops.stream_compaction import filter_indices
 from cudf_tpu_torch.utils.config import get_option
 
@@ -85,15 +88,13 @@ SUPPORTED_AGGS = frozenset({"sum", "count", "mean", "min", "max", "size"})
 Request = Tuple[object, Column, str]
 
 
-_LIST_AGGS = frozenset({"collect", "list", "unique", "collect_set", "topk", "histogram",
-                        "tdigest"})
-
-
 def _not_ported(agg: str) -> NotImplementedError:
-    if agg in _LIST_AGGS:
+    if agg == "tdigest":
         return NotImplementedError(
-            f"groupby agg {agg!r} returns a LIST or STRUCT column, which the port does not "
-            "have yet: ROADMAP.md queue 1, item 6 (ops/lists.py, structs.py)")
+            "groupby agg 'tdigest' needs ops/tdigest.py: ROADMAP.md queue 1, item 6c")
+    if agg == "topk":
+        return NotImplementedError(
+            "groupby agg 'topk' takes k: call ops.groupby.group_topk(col, grouper, k)")
     return NotImplementedError(
         f"groupby agg {agg!r} is not an aggregation of one column (cov, corr and ewm are "
         "the groupby's own methods; ROADMAP.md queue 1 lists what the port lacks); the sort "
@@ -726,6 +727,90 @@ def _value_sorted(col: Column, grouper: Grouper):
     return x[order], _valid_count(v, grouper)
 
 
+# ----------------------------------------------------------------------
+# aggregations that return LIST columns
+# ----------------------------------------------------------------------
+
+def group_collect_list(col: Column, grouper: Grouper) -> Column:
+    """Each group's values in row order, nulls kept (group_collect.cu)."""
+    from cudf_tpu_torch.ops.lists import make_list_column
+
+    col = _apply_row_mask(col, grouper)
+    return make_list_column(grouper.group_offsets,
+                            copying.gather(col, grouper.sorted_order, bounds_check=False))
+
+
+def _distinct_per_group(col: Column, grouper: Grouper):
+    """(rows, run_gid, run_counts): one kept row a distinct (group, value)
+    pair (its first in row order), ordered by (group, value) with a null
+    value last, and how many rows each pair has."""
+    order = _sort_within_groups(grouper, order_keys(col, True, "last"))
+    gs = grouper.group_ids[order]
+    neq = torch.ones(col.length, dtype=torch.bool, device=col.device)
+    neq[1:] = gs[1:] != gs[:-1]
+    for key in equality_keys(col):
+        ks = key[order]
+        neq[1:] |= ks[1:] != ks[:-1]
+    starts = filter_indices(neq)
+    ends = torch.cat([starts[1:], torch.tensor([col.length], device=col.device)])
+    return order[starts], gs[starts], ends - starts
+
+
+def _runs_to_lists(vals: Column, run_gid: torch.Tensor, grouper: Grouper) -> Column:
+    from cudf_tpu_torch.ops.lists import make_list_column, offsets_of
+
+    per_group = torch.zeros(grouper.num_groups, dtype=torch.int64, device=run_gid.device)
+    per_group.index_add_(0, run_gid, torch.ones_like(run_gid))
+    return make_list_column(offsets_of(per_group), vals)
+
+
+def group_collect_set(col: Column, grouper: Grouper) -> Column:
+    """Each group's distinct values in ascending order, a null value once
+    and last (group_collect.cu + drop_list_duplicates)."""
+    col = _apply_row_mask(col, grouper)
+    rows, run_gid, _ = _distinct_per_group(col, grouper)
+    return _runs_to_lists(copying.gather(col, rows, bounds_check=False), run_gid, grouper)
+
+
+def group_unique(col: Column, grouper: Grouper) -> Column:
+    """Each group's distinct values in order of first appearance, as
+    pandas' ``SeriesGroupBy.unique`` gives them (the reference gives
+    collect_set's ascending order)."""
+    col = _apply_row_mask(col, grouper)
+    rows, run_gid, _ = _distinct_per_group(col, grouper)
+    by_row = lex_sort_permutation([run_gid, rows])
+    return _runs_to_lists(copying.gather(col, rows[by_row], bounds_check=False),
+                          run_gid[by_row], grouper)
+
+
+def group_histogram(col: Column, grouper: Grouper) -> Column:
+    """LIST<STRUCT<value, count>>: each group's distinct values, ascending,
+    and how many rows hold each (the HISTOGRAM aggregation)."""
+    from cudf_tpu_torch.ops.structs import make_struct_column
+
+    col = _apply_row_mask(col, grouper)
+    rows, run_gid, counts = _distinct_per_group(col, grouper)
+    child = make_struct_column([("value", copying.gather(col, rows, bounds_check=False)),
+                                ("count", Column(dt.INT64, counts.shape[0], counts))])
+    return _runs_to_lists(child, run_gid, grouper)
+
+
+def group_topk(col: Column, grouper: Grouper, k: int, largest: bool = True) -> Column:
+    """Each group's k largest (smallest) valid values, in that order
+    (group_topk.cu); a group of fewer valid values gives them all."""
+    from cudf_tpu_torch.ops.lists import make_list_column, offsets_of
+
+    col = _valid_view(_apply_row_mask(col, grouper))
+    order = _sort_within_groups(grouper, order_keys(col, not largest, "last"))
+    valid = _valid_count(col.validity, grouper)
+    keep_n = torch.clamp(valid, max=int(k))
+    gs = grouper.group_ids[order]
+    within = torch.arange(col.length, dtype=torch.int64, device=col.device) - \
+        grouper.group_offsets[:-1][gs]
+    rows = order[filter_indices(within < keep_n[gs])]
+    return make_list_column(offsets_of(keep_n), copying.gather(col, rows, bounds_check=False))
+
+
 def group_quantile(col: Column, grouper: Grouper, q: float = 0.5,
                    interpolation: str = "linear") -> Column:
     """Per-group quantile of the valid values (float64), pandas'
@@ -1020,7 +1105,13 @@ _AGG_DISPATCH = {
     "bitwise_and": group_bitwise_and,
     "bitwise_or": group_bitwise_or,
     "bitwise_xor": group_bitwise_xor,
+    "collect": group_collect_list,
+    "list": group_collect_list,
+    "unique": group_unique,
+    "collect_set": group_collect_set,
+    "histogram": group_histogram,
 }
+LIST_AGGS = frozenset({"collect", "list", "unique", "collect_set", "histogram"})
 
 
 _TEMPORAL_AS_TICKS = frozenset({"mean", "median", "std"})

@@ -50,11 +50,18 @@ _F32_NAN_BITS = 0x7FC00000
 
 
 def _refuse_layout(col: Column) -> None:
-    d = col.dtype
-    if not (d.is_numeric or d.is_bool or d.is_temporal or d.is_string or d.is_dictionary):
+    """LIST and STRUCT columns have no row order or row equality here, as
+    in the reference (its operands read a data buffer they lack)."""
+    if col.dtype.is_nested:
         raise NotImplementedError(
-            f"row operators over {d!r} columns: list, struct and decimal layouts are "
-            "ROADMAP.md queue 1, item 6")
+            f"row operators over {col.dtype!r} columns (sort, group or join keys): "
+            "ROADMAP.md, beyond the reference")
+
+
+def _limb_operands(col: Column) -> List[torch.Tensor]:
+    """A two-limb decimal's value operands: the signed high limb, then the
+    low limb with its top bit flipped (unsigned order as signed)."""
+    return [col.children[0].data, col.data ^ (-(1 << 63))]
 
 
 def string_chunks(col: Column, nchunks: Optional[int] = None) -> List[torch.Tensor]:
@@ -172,6 +179,14 @@ def _order_operands(col: Column, ascending: bool, na_position: str,
             c = c if col.validity is None else torch.where(col.validity, c, 0)
             ops.append(c if ascending else ~c)
         return ops
+    if col.dtype.is_decimal and col.children:
+        if col.validity is not None:
+            flag = (~col.validity).to(torch.int8)
+            ops.append(-flag if na_position == "first" else flag)
+        for v in _limb_operands(col):
+            v = v if col.validity is None else torch.where(col.validity, v, 0)
+            ops.append(v if ascending else ~v)
+        return ops
     v = _order_value(col, narrow)
     if col.validity is not None:
         flag = (~col.validity).to(torch.int8)
@@ -207,6 +222,10 @@ def equality_keys(col: Column, nchunks: Optional[int] = None) -> List[torch.Tens
         chunks = string_chunks(col, nchunks)
         return ops + (chunks if col.validity is None else
                       [torch.where(col.validity, c, 0) for c in chunks])
+    if col.dtype.is_decimal and col.children:
+        limbs = _limb_operands(col)
+        return ops + (limbs if col.validity is None else
+                      [torch.where(col.validity, v, 0) for v in limbs])
     if col.dtype.is_dictionary:
         v = _dictionary_operand(col)
     elif col.dtype.is_float:

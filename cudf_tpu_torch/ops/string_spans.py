@@ -167,3 +167,59 @@ def split_columns(col: Column, pat: str, maxsplit: int = -1, regex: bool = False
         if k + 1 < width:
             lo = sep + spans[torch.clamp(sep, max=max(total - 1, 0))].long()
     return out
+
+
+def _pieces_column(col: Column, starts: torch.Tensor, ends: torch.Tensor) -> Column:
+    """A STRING column of the byte ranges [starts, ends) of ``col``."""
+    offsets = so.new_offsets(ends - starts)
+    return Column(dt.STRING, starts.shape[0], so.gather_ranges(col.data, starts, offsets),
+                  offsets=offsets)
+
+
+def split_lists(col: Column, pat: str, maxsplit: int = -1, regex: bool = False,
+                flags: int = 0):
+    """``str.split(pat, n=maxsplit, expand=False)`` as a LIST<STRING>
+    column: the kept separators, in byte order, end one piece and start
+    the next; a row's first piece starts at the row, its last ends there."""
+    from cudf_tpu_torch.ops.lists import make_list_column, offsets_of
+
+    spans = regex_spans(col, pat, flags) if regex else literal_spans(col, pat)
+    sel, _ = select_greedy(col, spans, maxsplit)
+    valid = torch.ones(col.length, dtype=torch.bool, device=col.device) \
+        if col.validity is None else col.validity
+    pieces = torch.where(valid, so.row_sums(col, sel) + 1, 0)
+    list_offsets = offsets_of(pieces)
+    m = int(list_offsets[-1])
+    starts = torch.zeros(m, dtype=torch.int64, device=col.device)
+    ends = torch.zeros(m, dtype=torch.int64, device=col.device)
+    first, last = list_offsets[:-1][valid], list_offsets[1:][valid] - 1
+    starts[first] = col.offsets[:-1][valid]
+    ends[last] = col.offsets[1:][valid]
+    pos = torch.nonzero(sel).squeeze(1)
+    row = torch.searchsorted(col.offsets[1:], pos, right=True)
+    keep = valid[row]
+    pos, row = pos[keep], row[keep]
+    # the k-th separator of a row ends its piece k and starts piece k + 1
+    k = torch.arange(pos.shape[0], device=col.device) - \
+        offsets_of(torch.where(valid, pieces - 1, 0))[row]
+    at = list_offsets[row] + k
+    ends[at] = pos
+    starts[at + 1] = pos + spans[pos].long()
+    return make_list_column(list_offsets, _pieces_column(col, starts, ends),
+                            None if col.validity is None else col.validity)
+
+
+def findall_lists(col: Column, pat: str, flags: int = 0):
+    """``str.findall`` of a pattern without groups as a LIST<STRING>
+    column: every kept span, in byte order, is one element."""
+    from cudf_tpu_torch.ops.lists import make_list_column, offsets_of
+
+    spans = regex_spans(col, pat, flags)
+    sel, _ = select_greedy(col, spans)
+    pos = torch.nonzero(sel).squeeze(1)
+    counts = so.row_sums(col, sel)
+    if col.validity is not None:
+        counts = torch.where(col.validity, counts, 0)
+        pos = pos[col.validity[torch.searchsorted(col.offsets[1:], pos, right=True)]]
+    return make_list_column(offsets_of(counts),
+                            _pieces_column(col, pos, pos + spans[pos].long()), col.validity)

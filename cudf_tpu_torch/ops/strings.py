@@ -702,11 +702,51 @@ def split_expand(col: Column, sep: Optional[str], maxsplit: int = -1,
                                  for p in parts], device=col.device) for i in range(width)]
 
 
-def split_record(col: Column, sep: Optional[str], maxsplit: int = -1):
-    """Each row's pieces as a Python list (None for a null row): LIST
-    columns are ROADMAP.md queue 1, item 6, so this is the host route."""
+@counted
+def split_record(col: Column, sep: Optional[str], maxsplit: int = -1,
+                 regex: bool = False) -> Column:
+    """``str.split(sep, n=maxsplit, expand=False)``: a LIST<STRING> column
+    of each row's pieces, null where the row is (split_record.cu); on the
+    device where the span engine takes the separator, else the host."""
+    from cudf_tpu_torch.ops import regex_engine as rex
+    from cudf_tpu_torch.ops import string_spans as sp
+    from cudf_tpu_torch.ops.lists import from_pylists
+
+    if sep:
+        try:
+            return sp.split_lists(col, sep, maxsplit, regex)
+        except rex.Unsupported:
+            pass
     STRING_ROUTES["host"] += 1
-    return [None if v is None else v.split(sep, maxsplit) for v in col.host_strings()]
+    if regex and sep:
+        rx = re.compile(sep)
+        parts = [None if v is None else rx.split(v, maxsplit=max(maxsplit, 0))
+                 for v in col.host_strings()]
+    else:
+        parts = [None if v is None else v.split(sep or None, maxsplit)
+                 for v in col.host_strings()]
+    return from_pylists(parts, dt.STRING, device=col.device)
+
+
+@counted
+def findall_re(col: Column, pat: str, flags: int = 0) -> Column:
+    """``str.findall``: a LIST<STRING> column of each row's non-overlapping
+    matches, left to right, null where the row is; on the device for a
+    pattern without groups that the span engine takes, else the host
+    (``re.findall``, which gives the groups)."""
+    from cudf_tpu_torch.ops import regex_engine as rex
+    from cudf_tpu_torch.ops import string_spans as sp
+    from cudf_tpu_torch.ops.lists import from_pylists
+
+    rx = re.compile(pat, flags)
+    if rx.groups == 0:
+        try:
+            return sp.findall_lists(col, pat, flags)
+        except rex.Unsupported:
+            pass
+    STRING_ROUTES["host"] += 1
+    return from_pylists([None if v is None else rx.findall(v) for v in col.host_strings()],
+                        None if rx.groups > 1 else dt.STRING, device=col.device)
 
 
 def join_strings(col: Column, sep: str = "") -> Optional[str]:
@@ -848,7 +888,8 @@ def parse_numbers(col: Column, floats: bool):
                 v = float(s) if floats else int(s)
             except (ValueError, OverflowError):
                 v = None
-            got.append(None if not floats and v is not None and abs(v) >= 2 ** 63 else v)
+            got.append(None if not floats and v is not None and not -2 ** 63 <= v < 2 ** 63
+                       else v)
         good = torch.tensor([g is not None for g in got], dtype=torch.bool, device=col.device)
         vals = torch.tensor([0 if g is None else g for g in got],
                             dtype=values.dtype, device=col.device)
@@ -911,7 +952,7 @@ def _directives(fmt: str):
     """The format's pieces: ("lit", text), ("num", field, digits) or
     ("text", directive); ``%3f`` / ``%9f`` (fractions of 3 and 9 digits),
     ``%.f`` (a row's own fraction, as a Timestamp prints it: none, 6 or 9
-    digits after a dot) and ``%:z`` (the UTC offset as +HH:MM) are this
+    digits after a dot) and ``%:z`` (the UTC offset as +HH:MM, +HH:MM:SS where it has seconds) are this
     module's own."""
     out, i = [], 0
     while i < len(fmt):
@@ -938,7 +979,7 @@ def _directives(fmt: str):
         elif d == ".f":
             out.append(("fraction",))
         else:
-            raise NotImplementedError(f"strftime directive %{d}: ROADMAP.md queue 1, item 6")
+            raise NotImplementedError(f"strftime directive %{d}: ROADMAP.md queue 1, item 6c")
     return out
 
 
@@ -993,19 +1034,21 @@ def strftime(col: Column, fmt: str) -> Column:
                 p = torch.clamp(k[row] - 1 - w, 0, 8)
                 return torch.where(w == 0, 46, 48 + digits // 10 ** p % 10).to(torch.uint8)
             makers.append(fraction)
-        else:                                   # +HH:MM
-            off = f["offset_min"]
-            lens.append(torch.full((n,), 6, dtype=torch.int64, device=dev))
+        else:                                   # +HH:MM, +HH:MM:SS with seconds
+            off = f["offset_sec"]
+            lens.append(torch.where(off % 60 != 0, 9, 6))
             sep = torch.tensor(pattern_bytes("+-:"), dtype=torch.uint8, device=dev)
 
             def offset(row, w, off=off, sep=sep):
                 o = off[row]
                 a = o.abs()
-                digits = torch.stack([a // 600, a // 60 % 10, a % 60 // 10, a % 10])
-                dig = (48 + digits.gather(0, torch.clamp(
-                    torch.where(w < 3, w - 1, w - 2), 0, 3)[None])[0]).to(torch.uint8)
+                hms = torch.stack([a // 3600, a // 60 % 60, a % 60])
+                # w: 0 sign, 1-2 hours, 3 ':', 4-5 minutes, 6 ':', 7-8 seconds
+                field = hms.gather(0, torch.clamp((w - 1) // 3, 0, 2)[None])[0]
+                dig = (48 + torch.where((w - 1) % 3 == 0, field // 10, field % 10)).to(
+                    torch.uint8)
                 return torch.where(w == 0, sep[(o < 0).long()],
-                                   torch.where(w == 3, sep[2], dig))
+                                   torch.where(w % 3 == 0, sep[2], dig))
             makers.append(offset)
     if col.validity is not None:
         lens = [torch.where(col.validity, ln, 0) for ln in lens]
@@ -1069,8 +1112,11 @@ def _iso_template(col: Column, fmt: Optional[str]):
 
 
 def _parse_timestamps(col: Column, fmt: Optional[str]):
-    """(ns ticks int64 [n], parsed bool[n], fraction digits int64 [n]) of
-    fixed-width ISO 8601 rows or rows of ``fmt``'s fixed fields."""
+    """(days int64 [n], seconds of the day int64 [n], nanoseconds of the
+    second int64 [n], parsed bool[n], fraction digits int64 [n]) of
+    fixed-width ISO 8601 rows or rows of ``fmt``'s fixed fields: kept apart
+    until the unit is known, so that years 1-9999 hold in any unit that
+    holds them."""
     lo, hi = col.offsets[:-1], col.offsets[1:]
     ln = hi - lo
     dev = col.device
@@ -1139,10 +1185,9 @@ def _parse_timestamps(col: Column, fmt: Optional[str]):
     ok &= (mo >= 1) & (mo <= 12) & (d >= 1) & (hh < 24) & (mi < 60) & (ss < 60)
     ok &= d <= dto.days_in_month(y, torch.clamp(mo, 1, 12))
     days = dto.days_from_civil(y, torch.clamp(mo, 1, 12), d)
-    ticks = ((days * 86400 + hh * 3600 + mi * 60 + ss) * 10 ** 9) + fr
     if col.validity is not None:
         ok &= col.validity
-    return ticks, ok, torch.where(ok, ndig, 0)
+    return days, hh * 3600 + mi * 60 + ss, fr, ok, torch.where(ok, ndig, 0)
 
 
 @counted
@@ -1157,7 +1202,7 @@ def to_timestamps(col: Column, format: Optional[str] = None, errors: str = "rais
     digits; or ``target``'s."""
     import datetime as _datetime
 
-    ticks, ok, ndig = _parse_timestamps(col, format)
+    days, secs, frac, ok, ndig = _parse_timestamps(col, format)
     missed = ~ok if col.validity is None else col.validity & ~ok
     rows = torch.nonzero(missed).squeeze(1)
     if rows.numel():
@@ -1173,22 +1218,44 @@ def to_timestamps(col: Column, format: Optional[str] = None, errors: str = "rais
                 if v.tzinfo is not None:
                     v = v.astimezone(_datetime.timezone.utc).replace(tzinfo=None)
                 delta = v - epoch
-                got.append((delta.days * 86400 + delta.seconds) * 10 ** 9
-                           + delta.microseconds * 1000)
+                got.append((delta.days, delta.seconds, delta.microseconds * 1000))
             except ValueError:
                 if errors == "raise":
                     raise ValueError(f"time data {s!r} doesn't match format "
                                      f"{format or 'ISO8601'!r}") from None
                 got.append(None)
-        ticks[rows] = torch.tensor([0 if g is None else g for g in got], device=col.device)
+        parts = torch.tensor([(0, 0, 0) if g is None else g for g in got],
+                             dtype=torch.int64, device=col.device).reshape(-1, 3)
+        days[rows], secs[rows], frac[rows] = parts[:, 0], parts[:, 1], parts[:, 2]
         ok[rows] = torch.tensor([g is not None for g in got], device=col.device)
+        ndig[rows] = torch.where(parts[:, 2] % 1000 != 0, 9, 0)
     if target is None:
-        fine = bool((ndig > 6).any()) or bool(((ticks % 1000 != 0) & ok).any())
+        fine = bool((ndig > 6).any())
         target = dt.TIMESTAMP_NS if fine else dt.unit_dtype("M", "us")
-    per = 10 ** 9 // {"s": 1, "ms": 10 ** 3, "us": 10 ** 6, "ns": 10 ** 9}[target.time_unit]
-    out = torch.div(ticks, per, rounding_mode="floor")
+    tps = {"s": 1, "ms": 10 ** 3, "us": 10 ** 6, "ns": 10 ** 9}[target.time_unit]
+    seconds = days * 86400 + secs
+    if target.time_unit == "ns":
+        # datetime64[ns] holds 1677-09-21 00:12:43.145224192 to
+        # 2262-04-11 23:47:16.854775807
+        lo_s, lo_ns, hi_s, hi_ns = -9223372037, 145224192, 9223372036, 854775807
+        inside = ((seconds > lo_s) | ((seconds == lo_s) & (frac >= lo_ns))) & \
+            ((seconds < hi_s) | ((seconds == hi_s) & (frac <= hi_ns)))
+        outside = ok & ~inside
+        if bool(outside.any()):
+            if errors == "raise":
+                from cudf_tpu_torch.ops.copying import gather
+
+                first = gather(col, torch.nonzero(outside)[:1, 0], bounds_check=False)
+                raise OutOfBoundsDatetime(
+                    f"Out of bounds nanosecond timestamp: {first.host_strings()[0]}")
+            ok &= inside
+    out = seconds * tps + torch.div(frac, 10 ** 9 // tps, rounding_mode="floor")
     valid = ok if (col.validity is not None or not bool(ok.all())) else None
     return Column(target, col.length, torch.where(ok, out, 0), valid)
+
+
+class OutOfBoundsDatetime(ValueError):
+    """A timestamp outside what its unit holds (pandas' error of that name)."""
 
 
 # ----------------------------------------------------------------------

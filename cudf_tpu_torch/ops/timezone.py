@@ -165,9 +165,17 @@ def wall_to_utc_ticks(ticks: torch.Tensor, tz: str, unit: str) -> torch.Tensor:
     return ticks - offs[torch.searchsorted(wall, ticks, right=True)]
 
 
-def tz_localize(col: Column, tz) -> Column:
+def tz_localize(col: Column, tz, ambiguous="raise", nonexistent="raise") -> Column:
     """Naive wall-clock timestamps -> tz-aware (UTC ticks); ``None`` drops
-    the zone of a tz-aware column, keeping its wall clock (pandas)."""
+    the zone of a tz-aware column, keeping its wall clock (pandas).
+
+    A wall time in a fold (it happens twice) or a gap (it never happens)
+    is decided as pandas decides it: ``ambiguous`` is "raise", "NaT" or a
+    bool per row (True: the first of the two, daylight time);
+    ``nonexistent`` is "raise", "NaT", "shift_forward" (to the first
+    instant after the gap) or "shift_backward" (to the last before it).
+    One host sync when a zone has transitions (whether any row is in a
+    fold or a gap)."""
     if not col.dtype.is_timestamp:
         raise TypeError("tz_localize needs timestamps")
     if col.dtype.tz is not None:
@@ -179,8 +187,57 @@ def tz_localize(col: Column, tz) -> Column:
     if tz is None:
         return col
     tz = str(tz)
-    return Column(dt.DType(col.dtype.id, tz=tz), col.length,
-                  wall_to_utc_ticks(col.data, tz, col.dtype.time_unit), col.validity)
+    out = dt.DType(col.dtype.id, tz=tz)
+    trans, offs = _tables(tz, col.dtype.time_unit, col.device)
+    if trans.numel() == 0:
+        return Column(out, col.length, col.data - offs[0], col.validity)
+    w = col.data
+    # interval k (offset offs[k]) covers the wall times
+    # [trans[k - 1] + offs[k], trans[k] + offs[k]); k is the last to start by w
+    k = torch.searchsorted(trans + offs[1:], w, right=True)
+    big = torch.iinfo(torch.int64).max
+    end = torch.cat([trans, torch.tensor([big], device=w.device)]) + \
+        torch.cat([offs[:-1], torch.zeros(1, dtype=offs.dtype, device=w.device)])
+    end_prev = torch.where(k > 0, end[(k - 1).clamp(min=0)], torch.iinfo(torch.int64).min)
+    utc = w - offs[k]
+    live = torch.ones_like(w, dtype=torch.bool) if col.validity is None else col.validity
+    gap = live & (w >= end[k])
+    fold = live & (w < end_prev)
+    validity = col.validity
+    bad_gap, bad_fold = torch.stack([gap.any(), fold.any()]).tolist()
+    if bad_fold:
+        if isinstance(ambiguous, str):
+            if ambiguous == "raise":
+                raise ValueError(f"Cannot infer dst time from {_wall_text(col, fold)}, try "
+                                 "using the 'ambiguous' argument")
+            if ambiguous != "NaT":
+                raise NotImplementedError(f"tz_localize(ambiguous={ambiguous!r}): "
+                                          "ROADMAP.md, beyond the reference")
+            validity = _null_where(validity, fold)
+        else:
+            first = torch.as_tensor(np.asarray(ambiguous, bool), device=w.device)
+            utc = torch.where(fold & first, w - offs[(k - 1).clamp(min=0)], utc)
+    if bad_gap:
+        if nonexistent == "raise":
+            raise ValueError(f"{_wall_text(col, gap)} is a nonexistent time in {tz}")
+        if nonexistent == "NaT":
+            validity = _null_where(validity, gap)
+        elif nonexistent in ("shift_forward", "shift_backward"):
+            after = trans[k.clamp(max=trans.numel() - 1)]
+            utc = torch.where(gap, after - int(nonexistent == "shift_backward"), utc)
+        else:
+            raise NotImplementedError(f"tz_localize(nonexistent={nonexistent!r}): "
+                                      "ROADMAP.md, beyond the reference")
+    return Column(out, col.length, utc, validity)
+
+
+def _null_where(validity, rows: torch.Tensor) -> torch.Tensor:
+    return ~rows if validity is None else validity & ~rows
+
+
+def _wall_text(col: Column, rows: torch.Tensor) -> str:
+    at = int(torch.nonzero(rows)[0, 0])
+    return str(np.int64(col.data[at].item()).astype(col.dtype.to_numpy()))
 
 
 def tz_convert(col: Column, tz) -> Column:

@@ -34,6 +34,16 @@ def cast(col: Column, target) -> Column:
         return encode(col)
     if col.dtype.is_dictionary:
         return cast(col.decode_dictionary(), target)
+    if target.is_decimal:
+        from cudf_tpu_torch.ops.decimal import cast_to_decimal
+
+        return cast_to_decimal(col, target)
+    if col.dtype.is_decimal:
+        from cudf_tpu_torch.ops.decimal import cast_from_decimal
+
+        return cast_from_decimal(col, target)
+    if col.dtype.is_nested or target.is_nested:
+        raise TypeError(f"cannot cast {col.dtype!r} to {target!r}")
     if col.dtype.is_string or target.is_string:
         from cudf_tpu_torch.ops import strings
 
@@ -142,6 +152,10 @@ def round(col: Column, decimals: int = 0, how: str = "half_even") -> Column:  # 
     places (an integer column only to negative ones, in its dtype; the
     reference adds half a step away from zero before flooring, which
     takes negative values a step too far and halves away from zero)."""
+    if col.dtype.is_decimal:
+        from cudf_tpu_torch.ops.decimal import round_decimal
+
+        return round_decimal(col, decimals)
     if col.dtype.is_integer and decimals >= 0:
         return col
     x = col.data

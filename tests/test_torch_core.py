@@ -120,8 +120,12 @@ def test_column_rejects_bad_buffers():
                torch.ones(2, dtype=torch.bool))
     with pytest.raises(ValueError):              # a STRING column needs its offsets
         Column(dt.STRING, 0, torch.zeros(0, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError):     # decimals: ROADMAP.md queue 1, item 6
-        Column(dt.decimal_dtype(2), 3, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError):              # decimal64 holds int64 unscaled values
+        Column(dt.decimal_dtype(2), 3, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):              # a LIST column holds offsets and one child
+        Column(dt.list_dtype(dt.INT64), 2, None, offsets=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(NotImplementedError):     # day units: ROADMAP.md queue 1, item 6c
+        Column(dt.DType(dt.TypeId.TIMESTAMP_DAYS), 3, torch.zeros(3, dtype=torch.int32))
 
 
 def test_torch_storage_mapping():

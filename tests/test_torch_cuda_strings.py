@@ -119,7 +119,8 @@ DT = {
     "astype_str": lambda s: s.astype(str),
     "roundtrip": lambda s: ct.to_datetime(s.dt.strftime("%Y-%m-%dT%H:%M:%S")),
     "tz": lambda s: s.dt.tz_localize("UTC").dt.tz_convert("America/New_York").dt.hour,
-    "tz_local": lambda s: s.dt.tz_localize("Europe/Paris").dt.tz_convert("UTC"),
+    "tz_local": lambda s: s.dt.tz_localize("Europe/Paris", ambiguous="NaT",
+                                           nonexistent="NaT").dt.tz_convert("UTC"),
     "tz_text": lambda s: s.dt.tz_localize("UTC").dt.tz_convert("Asia/Kolkata").astype(str),
     "months": lambda s: ct.Series._from(dto.add_calendrical_months(
         s._column, 13), s._index),

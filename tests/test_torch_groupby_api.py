@@ -446,12 +446,11 @@ def test_what_stays_unported_raises_naming_its_item():
     df = _port(_pdf(14))
     for name, where in (("map", "beyond the reference"), ("applymap", "beyond the reference"),
                         ("interpolate", "beyond the reference"),
-                        ("update", "beyond the reference"), ("explode", "item 6"),
+                        ("update", "beyond the reference"), ("to_arrow", "item 8"),
                         ("hash_values", "item 5"), ("query", "item 8")):
         with pytest.raises(NotImplementedError, match=where):
             getattr(df, name)()
-    for name, item in (("explode", 6), ("hash_values", 5), ("ewm", 8), ("struct", 6),
-                       ("to_csv", 7)):
+    for name, item in (("hash_values", 5), ("ewm", 8), ("to_json", 7), ("to_csv", 7)):
         with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
             getattr(df["v"], name)()
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -335,12 +335,22 @@ def test_frame_transform_takes_the_kernel_tier_without_a_grouper():
 @pytest.mark.parametrize("agg", ["collect", "list", "unique", "collect_set", "topk",
                                  "histogram", "tdigest"])
 def test_list_aggregations_raise_naming_item_6(agg):
+    """The LIST aggregations are ported (ROADMAP.md queue 1, item 6a): one
+    list a group, through ``agg`` and ``aggregate`` alike; "topk" needs its
+    k (``group_topk``) and "tdigest" still raises, naming item 6c."""
     df = ct.DataFrame({"k": torch.tensor([1, 1, 2]), "v": torch.tensor([1.0, 2.0, 3.0])})
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        df.groupby("k").agg({"v": agg})
     g = gb.make_grouper([df._table["k"]])
-    with pytest.raises(NotImplementedError, match="item 6 \\(ops/lists.py, structs.py\\)"):
-        gb.aggregate(df._table["v"], g, agg)
+    if agg in ("topk", "tdigest"):
+        match = "item 6c" if agg == "tdigest" else "group_topk"
+        with pytest.raises(NotImplementedError, match=match):
+            df.groupby("k").agg({"v": agg})
+        with pytest.raises(NotImplementedError, match=match):
+            gb.aggregate(df._table["v"], g, agg)
+        return
+    exp = [[1.0, 2.0], [3.0]] if agg != "histogram" else \
+        [[{"value": 1.0, "count": 1}, {"value": 2.0, "count": 1}], [{"value": 3.0, "count": 1}]]
+    assert gb.aggregate(df._table["v"], g, agg).to_pylist() == exp
+    assert df.groupby("k").agg({"v": agg})._table["v"].to_pylist() == exp
 
 
 def test_rolling_raises_naming_item_8():

@@ -8,7 +8,9 @@ columns) and the nine TPC-H queries in pandas' API over the port's frames
 pandas nor pyarrow; nor do the string and temporal modules (``ops/strings.py``,
 ``regex_engine.py``, ``string_spans.py``, ``unicode_case.py``,
 ``datetime.py``, ``timezone.py``, ``frame/accessors.py``,
-``models/strings_dt.py``)."""
+``models/strings_dt.py``), nor the LIST, STRUCT and decimal modules
+(``ops/lists.py``, ``structs.py``, ``decimal.py``, ``decimal128.py``, the
+list aggregations of ``ops/groupby.py``, ``models/nested.py``)."""
 
 import ast
 import os
@@ -145,6 +147,58 @@ def test_strings_and_temporals_run_without_pandas_pyarrow_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "STRINGS OK []" in proc.stdout, proc.stdout
+
+
+_NESTED_PROBE = """
+import sys
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+import decimal
+import torch
+import cudf_tpu_torch as ct
+from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.models import nested, strings_dt as sd, tpch
+from cudf_tpu_torch.ops import decimal128, lists, structs
+from cudf_tpu_torch.ops._utils import HOST_ROUTES
+from cudf_tpu_torch.ops.strings import STRING_ROUTES
+g = torch.Generator().manual_seed(1)
+n = 600
+def ints(lo, hi):
+    return torch.randint(lo, hi + 1, (n,), generator=g, dtype=torch.int32)
+df = ct.DataFrame({"id4": ints(1, 100), "id6": ints(1, 60), "v1": ints(1, 5),
+                   "v2": ints(1, 15), "v3": torch.rand(n, generator=g, dtype=torch.float64)})
+for name, k, w in (("id1", 100, 3), ("id3", 120, 10)):
+    keys = Column.from_strings([f"id{i:0{w}d}" for i in range(1, k + 1)], device="cpu")
+    df[name] = Column.from_dictionary(torch.randint(0, k, (n,), generator=g,
+                                                    dtype=torch.int32), keys)
+li = tpch.generate_device(0.0002, seed=1, device="cpu")["lineitem"]
+frames = sd.prepare({"g1": df, "lineitem": li})
+for name, request in nested.REQUESTS.items():
+    got = nested.ANSWERS[name](request(frames), frames)
+    exp = nested.PLAIN[name](frames)
+    assert all(torch.equal(got[k], exp[k]) for k in exp), name
+assert STRING_ROUTES["host"] == 0 and HOST_ROUTES == {}, (STRING_ROUTES, HOST_ROUTES)
+s = ct.Series([[1, 2], None, []], device="cpu")
+assert s.explode().tolist()[:2] == [1, 2] and s.list.len().tolist()[0] == 2
+assert structs.from_pydicts([{"a": 1}, None], device="cpu").to_pylist() == [{"a": 1}, None]
+d = ct.Series([decimal.Decimal("1.25"), None], device="cpu")
+assert (d * d).tolist()[0] == decimal.Decimal("1.5625")
+print("NESTED OK", sorted(m for m, mod in sys.modules.items()
+                          if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu")))
+"""
+
+
+def test_nested_and_decimal_run_without_pandas_pyarrow_or_jax():
+    """Every ``models/nested.py`` request (list aggregations, explode, the
+    list and struct accessors, split and findall into lists, the decimal
+    casts and arithmetic) with pandas, pyarrow and jax unimportable, none
+    taking a host route."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _NESTED_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "NESTED OK []" in proc.stdout, proc.stdout
 
 
 def test_package_sources_import_no_jax_or_reference():

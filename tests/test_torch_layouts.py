@@ -123,7 +123,7 @@ def test_arrow_round_trip_matches_reference(name):
 
 def test_what_stays_unported_raises_naming_item_6():
     with pytest.raises(NotImplementedError, match="item 6"):
-        Column.from_arrow(pa.array([[1], [2, 3]]), device=CPU)
+        Column.from_arrow(pa.array([(1, 2, 3)], pa.month_day_nano_interval()), device=CPU)
     with pytest.raises(NotImplementedError, match="item 6"):
         Column.from_pandas(pd.Series(pd.arrays.IntervalArray.from_breaks([0, 1, 2])),
                            device=CPU)

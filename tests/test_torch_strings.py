@@ -214,6 +214,13 @@ def test_concat_and_scatter():
 
 
 def test_split_record_is_the_counted_host_route():
+    """Whitespace splits (no separator) take the counted host route; a
+    separator the span engine takes stays on the device.  Both give a
+    LIST<STRING> column."""
     before = so.STRING_ROUTES["host"]
-    assert so.split_record(port(["a b", None, "c"]), " ") == [["a", "b"], None, ["c"]]
+    assert so.split_record(port(["a b", None, "c"]), None).to_pylist() == \
+        [["a", "b"], None, ["c"]]
+    assert so.STRING_ROUTES["host"] == before + 1
+    assert so.split_record(port(["a b", None, "c"]), " ").to_pylist() == \
+        [["a", "b"], None, ["c"]]
     assert so.STRING_ROUTES["host"] == before + 1
