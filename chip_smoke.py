@@ -292,6 +292,42 @@ LIST, STRUCT and decimal columns (``cudf_tpu_torch/models/nested.py``:
    syncs counted.
 5. timings of each request beside its plain version.
 
+Ops and windows (``cudf_tpu_torch/models/ops_windows.py``: ``REQUESTS``,
+``PLAIN``, ``NEEDS``, ``ROUTE``), three main paths of their own, each
+answer held against its plain version inside the path and let go:
+4. over G1 at 1e8 rows, after its nested phase: ``hash_values`` of (id4,
+   id6) (murmur3) and of id3's text (xxhash64), md5 of 1e5 rows (a host
+   route), ``hash_partition(id6, 64)``, ``round_robin_partition(8)``,
+   ``pack`` / ``unpack`` and ``contiguous_split`` into 8 (the blob against
+   a plain concatenation), ``groupby("id1").v3.agg("tdigest")``,
+   ``rolling(1000)`` sum, mean, std, min, max, count and a centred sum,
+   ``groupby("id4").v3.rolling(100).mean()``, ``ewm(alpha=0.1)``,
+   ``rolling(64).apply`` (vmapped), ``query``, ``eval``, and over ``id1 +
+   " " + id2 + " " + id3`` (2.4e9 bytes) ``count_tokens``, ``tokenize``,
+   ``normalize_spaces``, over its first 1e7 rows ``character_ngrams(3)``,
+   ``ngrams_tokenize(2)``, ``minhash`` and the Jaccard index against id3
+   reversed, and the host text functions over 1e4-1e5 rows; then both
+   hashes against pure-Python murmur3 and xxhash64 on 1e4 sampled rows,
+   the rolling statistics against numpy on the host on 1e4 sampled rows,
+   the 100 digests' estimates at 0.01, 0.5, 0.99 within 0.5 of exact
+   quantiles and 8 merged partitions against the whole column's; over J1
+   big a 2^30-bit bloom filter of the dim's ids probed by the fact's: no
+   false negatives, the false-positive rate beside (1 - e^(-kn/m))^k; over
+   TPC-H SF10's lineitem sorted by ship date, after its nested phase:
+   ``resample("D")`` sum and mean (kernel A), ``resample("h")`` over 1e6
+   rows (empty bins sum to 0), ``rolling("7D")`` sum and max,
+   ``merge_asof`` by supplier backward, forward and nearest within 7 days,
+   the ship date as day units (``dt.year``, back to ns), ``strftime`` of
+   the week directives and ``%c``, and the engine's ``Rolling``.  Each
+   request alone launches exactly its ``NEEDS`` (A's calls replayed:
+   ``ops_windows_calls`` in the kernels line) and takes its route (the
+   host requests move only ``HOST_ROUTES``, ``apply`` only
+   ``UDF_ROUTES["vmap"]``), its host syncs counted; a ``Tracer`` range
+   wraps each request and its summary is printed; the host route counts
+   are printed at the end.
+5. timings of each device request beside its plain version; a host
+   request once.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -323,6 +359,7 @@ import argparse
 import concurrent.futures
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2128,10 +2165,11 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     return launched
 
 
-def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested):
+def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops):
     """The nine TPC-H queries at SF10 (the main path) and SF1, and at SF10
-    the string and temporal requests over lineitem (into ``strings``) and
-    the decimal ones (into ``nested``)."""
+    the string and temporal requests over lineitem (into ``strings``), the
+    decimal ones (into ``nested``) and the resample, window, as-of and
+    day-unit ones (into ``ops``)."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -2173,6 +2211,9 @@ def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested):
             kept = nested_phase("lineitem", money, smi, wrappers, drive, plains, nested)
             nested[2].update(nested_lineitem_checks(money, kept, smi))
             del kept, money
+            torch.cuda.empty_cache()
+            ops_windows_phase("lineitem", {"lineitem": tables["lineitem"]}, smi, wrappers,
+                              drive, plains, ops)
             torch.cuda.empty_cache()
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
@@ -2712,6 +2753,278 @@ def nested_lineitem_checks(frames, kept, smi):
     return {"decimal128_mul_1e7": row, "q6_float_mask_rows_differing": differ}
 
 
+# ----------------------------------------------------------------------
+# ops and windows (models/ops_windows.py)
+# ----------------------------------------------------------------------
+
+def close_or_nan(name, got, exp, rtol):
+    """A request's answer against its plain version's: the same keys;
+    integers, bools and validity exact; floats NaN where the plain
+    version's are and within rtol (0: exact) elsewhere.  Returns the max
+    abs error."""
+    check(list(got) == list(exp), f"ops/windows {name}: {list(got)} vs {list(exp)}")
+    err = 0.0
+    for k in exp:
+        g, e = got[k], exp[k]
+        check(g.dtype == e.dtype and g.shape == e.shape,
+              f"ops/windows {name} {k}: {g.dtype}{list(g.shape)} vs {e.dtype}{list(e.shape)}")
+        if not g.is_floating_point():
+            check(torch.equal(g, e), f"ops/windows {name} {k}: differs")
+            continue
+        nan = torch.isnan(e)
+        check(torch.equal(torch.isnan(g), nan), f"ops/windows {name} {k}: NaN rows differ")
+        check(torch.allclose(g[~nan], e[~nan], rtol=rtol, atol=0.0),
+              f"ops/windows {name} {k}: differs")
+        err = max(err, max_abs_err(g[~nan], e[~nan]))
+    return err
+
+
+def once_ms(fn):
+    """One run's device time in ms (a host route is timed once)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def ops_windows_phase(group, frames, smi, wrappers, drive, plains, acc):
+    """The requests of one table (``models/ops_windows.py``
+    ``GROUPS[group]``): all of them as one main path, each answer held
+    against its plain version inside it and let go; then each alone, every
+    count at 0 before it, launching exactly its ``NEEDS`` (every kernel
+    call replayed against its plain version) and taking its ``ROUTE`` and
+    no other; its host syncs counted; a device request timed beside its
+    plain version, a host request once.  A ``Tracer`` range wraps each
+    request; its summary is printed.  Adds (launches, calls, times) by
+    request to ``acc``."""
+    from cudf_tpu_torch.frame.series import UDF_ROUTES
+    from cudf_tpu_torch.models import ops_windows as ow
+    from cudf_tpu_torch.ops._utils import HOST_ROUTES
+    from cudf_tpu_torch.ops.strings import STRING_ROUTES
+    from cudf_tpu_torch.utils.tracing import enable_tracing
+
+    names = ow.GROUPS[group]
+    ow.prepare(frames)
+    torch.cuda.synchronize()
+
+    def routes():
+        return {"string_host": STRING_ROUTES["host"], "host_routes": sum(HOST_ROUTES.values()),
+                "udf_vmap": UDF_ROUTES["vmap"], "udf_host": UDF_ROUTES["host"]}
+
+    def took(before, after):
+        return {k: after[k] - before[k] for k in before if after[k] != before[k]}
+
+    # the routes each kind moves (a host request's factories may count too)
+    expected = {"device": set(), "vmap": {"udf_vmap"}, "host": {"host_routes"}}
+    errs = {}
+    with enable_tracing() as tracer:
+        tracer.clear()
+
+        def main_path():
+            for n in names:
+                with tracer.range(f"{group}/{n}"):
+                    got = ow.ANSWERS[n](ow.REQUESTS[n](frames), frames)
+                errs[n] = close_or_nan(n, got, ow.PLAIN[n](frames), ow.RTOL[n])
+                del got
+                torch.cuda.empty_cache()
+        drive(f"ops_windows_{group}", main_path)
+        log(f"phase 4 ops/windows {group}: every request equals its plain version, max abs "
+            f"err {json.dumps(errs)}")
+        for n in names:
+            run = (lambda n=n: ow.REQUESTS[n](frames))
+            before = routes()
+            acc[0][n] = run_replayed(f"ops/windows {n}", n, run, wrappers, plains, acc[1],
+                                     needs=ow.NEEDS[n])
+            route = took(before, routes())
+            check(set(route) == expected[ow.ROUTE[n]] and all(v > 0 for v in route.values())
+                  and route.get("udf_vmap", 1) == 1,
+                  f"ops/windows {n}: routes {route}, expected {ow.ROUTE[n]}")
+            if ow.ROUTE[n] == "host":
+                row = {"ms_once": once_ms(run), "plain_ms_once": once_ms(
+                    lambda n=n: ow.PLAIN[n](frames)), "route": "host"}
+            else:
+                row = {"ms": device_ms(run, reps=3),
+                       "plain_ms": device_ms(lambda n=n: ow.PLAIN[n](frames), reps=3),
+                       "host_syncs": count_syncs(run), "route": ow.ROUTE[n]}
+            row.update(max_abs_err=errs[n], launches=acc[0][n])
+            acc[2][n] = row
+            log(f"phase 4/5 ops/windows {n}: {json.dumps(row)} [{smi}]")
+            torch.cuda.empty_cache()
+        log(f"phase 4 ops/windows {group} tracer (host s by range): "
+            + json.dumps(tracer.summary()))
+
+
+def py_murmur3(data: bytes, seed: int = 0) -> int:
+    """MurmurHash3_x86_32 as Appleby published it, over Python ints."""
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & 0xFFFFFFFF
+
+    c1, c2, h = 0xCC9E2D51, 0x1B873593, seed & 0xFFFFFFFF
+    full = len(data) // 4 * 4
+    for i in range(0, full, 4):
+        k = int.from_bytes(data[i:i + 4], "little")
+        k = rotl(k * c1 & 0xFFFFFFFF, 15) * c2 & 0xFFFFFFFF
+        h = (rotl(h ^ k, 13) * 5 + 0xE6546B64) & 0xFFFFFFFF
+    if len(data) > full:
+        k = int.from_bytes(data[full:], "little")
+        h ^= rotl(k * c1 & 0xFFFFFFFF, 15) * c2 & 0xFFFFFFFF
+    h ^= len(data)
+    h ^= h >> 16
+    h = h * 0x85EBCA6B & 0xFFFFFFFF
+    h ^= h >> 13
+    h = h * 0xC2B2AE35 & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def py_xxh64(data: bytes, seed: int = 0) -> int:
+    """xxHash64 as Collet published it, over Python ints."""
+    m = (1 << 64) - 1
+    p1, p2, p3 = 0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9
+    p4, p5 = 0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & m
+
+    def rnd(acc, lane):
+        return rotl((acc + lane * p2) & m, 31) * p1 & m
+
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(seed + p1 + p2) & m, (seed + p2) & m, seed & m, (seed - p1) & m]
+        while i + 32 <= n:
+            v = [rnd(v[j], int.from_bytes(data[i + 8 * j:i + 8 * j + 8], "little"))
+                 for j in range(4)]
+            i += 32
+        acc = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & m
+        for vj in v:
+            acc = ((acc ^ rnd(0, vj)) * p1 + p4) & m
+    else:
+        acc = (seed + p5) & m
+    acc = (acc + n) & m
+    while i + 8 <= n:
+        acc = (rotl(acc ^ rnd(0, int.from_bytes(data[i:i + 8], "little")), 27) * p1 + p4) & m
+        i += 8
+    if i + 4 <= n:
+        acc = (rotl(acc ^ (int.from_bytes(data[i:i + 4], "little") * p1 & m), 23) * p2
+               + p3) & m
+        i += 4
+    while i < n:
+        acc = rotl(acc ^ (data[i] * p5 & m), 11) * p1 & m
+        i += 1
+    acc ^= acc >> 33
+    acc = acc * p2 & m
+    acc ^= acc >> 29
+    acc = acc * p3 & m
+    return acc ^ (acc >> 32)
+
+
+def ops_windows_g1_checks(frames, smi):
+    """Beside the plain versions: both hashes on 1e4 sampled rows against
+    the pure-Python algorithms; the t-digest's estimates at 0.01, 0.5 and
+    0.99 within 0.5 of each id1's exact quantiles (a sort), and the digest
+    merged from 8 row partitions against the whole column's; each rolling
+    statistic on 1e4 sampled rows against float64 numpy over the window
+    recomputed on the host."""
+    import numpy as np
+
+    from cudf_tpu_torch.models import ops_windows as ow
+    from cudf_tpu_torch.ops import tdigest
+
+    g1 = frames["g1"]
+    dev = g1.device
+    pick = torch.randperm(N, generator=torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)[:10_000].sort().values
+    rows = pick.tolist()
+    mm = ow.REQUESTS["hash_murmur3_id4_id6"](frames)._column.data.view(torch.int32)[pick]
+    id4 = g1._table["id4"].data[pick].tolist()
+    id6 = g1._table["id6"].data[pick].tolist()
+    for got, a, b in zip(mm.tolist(), id4, id6):
+        ha, hb = py_murmur3(a.to_bytes(4, "little", signed=True)), \
+            py_murmur3(b.to_bytes(4, "little", signed=True))
+        exp = ha ^ ((hb + 0x9E3779B9 + (ha << 6 & 0xFFFFFFFF) + (ha >> 2)) & 0xFFFFFFFF)
+        check(got & 0xFFFFFFFF == exp, "murmur3 vs the pure-Python algorithm")
+    xx = ow.REQUESTS["hash_xxhash64_id3"](frames)._column.data.view(torch.int64)[pick].tolist()
+    text = ow._matrix(frames["id3s"]._column)[pick].cpu().numpy()
+    for got, row in zip(xx, text):
+        check(got & ((1 << 64) - 1) == py_xxh64(row.tobytes()), "xxhash64 vs the algorithm")
+    log("phase 4 ops/windows hashes: murmur3 of (id4, id6) and xxhash64 of id3 equal the "
+        "pure-Python algorithms on 1e4 sampled rows")
+
+    codes, v3 = g1._table["id1"].data.long(), g1._table["v3"].data
+    x = v3.cpu().numpy()
+    w = ow.WINDOW
+    sample = [i for i in rows if i >= w - 1]
+    stats = {"rolling_sum": np.sum, "rolling_mean": np.mean,
+             "rolling_std": lambda a: np.std(a, ddof=1), "rolling_min": np.min,
+             "rolling_max": np.max, "rolling_count": len}
+    for name, fn in stats.items():
+        got = ow.REQUESTS[name](frames)._column.data.cpu().numpy()
+        exp = np.array([fn(x[i - w + 1:i + 1]) for i in sample], np.float64)
+        check(np.allclose(got[sample], exp, rtol=1e-9, atol=0), f"{name} vs numpy on the host")
+    off = (w - 1) // 2
+    got = ow.REQUESTS["rolling_center_sum"](frames)._column.data.cpu().numpy()
+    exp = np.array([x[max(i + 1 + off - w, 0):i + 1 + off].sum() for i in rows])
+    check(np.allclose(got[rows], exp, rtol=1e-9, atol=0), "centred sum vs numpy on the host")
+    log(f"phase 4 ops/windows rolling({w}): sum, mean, std, min, max, count and the centred "
+        f"sum on 1e4 sampled rows within rtol 1e-9 of float64 numpy on the host")
+
+    col = ow.REQUESTS["tdigest_id1"](frames)._column
+    qs = [0.01, 0.5, 0.99]
+    order = torch.argsort(v3, stable=True)
+    order = order[torch.argsort(codes[order], stable=True)]
+    sizes = torch.bincount(codes)
+    starts = (torch.cumsum(sizes, 0) - sizes).tolist()
+    worst = 0.0
+    cent = col.children[0]
+    offs = cent.offsets.tolist()
+    means, weights = cent.children[0].children[0].data, cent.children[0].children[1].data
+    mins, maxs = col.children[1].data.tolist(), col.children[2].data.tolist()
+    for g in range(col.length):
+        digest = tdigest.TDigest(means[offs[g]:offs[g + 1]], weights[offs[g]:offs[g + 1]],
+                                 mins[g], maxs[g])
+        est = tdigest.percentile_approx(digest, qs).data
+        xs = v3[order[starts[g]:starts[g] + int(sizes[g])]]
+        exact = torch.quantile(xs, torch.tensor(qs, dtype=torch.float64, device=dev))
+        worst = max(worst, float((est - exact).abs().max()))
+    check(worst < 0.5, f"t-digest estimates {worst} from the exact quantiles")
+    whole = tdigest.build_tdigest(g1._table["v3"], ow.TDIGEST_DELTA)
+    parts = [tdigest.build_tdigest(type(g1._table["v3"])(
+        g1._table["v3"].dtype, N // 8, v3[i * N // 8:(i + 1) * N // 8]), ow.TDIGEST_DELTA)
+        for i in range(8)]
+    merged = tdigest.merge_tdigests(parts, ow.TDIGEST_DELTA)
+    a, b = (tdigest.percentile_approx(d, qs).data for d in (whole, merged))
+    check(float((a - b).abs().max()) < 0.5, "merged digest vs the whole column's")
+    log(f"phase 4 ops/windows t-digest: 100 id1 digests' estimates at {qs} within "
+        f"{worst:.4g} of the exact quantiles; 8 merged partitions' estimates "
+        f"{[round(x, 4) for x in b.tolist()]} vs the whole column's "
+        f"{[round(x, 4) for x in a.tolist()]} [{smi}]")
+
+
+def ops_windows_j1_checks(frames, smi):
+    """The bloom filter over J1 big: no false negatives (every fact row
+    whose id is a dim id, and every dim id, may be present); the false
+    positive rate beside (1 - e^(-k n / m))^k."""
+    from cudf_tpu_torch.models import ops_windows as ow
+
+    bloom, maybe = ow.REQUESTS["bloom_j1_big"](frames)
+    dim_ids = frames["dim"]._table["id"]
+    n_dim = dim_ids.length
+    check(bool(bloom.maybe_contains([dim_ids]).all()), "bloom: a dim id was missed")
+    ids = frames["fact"]._table["id"].data
+    inside = ids <= n_dim                     # the dim's ids are a permutation of 1..n
+    check(bool(maybe[inside].all()), "bloom: a false negative")
+    fp = float(maybe[~inside].double().mean())
+    expected = (1 - math.exp(-bloom.k * n_dim / bloom.m)) ** bloom.k
+    log(f"phase 4 ops/windows bloom: 2^30 bits, k = 4, {n_dim} dim ids: no false negatives "
+        f"over {int(inside.sum())} fact rows; false positive rate {fp:.6f} over "
+        f"{int((~inside).sum())} absent ids, expected {expected:.6f}; fill ratio "
+        f"{bloom.fill_ratio():.6f} [{smi}]")
+    return {"false_positive_rate": fp, "expected": expected}
+
+
 def frame_api_null_frames(ct, dev, gen):
     """G1_1e8_1e2_5_0's columns (id4, id6, v1, v3, each null in 5% of
     rows) with v2 (1..15, no nulls), and the Series of 1e6 distinct labels
@@ -2818,7 +3131,8 @@ def main():
              "frame_api_g1": ONEHOT_TIER + RADIX_TIER,
              "frame_api_j1": RADIX_TIER + ["window_probe"], "frame_api_nulls": [],
              "strings_g1": ONEHOT_TIER + RADIX_TIER, "strings_g1_dict": [],
-             "strings_lineitem": ONEHOT_TIER, "nested_g1": [], "nested_lineitem": []}
+             "strings_lineitem": ONEHOT_TIER, "nested_g1": [], "nested_lineitem": [],
+             "ops_windows_g1": [], "ops_windows_j1": [], "ops_windows_lineitem": ONEHOT_TIER}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -2916,6 +3230,9 @@ def main():
         strings_dt_phase(group, g1_text, smi, wrappers, drive, plains, strings)
     nested = ({}, {}, {})               # launches by request, replayed calls, times
     nested_g1_checks(df, nested_phase("g1", g1_text, smi, wrappers, drive, plains, nested))
+    ops = ({}, {}, {})                  # launches by request, replayed calls, times
+    ops_windows_phase("g1", g1_text, smi, wrappers, drive, plains, ops)
+    ops_windows_g1_checks(g1_text, smi)
     del df, g1_text
     torch.cuda.empty_cache()
 
@@ -2967,6 +3284,10 @@ def main():
     check(not any(launches[n]["j1_sort_merge"] for n in wrappers),
           "the J1 sort-merge joins launched a kernel of A-H")
     add_frame_api(frame_api, frame_api_phase("j1", frames, smi, wrappers, drive, plains))
+    j1_big = {"fact": frames["fact_big"][["id"]], "dim": frames["dim_big"][["id"]]}
+    ops_windows_phase("j1", j1_big, smi, wrappers, drive, plains, ops)
+    ops[2]["bloom_j1_big"].update(ops_windows_j1_checks(j1_big, smi))
+    del j1_big
     v1 = frames["fact_big"]._table["v1"].data
     del frames
     torch.cuda.empty_cache()
@@ -2974,7 +3295,7 @@ def main():
     del v1
     torch.cuda.empty_cache()
     (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
-     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested)
+     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops)
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
@@ -3002,6 +3323,14 @@ def main():
     log("phase 5 nested and decimal times: " + json.dumps(
         {"card": smi, "ms": nested[2], "string_routes": STRING_ROUTES,
          "host_routes": HOST_ROUTES}))
+    from cudf_tpu_torch.frame.series import UDF_ROUTES
+
+    log("phase 5 ops and windows times: " + json.dumps({"card": smi, "ms": ops[2]}))
+    log("phase 5 host routes: " + json.dumps({"host_routes": HOST_ROUTES,
+                                              "string_routes": STRING_ROUTES,
+                                              "udf_routes": UDF_ROUTES}))
+    for name, calls in ops[1].items():
+        kernels[name]["ops_windows_calls"] = calls
     for name, calls in strings[1].items():
         kernels[name]["strings_dt_calls"] = calls
 
@@ -3027,7 +3356,8 @@ def main():
                    launches_by_g1_api={q: c.get(name, 0) for q, c in by_api.items()},
                    launches_by_frame_api={q: c.get(name, 0) for q, c in frame_api[0].items()},
                    launches_by_strings_dt={q: c.get(name, 0) for q, c in strings[0].items()},
-                   launches_by_nested={q: c.get(name, 0) for q, c in nested[0].items()})
+                   launches_by_nested={q: c.get(name, 0) for q, c in nested[0].items()},
+                   launches_by_ops_windows={q: c.get(name, 0) for q, c in ops[0].items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

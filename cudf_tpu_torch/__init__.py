@@ -22,6 +22,7 @@ neither pandas nor pyarrow.
 
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
+from cudf_tpu_torch.frame.asof import merge_asof
 from cudf_tpu_torch.frame.dataframe import DataFrame
 from cudf_tpu_torch.frame.groupby import DataFrameGroupBy
 from cudf_tpu_torch.frame.index import Index, RangeIndex
@@ -35,6 +36,6 @@ from cudf_tpu_torch.utils.masked import Masked
 
 __all__ = ["Column", "Table", "DataFrame", "DataFrameGroupBy", "Index", "Masked",
            "RangeIndex", "Series", "concat", "crosstab", "cut", "date_range", "factorize",
-           "from_buffers", "from_pandas", "get_dummies", "isna", "isnull", "melt", "merge",
+           "from_buffers", "from_pandas", "get_dummies", "isna", "isnull", "melt", "merge", "merge_asof",
            "notna", "notnull", "pivot_table", "qcut", "to_datetime", "to_numeric",
            "to_pandas", "unique"]

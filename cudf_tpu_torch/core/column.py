@@ -30,8 +30,11 @@ valid).  A numeric or bool dtype may carry pandas' nullable provenance
 dtype (pandas' ``string``, pd.NA for null) and any dtype may carry Arrow
 provenance (``int64[pyarrow]``, ``string[pyarrow]`` ...: an
 ``ArrowExtensionArray`` back).  A tz-aware timestamp holds UTC ticks and
-its zone in ``DType.tz``, as Arrow does.  Day-unit columns are
-ROADMAP.md queue 1, item 6c.
+its zone in ``DType.tz``, as Arrow does.  A day-unit timestamp or
+duration (numpy's ``datetime64[D]`` / ``timedelta64[D]``, Arrow's
+``date32``) holds int32 days; the ``dt`` fields, casts and comparisons
+read it as the same instants in seconds (``ops/datetime.py``
+``days_as_seconds``), as pandas, which has no day unit, holds them.
 
 A column lives where its tensors live, its dictionary's keys included.
 Nothing here picks a device: constructors from host data take
@@ -55,6 +58,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.dtypes import DType
 
 _UNITS = ("s", "ms", "us", "ns")
+_DAY_IDS = (dt.TypeId.TIMESTAMP_DAYS, dt.TypeId.DURATION_DAYS)
 _BEYOND = "ROADMAP.md, beyond the reference"
 
 
@@ -65,9 +69,10 @@ def _check_supported(dtype: DType) -> None:
     if dtype.is_temporal and dtype.time_unit in _UNITS and (dtype.tz is None
                                                             or dtype.is_timestamp):
         return
+    if dtype.id in _DAY_IDS and dtype.tz is None:
+        return
     raise NotImplementedError(
-        f"column dtype {dtype!r}: day-unit and interval columns are ROADMAP.md queue 1, "
-        "item 6c")
+        f"column dtype {dtype!r}: interval, period and sparse columns are {_BEYOND}")
 
 
 def is_null_scalar(v) -> bool:
@@ -317,6 +322,11 @@ class Column:
                                     device=device)
         if arr.dtype.kind in ("M", "m"):
             unit = np.datetime_data(arr.dtype)[0]
+            if unit == "D":
+                mask = ~np.isnat(arr)
+                days = np.where(mask, arr.view(np.int64), 0).astype(np.int32)
+                return cls(dt.dtype(arr.dtype), arr.shape[0], torch.from_numpy(days).to(device),
+                           bm.from_numpy_mask(mask, device))
             if unit not in _UNITS:
                 arr = arr.astype(("datetime64" if arr.dtype.kind == "M" else "timedelta64")
                                  + "[s]")
@@ -470,7 +480,7 @@ class Column:
         if not isinstance(pdt, np.dtype):
             raise NotImplementedError(
                 f"pandas extension dtype {pdt}: interval, period and sparse columns are "
-                "ROADMAP.md queue 1, item 6c")
+                f"{_BEYOND}")
         return cls.from_numpy(series.to_numpy(), device=device)
 
     @classmethod
@@ -504,10 +514,15 @@ class Column:
             return cls(dt.STRING, n, torch.from_numpy(chars.copy()).to(device),
                        bm.from_numpy_mask(valid, device),
                        torch.from_numpy((off - off[0]).copy()).to(device))
+        if pa.types.is_date32(t):
+            days = np.asarray(arr.cast(pa.int32()).fill_null(0).to_numpy(zero_copy_only=False))
+            return cls(dt.DType(dt.TypeId.TIMESTAMP_DAYS), len(arr),
+                       torch.from_numpy(days.astype(np.int32)).to(device),
+                       bm.from_numpy_mask(valid, device))
+        if pa.types.is_date64(t):
+            arr = arr.cast(pa.timestamp("ms"))
+            t = arr.type
         if pa.types.is_timestamp(t) or pa.types.is_duration(t):
-            if t.unit not in _UNITS:
-                raise NotImplementedError(f"arrow {t}: day-unit columns are ROADMAP.md "
-                                          "queue 1, item 6c")
             ticks = np.asarray(arr.cast(pa.int64()).fill_null(0).to_numpy(zero_copy_only=False))
             base = dt.unit_dtype("M" if pa.types.is_timestamp(t) else "m", t.unit)
             tz = getattr(t, "tz", None)
@@ -515,7 +530,7 @@ class Column:
                        torch.from_numpy(ticks.astype(np.int64)).to(device),
                        bm.from_numpy_mask(valid, device))
         if not (pa.types.is_integer(t) or pa.types.is_floating(t) or pa.types.is_boolean(t)):
-            raise NotImplementedError(f"arrow {t}: ROADMAP.md queue 1, item 6c")
+            raise NotImplementedError(f"arrow {t}: {_BEYOND}")
         filled = arr if valid is None else arr.fill_null(False if pa.types.is_boolean(t) else 0)
         values = np.ascontiguousarray(filled.to_numpy(zero_copy_only=False))
         return cls(dt.dtype(values.dtype), len(arr), torch.from_numpy(values.copy()).to(device),
@@ -617,7 +632,7 @@ class Column:
             return out
         data = self.data.cpu().numpy()
         if self.dtype.is_temporal:
-            data = data.view(self.dtype.to_numpy())
+            data = data.astype(np.int64).view(self.dtype.to_numpy())
         if self.validity is None:
             return data
         valid = self.validity.cpu().numpy()
@@ -659,8 +674,8 @@ class Column:
         if self.dtype.is_float and not self.dtype.nullable:
             return self.to_numpy().tolist()          # pandas' NaN for a missing float
         data = self.data.cpu().numpy()
-        vals = list(data.view(self.dtype.to_numpy())) if self.dtype.is_temporal else \
-            data.tolist()
+        vals = list(data.astype(np.int64).view(self.dtype.to_numpy())) \
+            if self.dtype.is_temporal else data.tolist()
         if self.validity is None:
             return vals
         return [v if ok else None for v, ok in zip(vals, self.validity.cpu().tolist())]
@@ -700,6 +715,10 @@ class Column:
             return pa.DictionaryArray.from_arrays(
                 pa.array(self.data.cpu().numpy(), mask=mask), self.keys.to_arrow())
         data = self.data.cpu().numpy()
+        if self.dtype.id == dt.TypeId.TIMESTAMP_DAYS:
+            return pa.array(data, mask=mask).cast(pa.date32())
+        if self.dtype.id == dt.TypeId.DURATION_DAYS:      # Arrow has no day duration
+            return pa.array(data.astype(np.int64) * 86_400, mask=mask).cast(pa.duration("s"))
         if self.dtype.is_temporal:
             unit = self.dtype.time_unit
             typ = pa.duration(unit) if self.dtype.is_duration else pa.timestamp(unit,

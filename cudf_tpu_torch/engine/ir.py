@@ -6,10 +6,11 @@ Every node has ``do_evaluate`` over its children's tables and a cached
 the in-memory one: every table lives on the device of its source
 frames, and every node runs there through the ``ops`` layer.
 
-Not ported, and raising NotImplementedError when built: ``Scan`` and
-``Sink`` (file IO, ROADMAP.md queue 1, item 7), ``Rolling`` (frame
-windows, item 8), ``MapFunction`` and ``PythonScan`` (the engine's escape
-hatches, which come with the streaming executor, item 10).
+``Rolling`` is a trailing window of rows over a sorted table
+(``frame/window.py``).  Not ported, and raising NotImplementedError when
+built: ``Scan`` and ``Sink`` (file IO, ROADMAP.md queue 1, item 7),
+``MapFunction`` and ``PythonScan`` (the engine's escape hatches, which
+come with the streaming executor, item 10).
 """
 
 from __future__ import annotations
@@ -81,8 +82,33 @@ class Sink(IR):
 
 
 class Rolling(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("Rolling", 8, "frame/window.py")
+    """Windowed aggregations over a sorted table (the reference's
+    ``ir.py`` Rolling): ``aggs`` are (output name, column name, agg)
+    triples, each a trailing window of ``period`` rows; the result holds
+    the index column and the outputs."""
+
+    def __init__(self, child: IR, index_col: str, period: int, aggs: Sequence):
+        self.children = (child,)
+        self.index_col = index_col
+        self.period = period
+        self.aggs = list(aggs)
+
+    def schema(self):
+        return [self.index_col] + [a[0] for a in self.aggs]
+
+    def do_evaluate(self, t: Table) -> Table:
+        from cudf_tpu_torch.frame.index import default_index
+        from cudf_tpu_torch.frame.series import Series
+        from cudf_tpu_torch.frame.window import Rolling as FrameRolling
+
+        cols = {self.index_col: t[self.index_col]}
+        for out_name, col_name, agg in self.aggs:
+            s = Series._from(t[col_name], default_index(t.num_rows), col_name)
+            cols[out_name] = getattr(FrameRolling(s, self.period), agg)()._column
+        return Table(cols)
+
+    def _explain_args(self):
+        return f"(period={self.period}, aggs={self.aggs})"
 
 
 class MapFunction(IR):

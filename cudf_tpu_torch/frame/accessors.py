@@ -328,6 +328,8 @@ class DatetimeProperties:
     def __init__(self, s):
         if not (s.dtype.is_timestamp or s.dtype.is_duration):
             raise AttributeError("Can only use .dt accessor with datetimelike values")
+        if dt_ops.is_day_unit(s.dtype):                 # read as seconds, as pandas
+            s = type(s)._from(dt_ops.days_as_seconds(s._column), s._index, s.name)
         self._s = s
 
     def _wrap(self, col: Column):

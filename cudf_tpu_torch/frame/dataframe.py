@@ -53,10 +53,8 @@ from cudf_tpu_torch.ops.replace import nans_to_nulls
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
 _NOT_PORTED = {
-    "rolling": 8, "resample": 8, "ewm": 8, "query": 8, "eval": 8,
     "map": BEYOND, "applymap": BEYOND, "interpolate": BEYOND, "update": BEYOND,
-    "hash_values": 5, "to_arrow": 8, "to_csv": 7, "to_json": 7,
-    "to_parquet": 7, "to_orc": 7, "to_feather": 7,
+    "to_arrow": 7, "to_csv": 7, "to_json": 7, "to_parquet": 7, "to_orc": 7, "to_feather": 7,
 }
 # the row reductions of agg(axis=1), by name
 _ROW_REDUCTIONS = ("sum", "prod", "mean", "min", "max", "std", "var", "median", "count",
@@ -562,6 +560,39 @@ class DataFrame:
 
     def shift(self, periods: int = 1, fill_value=None) -> "DataFrame":
         return self._per_column(lambda s: s.shift(periods, fill_value=fill_value))
+
+    def rolling(self, window, min_periods=None, center: bool = False):
+        from cudf_tpu_torch.frame.window import Rolling
+
+        return Rolling(self, window, min_periods, center)
+
+    def ewm(self, com=None, span=None, halflife=None, alpha=None, adjust: bool = True,
+            ignore_na: bool = False):
+        from cudf_tpu_torch.frame.window import EWM, ewm_alpha
+
+        return EWM(self, ewm_alpha(com, span, halflife, alpha), adjust, ignore_na)
+
+    def resample(self, rule, on=None):
+        from cudf_tpu_torch.frame.resample import Resampler
+
+        return Resampler(self, rule, on=on)
+
+    def query(self, expr: str) -> "DataFrame":
+        """The rows where the boolean expression holds (``frame/eval_expr.py``)."""
+        return self._filter(self.eval(expr))
+
+    def eval(self, expr: str):
+        """A column expression over the frame's columns (``frame/eval_expr.py``)."""
+        from cudf_tpu_torch.frame.eval_expr import evaluate
+
+        return evaluate(self, expr)
+
+    def hash_values(self, method: str = "murmur3", seed: int = 0) -> Series:
+        """Each row's hash over every column (cudf's ``DataFrame.hash_values``)."""
+        from cudf_tpu_torch.ops import hashing
+
+        return Series._from(hashing.hash_values(list(self._table.columns), method, seed),
+                            self._index, None)
 
     def diff(self, periods: int = 1) -> "DataFrame":
         return self._per_column(lambda s: s.diff(periods))

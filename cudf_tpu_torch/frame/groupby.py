@@ -282,9 +282,12 @@ class _GroupBy:
             raise KeyError(key)
         return self._take(rows)
 
-    def rolling(self, *args, **kwargs):
-        raise NotImplementedError("groupby rolling windows: ROADMAP.md queue 1, item 8 "
-                                  "(frame/window.py)")
+    def rolling(self, window, min_periods=None):
+        """Trailing windows of ``window`` rows within each group
+        (``frame/window.py`` ``RollingGroupby``)."""
+        from cudf_tpu_torch.frame.window import RollingGroupby
+
+        return RollingGroupby(self, window, min_periods)
 
     # ------------------------------------------------------------------
     # aggregation

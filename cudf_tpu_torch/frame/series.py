@@ -30,9 +30,10 @@ cannot trace, loops on the host, as the reference's does; ``UDF_ROUTES``
 counts each route.  ``interpolate`` (linear), ``combine_first`` and
 ``update`` are pandas'.  The ``str``, ``dt`` and ``cat`` accessors are
 ``frame/accessors.py``'s, and so are ``list`` and ``struct`` of LIST and
-STRUCT Series; ``explode`` unnests a LIST Series.  Windows (``rolling``,
-``resample``, ``ewm``) and the other methods in ``_NOT_PORTED`` raise
-NotImplementedError naming their ROADMAP.md item.
+STRUCT Series; ``explode`` unnests a LIST Series.  ``rolling``, ``ewm``
+and ``resample`` are ``frame/window.py``'s and ``frame/resample.py``'s,
+``hash_values`` ``ops/hashing.py``'s.  The methods in ``_NOT_PORTED``
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -74,10 +75,7 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
-_NOT_PORTED = {
-    "rolling": 8, "resample": 8, "ewm": 8, "hash_values": 5,
-    "to_csv": 7, "to_json": 7, "to_parquet": 7,
-}
+_NOT_PORTED = {"to_csv": 7, "to_json": 7, "to_parquet": 7}
 _DESCRIBE = ("count", "mean", "std", "min", "25%", "50%", "75%", "max")
 # what the reference package lacks too: ROADMAP.md's line for it
 BEYOND = "ROADMAP.md, beyond the reference"
@@ -884,10 +882,45 @@ class Series:
         return self._new(scan_ops.cummax(self._column))
 
     def shift(self, periods: int = 1, freq=None, fill_value=None) -> "Series":
+        """Values ``periods`` rows on; with ``freq``, the values stay and a
+        datetime index moves ``periods`` times the (fixed) frequency."""
         if freq is not None:
-            raise NotImplementedError("shift(freq=...) moves a temporal index: ROADMAP.md "
-                                      "queue 1, item 8")
+            from cudf_tpu_torch.ops import datetime as dto
+
+            idx = dto.days_as_seconds(self._index.column(self.device))
+            if not idx.dtype.is_timestamp:
+                raise TypeError("shift(freq=...) needs a datetime index")
+            step = dto.freq_ticks(freq, idx.dtype.time_unit) * periods
+            moved = Column(idx.dtype, idx.length, idx.data + step, idx.validity)
+            return Series._from(self._column, Index(moved, name=self._index.name), self.name)
         return self._new(copying.shift(self._column, periods, fill_value))
+
+    # ------------------------------------------------------------------
+    # windows and hashes
+    # ------------------------------------------------------------------
+    def rolling(self, window, min_periods=None, center: bool = False):
+        from cudf_tpu_torch.frame.window import Rolling
+
+        return Rolling(self, window, min_periods, center)
+
+    def ewm(self, com=None, span=None, halflife=None, alpha=None, adjust: bool = True,
+            ignore_na: bool = False):
+        from cudf_tpu_torch.frame.window import EWM, ewm_alpha
+
+        return EWM(self, ewm_alpha(com, span, halflife, alpha), adjust, ignore_na)
+
+    def resample(self, rule):
+        from cudf_tpu_torch.frame.resample import Resampler
+
+        return Resampler(self, rule)
+
+    def hash_values(self, method: str = "murmur3", seed: int = 0) -> "Series":
+        """Each value's hash (cudf's ``Series.hash_values``): murmur3 and
+        xxhash64 on the device, md5 and sha* on the host."""
+        from cudf_tpu_torch.ops import hashing
+
+        return Series._from(hashing.hash_values([self._column], method, seed), self._index,
+                            self.name)
 
     def diff(self, periods: int = 1) -> "Series":
         return self - self.shift(periods)

@@ -28,6 +28,7 @@ import torch
 from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, is_null_scalar, to_ticks
+from cudf_tpu_torch.ops import datetime as dto
 
 _COMPARISONS = {"eq", "ne", "lt", "gt", "le", "ge"}
 _LOGICAL = {"and", "or"}
@@ -229,6 +230,10 @@ def binary_operation(lhs, rhs, op: str) -> Column:
         if out.is_dictionary:
             out = dt.STRING
         return Column.full(n, None, out, device=dev)
+
+    if any(isinstance(x, Column) and dto.is_day_unit(x.dtype) for x in (lhs, rhs)):
+        # day-unit operands as seconds, as pandas holds them
+        lhs, rhs = (dto.days_as_seconds(x) if isinstance(x, Column) else x for x in (lhs, rhs))
 
     if any(isinstance(x, Column) and x.dtype.is_decimal for x in (lhs, rhs)):
         from cudf_tpu_torch.ops.decimal import decimal_binary_operation

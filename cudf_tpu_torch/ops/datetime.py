@@ -32,6 +32,32 @@ def _fdiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
+_DAY_IDS = (dt.TypeId.TIMESTAMP_DAYS, dt.TypeId.DURATION_DAYS)
+
+
+def is_day_unit(dtype: dt.DType) -> bool:
+    return dtype.id in _DAY_IDS
+
+
+def days_as_seconds(col: Column) -> Column:
+    """A day-unit column (int32 days) as the same instants (durations) in
+    seconds, int64, as pandas holds ``datetime64[D]`` data; any other
+    column as it is."""
+    if not is_day_unit(col.dtype):
+        return col
+    kind = "M" if col.dtype.is_timestamp else "m"
+    return Column(dt.unit_dtype(kind, "s"), col.length, col.data.long() * _SECONDS_PER_DAY,
+                  col.validity)
+
+
+def to_days(col: Column, target: dt.DType) -> Column:
+    """A timestamp (duration) column floored to whole days, int32: the cast
+    into ``target``, a day-unit dtype."""
+    ticks = days_as_seconds(col)
+    per_day = _TICKS[ticks.dtype.time_unit] * _SECONDS_PER_DAY
+    return Column(target, col.length, _fdiv(ticks.data, per_day).to(torch.int32), col.validity)
+
+
 def days_and_time(ticks: torch.Tensor, unit: str):
     """(days since the epoch, second of the day, sub-second ticks, ticks
     a second), floored, in int64."""
@@ -195,8 +221,10 @@ def strftime_parts(col: Column) -> dict:
     """Every field a strftime format reads, int64 [n], of a timestamp
     column's wall clock (a tz-aware column's in its zone): the calendar
     and clock fields, ``year2``, ``hour12``, ``doy``, ``weekday``, ``ampm``,
-    the sub-second ``milli`` / ``micro`` / ``nano`` and ``offset_sec`` (the
-    UTC offset in seconds: local mean time offsets have seconds)."""
+    the sub-second ``milli`` / ``micro`` / ``nano``, ``offset_sec`` (the
+    UTC offset in seconds: local mean time offsets have seconds), the
+    weekday from Sunday (``wday_sun``, %w) and ISO's (``wday_iso``, %u),
+    the weeks of %U and %W and the ISO year and week (%G, %V)."""
     ticks = col.data
     if col.dtype.tz is not None:
         from cudf_tpu_torch.ops import timezone
@@ -206,9 +234,18 @@ def strftime_parts(col: Column) -> dict:
     y, m, d = civil_from_days(days)
     hour = secs // 3600
     ns = sub * (10 ** 9 // tps)
+    weekday = (days + 3) % 7                                       # Monday = 0
+    doy = days - days_from_civil(y, torch.ones_like(m), torch.ones_like(d)) + 1
+    # ISO 8601: the week (Monday first) belongs to the year of its Thursday
+    thursday = days - weekday + 3
+    iso_year, _, _ = civil_from_days(thursday)
+    iso_jan1 = days_from_civil(iso_year, torch.ones_like(m), torch.ones_like(d))
     return {"year": y, "month": m, "day": d, "hour": hour, "minute": secs % 3600 // 60,
             "second": secs % 60, "year2": y % 100, "hour12": (hour + 11) % 12 + 1,
-            "doy": days - days_from_civil(y, torch.ones_like(m), torch.ones_like(d)) + 1,
-            "micro": ns // 1000, "milli": ns // 10 ** 6, "nano": ns,
-            "weekday": (days + 3) % 7, "ampm": (hour >= 12).long(),
+            "doy": doy, "micro": ns // 1000, "milli": ns // 10 ** 6, "nano": ns,
+            "weekday": weekday, "ampm": (hour >= 12).long(),
+            "wday_sun": (weekday + 1) % 7, "wday_iso": weekday + 1,
+            "week_sun": (doy - 1 + 7 - (weekday + 1) % 7) // 7,
+            "week_mon": (doy - 1 + 7 - weekday) // 7,
+            "iso_year": iso_year, "iso_week": (thursday - iso_jan1) // 7 + 1,
             "offset_sec": (ticks - col.data) // tps}

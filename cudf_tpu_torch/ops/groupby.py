@@ -46,8 +46,9 @@ pass a bit (64 for int64).  The aggregations that return LIST columns
 (``group_collect_list``, ``group_unique``, ``group_collect_set``,
 ``group_topk``, ``group_histogram``) sort the kept rows by (group, value)
 with the same LSD chain, mark where each distinct (group, value) run
-starts, and gather; tdigest waits for ``ops/tdigest.py`` (ROADMAP.md
-queue 1, item 6c).
+starts, and gather; ``group_tdigest`` sorts the same way and sums each
+group's centroids by ``index_add_`` (a STRUCT of a LIST of centroids and
+the min and max).
 
 Both tiers give pandas' dtypes and nulls.  Integer and bool sums are
 exact (int64 accumulation); an integer column's sum and prod come back
@@ -89,9 +90,6 @@ Request = Tuple[object, Column, str]
 
 
 def _not_ported(agg: str) -> NotImplementedError:
-    if agg == "tdigest":
-        return NotImplementedError(
-            "groupby agg 'tdigest' needs ops/tdigest.py: ROADMAP.md queue 1, item 6c")
     if agg == "topk":
         return NotImplementedError(
             "groupby agg 'topk' takes k: call ops.groupby.group_topk(col, grouper, k)")
@@ -811,6 +809,54 @@ def group_topk(col: Column, grouper: Grouper, k: int, largest: bool = True) -> C
     return make_list_column(offsets_of(keep_n), copying.gather(col, rows, bounds_check=False))
 
 
+def group_tdigest(col: Column, grouper: Grouper, delta: int = 100) -> Column:
+    """Each group's t-digest (the TDIGEST aggregation,
+    tdigest_aggregation.cu; the k1 scale of ``ops/tdigest.py``):
+    STRUCT<centroids: LIST<STRUCT<mean, weight>>, min, max>.  The kept rows
+    sort by (group, null last, value) with the LSD chain; each value's
+    centroid is its group's ``floor(k1(q) * delta)``, and the centroid sums
+    are ``index_add_`` into G * delta slots (the empty ones dropped)."""
+    from cudf_tpu_torch.ops.lists import make_list_column, offsets_of
+    from cudf_tpu_torch.ops.structs import make_struct_column
+    from cudf_tpu_torch.ops.tdigest import k_scale
+
+    kept = _apply_row_mask(col, grouper)
+    data, v = _segment_data(kept)
+    x = data.double()
+    key = _float_to_ordered_int(x)
+    if v is not None:
+        key = torch.where(v, key, torch.iinfo(torch.int64).max)
+    order = _sort_within_groups(grouper, [key])
+    gid = grouper.group_ids[order]
+    xs = x[order]
+    w = torch.ones_like(xs) if v is None else v[order].double()
+    G = grouper.num_groups
+    dev = xs.device
+    totals = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(0, gid, w)
+    # each value's cumulative weight within its group, less half its own
+    before = torch.cumsum(totals, 0) - totals
+    cum_mid = torch.cumsum(w, 0) - before[gid] - w * 0.5
+    q = cum_mid / torch.clamp(totals[gid], min=1e-300)
+    local = torch.clamp(torch.floor(k_scale(q) * delta).long(), 0, delta - 1)
+    slot = torch.where(w > 0, gid * delta + local, G * delta)
+    wsum = torch.zeros(G * delta + 1, dtype=torch.float64, device=dev).index_add_(
+        0, slot, w)[:-1]
+    xsum = torch.zeros(G * delta + 1, dtype=torch.float64, device=dev).index_add_(
+        0, slot, torch.where(w > 0, xs, 0.0))[:-1]
+    rows = filter_indices(wsum > 0)
+    weights = wsum[rows]
+    means = xsum[rows] / weights
+    per_group = torch.bincount(rows // delta, minlength=G)
+    m = rows.shape[0]
+    centroids = make_list_column(offsets_of(per_group), make_struct_column(
+        [("mean", Column(dt.FLOAT64, m, means)), ("weight", Column(dt.FLOAT64, m, weights))]))
+    mn, mx = group_min(col, grouper), group_max(col, grouper)
+    return make_struct_column([
+        ("centroids", centroids),
+        ("min", Column(dt.FLOAT64, G, mn.data.double(), mn.validity)),
+        ("max", Column(dt.FLOAT64, G, mx.data.double(), mx.validity))])
+
+
 def group_quantile(col: Column, grouper: Grouper, q: float = 0.5,
                    interpolation: str = "linear") -> Column:
     """Per-group quantile of the valid values (float64), pandas'
@@ -1110,6 +1156,7 @@ _AGG_DISPATCH = {
     "unique": group_unique,
     "collect_set": group_collect_set,
     "histogram": group_histogram,
+    "tdigest": group_tdigest,
 }
 LIST_AGGS = frozenset({"collect", "list", "unique", "collect_set", "histogram"})
 

@@ -943,17 +943,26 @@ _DAYS = ("Monday", "Tuesday", "Wednesday", "Thursday", "Friday", "Saturday", "Su
 # a directive's field: (name, digits) of a number; the names are text
 _NUMERIC = {"Y": ("year", 4), "m": ("month", 2), "d": ("day", 2), "H": ("hour", 2),
             "M": ("minute", 2), "S": ("second", 2), "y": ("year2", 2), "j": ("doy", 3),
-            "I": ("hour12", 2), "f": ("micro", 6)}
+            "I": ("hour12", 2), "f": ("micro", 6), "w": ("wday_sun", 1), "u": ("wday_iso", 1),
+            "U": ("week_sun", 2), "W": ("week_mon", 2), "G": ("iso_year", 4),
+            "V": ("iso_week", 2)}
 _TEXT = {"b": [m[:3] for m in _MONTHS], "B": list(_MONTHS), "a": [d[:3] for d in _DAYS],
          "A": list(_DAYS), "p": ["AM", "PM"]}
+# the C locale's %c, %x and %X, as Python's strftime gives them (%c's day
+# is padded with a space)
+_LOCALE = {"c": "%a %b %_d %H:%M:%S %Y", "x": "%m/%d/%y", "X": "%H:%M:%S"}
 
 
-def _directives(fmt: str):
-    """The format's pieces: ("lit", text), ("num", field, digits) or
-    ("text", directive); ``%3f`` / ``%9f`` (fractions of 3 and 9 digits),
-    ``%.f`` (a row's own fraction, as a Timestamp prints it: none, 6 or 9
-    digits after a dot) and ``%:z`` (the UTC offset as +HH:MM, +HH:MM:SS where it has seconds) are this
-    module's own."""
+def _directives(fmt: str, tz: Optional[str] = None):
+    """The format's pieces: ("lit", text), ("num", field, digits),
+    ("num_sp", field, digits) (padded with spaces), ("text", directive),
+    ("offset", colon) or ("zone",), or None when a directive is outside
+    Python's documented set (the host route).  ``%3f`` / ``%9f``
+    (fractions of 3 and 9 digits), ``%.f`` (a row's own fraction, as a
+    Timestamp prints it: none, 6 or 9 digits after a dot) and ``%:z`` (the
+    UTC offset as +HH:MM, +HH:MM:SS where it has seconds) are this
+    module's own; ``%z`` is +HHMM (+HHMMSS), and ``%z`` and ``%Z`` of a
+    naive column are empty, as Python gives them."""
     out, i = [], 0
     while i < len(fmt):
         c = fmt[i]
@@ -962,7 +971,7 @@ def _directives(fmt: str):
             i += 1
             continue
         d = fmt[i + 1:i + 2]
-        if d in ("3", "9", ":", "."):
+        if d in ("3", "9", ":", ".", "_"):
             d, i = fmt[i + 1:i + 3], i + 3
         else:
             i += 2
@@ -970,17 +979,35 @@ def _directives(fmt: str):
             out.append(("lit", "%"))
         elif d in _NUMERIC:
             out.append(("num",) + _NUMERIC[d])
+        elif d == "_d":
+            out.append(("num_sp", "day", 2))
+        elif d in _LOCALE:
+            out.extend(_directives(_LOCALE[d], tz))
         elif d in ("3f", "9f"):
             out.append(("num", "milli" if d == "3f" else "nano", int(d[0])))
         elif d in _TEXT:
             out.append(("text", d))
-        elif d == ":z":
-            out.append(("offset",))
+        elif d in (":z", "z"):
+            if tz is not None:
+                out.append(("offset", d == ":z"))
+        elif d == "Z":
+            if tz is not None:
+                out.append(("zone",))
         elif d == ".f":
             out.append(("fraction",))
         else:
-            raise NotImplementedError(f"strftime directive %{d}: ROADMAP.md queue 1, item 6c")
+            return None
     return out
+
+
+# the name directives whose names are all of one width (%c's among them)
+_FIXED_NAMES = ("a", "b", "p")
+
+
+def _text_index(d: str, f: dict) -> torch.Tensor:
+    """Each row's name in ``_TEXT[d]``."""
+    return {"b": f["month"] - 1, "B": f["month"] - 1, "a": f["weekday"], "A": f["weekday"],
+            "p": f["ampm"]}[d]
 
 
 def _text_table(names, dev):
@@ -994,12 +1021,17 @@ def _text_table(names, dev):
 @counted
 def strftime(col: Column, fmt: str) -> Column:
     """``dt.strftime`` on the device: each directive a per-row field
-    written as its digits (or a month or day name), null where the
-    timestamp is."""
-    pieces = _directives(fmt)
+    written as its digits (or a month, day or zone name), null where the
+    timestamp is.  A directive outside Python's documented set takes the
+    host route (Python's ``strftime`` of each value, as the reference
+    formats every directive)."""
+    pieces = _directives(fmt, col.dtype.tz)
+    if pieces is None:
+        return _strftime_host(col, fmt)
     f = dto.strftime_parts(col)
     n, dev = col.length, col.device
-    if all(p[0] in ("lit", "num") for p in pieces):
+    if all(p[0] in ("lit", "num", "num_sp") or (p[0] == "text" and p[1] in _FIXED_NAMES)
+           for p in pieces):
         return _fixed_width_text(col, pieces, f)
     lens, makers = [], []
     for piece in pieces:
@@ -1007,19 +1039,29 @@ def strftime(col: Column, fmt: str) -> Column:
             raw = torch.tensor(pattern_bytes(piece[1]), dtype=torch.uint8, device=dev)
             lens.append(torch.full((n,), raw.shape[0], dtype=torch.int64, device=dev))
             makers.append(lambda row, w, raw=raw: raw[torch.clamp(w, max=raw.shape[0] - 1)])
-        elif piece[0] == "num":
+        elif piece[0] in ("num", "num_sp"):
             v, k = f[piece[1]], piece[2]
             lens.append(torch.full((n,), k, dtype=torch.int64, device=dev))
             pow10 = torch.tensor([10 ** (k - 1 - i) for i in range(k)], device=dev)
 
-            def digit(row, w, v=v, pow10=pow10, k=k):
-                return (48 + v[row].abs() // pow10[torch.clamp(w, max=k - 1)] % 10).to(
-                    torch.uint8)
+            def digit(row, w, v=v, pow10=pow10, k=k, spaced=piece[0] == "num_sp"):
+                p = pow10[torch.clamp(w, max=k - 1)]
+                out = 48 + v[row].abs() // p % 10
+                if spaced:
+                    out = torch.where((v[row].abs() < p) & (w < k - 1), 32, out)
+                return out.to(torch.uint8)
             makers.append(digit)
+        elif piece[0] == "zone":
+            from cudf_tpu_torch.ops import timezone
+
+            idx = timezone.abbreviation_ids(col.data, col.dtype.tz, col.dtype.time_unit)
+            tab, tlen = _text_table(timezone.abbreviations(col.dtype.tz), dev)
+            lens.append(tlen[idx])
+            makers.append(lambda row, w, tab=tab, idx=idx:
+                          tab[idx[row], torch.clamp(w, max=tab.shape[1] - 1)])
         elif piece[0] == "text":
             d = piece[1]
-            idx = {"b": f["month"] - 1, "B": f["month"] - 1, "a": f["weekday"],
-                   "A": f["weekday"], "p": f["ampm"]}[d]
+            idx = _text_index(d, f)
             tab, tlen = _text_table(_TEXT[d], dev)
             lens.append(tlen[idx])
             makers.append(lambda row, w, tab=tab, idx=idx:
@@ -1034,21 +1076,24 @@ def strftime(col: Column, fmt: str) -> Column:
                 p = torch.clamp(k[row] - 1 - w, 0, 8)
                 return torch.where(w == 0, 46, 48 + digits // 10 ** p % 10).to(torch.uint8)
             makers.append(fraction)
-        else:                                   # +HH:MM, +HH:MM:SS with seconds
-            off = f["offset_sec"]
-            lens.append(torch.where(off % 60 != 0, 9, 6))
+        else:               # +HH:MM (+HH:MM:SS), or +HHMM (+HHMMSS): seconds where it has them
+            off, colon = f["offset_sec"], piece[1]
+            step = 3 if colon else 2
+            lens.append(torch.where(off % 60 != 0, 9, 6) if colon else
+                        torch.where(off % 60 != 0, 7, 5))
             sep = torch.tensor(pattern_bytes("+-:"), dtype=torch.uint8, device=dev)
 
-            def offset(row, w, off=off, sep=sep):
+            def offset(row, w, off=off, sep=sep, step=step):
                 o = off[row]
                 a = o.abs()
                 hms = torch.stack([a // 3600, a // 60 % 60, a % 60])
-                # w: 0 sign, 1-2 hours, 3 ':', 4-5 minutes, 6 ':', 7-8 seconds
-                field = hms.gather(0, torch.clamp((w - 1) // 3, 0, 2)[None])[0]
-                dig = (48 + torch.where((w - 1) % 3 == 0, field // 10, field % 10)).to(
+                # w: 0 sign, then two digits a field, with ':' between them at step 3
+                field = hms.gather(0, torch.clamp((w - 1) // step, 0, 2)[None])[0]
+                dig = (48 + torch.where((w - 1) % step == 0, field // 10, field % 10)).to(
                     torch.uint8)
-                return torch.where(w == 0, sep[(o < 0).long()],
-                                   torch.where(w % 3 == 0, sep[2], dig))
+                if step == 3:
+                    dig = torch.where(w % 3 == 0, sep[2], dig)
+                return torch.where(w == 0, sep[(o < 0).long()], dig)
             makers.append(offset)
     if col.validity is not None:
         lens = [torch.where(col.validity, ln, 0) for ln in lens]
@@ -1067,21 +1112,50 @@ def strftime(col: Column, fmt: str) -> Column:
 
 
 def _fixed_width_text(col: Column, pieces, f) -> Column:
-    """strftime of literals and numbers only: every row the same width, so
-    a (rows x width) byte matrix filled a column at a time."""
+    """strftime of literals, numbers and names of one width (%a, %b, %p):
+    every row the same width, so a (rows x width) byte matrix filled a
+    column at a time."""
     cols = []
     for piece in pieces:
         if piece[0] == "lit":
             cols += [torch.full((col.length,), b, dtype=torch.uint8, device=col.device)
                      for b in pattern_bytes(piece[1])]
+        elif piece[0] == "text":
+            tab, _ = _text_table(_TEXT[piece[1]], col.device)
+            names = tab[_text_index(piece[1], f)]
+            cols += list(names.unbind(1))
         else:
             v, k = f[piece[1]].abs(), piece[2]
-            cols += [(48 + v // 10 ** (k - 1 - i) % 10).to(torch.uint8) for i in range(k)]
+            for i in range(k):
+                digit = 48 + v // 10 ** (k - 1 - i) % 10
+                if piece[0] == "num_sp" and i < k - 1:
+                    digit = torch.where(v < 10 ** (k - 1 - i), 32, digit)
+                cols.append(digit.to(torch.uint8))
     mat = torch.stack(cols, 1)
     lens = torch.full((col.length,), mat.shape[1], dtype=torch.int64, device=col.device)
     if col.validity is not None:
         mat, lens = mat[col.validity], torch.where(col.validity, lens, 0)
     return Column(dt.STRING, col.length, mat.reshape(-1), col.validity, new_offsets(lens))
+
+
+def _strftime_host(col: Column, fmt: str) -> Column:
+    """The host route of ``strftime``: Python's ``datetime.strftime`` of
+    each value's wall clock (to the microsecond), as pandas formats."""
+    import datetime as _dt
+
+    STRING_ROUTES["host"] += 1
+    wall = col
+    if col.dtype.tz is not None:
+        from cudf_tpu_torch.ops import timezone
+
+        wall = timezone.wall_clock_column(col)
+    days, secs, sub, tps = dto.days_and_time(wall.data, col.dtype.time_unit)
+    micros = (sub * 1_000_000 // tps).tolist()
+    epoch = _dt.datetime(1970, 1, 1)
+    valid = [True] * col.length if col.validity is None else col.validity.cpu().tolist()
+    out = [(epoch + _dt.timedelta(days=d, seconds=s, microseconds=u)).strftime(fmt) if ok
+           else None for d, s, u, ok in zip(days.tolist(), secs.tolist(), micros, valid)]
+    return Column.from_strings(out, device=col.device)
 
 
 def _iso_template(col: Column, fmt: Optional[str]):
@@ -1091,7 +1165,7 @@ def _iso_template(col: Column, fmt: Optional[str]):
     if fmt is None:
         return None
     fields, lits, pos, frac = [], [], 0, None
-    for piece in _directives(fmt):
+    for piece in _directives(fmt) or [("host",)]:
         if piece[0] == "lit":
             for b in pattern_bytes(piece[1]):
                 lits.append((pos, b))

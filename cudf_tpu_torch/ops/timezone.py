@@ -165,6 +165,32 @@ def wall_to_utc_ticks(ticks: torch.Tensor, tz: str, unit: str) -> torch.Tensor:
     return ticks - offs[torch.searchsorted(wall, ticks, right=True)]
 
 
+@lru_cache(maxsize=128)
+def abbreviations(tz: str) -> Tuple[str, ...]:
+    """The zone's abbreviation ("EST", "EDT" ...) in force with each of
+    ``load_transitions(tz)``'s offsets, read by the standard library's
+    ``zoneinfo`` from the same TZif file."""
+    import datetime as _dt
+    import zoneinfo
+
+    trans, offs = load_transitions(tz)
+    if tz in _UTC:
+        return ("UTC",) * offs.shape[0]
+    with open(os.path.join(os.path.realpath(tzdir()), tz), "rb") as f:
+        zone = zoneinfo.ZoneInfo.from_file(f, key=tz)
+    lo, hi = -62135510400, 253402214400          # 0001-01-02 .. 9999-12-30
+    at = [int(trans[0]) - 1 if trans.shape[0] else 0] + [int(t) for t in trans]
+    return tuple(_dt.datetime.fromtimestamp(min(max(t, lo), hi), zone).tzname() for t in at)
+
+
+def abbreviation_ids(ticks: torch.Tensor, tz: str, unit: str) -> torch.Tensor:
+    """Each UTC instant's index into ``abbreviations(tz)``."""
+    trans, _ = _tables(tz, unit, ticks.device)
+    if trans.numel() == 0:
+        return torch.zeros_like(ticks)
+    return torch.searchsorted(trans, ticks, right=True)
+
+
 def tz_localize(col: Column, tz, ambiguous="raise", nonexistent="raise") -> Column:
     """Naive wall-clock timestamps -> tz-aware (UTC ticks); ``None`` drops
     the zone of a tz-aware column, keeping its wall clock (pandas).

@@ -56,6 +56,13 @@ def cast(col: Column, target) -> Column:
             return strings.to_timestamps(col, target=target)
         raise TypeError(f"cannot cast strings to {target!r}")
     if col.dtype.is_temporal and target.is_temporal:
+        from cudf_tpu_torch.ops import datetime as dto
+
+        if dto.is_day_unit(target):
+            return dto.to_days(col, target)
+        col = dto.days_as_seconds(col)
+        if col.dtype == target:
+            return col
         data = _rescale_ticks(col.data, col.dtype, target)
         return Column(target, col.length, data, col.validity)
     data = col.data.to(target.torch_storage)

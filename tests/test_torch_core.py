@@ -124,8 +124,10 @@ def test_column_rejects_bad_buffers():
         Column(dt.decimal_dtype(2), 3, torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):              # a LIST column holds offsets and one child
         Column(dt.list_dtype(dt.INT64), 2, None, offsets=torch.zeros(3, dtype=torch.int64))
-    with pytest.raises(NotImplementedError):     # day units: ROADMAP.md queue 1, item 6c
-        Column(dt.DType(dt.TypeId.TIMESTAMP_DAYS), 3, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):              # day units hold int32 days
+        Column(dt.DType(dt.TypeId.TIMESTAMP_DAYS), 3, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(NotImplementedError):     # interval columns: beyond the reference
+        Column(dt.DType(dt.TypeId.INTERVAL), 3, torch.zeros(3, dtype=torch.int64))
 
 
 def test_torch_storage_mapping():

@@ -273,7 +273,6 @@ def test_unported_paths_raise_naming_their_item(data):
         (lambda: pe.scan_csv("x.csv"), "item 7"),
         (lambda: lf.sink_parquet("x.parquet"), "item 7"),
         (lambda: lf.map_batches(lambda t: t), "item 10"),
-        (lambda: IRs.Rolling(lf._node, "k", 3, []), "item 8"),
         (lambda: IRs.PythonScan(lambda: None), "item 10"),
     ]
     for fn, item in cases:

@@ -337,25 +337,32 @@ def test_frame_transform_takes_the_kernel_tier_without_a_grouper():
 def test_list_aggregations_raise_naming_item_6(agg):
     """The LIST aggregations are ported (ROADMAP.md queue 1, item 6a): one
     list a group, through ``agg`` and ``aggregate`` alike; "topk" needs its
-    k (``group_topk``) and "tdigest" still raises, naming item 6c."""
+    k (``group_topk``); "tdigest" gives a STRUCT of each group's centroids,
+    min and max (ported with item 6c)."""
     df = ct.DataFrame({"k": torch.tensor([1, 1, 2]), "v": torch.tensor([1.0, 2.0, 3.0])})
     g = gb.make_grouper([df._table["k"]])
-    if agg in ("topk", "tdigest"):
-        match = "item 6c" if agg == "tdigest" else "group_topk"
-        with pytest.raises(NotImplementedError, match=match):
+    if agg == "topk":
+        with pytest.raises(NotImplementedError, match="group_topk"):
             df.groupby("k").agg({"v": agg})
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match="group_topk"):
             gb.aggregate(df._table["v"], g, agg)
         return
-    exp = [[1.0, 2.0], [3.0]] if agg != "histogram" else \
+    exp = [[1.0, 2.0], [3.0]] if agg not in ("histogram", "tdigest") else \
         [[{"value": 1.0, "count": 1}, {"value": 2.0, "count": 1}], [{"value": 3.0, "count": 1}]]
+    if agg == "tdigest":
+        exp = [{"centroids": [{"mean": 1.0, "weight": 1.0}, {"mean": 2.0, "weight": 1.0}],
+                "min": 1.0, "max": 2.0},
+               {"centroids": [{"mean": 3.0, "weight": 1.0}], "min": 3.0, "max": 3.0}]
     assert gb.aggregate(df._table["v"], g, agg).to_pylist() == exp
     assert df.groupby("k").agg({"v": agg})._table["v"].to_pylist() == exp
 
 
 def test_rolling_raises_naming_item_8():
+    """Grouped rolling windows are ported (``frame/window.py``, item 8):
+    windows of rows within each group, as pandas gives them; a time offset
+    (which the reference lacks) raises naming "beyond the reference"."""
     df = ct.DataFrame({"k": torch.tensor([1, 1, 2]), "v": torch.tensor([1.0, 2.0, 3.0])})
-    with pytest.raises(NotImplementedError, match="item 8 \\(frame/window.py\\)"):
-        df.groupby("k").rolling(2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        df.groupby("k")["v"].rolling(2)
+    assert df.groupby("k").rolling(2).sum()._table["v"].to_pylist()[1] == 3.0
+    assert df.groupby("k")["v"].rolling(2, min_periods=1).sum().tolist() == [1.0, 3.0, 3.0]
+    with pytest.raises(NotImplementedError, match="beyond the reference"):
+        df.groupby("k")["v"].rolling("2D")

@@ -349,7 +349,7 @@ def test_requests_outside_the_kernel_tiers_raise(case):
         options = ("groupby.fast_path_min_rows", N + 1)
     elif case == "unported_agg":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            df.groupby("k").agg({"i": "tdigest"})      # "collect" is ported (item 6a)
+            df.groupby("k").agg({"i": "ohlc"})      # "collect" and "tdigest" are ported
         return
     with option_context(*options):
         got = df.groupby(by).agg(spec).to_pandas()

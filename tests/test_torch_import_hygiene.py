@@ -10,7 +10,11 @@ pandas nor pyarrow; nor do the string and temporal modules (``ops/strings.py``,
 ``datetime.py``, ``timezone.py``, ``frame/accessors.py``,
 ``models/strings_dt.py``), nor the LIST, STRUCT and decimal modules
 (``ops/lists.py``, ``structs.py``, ``decimal.py``, ``decimal128.py``, the
-list aggregations of ``ops/groupby.py``, ``models/nested.py``)."""
+list aggregations of ``ops/groupby.py``, ``models/nested.py``), nor the
+ops and windows (``ops/hashing.py``, ``partitioning.py``, ``bloom.py``,
+``pack.py``, ``tdigest.py``, ``text.py``, ``frame/window.py``,
+``resample.py``, ``asof.py``, ``eval_expr.py``, ``utils/tracing.py``,
+``models/ops_windows.py``)."""
 
 import ast
 import os
@@ -199,6 +203,67 @@ def test_nested_and_decimal_run_without_pandas_pyarrow_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NESTED OK []" in proc.stdout, proc.stdout
+
+
+_OPS_WINDOWS_PROBE = """
+import sys
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+import math
+import numpy as np
+import torch
+import cudf_tpu_torch as ct
+from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.models import ops_windows as ow, tpch
+from cudf_tpu_torch.ops import bloom, hashing, pack, partitioning, tdigest, text
+from cudf_tpu_torch.utils import tracing
+g = torch.Generator().manual_seed(1)
+n = 1500
+def ints(lo, hi):
+    return torch.randint(lo, hi + 1, (n,), generator=g, dtype=torch.int32)
+df = ct.DataFrame({"id4": ints(1, 100), "id6": ints(1, 1000), "v1": ints(1, 5),
+                   "v2": ints(1, 15), "v3": torch.rand(n, generator=g, dtype=torch.float64) * 100,
+                   "id5": ints(1, 100)})
+for name, k, w in (("id1", 100, 3), ("id2", 100, 3), ("id3", 1000, 10)):
+    keys = Column.from_strings([f"id{i:0{w}d}" for i in range(1, k + 1)], device="cpu")
+    df[name] = Column.from_dictionary(torch.randint(0, k, (n,), generator=g,
+                                                    dtype=torch.int32), keys)
+ow.WINDOW, ow.TEXT_ROWS_SMALL = 40, 500
+ow.HOST_ROWS.update({k: 100 for k in ow.HOST_ROWS})
+frames = ow.prepare({"g1": df, "lineitem": tpch.generate_device(0.001, seed=1,
+                                                                device="cpu")["lineitem"],
+                     "dim": ct.DataFrame({"id": torch.randperm(300, generator=g,
+                                                               dtype=torch.int32) + 1}),
+                     "fact": ct.DataFrame({"id": ints(1, 330)})})
+for name, request in ow.REQUESTS.items():
+    got, exp = ow.ANSWERS[name](request(frames), frames), ow.PLAIN[name](frames)
+    assert list(got) == list(exp), name
+    for k in exp:
+        a, b = got[k], exp[k]
+        if a.is_floating_point():
+            assert torch.allclose(a, b, rtol=max(ow.RTOL[name], 1e-12), equal_nan=True), name
+        else:
+            assert torch.equal(a, b), (name, k)
+with tracing.enable_tracing() as t:
+    with t.range("r"):
+        ct.Series([1.0, 2.0], device="cpu").rolling(2).sum()
+assert "r" in t.summary()
+print("OPS OK", sorted(m for m, mod in sys.modules.items()
+                       if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu")))
+"""
+
+
+def test_ops_and_windows_run_without_pandas_pyarrow_or_jax():
+    """Every ``models/ops_windows.py`` request (hashes, partitions, pack,
+    tdigest, rolling, ewm, resample, merge_asof, query/eval, the text
+    functions, the bloom filter, day units) equal to its plain version,
+    and the tracer, with pandas, pyarrow and jax unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _OPS_WINDOWS_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "OPS OK []" in proc.stdout, proc.stdout
 
 
 def test_package_sources_import_no_jax_or_reference():

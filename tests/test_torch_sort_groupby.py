@@ -370,7 +370,7 @@ def test_g1_q6_and_q8_call_forms_match_pandas():
 
 def test_unported_aggs_raise_naming_the_roadmap():
     df = ct.from_pandas(_g1(200, 12), device=CPU)
-    for agg in ("tdigest", "corr", "ewm"):          # "collect" is ported (item 6a)
+    for agg in ("ohlc", "corr", "ewm"):          # "collect" and "tdigest" are ported
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             df.groupby(["id4", "id5"]).agg({"v3": agg})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
