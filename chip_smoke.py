@@ -328,6 +328,41 @@ answer held against its plain version inside the path and let go:
 5. timings of each device request beside its plain version; a host
    request once.
 
+The file formats (``cudf_tpu_torch/io``, ``arrow_cdata.py``;
+``models/io_paths.py`` ``REQUESTS``, ``PLAIN``, ``NEEDS``, ``ROUTE``),
+files in a temporary directory removed at the end; every request leaves
+``io.IO_ROUTES["pyarrow"]`` at 0:
+
+4. TPC-H SF10, after its ops phase: lineitem (sorted by l_shipdate, as
+   date-clustered warehouse files are), orders and part written with the
+   port's Parquet writer (DICTIONARY32 strings, TIMESTAMP_NS dates; the
+   write timed); q1, q6, q12 and q14 as LazyFrames over ``scan_parquet``
+   (projection and predicate pushed into the Scan), each equal to the
+   plain version of the in-memory tables (keys, counts and order exact,
+   floats rtol 1e-9), q12 and q14 launching B, F, G, D and H, each call
+   replayed against its plain version (``io_calls`` in the kernels
+   line); q6's row groups and pages read with its l_shipdate pushdown and
+   without it (the same answer); ``sink_parquet`` of q1's result, read
+   back equal.
+5. each query's ms from the file (wall clock, the read included: median
+   of 3) beside its in-memory device ms.
+4. one taxi month (1.27e7 rows in the reference bench_parquet_decode's
+   eight columns, snappy, dictionary pages) written and read back bit for
+   bit; the host library's build seconds.
+5. the read's MB/s over the file size and rows/s (median of 7 warm reads,
+   wall clock with a final synchronize), its split (footer, read,
+   decompress, levels, host-to-device, device decode), the write's seconds.
+4. G1_1e7_1e2_0_0 (db-benchmark's 1e7-row groupby CSV, v3 rounded to 6
+   decimals) made on the card, its text built on the card and written;
+   ``read_csv`` through the device tokenizer (id1-id3 as categories by
+   ``dtype``, the others int32 / float64, as the pandas solution reads
+   it): ints and strings exact, v3 within 1 ulp; G1 q1-q5 over the frame
+   read back equal to the same questions over the frame in memory (q1, q4
+   launch A; q3, q5 B, F, G, D); a LIST<int32> column (``groupby("id4")
+   .v1.agg(list)``) and a STRUCT of (id4, v3) written and read back equal;
+   the frame through ``__arrow_c_stream__`` and back (capsules only).
+5. ``read_csv``'s ms, MB/s and host syncs; each request's ms.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -346,9 +381,9 @@ Library calls: H's m = 3 row times tables.index_select(1, idx), all
 three lookups; no single call gives H's ids and payload together, so
 that row has none and records torch.take of each as two_calls_ms.
 
-Each kernel's row also carries its launches by G1 question, API call and
-frame API request and, in ``g1_calls`` and ``frame_api_calls``, each
-replayed call of those.
+Each kernel's row also carries its launches by G1 question, API call,
+frame API request and IO request and, in ``g1_calls``,
+``frame_api_calls`` and ``io_calls``, each replayed call of those.
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -360,9 +395,12 @@ import concurrent.futures
 import inspect
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -2165,11 +2203,11 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     return launched
 
 
-def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops):
+def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, directory):
     """The nine TPC-H queries at SF10 (the main path) and SF1, and at SF10
     the string and temporal requests over lineitem (into ``strings``), the
-    decimal ones (into ``nested``) and the resample, window, as-of and
-    day-unit ones (into ``ops``)."""
+    decimal ones (into ``nested``), the resample, window, as-of and
+    day-unit ones (into ``ops``) and the Parquet files (into ``io``)."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -2215,6 +2253,8 @@ def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops):
             ops_windows_phase("lineitem", {"lineitem": tables["lineitem"]}, smi, wrappers,
                               drive, plains, ops)
             torch.cuda.empty_cache()
+            io[2]["tpch_sf10"] = io_tpch_phase(tables, smi, wrappers, drive, plains, io,
+                                               directory)
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -3044,6 +3084,226 @@ def frame_api_null_frames(ct, dev, gen):
                                                       "v3")}
 
 
+def wall_ms(fn, reps=REPS):
+    """Median wall-clock ms of fn() over reps warm runs, each ended by a
+    synchronize (a file read is host and device work)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def io_phase(group, frames, smi, wrappers, drive, plains, acc):
+    """The requests of one group (``models/io_paths.py``
+    ``GROUPS[group]``): all of them as one main path, each result held to
+    its plain check; then each alone, every count at 0 before it,
+    launching exactly its ``NEEDS`` (every kernel call replayed against
+    its plain version) and never the pyarrow tier.  Adds (launches, calls,
+    rows) by request to ``acc``; returns the main path's results by
+    request."""
+    from cudf_tpu_torch.io import IO_ROUTES
+    from cudf_tpu_torch.models import io_paths as iop
+
+    names = iop.GROUPS[group]
+    errs, results = {}, {}
+
+    def main_path():
+        for n in names:
+            before = IO_ROUTES["pyarrow"]
+            t0 = time.perf_counter()
+            res = iop.REQUESTS[n](frames)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            if n == "g1_read_csv":
+                frames["g1_csv"] = res
+            errs[n] = iop.PLAIN[n](frames, res)
+            check(IO_ROUTES["pyarrow"] == before, f"IO {n} took the pyarrow tier")
+            results[n] = {"first_s": first_s}
+            log(f"phase 4 IO {n}: equals its plain check (max abs err {errs[n]}), first run "
+                f"{first_s:.3f} s [{smi}]")
+            del res
+            torch.cuda.empty_cache()
+    drive(f"io_{group}", main_path)
+    for n in names:
+        if n.endswith("_write") or n == "tpch_q1_sink":
+            acc[0][n] = {}
+            continue
+        run = (lambda n=n: iop.REQUESTS[n](frames))
+        acc[0][n] = run_replayed(f"IO {n}", n, run, wrappers, plains, acc[1],
+                                 needs=iop.NEEDS[n])
+        acc[2][n] = dict(results[n], max_abs_err=errs[n], launches=acc[0][n])
+        torch.cuda.empty_cache()
+    check(IO_ROUTES["pyarrow"] == 0, f"IO routes {IO_ROUTES}: the pyarrow tier was taken")
+    return results
+
+
+def io_tpch_phase(tables, smi, wrappers, drive, plains, acc, directory):
+    """TPC-H SF10 written to Parquet and queried from it (phase 4/5 of the
+    file formats); the first IO phase, so it builds the host library."""
+    import cudf_tpu_torch as ct
+    from cudf_tpu_torch.engine import scan_parquet
+    from cudf_tpu_torch.io import _native
+    from cudf_tpu_torch.io import parquet_native as pn
+    from cudf_tpu_torch.models import io_paths as iop
+    from cudf_tpu_torch.models import tpch
+
+    t0 = time.perf_counter()
+    lib = _native.build()
+    _native.lib()
+    build_s = time.perf_counter() - t0
+    log(f"phase 2 IO host library: {lib.relative_to(_native.BUILD_DIR.parent.parent)} built "
+        f"from {_native.SOURCE.relative_to(_native.BUILD_DIR.parent.parent)} in {build_s:.2f} s "
+        f"(g++ {' '.join(_native.CXX_FLAGS)}; {_native.BUILD_SECONDS:.2f} s compiling)")
+    frames = {"dir": directory, "device": tables["lineitem"]._table.device}
+    frames["tpch"] = dict(tables, lineitem=tables["lineitem"].sort_values(
+        "l_shipdate").reset_index(drop=True))
+    torch.cuda.synchronize()
+    results = io_phase("tpch", frames, smi, wrappers, drive, plains, acc)
+    size = sum(os.path.getsize(os.path.join(directory, f"{n}.parquet"))
+               for n in ("lineitem", "orders", "part"))
+    write_s = results["tpch_write"]["first_s"]
+    log(f"phase 5 IO TPC-H SF10 write: lineitem, orders, part {size / 1e6:.1f} MB in "
+        f"{write_s:.2f} s [{smi}]")
+    rows = {"write_s": write_s, "file_mb": size / 1e6, "host_library_build_s": build_s}
+    for q in ("q1", "q6", "q12", "q14"):
+        ms_file = wall_ms(lambda q=q: iop.REQUESTS[f"tpch_{q}_file"](frames), reps=3)
+        ms_mem = device_ms(lambda q=q: tpch.QUERIES[q](tables), reps=3)
+        rows[q] = {"ms_from_file": ms_file, "ms_in_memory": ms_mem}
+        log(f"phase 5 IO TPC-H SF10 {q} from Parquet: {ms_file:.1f} ms (read included); "
+            f"in memory {ms_mem:.3f} ms [{smi}]")
+    # q6's pushdown: row groups and pages read, with and without it
+    path = os.path.join(directory, "lineitem.parquet")
+    lo, hi = tpch.Q6_RANGE
+    kept, total = pn.prune_row_groups(path, [("l_shipdate", ">=", lo), ("l_shipdate", "<", hi)])
+    files = iop.tpch_files(frames)
+    q6_columns = ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]
+    projected = {"lineitem": scan_parquet(path, q6_columns, device=frames["device"])}
+    pages = {}
+    # the optimized plan pushes the predicate into the Scan; without the
+    # optimizer the projected Scan reads every row group and the Filter runs after
+    for label, tables_, flag in (("pushdown", files, False), ("no_pushdown", projected, True)):
+        pn.PAGE_COUNTERS.update(decoded=0, skipped=0)
+        pages[label] = (tpch.q6(tables_, no_optimization=flag), dict(pn.PAGE_COUNTERS))
+    a, b = (float(pages[k][0]._table["revenue"].data[0]) for k in pages)
+    check(a == b, f"q6 with and without its pushdown: {a} vs {b}")
+    md = pn.read_footer(path)
+    rows["q6_pushdown"] = {"row_groups_kept": kept, "row_groups": total,
+                           "pages_with": pages["pushdown"][1],
+                           "pages_without": pages["no_pushdown"][1],
+                           "columns_read": len(q6_columns),
+                           "columns_in_file": len(md.schema) - 1}
+    log("phase 4 IO TPC-H q6 pushdown: " + json.dumps(dict(rows["q6_pushdown"], card=smi)))
+    log("phase 4 IO TPC-H q1 grouping from Parquet: l_returnflag and l_linestatus come "
+        "back as STRING (in memory DICTIONARY32); two keys take the sort tier either way")
+    # a query from the file = its reads + the query over the frames read
+    # (STRING keys where memory holds DICTIONARY32)
+    read_columns = {"q1": {"lineitem": ["l_returnflag", "l_linestatus", "l_quantity",
+                                        "l_extendedprice", "l_discount", "l_tax",
+                                        "l_shipdate"]},
+                    "q12": {"lineitem": ["l_orderkey", "l_shipmode", "l_commitdate",
+                                         "l_receiptdate", "l_shipdate"],
+                            "orders": ["o_orderkey", "o_orderpriority"]}}
+    for q, tables_cols in read_columns.items():
+        def read_all(tables_cols=tables_cols):
+            return {n: ct.read_parquet(os.path.join(directory, f"{n}.parquet"), columns=c,
+                                       device=frames["device"]) for n, c in tables_cols.items()}
+        read = read_all()
+        rows[q]["read_ms"] = wall_ms(read_all, reps=3)
+        rows[q]["query_over_read_ms"] = device_ms(lambda q=q: tpch.QUERIES[q](read), reps=3)
+        del read
+        log(f"phase 5 IO TPC-H SF10 {q} from Parquet split: " + json.dumps(
+            dict(rows[q], card=smi)))
+    for q in ("q1", "q12"):
+        rows[f"{q}_profile"] = profile_split(lambda q=q: iop.REQUESTS[f"tpch_{q}_file"](frames))
+        log(f"phase 4 IO TPC-H {q} from Parquet torch.profiler split: " + json.dumps(
+            {f"tpch_sf10_{q}_file_profile": rows[f"{q}_profile"], "card": smi}))
+    del frames, files, pages
+    for name in ("lineitem", "orders", "part"):
+        os.remove(os.path.join(directory, f"{name}.parquet"))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def io_taxi_phase(dev, smi, wrappers, drive, plains, acc, directory):
+    """One taxi month written and read back (the reference's Parquet decode
+    bench at a month's size)."""
+    from cudf_tpu_torch.io import parquet_native as pn
+    from cudf_tpu_torch.models import io_paths as iop
+
+    frames = {"dir": directory, "device": dev, "taxi": iop.taxi_frame(iop.TAXI_ROWS, device=dev)}
+    torch.cuda.synchronize()
+    res = io_phase("taxi", frames, smi, wrappers, drive, plains, acc)
+    path = os.path.join(directory, "taxi.parquet")
+    mb = os.path.getsize(path) / 1e6
+    ms = wall_ms(lambda: iop.REQUESTS["taxi_read"](frames))
+    # the split of three warm reads, beside the wall time of those reads
+    pn.TIMING = {}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        iop.REQUESTS["taxi_read"](frames)
+        torch.cuda.synchronize()
+    split_wall = (time.perf_counter() - t0) * 1e3 / 3
+    split = {k: v * 1e3 / 3 for k, v in pn.TIMING.items()}
+    pn.TIMING = None
+    split["reading_thread_sum"] = sum(v for k, v in split.items()
+                                      if not k.startswith("workers_"))
+    split["wall_of_these_reads"] = split_wall
+    profile = profile_split(lambda: iop.REQUESTS["taxi_read"](frames))
+    log("phase 4 IO taxi month read torch.profiler split: " + json.dumps(
+        {"taxi_read_profile": profile, "card": smi}))
+    write_s = res["taxi_write"]["first_s"]
+    row = {"rows": iop.TAXI_ROWS, "file_mb": mb, "read_ms": ms,
+           "mb_per_s": mb / ms * 1e3, "rows_per_s": iop.TAXI_ROWS / ms * 1e3,
+           "split_ms": split, "profile": profile, "write_s": write_s,
+           "first_read_s": res["taxi_read"]["first_s"]}
+    acc[2]["taxi_decode"] = row
+    log("phase 5 IO taxi month Parquet: " + json.dumps(dict(row, card=smi)))
+    del frames
+    torch.cuda.empty_cache()
+    return row
+
+
+def io_g1_phase(dev, smi, wrappers, drive, plains, acc, directory):
+    """G1_1e7 made, written as CSV and read back; its questions from the
+    file; nested columns through Parquet; the frame through the Arrow C
+    stream."""
+    from cudf_tpu_torch.models import io_paths as iop
+
+    g1df = iop.g1_frame(iop.G1_ROWS, device=dev)
+    t0 = time.perf_counter()
+    text = iop.g1_csv(g1df)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    path = os.path.join(directory, "g1.csv")
+    iop.write_bytes(path, text)
+    mb = text.numel() / 1e6
+    del text
+    log(f"phase 4 IO G1_1e7_1e2_0_0 CSV: {mb:.1f} MB of text built on the card in "
+        f"{text_s:.3f} s")
+    frames = {"dir": directory, "device": dev, "g1": g1df}
+    frames["nested_list"], frames["nested_struct"] = iop.nested_frame(g1df)
+    io_phase("g1", frames, smi, wrappers, drive, plains, acc)
+    run = (lambda: iop.REQUESTS["g1_read_csv"](frames))
+    ms = wall_ms(run)
+    row = {"file_mb": mb, "read_csv_ms": ms, "mb_per_s": mb / ms * 1e3,
+           "host_syncs": count_syncs(run),
+           "category_by": "read_csv dtype (the reference's device tier ignores it)",
+           "v3_max_ulps": acc[2]["g1_read_csv"]["max_abs_err"]}
+    for n in ("g1_q1_csv", "g1_q2_csv", "g1_q3_csv", "g1_q4_csv", "g1_q5_csv",
+              "nested_list", "nested_struct", "arrow_stream"):
+        row[f"{n}_ms"] = wall_ms(lambda n=n: iop.REQUESTS[n](frames), reps=3)
+    acc[2]["g1_csv"] = row
+    log("phase 5 IO G1 CSV, nested and Arrow: " + json.dumps(dict(row, card=smi)))
+    del frames, g1df
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--beside", metavar="DIR",
@@ -3132,7 +3392,9 @@ def main():
              "frame_api_j1": RADIX_TIER + ["window_probe"], "frame_api_nulls": [],
              "strings_g1": ONEHOT_TIER + RADIX_TIER, "strings_g1_dict": [],
              "strings_lineitem": ONEHOT_TIER, "nested_g1": [], "nested_lineitem": [],
-             "ops_windows_g1": [], "ops_windows_j1": [], "ops_windows_lineitem": ONEHOT_TIER}
+             "ops_windows_g1": [], "ops_windows_j1": [], "ops_windows_lineitem": ONEHOT_TIER,
+             "io_tpch": RADIX_TIER + ["window_probe"], "io_taxi": [],
+             "io_g1": ONEHOT_TIER + RADIX_TIER}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -3294,8 +3556,21 @@ def main():
     j1_dict_phase(ct, dev, gen, v1, drive, smi)
     del v1
     torch.cuda.empty_cache()
-    (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
-     over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops)
+    io = ({}, {}, {})                   # launches by request, replayed calls, rows
+    directory = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
+         over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops,
+                                 io, directory)
+        io_taxi_phase(dev, smi, wrappers, drive, plains, io, directory)
+        io_g1_phase(dev, smi, wrappers, drive, plains, io, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    from cudf_tpu_torch.io import IO_ROUTES
+
+    check(IO_ROUTES["pyarrow"] == 0 and IO_ROUTES["native"] > 0, f"IO routes {IO_ROUTES}")
+    log("phase 5 IO rows: " + json.dumps({"card": smi, "io_routes": IO_ROUTES,
+                                          "rows": io[2]}))
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
@@ -3333,6 +3608,8 @@ def main():
         kernels[name]["ops_windows_calls"] = calls
     for name, calls in strings[1].items():
         kernels[name]["strings_dt_calls"] = calls
+    for name, calls in io[1].items():
+        kernels[name]["io_calls"] = calls
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -3357,7 +3634,8 @@ def main():
                    launches_by_frame_api={q: c.get(name, 0) for q, c in frame_api[0].items()},
                    launches_by_strings_dt={q: c.get(name, 0) for q, c in strings[0].items()},
                    launches_by_nested={q: c.get(name, 0) for q, c in nested[0].items()},
-                   launches_by_ops_windows={q: c.get(name, 0) for q, c in ops[0].items()})
+                   launches_by_ops_windows={q: c.get(name, 0) for q, c in ops[0].items()},
+                   launches_by_io={q: c.get(name, 0) for q, c in io[0].items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

@@ -14,7 +14,10 @@ temporal, string and dictionary columns; ``models/tpch.py`` holds the
 TPC-H queries.  The pandas API (``frame/``) adds the reference's
 top-level reshapes (``concat``, ``pivot_table``, ``melt`` ...) and tools
 (``cut``, ``to_datetime`` ...), and row UDFs (``Series.apply``,
-``utils/masked.py`` ``Masked``).
+``utils/masked.py`` ``Masked``).  ``io/`` reads and writes Parquet and
+CSV (``read_parquet``, ``read_csv``, ``DataFrame.to_parquet``,
+``to_csv``; the engine's ``scan_parquet`` / ``sink_parquet``), and
+``arrow_cdata.py`` speaks the Arrow C data interface.
 
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.
@@ -31,11 +34,18 @@ from cudf_tpu_torch.frame.reshape import (concat, crosstab, get_dummies, melt, m
 from cudf_tpu_torch.frame.series import Series
 from cudf_tpu_torch.frame.tools import (cut, date_range, factorize, isna, isnull, notna,
                                         notnull, qcut, to_datetime, to_numeric, unique)
-from cudf_tpu_torch.interop import from_buffers, from_pandas, to_pandas
+from cudf_tpu_torch.interop import (from_arrow, from_buffers, from_dlpack, from_pandas,
+                                    to_dlpack, to_pandas)
+from cudf_tpu_torch.io import (read_avro, read_feather, read_json, read_orc, read_text,
+                               read_tpudf)
+from cudf_tpu_torch.io.csv import read_csv
+from cudf_tpu_torch.io.parquet import read_parquet
 from cudf_tpu_torch.utils.masked import Masked
 
 __all__ = ["Column", "Table", "DataFrame", "DataFrameGroupBy", "Index", "Masked",
            "RangeIndex", "Series", "concat", "crosstab", "cut", "date_range", "factorize",
-           "from_buffers", "from_pandas", "get_dummies", "isna", "isnull", "melt", "merge", "merge_asof",
-           "notna", "notnull", "pivot_table", "qcut", "to_datetime", "to_numeric",
-           "to_pandas", "unique"]
+           "from_arrow", "from_buffers", "from_dlpack", "from_pandas", "get_dummies", "isna",
+           "isnull", "melt", "merge", "merge_asof", "notna", "notnull", "pivot_table", "qcut",
+           "read_avro", "read_csv", "read_feather", "read_json", "read_orc", "read_parquet",
+           "read_text", "read_tpudf", "to_datetime", "to_dlpack", "to_numeric", "to_pandas",
+           "unique"]

@@ -680,6 +680,13 @@ class Column:
             return vals
         return [v if ok else None for v, ok in zip(vals, self.validity.cpu().tolist())]
 
+    def __arrow_c_array__(self, requested_schema=None):
+        """The Arrow PyCapsule protocol (``arrow_cdata.py``): the buffers
+        cross on the host."""
+        from cudf_tpu_torch import arrow_cdata
+
+        return arrow_cdata.column_capsules(self, requested_schema=requested_schema)
+
     def to_arrow(self):
         """A pyarrow Array (the reference's ``Column.to_arrow``): a LIST
         column as a large list, a STRUCT as a struct array, a decimal as

@@ -81,6 +81,33 @@ class Table:
     def rename(self, mapping: Dict) -> "Table":
         return Table.from_pairs([mapping.get(n, n) for n in self._names], self._columns)
 
+    @classmethod
+    def from_arrow(cls, tbl, *, device) -> "Table":
+        """A pyarrow Table (or anything with ``__arrow_c_stream__``, no
+        pyarrow needed) onto ``device``."""
+        if not hasattr(tbl, "column_names"):
+            from cudf_tpu_torch.arrow_cdata import from_c_stream_table
+
+            return from_c_stream_table(tbl, device=device)
+        return cls({n: Column.from_arrow(tbl.column(i).combine_chunks(), device=device)
+                    for i, n in enumerate(tbl.column_names)})
+
+    def to_arrow(self):
+        """A pyarrow Table of the columns."""
+        import pyarrow as pa
+
+        return pa.table({str(n): c.to_arrow() for n, c in self.items()})
+
+    def __arrow_c_array__(self, requested_schema=None):
+        from cudf_tpu_torch.arrow_cdata import table_capsules
+
+        return table_capsules(self, requested_schema)
+
+    def __arrow_c_stream__(self, requested_schema=None):
+        from cudf_tpu_torch.arrow_cdata import table_stream_capsule
+
+        return table_stream_capsule(self, requested_schema)
+
     def __contains__(self, name) -> bool:
         return name in self._names
 

@@ -6,11 +6,14 @@ Every node has ``do_evaluate`` over its children's tables and a cached
 the in-memory one: every table lives on the device of its source
 frames, and every node runs there through the ``ops`` layer.
 
-``Rolling`` is a trailing window of rows over a sorted table
-(``frame/window.py``).  Not ported, and raising NotImplementedError when
-built: ``Scan`` and ``Sink`` (file IO, ROADMAP.md queue 1, item 7),
-``MapFunction`` and ``PythonScan`` (the engine's escape hatches, which
-come with the streaming executor, item 10).
+``Scan`` reads Parquet or CSV files onto its device with the projection
+and the simple conjuncts of its predicate pushed into the reader (row
+groups and pages pruned by the file's metadata), then applies the whole
+predicate; ``Sink`` writes its child's table to a file.  ``Rolling`` is a
+trailing window of rows over a sorted table (``frame/window.py``).  Not
+ported, and raising NotImplementedError when built: ``MapFunction`` and
+``PythonScan`` (the engine's escape hatches, which come with the
+streaming executor, ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -72,13 +75,99 @@ class DataFrameScan(IR):
 
 
 class Scan(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("Scan (parquet and CSV sources)", 7, "the io package")
+    """File source with projection and predicate pushdown."""
+
+    def __init__(self, fmt: str, paths: Sequence[str], projection: Optional[Sequence[str]] = None,
+                 predicate: Optional[Expr] = None, *, device):
+        self.fmt = fmt
+        self.paths = list(paths)
+        self.projection = list(projection) if projection is not None else None
+        self.predicate = predicate
+        self.device = device
+
+    def schema(self):
+        if self.projection:
+            return list(self.projection)
+        return file_columns(self.fmt, self.paths[0])
+
+    def _read_cols(self):
+        """The columns to read: the projection and the predicate's."""
+        if self.projection is None:
+            return None
+        cols = list(self.projection)
+        if self.predicate is not None:
+            cols += [r for r in sorted(self.predicate.references()) if r not in cols]
+        return cols
+
+    def _read_one(self, path):
+        if self.fmt == "parquet":
+            from cudf_tpu_torch.io.parquet import _read_parquet_pruned
+
+            filters = predicate_to_filters(self.predicate) if self.predicate is not None \
+                else None
+            return _read_parquet_pruned(path, self._read_cols(), filters or None,
+                                        device=self.device)[0]
+        if self.fmt == "csv":
+            from cudf_tpu_torch.io.csv import read_csv
+
+            return read_csv(path, usecols=self._read_cols(), device=self.device)
+        raise ValueError(f"unknown file format {self.fmt!r}")
+
+    def do_evaluate(self) -> Table:
+        from cudf_tpu_torch.ops.copying import concatenate_tables
+
+        tables = [self._read_one(p)._table for p in self.paths]
+        t = tables[0] if len(tables) == 1 else concatenate_tables(tables)
+        if self.predicate is not None:
+            t = _filter_table(t, self.predicate)
+        if self.projection is not None:
+            t = t.select(self.projection)
+        return t
+
+    def _explain_args(self):
+        return (f"({self.fmt}, {len(self.paths)} file(s), cols={self.projection}, "
+                f"pred={self.predicate!r})")
 
 
 class Sink(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("Sink (parquet and CSV writers)", 7, "the io package")
+    """Write the child's table to a file; the table passes through."""
+
+    def __init__(self, child: IR, fmt: str, path: str):
+        self.children = (child,)
+        self.fmt = fmt
+        self.path = path
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        from cudf_tpu_torch.frame.dataframe import DataFrame
+        from cudf_tpu_torch.frame.index import default_index
+
+        df = DataFrame._from(t, default_index(t.num_rows))
+        if self.fmt == "parquet":
+            df.to_parquet(self.path)
+        elif self.fmt == "csv":
+            df.to_csv(self.path, index=False)
+        else:
+            raise ValueError(f"unknown file format {self.fmt!r}")
+        return t
+
+
+def file_columns(fmt: str, path: str) -> List[str]:
+    """A file's column names, from its metadata (Parquet) or its header
+    line (CSV)."""
+    if fmt == "parquet":
+        from cudf_tpu_torch.io.parquet_nested import schema_tree
+        from cudf_tpu_torch.io.thrift import read_file_metadata
+
+        return [node.name for node in schema_tree(read_file_metadata(path).schema)]
+    if fmt == "csv":
+        import csv
+
+        with open(path, newline="") as f:
+            return next(csv.reader(f))
+    raise ValueError(f"unknown file format {fmt!r}")
 
 
 class Rolling(IR):
@@ -490,3 +579,21 @@ def _filter_table(t: Table, predicate: Expr) -> Table:
 
     return apply_boolean_mask_table(t, predicate.evaluate(t))
 
+
+
+def predicate_to_filters(pred: Expr) -> list:
+    """The conjuncts of a predicate that compare a column with a literal,
+    as Parquet (column, op, value) filters (predicate pushdown,
+    predicate_pushdown.cpp).  Other conjuncts are left out: the scan
+    applies the whole predicate after the read, so the filters only prune.
+    (The reference pushes nothing when any conjunct is of another form.)"""
+    from cudf_tpu_torch.engine.expr import BinOp, Col, Literal
+
+    if isinstance(pred, BinOp) and pred.op == "and":
+        return predicate_to_filters(pred.children[0]) + predicate_to_filters(pred.children[1])
+    if isinstance(pred, BinOp) and pred.op in ("eq", "ne", "lt", "gt", "le", "ge"):
+        left, right = pred.children
+        if isinstance(left, Col) and isinstance(right, Literal) and right.value is not None:
+            op = {"eq": "==", "ne": "!=", "lt": "<", "gt": ">", "le": "<=", "ge": ">="}[pred.op]
+            return [(left.name, op, right.value)]
+    return []

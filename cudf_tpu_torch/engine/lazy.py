@@ -2,10 +2,11 @@
 ``cudf_tpu/engine/lazy.py``): builds the IR, optimizes it and runs it on
 the in-memory executor, on the device of its source frames.
 
-``collect(mesh=...)`` and ``streaming=True`` (the partitioned executor,
-``engine/streaming.py`` and ``engine/spmd.py``) are ROADMAP.md queue 1,
-item 10; ``scan_parquet`` and ``scan_csv`` are item 7; ``map_batches`` and
-the ``sink_*`` writers raise with their IR nodes.
+``scan_parquet`` / ``scan_csv`` read files onto a device (pushdown into
+the ``Scan``); ``sink_parquet`` / ``sink_csv`` write a plan's result when
+it is collected.  ``collect(mesh=...)`` and ``streaming=True`` (the
+partitioned executor, ``engine/streaming.py`` and ``engine/spmd.py``) are
+ROADMAP.md queue 1, item 10, and ``map_batches`` raises with its IR node.
 """
 
 from __future__ import annotations
@@ -154,12 +155,16 @@ def _as_expr(e) -> Expr:
     return col(e) if isinstance(e, str) else lit(e)
 
 
-def scan_parquet(path, columns=None) -> LazyFrame:
-    return LazyFrame(IRs.Scan("parquet", path, columns))
+def scan_parquet(path, columns=None, *, device="cuda") -> LazyFrame:
+    """A lazy scan of one Parquet file or a list of them onto ``device``."""
+    paths = [path] if isinstance(path, (str, bytes)) or hasattr(path, "__fspath__") else list(path)
+    return LazyFrame(IRs.Scan("parquet", [str(p) for p in paths], columns, device=device))
 
 
-def scan_csv(path, columns=None) -> LazyFrame:
-    return LazyFrame(IRs.Scan("csv", path, columns))
+def scan_csv(path, columns=None, *, device="cuda") -> LazyFrame:
+    """A lazy scan of one CSV file or a list of them onto ``device``."""
+    paths = [path] if isinstance(path, (str, bytes)) or hasattr(path, "__fspath__") else list(path)
+    return LazyFrame(IRs.Scan("csv", [str(p) for p in paths], columns, device=device))
 
 
 def from_dataframe(df) -> LazyFrame:

@@ -1,9 +1,7 @@
 """Plan optimizer (port of ``cudf_tpu/engine/optimizer.py``): adjacent
-filters fused, projections pushed down to the in-memory sources, and
+filters fused, a filter over a file ``Scan`` pushed into it, projections
+pushed down to the sources (in-memory tables and file scans), and
 structurally equal subplans shared.
-
-The reference also pushes a filter into a file ``Scan``; file sources
-are not ported (ROADMAP.md queue 1, item 7), so no plan holds one.
 """
 
 from __future__ import annotations
@@ -64,10 +62,14 @@ def cse(node: IRs.IR) -> IRs.IR:
 
 def push_predicates(node: IRs.IR) -> IRs.IR:
     node = _rewrite_children(node, push_predicates)
-    if isinstance(node, IRs.Filter) and isinstance(node.children[0], IRs.Filter):
+    if isinstance(node, IRs.Filter):
         child = node.children[0]
-        return push_predicates(IRs.Filter(child.children[0],
-                                          child.predicate & node.predicate))
+        if isinstance(child, IRs.Scan) and child.predicate is None:
+            return IRs.Scan(child.fmt, child.paths, child.projection, node.predicate,
+                            device=child.device)
+        if isinstance(child, IRs.Filter):
+            return push_predicates(IRs.Filter(child.children[0],
+                                              child.predicate & node.predicate))
     return node
 
 
@@ -76,6 +78,12 @@ def push_predicates(node: IRs.IR) -> IRs.IR:
 # ----------------------------------------------------------------------
 
 def push_projections(node: IRs.IR, needed: Optional[Set[str]]) -> IRs.IR:
+    if isinstance(node, IRs.Scan):
+        if needed is not None and node.projection is None:
+            avail = IRs.file_columns(node.fmt, node.paths[0])
+            return IRs.Scan(node.fmt, node.paths, [c for c in avail if c in needed],
+                            node.predicate, device=node.device)
+        return node
     if isinstance(node, IRs.DataFrameScan):
         if needed is not None and node.projection is None:
             return IRs.DataFrameScan(node.table, [n for n in node.table.names if n in needed])

@@ -54,7 +54,7 @@ from cudf_tpu_torch.ops.replace import nans_to_nulls
 # that brings each
 _NOT_PORTED = {
     "map": BEYOND, "applymap": BEYOND, "interpolate": BEYOND, "update": BEYOND,
-    "to_arrow": 7, "to_csv": 7, "to_json": 7, "to_parquet": 7, "to_orc": 7, "to_feather": 7,
+    "to_json": 7, "to_orc": 7, "to_feather": 7,
 }
 # the row reductions of agg(axis=1), by name
 _ROW_REDUCTIONS = ("sum", "prod", "mean", "min", "max", "std", "var", "median", "count",
@@ -205,6 +205,32 @@ class DataFrame:
             index = Index(Column.from_numpy(np.asarray(pidx), device=device),
                           name=pidx.name)
         return cls._from(Table(cols), index)
+
+    @classmethod
+    def from_arrow(cls, tbl, *, device) -> "DataFrame":
+        """A pyarrow Table, or any object with ``__arrow_c_stream__``
+        (no pyarrow needed), onto ``device``."""
+        t = Table.from_arrow(tbl, device=device)
+        return cls._from(t, default_index(t.num_rows))
+
+    def to_arrow(self):
+        return self._table.to_arrow()
+
+    def __arrow_c_array__(self, requested_schema=None):
+        return self._table.__arrow_c_array__(requested_schema)
+
+    def __arrow_c_stream__(self, requested_schema=None):
+        return self._table.__arrow_c_stream__(requested_schema)
+
+    def to_parquet(self, path, **kw):
+        from cudf_tpu_torch.io.parquet import write_parquet
+
+        return write_parquet(self, path, **kw)
+
+    def to_csv(self, path=None, **kw):
+        from cudf_tpu_torch.io.csv import write_csv
+
+        return write_csv(self, path, **kw)
 
     def to_pandas(self):
         import pandas as pd

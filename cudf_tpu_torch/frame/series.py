@@ -75,7 +75,7 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
-_NOT_PORTED = {"to_csv": 7, "to_json": 7, "to_parquet": 7}
+_NOT_PORTED = {"to_json": 7}
 _DESCRIBE = ("count", "mean", "std", "min", "25%", "50%", "75%", "max")
 # what the reference package lacks too: ROADMAP.md's line for it
 BEYOND = "ROADMAP.md, beyond the reference"
@@ -291,6 +291,20 @@ class Series:
 
     def to_arrow(self):
         return self._column.to_arrow()
+
+    def __arrow_c_array__(self, requested_schema=None):
+        from cudf_tpu_torch import arrow_cdata
+
+        return arrow_cdata.column_capsules(
+            self._column, name=str(self.name) if self.name is not None else "",
+            requested_schema=requested_schema)
+
+    def to_csv(self, path=None, **kw):
+        """pandas' ``to_csv`` of the Series (a counted host route, as the
+        frame's ``to_csv``)."""
+        from cudf_tpu_torch.io.csv import write_csv
+
+        return write_csv(self, path, **kw)
 
     # ------------------------------------------------------------------
     # attributes

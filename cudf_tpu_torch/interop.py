@@ -1,5 +1,7 @@
-"""Interop (port of ``cudf_tpu/interop.py``): pandas round trip, and
-column buffers in from host arrays.
+"""Interop (port of ``cudf_tpu/interop.py``): pandas round trip, Arrow
+(a pyarrow Table or Array, or any object with the Arrow PyCapsule
+protocol: ``arrow_cdata.py``, no pyarrow needed), DLPack, and column
+buffers in from host arrays.
 
 pandas is imported lazily by the frame's ``to_pandas``; this module
 imports neither pandas nor pyarrow.
@@ -61,3 +63,43 @@ def from_buffers(dtype, length: int, data: np.ndarray,
                              "uint8[ceil(length / 8)]")
         mask = mask.to(device)
     return Column(logical, length, values, mask)
+
+
+def from_arrow(obj, *, device):
+    """A pyarrow Table / RecordBatch or an object with ``__arrow_c_stream__``
+    -> DataFrame; a pyarrow Array / ChunkedArray or an object with only
+    ``__arrow_c_array__`` -> Series (a STRUCT array -> DataFrame)."""
+    from cudf_tpu_torch import arrow_cdata
+    from cudf_tpu_torch.frame.dataframe import DataFrame
+    from cudf_tpu_torch.frame.index import default_index
+    from cudf_tpu_torch.frame.series import Series
+
+    if hasattr(obj, "column_names") or hasattr(obj, "__arrow_c_stream__") and \
+            not hasattr(obj, "type"):
+        return DataFrame.from_arrow(obj, device=device)
+    if hasattr(obj, "type") and hasattr(obj, "to_pylist"):      # a pyarrow array
+        col = Column.from_arrow(obj, device=device)
+    else:
+        col = arrow_cdata.from_c_array(obj, device=device)
+        if col.dtype.is_struct:
+            t = arrow_cdata._struct_table(col)
+            return DataFrame._from(t, default_index(t.num_rows))
+    return Series._from(col, default_index(col.length))
+
+
+def from_dlpack(capsule):
+    """A Series (1-D) or DataFrame (2-D, a column each) over a DLPack
+    tensor, on its device, without a copy."""
+    from cudf_tpu_torch.frame.dataframe import DataFrame
+    from cudf_tpu_torch.frame.index import default_index
+    from cudf_tpu_torch.frame.series import Series
+
+    t = torch.from_dlpack(capsule)
+    if t.ndim == 1:
+        return Series._from(Column.from_tensor(t), default_index(t.shape[0]))
+    return DataFrame({i: Column.from_tensor(t[:, i].contiguous()) for i in range(t.shape[1])})
+
+
+def to_dlpack(obj):
+    """A DLPack capsule of a Series' data buffer."""
+    return torch.utils.dlpack.to_dlpack(obj._column.data)

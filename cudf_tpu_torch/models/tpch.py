@@ -16,7 +16,8 @@ dbgen.
   ``generate_device``'s layouts: int32 keys, dictionary codes over keys
   from a small host set, ``datetime64[ns]`` dates.
 - ``q1`` ... ``q14`` are the reference's plans; ``QUERIES`` maps their
-  names to them.
+  names to them.  A table may be a frame or a LazyFrame, such as a file
+  scan (``engine.scan_parquet``).
 - ``FRAME_QUERIES`` are the bodies of the reference's pandas version of
   each over a dict of frames, which run on the port's ``DataFrame`` (its
   pandas API) as they run on pandas; ``pandas_reference`` runs them on
@@ -34,7 +35,7 @@ import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
-from cudf_tpu_torch.engine import col, from_dataframe, lit, when
+from cudf_tpu_torch.engine import LazyFrame, col, from_dataframe, lit, when
 from cudf_tpu_torch.frame.dataframe import DataFrame
 
 _REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
@@ -56,6 +57,12 @@ Q5_RANGE = Q6_RANGE
 Q10_RANGE = (np.datetime64("1993-10-01"), np.datetime64("1994-01-01"))
 PROMO = "PROMO BURNISHED NICKEL"
 Q9_PARTS = ["green apple", "green forest"]
+
+
+def _source(table):
+    """A query's source: a frame, or a LazyFrame such as a file scan
+    (``engine.scan_parquet``)."""
+    return table if isinstance(table, LazyFrame) else from_dataframe(table)
 
 
 def _sizes(scale: float):
@@ -228,7 +235,7 @@ def generate_device(scale: float = 0.01, seed: int = 0, device="cuda"):
 def q1(tables, no_optimization: bool = False):
     """Pricing summary report: a temporal filter, arithmetic, a groupby
     on two dictionary keys (the sort tier), then a sort on them."""
-    li = from_dataframe(tables["lineitem"])
+    li = _source(tables["lineitem"])
     disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
     plan = (
         li.filter(col("l_shipdate") <= lit(Q1_CUTOFF))
@@ -254,7 +261,7 @@ def q1(tables, no_optimization: bool = False):
 
 def q6(tables, no_optimization: bool = False):
     """Forecast revenue change: five predicates, a product, one sum."""
-    li = from_dataframe(tables["lineitem"])
+    li = _source(tables["lineitem"])
     lo, hi = Q6_RANGE
     plan = (
         li.filter(
@@ -272,8 +279,8 @@ def q12(tables, no_optimization: bool = False):
     """Shipping modes and order priority: is_in on a dictionary, temporal
     comparisons, a join against orders, a CASE count by ship mode (one
     dictionary key: the one-hot tier)."""
-    o = from_dataframe(tables["orders"])
-    li = from_dataframe(tables["lineitem"])
+    o = _source(tables["orders"])
+    li = _source(tables["lineitem"])
     lo, hi = Q12_RANGE
     high = (col("o_orderpriority") == lit("1-URGENT")) | (
         col("o_orderpriority") == lit("2-HIGH"))
@@ -299,8 +306,8 @@ def q12(tables, no_optimization: bool = False):
 def q14(tables, no_optimization: bool = False):
     """Promotion effect: the promo revenue share in percent, after a
     join against part and a CASE on a dictionary compared with a string."""
-    li = from_dataframe(tables["lineitem"])
-    p = from_dataframe(tables["part"])
+    li = _source(tables["lineitem"])
+    p = _source(tables["part"])
     lo, hi = Q14_RANGE
     plan = (
         li.filter((col("l_shipdate") >= lit(lo)) & (col("l_shipdate") < lit(hi)))
@@ -321,9 +328,9 @@ def q3(tables, no_optimization: bool = False):
     """Shipping priority: a customer filter on a dictionary, two joins
     (customer-orders, orders-lineitem), revenue by order on two keys (the
     sort tier), the top 10 by revenue."""
-    c = from_dataframe(tables["customer"])
-    o = from_dataframe(tables["orders"])
-    li = from_dataframe(tables["lineitem"])
+    c = _source(tables["customer"])
+    o = _source(tables["orders"])
+    li = _source(tables["lineitem"])
     plan = (
         c.filter(col("c_mktsegment") == lit("BUILDING"))
         .join(o, left_on="c_custkey", right_on="o_custkey")
@@ -343,8 +350,8 @@ def q3(tables, no_optimization: bool = False):
 def q4(tables, no_optimization: bool = False):
     """Order priority checking: a semi join of a quarter's orders against
     the late lineitems (the sort-merge tier), counts by priority."""
-    o = from_dataframe(tables["orders"])
-    li = from_dataframe(tables["lineitem"])
+    o = _source(tables["orders"])
+    li = _source(tables["lineitem"])
     lo, hi = Q4_RANGE
     late = li.filter(col("l_commitdate") < col("l_receiptdate"))
     plan = (
@@ -361,12 +368,12 @@ def q5(tables, no_optimization: bool = False):
     """Local supplier volume: five joins from region down to lineitem,
     the last on two keys (supplier and nation: the sort-merge tier),
     revenue by nation."""
-    li = from_dataframe(tables["lineitem"])
-    o = from_dataframe(tables["orders"])
-    c = from_dataframe(tables["customer"])
-    s = from_dataframe(tables["supplier"])
-    n = from_dataframe(tables["nation"])
-    r = from_dataframe(tables["region"])
+    li = _source(tables["lineitem"])
+    o = _source(tables["orders"])
+    c = _source(tables["customer"])
+    s = _source(tables["supplier"])
+    n = _source(tables["nation"])
+    r = _source(tables["region"])
     lo, hi = Q5_RANGE
     plan = (
         r.filter(col("r_name") == lit("ASIA"))
@@ -388,11 +395,11 @@ def q5(tables, no_optimization: bool = False):
 def q9(tables, no_optimization: bool = False):
     """Product type profit: green parts joined to lineitem, supplier,
     nation and orders; profit by nation."""
-    li = from_dataframe(tables["lineitem"])
-    s = from_dataframe(tables["supplier"])
-    n = from_dataframe(tables["nation"])
-    p = from_dataframe(tables["part"])
-    o = from_dataframe(tables["orders"])
+    li = _source(tables["lineitem"])
+    s = _source(tables["supplier"])
+    n = _source(tables["nation"])
+    p = _source(tables["part"])
+    o = _source(tables["orders"])
     plan = (
         p.filter(col("p_name").is_in(Q9_PARTS))
         .join(li, left_on="p_partkey", right_on="l_partkey")
@@ -413,10 +420,10 @@ def q10(tables, no_optimization: bool = False):
     """Returned item reporting: customer-orders-lineitem-nation joins,
     lost revenue by four keys (the sort tier: an int, a dictionary, a
     float and a dictionary), the top 20 customers."""
-    c = from_dataframe(tables["customer"])
-    o = from_dataframe(tables["orders"])
-    li = from_dataframe(tables["lineitem"])
-    n = from_dataframe(tables["nation"])
+    c = _source(tables["customer"])
+    o = _source(tables["orders"])
+    li = _source(tables["lineitem"])
+    n = _source(tables["nation"])
     lo, hi = Q10_RANGE
     plan = (
         c.join(o, left_on="c_custkey", right_on="o_custkey")

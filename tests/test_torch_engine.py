@@ -269,9 +269,6 @@ def test_unported_paths_raise_naming_their_item(data):
     cases = [
         (lambda: lf.collect(mesh=4), "item 10"),
         (lambda: lf.collect(streaming=True), "item 10"),
-        (lambda: pe.scan_parquet("x.parquet"), "item 7"),
-        (lambda: pe.scan_csv("x.csv"), "item 7"),
-        (lambda: lf.sink_parquet("x.parquet"), "item 7"),
         (lambda: lf.map_batches(lambda t: t), "item 10"),
         (lambda: IRs.PythonScan(lambda: None), "item 10"),
     ]

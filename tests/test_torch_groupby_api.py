@@ -446,10 +446,11 @@ def test_what_stays_unported_raises_naming_its_item():
     df = _port(_pdf(14))
     for name, where in (("map", "beyond the reference"), ("applymap", "beyond the reference"),
                         ("interpolate", "beyond the reference"),
-                        ("update", "beyond the reference"), ("to_arrow", "item 7")):
+                        ("update", "beyond the reference"), ("to_json", "item 7"),
+                        ("to_orc", "item 7"), ("to_feather", "item 7")):
         with pytest.raises(NotImplementedError, match=where):
             getattr(df, name)()
-    for name, item in (("to_json", 7), ("to_csv", 7)):
+    for name, item in (("to_json", 7),):
         with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
             getattr(df["v"], name)()
     with pytest.raises(NotImplementedError, match="beyond the reference"):

@@ -14,7 +14,10 @@ list aggregations of ``ops/groupby.py``, ``models/nested.py``), nor the
 ops and windows (``ops/hashing.py``, ``partitioning.py``, ``bloom.py``,
 ``pack.py``, ``tdigest.py``, ``text.py``, ``frame/window.py``,
 ``resample.py``, ``asof.py``, ``eval_expr.py``, ``utils/tracing.py``,
-``models/ops_windows.py``)."""
+``models/ops_windows.py``), nor the file formats (``io/``,
+``arrow_cdata.py``, ``models/io_paths.py``: every request on the native
+routes); the host IO library builds only from the package's own C++
+source into ``build/cudf_tpu_torch/``, and a failed build raises."""
 
 import ast
 import os
@@ -264,6 +267,75 @@ def test_ops_and_windows_run_without_pandas_pyarrow_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "OPS OK []" in proc.stdout, proc.stdout
+
+
+_IO_PROBE = """
+import sys, tempfile
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+from cudf_tpu_torch.io import IO_ROUTES
+from cudf_tpu_torch.models import io_paths as iop, tpch
+d = tempfile.mkdtemp()
+t = tpch.generate_device(0.002, seed=3, device="cpu")
+g1 = iop.g1_frame(3000, device="cpu")
+frames = {"dir": d, "device": "cpu", "taxi": iop.taxi_frame(3000, device="cpu"), "g1": g1,
+          "tpch": dict(t, lineitem=t["lineitem"].sort_values("l_shipdate")
+                       .reset_index(drop=True))}
+iop.write_bytes(d + "/g1.csv", iop.g1_csv(g1))
+frames["nested_list"], frames["nested_struct"] = iop.nested_frame(g1)
+for group in ("taxi", "tpch", "g1"):
+    for name in iop.GROUPS[group]:
+        res = iop.REQUESTS[name](frames)
+        if name == "g1_read_csv":
+            frames["g1_csv"] = res
+        err = iop.PLAIN[name](frames, res)
+        assert err <= (1.0 if name == "g1_read_csv" else 1e-6), (name, err)
+assert set(iop.ROUTE.values()) == {"native"} and set(iop.REQUESTS) == set(iop.PLAIN)
+assert IO_ROUTES["pyarrow"] == 0 and IO_ROUTES["native"] > 0, IO_ROUTES
+print("IO OK", sorted(m for m, mod in sys.modules.items()
+                      if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu")))
+"""
+
+
+def test_io_requests_run_without_pandas_pyarrow_or_jax():
+    """Every ``models/io_paths.py`` request (the taxi month, TPC-H from
+    Parquet with its sink, G1 from CSV with its questions, the nested
+    columns, the Arrow C stream) equal to its plain check, on the native
+    routes, with pandas, pyarrow and jax unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _IO_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "IO OK []" in proc.stdout, proc.stdout
+
+
+def test_host_library_builds_from_the_package_source_only():
+    """The loader compiles cudf_tpu_torch/csrc/host/io_host.cpp and loads
+    from build/cudf_tpu_torch/, never the reference's csrc/ or build/native/."""
+    from cudf_tpu_torch.io import _native
+
+    assert _native.SOURCE == PACKAGE / "csrc" / "host" / "io_host.cpp"
+    assert _native.library_path().parent == ROOT / "build" / "cudf_tpu_torch"
+    assert _native.build().parent == ROOT / "build" / "cudf_tpu_torch"
+    loaded = Path(_native.lib()._name)
+    assert loaded.parent == ROOT / "build" / "cudf_tpu_torch"
+    assert loaded.name.startswith("libio_host_")
+
+
+def test_a_failed_host_library_build_raises(tmp_path, monkeypatch):
+    """No silent fallback: a compiler that is not there raises."""
+    from cudf_tpu_torch.io import _native
+
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_native, "CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(_native, "_lib", None)
+    import pytest
+
+    with pytest.raises(RuntimeError, match="io_host.cpp"):
+        _native.lib()
+    with pytest.raises(RuntimeError):
+        _native.snappy_compress(b"abc")
 
 
 def test_package_sources_import_no_jax_or_reference():
