@@ -329,9 +329,10 @@ answer held against its plain version inside the path and let go:
    request once.
 
 The file formats (``cudf_tpu_torch/io``, ``arrow_cdata.py``;
-``models/io_paths.py`` ``REQUESTS``, ``PLAIN``, ``NEEDS``, ``ROUTE``),
-files in a temporary directory removed at the end; every request leaves
-``io.IO_ROUTES["pyarrow"]`` at 0:
+``models/io_paths.py`` and ``models/io_formats.py`` ``REQUESTS``,
+``PLAIN``, ``NEEDS``, ``ROUTE``), files in a temporary directory removed
+at the end; every request leaves ``io.IO_ROUTES["pyarrow"]`` and
+``["pandas"]`` at 0:
 
 4. TPC-H SF10, after its ops phase: lineitem (sorted by l_shipdate, as
    date-clustered warehouse files are), orders and part written with the
@@ -362,6 +363,21 @@ files in a temporary directory removed at the end; every request leaves
    .v1.agg(list)``) and a STRUCT of (id4, v3) written and read back equal;
    the frame through ``__arrow_c_stream__`` and back (capsules only).
 5. ``read_csv``'s ms, MB/s and host syncs; each request's ms.
+4. the other formats (``models/io_formats.py``), after G1 from CSV: G1_1e7
+   as NDJSON (pandas' ``to_json(lines=True)`` text built on the card,
+   ~1.1 GB): ``to_json`` equal to it byte for byte, ``read_json`` (ints
+   and strings exact, v3 within 1 ulp), G1 q1-q5 over the frame read
+   equal to memory (q1, q4 launch A; q3, q5 B, F, G, D; each call
+   replayed), the records orient at 1e6 rows; the taxi month as ORC with
+   snappy and with zlib, read back bit for bit, and G1_1e7 as ORC (id1-id3
+   STRING) read back and q3 over it; G1_1e7 as Avro containers (null and
+   deflate, 64 Ki-row blocks) read equal and q1 over them; the tpudf file
+   bit for bit; ``read_text`` of the NDJSON (every line, the first and
+   last equal); a ``StreamConsumer`` over ten appends each cut
+   mid-record (each poll exactly the records completed, all of them the
+   frame).  Feather is not run: its only tier is pyarrow's.
+5. each read's MB/s and rows/s, JSON's host syncs and peak device
+   memory, each write's seconds, q1 over Avro; each group's seconds.
 
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
@@ -3098,31 +3114,35 @@ def wall_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def io_phase(group, frames, smi, wrappers, drive, plains, acc):
-    """The requests of one group (``models/io_paths.py``
-    ``GROUPS[group]``): all of them as one main path, each result held to
-    its plain check; then each alone, every count at 0 before it,
-    launching exactly its ``NEEDS`` (every kernel call replayed against
-    its plain version) and never the pyarrow tier.  Adds (launches, calls,
-    rows) by request to ``acc``; returns the main path's results by
-    request."""
+def io_phase(group, frames, smi, wrappers, drive, plains, acc, models=None):
+    """The requests of one group (``GROUPS[group]`` of ``models``,
+    ``models/io_paths.py`` by default): all of them as one main path,
+    each result held to its plain check; then each alone but the writes
+    and ``ONCE``, every count at 0 before it, launching exactly its
+    ``NEEDS`` (every kernel call replayed against its plain version) and
+    never the pyarrow or pandas tier.  Adds (launches, calls, rows) by
+    request to ``acc``; returns the main path's results by request."""
     from cudf_tpu_torch.io import IO_ROUTES
-    from cudf_tpu_torch.models import io_paths as iop
+    from cudf_tpu_torch.models import io_paths
 
+    iop = models or io_paths
     names = iop.GROUPS[group]
     errs, results = {}, {}
 
+    def host_tiers():
+        return IO_ROUTES["pyarrow"], IO_ROUTES["pandas"]
+
     def main_path():
         for n in names:
-            before = IO_ROUTES["pyarrow"]
+            before = host_tiers()
             t0 = time.perf_counter()
             res = iop.REQUESTS[n](frames)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-            if n == "g1_read_csv":
-                frames["g1_csv"] = res
+            if n in iop.KEEP:
+                frames[iop.KEEP[n]] = res
             errs[n] = iop.PLAIN[n](frames, res)
-            check(IO_ROUTES["pyarrow"] == before, f"IO {n} took the pyarrow tier")
+            check(host_tiers() == before, f"IO {n} took a host tier: {IO_ROUTES}")
             results[n] = {"first_s": first_s}
             log(f"phase 4 IO {n}: equals its plain check (max abs err {errs[n]}), first run "
                 f"{first_s:.3f} s [{smi}]")
@@ -3130,15 +3150,16 @@ def io_phase(group, frames, smi, wrappers, drive, plains, acc):
             torch.cuda.empty_cache()
     drive(f"io_{group}", main_path)
     for n in names:
-        if n.endswith("_write") or n == "tpch_q1_sink":
+        if n.endswith("_write") or n in getattr(iop, "ONCE", ()):
             acc[0][n] = {}
+            acc[2][n] = dict(results[n], max_abs_err=errs[n], launches={})
             continue
         run = (lambda n=n: iop.REQUESTS[n](frames))
         acc[0][n] = run_replayed(f"IO {n}", n, run, wrappers, plains, acc[1],
                                  needs=iop.NEEDS[n])
         acc[2][n] = dict(results[n], max_abs_err=errs[n], launches=acc[0][n])
         torch.cuda.empty_cache()
-    check(IO_ROUTES["pyarrow"] == 0, f"IO routes {IO_ROUTES}: the pyarrow tier was taken")
+    check(host_tiers() == (0, 0), f"IO routes {IO_ROUTES}: a host tier was taken")
     return results
 
 
@@ -3304,6 +3325,97 @@ def io_g1_phase(dev, smi, wrappers, drive, plains, acc, directory):
     return row
 
 
+def io_formats_phase(dev, smi, wrappers, drive, plains, acc, directory):
+    """JSON, ORC, Avro, the tpudf file, text and the stream consumer
+    (``models/io_formats.py``) over G1_1e7 and the taxi month; each
+    group's requests through ``io_phase``, then the rates."""
+    import importlib.util
+
+    from cudf_tpu_torch.io.json import read_json
+    from cudf_tpu_torch.models import g1
+    from cudf_tpu_torch.models import io_formats as iof
+    from cudf_tpu_torch.models import io_paths as iop
+
+    t0 = time.perf_counter()
+    frames = iof.prepare(iop.g1_frame(iop.G1_ROWS, device=dev),
+                         iop.taxi_frame(iop.TAXI_ROWS, device=dev), directory, dev)
+    torch.cuda.synchronize()
+    text_mb = frames["g1_ndjson"].numel() / 1e6
+    log(f"phase 4 IO formats: G1_1e7 as NDJSON ({text_mb:.1f} MB, built on the card) and "
+        f"two Avro containers (encoded on the host) in {time.perf_counter() - t0:.2f} s")
+    rows, seconds = {}, {}
+
+    def path(name):
+        return os.path.join(directory, name)
+
+    def rate(name, run, mb, n_rows, reps=3):
+        ms = wall_ms(run, reps=reps)
+        rows[name] = {"ms": ms, "file_mb": mb, "mb_per_s": mb / ms * 1e3,
+                      "rows_per_s": n_rows / ms * 1e3}
+        log(f"phase 5 IO {name}: {ms:.1f} ms, {mb / ms * 1e3:.1f} MB/s, "
+            f"{n_rows / ms * 1e3:.4g} rows/s [{smi}]")
+
+    for group in iof.GROUPS:
+        t0 = time.perf_counter()
+        res = io_phase(group, frames, smi, wrappers, drive, plains, acc, models=iof)
+        for n, r in res.items():
+            if n.endswith("_write"):
+                rows[n] = {"first_s": r["first_s"]}
+        if group == "json":
+            run = (lambda: iof.REQUESTS["g1_json_read"](frames))
+            rate("g1_json_read", run, text_mb, iop.G1_ROWS)
+            rows["g1_json_read"]["host_syncs"] = count_syncs(run)
+            frames.pop("g1_json", None)
+            frames.pop("g1_json_categories", None)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run()
+            torch.cuda.synchronize()
+            rows["g1_json_read"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            rows["g1_json_read"]["peak_over_resident_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+            rows["g1_json_write"]["mb_per_s"] = text_mb / rows["g1_json_write"]["first_s"]
+            mb = os.path.getsize(path("g1_records.json")) / 1e6
+            rate("g1_json_records", lambda: read_json(path("g1_records.json"), device=dev), mb,
+                 iof.RECORDS_ROWS)
+        elif group == "orc":
+            for name, frame in (("taxi_orc_read_snappy", "taxi_snappy"),
+                                ("taxi_orc_read_zlib", "taxi_zlib"),
+                                ("g1_orc_read", "g1_snappy")):
+                rate(name, lambda name=name: iof.REQUESTS[name](frames),
+                     os.path.getsize(path(f"{frame}.orc")) / 1e6,
+                     iop.TAXI_ROWS if frame.startswith("taxi") else iop.G1_ROWS)
+        elif group == "avro":
+            for codec in ("null", "deflate"):
+                name = f"g1_avro_{codec}_read"
+                rate(name, lambda name=name: iof.REQUESTS[name](frames),
+                     os.path.getsize(path(f"g1_{codec}.avro")) / 1e6, iop.G1_ROWS)
+            ms = wall_ms(lambda: iof.REQUESTS["g1_q1_avro"](frames), reps=3)
+            rows["g1_q1_avro"] = {"ms": ms, "in_memory_ms": wall_ms(lambda: g1.q1(frames["g1"]),
+                                                                    reps=3)}
+            log(f"phase 5 IO G1 q1 over the Avro frame: {ms:.3f} ms [{smi}]")
+        elif group == "tpudf":
+            rate("g1_tpudf_read", lambda: iof.REQUESTS["g1_tpudf_read"](frames),
+                 os.path.getsize(path("g1.tpudf")) / 1e6, iop.G1_ROWS)
+        elif group == "text":
+            rate("g1_text", lambda: iof.REQUESTS["g1_text"](frames), text_mb, iop.G1_ROWS)
+        seconds[group] = time.perf_counter() - t0
+        log(f"phase 4 IO formats {group}: {seconds[group]:.1f} s")
+    for n in ("g1_json", "g1_orc", "g1_avro"):
+        frames.pop(n, None)
+        frames.pop(f"{n}_categories", None)
+    have = importlib.util.find_spec("pyarrow") is not None
+    log("phase 4 IO Feather: not run: read_feather and to_feather have one tier, pyarrow's "
+        "(the reference's only tier too), and every file request here holds "
+        f"IO_ROUTES['pyarrow'] at 0 (pyarrow {'is' if have else 'is not'} importable here)")
+    acc[2]["io_formats"] = dict(rows, phase_s=seconds)
+    log("phase 5 IO formats: " + json.dumps({"card": smi, "rows": rows, "phase_s": seconds}))
+    del frames
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--beside", metavar="DIR",
@@ -3394,7 +3506,9 @@ def main():
              "strings_lineitem": ONEHOT_TIER, "nested_g1": [], "nested_lineitem": [],
              "ops_windows_g1": [], "ops_windows_j1": [], "ops_windows_lineitem": ONEHOT_TIER,
              "io_tpch": RADIX_TIER + ["window_probe"], "io_taxi": [],
-             "io_g1": ONEHOT_TIER + RADIX_TIER}
+             "io_g1": ONEHOT_TIER + RADIX_TIER, "io_json": ONEHOT_TIER + RADIX_TIER,
+             "io_orc": RADIX_TIER, "io_avro": ONEHOT_TIER, "io_tpudf": [], "io_text": [],
+             "io_stream": []}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -3564,11 +3678,13 @@ def main():
                                  io, directory)
         io_taxi_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_g1_phase(dev, smi, wrappers, drive, plains, io, directory)
+        io_formats_phase(dev, smi, wrappers, drive, plains, io, directory)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     from cudf_tpu_torch.io import IO_ROUTES
 
-    check(IO_ROUTES["pyarrow"] == 0 and IO_ROUTES["native"] > 0, f"IO routes {IO_ROUTES}")
+    check(IO_ROUTES["pyarrow"] == 0 and IO_ROUTES["pandas"] == 0 and IO_ROUTES["native"] > 0,
+          f"IO routes {IO_ROUTES}")
     log("phase 5 IO rows: " + json.dumps({"card": smi, "io_routes": IO_ROUTES,
                                           "rows": io[2]}))
     for name, calls in tpch_calls.items():

@@ -14,10 +14,14 @@ temporal, string and dictionary columns; ``models/tpch.py`` holds the
 TPC-H queries.  The pandas API (``frame/``) adds the reference's
 top-level reshapes (``concat``, ``pivot_table``, ``melt`` ...) and tools
 (``cut``, ``to_datetime`` ...), and row UDFs (``Series.apply``,
-``utils/masked.py`` ``Masked``).  ``io/`` reads and writes Parquet and
-CSV (``read_parquet``, ``read_csv``, ``DataFrame.to_parquet``,
-``to_csv``; the engine's ``scan_parquet`` / ``sink_parquet``), and
-``arrow_cdata.py`` speaks the Arrow C data interface.
+``utils/masked.py`` ``Masked``).  ``io/`` reads and writes Parquet,
+CSV, JSON, ORC, Feather and the tpudf file (``read_parquet``,
+``read_csv``, ``read_json``, ``read_orc``, ``read_feather``,
+``read_tpudf``, ``DataFrame.to_parquet`` ...; the engine's
+``scan_parquet`` / ``sink_parquet``), reads Avro and text
+(``read_avro``, ``read_text``) and consumes a growing log
+(``io.streaming.StreamConsumer``); ``arrow_cdata.py`` speaks the Arrow
+C data interface.
 
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.

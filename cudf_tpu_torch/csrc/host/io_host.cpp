@@ -12,11 +12,23 @@
 //                     gathered on the device
 //   delta_binary_*    DELTA_BINARY_PACKED (decode of any width, encode)
 //   xxhash64_*, sbbf_insert  split-block bloom filters
+//   multibyte_split   record offsets of a text split at a delimiter
+//   avro_decode_block one Avro block's records -> columnar buffers (rows
+//                     are varint-delimited: a value-at-a-time walk)
+//   orc_byte_rle_runs ORC byte RLE (and boolean RLE under it): the run
+//                     headers only; the bytes expand on the device
+//   orc_rle2_runs     ORC integer RLEv2: the headers of SHORT_REPEAT,
+//                     DIRECT, PATCHED_BASE and DELTA runs as flat run
+//                     descriptors plus the patch list; values expand on
+//                     the device
+//   orc_rle1_decode   ORC integer RLEv1 (varint literals: decoded here)
+//   orc_*_encode      the ORC writer's RLEv1, RLEv2 and byte RLE
 //
 // A plain C interface (loaded with ctypes by cudf_tpu_torch/io/_native.py);
 // every function returns a count >= 0 or a negative error code.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -574,6 +586,486 @@ void io_sbbf_insert(uint8_t* bitset, int64_t nbytes, const uint64_t* hashes, int
       std::memcpy(word, &w, 4);
     }
   }
+}
+
+}  // extern "C"
+
+// -------------------------------------------------------------- text
+extern "C" {
+
+// Record start offsets of p split at every delimiter (left to right, not
+// overlapping): 0, the position after each delimiter, and n when the last
+// record has none.  With out == nullptr it only counts.
+int64_t io_multibyte_split(const uint8_t* p, int64_t n, const uint8_t* delim, int64_t dlen,
+                           int64_t* out) {
+  int64_t k = 0, last = 0;
+  auto put = [&](int64_t v) {
+    if (out) out[k] = v;
+    ++k;
+  };
+  put(0);
+  if (dlen == 1) {
+    const uint8_t* q = p;
+    const uint8_t* end = p + n;
+    while (q < end && (q = static_cast<const uint8_t*>(std::memchr(q, delim[0], end - q)))) {
+      ++q;
+      last = q - p;
+      put(last);
+    }
+  } else if (dlen > 1) {
+    for (int64_t i = 0; i + dlen <= n;) {
+      if (p[i] == delim[0] && std::memcmp(p + i, delim, dlen) == 0) {
+        i += dlen;
+        last = i;
+        put(i);
+      } else {
+        ++i;
+      }
+    }
+  }
+  if (last != n) put(n);
+  return k;
+}
+
+// -------------------------------------------------------------- Avro
+// One decompressed Avro block of `count` records into columnar buffers.
+// desc: int32 (kind, null_branch, extra) triples a field; kinds 0 boolean,
+// 1 int, 2 long, 3 float, 4 double, 5 bytes, 6 string, 7 enum index,
+// 8 null, 9 fixed (extra = its size); null_branch the union's null index
+// or -1.  outs: three pointers a field.  Fixed-width kinds: (values,
+// unused, valid) with values 1 (boolean), 4 (int, enum, float) or 8 bytes
+// (long, double) a record, none for kind 8.  bytes/string/fixed: (offsets
+// int64[count + 1], chars of at least n bytes, valid).  valid: one byte a
+// record.  Returns 0, or -1 for a malformed block.
+int64_t io_avro_decode_block(const uint8_t* p, int64_t n, int64_t count, const int32_t* desc,
+                             int32_t nf, void** outs) {
+  int64_t pos = 0;
+  bool ok = true;
+  auto zigzag = [&]() -> int64_t {
+    uint64_t u;
+    if (!read_uvarint(p, n, pos, u)) {
+      ok = false;
+      return 0;
+    }
+    return static_cast<int64_t>((u >> 1) ^ (~(u & 1) + 1));
+  };
+  std::vector<int64_t> clen(static_cast<size_t>(nf), 0);
+  for (int f = 0; f < nf; ++f) {
+    int kind = desc[3 * f];
+    if (kind == 5 || kind == 6 || kind == 9) static_cast<int64_t*>(outs[3 * f])[0] = 0;
+  }
+  for (int64_t row = 0; row < count && ok; ++row) {
+    for (int f = 0; f < nf && ok; ++f) {
+      const int kind = desc[3 * f], nb = desc[3 * f + 1], extra = desc[3 * f + 2];
+      bool isnull = kind == 8;
+      if (nb >= 0) {
+        int64_t br = zigzag();
+        if (br == nb) isnull = true;
+        else if (br != (nb ^ 1)) ok = false;
+        if (!ok) break;
+      }
+      static_cast<uint8_t*>(outs[3 * f + 2])[row] = isnull ? 0 : 1;
+      void* vals = outs[3 * f];
+      switch (kind) {
+        case 0: {
+          uint8_t v = 0;
+          if (!isnull) {
+            if (pos + 1 > n) { ok = false; break; }
+            v = p[pos++];
+          }
+          static_cast<uint8_t*>(vals)[row] = v;
+          break;
+        }
+        case 1:
+        case 7:
+          static_cast<int32_t*>(vals)[row] = isnull ? 0 : static_cast<int32_t>(zigzag());
+          break;
+        case 2:
+          static_cast<int64_t*>(vals)[row] = isnull ? 0 : zigzag();
+          break;
+        case 3:
+        case 4: {
+          const int size = kind == 3 ? 4 : 8;
+          uint8_t* dst = static_cast<uint8_t*>(vals) + row * size;
+          if (isnull) {
+            std::memset(dst, 0, size);
+          } else {
+            if (pos + size > n) { ok = false; break; }
+            std::memcpy(dst, p + pos, size);
+            pos += size;
+          }
+          break;
+        }
+        case 5:
+        case 6:
+        case 9: {
+          int64_t& c = clen[static_cast<size_t>(f)];
+          if (!isnull) {
+            int64_t len = kind == 9 ? extra : zigzag();
+            if (!ok || len < 0 || pos + len > n) { ok = false; break; }
+            std::memcpy(static_cast<uint8_t*>(outs[3 * f + 1]) + c, p + pos, len);
+            pos += len;
+            c += len;
+          }
+          static_cast<int64_t*>(vals)[row + 1] = c;
+          break;
+        }
+        case 8:
+          break;
+        default:
+          ok = false;
+      }
+    }
+  }
+  return ok ? 0 : -1;
+}
+
+// -------------------------------------------------------------- ORC
+}  // extern "C"
+
+namespace {
+const int ORC_W5[32] = {1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16,
+                        17, 18, 19, 20, 21, 22, 23, 24, 26, 28, 30, 32, 40, 48, 56, 64};
+
+inline int64_t unzigzag(uint64_t u) { return static_cast<int64_t>((u >> 1) ^ (~(u & 1) + 1)); }
+
+// `width` (<= 64) bits big-endian from bit `bitpos`; bytes past n read as 0
+inline uint64_t read_be_bits(const uint8_t* p, int64_t n, int64_t bitpos, int width) {
+  uint64_t v = 0;
+  for (int k = 0; k < width; ++k, ++bitpos) {
+    int64_t byte = bitpos >> 3;
+    uint64_t bit = byte < n ? (p[byte] >> (7 - (bitpos & 7))) & 1 : 0;
+    v = (v << 1) | bit;
+  }
+  return v;
+}
+
+int closest_width(int bits) {
+  bits = std::max(bits, 1);
+  for (int c = 0; c < 32; ++c)
+    if (ORC_W5[c] >= bits) return c;
+  return 31;
+}
+
+void put_be_bits(std::vector<uint8_t>& out, const uint64_t* v, int64_t m, int width) {
+  uint64_t acc = 0;  // pending bits, most significant first
+  int nacc = 0;
+  for (int64_t i = 0; i < m; ++i) {
+    for (int k = width - 1; k >= 0; --k) {
+      acc = (acc << 1) | ((v[i] >> k) & 1);
+      if (++nacc == 8) {
+        out.push_back(static_cast<uint8_t>(acc));
+        acc = 0;
+        nacc = 0;
+      }
+    }
+  }
+  if (nacc) out.push_back(static_cast<uint8_t>(acc << (8 - nacc)));
+}
+
+inline void put_vslong(std::vector<uint8_t>& out, int64_t v) { put_uvarint(out, zigzag(v)); }
+
+// the literal groups of the byte and RLEv1 encoders: 1..128 values after
+// a count byte of 256 - size
+template <typename Emit>
+void flush_literals(std::vector<uint8_t>& out, std::vector<int64_t>& lit, Emit emit) {
+  for (size_t j = 0; j < lit.size(); j += 128) {
+    size_t g = std::min<size_t>(128, lit.size() - j);
+    out.push_back(static_cast<uint8_t>(256 - g));
+    for (size_t k = 0; k < g; ++k) emit(lit[j + k]);
+  }
+  lit.clear();
+}
+
+// runs of 3..130 equal values (emit_run) and literals (emit_literal), the
+// greedy grouping of the byte RLE and RLEv1 encoders
+template <typename T, typename Run, typename Lit>
+void greedy_runs(const T* v, int64_t n, std::vector<uint8_t>& out, Run emit_run, Lit emit_lit) {
+  std::vector<int64_t> lit;
+  int64_t i = 0;
+  while (i < n) {
+    int64_t j = i + 1;
+    while (j < n && j - i < 130 && v[j] == v[i]) ++j;
+    if (j - i >= 3) {
+      flush_literals(out, lit, emit_lit);
+      emit_run(j - i, static_cast<int64_t>(v[i]));
+    } else {
+      for (int64_t k = i; k < j; ++k) lit.push_back(static_cast<int64_t>(v[k]));
+      if (lit.size() >= 128) flush_literals(out, lit, emit_lit);
+    }
+    i = j;
+  }
+  flush_literals(out, lit, emit_lit);
+}
+}  // namespace
+
+extern "C" {
+
+// ORC byte RLE headers for `count` output bytes (count < 0: the whole
+// stream): run r makes bytes [start[r], start[r] + len[r]), copied from
+// input byte payload[r] when literal[r], else the byte payload[r]
+// repeated.  Returns the runs, -1 when the stream overruns its bytes or
+// cap, -2 when it ends early.
+int64_t io_orc_byte_rle_runs(const uint8_t* p, int64_t n, int64_t count, int64_t* start,
+                             int64_t* len, uint8_t* literal, int64_t* payload, int64_t cap) {
+  const bool whole = count < 0;
+  if (whole) count = INT64_MAX;
+  int64_t pos = 0, w = 0, r = 0;
+  while (w < count && pos < n) {
+    if (r >= cap) return -1;
+    uint8_t h = p[pos++];
+    int64_t m = h < 128 ? h + 3 : 256 - h;
+    int64_t take = std::min(m, count - w);
+    start[r] = w;
+    len[r] = take;
+    if (h < 128) {
+      if (pos >= n) return -1;
+      literal[r] = 0;
+      payload[r] = p[pos++];
+    } else {
+      if (pos + take > n) return -1;
+      literal[r] = 1;
+      payload[r] = pos;
+      pos += m;
+    }
+    w += take;
+    ++r;
+  }
+  return w < count && !whole ? -2 : r;
+}
+
+// ORC integer RLEv2 headers for `count` values (count < 0: the whole
+// stream).  runs: [cap, 7] int64 rows
+// (start, n, kind, width, bitpos, base, delta0); kind 0 SHORT_REPEAT (the
+// value in base), 1 DIRECT (n values of `width` bits big-endian at bit
+// bitpos of the stream, zigzagged when signed), 2 DELTA (base, delta0,
+// then n - 2 deltas of `width` bits at bitpos, or width 0: every step
+// delta0), 3 PATCHED_BASE (base + n values of `width` bits at bitpos, with
+// the patch list's high bits or-ed in).  Patches: the output position and
+// the bits to or into it.  Returns the runs; -1 overrun, -2 early end.
+int64_t io_orc_rle2_runs(const uint8_t* p, int64_t nbytes, int64_t count, int32_t is_signed,
+                         int64_t* runs, int64_t cap, int64_t* patch_pos, int64_t* patch_val,
+                         int64_t patch_cap, int64_t* n_patches) {
+  const bool whole = count < 0;
+  if (whole) count = INT64_MAX;
+  int64_t pos = 0, w = 0, r = 0, np_ = 0;
+  while (w < count && pos < nbytes) {
+    if (r >= cap) return -1;
+    const uint8_t b0 = p[pos];
+    const int mode = b0 >> 6;
+    int64_t* run = runs + 7 * r;
+    int64_t n = 0, kind = 0, width = 0, bitpos = 0, base = 0, delta0 = 0;
+    if (mode == 0) {
+      const int bw = ((b0 >> 3) & 7) + 1;
+      n = (b0 & 7) + 3;
+      if (pos + 1 + bw > nbytes) return -1;
+      uint64_t v = 0;
+      for (int k = 0; k < bw; ++k) v = (v << 8) | p[pos + 1 + k];
+      pos += 1 + bw;
+      base = is_signed ? unzigzag(v) : static_cast<int64_t>(v);
+    } else {
+      if (pos + 2 > nbytes) return -1;
+      n = ((static_cast<int64_t>(b0 & 1) << 8) | p[pos + 1]) + 1;
+      const int code = (b0 >> 1) & 0x1F;
+      if (mode == 1) {
+        kind = 1;
+        width = ORC_W5[code];
+        pos += 2;
+        bitpos = pos * 8;
+        pos += (n * width + 7) / 8;
+      } else if (mode == 3) {
+        kind = 2;
+        width = code == 0 ? 0 : ORC_W5[code];
+        pos += 2;
+        uint64_t u;
+        if (!read_uvarint(p, nbytes, pos, u)) return -1;
+        base = is_signed ? unzigzag(u) : static_cast<int64_t>(u);
+        if (!read_uvarint(p, nbytes, pos, u)) return -1;
+        delta0 = unzigzag(u);
+        bitpos = pos * 8;
+        if (n > 2 && width) pos += ((n - 2) * width + 7) / 8;
+      } else {
+        kind = 3;
+        width = ORC_W5[code];
+        if (pos + 4 > nbytes) return -1;
+        const uint8_t b2 = p[pos + 2], b3 = p[pos + 3];
+        const int bw = ((b2 >> 5) & 7) + 1;
+        const int pw = ORC_W5[b2 & 0x1F];
+        const int gapbits = ((b3 >> 5) & 7) + 1;
+        const int pll = b3 & 0x1F;
+        pos += 4;
+        if (pos + bw > nbytes) return -1;
+        uint64_t ub = 0;
+        for (int k = 0; k < bw; ++k) ub = (ub << 8) | p[pos + k];
+        pos += bw;
+        const uint64_t sign = 1ull << (bw * 8 - 1);
+        base = (ub & sign) ? -static_cast<int64_t>(ub & (sign - 1)) : static_cast<int64_t>(ub);
+        bitpos = pos * 8;
+        pos += (n * width + 7) / 8;
+        const int eb = ORC_W5[closest_width(gapbits + pw)];  // getClosestFixedBits
+        const int64_t take = std::min(n, count - w);
+        int64_t idx = 0;
+        for (int e = 0; e < pll; ++e) {
+          uint64_t entry = read_be_bits(p, nbytes, pos * 8 + static_cast<int64_t>(e) * eb, eb);
+          idx += static_cast<int64_t>(entry >> pw);
+          uint64_t patch = entry & (pw >= 64 ? ~0ull : ((1ull << pw) - 1));
+          if (idx < take && patch) {
+            if (np_ >= patch_cap) return -1;
+            patch_pos[np_] = w + idx;
+            patch_val[np_] = static_cast<int64_t>(width >= 64 ? 0 : patch << width);
+            ++np_;
+          }
+        }
+        pos += (static_cast<int64_t>(pll) * eb + 7) / 8;
+      }
+    }
+    if (pos > nbytes) return -1;
+    run[0] = w;
+    run[1] = std::min(n, count - w);
+    run[2] = kind;
+    run[3] = width;
+    run[4] = bitpos;
+    run[5] = base;
+    run[6] = delta0;
+    w += run[1];
+    ++r;
+  }
+  *n_patches = np_;
+  return w < count && !whole ? -2 : r;
+}
+
+// ORC integer RLEv1: runs (3..130 values, a signed byte step, a base
+// varint) and literal groups of varints, decoded into out (count < 0:
+// the whole stream; out == nullptr: only counted).  Returns the values,
+// or -1 for a truncated stream.
+int64_t io_orc_rle1_decode(const uint8_t* p, int64_t n, int64_t count, int32_t is_signed,
+                           int64_t* out) {
+  if (count < 0) count = INT64_MAX;
+  int64_t pos = 0, w = 0;
+  while (w < count && pos < n) {
+    uint8_t h = p[pos++];
+    uint64_t u;
+    if (h < 128) {
+      if (pos >= n) return -1;
+      const int64_t step = static_cast<int8_t>(p[pos++]);
+      if (!read_uvarint(p, n, pos, u)) return -1;
+      const int64_t v = is_signed ? unzigzag(u) : static_cast<int64_t>(u);
+      const int64_t m = std::min<int64_t>(h + 3, count - w);
+      if (out)
+        for (int64_t k = 0; k < m; ++k) out[w + k] = v + step * k;
+      w += m;
+    } else {
+      const int64_t m = std::min<int64_t>(256 - h, count - w);
+      for (int64_t k = 0; k < m; ++k) {
+        if (!read_uvarint(p, n, pos, u)) return -1;
+        if (out) out[w + k] = is_signed ? unzigzag(u) : static_cast<int64_t>(u);
+      }
+      w += m;
+    }
+  }
+  return w;
+}
+
+// The ORC writer's RLEv2: maximal fixed-step segments of at least 6
+// values become DELTA runs of <= 512 (width 0; SHORT_REPEAT for 6..10
+// equal values), the rest DIRECT runs of <= 512 at the closest width,
+// never leaving a one-value tail.  `out` holds 11 * n + 64 bytes.
+int64_t io_orc_rle2_encode(const int64_t* v, int64_t n, int32_t is_signed, uint8_t* out_buf) {
+  std::vector<uint8_t> out;
+  if (n == 0) return 0;
+  std::vector<uint64_t> uz(static_cast<size_t>(n));
+  for (int64_t i = 0; i < n; ++i)
+    uz[i] = is_signed ? zigzag(v[i]) : static_cast<uint64_t>(v[i]);
+  auto emit_direct = [&](int64_t lo, int64_t hi) {
+    while (lo < hi) {
+      int64_t m = std::min<int64_t>(512, hi - lo);
+      if (hi - lo - m == 1) --m;
+      uint64_t mx = 0;
+      for (int64_t k = lo; k < lo + m; ++k) mx = std::max(mx, uz[k]);
+      const int code = closest_width(bit_length(mx));
+      const int hdr = (1 << 14) | (code << 9) | static_cast<int>(m - 1);
+      out.push_back(static_cast<uint8_t>(hdr >> 8));
+      out.push_back(static_cast<uint8_t>(hdr & 0xFF));
+      put_be_bits(out, uz.data() + lo, m, ORC_W5[code]);
+      lo += m;
+    }
+  };
+  auto emit_run = [&](int64_t lo, int64_t hi) {
+    const int64_t d = static_cast<int64_t>(static_cast<uint64_t>(v[lo + 1]) -
+                                           static_cast<uint64_t>(v[lo]));
+    if (d == 0 && hi - lo >= 3 && hi - lo <= 10) {
+      const uint64_t u = uz[lo];
+      const int nb = std::max((bit_length(u) + 7) / 8, 1);
+      out.push_back(static_cast<uint8_t>(((nb - 1) << 3) | (hi - lo - 3)));
+      for (int k = nb - 1; k >= 0; --k) out.push_back(static_cast<uint8_t>(u >> (8 * k)));
+      return;
+    }
+    while (lo < hi) {
+      int64_t m = std::min<int64_t>(512, hi - lo);
+      if (hi - lo - m == 1) --m;
+      if (m < 2) {
+        emit_direct(lo, hi);
+        return;
+      }
+      const int hdr = (3 << 14) | static_cast<int>(m - 1);
+      out.push_back(static_cast<uint8_t>(hdr >> 8));
+      out.push_back(static_cast<uint8_t>(hdr & 0xFF));
+      if (is_signed) put_vslong(out, v[lo]);
+      else put_uvarint(out, static_cast<uint64_t>(v[lo]));
+      put_vslong(out, d);
+      lo += m;
+    }
+  };
+  if (n == 1) {
+    emit_direct(0, 1);
+  } else {
+    auto diff = [&](int64_t i) { return static_cast<uint64_t>(v[i + 1]) - static_cast<uint64_t>(v[i]); };
+    int64_t cursor = 0, s = 0;
+    for (int64_t i = 1; i <= n - 1; ++i) {
+      if (i != n - 1 && diff(i) == diff(i - 1)) continue;
+      const int64_t e = i;  // the segment holds values s..e
+      if (e - s + 1 >= 6) {
+        const int64_t rs = std::max(s, cursor);
+        if (e + 1 - rs >= 6) {
+          if (rs > cursor) emit_direct(cursor, rs);
+          emit_run(rs, e + 1);
+          cursor = e + 1;
+        }
+      }
+      s = i;
+    }
+    if (cursor < n) emit_direct(cursor, n);
+  }
+  std::memcpy(out_buf, out.data(), out.size());
+  return static_cast<int64_t>(out.size());
+}
+
+// The ORC writer's RLEv1 (runs of 3..130 equal values with step 0, then
+// literal groups of <= 128 varints).  `out` holds 11 * n + 64 bytes.
+int64_t io_orc_rle1_encode(const int64_t* v, int64_t n, int32_t is_signed, uint8_t* out_buf) {
+  std::vector<uint8_t> out;
+  auto put = [&](int64_t x) {
+    if (is_signed) put_vslong(out, x);
+    else put_uvarint(out, static_cast<uint64_t>(x));
+  };
+  greedy_runs(v, n, out, [&](int64_t run, int64_t x) {
+    out.push_back(static_cast<uint8_t>(run - 3));
+    out.push_back(0);
+    put(x);
+  }, put);
+  std::memcpy(out_buf, out.data(), out.size());
+  return static_cast<int64_t>(out.size());
+}
+
+// The ORC writer's byte RLE.  `out` holds n + n / 128 + 16 bytes.
+int64_t io_orc_byte_rle_encode(const uint8_t* v, int64_t n, uint8_t* out_buf) {
+  std::vector<uint8_t> out;
+  greedy_runs(v, n, out, [&](int64_t run, int64_t x) {
+    out.push_back(static_cast<uint8_t>(run - 3));
+    out.push_back(static_cast<uint8_t>(x));
+  }, [&](int64_t x) { out.push_back(static_cast<uint8_t>(x)); });
+  std::memcpy(out_buf, out.data(), out.size());
+  return static_cast<int64_t>(out.size());
 }
 
 }  // extern "C"

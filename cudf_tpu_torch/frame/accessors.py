@@ -46,6 +46,23 @@ def _is_regex(pat: str) -> bool:
     return any(c in _REGEX_CHARS for c in pat)
 
 
+def _beyond(what: str):
+    from cudf_tpu_torch.frame.series import BEYOND
+
+    raise NotImplementedError(f"{what}: {BEYOND}")
+
+
+def _beyond_method(what: str):
+    def method(self, *args, **kwargs):
+        _beyond(what)
+    method.__name__ = what.rsplit(".", 1)[-1]
+    return method
+
+
+def _beyond_property(what: str):
+    return property(lambda self: _beyond(what))
+
+
 class StringMethods:
     def __init__(self, s):
         if not (s.dtype.is_string or (s.dtype.is_dictionary and s._column.keys.dtype.is_string)):
@@ -246,6 +263,8 @@ class StringMethods:
         return self._wrap(self._run(str_ops.zfill, width))
 
     def repeat(self, repeats):
+        if not isinstance(repeats, (int, np.integer)):
+            _beyond("str.repeat of a sequence")
         return self._wrap(self._run(str_ops.repeat_strings, repeats))
 
     def removeprefix(self, prefix):
@@ -398,6 +417,17 @@ class DatetimeProperties:
 
 def _field_property(name):
     return property(lambda self: self._field(name))
+
+
+# what pandas has and neither package does: ROADMAP.md's "beyond the reference"
+for _name in ("rsplit", "partition", "rpartition", "casefold", "normalize", "get_dummies",
+              "join", "istitle"):
+    setattr(StringMethods, _name, _beyond_method(f"str.{_name}"))
+for _name in ("is_quarter_start", "is_quarter_end", "is_year_start", "is_year_end", "date",
+              "time"):
+    setattr(DatetimeProperties, _name, _beyond_property(f"dt.{_name}"))
+for _name in ("isocalendar", "normalize", "day_name", "month_name", "to_period"):
+    setattr(DatetimeProperties, _name, _beyond_method(f"dt.{_name}"))
 
 
 for _name in dt_ops.FIELDS:

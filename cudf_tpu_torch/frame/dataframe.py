@@ -54,7 +54,6 @@ from cudf_tpu_torch.ops.replace import nans_to_nulls
 # that brings each
 _NOT_PORTED = {
     "map": BEYOND, "applymap": BEYOND, "interpolate": BEYOND, "update": BEYOND,
-    "to_json": 7, "to_orc": 7, "to_feather": 7,
 }
 # the row reductions of agg(axis=1), by name
 _ROW_REDUCTIONS = ("sum", "prod", "mean", "min", "max", "std", "var", "median", "count",
@@ -231,6 +230,27 @@ class DataFrame:
         from cudf_tpu_torch.io.csv import write_csv
 
         return write_csv(self, path, **kw)
+
+    def to_json(self, path=None, **kw):
+        from cudf_tpu_torch.io.json import write_json
+
+        return write_json(self, path, **kw)
+
+    def to_orc(self, path, **kw):
+        from cudf_tpu_torch.io.orc import write_orc
+
+        return write_orc(self, path, **kw)
+
+    def to_feather(self, path, **kw):
+        from cudf_tpu_torch.io.feather import write_feather
+
+        return write_feather(self, path, **kw)
+
+    def to_tpudf(self, path):
+        """The tpudf table file (``io/tpudf_file.py``)."""
+        from cudf_tpu_torch.io.tpudf_file import write_tpudf
+
+        return write_tpudf(self, path)
 
     def to_pandas(self):
         import pandas as pd

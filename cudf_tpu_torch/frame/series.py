@@ -32,8 +32,7 @@ counts each route.  ``interpolate`` (linear), ``combine_first`` and
 ``frame/accessors.py``'s, and so are ``list`` and ``struct`` of LIST and
 STRUCT Series; ``explode`` unnests a LIST Series.  ``rolling``, ``ewm``
 and ``resample`` are ``frame/window.py``'s and ``frame/resample.py``'s,
-``hash_values`` ``ops/hashing.py``'s.  The methods in ``_NOT_PORTED``
-raise NotImplementedError naming their ROADMAP.md item.
+``hash_values`` ``ops/hashing.py``'s.
 """
 
 from __future__ import annotations
@@ -75,7 +74,6 @@ _COMPARISONS = ("eq", "ne", "lt", "gt", "le", "ge")
 
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
-_NOT_PORTED = {"to_json": 7}
 _DESCRIBE = ("count", "mean", "std", "min", "25%", "50%", "75%", "max")
 # what the reference package lacks too: ROADMAP.md's line for it
 BEYOND = "ROADMAP.md, beyond the reference"
@@ -305,6 +303,14 @@ class Series:
         from cudf_tpu_torch.io.csv import write_csv
 
         return write_csv(self, path, **kw)
+
+    def to_json(self, path=None, orient="records", lines=False, **kw):
+        """The Series' JSON text: the records orient of one unnamed value
+        a record is pandas' list of values (``[1,2]``), written by the
+        frame's writer on the device; other orients pandas'."""
+        from cudf_tpu_torch.io.json import write_series_json
+
+        return write_series_json(self, path, orient=orient, lines=lines, **kw)
 
     # ------------------------------------------------------------------
     # attributes
@@ -1275,9 +1281,6 @@ class Series:
             return False
         return bool(eq.data.all())
 
-
-for _name, _item in _NOT_PORTED.items():
-    setattr(Series, _name, not_ported(_name, _item))
 
 for _dunder, _op in _BINOPS.items():
     def _make(op=_op):

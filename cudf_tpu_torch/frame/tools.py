@@ -46,7 +46,8 @@ def _as_series(values, device=None) -> Series:
     return values if isinstance(values, Series) else Series(values, device=device)
 
 
-def to_datetime(arg, format=None, errors: str = "raise", unit=None, *, device=None):
+def to_datetime(arg, format=None, errors: str = "raise", unit=None, utc: bool = False, *,
+                device=None):
     """A Series of timestamps as it is; of strings (or a dictionary of
     them), parsed on its device by ``ops/strings.py`` ``to_timestamps``
     (ISO 8601 or ``format``'s fixed-width fields; ``errors="coerce"``:
@@ -55,7 +56,10 @@ def to_datetime(arg, format=None, errors: str = "raise", unit=None, *, device=No
     seconds, as pandas gives them), a float's fraction kept in
     nanoseconds.  Host lists and scalars go through pandas' own
     ``to_datetime`` on the host (a list comes back as an Index on
-    ``device``)."""
+    ``device``).  ``utc=True`` raises NotImplementedError (neither
+    package has it)."""
+    if utc:
+        raise NotImplementedError(f"to_datetime(utc=True): {BEYOND}")
     if isinstance(arg, Series):
         col = arg._column
         if col.dtype.is_timestamp:

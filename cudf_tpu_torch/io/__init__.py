@@ -1,30 +1,23 @@
 """File readers and writers (port of ``cudf_tpu/io/``): Parquet
-(``parquet.py`` and the modules under it) and CSV (``csv.py``,
-``csv_device.py``).  Nothing here builds or imports pyarrow or pandas at
-import time.  JSON, ORC, Avro, Feather, the tpudf file, text and the
-streaming readers are not ported yet: their readers raise naming
-ROADMAP.md queue 1, item 7.
+(``parquet.py`` and the modules under it), CSV (``csv.py``,
+``csv_device.py``), JSON (``json.py``, ``json_device.py``), ORC
+(``orc.py``, ``orc_native.py``, ``orc_writer.py``), Avro (``avro.py``),
+Feather (``feather.py``), the tpudf file (``tpudf_file.py``), text
+(``text.py``) and the stream consumer (``streaming.py``).  Nothing here
+builds or imports pyarrow or pandas at import time.
 
 ``IO_ROUTES`` counts the reads and writes each tier served: "native"
-(the port's own readers and writers) and "pyarrow" (the shapes the
-native tiers declare unsupported).
+(the port's own readers and writers), "pyarrow" and "pandas" (the shapes
+the native tiers declare unsupported, and Feather, whose only tier is
+pyarrow's).
 """
 
-IO_ROUTES = {"native": 0, "pyarrow": 0}
+IO_ROUTES = {"native": 0, "pyarrow": 0, "pandas": 0}
 
 
-def _not_ported(name: str):
-    def reader(*args, **kwargs):
-        raise NotImplementedError(f"{name}: cudf_tpu_torch/io is ROADMAP.md queue 1, item 7 "
-                                  "(JSON, ORC, Avro, Feather, tpudf, text and streaming "
-                                  "readers)")
-    reader.__name__ = name
-    return reader
-
-
-read_json = _not_ported("read_json")
-read_orc = _not_ported("read_orc")
-read_avro = _not_ported("read_avro")
-read_feather = _not_ported("read_feather")
-read_tpudf = _not_ported("read_tpudf")
-read_text = _not_ported("read_text")
+from cudf_tpu_torch.io.avro import read_avro  # noqa: E402  (they count in IO_ROUTES)
+from cudf_tpu_torch.io.feather import read_feather  # noqa: E402
+from cudf_tpu_torch.io.json import read_json  # noqa: E402
+from cudf_tpu_torch.io.orc import read_orc  # noqa: E402
+from cudf_tpu_torch.io.text import read_text  # noqa: E402
+from cudf_tpu_torch.io.tpudf_file import read_tpudf  # noqa: E402

@@ -452,3 +452,7 @@ NEEDS = {name: [] for name in REQUESTS}
 NEEDS.update({"tpch_q12_file": JOIN, "tpch_q14_file": JOIN, "g1_q1_csv": ONEHOT,
               "g1_q4_csv": ONEHOT, "g1_q3_csv": RADIX, "g1_q5_csv": RADIX})
 ROUTE = {name: "native" for name in REQUESTS}
+# the frames key a result is kept under for the requests after it; the
+# requests not replayed alone
+KEEP = {"g1_read_csv": "g1_csv"}
+ONCE = {"tpch_q1_sink"}

@@ -200,10 +200,18 @@ def tz_localize(col: Column, tz, ambiguous="raise", nonexistent="raise") -> Colu
     bool per row (True: the first of the two, daylight time);
     ``nonexistent`` is "raise", "NaT", "shift_forward" (to the first
     instant after the gap) or "shift_backward" (to the last before it).
+    "infer" and a timedelta raise NotImplementedError, whatever the rows
+    (neither package has them).
     One host sync when a zone has transitions (whether any row is in a
     fold or a gap)."""
     if not col.dtype.is_timestamp:
         raise TypeError("tz_localize needs timestamps")
+    if isinstance(ambiguous, str) and ambiguous == "infer":
+        raise NotImplementedError("tz_localize(ambiguous='infer'): ROADMAP.md, beyond the "
+                                  "reference")
+    if not isinstance(nonexistent, str):
+        raise NotImplementedError(f"tz_localize(nonexistent={nonexistent!r}): ROADMAP.md, "
+                                  "beyond the reference")
     if col.dtype.tz is not None:
         if tz is None:
             return Column(dt.DType(col.dtype.id), col.length,

@@ -16,8 +16,10 @@ ops and windows (``ops/hashing.py``, ``partitioning.py``, ``bloom.py``,
 ``resample.py``, ``asof.py``, ``eval_expr.py``, ``utils/tracing.py``,
 ``models/ops_windows.py``), nor the file formats (``io/``,
 ``arrow_cdata.py``, ``models/io_paths.py``: every request on the native
-routes); the host IO library builds only from the package's own C++
-source into ``build/cudf_tpu_torch/``, and a failed build raises."""
+routes), nor the other formats (JSON, ORC, Avro, the tpudf file, text and
+the stream consumer: every ``models/io_formats.py`` request); the host IO
+library builds only from the package's own C++ source into
+``build/cudf_tpu_torch/``, and a failed build raises."""
 
 import ast
 import os
@@ -308,6 +310,42 @@ def test_io_requests_run_without_pandas_pyarrow_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "IO OK []" in proc.stdout, proc.stdout
+
+
+_IO_FORMATS_PROBE = """
+import sys, tempfile
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+from cudf_tpu_torch.io import IO_ROUTES
+from cudf_tpu_torch.models import io_formats as iof, io_paths as iop
+iof.RECORDS_ROWS = 400
+frames = iof.prepare(iop.g1_frame(2000, device="cpu"), iop.taxi_frame(1500, device="cpu"),
+                     tempfile.mkdtemp(), "cpu")
+for group, names in iof.GROUPS.items():
+    for name in names:
+        res = iof.REQUESTS[name](frames)
+        if name in iof.KEEP:
+            frames[iof.KEEP[name]] = res
+        assert iof.PLAIN[name](frames, res) <= 1.0, name
+assert IO_ROUTES["pyarrow"] == 0 and IO_ROUTES["pandas"] == 0 and IO_ROUTES["native"] > 0, \
+    IO_ROUTES
+print("FORMATS OK", sorted(m for m, mod in sys.modules.items()
+                           if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu")))
+"""
+
+
+def test_the_other_formats_run_without_pandas_pyarrow_or_jax():
+    """Every ``models/io_formats.py`` request (NDJSON written and read, G1
+    q1-q5 over it, the records orient, ORC snappy and zlib both ways, Avro
+    null and deflate, the tpudf file, read_text, the stream consumer) equal
+    to its plain check, on the native routes, with pandas, pyarrow and jax
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _IO_FORMATS_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORMATS OK []" in proc.stdout, proc.stdout
 
 
 def test_host_library_builds_from_the_package_source_only():
