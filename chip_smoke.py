@@ -379,6 +379,33 @@ at the end; every request leaves ``io.IO_ROUTES["pyarrow"]`` and
 5. each read's MB/s and rows/s, JSON's host syncs and peak device
    memory, each write's seconds, q1 over Avro; each group's seconds.
 
+The partitioned executor (``engine/streaming.py``, ``utils/spill.py``;
+``models/partitioned.py`` ``REQUESTS``, ``IN_MEMORY``, ``NEEDS``), three
+main paths of their own, each answer held to the same plan's in-memory
+``collect()`` on the same data (rows after a sort on all columns,
+dictionaries decoded; integers, counts and strings exact, floats rtol
+1e-9):
+4. over G1 at 1e8 rows, after its ops phase: ``collect(mesh=8)`` of the
+   sum, mean, count, var and std of v1-v3 by id4 (K = 100: the partial
+   aggregations launch A) and by id6 (K = 1e6: B, F, G, D), every kernel
+   call of each replayed against its plain version; over J1 big after its
+   ops phase: ``collect(mesh=8)`` of the inner join, the dim broadcast
+   (``executor.broadcast_limit`` at its bytes) and shuffled after a bloom
+   filter (the limit at half its bytes), each launching B, F, G, D and H,
+   the shuffle's calls replayed; over TPC-H SF10, after its IO phase: the
+   seven tables written by the port's Parquet writer (lineitem and orders
+   16 files each), the nine queries with ``streaming=True`` scanning the
+   files, spilling off, then on under a 16 MiB budget (``spills > 0`` for
+   every query with a GroupBy or Join); each run's inner joins (q3, q5,
+   q9, q10, q12, q14) launch B, F, G, D and H, and q5's calls are
+   replayed; one ``spill_to_budget`` over lineitem's files read back, its
+   freed bytes within 5% of the drop of ``torch.cuda.memory_allocated``,
+   every buffer of every column (data, validity, offsets, children)
+   brought back bit for bit.
+5. each request's ms (first run, wall clock; G1 and J1 also warm, median
+   of 3) beside the in-memory ``collect()``'s, its partition count, spill
+   statistics, ``torch.cuda.max_memory_allocated`` and launches.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -398,8 +425,9 @@ three lookups; no single call gives H's ids and payload together, so
 that row has none and records torch.take of each as two_calls_ms.
 
 Each kernel's row also carries its launches by G1 question, API call,
-frame API request and IO request and, in ``g1_calls``,
-``frame_api_calls`` and ``io_calls``, each replayed call of those.
+frame API request, IO request and partitioned request and, in
+``g1_calls``, ``frame_api_calls``, ``io_calls`` and ``partitioned_calls``,
+each replayed call of those.
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -2219,11 +2247,12 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     return launched
 
 
-def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, directory):
+def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, part, directory):
     """The nine TPC-H queries at SF10 (the main path) and SF1, and at SF10
     the string and temporal requests over lineitem (into ``strings``), the
     decimal ones (into ``nested``), the resample, window, as-of and
-    day-unit ones (into ``ops``) and the Parquet files (into ``io``)."""
+    day-unit ones (into ``ops``), the Parquet files (into ``io``) and the
+    partitioned executor over a Parquet dataset (into ``part``)."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -2271,6 +2300,7 @@ def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, dire
             torch.cuda.empty_cache()
             io[2]["tpch_sf10"] = io_tpch_phase(tables, smi, wrappers, drive, plains, io,
                                                directory)
+            partitioned_tpch_phase(tables, smi, wrappers, drive, plains, part, directory)
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -3416,6 +3446,149 @@ def io_formats_phase(dev, smi, wrappers, drive, plains, acc, directory):
     return rows
 
 
+def partitioned_phase(group, frames, smi, wrappers, drive, plains, acc, replay=(), warm=False):
+    """The requests of one group of ``models/partitioned.py`` as one main
+    path (every count at 0 before it): each request's wall ms, partition
+    count, spill statistics, peak device memory and launches; then each
+    result held to the same plan's in-memory ``collect()`` (rows after a
+    sort on all columns: exact, floats rtol 1e-9), timed too, and each
+    request must have launched its ``NEEDS``.  With ``warm`` both are timed
+    again (the median of 3 warm runs, wall clock).  The requests in
+    ``replay`` then run alone with every call of their kernels recorded and
+    replayed against the plain versions.  Adds rows by request to ``acc``."""
+    from cudf_tpu_torch.engine.streaming import LAST_RUN
+    from cudf_tpu_torch.models import partitioned as pm
+    from cudf_tpu_torch.utils.spill import get_spill_manager
+
+    names = pm.GROUPS[group]
+    stats = get_spill_manager().statistics
+    results, rows = {}, {}
+
+    def main_path():
+        for n in names:
+            before = stats.as_dict()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results[n] = pm.REQUESTS[n](frames)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = stats.as_dict()
+            launched = {k: w.launches - counts[k] for k, w in wrappers.items()
+                        if w.launches > counts[k]}
+            rows[n] = dict(ms_partitioned=ms, partitions=LAST_RUN["partitions"],
+                           file_partitions=LAST_RUN["file_partitions"],
+                           spill={k: after[k] - before[k] for k in after},
+                           max_memory_allocated=torch.cuda.max_memory_allocated(),
+                           launches=launched)
+    drive(f"partitioned_{group}", main_path)
+    for n in names:
+        row = rows[n]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = pm.IN_MEMORY[n](frames)
+        torch.cuda.synchronize()
+        row["ms_in_memory"] = (time.perf_counter() - t0) * 1e3
+        row["max_abs_err"] = pm.agree(frames, n, results.pop(n), exp)
+        del exp
+        missing = [k for k in pm.NEEDS[n] if k not in row["launches"]]
+        check(not missing, f"partitioned {n} did not launch {missing}: {row['launches']}")
+        if n in pm.SPILLS:
+            check(row["spill"]["spills"] > 0, f"partitioned {n}: the spill budget never bit")
+        if warm:
+            row["ms_partitioned_warm"] = wall_ms(lambda n=n: pm.REQUESTS[n](frames), reps=3)
+            row["ms_in_memory_warm"] = wall_ms(lambda n=n: pm.IN_MEMORY[n](frames), reps=3)
+        torch.cuda.empty_cache()
+        acc[2][n] = row
+        log(f"phase 4 partitioned {n}: equal to the in-memory executor (max abs err "
+            f"{row['max_abs_err']}); " + json.dumps(dict(row, card=smi)))
+    for n in replay:
+        acc[0][n] = run_replayed(f"partitioned {n}", n, lambda n=n: pm.REQUESTS[n](frames),
+                                 wrappers, plains, acc[1], needs=pm.NEEDS[n])
+        torch.cuda.empty_cache()
+    return rows
+
+
+def spill_agreement(paths, dev, smi):
+    """One ``spill_to_budget`` over the columns of lineitem's files read
+    back (fresh device buffers): the bytes the manager reports freed beside
+    the drop of ``torch.cuda.memory_allocated``, which must agree within
+    5%; then every buffer of every column brought back (data, validity,
+    offsets, children) equals, bit for bit, a copy taken before the spill."""
+    from cudf_tpu_torch.io.parquet import read_parquet
+    from cudf_tpu_torch.utils.spill import SpillManager
+
+    tables = [read_parquet(p, device=dev)._table for p in paths]
+    copies = [[[b.clone() for b in c.buffers()] for c in t.columns] for t in tables]
+    mgr = SpillManager()
+    for t in tables:
+        for c in t.columns:
+            mgr.register(c)
+    live = mgr.device_bytes()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    freed = mgr.spill_to_budget(live // 2)
+    torch.cuda.synchronize()
+    spill_ms = (time.perf_counter() - t0) * 1e3
+    drop = before - torch.cuda.memory_allocated()
+    check(freed > 0 and abs(freed - drop) <= 0.05 * drop,
+          f"spill_to_budget freed {freed} B, memory_allocated dropped {drop} B")
+    t0 = time.perf_counter()
+    for t in tables:
+        for c in t.columns:
+            mgr.ensure_on_device(c)
+    torch.cuda.synchronize()
+    unspill_ms = (time.perf_counter() - t0) * 1e3
+    buffers = 0
+    for t, cs in zip(tables, copies):
+        for c, refs in zip(t.columns, cs):
+            got = list(c.buffers())
+            check(len(got) == len(refs), "a column brought back lost a buffer")
+            for b, ref in zip(got, refs):
+                check(b.device == ref.device and b.dtype == ref.dtype and torch.equal(
+                    b.view(torch.uint8), ref.view(torch.uint8)),
+                    "a buffer brought back differs from its copy")
+                buffers += 1
+    row = dict(files=len(paths), buffers_compared=buffers, releasable_bytes=live,
+               budget=live // 2, freed=freed,
+               memory_allocated_drop=drop, spill_ms=spill_ms, unspill_ms=unspill_ms,
+               statistics=mgr.statistics.as_dict())
+    log("phase 4 partitioned spill_to_budget: freed beside the drop of memory_allocated: " +
+        json.dumps(dict(row, card=smi)))
+    del tables, copies
+    torch.cuda.empty_cache()
+    return row
+
+
+def partitioned_tpch_phase(tables, smi, wrappers, drive, plains, acc, directory):
+    """TPC-H SF10 as a Parquet dataset (lineitem and orders 16 files each)
+    and the nine queries through ``collect(streaming=True)``, spilling off
+    then on; the spill agreement over lineitem's files."""
+    from cudf_tpu_torch.models import partitioned as pm
+
+    sub = os.path.join(directory, "partitioned")
+    os.makedirs(sub, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = pm.write_tpch_dataset(tables, sub)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(p) for ps in paths.values() for p in ps)
+    log(f"phase 4 partitioned TPC-H SF10 dataset: {sum(map(len, paths.values()))} Parquet "
+        f"files, {size / 1e6:.1f} MB written in {write_s:.2f} s [{smi}]")
+    frames = {"tpch": tables, "dataset": pm.tpch_dataset(paths, tables["lineitem"]._table.device),
+              "dir": sub}
+    partitioned_phase("tpch", frames, smi, wrappers, drive, plains, acc, replay=("tpch_q5",))
+    partitioned_phase("tpch_spill", frames, smi, wrappers, drive, plains, acc)
+    acc[2]["spill_agreement"] = spill_agreement(paths["lineitem"],
+                                                tables["lineitem"]._table.device, smi)
+    acc[2]["tpch_dataset"] = {"files": {n: len(p) for n, p in paths.items()},
+                              "mb": size / 1e6, "write_s": write_s}
+    del frames
+    shutil.rmtree(sub, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--beside", metavar="DIR",
@@ -3508,7 +3681,9 @@ def main():
              "io_tpch": RADIX_TIER + ["window_probe"], "io_taxi": [],
              "io_g1": ONEHOT_TIER + RADIX_TIER, "io_json": ONEHOT_TIER + RADIX_TIER,
              "io_orc": RADIX_TIER, "io_avro": ONEHOT_TIER, "io_tpudf": [], "io_text": [],
-             "io_stream": []}
+             "io_stream": [], "partitioned_g1": ONEHOT_TIER + RADIX_TIER,
+             "partitioned_j1": RADIX_TIER + ["window_probe"], "partitioned_tpch": RADIX_TIER + ["window_probe"],
+             "partitioned_tpch_spill": RADIX_TIER + ["window_probe"]}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -3609,6 +3784,9 @@ def main():
     ops = ({}, {}, {})                  # launches by request, replayed calls, times
     ops_windows_phase("g1", g1_text, smi, wrappers, drive, plains, ops)
     ops_windows_g1_checks(g1_text, smi)
+    part = ({}, {}, {})                 # launches by request, replayed calls, rows
+    partitioned_phase("g1", {"g1": df}, smi, wrappers, drive, plains, part,
+                      replay=("g1_k100", "g1_k1e6"), warm=True)
     del df, g1_text
     torch.cuda.empty_cache()
 
@@ -3664,6 +3842,8 @@ def main():
     ops_windows_phase("j1", j1_big, smi, wrappers, drive, plains, ops)
     ops[2]["bloom_j1_big"].update(ops_windows_j1_checks(j1_big, smi))
     del j1_big
+    partitioned_phase("j1", {"fact": frames["fact_big"], "dim": frames["dim_big"]}, smi,
+                      wrappers, drive, plains, part, replay=("j1_big_shuffle",), warm=True)
     v1 = frames["fact_big"]._table["v1"].data
     del frames
     torch.cuda.empty_cache()
@@ -3675,7 +3855,7 @@ def main():
     try:
         (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
          over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops,
-                                 io, directory)
+                                 io, part, directory)
         io_taxi_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_g1_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_formats_phase(dev, smi, wrappers, drive, plains, io, directory)
@@ -3687,6 +3867,7 @@ def main():
           f"IO routes {IO_ROUTES}")
     log("phase 5 IO rows: " + json.dumps({"card": smi, "io_routes": IO_ROUTES,
                                           "rows": io[2]}))
+    log("phase 5 partitioned executor rows: " + json.dumps({"card": smi, "rows": part[2]}))
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
@@ -3726,6 +3907,8 @@ def main():
         kernels[name]["strings_dt_calls"] = calls
     for name, calls in io[1].items():
         kernels[name]["io_calls"] = calls
+    for name, calls in part[1].items():
+        kernels[name]["partitioned_calls"] = calls
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -3751,7 +3934,9 @@ def main():
                    launches_by_strings_dt={q: c.get(name, 0) for q, c in strings[0].items()},
                    launches_by_nested={q: c.get(name, 0) for q, c in nested[0].items()},
                    launches_by_ops_windows={q: c.get(name, 0) for q, c in ops[0].items()},
-                   launches_by_io={q: c.get(name, 0) for q, c in io[0].items()})
+                   launches_by_io={q: c.get(name, 0) for q, c in io[0].items()},
+                   launches_by_partitioned={q: r["launches"].get(name, 0)
+                                            for q, r in part[2].items() if "launches" in r})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

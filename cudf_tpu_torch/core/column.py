@@ -202,9 +202,34 @@ def host_layout(values: Sequence[Any], want: Optional[DType] = None) -> Optional
     return None
 
 
+def distinct_bytes(buffers) -> int:
+    """Bytes the buffers cover, each byte of a storage counted once (the
+    union of the views' spans in each storage); a buffer that is no tensor
+    (a spilled buffer's host marker) counts its ``nbytes``."""
+    spans, total = {}, 0
+    for b in buffers:
+        if not isinstance(b, torch.Tensor):
+            total += int(b.nbytes)
+            continue
+        size = b.element_size()
+        if not b.numel():
+            continue
+        key = (b.device, b.untyped_storage().data_ptr())
+        lo = b.storage_offset() * size
+        spans.setdefault(key, []).append((lo, lo + b.numel() * size))
+    for ranges in spans.values():
+        ranges.sort()
+        end = -1
+        for lo, hi in ranges:
+            if hi > end:
+                total += hi - max(lo, end)
+                end = hi
+    return total
+
+
 class Column:
     __slots__ = ("dtype", "length", "data", "validity", "offsets", "children", "_cache",
-                 "_device")
+                 "_device", "__weakref__")
 
     def __init__(self, dtype: DType, length: int, data: Optional[torch.Tensor],
                  validity: Optional[torch.Tensor] = None,
@@ -239,10 +264,10 @@ class Column:
             ok = self.data.dtype == self.dtype.torch_storage and self.data.shape == (n,)
             what = f"{n} values of {self.dtype!r}"
             if self.dtype.is_dictionary:
-                ok = ok and len(self.children) == 1 and (
-                    self.children[0].dtype.is_string or self.children[0].dtype.is_numeric) and (
-                    self.children[0].validity is None and self.children[0].device == dev)
-                what += " and one keys column (STRING or numeric, no nulls, same device)"
+                kd = self.children[0].dtype if len(self.children) == 1 else None
+                ok = ok and kd is not None and (kd.is_string or kd.is_numeric or kd.is_temporal) \
+                    and self.children[0].validity is None and self.children[0].device == dev
+                what += " and one keys column (STRING, numeric or temporal, no nulls, same device)"
             elif self.dtype.is_decimal and self.children:
                 hi = self.children[0]
                 ok = ok and self.dtype.id == dt.TypeId.DECIMAL128 and len(self.children) == 1 \
@@ -393,8 +418,10 @@ class Column:
     @classmethod
     def from_dictionary(cls, codes: torch.Tensor, keys: "Column",
                         validity: Optional[torch.Tensor] = None) -> "Column":
-        """A DICTIONARY32 column of int32 codes into ``keys``."""
-        value_type = keys.dtype if keys.dtype.is_numeric else dt.STRING
+        """A DICTIONARY32 column of int32 codes into ``keys``: its value
+        type is the keys' dtype (numeric or temporal, unit included), or
+        STRING for any string keys."""
+        value_type = dt.STRING if keys.dtype.is_string else keys.dtype
         return cls(dt.dictionary_dtype(value_type), codes.shape[0], codes.to(torch.int32),
                    validity, children=(keys,))
 
@@ -589,6 +616,22 @@ class Column:
     def _as(self, dtype: DType) -> "Column":
         """The same buffers under another logical dtype of the same layout."""
         return Column(dtype, self.length, self.data, self.validity, self.offsets, self.children)
+
+    def buffers(self):
+        """The column's buffers, its children's included (a spilled
+        buffer is its host marker, ``utils/spill.py``)."""
+        for b in (self.data, self.validity, self.offsets):
+            if b is not None:
+                yield b
+        for c in self.children:
+            yield from c.buffers()
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the column's buffers, each byte of a storage counted
+        once: views of one storage (``ops/copying.slice``'s) count the
+        span they cover, not the storage."""
+        return distinct_bytes(self.buffers())
 
     # ------------------------------------------------------------------
     # export

@@ -37,6 +37,14 @@ class Table:
         return self._columns[0].device if self._columns else None
 
     @property
+    def nbytes(self) -> int:
+        """Bytes of the columns' buffers, each byte of a storage counted
+        once (``core/column.py`` ``distinct_bytes``)."""
+        from cudf_tpu_torch.core.column import distinct_bytes
+
+        return distinct_bytes(b for c in self._columns for b in c.buffers())
+
+    @property
     def num_columns(self) -> int:
         return len(self._columns)
 

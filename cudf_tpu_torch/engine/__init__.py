@@ -1,13 +1,26 @@
 """Query engine: logical IR, expression tree, optimizer and LazyFrame
-(port of ``cudf_tpu/engine``), with the in-memory executor.
-
-The partitioned executor (``collect(mesh=...)``, ``streaming=True``,
-``engine/streaming.py``, ``engine/spmd.py`` and its fallback statistics)
-is ROADMAP.md queue 1, item 10.
+(port of ``cudf_tpu/engine``), with the in-memory executor and the
+partitioned executor on one device (``engine/streaming.py``:
+``collect(mesh=n)``, ``collect(streaming=True)``) and its fallback
+statistics.  A device mesh (``engine/spmd.py``) is ROADMAP.md queue 1,
+item 10.
 """
 
 from cudf_tpu_torch.engine.expr import Expr, col, lit, when
 from cudf_tpu_torch.engine.lazy import LazyFrame, from_dataframe, scan_csv, scan_parquet
 
+
+def get_fallback_stats():
+    from cudf_tpu_torch.engine.streaming import get_fallback_stats as _g
+
+    return _g()
+
+
+def reset_fallback_stats():
+    from cudf_tpu_torch.engine.streaming import reset_fallback_stats as _r
+
+    return _r()
+
+
 __all__ = ["Expr", "col", "lit", "when", "LazyFrame", "scan_parquet", "scan_csv",
-           "from_dataframe"]
+           "from_dataframe", "get_fallback_stats", "reset_fallback_stats"]

@@ -10,10 +10,10 @@ frames, and every node runs there through the ``ops`` layer.
 and the simple conjuncts of its predicate pushed into the reader (row
 groups and pages pruned by the file's metadata), then applies the whole
 predicate; ``Sink`` writes its child's table to a file.  ``Rolling`` is a
-trailing window of rows over a sorted table (``frame/window.py``).  Not
-ported, and raising NotImplementedError when built: ``MapFunction`` and
-``PythonScan`` (the engine's escape hatches, which come with the
-streaming executor, ROADMAP.md queue 1, item 10).
+trailing window of rows over a sorted table (``frame/window.py``).
+``MapFunction`` and ``PythonScan`` are the engine's escape hatches: a
+Python function over a table, and a Python callable as a source.
+``engine/streaming.py`` runs the same nodes over a list of partitions.
 """
 
 from __future__ import annotations
@@ -51,10 +51,6 @@ class IR:
 
     def _explain_args(self) -> str:
         return ""
-
-
-def _not_ported(what: str, item: int, module: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {module} is ROADMAP.md queue 1, item {item}")
 
 
 class DataFrameScan(IR):
@@ -201,13 +197,39 @@ class Rolling(IR):
 
 
 class MapFunction(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("MapFunction", 10, "the streaming executor (engine/streaming.py)")
+    """Escape hatch: an arbitrary Table -> Table function over the child's
+    table (``LazyFrame.map_batches``).  The partitioned executor runs it
+    once, over the whole table."""
+
+    def __init__(self, child: IR, fn, name: str = "map"):
+        self.children = (child,)
+        self.fn = fn
+        self.name = name
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def do_evaluate(self, t: Table) -> Table:
+        return self.fn(t)
+
+    def _explain_args(self):
+        return f"({self.name})"
 
 
 class PythonScan(IR):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("PythonScan", 10, "the streaming executor (engine/streaming.py)")
+    """Source backed by a Python callable that returns a Table or a
+    DataFrame (the polars python-source escape hatch)."""
+
+    def __init__(self, fn, schema_hint: Sequence[str] = ()):
+        self.fn = fn
+        self._schema = list(schema_hint)
+
+    def schema(self):
+        return self._schema or list(self.do_evaluate().names)
+
+    def do_evaluate(self) -> Table:
+        out = self.fn()
+        return out._table if hasattr(out, "_table") else out
 
 
 class Select(IR):

@@ -4,9 +4,10 @@ the in-memory executor, on the device of its source frames.
 
 ``scan_parquet`` / ``scan_csv`` read files onto a device (pushdown into
 the ``Scan``); ``sink_parquet`` / ``sink_csv`` write a plan's result when
-it is collected.  ``collect(mesh=...)`` and ``streaming=True`` (the
-partitioned executor, ``engine/streaming.py`` and ``engine/spmd.py``) are
-ROADMAP.md queue 1, item 10, and ``map_batches`` raises with its IR node.
+it is collected.  ``collect(mesh=n)``, ``collect(mesh="auto")`` and
+``collect(streaming=True)`` run the plan on the partitioned executor
+(``engine/streaming.py``) on the same device; a device mesh (the
+reference's SPMD program) is ROADMAP.md queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -16,10 +17,6 @@ from typing import Optional, Sequence
 from cudf_tpu_torch.engine import ir as IRs
 from cudf_tpu_torch.engine.expr import Expr, col, lit
 from cudf_tpu_torch.engine.optimizer import optimize
-
-_PARTITIONED = ("the partitioned executor (collect(mesh=...) and streaming=True: "
-                "engine/streaming.py, engine/spmd.py) is ROADMAP.md queue 1, item 10")
-
 
 class LazyFrame:
     def __init__(self, node: IRs.IR):
@@ -109,15 +106,22 @@ class LazyFrame:
         return (self.optimized() if optimized else self._node).explain()
 
     def collect(self, mesh=None, no_optimization: bool = False, streaming: bool = False):
-        """Run the plan on the in-memory executor: a DataFrame on the
-        device of the plan's source frames."""
+        """Run the plan: a DataFrame on the device of the plan's sources.
+        ``mesh``: None (the in-memory executor), a partition count or
+        "auto" (the partitioned executor, which picks the count from the
+        sources' bytes); ``streaming=True`` is ``mesh="auto"``."""
         from cudf_tpu_torch.frame.dataframe import DataFrame
         from cudf_tpu_torch.frame.index import default_index
 
-        if mesh is not None or streaming:
-            raise NotImplementedError(_PARTITIONED)
         node = self._node if no_optimization else self.optimized()
-        t = node.evaluate({})
+        if streaming and mesh is None:
+            mesh = "auto"
+        if mesh is not None:
+            from cudf_tpu_torch.engine.streaming import evaluate_streaming
+
+            t = evaluate_streaming(node, mesh)
+        else:
+            t = node.evaluate({})
         return DataFrame._from(t, default_index(t.num_rows))
 
     @property

@@ -17,7 +17,9 @@ dbgen.
   from a small host set, ``datetime64[ns]`` dates.
 - ``q1`` ... ``q14`` are the reference's plans; ``QUERIES`` maps their
   names to them.  A table may be a frame or a LazyFrame, such as a file
-  scan (``engine.scan_parquet``).
+  scan (``engine.scan_parquet``).  ``mesh`` (a partition count or
+  "auto") and ``streaming`` run a plan on the partitioned executor
+  (``LazyFrame.collect``).
 - ``FRAME_QUERIES`` are the bodies of the reference's pandas version of
   each over a dict of frames, which run on the port's ``DataFrame`` (its
   pandas API) as they run on pandas; ``pandas_reference`` runs them on
@@ -232,7 +234,7 @@ def generate_device(scale: float = 0.01, seed: int = 0, device="cuda"):
 # the queries, as LazyFrame plans
 # ----------------------------------------------------------------------
 
-def q1(tables, no_optimization: bool = False):
+def q1(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Pricing summary report: a temporal filter, arithmetic, a groupby
     on two dictionary keys (the sort tier), then a sort on them."""
     li = _source(tables["lineitem"])
@@ -256,10 +258,10 @@ def q1(tables, no_optimization: bool = False):
         )
         .sort(["l_returnflag", "l_linestatus"])
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q6(tables, no_optimization: bool = False):
+def q6(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Forecast revenue change: five predicates, a product, one sum."""
     li = _source(tables["lineitem"])
     lo, hi = Q6_RANGE
@@ -272,10 +274,10 @@ def q6(tables, no_optimization: bool = False):
         .with_columns((col("l_extendedprice") * col("l_discount")).alias("revenue"))
         .agg(col("revenue").sum().alias("revenue"))
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q12(tables, no_optimization: bool = False):
+def q12(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Shipping modes and order priority: is_in on a dictionary, temporal
     comparisons, a join against orders, a CASE count by ship mode (one
     dictionary key: the one-hot tier)."""
@@ -300,10 +302,10 @@ def q12(tables, no_optimization: bool = False):
              col("low_line").sum().alias("low_line_count"))
         .sort("l_shipmode")
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q14(tables, no_optimization: bool = False):
+def q14(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Promotion effect: the promo revenue share in percent, after a
     join against part and a CASE on a dictionary compared with a string."""
     li = _source(tables["lineitem"])
@@ -319,12 +321,12 @@ def q14(tables, no_optimization: bool = False):
         .agg(col("promo_rev").sum().alias("promo"),
              col("rev").sum().alias("total"))
     )
-    out = plan.collect(no_optimization=no_optimization)._table
+    out = plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)._table
     promo, total = (float(out[n].data[0]) for n in ("promo", "total"))
     return 100.0 * promo / total if total else 0.0
 
 
-def q3(tables, no_optimization: bool = False):
+def q3(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Shipping priority: a customer filter on a dictionary, two joins
     (customer-orders, orders-lineitem), revenue by order on two keys (the
     sort tier), the top 10 by revenue."""
@@ -344,10 +346,10 @@ def q3(tables, no_optimization: bool = False):
         .sort(["revenue", "o_orderdate"], descending=[True, False])
         .head(10)
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q4(tables, no_optimization: bool = False):
+def q4(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Order priority checking: a semi join of a quarter's orders against
     the late lineitems (the sort-merge tier), counts by priority."""
     o = _source(tables["orders"])
@@ -361,10 +363,10 @@ def q4(tables, no_optimization: bool = False):
         .agg(col("o_orderkey").count().alias("order_count"))
         .sort("o_orderpriority")
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q5(tables, no_optimization: bool = False):
+def q5(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Local supplier volume: five joins from region down to lineitem,
     the last on two keys (supplier and nation: the sort-merge tier),
     revenue by nation."""
@@ -389,10 +391,10 @@ def q5(tables, no_optimization: bool = False):
         .agg(col("volume").sum().alias("revenue"))
         .sort("revenue", descending=True)
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q9(tables, no_optimization: bool = False):
+def q9(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Product type profit: green parts joined to lineitem, supplier,
     nation and orders; profit by nation."""
     li = _source(tables["lineitem"])
@@ -413,10 +415,10 @@ def q9(tables, no_optimization: bool = False):
         .agg(col("amount").sum().alias("sum_profit"))
         .sort("n_name")
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
-def q10(tables, no_optimization: bool = False):
+def q10(tables, no_optimization: bool = False, mesh=None, streaming: bool = False):
     """Returned item reporting: customer-orders-lineitem-nation joins,
     lost revenue by four keys (the sort tier: an int, a dictionary, a
     float and a dictionary), the top 20 customers."""
@@ -438,7 +440,7 @@ def q10(tables, no_optimization: bool = False):
         .sort(["revenue", "c_custkey"], descending=[True, False])
         .head(20)
     )
-    return plan.collect(no_optimization=no_optimization)
+    return plan.collect(no_optimization=no_optimization, mesh=mesh, streaming=streaming)
 
 
 QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q9": q9, "q10": q10,

@@ -2,8 +2,8 @@
 ``cudf_tpu/ops/dictionary.py``: ``encode``, ``factorize``,
 ``match_dictionaries`` and ``set_keys``).
 
-A dictionary column holds int32 codes into sorted, distinct keys (STRING
-or numeric, no nulls).  ``encode`` and ``factorize`` sort the values once
+A dictionary column holds int32 codes into sorted, distinct keys (STRING,
+numeric or temporal, no nulls).  ``encode`` and ``factorize`` sort the values once
 (``row_ops``' lexicographic sort) and number the runs.  Two dictionaries
 meet over the union of their keys: the keys alone are merged and each
 column's codes go through one small remap table, so no row is decoded
@@ -116,6 +116,4 @@ def set_keys(col: Column, new_keys: Column) -> Column:
     validity = found if col.validity is None else col.validity & found
     if bool(validity.all()):
         validity = None
-    return Column(dt.dictionary_dtype(new_keys.dtype if new_keys.dtype.is_numeric
-                                      else dt.STRING), col.length,
-                  pos.clamp(min=0).to(torch.int32), validity, children=(new_keys,))
+    return Column.from_dictionary(pos.clamp(min=0), new_keys, validity)

@@ -957,6 +957,21 @@ def group_m2(col: Column, grouper: Grouper) -> Column:
                   None if v is None else cnt > 0)
 
 
+def group_moments(col: Column, grouper: Grouper) -> Tuple[torch.Tensor, ...]:
+    """float64 (count, mean, M2, residual) a group, over the valid rows:
+    the mean m, M2 = sum (x - m)^2 and residual = sum (x - m), both about
+    that rounded m.  The residual makes a merge of partial moments exact to
+    first order in m's rounding (``engine/streaming.py``'s Chan merge)."""
+    data, v = _segment_data(_apply_row_mask(col, grouper))
+    x = _accumulate(data, v, 0).double()
+    cnt = _valid_count(v, grouper)
+    mean = _group_sum(x, grouper) / cnt.clamp(min=1)
+    d = x - mean[grouper.group_ids]
+    if v is not None:
+        d = torch.where(v, d, 0.0)
+    return cnt.double(), mean, _group_sum(d * d, grouper), _group_sum(d, grouper)
+
+
 def _pair(cx: Column, cy: Column, grouper: Grouper):
     """(x, y, the rows where both are valid, their count a group): float64
     values, NaN as null, the invalid rows' values 0."""

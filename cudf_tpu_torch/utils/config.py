@@ -36,6 +36,8 @@ def _register(name: str, default: Any, description: str,
             value = env.lower() in ("1", "true", "yes", "on")
         elif isinstance(default, int):
             value = int(env)
+        elif isinstance(default, float):
+            value = float(env)
         else:
             value = env
     _registry[name] = _Option(name, default, description, validator, value)
@@ -94,3 +96,40 @@ _register("join.dense_fast_path", True,
           "direct-address inner join when the single-int build side is "
           "unique over a dense domain (exact, left-row order)",
           lambda v: isinstance(v, bool))
+_register("spill", False,
+          "let the partitioned executor spill cold partitions' device buffers to "
+          "pinned host memory (utils/spill.py), coldest first, to the device budget",
+          lambda v: isinstance(v, bool))
+_register("spill.device_limit_fraction", 0.85,
+          "the device budget as a fraction of the card's memory",
+          lambda v: isinstance(v, (int, float)) and 0 < v <= 1)
+_register("spill.device_limit_bytes", 0,
+          "absolute device budget for the executor's spilling (0: use the fraction; "
+          "on the CPU, 0 is unbounded)",
+          lambda v: isinstance(v, int) and v >= 0)
+_register("executor.target_partition_size", 1 << 28,
+          "bytes of source data a partition of collect(streaming=True) or "
+          "collect(mesh='auto') holds",
+          lambda v: isinstance(v, int) and v > 0)
+_register("executor.broadcast_limit", 1 << 25,
+          "max bytes of a join's right side that the partitioned executor "
+          "broadcasts to every left partition; larger sides are shuffled",
+          lambda v: isinstance(v, int) and v >= 0)
+_register("executor.fallback_mode", "warn",
+          "what a plan that falls back to the partition-list executor does: "
+          "'warn' (a PerformanceWarning), 'raise' or 'silent'; counted by "
+          "engine.get_fallback_stats",
+          lambda v: v in ("warn", "raise", "silent"))
+
+
+def _spmd_not_ported(value) -> bool:
+    raise NotImplementedError(
+        "executor.spmd_lowering chooses how a plan over a device mesh runs "
+        "(engine/spmd.py's SPMD program); the port has no device mesh yet: "
+        "ROADMAP.md queue 1, item 10")
+
+
+_register("executor.spmd_lowering", True,
+          "compile a plan over a device mesh into one SPMD program (engine/spmd.py); "
+          "not ported (ROADMAP.md queue 1, item 10): setting it raises",
+          _spmd_not_ported)

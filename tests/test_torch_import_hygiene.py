@@ -17,7 +17,10 @@ ops and windows (``ops/hashing.py``, ``partitioning.py``, ``bloom.py``,
 ``models/ops_windows.py``), nor the file formats (``io/``,
 ``arrow_cdata.py``, ``models/io_paths.py``: every request on the native
 routes), nor the other formats (JSON, ORC, Avro, the tpudf file, text and
-the stream consumer: every ``models/io_formats.py`` request); the host IO
+the stream consumer: every ``models/io_formats.py`` request), nor the
+partitioned executor and its spilling (``engine/streaming.py``,
+``utils/spill.py``, ``testing.py``: every ``models/partitioned.py``
+request); the host IO
 library builds only from the package's own C++ source into
 ``build/cudf_tpu_torch/``, and a failed build raises."""
 
@@ -346,6 +349,65 @@ def test_the_other_formats_run_without_pandas_pyarrow_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "FORMATS OK []" in proc.stdout, proc.stdout
+
+
+_PARTITIONED_PROBE = """
+import sys, tempfile
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+import numpy as np
+import torch
+import cudf_tpu_torch as ct
+from cudf_tpu_torch import testing
+from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.engine import streaming
+from cudf_tpu_torch.io import IO_ROUTES
+from cudf_tpu_torch.models import partitioned as pm, tpch
+from cudf_tpu_torch.ops import dictionary
+from cudf_tpu_torch.utils import spill
+from cudf_tpu_torch.utils.config import option_context
+t = tpch.generate_device(0.002, seed=3, device="cpu")
+paths = pm.write_tpch_dataset(t, tempfile.mkdtemp(), files=3)
+frames = {"tpch": t, "dataset": pm.tpch_dataset(paths, "cpu"),
+          "g1": pm.g1_frame(20_000, device="cpu")}
+frames["fact"], frames["dim"] = pm.j1_frames(20_000, device="cpu")
+pm.SPILL_BUDGET = 4 << 10
+stats = spill.get_spill_manager().statistics
+with option_context("executor.target_partition_size", 1 << 17):
+    for name, request in pm.REQUESTS.items():
+        before = stats.spills
+        assert pm.PLAIN[name](frames, request(frames)) <= 1e-6, name
+        assert name not in pm.SPILLS or stats.spills > before, name
+assert IO_ROUTES["pyarrow"] == 0 and IO_ROUTES["native"] > 0, IO_ROUTES
+days = Column.from_numpy(np.array([3, 1, 3], "datetime64[D]"), device="cpu")
+assert dictionary.encode(days).keys.to_numpy().tolist() == \\
+    np.array([1, 3], "datetime64[D]").tolist()
+df = ct.DataFrame({"v": torch.arange(10.0)})
+spill.spill(df)
+spill.unspill(df)
+assert df._table["v"].data.tolist() == list(range(10))
+try:
+    testing.assert_eq(1.0, 2.0)
+except AssertionError:
+    pass
+print("PARTITIONED OK", sorted(m for m, mod in sys.modules.items()
+                               if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu")))
+"""
+
+
+def test_the_partitioned_executor_runs_without_pandas_pyarrow_or_jax():
+    """Every ``models/partitioned.py`` request (the nine TPC-H queries
+    streamed over a multi-file Parquet dataset, spilling off and on, the
+    G1 groupby and the J1 joins at ``mesh=8``) equal to the in-memory
+    executor, the spill round trip, a temporal dictionary and
+    ``testing.assert_eq`` on scalars, with pandas, pyarrow and jax
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PARTITIONED_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "PARTITIONED OK []" in proc.stdout, proc.stdout
 
 
 def test_host_library_builds_from_the_package_source_only():
