@@ -406,6 +406,31 @@ dictionaries decoded; integers, counts and strings exact, floats rtol
    of 3) beside the in-memory ``collect()``'s, its partition count, spill
    statistics, ``torch.cuda.max_memory_allocated`` and launches.
 
+The multi-rank path (``engine/spmd.py``, ``parallel/*``;
+``models/distributed.py`` ``REQUESTS``, ``IN_MEMORY``, ``NEEDS``), three
+main paths of their own over a mesh of one rank: NCCL at world size 1 on
+this card (a ``FileStore`` in a temporary directory), the process group
+destroyed before the last line.  ``nvidia-smi -L``'s card count is logged
+beside ``torch.cuda.device_count()``; only the card given is used (NCCL
+puts one rank on a card).  Each answer is held to the same question's
+in-memory answer on the same data (rows after a sort on all columns, or in
+order for the sort and the frame groupbys; floats rtol 1e-9), every plan
+runs with no ``Unlowerable`` fallback, and each request must launch its
+``NEEDS``:
+4. over G1 at 1e8 rows after its partitioned phase: ``distributed_groupby_agg``
+   of v1-v3 by id4 (A) and by id6 (B, F, G, D), the LazyFrame groupby of
+   sum, mean, count, var, std by each through ``collect(mesh=make_mesh())``,
+   ``dist_sort`` by (id4, id5) with v1 riding and ``dist_distinct`` of
+   (id4, id5, v1); over J1 big after its partitioned phase: the inner join
+   shuffled (``executor.broadcast_limit`` 0) and broadcast, each launching
+   B, F, G, D and H, the shuffle's calls replayed against their plain
+   versions; over TPC-H SF10 after its partitioned phase: q1, q3, q5, q6
+   with ``mesh=make_mesh()`` (q3 and q5 launch B, F, G, D, H).
+5. each request's wall ms beside the in-memory answer's and (for the
+   plans) ``collect(mesh=8)``'s, its collective calls with the bytes and
+   ms of each kind (``all_to_all_single``, ``all_gather``, ``all_reduce``:
+   CUDA events), ``torch.cuda.max_memory_allocated`` and launches.
+
 Each G row says what its timed window holds (the outputs' torch.empty,
 and with out_rows G's own fill of the rows no run covers) and G's
 resident blocks per SM, threads and shared memory; A's, D's, B's and
@@ -2247,12 +2272,14 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     return launched
 
 
-def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, part, directory):
+def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, part, directory,
+               spmd):
     """The nine TPC-H queries at SF10 (the main path) and SF1, and at SF10
     the string and temporal requests over lineitem (into ``strings``), the
     decimal ones (into ``nested``), the resample, window, as-of and
-    day-unit ones (into ``ops``), the Parquet files (into ``io``) and the
-    partitioned executor over a Parquet dataset (into ``part``)."""
+    day-unit ones (into ``ops``), the Parquet files (into ``io``), the
+    partitioned executor over a Parquet dataset (into ``part``) and the
+    queries over the mesh of ``spmd`` = (mesh, accumulator)."""
     from cudf_tpu_torch.models import tpch
 
     by_query, tpch_calls = {}, {}
@@ -2301,6 +2328,8 @@ def tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops, io, part
             io[2]["tpch_sf10"] = io_tpch_phase(tables, smi, wrappers, drive, plains, io,
                                                directory)
             partitioned_tpch_phase(tables, smi, wrappers, drive, plains, part, directory)
+            distributed_phase("tpch", {"tpch": tables}, smi, wrappers, drive, spmd[0],
+                              spmd[1])
         for q, fn in tpch.QUERIES.items():
             ms = device_ms(lambda: fn(tables))
             plain = device_ms(lambda: tpch.PLAIN[q](tables))
@@ -3589,6 +3618,88 @@ def partitioned_tpch_phase(tables, smi, wrappers, drive, plains, acc, directory)
     torch.cuda.empty_cache()
 
 
+def distributed_phase(group, frames, smi, wrappers, drive, mesh, acc, replay=()):
+    """The requests of one group of ``models/distributed.py`` over ``mesh``
+    as one main path (every count at 0 before it): each request's wall ms,
+    collectives (calls, bytes and ms by kind), fallbacks, peak device memory
+    and launches; then each answer held to the in-memory one (timed too),
+    the fallbacks at 0 and the ``NEEDS`` launched; the plans also timed at
+    ``collect(mesh=8)``.  The requests in ``replay`` then run alone with
+    every call of their kernels replayed against the plain versions.  Adds
+    rows by request to ``acc``."""
+    from cudf_tpu_torch.engine import get_fallback_stats, reset_fallback_stats
+    from cudf_tpu_torch.models import distributed as dm
+    from cudf_tpu_torch.parallel.mesh import collective_stats, reset_collective_stats
+
+    names = dm.GROUPS[group]
+    results, rows = {}, {}
+
+    def main_path():
+        for n in names:
+            counts = {k: w.launches for k, w in wrappers.items()}
+            reset_fallback_stats()
+            reset_collective_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results[n] = dm.REQUESTS[n](frames, mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows[n] = dict(ms_mesh=ms, ranks=mesh.size, collectives=collective_stats(),
+                           fallbacks=get_fallback_stats(),
+                           max_memory_allocated=torch.cuda.max_memory_allocated(),
+                           launches={k: w.launches - counts[k] for k, w in wrappers.items()
+                                     if w.launches > counts[k]})
+    drive(f"distributed_{group}", main_path)
+    for n in names:
+        row = rows[n]
+        check(row["fallbacks"]["count"] == 0,
+              f"distributed {n}: {row['fallbacks']} Unlowerable fallbacks")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = dm.IN_MEMORY[n](frames)
+        torch.cuda.synchronize()
+        row["ms_in_memory"] = (time.perf_counter() - t0) * 1e3
+        row["max_abs_err"] = dm.agree(frames, n, results.pop(n), exp)
+        del exp
+        missing = [k for k in dm.NEEDS[n] if k not in row["launches"]]
+        check(not missing, f"distributed {n} did not launch {missing}: {row['launches']}")
+        if n in dm.ENGINE:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dm.REQUESTS[n](frames, 8)
+            torch.cuda.synchronize()
+            row["ms_partitioned_8"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        acc[2][n] = row
+        log(f"phase 4 distributed {n}: equal to the in-memory answer (max abs err "
+            f"{row['max_abs_err']}), no fallback; " + json.dumps(dict(row, card=smi)))
+    for n in replay:
+        acc[0][n] = run_replayed(f"distributed {n}", n,
+                                 lambda n=n: dm.REQUESTS[n](frames, mesh),
+                                 wrappers, acc[3], acc[1], needs=dm.NEEDS[n])
+        torch.cuda.empty_cache()
+    return rows
+
+
+def start_mesh(dev, directory):
+    """NCCL at world size 1 on ``dev`` over a FileStore in ``directory``,
+    and the mesh of that one rank."""
+    from cudf_tpu_torch.parallel import bootstrap, make_mesh
+
+    store = torch.distributed.FileStore(os.path.join(directory, "store"), 1)
+    bootstrap.initialize(0, 1, store=store, device=dev, local_rank=dev.index or 0)
+    mesh = make_mesh(device=dev)
+    info = bootstrap.process_info()
+    listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, check=True,
+                            timeout=60).stdout.strip().splitlines()
+    log("phase 1 cards: " + json.dumps({"nvidia_smi_L": len(listed),
+                                        "torch_device_count": torch.cuda.device_count(),
+                                        "used": 1, "process_group": info,
+                                        "mesh": repr(mesh)}))
+    return mesh
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--beside", metavar="DIR",
@@ -3648,6 +3759,8 @@ def main():
         log(json.dumps({"beside": args.beside, "card": smi,
                         "ms": beside_phase(dev, gen, rp, ha, args.beside)}))
         return 0
+    mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    mesh = start_mesh(dev, mesh_dir)
     kernels = kernel_phase(dev, gen, ha, rp, ts)
     for k, lines in ptxas.items():
         kernels[k]["ptxas"] = lines
@@ -3683,7 +3796,10 @@ def main():
              "io_orc": RADIX_TIER, "io_avro": ONEHOT_TIER, "io_tpudf": [], "io_text": [],
              "io_stream": [], "partitioned_g1": ONEHOT_TIER + RADIX_TIER,
              "partitioned_j1": RADIX_TIER + ["window_probe"], "partitioned_tpch": RADIX_TIER + ["window_probe"],
-             "partitioned_tpch_spill": RADIX_TIER + ["window_probe"]}
+             "partitioned_tpch_spill": RADIX_TIER + ["window_probe"],
+             "distributed_g1": ONEHOT_TIER + RADIX_TIER,
+             "distributed_j1": RADIX_TIER + ["window_probe"],
+             "distributed_tpch": RADIX_TIER + ["window_probe"]}
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -3787,6 +3903,8 @@ def main():
     part = ({}, {}, {})                 # launches by request, replayed calls, rows
     partitioned_phase("g1", {"g1": df}, smi, wrappers, drive, plains, part,
                       replay=("g1_k100", "g1_k1e6"), warm=True)
+    spmd = ({}, {}, {}, plains)         # launches by request, replayed calls, rows, plains
+    distributed_phase("g1", {"g1": df}, smi, wrappers, drive, mesh, spmd)
     del df, g1_text
     torch.cuda.empty_cache()
 
@@ -3844,6 +3962,8 @@ def main():
     del j1_big
     partitioned_phase("j1", {"fact": frames["fact_big"], "dim": frames["dim_big"]}, smi,
                       wrappers, drive, plains, part, replay=("j1_big_shuffle",), warm=True)
+    distributed_phase("j1", {"fact": frames["fact_big"], "dim": frames["dim_big"]}, smi,
+                      wrappers, drive, mesh, spmd, replay=("j1_big_shuffle",))
     v1 = frames["fact_big"]._table["v1"].data
     del frames
     torch.cuda.empty_cache()
@@ -3855,7 +3975,7 @@ def main():
     try:
         (by_tpch_query, tpch_calls, by_frame_query, frame_calls, frame_times,
          over_rows) = tpch_phase(dev, smi, wrappers, drive, plains, strings, nested, ops,
-                                 io, part, directory)
+                                 io, part, directory, (mesh, spmd))
         io_taxi_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_g1_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_formats_phase(dev, smi, wrappers, drive, plains, io, directory)
@@ -3868,6 +3988,8 @@ def main():
     log("phase 5 IO rows: " + json.dumps({"card": smi, "io_routes": IO_ROUTES,
                                           "rows": io[2]}))
     log("phase 5 partitioned executor rows: " + json.dumps({"card": smi, "rows": part[2]}))
+    log("phase 5 distributed rows (one rank, NCCL): " + json.dumps(
+        {"card": smi, "rows": spmd[2]}))
     for name, calls in tpch_calls.items():
         kernels[name]["tpch_calls"] = calls
     for name, calls in frame_calls.items():
@@ -3909,6 +4031,8 @@ def main():
         kernels[name]["io_calls"] = calls
     for name, calls in part[1].items():
         kernels[name]["partitioned_calls"] = calls
+    for name, calls in spmd[1].items():
+        kernels[name]["distributed_calls"] = calls
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -3936,10 +4060,16 @@ def main():
                    launches_by_ops_windows={q: c.get(name, 0) for q, c in ops[0].items()},
                    launches_by_io={q: c.get(name, 0) for q, c in io[0].items()},
                    launches_by_partitioned={q: r["launches"].get(name, 0)
-                                            for q, r in part[2].items() if "launches" in r})
+                                            for q, r in part[2].items() if "launches" in r},
+                   launches_by_distributed={q: r["launches"].get(name, 0)
+                                            for q, r in spmd[2].items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))
+    from cudf_tpu_torch.parallel import bootstrap
+
+    bootstrap.shutdown()
+    shutil.rmtree(mesh_dir, ignore_errors=True)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": cards}}))
     return 0

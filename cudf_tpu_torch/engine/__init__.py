@@ -1,9 +1,9 @@
 """Query engine: logical IR, expression tree, optimizer and LazyFrame
 (port of ``cudf_tpu/engine``), with the in-memory executor and the
 partitioned executor on one device (``engine/streaming.py``:
-``collect(mesh=n)``, ``collect(streaming=True)``) and its fallback
-statistics.  A device mesh (``engine/spmd.py``) is ROADMAP.md queue 1,
-item 10.
+``collect(mesh=n)``, ``collect(streaming=True)``), the same executor
+over the ranks of a ``parallel.Mesh`` (``engine/spmd.py``:
+``collect(mesh=make_mesh())``) and their fallback statistics.
 """
 
 from cudf_tpu_torch.engine.expr import Expr, col, lit, when

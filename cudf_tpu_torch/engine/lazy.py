@@ -6,8 +6,9 @@ the in-memory executor, on the device of its source frames.
 the ``Scan``); ``sink_parquet`` / ``sink_csv`` write a plan's result when
 it is collected.  ``collect(mesh=n)``, ``collect(mesh="auto")`` and
 ``collect(streaming=True)`` run the plan on the partitioned executor
-(``engine/streaming.py``) on the same device; a device mesh (the
-reference's SPMD program) is ROADMAP.md queue 1, item 10.
+(``engine/streaming.py``) on the same device; ``collect(mesh=<a
+parallel.Mesh>)`` runs it over the mesh's ranks, one process a card
+(``engine/spmd.py``), and gives every rank the whole result.
 """
 
 from __future__ import annotations
@@ -109,7 +110,9 @@ class LazyFrame:
         """Run the plan: a DataFrame on the device of the plan's sources.
         ``mesh``: None (the in-memory executor), a partition count or
         "auto" (the partitioned executor, which picks the count from the
-        sources' bytes); ``streaming=True`` is ``mesh="auto"``."""
+        sources' bytes), or a ``parallel.Mesh`` (every rank of it calls
+        ``collect`` on the same plan: ``engine/spmd.py``); ``streaming=True``
+        is ``mesh="auto"``."""
         from cudf_tpu_torch.frame.dataframe import DataFrame
         from cudf_tpu_torch.frame.index import default_index
 

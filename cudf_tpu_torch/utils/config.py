@@ -122,14 +122,8 @@ _register("executor.fallback_mode", "warn",
           lambda v: v in ("warn", "raise", "silent"))
 
 
-def _spmd_not_ported(value) -> bool:
-    raise NotImplementedError(
-        "executor.spmd_lowering chooses how a plan over a device mesh runs "
-        "(engine/spmd.py's SPMD program); the port has no device mesh yet: "
-        "ROADMAP.md queue 1, item 10")
-
-
 _register("executor.spmd_lowering", True,
-          "compile a plan over a device mesh into one SPMD program (engine/spmd.py); "
-          "not ported (ROADMAP.md queue 1, item 10): setting it raises",
-          _spmd_not_ported)
+          "run a plan over a parallel.Mesh rank by rank with collectives (engine/spmd.py); "
+          "off, every rank runs the one-process partitioned executor over the mesh's size "
+          "in partitions",
+          lambda v: isinstance(v, bool))

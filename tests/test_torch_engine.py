@@ -264,18 +264,20 @@ def test_temporal_is_in_matches_pandas(data, kind, count):
 
 
 def test_unported_paths_raise_naming_their_item(data):
-    """A device mesh (the SPMD program) is the one path of ``collect`` still
-    unported; a partition count, "auto", ``streaming=True``,
-    ``map_batches`` and ``PythonScan`` run (``tests/test_torch_streaming.py``)."""
+    """Every path of ``collect`` is ported: a ``mesh`` that is neither a
+    partition count, "auto" nor a ``parallel.Mesh`` raises TypeError; a
+    partition count, "auto", ``streaming=True``, ``map_batches`` and
+    ``PythonScan`` run (``tests/test_torch_streaming.py``; a Mesh:
+    ``tests/test_torch_spmd.py``)."""
     pdf, port, ref, _ = data
     lf = pe.from_dataframe(port)
     cases = [
-        (lambda: lf.collect(mesh=(2, 2)), "item 10"),
-        (lambda: lf.collect(mesh=4.0), "item 10"),
-        (lambda: lf.collect(mesh=object(), streaming=True), "item 10"),
+        (lambda: lf.collect(mesh=(2, 2)), "parallel.Mesh"),
+        (lambda: lf.collect(mesh=4.0), "parallel.Mesh"),
+        (lambda: lf.collect(mesh=object(), streaming=True), "parallel.Mesh"),
     ]
     for fn, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(TypeError, match=item):
             fn()
     assert len(lf.collect(mesh=4)) == len(lf.collect(streaming=True)) == len(pdf)
     assert len(lf.map_batches(lambda t: t).collect()) == len(pdf)

@@ -410,6 +410,60 @@ def test_the_partitioned_executor_runs_without_pandas_pyarrow_or_jax():
     assert "PARTITIONED OK []" in proc.stdout, proc.stdout
 
 
+_DISTRIBUTED_PROBE = """
+import sys
+sys.modules["pandas"] = None            # none of these can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+from cudf_tpu_torch.engine import get_fallback_stats, reset_fallback_stats
+from cudf_tpu_torch.models import distributed as dm, partitioned as pm, tpch
+from cudf_tpu_torch.parallel import bootstrap, make_mesh
+from cudf_tpu_torch.parallel.dryrun import main
+mesh = make_mesh(device="cpu")              # one rank over gloo
+frames = {"g1": dm.g1_frame(20_000, device="cpu"),
+          "tpch": tpch.generate_device(0.002, seed=3, device="cpu")}
+frames["fact"], frames["dim"] = pm.j1_frames(20_000, device="cpu")
+for name, request in dm.REQUESTS.items():
+    reset_fallback_stats()
+    assert dm.PLAIN[name](frames, request(frames, mesh)) <= 1e-6, name
+    assert get_fallback_stats()["count"] == 0, name
+bootstrap.shutdown()
+assert main(["2"]) == 0                     # the dry run over two gloo processes
+bad = sorted(m for m, mod in sys.modules.items()
+             if mod is not None and m.split(".")[0] in ("jax", "cudf_tpu"))
+print("DISTRIBUTED OK", bad)
+"""
+
+
+def test_the_distributed_paths_run_without_pandas_pyarrow_or_jax():
+    """Every ``models/distributed.py`` request over a one-rank gloo mesh
+    equal to the in-memory executor with no fallback, then the dry run
+    (``parallel/dryrun.py``) over two gloo processes, whose ranks report no
+    jax, reference, pandas or pyarrow module loaded, with pandas, pyarrow
+    and jax unimportable here."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _DISTRIBUTED_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "DISTRIBUTED OK []" in proc.stdout, proc.stdout
+    assert '"foreign_modules": []' in proc.stdout, proc.stdout
+
+
+def test_the_distributed_modules_import_no_jax_or_reference():
+    """The modules of the multi-rank slice exist and import neither jax
+    nor the reference (``test_package_sources_import_no_jax_or_reference``
+    checks every module; these are named so that none can go missing)."""
+    files = [PACKAGE / "parallel" / f"{m}.py" for m in
+             ("__init__", "bootstrap", "mesh", "shuffle", "dist", "dryrun")]
+    files += [PACKAGE / "engine" / "spmd.py", PACKAGE / "models" / "distributed.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "cudf_tpu"), f"{path}: {name}"
+
+
 def test_host_library_builds_from_the_package_source_only():
     """The loader compiles cudf_tpu_torch/csrc/host/io_host.cpp and loads
     from build/cudf_tpu_torch/, never the reference's csrc/ or build/native/."""

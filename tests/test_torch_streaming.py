@@ -213,18 +213,31 @@ def test_sampled_range_partitions_are_the_in_memory_order(data, by, descending, 
         assert max(p.num_rows for p in parts) < 2 * N / 8
 
 
-def test_setting_spmd_lowering_raises_naming_item_10():
-    """The option selects the SPMD program of a device mesh, which the
-    port does not have: setting it, to either value, raises."""
+def test_setting_spmd_lowering_raises_naming_item_10(data):
+    """The option chooses how a plan over a ``parallel.Mesh`` runs: on,
+    rank by rank with collectives (``engine/spmd.py``); off, the
+    partition-list executor over the mesh's size in partitions.  Over a
+    Mesh of one rank (gloo) both give the in-memory answer; a value that is
+    not a bool raises."""
+    from cudf_tpu_torch.parallel import bootstrap, make_mesh
     from cudf_tpu_torch.utils.config import get_option, set_option
 
-    for value in (False, True):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            set_option("executor.spmd_lowering", value)
-        with pytest.raises(NotImplementedError, match="item 10"):
+    pdf, port, _ = data
+    formed = not torch.distributed.is_initialized()
+    mesh = make_mesh(device="cpu")          # one rank over gloo
+    try:
+        lf = pe.from_dataframe(port).group_by("w").agg(pe.col("v").sum().alias("s"),
+                                                       pe.col("k").max().alias("m"))
+        exp = lf.collect().to_pandas()
+        for value in (False, True):
             with option_context("executor.spmd_lowering", value):
-                pass
-        assert get_option("executor.spmd_lowering") is True
+                same(lf.collect(mesh=mesh).to_pandas(), exp)
+            with pytest.raises(ValueError):
+                set_option("executor.spmd_lowering", int(value))
+            assert get_option("executor.spmd_lowering") is True
+    finally:
+        if formed:
+            bootstrap.shutdown()
 
 
 def test_over_and_distinct_match_memory(data):
@@ -323,8 +336,11 @@ def test_map_function_and_python_scan_match_the_reference():
 
 @pytest.mark.parametrize("mesh", [(2, 2), 2.0, "8", object()])
 def test_a_device_mesh_raises_naming_item_10(data, mesh):
+    """A ``mesh`` that is neither a partition count, "auto" nor a
+    ``parallel.Mesh`` (a tuple, a float, a str, an object) raises
+    TypeError."""
     _, port, _ = data
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         pe.from_dataframe(port).collect(mesh=mesh)
 
 
