@@ -406,6 +406,23 @@ dictionaries decoded; integers, counts and strings exact, floats rtol
    of 3) beside the in-memory ``collect()``'s, its partition count, spill
    statistics, ``torch.cuda.max_memory_allocated`` and launches.
 
+The pandas accelerator (``cudf_tpu_torch.pandas``) on the card, where
+it has no slow side (``install(device)``; ``models/pandas_form.py``), after the other formats, over the files of
+the IO phases:
+4. three scripts of plain ``import pandas as pd`` code, each run as
+   ``python -m cudf_tpu_torch.pandas`` runs it (``install(device)``, then
+   ``runpy.run_path``) inside ``Profiler()`` (slow 0, fast > 0): G1_1e7
+   by ``read_csv`` of g1.csv (id1-id3 categories) and the ten questions;
+   TPC-H SF10 by ``read_parquet`` of lineitem, orders and part and
+   ``FRAME_QUERIES`` q1, q6, q12 and q14; the sweep of 31 requests over
+   1e7 rows built from numpy draws.  Each answer equal to the same script
+   run directly on the port's frames (keys, counts, integers and order
+   exact, floats rtol 1e-12; q9's r2 also atol 1e-15, the cumsum 1e-12 of
+   its largest partial sum); each request alone launching exactly its
+   ``NEEDS``, every kernel call of it replayed against its plain version.
+5. each request's ms through the proxy beside its ms direct (median of
+   3 each, wall clock, the two run in turns), and the reads' ms.
+
 The multi-rank path (``engine/spmd.py``, ``parallel/*``;
 ``models/distributed.py`` ``REQUESTS``, ``IN_MEMORY``, ``NEEDS``), three
 main paths of their own over a mesh of one rank: NCCL at world size 1 on
@@ -450,9 +467,11 @@ three lookups; no single call gives H's ids and payload together, so
 that row has none and records torch.take of each as two_calls_ms.
 
 Each kernel's row also carries its launches by G1 question, API call,
-frame API request, IO request and partitioned request and, in
-``g1_calls``, ``frame_api_calls``, ``io_calls`` and ``partitioned_calls``,
-each replayed call of those.
+frame API request, IO request, partitioned request and pandas-form
+request and, in ``g1_calls``, ``frame_api_calls``, ``io_calls``,
+``partitioned_calls`` and ``pandas_form_calls``, each replayed call of
+those; only the first call of a kernel with given arguments in a phase
+is timed (a later one names it in ``timed_as``).
 
 The last three lines are the card's nvidia-smi name and power limit, a
 JSON line of the kernels, and the result line
@@ -2245,8 +2264,10 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
     call of its kernels (``needs``, by default ``TPCH_NEEDS[q]``) recorded;
     checks that it launched exactly those kernels, then replays each
     recorded call on the card against its plain version at the shapes the
-    query gave it, adding a row for each to ``calls`` by kernel.  Returns
-    the launches."""
+    query gave it, adding a row for each to ``calls`` by kernel.  Only the
+    first call of a kernel with given arguments (``_describe``) in
+    ``calls`` (one phase's) is timed; a later one's row names the query and
+    call whose row holds its times (``timed_as``).  Returns the launches."""
     needs = TPCH_NEEDS[q] if needs is None else needs
     for w in wrappers.values():
         w.launches = 0
@@ -2259,11 +2280,16 @@ def run_replayed(what, q, run, wrappers, plains, calls, needs=None):
         call = f"{what} call {i} of {name}"
         err = replay_check(wrappers, plains, name, args, call)
         params = inspect.signature(plains[name]).parameters
-        row = dict(query=q, call=i, args=_describe(args), max_abs_err=err,
-                   ms=device_ms(lambda: wrappers[name](**args)),
-                   plain_ms=device_ms(lambda: plains[name](**{
-                       k: v for k, v in args.items() if k in params})))
-        calls.setdefault(name, []).append(row)
+        row = dict(query=q, call=i, args=_describe(args), max_abs_err=err)
+        rows = calls.setdefault(name, [])
+        timed = [r for r in rows if r["args"] == row["args"] and "ms" in r]
+        if timed:
+            row["timed_as"] = {"query": timed[0]["query"], "call": timed[0]["call"]}
+        else:
+            row.update(ms=device_ms(lambda: wrappers[name](**args)),
+                       plain_ms=device_ms(lambda: plains[name](**{
+                           k: v for k, v in args.items() if k in params})))
+        rows.append(row)
         log(f"phase 3 {call} agrees with its plain version: {json.dumps(row)}")
     replayed = sorted({name for name, _ in rec.calls})
     check(replayed == sorted(needs), f"{what}: replayed {replayed}")
@@ -3303,9 +3329,7 @@ def io_tpch_phase(tables, smi, wrappers, drive, plains, acc, directory):
         log(f"phase 4 IO TPC-H {q} from Parquet torch.profiler split: " + json.dumps(
             {f"tpch_sf10_{q}_file_profile": rows[f"{q}_profile"], "card": smi}))
     del frames, files, pages
-    for name in ("lineitem", "orders", "part"):
-        os.remove(os.path.join(directory, f"{name}.parquet"))
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()       # the files stay for the pandas-form phase
     return rows
 
 
@@ -3473,6 +3497,100 @@ def io_formats_phase(dev, smi, wrappers, drive, plains, acc, directory):
     del frames
     torch.cuda.empty_cache()
     return rows
+
+
+def paired_wall_ms(fa, fb, reps=3):
+    """Median wall-clock ms of fa() and of fb(), each warmed once, then run
+    in turns (a, b, b, a, ...) so that neither always runs first."""
+    times = ([], [])
+    for fn in (fa, fb):
+        fn()
+        torch.cuda.synchronize()
+    for i in range(2 * reps):
+        which = (i + i // 2) % 2        # a b b a a b ...
+        t0 = time.perf_counter()
+        (fa, fb)[which]()
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def pandas_form_phase(dev, smi, wrappers, drive, plains, directory):
+    """The three pandas scripts of ``models/pandas_form.py`` through the
+    accelerator on the card with no slow side (``install(device)``, then
+    ``runpy.run_path`` as ``python -m cudf_tpu_torch.pandas`` runs them):
+    G1_1e7 from the CSV of the IO phase, TPC-H SF10 from its Parquet
+    files, the sweep at 1e7 rows.  Each script is one main path, inside
+    ``Profiler()`` with slow 0 and fast > 0; each answer equal to the same
+    script run directly on the port's frames (``run_direct``: no proxy);
+    each request alone, every count at 0 before it, launching exactly its
+    ``NEEDS``, every kernel call of it replayed against its plain version;
+    each request's ms through the proxy beside its ms
+    direct, and the reads' ms.  Returns (launches by request, replayed
+    calls by kernel, rows by script)."""
+    from cudf_tpu_torch import pandas as accel
+    from cudf_tpu_torch.models import pandas_form as pf
+    from cudf_tpu_torch.pandas import proxy
+
+    import importlib.util
+
+    launches, calls, rows = {}, {}, {}
+    args = {"g1_csv": (directory,), "tpch_parquet": (directory,), "sweep": ()}
+    log("phase 4 pandas: the accelerator with no slow side (pandas "
+        f"{'is' if importlib.util.find_spec('pandas') else 'is not'} importable here)")
+    try:
+        for name in pf.SCRIPTS:
+            t0 = time.perf_counter()
+            with accel.Profiler() as prof:
+                g = drive(f"pandas_{name}", lambda: pf.run_script(name, args[name], device=dev))
+            first_s = time.perf_counter() - t0
+            check(proxy.state["slow"] is None, "the accelerator took a slow side")
+            check(prof.stats["slow"] == 0 and prof.stats["fast"] > 0,
+                  f"pandas {name}: Profiler {prof.stats}")
+            t0 = time.perf_counter()
+            direct = pf.run_direct(name, args[name], device=dev)
+            direct_first_s = time.perf_counter() - t0
+            requests, frames = g["REQUESTS"], g["FRAMES"]
+            row = rows[name] = {"first_run_s": first_s, "direct_first_run_s": direct_first_s,
+                                "profiler": {"fast": prof.stats["fast"], "slow": 0},
+                                "requests": {r: {} for r in requests}}
+            for r in requests:
+                row["requests"][r]["max_abs_err"] = pf.agree(
+                    f"pandas {name} {r}", g["ANSWERS"][r], direct["ANSWERS"][r],
+                    atol=pf.atol_for(name, r, direct["ANSWERS"][r]))
+            g.pop("ANSWERS")
+            direct.pop("ANSWERS")
+            torch.cuda.empty_cache()
+            log(f"phase 4 pandas {name}: {len(requests)} answers equal to the port's direct "
+                f"ones; Profiler fast {row['profiler']['fast']} slow 0; first run "
+                f"{first_s:.2f} s, direct {direct_first_s:.2f} s")
+            for r, fn in requests.items():      # alone, every count at 0 before
+                needs = pf.NEEDS[name].get(r, [])
+                run = (lambda fn=fn: fn(frames))
+                with accel.Profiler() as prof:
+                    launched = run_replayed(f"pandas {name} {r}", f"{name}_{r}", run,
+                                            wrappers, plains, calls, needs=needs)
+                check(prof.stats["slow"] == 0, f"pandas {name} {r}: Profiler {prof.stats}")
+                launches[f"{name}_{r}"] = row["requests"][r]["launches"] = launched
+            log(f"phase 4 pandas {name} launches by request: "
+                + json.dumps({r: v["launches"] for r, v in row["requests"].items()}))
+            if name != "sweep":       # the file reads (the sweep builds its frame on the host)
+                row["read_ms"], row["direct_read_ms"] = paired_wall_ms(
+                    lambda: g["load"](*args[name]), lambda: direct["load"](*args[name]))
+            for r in requests:
+                ms, direct_ms = paired_wall_ms(
+                    lambda r=r: requests[r](frames),
+                    lambda r=r: direct["REQUESTS"][r](direct["FRAMES"]))
+                row["requests"][r].update(ms=ms, direct_ms=direct_ms,
+                                          proxy_overhead_ms=ms - direct_ms)
+            log(f"phase 5 pandas {name}: " + json.dumps(dict(row, card=smi)))
+            del g, direct, frames, requests
+            torch.cuda.empty_cache()
+    finally:
+        accel.uninstall()
+    log("phase 5 pandas no-slow-side routes resolved from the port: "
+        + json.dumps(proxy.NO_SLOW_ROUTES))
+    return launches, calls, rows
 
 
 def partitioned_phase(group, frames, smi, wrappers, drive, plains, acc, replay=(), warm=False):
@@ -3800,6 +3918,10 @@ def main():
              "distributed_g1": ONEHOT_TIER + RADIX_TIER,
              "distributed_j1": RADIX_TIER + ["window_probe"],
              "distributed_tpch": RADIX_TIER + ["window_probe"]}
+    from cudf_tpu_torch.models import pandas_form
+
+    paths.update({f"pandas_{n}": sorted({k for ks in needs.values() for k in ks})
+                  for n, needs in pandas_form.NEEDS.items()})
     launches = {name: {} for name in wrappers}
     second_pass = {}
 
@@ -3979,6 +4101,8 @@ def main():
         io_taxi_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_g1_phase(dev, smi, wrappers, drive, plains, io, directory)
         io_formats_phase(dev, smi, wrappers, drive, plains, io, directory)
+        by_pandas, pandas_calls, pandas_rows = pandas_form_phase(dev, smi, wrappers, drive,
+                                                                 plains, directory)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     from cudf_tpu_torch.io import IO_ROUTES
@@ -4033,6 +4157,9 @@ def main():
         kernels[name]["partitioned_calls"] = calls
     for name, calls in spmd[1].items():
         kernels[name]["distributed_calls"] = calls
+    for name, calls in pandas_calls.items():
+        kernels[name]["pandas_form_calls"] = calls
+    log("phase 5 pandas-form rows: " + json.dumps({"card": smi, "rows": pandas_rows}))
 
     sources = {"onehot_groupby_aggregate": (ha.SOURCE, ha.REPLACES),
                "window_probe": (rp.PROBE_SOURCE, rp.REPLACES["window_probe"]),
@@ -4062,7 +4189,8 @@ def main():
                    launches_by_partitioned={q: r["launches"].get(name, 0)
                                             for q, r in part[2].items() if "launches" in r},
                    launches_by_distributed={q: r["launches"].get(name, 0)
-                                            for q, r in spmd[2].items()})
+                                            for q, r in spmd[2].items()},
+                   launches_by_pandas_form={q: c.get(name, 0) for q, c in by_pandas.items()})
         rows.append(dict(name=name, route="cuda", **{k: row[k] for k in keys},
                          **{k: v for k, v in row.items() if k not in keys}))
     log(json.dumps({"kernels": rows}))

@@ -958,7 +958,16 @@ class Series:
 
     def rank(self, method: str = "average", ascending: bool = True, na_option: str = "keep",
              pct: bool = False) -> "Series":
-        return self._new(sort_ops.rank(self._nan_null(), method, ascending, na_option, pct))
+        """float64 ranks; of pandas' nullable or Arrow-backed numbers, in
+        that family as pandas gives them: UInt64 for the integral methods
+        (first, dense, min, max) without pct, else Float64."""
+        out = sort_ops.rank(self._nan_null(), method, ascending, na_option, pct)
+        src = self.dtype
+        if (src.nullable or src.arrow) and (src.is_numeric or src.is_bool):
+            integral = method in ("first", "dense", "min", "max") and not pct
+            out = unary.cast(out, dt.DType(dt.TypeId.UINT64 if integral else dt.TypeId.FLOAT64,
+                                           nullable=src.nullable, arrow=src.arrow))
+        return self._new(out)
 
     def sort_values(self, ascending: bool = True, na_position: str = "last",
                     ignore_index: bool = False, kind=None) -> "Series":
@@ -1037,6 +1046,10 @@ class Series:
         return self._new(Column(dt.BOOL8, len(self), mask))
 
     def between(self, left, right, inclusive: str = "both") -> "Series":
+        if not isinstance(inclusive, str) or inclusive not in ("both", "left", "right",
+                                                               "neither"):
+            raise ValueError("Inclusive has to be either string of 'both','left', 'right', "
+                             "or 'neither'.")
         lo = self >= left if inclusive in ("both", "left") else self > left
         hi = self <= right if inclusive in ("both", "right") else self < right
         return lo & hi

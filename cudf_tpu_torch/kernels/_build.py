@@ -34,6 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VALUE_KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
 
 
+class BuildError(RuntimeError):
+    """The kernels did not build: nvcc is missing or failed."""
+
+
+class LaunchError(RuntimeError):
+    """A kernel's C entry point returned a CUDA error."""
+
+
 class _Library:
     def __init__(self, path: Path, build_seconds: float):
         self.path = path
@@ -66,8 +74,8 @@ def _nvcc() -> str:
             return os.path.join(home, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise FileNotFoundError("nvcc not found: the CUDA kernels need the CUDA "
-                                "toolkit (set CUDA_HOME)")
+        raise BuildError("nvcc not found: the CUDA kernels need the CUDA "
+                         "toolkit (set CUDA_HOME)")
     return found
 
 
@@ -104,13 +112,13 @@ def build() -> Path:
     objs = [str(obj) for obj, _ in jobs]
     try:
         if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            raise BuildError("nvcc failed:\n" + "\n".join(failed))
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+            raise BuildError(f"nvcc link failed ({proc.returncode}):\n"
+                             f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     finally:
         for obj in objs:
@@ -131,7 +139,7 @@ def ptxas_report(source: Path) -> List[str]:
         obj.unlink(missing_ok=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v {source}: exit {proc.returncode}\n{log}")
+        raise BuildError(f"nvcc -Xptxas -v {source}: exit {proc.returncode}\n{log}")
     return [line.strip() for line in log.splitlines() if line.strip()]
 
 
@@ -147,14 +155,14 @@ def sass_opcodes(source: Path, prefix: str) -> Dict[str, Dict[str, int]]:
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-cubin", "-o", str(cubin), str(source)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -cubin {source}: exit {proc.returncode}\n"
-                               f"{proc.stdout}{proc.stderr}")
+            raise BuildError(f"nvcc -cubin {source}: exit {proc.returncode}\n"
+                             f"{proc.stdout}{proc.stderr}")
         proc = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
                               capture_output=True, text=True)
     finally:
         cubin.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"cuobjdump -sass {source}: exit {proc.returncode}\n{proc.stderr}")
+        raise BuildError(f"cuobjdump -sass {source}: exit {proc.returncode}\n{proc.stderr}")
     out: Dict[str, Dict[str, int]] = {}
     kernel = None
     for line in proc.stdout.splitlines():
@@ -186,7 +194,7 @@ def launch(name: str, argtypes: Sequence, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}: {lib.error_string(err)}")
+        raise LaunchError(f"{name}: CUDA error {err}: {lib.error_string(err)}")
 
 
 def kernel_values(vals: torch.Tensor):

@@ -527,13 +527,32 @@ def group_size(grouper: Grouper) -> Column:
 
 
 def group_sum(col: Column, grouper: Grouper) -> Column:
-    """Sums; an all-null group sums to 0 (pandas min_count=0)."""
+    """Sums; an all-null group sums to 0 (pandas min_count=0).  A STRING
+    column's sum is each group's values joined in row order, a null as
+    "" (pandas')."""
+    if col.dtype.is_string:
+        return _group_concat(col, grouper)
     data, v = _segment_data(_apply_row_mask(col, grouper))
     s = _group_sum(_accumulate(data, v, 0), grouper)
     if col.dtype.is_float:
         out_dt = _float_out(col.dtype)
         return Column(out_dt, grouper.num_groups, s.to(out_dt.torch_storage))
     return _fit_int(Column(dt.INT64, grouper.num_groups, s), col.dtype)
+
+
+def _group_concat(col: Column, grouper: Grouper) -> Column:
+    """Each group's strings joined: the rows gathered in group order lay
+    each group's bytes side by side, so the groups' offsets are the
+    gathered offsets at the group boundaries."""
+    from cudf_tpu_torch.ops.replace import replace_nulls_scalar
+
+    col = _apply_row_mask(col, grouper)
+    if col.validity is not None:
+        col = replace_nulls_scalar(col, "")
+    rows = copying.gather(col, grouper.sorted_order, bounds_check=False)
+    offsets = rows.offsets[grouper.group_offsets]
+    data = rows.data[int(offsets[0]):int(offsets[-1])]
+    return Column(col.dtype, grouper.num_groups, data, None, offsets - offsets[0])
 
 
 def _minmax_values(data: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:

@@ -506,3 +506,105 @@ def test_package_sources_import_no_jax_or_reference():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "cudf_tpu"), f"{path}: {name}"
+
+
+_PANDAS_ACCEL_IMPORT_PROBE = """
+import sys
+import cudf_tpu_torch.pandas
+import cudf_tpu_torch.pandas.proxy
+import cudf_tpu_torch.pandas.suite
+import cudf_tpu_torch.pandas.__main__
+import cudf_tpu_torch.models.pandas_form
+import cudf_tpu_torch.pandas._pytest_plugin     # installs the proxy on the CPU
+import pandas as pd
+assert pd.__proxy_for__ is not None
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_the_pandas_accelerator_imports_no_jax_or_reference():
+    """Importing ``cudf_tpu_torch.pandas`` (its proxy, suite runner,
+    ``__main__`` and pytest plugin, which installs the proxy) and
+    ``models/pandas_form.py`` loads neither jax nor the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDF_TPU_TORCH_PANDAS_DEVICE="cpu")
+    proc = subprocess.run([sys.executable, "-c", _PANDAS_ACCEL_IMPORT_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+    files = [PACKAGE / "pandas" / f"{m}.py" for m in
+             ("__init__", "proxy", "__main__", "_pytest_plugin", "suite")]
+    files += [PACKAGE / "models" / "pandas_form.py"]
+    files += sorted((PACKAGE / "models" / "pandas_scripts").glob("*.py"))
+    for path in files:
+        assert path.exists(), path
+
+
+_NO_SLOW_SIDE_PROBE = """
+import json, os, sys, tempfile
+sys.modules["pandas"] = None            # neither can be imported from here on
+sys.modules["pyarrow"] = None
+sys.modules["jax"] = None
+import cudf_tpu_torch.pandas as accel
+from cudf_tpu_torch.models import io_paths as iop, pandas_form as pf, tpch
+from cudf_tpu_torch.pandas import proxy
+d = tempfile.mkdtemp()
+iop.write_bytes(os.path.join(d, "g1.csv"), iop.g1_csv(iop.g1_frame(5000, device="cpu")))
+tables = tpch.generate(0.002, seed=7, device="cpu")
+for n in ("lineitem", "orders", "part"):
+    tables[n].to_parquet(os.path.join(d, f"{n}.parquet"))
+for name, args in (("g1_csv", (d,)), ("tpch_parquet", (d,)), ("sweep", (2000,))):
+    with accel.Profiler() as prof:
+        g = pf.run_script(name, args, device="cpu")
+    assert proxy.state["slow"] is None
+    assert prof.stats["slow"] == 0 and prof.stats["fast"] > 0, (name, prof.stats)
+    direct = pf.run_direct(name, args, device="cpu")["ANSWERS"]
+    for r, ans in g["ANSWERS"].items():
+        pf.agree(f"{name} {r}", ans, direct[r], atol=pf.atol_for(name, r, direct[r]))
+import pandas as pd
+df = pd.DataFrame({"a": [1, 2]})
+with accel.Profiler() as prof:
+    try:
+        df.style
+    except accel.NoSlowSide as e:
+        assert "ROADMAP.md item 9" in str(e), e
+        print("NAMED ERROR", type(e).__name__)
+assert prof.stats["slow"] == 1 and prof.stats["calls"]["style"] == (0, 1), prof.stats
+# the reference's always-slow places, resolved from the port's objects
+assert sum(proxy.NO_SLOW_ROUTES.values()) == 0, proxy.NO_SLOW_ROUTES
+df = pd.DataFrame({"k": [1, 2, 1], "c": [5, 5, 6], "v": [1.0, None, 4.0]})
+assert set(df.dtypes) == {"k", "c", "v"}
+assert len(df.index) == 3 and df._table.num_columns == 3
+assert df.pivot_table(values="v", index="k", columns="c", aggfunc="sum").shape == (2, 2)
+assert df.fillna(0.0, inplace=True) is None and df.v.tolist() == [1.0, 0.0, 4.0]
+assert proxy.NO_SLOW_ROUTES == {"force_slow_attr": 1, "private_attr": 1, "index": 1,
+                                "inplace": 1, "reshape": 1}, proxy.NO_SLOW_ROUTES
+import numpy as np
+try:
+    np.sqrt(df.v)
+except accel.NoSlowSide:
+    print("NUMPY RAISES")
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None and
+             m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu", "pyarrow"))
+bad += sorted(m for m in sys.modules if m.startswith("pandas.") or m == "_slow_pandas")
+print("NO SLOW SIDE OK", bad, json.dumps(proxy.NO_SLOW_ROUTES))
+"""
+
+
+def test_the_accelerator_without_pandas_has_no_slow_side():
+    """With pandas unimportable, ``install(device="cpu")`` has no slow
+    side: the three ``models/pandas_form.py`` scripts run with Profiler
+    slow 0, every answer equal to the port's direct one, and a
+    pandas-only call (``df.style``) is counted as slow, then raises the
+    error that names ROADMAP.md item 9.  The places the reference always
+    sends to pandas resolve from the port's objects (``dtypes``, a
+    private attribute, ``index``, ``pivot_table``, ``inplace=True``:
+    ``NO_SLOW_ROUTES``); a numpy ufunc, which the port's Series does not
+    take, raises."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _NO_SLOW_SIDE_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "NAMED ERROR NoSlowSide" in proc.stdout, proc.stdout
+    assert "NUMPY RAISES" in proc.stdout, proc.stdout
+    assert "NO SLOW SIDE OK []" in proc.stdout, proc.stdout
