@@ -23,11 +23,18 @@ CSV, JSON, ORC, Feather and the tpudf file (``read_parquet``,
 (``io.streaming.StreamConsumer``); ``arrow_cdata.py`` speaks the Arrow
 C data interface.
 
+The top level exports what the reference's does: the frame API, the
+readers, the dtypes (``DType``, ``dtype``), the options
+(``get_option``, ``set_option``, ``describe_option``,
+``option_context``), ``NA`` and ``NaT``, and the ``engine`` package.
+
 Importing the package touches no CUDA, builds nothing and imports
 neither pandas nor pyarrow.
 """
 
+from cudf_tpu_torch import engine
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.core.dtypes import DType, dtype
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.asof import merge_asof
 from cudf_tpu_torch.frame.dataframe import DataFrame
@@ -44,12 +51,15 @@ from cudf_tpu_torch.io import (read_avro, read_feather, read_json, read_orc, rea
                                read_tpudf)
 from cudf_tpu_torch.io.csv import read_csv
 from cudf_tpu_torch.io.parquet import read_parquet
+from cudf_tpu_torch.utils.config import describe_option, get_option, option_context, set_option
 from cudf_tpu_torch.utils.masked import Masked
+from cudf_tpu_torch.utils.missing import NA, NaT
 
-__all__ = ["Column", "Table", "DataFrame", "DataFrameGroupBy", "Index", "Masked",
-           "RangeIndex", "Series", "concat", "crosstab", "cut", "date_range", "factorize",
-           "from_arrow", "from_buffers", "from_dlpack", "from_pandas", "get_dummies", "isna",
-           "isnull", "melt", "merge", "merge_asof", "notna", "notnull", "pivot_table", "qcut",
+__all__ = ["Column", "DType", "DataFrame", "DataFrameGroupBy", "Index", "Masked", "NA", "NaT",
+           "RangeIndex", "Series", "Table", "concat", "crosstab", "cut", "date_range",
+           "describe_option", "dtype", "engine", "factorize", "from_arrow", "from_buffers",
+           "from_dlpack", "from_pandas", "get_dummies", "get_option", "isna", "isnull", "melt",
+           "merge", "merge_asof", "notna", "notnull", "option_context", "pivot_table", "qcut",
            "read_avro", "read_csv", "read_feather", "read_json", "read_orc", "read_parquet",
-           "read_text", "read_tpudf", "to_datetime", "to_dlpack", "to_numeric", "to_pandas",
-           "unique"]
+           "read_text", "read_tpudf", "set_option", "to_datetime", "to_dlpack", "to_numeric",
+           "to_pandas", "unique"]

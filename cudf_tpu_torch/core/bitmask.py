@@ -43,6 +43,20 @@ def and_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return out
 
 
+def or_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """OR of validity vectors; None (all valid) if any operand is."""
+    if not masks or any(m is None for m in masks):
+        return None
+    out = masks[0]
+    for m in masks[1:]:
+        out = out | m
+    return out
+
+
+def valid_count(validity: Optional[torch.Tensor], n: int) -> int:
+    return n - null_count(validity, n)
+
+
 def null_count(validity: Optional[torch.Tensor], n: int) -> int:
     if validity is None:
         return 0

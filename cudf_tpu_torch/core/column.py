@@ -301,6 +301,10 @@ class Column:
         return self.length
 
     @property
+    def size(self) -> int:
+        return self.length
+
+    @property
     def device(self) -> torch.device:
         return self._device
 
@@ -320,6 +324,18 @@ class Column:
     def with_validity(self, validity: Optional[torch.Tensor]) -> "Column":
         return Column(self.dtype, self.length, self.data, validity, self.offsets, self.children)
 
+    def copy(self, deep: bool = True) -> "Column":
+        """The column over clones of its buffers, children's too (over the
+        same buffers unless ``deep``): torch tensors can be written in
+        place, so only a deep copy is independent of its source."""
+        if not deep:
+            return self._as(self.dtype)
+
+        def clone(t):
+            return None if t is None else t.clone()
+        return Column(self.dtype, self.length, clone(self.data), clone(self.validity),
+                      clone(self.offsets), [c.copy() for c in self.children])
+
     # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
@@ -332,13 +348,19 @@ class Column:
         return cls(dt.from_torch(data.dtype), data.shape[0], data.contiguous(), validity)
 
     @classmethod
-    def from_numpy(cls, arr: np.ndarray, *, device) -> "Column":
+    def from_numpy(cls, arr: np.ndarray, mask: Optional[np.ndarray] = None, *,
+                   device) -> "Column":
         """Build from a 1-D numpy array onto ``device``.  NaN in a float
         array and NaT are nulls, as in the reference's pandas path; str
-        and object arrays become STRING columns (None and NaN nulls)."""
+        and object arrays become STRING columns (None and NaN nulls).
+        ``mask`` (True: valid) nulls the rows where it is False too."""
         arr = np.asarray(arr)
         if arr.ndim != 1:
             raise ValueError("Column.from_numpy expects a 1-D array")
+        if mask is not None:
+            col = cls.from_numpy(arr, device=device)
+            return col.with_validity(bm.and_masks(col.validity,
+                                                  bm.from_numpy_mask(mask, device)))
         if arr.dtype.kind in ("U", "S", "O"):
             vals = list(arr) if arr.dtype.kind == "O" else arr.tolist()
             if arr.dtype.kind == "O" and host_layout(vals):
@@ -368,10 +390,14 @@ class Column:
         return cls(logical, arr.shape[0], data, bm.from_numpy_mask(mask, device))
 
     @classmethod
-    def from_strings(cls, strings: Sequence[Optional[str]], *, device) -> "Column":
+    def from_strings(cls, strings: Sequence[Optional[str]],
+                     mask: Optional[np.ndarray] = None, *, device) -> "Column":
         """A STRING column from host strings (None: null), built on the
-        host and copied to ``device`` (cudf::make_strings_column)."""
+        host and copied to ``device`` (cudf::make_strings_column).
+        ``mask`` (True: valid) nulls the rows where it is False too."""
         strings = list(strings)
+        if mask is not None:
+            strings = [s if m else None for s, m in zip(strings, np.asarray(mask, bool))]
         chars, offsets = _encode(strings)
         mask = np.array([s is not None for s in strings], bool)
         col = cls(dt.STRING, len(strings), torch.from_numpy(chars).to(device),
@@ -414,6 +440,11 @@ class Column:
             host = np.array([0 if m else v for v, m in zip(values, null)], want.storage)
         return cls(want, len(values), torch.from_numpy(host).to(device),
                    bm.from_numpy_mask(~null, device))
+
+    @classmethod
+    def from_sequence(cls, seq: Sequence[Any], dtype=None, *, device) -> "Column":
+        """The reference's name for ``from_pylist``."""
+        return cls.from_pylist(seq, dtype, device=device)
 
     @classmethod
     def from_dictionary(cls, codes: torch.Tensor, keys: "Column",
@@ -812,10 +843,72 @@ class Column:
                 self.dtype.tz).array
         return self.to_numpy()
 
-    def to_pandas(self):
+    def to_pandas(self, nullable: bool = False):
+        """A pandas Series; ``nullable``: numbers, bools and strings in
+        pandas' nullable dtypes (Int64, Float64, boolean, string), nulls as
+        pd.NA."""
         import pandas as pd
 
-        return pd.Series(self.to_pandas_array())
+        col = self
+        if nullable and not (self.dtype.nullable or self.dtype.arrow) and (
+                self.dtype.is_numeric or self.dtype.is_bool or self.dtype.is_string):
+            col = self._as(dt.DType(self.dtype.id, nullable=True))
+        return pd.Series(col.to_pandas_array())
 
     def __repr__(self) -> str:
         return f"Column<{self.dtype!r}>[{self.length}] on {self.device}"
+
+
+def as_column(obj, dtype=None, *, device=None) -> Column:
+    """Anything column-like as a Column (the reference's ``as_column``): a
+    Column, a tensor (kept on its device), the port's Series or Index (its
+    column), or host data, which needs ``device``: a numpy array, list or
+    tuple, a pyarrow array, or a pandas Series, Index or Categorical.  Cast
+    to ``dtype`` if given ("category" dictionary-encodes).  A ``device``
+    that the data does not lie on raises."""
+    if isinstance(obj, Column):
+        col = obj
+    elif isinstance(obj, torch.Tensor):
+        col = Column.from_tensor(obj.reshape(-1))
+    elif type(obj).__module__.startswith("cudf_tpu_torch") and hasattr(obj, "_column"):
+        col = obj._column
+    else:
+        if device is None:
+            raise ValueError("host data needs an explicit device=")
+        module = type(obj).__module__
+        if isinstance(obj, np.ndarray):
+            col = Column.from_numpy(obj, device=device)
+        elif isinstance(obj, (list, tuple)):
+            target = dt.dtype(dtype) if dtype is not None and not _is_category(dtype) else None
+            col = Column.from_pylist(list(obj), target, device=device)
+        elif module.startswith("pyarrow"):
+            col = Column.from_arrow(obj, device=device)
+        elif module.startswith("pandas") and hasattr(obj, "dtype"):
+            import pandas as pd
+
+            col = Column.from_pandas(obj if isinstance(obj, pd.Series) else pd.Series(obj),
+                                     device=device)
+        else:
+            raise TypeError(f"cannot build a column from {type(obj).__name__}")
+    if device is not None and not _on(col.device, torch.device(device)):
+        raise ValueError(f"data is on {col.device}, asked for {device}")
+    if dtype is not None:
+        from cudf_tpu_torch.ops import unary
+
+        col = unary.cast(col, dt.dtype(dtype))
+    return col
+
+
+def _is_category(dtype) -> bool:
+    return isinstance(dtype, str) and dtype == "category" or (
+        isinstance(dtype, dt.DType) and dtype.is_dictionary)
+
+
+def _on(have: torch.device, want: torch.device) -> bool:
+    """Whether a tensor on ``have`` is on ``want`` ("cuda" names the
+    current card, as torch.device("cuda") does)."""
+    if have.type != want.type:
+        return False
+    index = want.index if want.index is not None or want.type != "cuda" \
+        else torch.cuda.current_device()
+    return have.index == index

@@ -68,6 +68,12 @@ class Table:
     def items(self) -> Iterable[Tuple[object, Column]]:
         return zip(self._names, self._columns)
 
+    def select_by_index(self, idx: Sequence[int]) -> "Table":
+        return Table.from_pairs([self._names[i] for i in idx], [self._columns[i] for i in idx])
+
+    def to_dict(self) -> Dict:
+        return dict(self.items())
+
     def select(self, names: Sequence) -> "Table":
         return Table.from_pairs(names, [self[n] for n in names])
 
@@ -115,6 +121,21 @@ class Table:
         from cudf_tpu_torch.arrow_cdata import table_stream_capsule
 
         return table_stream_capsule(self, requested_schema)
+
+    def to_pandas(self):
+        """A pandas DataFrame of the columns (as ``Column.to_pandas_array``
+        gives them) over a default index."""
+        import pandas as pd
+
+        out = pd.DataFrame({i: c.to_pandas_array() for i, c in enumerate(self._columns)})
+        out.columns = list(self._names)
+        return out
+
+    @classmethod
+    def from_pandas(cls, df, *, device) -> "Table":
+        """A pandas DataFrame's columns onto ``device`` (its index dropped)."""
+        return cls.from_pairs(list(df.columns), [Column.from_pandas(df.iloc[:, i], device=device)
+                                                 for i in range(df.shape[1])])
 
     def __contains__(self, name) -> bool:
         return name in self._names

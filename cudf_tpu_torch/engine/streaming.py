@@ -209,20 +209,21 @@ def partition_count(mesh) -> Optional[int]:
     return mesh
 
 
-def evaluate_streaming(node: IRs.IR, mesh=None) -> Table:
-    """The plan's table through the partitioned executor; over a
+def evaluate_streaming(node: IRs.IR, mesh_or_nparts=None) -> Table:
+    """The plan's table through the partitioned executor, over a partition
+    count ("auto" or None: chosen from the plan's size); over a
     ``parallel.Mesh`` through ``engine/spmd.py`` (with
     ``executor.spmd_lowering``; a plan it cannot lower is counted and runs
     here, over the mesh's size in partitions, on every rank)."""
     from cudf_tpu_torch.ops.copying import concatenate_tables
 
-    n = partition_count(mesh)
+    n = partition_count(mesh_or_nparts)
     quiet = False
-    if is_mesh(mesh) and get_option("executor.spmd_lowering"):
+    if is_mesh(mesh_or_nparts) and get_option("executor.spmd_lowering"):
         from cudf_tpu_torch.engine.spmd import Unlowerable, evaluate_spmd
 
         try:
-            return evaluate_spmd(node, mesh)
+            return evaluate_spmd(node, mesh_or_nparts)
         except Unlowerable as exc:
             _record_fallback(str(exc), exc)
             quiet = True            # counted once, here

@@ -63,6 +63,12 @@ def _beyond_property(what: str):
     return property(lambda self: _beyond(what))
 
 
+def binaryop_concat(l: Column, r: Column) -> Column:
+    """Row-wise concatenation of two STRING columns (null where either
+    is), as ``str.cat`` and ``+`` give it (``ops/strings.py`` ``concat``)."""
+    return str_ops.concat([l, r])
+
+
 class StringMethods:
     def __init__(self, s):
         if not (s.dtype.is_string or (s.dtype.is_dictionary and s._column.keys.dtype.is_string)):

@@ -30,6 +30,7 @@ changes; ``copy()`` clones the buffers, as pandas does.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional
 
 import numpy as np
@@ -169,6 +170,60 @@ class DataFrame:
         for n in self._table.names:
             yield n, self[n]
 
+    iteritems = items
+
+    def iterrows(self):
+        """(label, row Series) pairs, as pandas gives them (through
+        ``to_pandas``, as the reference)."""
+        return self.to_pandas().iterrows()
+
+    def itertuples(self, index: bool = True, name="Pandas"):
+        return self.to_pandas().itertuples(index=index, name=name)
+
+    def to_records(self, index: bool = True):
+        """A numpy record array of the rows (through ``to_pandas``)."""
+        return self.to_pandas().to_records(index=index)
+
+    def memory_usage(self, deep: bool = False) -> Series:
+        """Each column's bytes on its device (``Column.nbytes``), as a Series
+        over the column names (the index is not counted, as in the
+        reference)."""
+        dev = self.device
+        return Series([c.nbytes for c in self._table.columns],
+                      index=Index(Column.from_pylist(list(self._table.names), device=dev)),
+                      device=dev)
+
+    def info(self, verbose=None, buf=None, max_cols=None, memory_usage=None,
+             show_counts=None) -> None:
+        """pandas' summary: the class, the index's extent, then a line a
+        column with its non-null count and dtype, the dtype counts and the
+        bytes the columns hold on the device (one host read of the null
+        counts)."""
+        import sys
+
+        names, cols = list(self._table.names), list(self._table.columns)
+        idx = self._index
+        kind = type(idx).__name__ if isinstance(idx, (RangeIndex, MultiIndex)) else "Index"
+        extent = f"{kind}: {len(self)} entries"
+        if len(self):
+            labels = idx.to_pylist()
+            extent += f", {labels[0]} to {labels[-1]}"
+        counts = [Series._from(c, idx, n).count() for n, c in zip(names, cols)]
+        dtypes = [str(c.dtype) for c in cols]
+        head = (" # ", "Column", "Non-Null Count", "Dtype")
+        rows = [(f" {i} ", str(n), f"{k} non-null", d)
+                for i, (n, k, d) in enumerate(zip(names, counts, dtypes))]
+        widths = [max(len(r[j]) for r in [head] + rows) for j in range(4)]
+        fmt = "  ".join(f"{{:<{w}}}" for w in widths)
+        tally = Counter(dtypes)
+        lines = [str(type(self)), extent, f"Data columns (total {len(names)} columns):",
+                 fmt.format(*head), fmt.format(*("-" * len(h.strip()) if j else "---"
+                                                for j, h in enumerate(head))),
+                 *(fmt.format(*r) for r in rows),
+                 "dtypes: " + ", ".join(f"{d}({k})" for d, k in sorted(tally.items())),
+                 f"memory usage: {float(self._table.nbytes)} bytes"]
+        (buf or sys.stdout).write("\n".join(lines) + "\n")
+
     def copy(self, deep: bool = True) -> "DataFrame":
         """A frame over clones of the buffers (views of them unless deep)."""
         table = Table.from_pairs(self._table.names, [_clone(c) if deep else c
@@ -204,6 +259,34 @@ class DataFrame:
             index = Index(Column.from_numpy(np.asarray(pidx), device=device),
                           name=pidx.name)
         return cls._from(Table(cols), index)
+
+    @classmethod
+    def from_dict(cls, data: Dict, orient: str = "columns", dtype=None, columns=None, *,
+                  device) -> "DataFrame":
+        """``orient="columns"``: {column: values}; ``"index"``: {row label:
+        {column: value} or a list of values}, the columns in order of first
+        appearance (or ``columns``), a value a row lacks missing; without
+        pandas."""
+        if orient == "columns":
+            out = cls(data, device=device)
+        elif orient == "index":
+            out = cls(_columns_of_rows(list(data.values()), columns), index=list(data),
+                      device=device)
+        else:
+            raise ValueError(f"orient={orient!r}: 'columns' or 'index'")
+        return out.astype(dtype) if dtype is not None else out
+
+    @classmethod
+    def from_records(cls, data, columns=None, index=None, *, device) -> "DataFrame":
+        """Rows as tuples or lists (columns named by ``columns``, else
+        0..k-1), dicts, or a numpy structured array; ``index`` names a
+        column to take as the index."""
+        if isinstance(data, np.ndarray) and data.dtype.names:
+            names = list(columns) if columns is not None else list(data.dtype.names)
+            out = cls({n: data[n] for n in names}, device=device)
+        else:
+            out = cls(_columns_of_rows(list(data), columns), device=device)
+        return out.set_index(index) if index is not None else out
 
     @classmethod
     def from_arrow(cls, tbl, *, device) -> "DataFrame":
@@ -448,6 +531,16 @@ class DataFrame:
         start = -n if n < 0 else len(self) - min(n, len(self))
         return self._slice(start, len(self))
 
+    def sample(self, n=None, frac=None, replace: bool = False, random_state=0) -> "DataFrame":
+        """Rows drawn by a torch.Generator on the frame's device seeded with
+        ``random_state`` (``ops/copying.py`` ``sample_rows``): n rows (or
+        ``frac`` of them), distinct unless ``replace``, the same rows for
+        the same seed on the same device; not pandas' or the reference's
+        rows, whose generators differ."""
+        n = int(round((frac or 1.0) * len(self))) if n is None else n
+        return self.take(copying.sample_rows(len(self), n, int(random_state or 0), replace,
+                                             self.device))
+
     def _filter(self, mask: Series) -> "DataFrame":
         """The rows where the mask (aligned by label) is True."""
         return self.take(sc.filter_indices(aligned_mask(self._index, self.device, mask)))
@@ -604,7 +697,25 @@ class DataFrame:
     def replace(self, to_replace, value=None) -> "DataFrame":
         return self._per_column(lambda s: s.replace(to_replace, value))
 
-    def shift(self, periods: int = 1, fill_value=None) -> "DataFrame":
+    def shift(self, periods: int = 1, freq=None, axis=0, fill_value=None) -> "DataFrame":
+        """Rows down by ``periods`` (``fill_value`` in the rows left
+        empty); with ``freq``, the temporal index moves by periods x freq
+        and the values stay; ``axis=1`` moves each column's values to the
+        column ``periods`` to its right, as pandas does (the columns left
+        empty hold ``fill_value`` or nulls, in their own dtype)."""
+        if freq is not None:
+            return self._new(self._table, _shift_index(self._index, periods, freq))
+        if axis in (1, "columns"):
+            names, n, dev = list(self._table.names), len(self), self.device
+            cols = []
+            for i, name in enumerate(names):
+                j = i - periods
+                if 0 <= j < len(names):
+                    cols.append(self._table[names[j]])
+                else:
+                    cols.append(Column.full(n, fill_value, self._table[name].dtype
+                                            if fill_value is None else None, device=dev))
+            return self._new(Table.from_pairs(names, cols))
         return self._per_column(lambda s: s.shift(periods, fill_value=fill_value))
 
     def rolling(self, window, min_periods=None, center: bool = False):
@@ -782,6 +893,31 @@ class DataFrame:
                                    Index(Column.from_pylist(qs, dt.FLOAT64, device=dev)))
         return Series([self[n].quantile(q) for n in num],
                       index=Index(Column.from_pylist(num, device=dev)), name=q, device=dev)
+
+    def mode(self, axis=0, numeric_only: bool = False, dropna: bool = True) -> "DataFrame":
+        """Each column's most frequent values, ascending, padded with nulls
+        to the longest column's count."""
+        if axis not in (0, "index"):
+            raise NotImplementedError(f"mode(axis={axis!r}): {BEYOND}")
+        modes = {n: Series._from(c, self._index, n).mode(dropna)._column
+                 for n, c in self._table.items()
+                 if not numeric_only or c.dtype.is_numeric or c.dtype.is_bool}
+        width = max((m.length for m in modes.values()), default=0)
+        dev = self.device
+        cols = {n: m if m.length == width else
+                copying.concatenate([m, Column.full(width - m.length, None, m.dtype, device=dev)])
+                for n, m in modes.items()}
+        return DataFrame._from(Table(cols), default_index(width))
+
+    def rank(self, method: str = "average", ascending: bool = True, pct: bool = False,
+             numeric_only: bool = False, na_option: str = "keep") -> "DataFrame":
+        """Each numeric, bool and temporal column's ranks (``Series.rank``);
+        the other columns are left out, as in the reference."""
+        cols = {n: Series._from(c, self._index, n).rank(method=method, ascending=ascending,
+                                                         na_option=na_option, pct=pct)._column
+                for n, c in self._table.items()
+                if c.dtype.is_numeric or c.dtype.is_bool or c.dtype.is_temporal}
+        return self._new(Table(cols))
 
     def _numeric_names(self) -> list:
         return [n for n, c in self._table.items() if c.dtype.is_numeric]
@@ -1059,14 +1195,20 @@ class DataFrame:
         return melt(self, id_vars=id_vars, value_vars=value_vars, var_name=var_name,
                     value_name=value_name)
 
-    def stack(self) -> Series:
+    def stack(self, level=-1, dropna: bool = False) -> Series:
         """The columns moved into a last index level: a Series under a
         MultiIndex of (the index, the column names), row by row, for a
         numeric or bool frame (an interleave on the device); other frames
-        take pandas on the host in the reference and raise here."""
+        take pandas on the host in the reference and raise here.  The
+        columns have one level, so ``level`` is -1 or 0.  Missing values
+        stay, as in pandas 3 (the reference ignores ``dropna``);
+        ``dropna=True`` drops them, as pandas' legacy stack did."""
         from cudf_tpu_torch.frame.reshape import stack
 
-        return stack(self)
+        if level not in (-1, 0):
+            raise IndexError(f"stack(level={level!r}): the columns have one level")
+        out = stack(self)
+        return out.dropna() if dropna else out
 
     def unstack(self, level=-1, fill_value=None) -> "DataFrame":
         from cudf_tpu_torch.frame.reshape import unstack
@@ -1083,13 +1225,55 @@ class DataFrame:
         return self.transpose()
 
     def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
-                as_index: bool = True, observed: bool = True):
+                as_index: bool = True, group_keys: bool = True, observed: bool = True):
         """Group by key columns, Series, or index levels (see
-        ``frame/groupby.py``)."""
+        ``frame/groupby.py``).  ``group_keys`` is accepted as the reference
+        accepts it: no method of the port's groupby reads it."""
         from cudf_tpu_torch.frame.groupby import DataFrameGroupBy
 
         return DataFrameGroupBy(self, by, level=level, sort=sort, dropna=dropna,
                                 as_index=as_index, observed=observed)
+
+
+def _columns_of_rows(rows: list, columns=None) -> Dict:
+    """{column: values} of rows given as dicts (the columns in order of
+    first appearance, a value a row lacks missing) or as sequences
+    (columns 0..k-1, a short row's last values missing); ``columns``
+    names or picks them."""
+    if rows and all(isinstance(r, dict) for r in rows):
+        names = list(columns) if columns is not None else \
+            list(dict.fromkeys(k for r in rows for k in r))
+        return {n: [r.get(n) for r in rows] for n in names}
+    width = max((len(r) for r in rows), default=0)
+    names = list(columns) if columns is not None else list(range(width))
+    return {n: [r[j] if j < len(r) else None for r in rows] for j, n in enumerate(names)}
+
+
+def _shift_index(index: Index, periods: int, freq) -> Index:
+    """A temporal index moved by ``periods`` steps of the fixed frequency
+    ``freq`` (an alias such as "2h", or a timedelta), on its device."""
+    import re
+
+    from cudf_tpu_torch.frame.tools import _FIXED, _NS_PER
+
+    col = index.column(index.device)
+    if isinstance(index, MultiIndex) or not col.dtype.is_temporal:
+        raise NotImplementedError("shift(freq=...) of an index that is not temporal")
+    unit = col.dtype.time_unit
+    if isinstance(freq, str):
+        m = re.fullmatch(r"(\d*)([A-Za-z]+)", freq)
+        if m is None or m.group(2) not in _FIXED:
+            raise NotImplementedError(f"shift(freq={freq!r}): fixed frequencies; "
+                                      f"calendar ones are {BEYOND}")
+        funit, per = _FIXED[m.group(2)]
+        ns = int(m.group(1) or 1) * per * _NS_PER[funit]
+    else:
+        ns = int(np.timedelta64(freq, "ns").astype(np.int64))
+    per_tick = _NS_PER.get(unit, 86400 * 10 ** 9)          # "D": day ticks
+    if (ns * periods) % per_tick:
+        raise NotImplementedError(f"shift(freq={freq!r}) finer than the index's unit {unit}")
+    data = col.data + ns * periods // per_tick
+    return Index(Column(col.dtype, col.length, data, col.validity), index.name)
 
 
 def _reduction(name: str):
@@ -1102,9 +1286,22 @@ def _reduction(name: str):
     return method
 
 
-for _name in ("sum", "prod", "mean", "min", "max", "std", "var", "median", "count",
-              "nunique", "any", "all", "idxmin", "idxmax", "skew", "kurtosis", "sem"):
+def _spread(name: str):
+    def method(self, axis=0, ddof: int = 1, numeric_only: bool = False, **kw):
+        if axis in (1, "columns"):
+            return self._row_reduce(name, ddof=ddof, **kw)
+        return self._reduce(name, numeric_only, ddof=ddof, **kw)
+    method.__name__ = name
+    method.__doc__ = (f"pandas' {name} (``ddof`` degrees of freedom) of each column "
+                      "(axis=0) or row (axis=1), as a Series")
+    return method
+
+
+for _name in ("sum", "prod", "mean", "min", "max", "median", "count", "nunique", "any",
+              "all", "idxmin", "idxmax", "skew", "kurtosis", "sem"):
     setattr(DataFrame, _name, _reduction(_name))
+for _name in ("std", "var"):
+    setattr(DataFrame, _name, _spread(_name))
 
 for _name, _item in _NOT_PORTED.items():
     setattr(DataFrame, _name, not_ported(_name, _item))

@@ -850,3 +850,6 @@ def _simple(agg: str):
 for _agg in _SIMPLE_AGGS:
     setattr(DataFrameGroupBy, _agg, _simple(_agg))
     setattr(SeriesGroupBy, _agg, _simple(_agg))
+# pandas' other name for prod, which the reference's aggregation list has
+DataFrameGroupBy.product = DataFrameGroupBy.prod
+SeriesGroupBy.product = SeriesGroupBy.prod

@@ -389,25 +389,25 @@ def crosstab(index, columns, values=None, rownames=None, colnames=None, aggfunc=
     return _spread([lv[0]], [rn], [lv[1]], [cn], {None: size._column}, False, fill_value=0)
 
 
-def unstack(obj, level=-1, fill_value=None) -> DataFrame:
+def unstack(frame, level=-1, fill_value=None) -> DataFrame:
     """A MultiIndex level moved into the columns: a Series gives a column
     for each of the level's values, a frame a (column, value) pair for
     each; the remaining levels are the index; both sorted, as pandas."""
-    idx = obj._index
+    idx = frame._index
     if not isinstance(idx, MultiIndex):
         raise NotImplementedError(f"unstack of a single-level index: {BEYOND}")
     names = list(idx.names)
     lv = level if isinstance(level, int) else names.index(level)
     lv = lv % len(names)
     rows = [i for i in range(len(names)) if i != lv]
-    if isinstance(obj, Series):
-        values, multi = {obj.name: obj._column}, False
+    if isinstance(frame, Series):
+        values, multi = {frame.name: frame._column}, False
     else:
-        values, multi = dict(obj._table.items()), True
+        values, multi = dict(frame._table.items()), True
     res = _spread([idx._columns[i] for i in rows], [names[i] for i in rows],
                   [idx._columns[lv]], [names[lv]], values, multi, fill_value, unique=True)
-    if multi and obj._columns_names is not None:
-        res._columns_names = tuple(obj._columns_names) + (names[lv],)
+    if multi and frame._columns_names is not None:
+        res._columns_names = tuple(frame._columns_names) + (names[lv],)
     return res
 
 

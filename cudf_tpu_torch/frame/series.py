@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from cudf_tpu_torch.core import dtypes as dt
-from cudf_tpu_torch.core.column import Column, holds, is_null_scalar
+from cudf_tpu_torch.core.column import Column, as_column, holds, is_null_scalar
 from cudf_tpu_torch.frame.index import (Index, MultiIndex, as_index, default_index,
                                          label_column)
 from cudf_tpu_torch.ops import binaryop, copying, reductions
@@ -147,50 +147,15 @@ def _is_listlike(x) -> bool:
 
 
 def column_of(data, device=None, dtype=None) -> Column:
-    """A column from a tensor (kept on its device), a Column, or host data
-    (a list, tuple or numpy array), which needs ``device``."""
-    if isinstance(data, Series):
-        col = data._column
-    elif isinstance(data, Column):
-        col = data
-    elif isinstance(data, torch.Tensor):
-        col = Column.from_tensor(data.reshape(-1))
-    elif isinstance(data, (list, tuple, np.ndarray)):
-        if device is None:
-            raise ValueError("host data needs an explicit device=")
-        if isinstance(data, np.ndarray):
-            col = Column.from_numpy(data, device=device)
-        else:
-            target = dt.dtype(dtype) if dtype is not None and not _is_category(dtype) else None
-            col = Column.from_pylist(list(data), target, device=device)
-    elif type(data).__name__ in ("Series", "Categorical") and hasattr(data, "dtype"):
-        if device is None:
-            raise ValueError("host data needs an explicit device=")
-        import pandas as pd
-
-        col = Column.from_pandas(pd.Series(data), device=device)
-    else:
-        raise TypeError(f"cannot build a column from {type(data).__name__}")
-    if device is not None and not _on(col.device, torch.device(device)):
-        raise ValueError(f"data is on {col.device}, asked for {device}")
-    if dtype is not None:
-        col = unary.cast(col, dt.dtype(dtype))
-    return col
+    """A column from a Series, Column, tensor (kept on its device) or host
+    data, which needs ``device`` (``core.column.as_column``)."""
+    return as_column(data, dtype, device=device)
 
 
-def _is_category(dtype) -> bool:
-    return isinstance(dtype, str) and dtype == "category" or (
-        isinstance(dtype, dt.DType) and dtype.is_dictionary)
-
-
-def _on(have: torch.device, want: torch.device) -> bool:
-    """Whether a tensor on ``have`` is on ``want`` ("cuda" names the
-    current card, as torch.device("cuda") does)."""
-    if have.type != want.type:
-        return False
-    index = want.index if want.index is not None or want.type != "cuda" \
-        else torch.cuda.current_device()
-    return have.index == index
+def column_to_pandas_array(col: Column, pd=None):
+    """A column as the pandas array ``to_pandas`` builds from it (the
+    reference's name; ``pd`` is accepted as it takes it, and unused)."""
+    return col.to_pandas_array()
 
 
 def _clone(col: Column) -> Column:
@@ -363,6 +328,11 @@ class Series:
         col = self._column
         return sum(t.numel() * t.element_size() for t in (col.data, col.validity, col.offsets)
                    if t is not None)
+
+    def memory_usage(self, deep: bool = False) -> int:
+        """The column's bytes on its device (``Column.nbytes``; the index
+        is not counted, as in the reference)."""
+        return self._column.nbytes
 
     def __len__(self) -> int:
         return self._column.length
@@ -878,9 +848,10 @@ class Series:
         return func(self, *args, **kwargs)
 
     def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
-                as_index: bool = True, observed: bool = True):
+                as_index: bool = True, group_keys: bool = True, observed: bool = True):
         """Group by Series, host arrays of this length, or index levels
-        (see ``frame/groupby.py``)."""
+        (see ``frame/groupby.py``).  ``group_keys`` is accepted as the
+        reference accepts it: no method of the port's groupby reads it."""
         from cudf_tpu_torch.frame.groupby import SeriesGroupBy
 
         return SeriesGroupBy(self, by, level=level, sort=sort, dropna=dropna,
@@ -1188,7 +1159,8 @@ class Series:
                 for v, m in zip(self.tolist(), missing)]
         return Series(vals, index=self._index, name=self.name, device=self.device)
 
-    def apply(self, func, args=(), masked: bool = False, **kwargs) -> "Series":
+    def apply(self, func, args=(), masked: bool = False, *, convert_dtype: bool = True,
+              **kwargs) -> "Series":
         """A UDF of each value, vmapped over the column on its device
         (``torch.func.vmap``; a missing float is NaN to the UDF, as in
         pandas, and another column's null row stays null).  ``masked=True``
@@ -1196,7 +1168,9 @@ class Series:
         nulls are its own.  A UDF vmap cannot trace (Python control flow on
         a value, ``.item()``, a result that is not a number) runs on the
         host, value by value, as the reference's does.  ``UDF_ROUTES``
-        counts the route taken."""
+        counts the route taken.  ``convert_dtype`` is accepted as the
+        reference accepts it (pandas 3 has dropped it): the result's dtype
+        is the UDF's."""
         fn = (lambda x: func(x, *args, **kwargs)) if args or kwargs else func
         col = self._column
         validity = col.validity

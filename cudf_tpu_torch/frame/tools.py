@@ -24,7 +24,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, is_null_scalar
 from cudf_tpu_torch.frame.index import Index
 from cudf_tpu_torch.frame.series import BEYOND, Series
-from cudf_tpu_torch.ops import reductions
+from cudf_tpu_torch.ops import reductions, unary
 from cudf_tpu_torch.ops._utils import maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 
@@ -97,16 +97,23 @@ def to_datetime(arg, format=None, errors: str = "raise", unit=None, utc: bool = 
     return out
 
 
-def to_numeric(arg, errors: str = "raise"):
+def to_numeric(arg, errors: str = "raise", downcast=None):
     """Numbers as they are (a Series, or a host array or list of numbers
     as a numpy array), whatever ``errors`` says, as in pandas.  A Series of
     strings is parsed on its device (``ops/strings.py``
     ``parse_numbers``): int64 when every row is an integer and none is
     missing, else float64; a row that is no number raises ValueError, is
     NaN under ``errors="coerce"``, and gives the input back under
-    ``"ignore"`` (pandas 2's option)."""
+    ``"ignore"`` (pandas 2's option).  ``downcast`` ("integer", "signed",
+    "unsigned" or "float") then narrows a Series to the smallest dtype of
+    that kind that holds its values, by pandas' rules (``_downcast``)."""
     if errors not in ("raise", "coerce", "ignore"):
         raise ValueError("invalid error value specified")
+    if downcast not in (None, "integer", "signed", "unsigned", "float"):
+        raise ValueError("invalid downcasting method provided")
+    if downcast is not None and isinstance(arg, Series):
+        out = to_numeric(arg, errors)
+        return _downcast(out, downcast) if out.dtype.is_numeric or out.dtype.is_bool else out
     if isinstance(arg, Series):
         if arg.dtype.is_numeric or arg.dtype.is_bool:
             return arg
@@ -137,6 +144,50 @@ def to_numeric(arg, errors: str = "raise"):
 
 class _Unparsed(Exception):
     """A string that is no number under ``errors="ignore"``."""
+
+
+_INTS = (torch.int8, torch.int16, torch.int32, torch.int64)
+_UINTS = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _downcast(s: Series, downcast: str) -> Series:
+    """pandas' ``to_numeric`` downcast: the first dtype of the kind, from
+    the smallest, no wider than the column's, whose cast of the valid
+    values stays within pandas' tolerance of them (integers: within 1e-8,
+    and a float column with a missing value stays; float32: within 5e-4).
+    Unsigned only when no value is negative; bools stay.  A host read a
+    dtype tried."""
+    col = s._column
+    valid = col.data if col.validity is None else col.data[col.validity]
+    x = valid.to(torch.float64)
+    width = col.data.element_size()
+    if downcast == "float":
+        if width < 4 or col.dtype == dt.FLOAT32:
+            return s                         # no float dtype narrower than float32
+        f32 = x.to(torch.float32).to(torch.float64)
+        if bool(((f32 - x).abs() <= 5e-4).logical_or(f32.isnan() & x.isnan()).all()):
+            return s._new(unary.cast(col, dt.FLOAT32))
+        return s
+    if col.dtype.is_bool or col.dtype.is_float and col.validity is not None:
+        return s                 # numpy bools are no numbers; pandas' NaN blocks the cast
+    if downcast == "unsigned":
+        if valid.numel() and not bool((x >= 0).all()):
+            return s
+        kinds = _UINTS
+    else:
+        kinds = _INTS
+    for kind in kinds:
+        size = torch.empty(0, dtype=kind).element_size()
+        if size > width:
+            break
+        if kind == col.data.dtype:
+            return s
+        info = torch.iinfo(kind)
+        inside = (x >= info.min) & (x <= info.max)
+        whole = (x - x.trunc()).abs() <= 1e-8
+        if valid.numel() == 0 or bool((inside & whole).all()):
+            return s._new(unary.cast(col, dt.from_torch(kind)))
+    return s
 
 
 def _round_frac(x, precision: int):

@@ -6,7 +6,8 @@ plain shape: a one-byte delimiter, the header inferred, no ``names``,
 one width (else ``RaggedCsv``).  The rest goes to pyarrow's host parser,
 counted in ``IO_ROUTES``; any other error of the device tier propagates.
 ``write_csv`` writes through pandas' ``to_csv``, as the reference does: a
-host route, counted in ``ops/_utils.HOST_ROUTES``.
+host route, counted in ``ops/_utils.HOST_ROUTES``.  The option
+``io.csv.device_tokenizer`` off sends every read to pyarrow.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional, Sequence
 
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.io import IO_ROUTES
+from cudf_tpu_torch.utils.config import get_option
 
 
 def _frame(t: Table):
@@ -33,8 +35,9 @@ def read_csv(filepath_or_buffer, sep: str = ",", delimiter: Optional[str] = None
     """A DataFrame on ``device``.  dtype: one dtype for every column, or a
     {column: dtype} dict ("category" makes a DICTIONARY column)."""
     sep = delimiter or sep
-    if len(sep) == 1 and names is None and header == "infer" and skiprows == 0 \
-            and nrows is None and na_values is None and not parse_dates and not kw:
+    if get_option("io.csv.device_tokenizer") and len(sep) == 1 and names is None \
+            and header == "infer" and skiprows == 0 and nrows is None and na_values is None \
+            and not parse_dates and not kw:
         from cudf_tpu_torch.io.csv_device import RaggedCsv, read_csv_device
 
         src = filepath_or_buffer.read() if hasattr(filepath_or_buffer, "read") \
@@ -104,9 +107,9 @@ def _read_csv_pyarrow(src, sep, header, names, usecols, dtype, skiprows, nrows, 
     return df
 
 
-def write_csv(obj, path=None, sep=",", header=True, index=True, **kw):
+def write_csv(df, path=None, sep=",", header=True, index=True, **kw):
     """pandas' ``to_csv`` of a DataFrame or Series (a counted host route)."""
     from cudf_tpu_torch.ops._utils import count_host_route
 
     count_host_route("write_csv")
-    return obj.to_pandas().to_csv(path, sep=sep, header=header, index=index, **kw)
+    return df.to_pandas().to_csv(path, sep=sep, header=header, index=index, **kw)

@@ -5,6 +5,8 @@ top-level array) takes the device tokenizer (``json_device.py``);
 nested objects or arrays (``UnsupportedJson``) go to pyarrow's reader
 for lines and to pandas' for records, as the reference sends them, and
 so does every other orient or option; each counted in ``IO_ROUTES``.
+The option ``io.json.device_tokenizer`` off sends lines to pyarrow and
+records to pandas.
 
 ``write_json`` of the records orient builds the text on the device (the
 shape of ``models/io_paths.py``'s CSV): each field's bytes as a digit
@@ -33,6 +35,7 @@ import torch
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.io import IO_ROUTES
+from cudf_tpu_torch.utils.config import get_option
 
 
 def _frame(t):
@@ -64,8 +67,9 @@ def read_json(path_or_buf, lines: bool = False, orient=None, dtype=None, *, devi
     first = np.flatnonzero(~np.isin(data[:4096], [32, 9, 10, 13]))
     records = not lines and orient in (None, "records") and first.size > 0 and \
         data[first[0]] == ord("[")
-    if not kw and (dtype is None or isinstance(dtype, dict)) and \
-            (lines and orient in (None, "records") or records):
+    device_shape = not kw and (dtype is None or isinstance(dtype, dict)) and \
+        (lines and orient in (None, "records") or records)
+    if device_shape and get_option("io.json.device_tokenizer"):
         try:
             t, n = read_json_device(data, records=records, dtypes=dtype, device=device)
         except UnsupportedJson:
@@ -78,13 +82,13 @@ def read_json(path_or_buf, lines: bool = False, orient=None, dtype=None, *, devi
 
                 return DataFrame._from(t, default_index(n))
             return _frame(t)
-        if lines:
-            IO_ROUTES["pyarrow"] += 1
-            import pyarrow.json as pajson
+    if device_shape and lines:
+        IO_ROUTES["pyarrow"] += 1
+        import pyarrow.json as pajson
 
-            df = _frame(Table.from_arrow(pajson.read_json(_io.BytesIO(data.tobytes())),
-                                         device=device))
-            return df.astype(dtype) if dtype else df
+        df = _frame(Table.from_arrow(pajson.read_json(_io.BytesIO(data.tobytes())),
+                                     device=device))
+        return df.astype(dtype) if dtype else df
     IO_ROUTES["pandas"] += 1
     import pandas as pd
 

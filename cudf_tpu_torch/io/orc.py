@@ -7,7 +7,8 @@ LZO, LZ4, TIMESTAMP_INSTANT, another writer time zone); any other error
 propagates.  ``write_orc`` takes the native writer (``orc_writer.py``)
 for numeric, bool, string, dictionary and temporal columns under no,
 zlib or snappy compression, pyarrow for the rest.  Both count the tier
-in ``IO_ROUTES``.
+in ``IO_ROUTES``.  The options ``io.orc.native_reader`` and
+``io.orc.native_writer`` off send every read or write to pyarrow.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.io import IO_ROUTES
+from cudf_tpu_torch.utils.config import get_option
 
 
 def _frame(t: Table):
@@ -28,7 +30,7 @@ def _frame(t: Table):
 def read_orc(path, columns=None, stripes=None, *, device="cuda", **kw):
     """A DataFrame on ``device``."""
     cols = list(columns) if columns else None
-    if stripes is None and not kw:
+    if stripes is None and not kw and get_option("io.orc.native_reader"):
         from cudf_tpu_torch.io.orc_native import UnsupportedOrc, read_orc_native
 
         try:
@@ -56,7 +58,8 @@ def write_orc(df, path, compression=None, stripe_size=None, **kw):
     from cudf_tpu_torch.io.orc_writer import COMP_IDS, writable, write_orc_native
 
     comp = compression.lower() if isinstance(compression, str) else compression
-    if comp in COMP_IDS and not kw and all(writable(c) for c in df._table.columns):
+    if get_option("io.orc.native_writer") and comp in COMP_IDS and not kw \
+            and all(writable(c) for c in df._table.columns):
         write_orc_native(df._table, os.fspath(path), compression=comp,
                          **({"stripe_size": stripe_size} if stripe_size else {}))
         IO_ROUTES["native"] += 1

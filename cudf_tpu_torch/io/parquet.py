@@ -10,7 +10,10 @@ metadata, a pyarrow Expression filter); any other error propagates.
 dictionary, temporal, list and struct columns, pyarrow for the rest
 (decimals) and for a non-default index.  ``IO_ROUTES``
 (``io/__init__.py``) counts the reads and writes of each tier; a GPU
-machine without pyarrow needs ``IO_ROUTES["pyarrow"]`` at 0.
+machine without pyarrow needs ``IO_ROUTES["pyarrow"]`` at 0.  The
+options ``io.parquet.native_reader`` and ``io.parquet.native_writer``
+off send every read or write to pyarrow; ``io.parquet.hybrid_scan`` off
+skips the filter-columns-first pass (``parquet_native.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import List, Optional, Sequence
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.io import IO_ROUTES, thrift
 from cudf_tpu_torch.io.parquet_native import UnsupportedParquet
+from cudf_tpu_torch.utils.config import get_option
 
 
 def _frame(table: Table):
@@ -53,7 +57,8 @@ def _read_parquet_pruned(path, columns, filters, row_groups=None, device="cuda",
     only pruned by the file's metadata (``pruned`` is then True), or the
     pyarrow tier's exactly filtered read.  The engine's Scan, which
     applies its whole predicate after the read, takes it as it is."""
-    if isinstance(path, (str, os.PathLike)) and not kw:
+    if get_option("io.parquet.native_reader") and isinstance(path, (str, os.PathLike)) \
+            and not kw:
         path = os.fspath(path)
         try:
             if hasattr(filters, "equals"):
@@ -193,7 +198,8 @@ def write_parquet(df, path, compression="snappy", index=None, **kw):
     from cudf_tpu_torch.io.parquet_writer import _CODECS, write_parquet_native
 
     comp = (compression or "uncompressed").lower()
-    if (index is False or (index is None and _is_default_index(df))) and comp in _CODECS \
+    if get_option("io.parquet.native_writer") and comp in _CODECS \
+            and (index is False or (index is None and _is_default_index(df))) \
             and _native_writable(df._table):
         write_parquet_native(df._table, os.fspath(path), compression=comp,
                              **{k: v for k, v in kw.items() if k in _NATIVE_WRITER_OPTIONS})

@@ -53,6 +53,7 @@ from cudf_tpu_torch.core.column import Column, to_ticks
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.io import _native, thrift
 from cudf_tpu_torch.io import parquet_device as pdev
+from cudf_tpu_torch.utils.config import get_option
 
 _NP = {1: np.dtype("int32"), 2: np.dtype("int64"), 4: np.dtype("float32"),
        5: np.dtype("float64")}
@@ -760,7 +761,7 @@ def read_parquet_native(path: str, columns: Optional[List[str]] = None, filters=
             intervals = _page_intervals_for_rg(path, rg, filters, wanted) if filters else None
             if intervals == []:
                 continue
-            if intervals is not None:
+            if intervals is not None and get_option("io.parquet.hybrid_scan"):
                 exact = _hybrid_exact_intervals(f, path, rg, filters, intervals, leaves, clock)
                 if exact == []:
                     continue

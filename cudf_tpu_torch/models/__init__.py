@@ -51,4 +51,13 @@ def j1_join(probe_keys: torch.Tensor, probe_row_ids: torch.Tensor,
     return radix_join_inner_unique(probe_keys, probe_row_ids, build_keys, key_domain)
 
 
-__all__ = ["g1_groupby", "j1_join"]
+def tpch_queries() -> dict:
+    """The TPC-H queries on the LazyFrame engine by name, and the table
+    generator under "generate" (``models/tpch.py``; the reference takes
+    them from ``benchmarks/tpch.py``)."""
+    from cudf_tpu_torch.models import tpch
+
+    return {**tpch.QUERIES, "generate": tpch.generate}
+
+
+__all__ = ["g1_groupby", "j1_join", "tpch_queries"]

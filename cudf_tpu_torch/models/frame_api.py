@@ -9,7 +9,9 @@ written apart from the port.
   dictionaries over "id001"... , id4, id5 in 1..100, id6 in 1..n/100, v1
   in 1..5, v2 in 1..15, v3 in [0, 100)) and ``nulls`` (G1's id4, id6, v1
   and v3, each null in 5% of rows, and v2 without nulls), with
-  ``update`` (a Series of 1e6 labels of ``nulls``).
+  ``update`` (a Series of 1e6 labels of ``nulls``).  The last five
+  G1 requests (rank, mode, the groupby product, sample, memory_usage)
+  are the surface the port gained to match the reference's.
 - ``ANSWERS[name](result, frames)`` and ``PLAIN[name](frames)`` give the
   same ``{key: tensor}``: a column's values (0 where null) and, where it
   has nulls, its validity under ``<key>_valid``; dictionary columns as
@@ -34,6 +36,8 @@ ONEHOT = ["onehot_groupby_aggregate"]
 PROBE = RADIX + ["window_probe"]
 UPDATE_ROWS = 1_000_000
 MAP_ROWS = 100_000
+SAMPLE_ROWS = 1_000_000
+SAMPLE_SEED = 7
 
 
 # ----------------------------------------------------------------------
@@ -312,6 +316,71 @@ def plain_apply_masked(frames):
     return _masked("v3", c.data * 2.0 + 1.0, c.validity)
 
 
+def _average_ranks(x: torch.Tensor) -> torch.Tensor:
+    """1-based ranks, a tie's the mean of its positions: a stable sort, the
+    runs of equal values, and each run's mean position scattered back."""
+    vals, order = torch.sort(x, stable=True)
+    _, counts = torch.unique_consecutive(vals, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    mean = starts.double() + (counts.double() + 1.0) / 2.0
+    ranks = torch.empty(x.numel(), dtype=torch.float64, device=x.device)
+    ranks[order] = torch.repeat_interleave(mean, counts)
+    return ranks
+
+
+def plain_rank(frames):
+    return {n: _average_ranks(_data(frames, "g1", n)) for n in ("v1", "v2", "v3")}
+
+
+def plain_mode(frames):
+    """Each column's most frequent values, ascending, null-padded to the
+    longest column's count."""
+    tops = {}
+    for n in ("id4", "id5", "v1"):
+        vals, counts = torch.unique(_data(frames, "g1", n), return_counts=True)
+        tops[n] = vals[counts == counts.max()]
+    width = max(t.numel() for t in tops.values())
+    out = {}
+    for n, t in tops.items():
+        pad = width - t.numel()
+        valid = torch.arange(width, device=t.device) < t.numel()
+        out.update(_masked(n, torch.cat([t, t.new_zeros(pad)]), valid))
+    return out
+
+
+def plain_product(frames):
+    """Products of v3 by id6, the groups ascending (``scatter_reduce_``)."""
+    key = _data(frames, "g1", "id6").long()
+    G = int(key.max()) + 1
+    prod = torch.ones(G, dtype=torch.float64, device=key.device).scatter_reduce_(
+        0, key, _data(frames, "g1", "v3"), "prod")
+    present = _sorted_present(key, G)
+    return {"index0": present.to(_data(frames, "g1", "id6").dtype), "v3": prod[present]}
+
+
+def plain_sample(frames):
+    """SAMPLE_ROWS distinct rows drawn by a generator on the table's device
+    seeded with SAMPLE_SEED: the first SAMPLE_ROWS of a random permutation
+    of the rows, every column gathered there."""
+    t = frames["g1"]._table
+    dev = t.column(0).device
+    gen = torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
+    rows = torch.randperm(t.num_rows, generator=gen, device=dev)[:SAMPLE_ROWS]
+    return {"index0": rows, **{str(n): c.data[rows] for n, c in t.items()}}
+
+
+def _buffer_bytes(col) -> int:
+    own = sum(t.numel() * t.element_size() for t in (col.data, col.validity, col.offsets)
+              if t is not None)
+    return own + sum(_buffer_bytes(c) for c in col.children)
+
+
+def plain_memory_usage(frames):
+    t = frames["g1"]._table
+    return {"bytes": torch.tensor([_buffer_bytes(c) for c in t.columns],
+                                  device=t.column(0).device)}
+
+
 # ----------------------------------------------------------------------
 # the requests
 # ----------------------------------------------------------------------
@@ -379,6 +448,11 @@ REQUESTS = {
     "dropna_columns": lambda f: f["nulls"].dropna(axis=1),
     "quantile_3": lambda f: f["nulls"].quantile([0.25, 0.5, 0.75]),
     "agg_max_rows": lambda f: f["nulls"][["v1", "v3", "v2"]].agg("max", axis=1),
+    "rank_v1_v3": lambda f: f["g1"][["v1", "v2", "v3"]].rank(),
+    "mode_id4_id5_v1": lambda f: f["g1"][["id4", "id5", "v1"]].mode(),
+    "product_v3_by_id6": lambda f: f["g1"][["id6", "v3"]].groupby("id6").product(),
+    "sample_1e6": lambda f: f["g1"].sample(SAMPLE_ROWS, random_state=SAMPLE_SEED),
+    "memory_usage": lambda f: f["g1"].memory_usage(),
 }
 
 ANSWERS = {
@@ -408,6 +482,11 @@ ANSWERS = {
     "dropna_columns": lambda r, f: {n: c.data for n, c in r._table.items()},
     "quantile_3": lambda r, f: {n: c.data for n, c in r._table.items()},
     "agg_max_rows": lambda r, f: {"max": r._column.data},
+    "rank_v1_v3": lambda r, f: _frame(r),
+    "mode_id4_id5_v1": lambda r, f: _frame(r),
+    "product_v3_by_id6": lambda r, f: _indexed(r),
+    "sample_1e6": lambda r, f: _indexed(r),
+    "memory_usage": lambda r, f: {"bytes": r._column.data},
 }
 
 PLAIN = {
@@ -437,13 +516,19 @@ PLAIN = {
     "dropna_columns": plain_dropna_columns,
     "quantile_3": plain_quantiles,
     "agg_max_rows": plain_row_max,
+    "rank_v1_v3": plain_rank,
+    "mode_id4_id5_v1": plain_mode,
+    "product_v3_by_id6": plain_product,
+    "sample_1e6": plain_sample,
+    "memory_usage": plain_memory_usage,
 }
 
 # what each request launches: an inner join what the same merge does (the
 # build and, past one window, the partition of both sides; the probe),
 # the pivots by one key the groupby tier of its cardinality (id1: one-hot
 # A; id6: radix B, F, G, D); the left join, the two-key pivots and the
-# rest no kernel
+# rest no kernel (rank, mode's value counts and the groupby product take
+# the sort tier, which has none)
 NEEDS = {name: [] for name in REQUESTS}
 NEEDS.update({"join_inner_small": ["bucket_aggregate", "window_probe"],
               "join_inner_medium": PROBE, "join_inner_big": PROBE,
@@ -452,7 +537,7 @@ NEEDS.update({"join_inner_small": ["bucket_aggregate", "window_probe"],
 
 RTOL = {name: 0.0 for name in REQUESTS}
 RTOL.update({"pivot_table_id6": 1e-12, "pivot_table_id4_id5": 1e-9, "interpolate_v3": 1e-12,
-             "quantile_3": 1e-12})
+             "quantile_3": 1e-12, "product_v3_by_id6": 1e-12})
 
 ROUTE = {"apply_v3": "vmap", "apply_rows_v1_v2_v3": "vmap", "apply_masked_v3": "vmap",
          "map_id4_callable_1e5": "host"}
@@ -461,7 +546,8 @@ GROUPS = {
     "j1": [n for n in REQUESTS if n.startswith("join")],
     "g1": ["concat_then_q1", "pivot_table_id1", "pivot_table_id6", "pivot_table_id4_id5",
            "crosstab_id4_id5", "melt", "get_dummies_id1_1e7", "cut_v3_10", "qcut_v3_4",
-           "apply_v3", "map_id4_dict", "apply_rows_v1_v2_v3", "map_id4_callable_1e5"],
+           "apply_v3", "map_id4_dict", "apply_rows_v1_v2_v3", "map_id4_callable_1e5",
+           "rank_v1_v3", "mode_id4_id5_v1", "product_v3_by_id6", "sample_1e6", "memory_usage"],
     "nulls": ["apply_masked_v3", "interpolate_v3", "combine_first_v3_v1", "update_1e6",
               "dropna_columns", "quantile_3", "agg_max_rows"],
 }

@@ -1,10 +1,14 @@
 """Typed option registry (port of ``cudf_tpu/utils/config.py``).
 
-Only the options the ported slice reads are registered.  Every option is
+Every option of the reference is registered, with its default, except
+``*.kernel_interpret``.  An option the reference reads nowhere is read
+nowhere here either: its description says so, and it takes only its
+default, so a setting the port would ignore raises.  Every option is
 env-overridable as ``CUDF_TPU_TORCH__<UPPER_NAME>`` (dots become ``__``).
 The reference's ``*.kernel_interpret`` options have no counterpart: the
 port's kernel wrappers take their plain PyTorch version for CPU tensors,
-with no switch.
+with no switch, and an option that sent card tensors to the plain
+version would hide the kernel.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import contextlib
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 
 @dataclass
@@ -40,6 +44,8 @@ def _register(name: str, default: Any, description: str,
             value = float(env)
         else:
             value = env
+    if not validator(value):
+        raise ValueError(f"invalid value {value!r} for option {name!r} in the environment")
     _registry[name] = _Option(name, default, description, validator, value)
 
 
@@ -52,6 +58,14 @@ def set_option(name: str, value: Any) -> None:
     if not opt.validator(value):
         raise ValueError(f"invalid value {value!r} for option {name!r}")
     opt.value = value
+
+
+def describe_option(name: Optional[str] = None) -> None:
+    """Print each option (or ``name``'s) with its description, default and
+    current value."""
+    for n in [name] if name else sorted(_registry):
+        o = _registry[n]
+        print(f"{o.name}: {o.description} (default {o.default!r}, current {o.value!r})")
 
 
 @contextlib.contextmanager
@@ -127,3 +141,66 @@ _register("executor.spmd_lowering", True,
           "off, every rank runs the one-process partitioned executor over the mesh's size "
           "in partitions",
           lambda v: isinstance(v, bool))
+
+
+def _flag(v) -> bool:
+    return isinstance(v, bool)
+
+
+def _only(default) -> Callable[[Any], bool]:
+    """The validator of an option the port reads nowhere: its default alone."""
+    return lambda v: type(v) is type(default) and v == default
+
+
+# the IO tiers: each option chooses between the port's own reader or
+# writer and pyarrow's (pandas' for JSON records), as the reference's does
+_register("io.csv.device_tokenizer", True,
+          "parse CSV with the device quote-state tokenizer (io/csv_device.py); off, or on "
+          "ragged rows, pyarrow's parser", _flag)
+_register("io.json.device_tokenizer", True,
+          "parse JSON lines and record arrays with the device tokenizer (io/json_device.py); "
+          "off, or on nested values, pyarrow's reader for lines and pandas' for records",
+          _flag)
+_register("io.orc.native_reader", True,
+          "read flat ORC files with the native reader (io/orc_native.py); off, pyarrow's",
+          _flag)
+_register("io.orc.native_writer", True,
+          "write ORC with the native writer (io/orc_writer.py) where it can; off, pyarrow's",
+          _flag)
+_register("io.parquet.native_reader", True,
+          "read Parquet with the native reader (io/parquet_native.py: row-group, page-index "
+          "and bloom pushdown, pages decoded on the device); off, pyarrow's", _flag)
+_register("io.parquet.native_writer", True,
+          "write Parquet with the native writer (io/parquet_writer.py) where it can; off, "
+          "pyarrow's", _flag)
+_register("io.parquet.hybrid_scan", True,
+          "with a page index and filters, decode the filter columns first, evaluate the "
+          "predicate exactly and read only the payload pages holding matches "
+          "(parquet_native._hybrid_exact_intervals); off, the page index's intervals alone",
+          _flag)
+_register("io.parquet.device_decode", True,
+          "decode pages on the device: the native reader has no host page decoder, so this "
+          "is always on (the reference's default off sends its pages to host decoding); "
+          "read nowhere", _only(True))
+_register("io.parquet.chunk_read_limit", 0,
+          "bytes per parquet pass (0 = whole file); registered as the reference registers "
+          "it and, as in the reference, read nowhere (ParquetReader takes its own "
+          "chunk_read_limit)", _only(0))
+
+# registered as the reference registers them; the reference reads none of
+# these, and neither does the port, so each takes only its default
+_register("mode.pandas_compatible", True,
+          "strict pandas semantics where they cost performance; read nowhere, as in the "
+          "reference (the port follows pandas' semantics throughout)", _only(True))
+_register("display.max_rows", 60, "rows shown in repr; read nowhere, as in the reference",
+          _only(60))
+_register("default_integer_bitwidth", 64,
+          "default int width; read nowhere, as in the reference (integers default to int64)",
+          _only(64))
+_register("default_float_bitwidth", 64,
+          "default float width; read nowhere, as in the reference (floats default to "
+          "float64)", _only(64))
+_register("strings.host_fallback", True,
+          "allow host fallback for regex and non-ASCII string ops; read nowhere, as in the "
+          "reference (the host routes are counted in ops/strings.py STRING_ROUTES)",
+          _only(True))

@@ -1,7 +1,9 @@
 """``Series.str``, ``.dt`` and ``.cat`` of the port
 (``cudf_tpu_torch/frame/accessors.py``) and the string entry points of
 ``frame/tools.py`` against the reference's ``cudf_tpu`` Series accessors
-on the JAX CPU backend and against pandas 3, on the same seeded data.
+on the JAX CPU backend and against pandas 3, on the same seeded data
+(every ``str`` and ``dt`` call against pandas alone is in
+``tests/test_torch_str_pandas.py`` and ``tests/test_torch_dt_pandas.py``).
 
 Held to pandas where the reference is wrong (ROADMAP.md §3): ``str.get``
 past a row's end (null), ``to_numeric(errors="coerce")`` of text that is
@@ -16,83 +18,16 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 import cudf_tpu_torch as ct
 from cudf_tpu_torch.ops.strings import STRING_ROUTES
+from torch_accessors_helpers import DT, DT_CALLS, STR_CALLS, TEXT, ours, same
 
 torch.set_num_threads(1)
 
-CPU = torch.device("cpu")
-N = 60
-WORDS = ["apple", "Banana split", "", "cherry", "ñandú", "id0000000123", "a1b2", "  x  ",
-         "DATE 2020-01-05", "añb"]
 
-
-def _text():
-    rng = np.random.default_rng(3)
-    vals = [str(v) for v in rng.choice(WORDS, N)]
-    for i in rng.choice(N, N // 10, replace=False):
-        vals[i] = None
-    return pd.Series(vals, name="t")
-
-
-TEXT = _text()
 ASCII = TEXT.where(TEXT.map(lambda v: v is None or (isinstance(v, str) and v.isascii())))
-
-
-def ours(s):
-    return ct.Series(s, device=CPU)
-
-
-def same(got, exp):
-    got = got.to_pandas() if hasattr(got, "to_pandas") else got
-    if isinstance(exp, pd.DataFrame):
-        got.columns = list(exp.columns)
-        pd.testing.assert_frame_equal(got, exp, check_dtype=False)
-    else:
-        pd.testing.assert_series_equal(got, exp, check_dtype=False, check_names=False)
-
-
-STR_CALLS = {
-    "len": lambda s: s.str.len(),
-    "upper": lambda s: s.str.upper(),
-    "title": lambda s: s.str.title(),
-    "strip": lambda s: s.str.strip(),
-    "slice": lambda s: s.str.slice(1, 4),
-    "getitem": lambda s: s.str[::2],
-    "get_past_end": lambda s: s.str.get(6),
-    "contains_literal": lambda s: s.str.contains("an", regex=False),
-    "contains_regex": lambda s: s.str.contains(r"a.b|\d{4}"),
-    "contains_case": lambda s: s.str.contains("APPLE", case=False),
-    "match": lambda s: s.str.match(r"[a-c]"),
-    "fullmatch": lambda s: s.str.fullmatch(r".{5}"),
-    "startswith": lambda s: s.str.startswith(("a", "B")),
-    "endswith_na": lambda s: s.str.endswith("y", na=True),
-    "find": lambda s: s.str.find("a", 1),
-    "rfind": lambda s: s.str.rfind("a"),
-    "count": lambda s: s.str.count(r"[aeiou]"),
-    "replace_regex": lambda s: s.str.replace(r"\d+", "#", regex=True),
-    "replace_literal": lambda s: s.str.replace("a", "AA", n=1),
-    "extract": lambda s: s.str.extract(r"(\d+)", expand=False),
-    "split_expand": lambda s: s.str.split(" ", n=1, expand=True),
-    "pad": lambda s: s.str.pad(8, fillchar="*"),
-    "center": lambda s: s.str.center(9),
-    "zfill": lambda s: s.str.zfill(7),
-    "repeat": lambda s: s.str.repeat(2),
-    "isalpha": lambda s: s.str.isalpha(),
-    "isdigit": lambda s: s.str.isdigit(),
-    "islower": lambda s: s.str.islower(),
-    "removeprefix": lambda s: s.str.removeprefix("ap"),
-    "removesuffix": lambda s: s.str.removesuffix("ú"),
-    "cat_sep": lambda s: s.str.cat(s, sep="|"),
-}
-
-
-@pytest.mark.parametrize("name", list(STR_CALLS))
-def test_str_matches_pandas(name):
-    fn = STR_CALLS[name]
-    same(fn(ours(TEXT)), fn(TEXT))
-    same(fn(ours(TEXT.astype("category"))), fn(TEXT.astype("category")))   # over the keys
 
 
 @pytest.mark.parametrize("name", ["len", "upper", "slice", "contains_literal", "startswith",
@@ -158,31 +93,6 @@ def test_string_concat_and_map():
         a.notna()) + b)
     keys = pd.Series(["x", "y", "x", None])
     same(ours(keys).map({"x": 1, "y": 2}), keys.map({"x": 1, "y": 2}))
-
-
-DT = pd.Series(pd.to_datetime(["2020-02-29 13:45:10.5", None, "1999-12-31 23:59:59",
-                               "2024-03-10 07:30:00"], format="ISO8601").astype("datetime64[ns]"), name="d")
-DT_CALLS = {
-    **{f: (lambda s, f=f: getattr(s.dt, f)) for f in (
-        "year", "month", "day", "hour", "minute", "second", "microsecond", "nanosecond",
-        "dayofweek", "day_of_week", "dayofyear", "quarter", "days_in_month", "is_leap_year",
-        "is_month_start", "is_month_end")},
-    "floor": lambda s: s.dt.floor("h"),
-    "ceil": lambda s: s.dt.ceil("D"),
-    "round": lambda s: s.dt.round("15min"),
-    "strftime": lambda s: s.dt.strftime("%Y/%m/%d %H"),
-    "tz": lambda s: s.dt.tz_localize("UTC").dt.tz_convert("America/New_York"),
-    "tz_hour": lambda s: s.dt.tz_localize("UTC").dt.tz_convert("Asia/Kolkata").dt.hour,
-    "tz_floor": lambda s: s.dt.tz_localize("UTC").dt.tz_convert("America/New_York")
-    .dt.floor("D"),
-    "as_unit": lambda s: s.dt.as_unit("ms"),
-}
-
-
-@pytest.mark.parametrize("name", list(DT_CALLS))
-def test_dt_matches_pandas(name):
-    fn = DT_CALLS[name]
-    same(fn(ours(DT)), fn(DT))
 
 
 @pytest.mark.parametrize("name", ["year", "month", "hour", "dayofyear", "floor", "ceil",

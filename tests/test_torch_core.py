@@ -11,6 +11,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import Column as RefColumn
 import cudf_tpu_torch as ct
 from cudf_tpu_torch.core import bitmask as bm

@@ -14,6 +14,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import Column as RefColumn
 from cudf_tpu.ops import datetime as ref_dto
 from cudf_tpu.ops import timezone as ref_tz

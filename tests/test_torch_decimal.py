@@ -14,6 +14,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core import dtypes as ref_dt
 from cudf_tpu.core.column import Column as RefColumn
 from cudf_tpu.ops import binaryop as ref_bin

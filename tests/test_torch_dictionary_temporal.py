@@ -13,6 +13,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import as_column as ref_as_column
 from cudf_tpu.ops import dictionary as ref_dictionary
 import cudf_tpu_torch as ct

@@ -15,6 +15,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 from cudf_tpu import engine as ref_engine
 from cudf_tpu.engine.expr import when as ref_when

@@ -8,6 +8,7 @@ compiles for seconds a query on the CPU, hence files of their own;
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from benchmarks import tpch as ref_tpch
 from cudf_tpu_torch.models import tpch
 from test_torch_frame_tpch import check

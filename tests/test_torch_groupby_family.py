@@ -1,16 +1,18 @@
 """The rest of the port's groupby family (``cudf_tpu_torch/ops/groupby.py``):
-sum_of_squares, m2, the bitwise aggregations, cov, corr and ewma on the
-sort tier, and the kernel-tier transform, against cudf_tpu's on the JAX
-CPU backend and against pandas / numpy, on the same seeded numpy inputs.
+sum_of_squares, m2, cov, corr and ewma on the sort tier, against
+cudf_tpu's on the JAX CPU backend and against pandas / numpy, on the same
+seeded numpy inputs (the bitwise aggregations are in
+``tests/test_torch_groupby_bitwise.py``, the kernel-tier transform in
+``tests/test_torch_groupby_transform.py``).
 
 Tolerances: group ids, keys, counts, integer and bitwise results exact;
 float sums rtol 1e-12; m2, cov, corr and ewm rtol 1e-9.  Where the
 reference is wrong (ROADMAP.md queue 3) the case is held to pandas: its
 group cov and corr take one-pass sums (``sxy - sx*sy/n``), which cancel
 over values near 1e8, so those cases would fail if the port copied it.
-The reference's bitwise aggregations and ewma run reset scans that take
-seconds a dtype to compile on a CPU, so they are held to it on two
-dtypes (one ewma form) and to numpy and pandas on the rest.
+The reference's ewma runs reset scans that take seconds a dtype to
+compile on a CPU, so it is held to it in one form and to pandas in the
+rest.
 """
 
 import numpy as np
@@ -18,89 +20,16 @@ import pandas as pd
 import pytest
 import torch
 
-from cudf_tpu.core.column import Column as RefColumn
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.ops import groupby as ref_gb
-import cudf_tpu_torch as ct
 from cudf_tpu_torch.core import dtypes as dt
-from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops import groupby as gb
-from cudf_tpu_torch.utils.config import option_context
+from torch_groupby_family_helpers import (N, _assert_same, _groupers, _key, _port, _ref, _ref_values, _values)
 
 torch.set_num_threads(1)
 
-CPU = torch.device("cpu")
-N = 400
 DTYPES = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16, np.uint32,
           np.float32, np.float64, np.bool_]
-BIT_DTYPES = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16, np.uint32,
-              np.uint64, np.bool_]
-
-
-def _key(rng, n=N, groups=7, nulls=True):
-    """int32 keys 0..groups-1 (the last group all-null in the values), a
-    null key's data 0 (the reference orders nulls by their data)."""
-    k = rng.integers(0, groups, n).astype(np.int32)
-    valid = rng.random(n) > 0.1 if nulls else None
-    if valid is not None:
-        k = np.where(valid, k, 0)
-    return k, valid
-
-
-def _values(rng, dtype, k, groups=7):
-    """Values of dtype with nulls (NaN too for floats), every row of the
-    last group null."""
-    dtype = np.dtype(dtype)
-    if dtype == np.bool_:
-        x = rng.random(k.shape[0]) > 0.5
-    elif dtype.kind == "f":
-        x = rng.normal(0, 50, k.shape[0]).astype(dtype)
-        x[rng.random(k.shape[0]) < 0.05] = np.nan
-    else:
-        lo = 0 if dtype.kind == "u" else -100
-        x = rng.integers(lo, 100, k.shape[0]).astype(dtype)
-    valid = (rng.random(k.shape[0]) > 0.1) & (k != groups - 1)
-    return x, valid
-
-
-def _port(x, valid):
-    return ct.from_buffers(x.dtype, x.shape[0], x, valid, device=CPU)
-
-
-def _ref(x, valid):
-    return RefColumn.from_numpy(x, mask=valid)
-
-
-def _groupers(k, kv, dropna):
-    return (gb.make_grouper([_port(k, kv)], dropna=dropna),
-            ref_gb.make_grouper([_ref(k, kv)], dropna=dropna))
-
-
-def _port_values(col):
-    """(values, valid) of a port column on the host, NaN and null as
-    missing."""
-    v = col.data.numpy()
-    ok = np.ones(col.length, bool) if col.validity is None else col.validity.numpy()
-    if v.dtype.kind == "f":
-        ok = ok & ~np.isnan(v)
-    return v, ok
-
-
-def _ref_values(col):
-    v = np.asarray(col.data)
-    ok = np.ones(col.length, bool) if col.validity is None else np.asarray(col.validity)
-    if v.dtype.kind == "f":
-        ok = ok & ~np.isnan(v)
-    return v, ok
-
-
-def _assert_same(port_col, exp, exp_ok, rtol, what):
-    got, ok = _port_values(port_col)
-    np.testing.assert_array_equal(ok, exp_ok, err_msg=f"{what} nulls")
-    if got.dtype.kind == "f":
-        np.testing.assert_allclose(got[ok], np.asarray(exp)[ok], rtol=rtol, atol=0,
-                                   err_msg=what)
-    else:
-        np.testing.assert_array_equal(got[ok], np.asarray(exp)[ok], err_msg=what)
 
 
 def _pandas_keys(k, kv):
@@ -132,53 +61,6 @@ def test_sum_of_squares_and_m2_match_reference(dtype, dropna):
     m2 = (grouped.var(ddof=0) * grouped.count()).to_numpy()
     _assert_same(gb.aggregate(_port(x, xv), port_g, "m2"), m2, grouped.count().to_numpy() > 0,
                  1e-9, "m2 vs pandas")
-
-
-@pytest.mark.parametrize("op", ["and", "or", "xor"])
-@pytest.mark.parametrize("dtype", BIT_DTYPES, ids=lambda d: np.dtype(d).name)
-def test_bitwise_aggregations_match_numpy(dtype, op):
-    """Each group's bitwise reduction of its valid values in the column's
-    dtype (bool stays bool, uint64 keeps its high bit), null for the
-    all-null group; held to numpy's reduce over each group."""
-    rng = np.random.default_rng(2)
-    k, kv = _key(rng, nulls=False)
-    if np.dtype(dtype) == np.uint64:
-        x = rng.integers(0, 1 << 62, k.shape[0]).astype(np.uint64) | np.uint64(1 << 63)
-        xv = (rng.random(k.shape[0]) > 0.1) & (k != 6)
-    else:
-        x, xv = _values(rng, dtype, k)
-    g = gb.make_grouper([_port(k, None)])
-    got = gb.aggregate(_port(x, xv), g, f"bitwise_{op}")
-    assert got.data.dtype == torch.from_numpy(x[:1]).dtype
-    fn = {"and": np.bitwise_and, "or": np.bitwise_or, "xor": np.bitwise_xor}[op]
-    exp, ok = [], []
-    for key in range(7):
-        vals = x[(k == key) & xv]
-        ok.append(vals.size > 0)
-        exp.append(fn.reduce(vals) if vals.size else x[0])
-    _assert_same(got, np.array(exp, dtype=x.dtype), np.array(ok), 0, f"bitwise_{op}")
-
-
-@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=lambda d: np.dtype(d).name)
-def test_bitwise_aggregations_match_reference(dtype):
-    """The reference gives int64; the port the column's dtype, whose values
-    must be the reference's."""
-    rng = np.random.default_rng(3)
-    k, kv = _key(rng)
-    x, xv = _values(rng, dtype, k)
-    port_g, ref_g = _groupers(k, kv, True)
-    for op in ("and", "or", "xor"):
-        got = gb.aggregate(_port(x, xv), port_g, f"bitwise_{op}")
-        ref = getattr(ref_gb, f"group_bitwise_{op}")(_ref(x, xv), ref_g)
-        exp, ok = _ref_values(ref)
-        np.testing.assert_array_equal(_port_values(got)[1], ok)
-        np.testing.assert_array_equal(got.data.numpy()[ok].astype(np.int64), exp[ok])
-
-
-def test_bitwise_of_floats_raises():
-    g = gb.make_grouper([_port(np.zeros(3, np.int32), None)])
-    with pytest.raises(TypeError):
-        gb.aggregate(_port(np.ones(3), None), g, "bitwise_or")
 
 
 def _pair_frame(x, y, k, xv, yv):
@@ -264,105 +146,3 @@ def test_ewma_matches_reference():
     got = gb.group_ewma(_port(x, None), port_g, 0.25)
     exp, ok = _ref_values(ref_gb.group_ewma(_ref(x, None), ref_g, 0.25))
     _assert_same(got, exp, ok, 1e-9, "ewma vs reference")
-
-
-@pytest.mark.parametrize("K", [10, 5000])
-@pytest.mark.parametrize("agg", ["sum", "count", "mean", "min", "max", "size"])
-def test_kernel_tier_transform_matches_sort_tier_and_pandas(agg, K):
-    """transform_kernel_tier (the one-hot tier at K = 10, the radix tier at
-    K = 5000, through their plain versions on the CPU) equals the sort
-    tier's broadcast and pandas' transform, null keys giving null rows."""
-    rng = np.random.default_rng(7)
-    n = 3000
-    k = rng.integers(0, K, n).astype(np.int32)
-    kv = rng.random(n) > 0.05
-    x = rng.integers(-50, 50, n).astype(np.int32)
-    xv = rng.random(n) > 0.1
-    key, vals = _port(k, kv), _port(x, xv)
-    with option_context("groupby.fast_path_min_rows", 0):
-        got = gb.transform_kernel_tier(key, [("x", vals, agg)])["x"]
-    g = gb.make_grouper([key])
-    spread = copying.gather(gb.aggregate(vals, g, agg), g.group_ids, bounds_check=False)
-    rows = g.kept_rows.numpy()
-    exp, exp_ok = np.zeros(n, spread.data.numpy().dtype), np.zeros(n, bool)
-    exp[rows] = spread.data.numpy()
-    exp_ok[rows] = True if spread.validity is None else spread.validity.numpy()
-    assert got.dtype == spread.dtype
-    _assert_same(got, exp, exp_ok, 1e-12, f"{agg} vs the sort tier")
-    pdf = pd.DataFrame({"k": pd.array(np.where(kv, k, 0), dtype="Int32"),
-                        "x": pd.array(x, dtype="Int32")})
-    pdf.loc[~kv, "k"] = pd.NA
-    pdf.loc[~xv, "x"] = pd.NA
-    pexp = pdf.groupby("k")["x"].transform(agg)
-    _assert_same(got, pexp.to_numpy(dtype=np.float64, na_value=np.nan),
-                 ~pexp.isna().to_numpy(), 1e-12, f"{agg} vs pandas")
-
-
-def test_kernel_tier_transform_declines_what_the_sort_tier_serves():
-    """Two keys, a float key, a null-key group (dropna=False), NaN in a float
-    mean and an aggregation outside sum/count/mean/min/max/size: None."""
-    rng = np.random.default_rng(8)
-    k = _port(rng.integers(0, 5, 100).astype(np.int32), rng.random(100) > 0.1)
-    f = _port(rng.normal(size=100), None)
-    nan = _port(np.where(rng.random(100) > 0.5, np.nan, 1.0), None)
-    with option_context("groupby.fast_path_min_rows", 0):
-        assert gb.transform_kernel_tier(f, [("x", f, "sum")]) is None
-        assert gb.transform_kernel_tier(k, [("x", f, "sum")], dropna=False) is None
-        assert gb.transform_kernel_tier(k, [("x", nan, "mean")]) is None
-        assert gb.transform_kernel_tier(k, [("x", f, "median")]) is None
-        assert gb.transform_kernel_tier(k, [("x", f, "sum")]) is not None
-
-
-def test_frame_transform_takes_the_kernel_tier_without_a_grouper():
-    """A frame's transform of an aggregation by one integer key is served
-    by the kernel tiers and builds no grouper sort; the sort tier's answer
-    (the tiers switched off) is the same, and pandas'."""
-    rng = np.random.default_rng(9)
-    pdf = pd.DataFrame({"k": rng.integers(0, 20, 500).astype(np.int32),
-                        "v": rng.normal(size=500), "i": rng.integers(0, 9, 500)})
-    df = ct.DataFrame.from_pandas(pdf, device=CPU)
-    with option_context("groupby.fast_path_min_rows", 0):
-        grouped = df.groupby("k")
-        fast = grouped.transform("mean").to_pandas()
-        assert grouped._grouper is None
-    with option_context("groupby.onehot_fast_path", False):
-        slow = df.groupby("k").transform("mean").to_pandas()
-    exp = pdf.groupby("k").transform("mean")
-    pd.testing.assert_frame_equal(fast, slow, rtol=1e-12)
-    pd.testing.assert_frame_equal(fast, exp, rtol=1e-12)
-
-
-@pytest.mark.parametrize("agg", ["collect", "list", "unique", "collect_set", "topk",
-                                 "histogram", "tdigest"])
-def test_list_aggregations_raise_naming_item_6(agg):
-    """The LIST aggregations are ported (ROADMAP.md queue 1, item 6a): one
-    list a group, through ``agg`` and ``aggregate`` alike; "topk" needs its
-    k (``group_topk``); "tdigest" gives a STRUCT of each group's centroids,
-    min and max (ported with item 6c)."""
-    df = ct.DataFrame({"k": torch.tensor([1, 1, 2]), "v": torch.tensor([1.0, 2.0, 3.0])})
-    g = gb.make_grouper([df._table["k"]])
-    if agg == "topk":
-        with pytest.raises(NotImplementedError, match="group_topk"):
-            df.groupby("k").agg({"v": agg})
-        with pytest.raises(NotImplementedError, match="group_topk"):
-            gb.aggregate(df._table["v"], g, agg)
-        return
-    exp = [[1.0, 2.0], [3.0]] if agg not in ("histogram", "tdigest") else \
-        [[{"value": 1.0, "count": 1}, {"value": 2.0, "count": 1}], [{"value": 3.0, "count": 1}]]
-    if agg == "tdigest":
-        exp = [{"centroids": [{"mean": 1.0, "weight": 1.0}, {"mean": 2.0, "weight": 1.0}],
-                "min": 1.0, "max": 2.0},
-               {"centroids": [{"mean": 3.0, "weight": 1.0}], "min": 3.0, "max": 3.0}]
-    assert gb.aggregate(df._table["v"], g, agg).to_pylist() == exp
-    assert df.groupby("k").agg({"v": agg})._table["v"].to_pylist() == exp
-
-
-def test_rolling_raises_naming_item_8():
-    """Grouped rolling windows are ported (``frame/window.py``, item 8):
-    windows of rows within each group, as pandas gives them; a time offset
-    (which the reference lacks) raises naming "beyond the reference"."""
-    df = ct.DataFrame({"k": torch.tensor([1, 1, 2]), "v": torch.tensor([1.0, 2.0, 3.0])})
-    assert df.groupby("k").rolling(2).sum()._table["v"].to_pylist()[1] == 3.0
-    assert df.groupby("k")["v"].rolling(2, min_periods=1).sum().tolist() == [1.0, 3.0, 3.0]
-    with pytest.raises(NotImplementedError, match="beyond the reference"):
-        df.groupby("k")["v"].rolling("2D")

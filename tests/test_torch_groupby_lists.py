@@ -16,6 +16,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import Column as RefColumn
 from cudf_tpu.ops import groupby as ref_gb
 import cudf_tpu_torch as ct

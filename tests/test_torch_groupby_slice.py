@@ -27,24 +27,21 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 from cudf_tpu.utils.config import get_option as ref_get_option
 from cudf_tpu.utils.config import set_option as ref_set_option
 import cudf_tpu_torch as ct
-from cudf_tpu_torch.models import g1_groupby
-from cudf_tpu_torch.utils.config import option_context
+from torch_groupby_slice_helpers import CPU, N, _assert_frames, _frame, _port
 
 torch.set_num_threads(1)
 
-CPU = torch.device("cpu")
-N = 20_000
 SPEC = {"f": ["sum", "mean", "count", "size"], "g": ["sum", "mean", "min", "max", "count"],
         "i": ["sum", "mean", "count", "min", "max", "size"],
         "b": ["sum", "mean", "min", "max"]}
 # the reference's float32 mean comes back float64, and its float32 sums
 # of g's signed terms cancel in f32: g's sum and mean are held to pandas
 REF_SPEC = dict(SPEC, g=["min", "max", "count"])
-F32_RTOL, F32_ATOL = 1e-5, 1e-6
 
 
 @pytest.fixture
@@ -56,50 +53,6 @@ def reference_kernel_tier():
     yield
     ref_set_option("groupby.kernel_interpret", old[0])
     ref_set_option("groupby.fast_path_min_rows", old[1])
-
-
-def _frame(seed, K, null_frac=0.2, all_null_groups=False):
-    """k int64 keys (offset 7); f float64 in [0, 100) like G1's v3 and g
-    float32, both with nulls; i int64 below 2^23 in magnitude; b bool.
-    Unless all_null_groups, every group keeps one valid f and g (nulls
-    only on repeated keys)."""
-    rng = np.random.default_rng(seed)
-    k = rng.integers(0, K, N) + 7
-    pdf = pd.DataFrame({
-        "k": k,
-        "f": rng.uniform(0, 100, N).astype(np.float32).astype(np.float64),
-        "g": rng.normal(size=N).astype(np.float32),
-        "i": rng.integers(-2**23, 2**23, N),
-        "b": rng.random(N) > 0.5,
-    })
-    nulls = rng.random(N) < null_frac
-    if not all_null_groups:
-        nulls &= pdf.k.duplicated().to_numpy()
-    pdf.loc[nulls, "f"] = np.nan
-    pdf.loc[nulls, "g"] = np.nan
-    return pdf
-
-
-def _port(pdf, spec, **kw):
-    return ct.from_pandas(pdf, device=CPU).groupby("k", **kw).agg(spec).to_pandas()
-
-
-def _assert_frames(got, exp, rtol):
-    """Index and integer/bool columns exact; float columns of the same
-    width, to rtol (float32 ones to F32_RTOL and F32_ATOL at least), NaN
-    in the same places."""
-    np.testing.assert_array_equal(got.index.to_numpy(), exp.index.to_numpy())
-    assert list(got.columns) == list(exp.columns)
-    for col in exp.columns:
-        g, e = got[col].to_numpy(), exp[col].to_numpy()
-        if e.dtype.kind == "f":
-            assert g.dtype == e.dtype, col
-            rt, at = (max(rtol, F32_RTOL), F32_ATOL) if e.dtype == np.float32 else (rtol, 0)
-            np.testing.assert_allclose(g, e, rtol=rt, atol=at, equal_nan=True,
-                                       err_msg=str(col))
-        else:
-            assert g.dtype == e.dtype, col
-            np.testing.assert_array_equal(g, e, err_msg=str(col))
 
 
 def test_low_k_matches_reference_kernel_tier(reference_kernel_tier):
@@ -217,38 +170,6 @@ def test_float32_sum_and_mean_stay_float32(K):
     _assert_frames(got, pdf.groupby("k").agg(spec), rtol=0)
 
 
-@pytest.mark.parametrize("K", [100, 10_000])          # the one-hot tier, the radix tier
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
-def test_unsigned_values_min_max_match_pandas(K, dtype):
-    """min/max of unsigned value columns in their own dtype on both tiers
-    (ROADMAP.md queue 3: uint16 and uint32 raised on the one-hot tier),
-    values up to the dtype's largest, and a group that only has nulls."""
-    rng = np.random.default_rng(14)
-    info = np.iinfo(dtype)
-    k = rng.integers(0, K, N)
-    u = rng.integers(0, int(info.max) + 1, N, dtype=np.uint64).astype(dtype)
-    u[:3] = info.max
-    valid = k != 5
-    df = ct.DataFrame({"k": ct.from_buffers(np.int64, N, k, None, device=CPU),
-                       "u": ct.from_buffers(dtype, N, u, valid, device=CPU)})
-    spec = {"u": ["min", "max", "count"]}
-    res = df.groupby("k").agg(spec)
-    got = res.to_pandas()
-    exp = pd.DataFrame({"k": k, "u": pd.array(u, dtype=f"UInt{info.bits}")})
-    exp.loc[~valid, "u"] = pd.NA
-    exp = exp.groupby("k").agg(spec)
-    np.testing.assert_array_equal(got.index.to_numpy(), exp.index.to_numpy())
-    np.testing.assert_array_equal(got[("u", "count")].to_numpy(),
-                                  exp[("u", "count")].to_numpy())
-    for agg in ("min", "max"):
-        # the port keeps uint data under a validity mask; to_pandas gives
-        # float64 with NaN for a column with nulls, pandas UInt with <NA>
-        assert res._table[("u", agg)].data.dtype == torch.from_numpy(u).dtype
-        g, e = got[("u", agg)], exp[("u", agg)]
-        assert g.isna().tolist() == e.isna().tolist() and e.isna().any()
-        assert g.dropna().astype(dtype).tolist() == e.dropna().astype(dtype).tolist()
-
-
 @pytest.mark.parametrize("K", [100, 50_000])
 def test_many_value_columns_match_pandas(K):
     """Nine value columns share one partition of the keys on the radix
@@ -259,14 +180,6 @@ def test_many_value_columns_match_pandas(K):
     for j in range(9):
         pdf[f"v{j}"] = rng.integers(-1000, 1000, N) * (j + 1)
     _assert_frames(_port(pdf, "sum"), pdf.groupby("k").agg("sum"), rtol=0)
-
-
-@pytest.mark.parametrize("K", [100, 50_000])
-@pytest.mark.parametrize("spec", ["sum", ["min", "max"], {"i": "sum", "b": "max"},
-                                  {"f": ["mean"], "i": "count"}])
-def test_spec_forms_match_pandas(K, spec):
-    pdf = _frame(5, K).drop(columns="g")
-    _assert_frames(_port(pdf, spec), pdf.groupby("k").agg(spec), rtol=1e-12)
 
 
 @pytest.mark.parametrize("K", [100, 50_000])
@@ -324,42 +237,6 @@ def test_ops_groupby_agg_matches_reference(reference_kernel_tier, tier):
             np.testing.assert_allclose(ga[o].to_numpy(), exp[o].to_numpy(), rtol=1e-12)
 
 
-@pytest.mark.parametrize("case", ["two_keys", "float_key", "median", "uint64_values",
-                                  "kernel_tiers_off", "below_min_rows", "unported_agg"])
-def test_requests_outside_the_kernel_tiers_raise(case):
-    """Requests outside the kernel tiers: the sort tier serves each, held
-    to pandas; an agg outside this slice still raises NotImplementedError
-    naming its ROADMAP item."""
-    pdf = _frame(7, 100)
-    df = ct.from_pandas(pdf, device=CPU)
-    by, spec, options = "k", {"i": "sum"}, ()
-    if case == "two_keys":
-        by, spec = ["k", "i"], "sum"
-    elif case == "float_key":
-        by = "f"
-    elif case == "median":
-        spec = {"i": "median"}
-    elif case == "uint64_values":
-        pdf = pd.DataFrame({"k": np.arange(4), "u": np.arange(4, dtype=np.uint64)})
-        df = ct.DataFrame({"k": torch.arange(4), "u": torch.arange(4).to(torch.uint64)})
-        spec = {"u": "count"}
-    elif case == "kernel_tiers_off":
-        options = ("groupby.onehot_fast_path", False)
-    elif case == "below_min_rows":
-        options = ("groupby.fast_path_min_rows", N + 1)
-    elif case == "unported_agg":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            df.groupby("k").agg({"i": "ohlc"})      # "collect" and "tdigest" are ported
-        return
-    with option_context(*options):
-        got = df.groupby(by).agg(spec).to_pandas()
-    exp = pdf.groupby(by).agg(spec)
-    if isinstance(by, list):
-        assert got.index.tolist() == exp.index.tolist()
-        got, exp = got.reset_index(drop=True), exp.reset_index(drop=True)
-    _assert_frames(got, exp, rtol=1e-12)
-
-
 def test_two_pass_domain_matches_pandas(monkeypatch):
     """Keys over more than 2^20 slots: the radix tier's sorted route takes
     two passes, the second ordered by the low 20 bits."""
@@ -379,14 +256,3 @@ def test_two_pass_domain_matches_pandas(monkeypatch):
     _assert_frames(_port(pdf, spec), pdf.groupby("k").agg(spec), rtol=1e-12)
     # f's rows, then all rows; each first pass under the 21-bit domain's mask
     assert masks == [rp.domain_bits(1_500_000), rp.WINDOW_BITS + rp.PASS_BITS] * 2
-
-
-@pytest.mark.parametrize("K", [100, 4096, 4097, 300_000])
-def test_g1_groupby_model(K):
-    rng = np.random.default_rng(8)
-    keys = rng.integers(0, K, N).astype(np.int32)
-    vals = rng.normal(size=N)
-    s, c = g1_groupby(torch.from_numpy(keys), torch.from_numpy(vals), K)
-    np.testing.assert_array_equal(c.numpy(), np.bincount(keys, minlength=K))
-    np.testing.assert_allclose(s.numpy(), np.bincount(keys, weights=vals, minlength=K),
-                               rtol=1e-12, atol=1e-12)

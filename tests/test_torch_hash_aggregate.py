@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.kernels.hash_aggregate import (onehot_groupby_aggregate as ref_onehot,
                                              reference_groupby_aggregate)
 from cudf_tpu_torch.kernels.hash_aggregate import (onehot_groupby_aggregate,

@@ -13,6 +13,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu.core.column as ref_col
 from cudf_tpu.ops import hashing as ref
 

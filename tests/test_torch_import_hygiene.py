@@ -608,3 +608,55 @@ def test_the_accelerator_without_pandas_has_no_slow_side():
     assert "NAMED ERROR NoSlowSide" in proc.stdout, proc.stdout
     assert "NUMPY RAISES" in proc.stdout, proc.stdout
     assert "NO SLOW SIDE OK []" in proc.stdout, proc.stdout
+
+
+_TOP_LEVEL_PROBE = """
+import io, sys
+sys.modules["pandas"] = None            # neither can be imported from here on
+sys.modules["pyarrow"] = None
+import torch
+import cudf_tpu_torch as ct
+from cudf_tpu_torch.core import Column, DType, Table, TypeId, as_column, dtype
+from cudf_tpu_torch.models import tpch_queries
+assert ct.DType is DType and ct.dtype is dtype and ct.dtype("int32") == dtype("int32")
+assert repr(ct.NA) == "<NA>" and str(ct.NaT) == "NaT" and ct.engine.col("a") is not None
+with ct.option_context("display.max_rows", 60, "io.parquet.hybrid_scan", False):
+    assert ct.get_option("io.parquet.hybrid_scan") is False
+ct.set_option("display.max_rows", 60)
+out = io.StringIO()
+sys.stdout, real = out, sys.stdout
+ct.describe_option("io.csv.device_tokenizer")
+sys.stdout = real
+assert out.getvalue().startswith("io.csv.device_tokenizer: ")
+df = ct.DataFrame.from_dict({"r1": {"a": 1, "b": 2.0}, "r2": {"a": 3}}, orient="index",
+                            device="cpu")
+df = ct.DataFrame.from_records([(1, 2.0), (2, 3.0), (2, 5.0)], columns=["a", "b"],
+                               device="cpu")
+assert df.rank()._table["a"].data.tolist() == [1.0, 2.5, 2.5]
+assert df.mode()._table["a"].null_count == 2 and df.mode()._table["b"].data.tolist() == [
+    2.0, 3.0, 5.0]
+assert len(df.sample(2, random_state=3)) == 2 and df.memory_usage().tolist() == [24, 24]
+buf = io.StringIO()
+df.info(buf=buf)
+assert buf.getvalue().splitlines()[1] == "RangeIndex: 3 entries, 0 to 2"
+assert df.groupby("a").product()._table["b"].data.tolist() == [2.0, 15.0]
+assert ct.to_numeric(df["a"], downcast="integer").dtype == ct.dtype("int8")
+assert as_column([1, None], device="cpu").null_count == 1
+assert sorted(tpch_queries())[0] == "generate"
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "cudf_tpu", "pandas", "pyarrow"))
+print("LOADED", bad, "CUDA", torch.cuda.is_initialized())
+"""
+
+
+def test_the_top_level_and_the_new_surface_touch_no_cuda_or_host_libraries():
+    """``import cudf_tpu_torch`` with its top-level exports (``DType``,
+    ``dtype``, the options, ``NA``, ``NaT``, ``engine``), the core's
+    exports and the frame methods the surface test asked for run with
+    pandas and pyarrow unimportable, load neither jax nor the reference,
+    and leave CUDA uninitialised."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _TOP_LEVEL_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED [] CUDA False" in proc.stdout, proc.stdout

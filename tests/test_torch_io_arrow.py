@@ -14,6 +14,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as ref
 from cudf_tpu import arrow_cdata as ref_cdata
 

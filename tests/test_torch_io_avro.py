@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.io import avro as ref_avro
 from test_avro import ROWS, SCHEMA, make_avro
 

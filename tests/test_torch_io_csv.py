@@ -18,6 +18,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.io import csv as ref_csv
 
 import cudf_tpu_torch as ct

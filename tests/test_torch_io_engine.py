@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from benchmarks import tpch as ref_tpch
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.engine import lazy as ref_lazy
 
 from cudf_tpu_torch.engine import col, lit, scan_parquet

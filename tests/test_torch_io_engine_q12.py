@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from benchmarks import tpch as ref_tpch
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.engine import lazy as ref_lazy
 
 from cudf_tpu_torch.engine import scan_parquet

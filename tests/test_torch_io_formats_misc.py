@@ -16,6 +16,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as ref
 from cudf_tpu import native as ref_native
 from cudf_tpu.io import streaming as ref_streaming

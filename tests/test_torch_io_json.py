@@ -27,6 +27,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.io import json as ref_json
 from cudf_tpu.io import json_device as ref_json_device
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu import native as ref_native
 from cudf_tpu.io import parquet_device as ref_dev
 from cudf_tpu.io import parquet_pushdown as ref_ppd

@@ -24,6 +24,7 @@ import pyarrow.orc as po
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.io import orc_native as ref_native
 from cudf_tpu.io import orc_writer as ref_writer
 

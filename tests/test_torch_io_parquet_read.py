@@ -18,6 +18,7 @@ import pyarrow.parquet as pq
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.io import parquet as ref_parquet
 from cudf_tpu.io import parquet_native as ref_native
 from cudf_tpu.io.parquet_writer import write_parquet_native as ref_write

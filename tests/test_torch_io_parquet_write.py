@@ -20,6 +20,7 @@ import pyarrow.parquet as pq
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as ref
 from cudf_tpu.io.parquet_writer import write_parquet_native as ref_write
 

@@ -19,6 +19,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.kernels import radix_partition as ref
 from cudf_tpu_torch.kernels import radix_partition as rp
 

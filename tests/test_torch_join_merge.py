@@ -15,11 +15,10 @@ the JAX CPU backend), on the same seeded frames.
 Every comparison is exact.  The file must stay under 60 s alone.
 """
 
-import numpy as np
-import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 from cudf_tpu.engine import from_dataframe as ref_from_dataframe
 from cudf_tpu.engine import ir as ref_ir
@@ -28,65 +27,9 @@ import cudf_tpu_torch as ct
 from cudf_tpu_torch.engine import from_dataframe
 from cudf_tpu_torch.engine import ir as IRs
 from cudf_tpu_torch.frame.index import default_index
+from torch_join_merge_helpers import CPU, _check, _frames
 
 torch.set_num_threads(1)
-
-CPU = torch.device("cpu")
-NL, NR = 40, 30
-
-
-def _frames(seed, nulls=False):
-    rng = np.random.default_rng(seed)
-    left = pd.DataFrame({"k": rng.integers(0, 8, NL), "j": rng.integers(0, 2, NL),
-                         "s": rng.choice(["p", "q", "rr"], NL), "v": rng.normal(size=NL)})
-    right = pd.DataFrame({"k": rng.integers(2, 11, NR), "j": rng.integers(0, 2, NR),
-                          "s": rng.choice(["p", "rr", "t"], NR), "w": rng.normal(size=NR)})
-    if nulls:
-        left["v"] = left["v"].where(rng.random(NL) > 0.2)
-        left["k"] = left["k"].astype(float).where(rng.random(NL) > 0.2)
-        right["k"] = right["k"].astype(float).where(rng.random(NR) > 0.2)
-    return left, right
-
-
-def _pandas(df):
-    out = df.to_pandas()
-    for c in out.columns:
-        if out[c].dtype == object or isinstance(out[c].dtype, pd.StringDtype):
-            out[c] = out[c].astype(object)
-    return out
-
-
-def _norm(df):
-    out = df.copy()
-    for c in out.columns:
-        if out[c].dtype.kind in "iu":
-            out[c] = out[c].astype(float)
-        elif out[c].dtype.kind not in "fb":
-            out[c] = out[c].astype(object).where(out[c].notna(), None)
-    return out
-
-
-def _check(got, exp, ordered=True):
-    got, exp = _norm(_pandas(got)), _norm(exp)
-    assert list(got.columns) == list(exp.columns)
-    if not ordered:
-        got = got.sort_values(list(got.columns), na_position="last").reset_index(drop=True)
-        exp = exp.sort_values(list(exp.columns), na_position="last").reset_index(drop=True)
-    pd.testing.assert_frame_equal(got.reset_index(drop=True), exp.reset_index(drop=True),
-                                  check_exact=True, check_dtype=False)
-
-
-@pytest.mark.parametrize("nulls", [False, True])
-@pytest.mark.parametrize("how", ["inner", "left", "right", "cross"])
-@pytest.mark.parametrize("on", ["k", ["k", "j"], "s"])
-def test_merge_matches_pandas(on, how, nulls):
-    left, right = _frames(9, nulls)
-    l, r = ct.DataFrame.from_pandas(left, device=CPU), ct.DataFrame.from_pandas(right, device=CPU)
-    if how == "cross":
-        _check(l.merge(r, how="cross"), left.merge(right, how="cross"))
-        return
-    _check(l.merge(r, on=on, how=how), left.merge(right, on=on, how=how))
-    _check(l.merge(r, on=on, how=how, sort=True), left.merge(right, on=on, how=how, sort=True))
 
 
 @pytest.mark.parametrize("on,nulls", [("k", True), (["k", "j"], False)])

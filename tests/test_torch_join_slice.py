@@ -18,6 +18,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 from cudf_tpu.utils.config import get_option as ref_get_option
 from cudf_tpu.utils.config import set_option as ref_set_option

@@ -15,6 +15,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 from cudf_tpu.core.column import Column as RefColumn
 import cudf_tpu_torch as ct

@@ -14,6 +14,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as ref
 from cudf_tpu.core.column import Column as RefColumn
 from cudf_tpu.ops import lists as ref_lists
@@ -21,46 +22,9 @@ from cudf_tpu.ops import structs as ref_structs
 import cudf_tpu_torch as ct
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops import copying, lists, structs
+from torch_lists_structs_helpers import CPU, ROWS, _lists, _norm, _pair, _same
 
 torch.set_num_threads(1)
-
-CPU = "cpu"
-ROWS = 300
-
-
-def _lists(seed, rows=ROWS, nulls=True, elem_nulls=True, strings=False):
-    """Seeded host lists: lengths 0-6, about 8% null rows and 10% null
-    elements, ints in [-20, 20) (or short strings)."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(rows):
-        if nulls and rng.random() < 0.08:
-            out.append(None)
-            continue
-        vals = rng.integers(-20, 20, rng.integers(0, 7)).tolist()
-        if strings:
-            vals = ["s%d" % v for v in vals]
-        out.append([None if elem_nulls and rng.random() < 0.1 else v for v in vals])
-    return out
-
-
-def _pair(data, dtype=None):
-    return (ref_lists.from_pylists(data),
-            lists.from_pylists(data, dtype, device=CPU))
-
-
-def _norm(v):
-    """NaN as None, in nested values too: the port gives a missing float
-    pandas' NaN, the reference None."""
-    if isinstance(v, list):
-        return [_norm(x) for x in v]
-    if isinstance(v, dict):
-        return {k: _norm(x) for k, x in v.items()}
-    return None if isinstance(v, float) and v != v else v
-
-
-def _same(got: Column, exp: RefColumn):
-    assert _norm(got.to_pylist()) == _norm(exp.to_pylist())
 
 
 def test_from_to_pylists_and_layout():
@@ -73,17 +37,6 @@ def test_from_to_pylists_and_layout():
     assert made.to_pylist() == data
 
 
-def test_count_elements():
-    r, p = _pair(_lists(1))
-    _same(lists.count_elements(p), ref_lists.count_elements(r))
-
-
-@pytest.mark.parametrize("index", [0, 1, 3, -1, -2, -7])
-def test_extract_list_element(index):
-    r, p = _pair(_lists(2))
-    _same(lists.extract_list_element(p, index), ref_lists.extract_list_element(r, index))
-
-
 @pytest.mark.parametrize("outer", [False, True])
 def test_explode(outer):
     r, p = _pair(_lists(3))
@@ -91,19 +44,6 @@ def test_explode(outer):
     rchild, rrows = ref_lists.explode(r, outer)
     _same(child, rchild)
     assert rows.tolist() == np.asarray(rrows).tolist()
-
-
-@pytest.mark.parametrize("value", [0, 5, -20])
-def test_contains_and_index_of(value):
-    r, p = _pair(_lists(4))
-    _same(lists.contains(p, value), ref_lists.contains(r, value))
-    _same(lists.index_of(p, value), ref_lists.index_of(r, value))
-
-
-def test_contains_strings():
-    data = _lists(5, strings=True)
-    r, p = _pair(data)
-    _same(lists.contains(p, "s3"), ref_lists.contains(r, "s3"))
 
 
 @pytest.mark.parametrize("k", [2, 3])
@@ -288,34 +228,3 @@ def test_dataframe_explode_matches_pandas():
         [None if pd.isna(v) else int(v) for v in exp["l"]]
 
 
-TEXT = ["a,b,,c", None, "", ",x", "abc", "q,", "id0012,7", "1,,2,,3"]
-
-
-@pytest.mark.parametrize("pat,n", [(",", -1), (",", 1), (",,", -1), (None, -1)])
-def test_split_lists_match_pandas(pat, n):
-    text = TEXT + [" a  b c "]
-    got = ct.Series(text, device=CPU).str.split(pat, n=n).to_pandas().tolist()
-    exp = pd.Series(text, dtype=object).str.split(pat, n=n).tolist()
-    assert got == [None if v is None or v is np.nan else v for v in exp]
-
-
-def test_split_lists_on_the_device():
-    from cudf_tpu_torch.ops.strings import STRING_ROUTES
-
-    before = STRING_ROUTES["host"]
-    s = ct.Series(TEXT, device=CPU).str.split(",")
-    assert STRING_ROUTES["host"] == before
-    assert s.dtype.is_list and s.dtype.value_type.is_string
-    assert _norm(s.list.len().to_pandas().tolist()[:3]) == [4, None, 1]
-
-
-@pytest.mark.parametrize("pat", [r"[1-9]+", r"\d", r"[a-z]+\d?", r"(\d)(\d)"])
-def test_findall_matches_reference(pat):
-    text = TEXT + ["id0000000123", "99 8 ", None]
-    got = ct.Series(text, device=CPU).str.findall(pat).to_pandas().tolist()
-    exp = pd.Series(text, dtype=object).str.findall(pat).tolist()
-    # several groups: pandas' tuples are the port's lists (a LIST of LISTs)
-    assert got == [None if v is None or v is np.nan else
-                   [list(t) if isinstance(t, tuple) else t for t in v] for v in exp]
-    if "(" not in pat:           # the reference's Arrow lists hold no tuples
-        assert ref.Series(text).str.findall(pat)._column.to_pylist() == got

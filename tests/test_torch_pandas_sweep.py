@@ -5,6 +5,7 @@ under the port's proxy on the CPU, the reference's and plain pandas."""
 
 import runpy
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from torch_pandas_helpers import plain, same, under
 
 ROWS = 200

@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as rct
 from cudf_tpu import parallel as rpar
 from cudf_tpu.parallel import dist as rdist

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core import dtypes as rdt
 from cudf_tpu.core.column import Column as RC
 from cudf_tpu.core.table import Table as RT

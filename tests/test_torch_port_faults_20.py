@@ -20,6 +20,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as rct
 from cudf_tpu import engine as ref_engine
 from cudf_tpu.utils.config import option_context as ref_option_context

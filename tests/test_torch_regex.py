@@ -13,55 +13,20 @@ lookaround, lazy repeats in span mode) take the host route, which
 
 import re
 
-import numpy as np
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import Column as RefColumn
 from cudf_tpu.ops import strings as ref_str
-from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops import regex_engine as rex
 from cudf_tpu_torch.ops import strings as so
+from torch_regex_helpers import ASCII_WORDS, PATTERNS, _strings, port, python, values
 
 torch.set_num_threads(1)
 
-CPU = torch.device("cpu")
-ASCII_WORDS = ["", "a", "ab", "abc", "aXb", "id0000000123", "id0001000000", "x1y22z333",
-               "foo bar", "FOO", "a.b", "0000", "zz9", "hello world", "tab\tbed"]
-UTF8_WORDS = ["ñandú", "añb", "HeLLo ñ", "日本語テキスト", "naïve café", "a😀b", "ñ", "über 9"]
-
-
-def _strings(words, seed, n=48):
-    rng = np.random.default_rng(seed)
-    out = [str(v) for v in rng.choice(words, n)]
-    for i in rng.choice(n, n // 8, replace=False):
-        out[i] = None
-    return out
-
 
 ASCII = _strings(ASCII_WORDS, 1)
-MIXED = _strings(ASCII_WORDS + UTF8_WORDS, 2)
-
-
-def port(vals):
-    return Column.from_strings(vals, device=CPU)
-
-
-def values(col):
-    if col.dtype.is_string:
-        return col.host_strings()
-    data = col.data.tolist()
-    if col.validity is None:
-        return data
-    return [d if ok else None for d, ok in zip(data, col.validity.tolist())]
-
-
-def python(vals, fn):
-    return [None if v is None else fn(v) for v in vals]
-
-
-PATTERNS = [r"a.b", r"^id0+[1-9]\d{2}$", r"\d+", r"[a-c]+", r"(foo|bar)", r"o{2,}",
-            r"[^a-z]", r"z$", r"^a", r"x\d?y", r"\s\w+"]
 
 
 @pytest.mark.parametrize("pat", PATTERNS)
@@ -70,19 +35,6 @@ def test_predicates_match_reference_on_ascii(pat):
     for ours, theirs in ((so.contains_re, ref_str.contains_re), (so.match_re, ref_str.match_re),
                          (so.fullmatch_re, ref_str.fullmatch_re)):
         assert values(ours(col, pat)) == theirs(ref, pat).to_pylist(), ours.__name__
-
-
-@pytest.mark.parametrize("pat", PATTERNS + [r".{5}", r"[^x]+", r"a.b", r"^.$", r"ñ+",
-                                            r"(?i)hello", r"[A-Z]"])
-def test_predicates_match_python_on_utf8(pat):
-    """``.`` and a negated class consume one whole character."""
-    rx = re.compile(pat)
-    before = so.STRING_ROUTES["host"]
-    assert values(so.contains_re(port(MIXED), pat)) == python(MIXED, lambda s: bool(rx.search(s)))
-    assert values(so.fullmatch_re(port(MIXED), pat)) == python(
-        MIXED, lambda s: bool(rx.fullmatch(s)))
-    unicode_aware = any(t in pat for t in ("\\d", "\\s", "\\w", "(?i)"))
-    assert (so.STRING_ROUTES["host"] == before) != unicode_aware or not unicode_aware
 
 
 def test_utf8_faults_of_the_reference():
@@ -107,28 +59,6 @@ def test_spans_match_reference_on_ascii(pat):
     assert values(so.replace_re(col, pat, "<>", n=1)) == \
         ref_str.replace_re(ref, pat, "<>", n=1).to_pylist()
     assert values(so.count_re(col, pat)) == ref_str.count_re(ref, pat).to_pylist()
-
-
-@pytest.mark.parametrize("pat", [r"0+", r"\d+", r"[^a-z ]+", r".b", r"aa", r"é"])
-def test_spans_match_python(pat):
-    rx = re.compile(pat)
-    assert values(so.replace_re(port(MIXED), pat, "#")) == python(MIXED, lambda s: rx.sub("#", s))
-    assert values(so.count_re(port(MIXED), pat)) == python(MIXED, lambda s: len(rx.findall(s)))
-    got = so.extract_re(port(MIXED), f"({pat})")
-    assert [values(c) for c in got] == [python(MIXED, lambda s: (
-        m.group(0) if (m := rx.search(s)) else None))]
-
-
-@pytest.mark.parametrize("sep,regex,n", [("0000", False, 1), ("a", False, -1), (" ", False, 2),
-                                         (r"\d+", True, -1), (r"[ñ ]", True, 1)])
-def test_split_expand_matches_python(sep, regex, n):
-    rx = re.compile(sep if regex else re.escape(sep))
-    cols = so.split_expand(port(MIXED), sep, n, regex)
-    parts = python(MIXED, lambda s: rx.split(s, maxsplit=max(n, 0)))
-    width = max(len(p) for p in parts if p is not None)
-    assert len(cols) == width
-    for k, c in enumerate(cols):
-        assert values(c) == [None if p is None or k >= len(p) else p[k] for p in parts]
 
 
 def test_split_matches_reference_on_ascii():

@@ -18,6 +18,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu
 import cudf_tpu_torch as ct
 

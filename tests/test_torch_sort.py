@@ -17,6 +17,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import Column as RefColumn
 from cudf_tpu.core.table import Table as RefTable
 from cudf_tpu.ops import _utils as ref_utils
@@ -32,80 +33,9 @@ from cudf_tpu_torch.ops import groupby as gb
 from cudf_tpu_torch.ops import sort as sort_ops
 from cudf_tpu_torch.ops import stream_compaction as sc
 from cudf_tpu_torch.ops.replace import nans_to_nulls, normalize_nans_and_zeros
+from torch_sort_helpers import CPU, N, _pair, _same, _values
 
 torch.set_num_threads(1)
-
-CPU = torch.device("cpu")
-N = 257
-INTS = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16, np.uint32, np.uint64]
-DTYPES = INTS + [np.float32, np.float64, np.bool_]
-SPECIALS = [np.nan, 0.0, -0.0, np.inf, -np.inf]
-
-
-def _values(rng, dtype, n=N, distinct=None):
-    """Seeded values of dtype: ints over their whole range (or a few
-    values), floats with NaN, +-0.0 and +-inf, bools."""
-    dtype = np.dtype(dtype)
-    if dtype == np.bool_:
-        return rng.random(n) > 0.5
-    if dtype.kind in "iu":
-        info = np.iinfo(dtype)
-        if distinct:
-            return rng.integers(0, distinct, n).astype(dtype)
-        return rng.integers(int(info.min), int(info.max), n, dtype=dtype, endpoint=True)
-    x = (rng.normal(size=n) * 1e3).astype(dtype)
-    if distinct:
-        x = rng.integers(0, distinct, n).astype(dtype)
-    at = rng.choice(n, 5 * 6, replace=False).reshape(5, 6)
-    for spec, rows in zip(SPECIALS, at):
-        x[rows] = spec
-    return x
-
-
-def _pair(x, valid=None):
-    """(reference column, port column) over the same buffers; the data
-    under a null is 0 in both (see order_keys)."""
-    if valid is not None:
-        x = np.where(valid, x, np.zeros(1, x.dtype))
-    ref = RefColumn.from_numpy(x, mask=valid)
-    return ref, ct.from_buffers(x.dtype, x.shape[0], x, valid, device=CPU)
-
-
-def _np(t):
-    t = t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-    return t
-
-
-def _same(got, exp, what=""):
-    got, exp = _np(got), _np(exp)
-    assert got.dtype == exp.dtype, (what, got.dtype, exp.dtype)
-    np.testing.assert_array_equal(got, exp, err_msg=str(what))
-
-
-@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
-@pytest.mark.parametrize("nulls", [False, True])
-def test_row_operands_and_hash_match_reference(dtype, nulls):
-    """order_keys (both directions, nulls first and last), equality_keys
-    and row_hash equal the reference's operand for operand, bit for bit."""
-    rng = np.random.default_rng(1)
-    x = _values(rng, dtype)
-    valid = rng.random(N) > 0.2 if nulls else None
-    ref, port = _pair(x, valid)
-    for asc in (True, False):
-        for na in ("first", "last"):
-            got = row_ops.order_keys(port, asc, na)
-            exp = ref_row_ops.order_keys(ref, asc, na)
-            assert len(got) == len(exp)
-            for g, e in zip(got, exp):
-                _same(g, e, (asc, na))
-    for g, e in zip(row_ops.equality_keys(port), ref_row_ops.equality_keys(ref)):
-        e = np.asarray(e)
-        _same(g, e.view(np.int64) if e.dtype == np.uint64 else
-              e.astype(np.int64) if e.dtype in (np.uint16, np.uint32) else e)
-    for seed in (0, 7):
-        _same(row_ops.row_hash([port], seed).view(torch.uint64).numpy().astype(np.uint64),
-              ref_row_ops.row_hash([ref], seed))
-        _same(row_ops.hash_column(port, seed), row_ops.row_hash([port], seed))
 
 
 def test_negative_nan_orders_as_nan_and_hashes_as_nan():
@@ -162,32 +92,6 @@ def test_rows_equal_at_and_null_groups():
     exp = pd.DataFrame({"a": pd.array([None, None, None, 1], dtype="Int64"), "b": [1, 0, 1, 0]})
     assert g.num_groups == exp.groupby(["a", "b"], dropna=False).ngroups == 3
     np.testing.assert_array_equal(g.group_ids.numpy(), [2, 1, 2, 0])
-
-
-@pytest.mark.parametrize("method", ["average", "min", "max", "first", "dense"])
-@pytest.mark.parametrize("na_option", ["keep", "top", "bottom"])
-@pytest.mark.parametrize("ascending", [True, False])
-def test_rank_matches_reference(method, na_option, ascending):
-    rng = np.random.default_rng(4)
-    x, v = _values(rng, np.float64, distinct=20), rng.random(N) > 0.15
-    x[np.isnan(x)] = 3.0                         # NaN is a value here; pandas nulls it
-    ref, port = _pair(x, v)
-    for pct in (False, True):
-        got = sort_ops.rank(port, method, ascending, na_option, pct)
-        exp = ref_sort.rank(ref, method, ascending, na_option, pct)
-        if method == "dense" and pct and na_option == "keep":
-            # the reference counts the null run among the dense ranks
-            exp_pd = pd.Series(np.where(v, x, np.nan)).rank(
-                method=method, ascending=ascending, na_option=na_option, pct=pct)
-            np.testing.assert_allclose(got.to_numpy(), exp_pd.to_numpy(), rtol=1e-15)
-            continue
-        _same(got.data, exp.data, (method, na_option, pct))
-        assert (got.validity is None) == (exp.validity is None)
-        if got.validity is not None:
-            _same(got.validity, exp.validity)
-        exp_pd = pd.Series(np.where(v, x, np.nan)).rank(
-            method=method, ascending=ascending, na_option=na_option, pct=pct)
-        np.testing.assert_allclose(got.to_numpy(), exp_pd.to_numpy(), rtol=1e-15)
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.uint64, np.float64, np.bool_],

@@ -19,59 +19,14 @@ import pandas as pd
 import pytest
 import torch
 
-from cudf_tpu.core.column import Column as RefColumn
-from cudf_tpu.ops import groupby as ref_gb
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu_torch as ct
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.ops import groupby as gb
 from cudf_tpu_torch.utils.config import option_context
+from torch_sort_groupby_helpers import CPU, N, _check_series, _frame, _port_column
 
 torch.set_num_threads(1)
-
-CPU = torch.device("cpu")
-N = 600
-F32_RTOL = 1e-5
-AGGS = ["sum", "count", "size", "mean", "min", "max", "var", "std", "prod", "any", "all",
-        "first", "last", "nunique", "median", "quantile", "idxmin", "idxmax"]
-
-
-def _frame(seed, n=N, keys=4):
-    """Keys a (int32, with NaN-free nulls as pandas Int32) and b (float64
-    with NaN); values i int32 and f float64 with nulls, g float32, t
-    bool, u uint64 (small), s int8 (prod fits)."""
-    rng = np.random.default_rng(seed)
-    pdf = pd.DataFrame({
-        "a": pd.array(rng.integers(0, keys, n), dtype="Int32"),
-        "b": rng.integers(0, 3, n).astype(np.float64),
-        "i": pd.array(rng.integers(-1000, 1000, n), dtype="Int32"),
-        "f": rng.uniform(0, 100, n),
-        "g": rng.normal(size=n).astype(np.float32),
-        "t": rng.random(n) > 0.5,
-        "u": rng.integers(0, 50, n).astype(np.uint64),
-        "s": rng.choice(np.array([-1, 1, 1, 1], dtype=np.int8), n),
-    })
-    pdf.loc[rng.random(n) < 0.1, "a"] = pd.NA
-    pdf.loc[rng.random(n) < 0.05, "b"] = np.nan
-    pdf.loc[rng.random(n) < 0.1, "i"] = pd.NA
-    pdf.loc[rng.random(n) < 0.1, "f"] = np.nan
-    return pdf
-
-
-def _port_column(series):
-    """A port column over a pandas column's values and mask (NaN is a
-    null, as in from_pandas)."""
-    na = series.isna().to_numpy()
-    values = series.to_numpy(dtype=series.dtype.numpy_dtype if hasattr(
-        series.dtype, "numpy_dtype") else series.dtype, na_value=0)
-    return ct.from_buffers(values.dtype, len(series), values,
-                           None if not na.any() else ~na, device=CPU)
-
-
-def _ref_column(series):
-    na = series.isna().to_numpy()
-    values = series.to_numpy(dtype=series.dtype.numpy_dtype if hasattr(
-        series.dtype, "numpy_dtype") else series.dtype, na_value=0)
-    return RefColumn.from_numpy(values, mask=None if not na.any() else ~na)
 
 
 def _port_frame(pdf):
@@ -87,81 +42,6 @@ def _check_frame(got, exp, rtol=1e-12):
                                   np.asarray(exp.index.to_frame().astype(float)))
     for col in exp.columns:
         _check_series(got[col], exp[col], rtol, col)
-
-
-def _check_series(g, e, rtol=1e-12, what=""):
-    null = e.isna().to_numpy()
-    np.testing.assert_array_equal(g.isna().to_numpy(), null, err_msg=f"{what} nulls")
-    e_dtype = getattr(e.dtype, "numpy_dtype", e.dtype)
-    if null.any() and np.dtype(e_dtype).kind in "iub":
-        e_dtype = np.float64 if np.dtype(e_dtype).kind != "b" else object
-    assert g.dtype == e_dtype, (what, g.dtype, e_dtype)
-    gv, ev = g.to_numpy()[~null], e.to_numpy()[~null]
-    if np.dtype(e_dtype).kind == "f":
-        rt = max(rtol, F32_RTOL) if e_dtype == np.float32 else rtol
-        np.testing.assert_allclose(gv.astype(np.float64), ev.astype(np.float64), rtol=rt,
-                                   atol=0, err_msg=str(what))
-    else:
-        np.testing.assert_array_equal(gv, ev, err_msg=str(what))
-
-
-@pytest.fixture(scope="module")
-def groupers():
-    """One frame grouped by (a, b) under dropna, in the port and in the
-    reference (whose make_grouper is exact for keys without null data)."""
-    pdf = _frame(1)
-    port = gb.make_grouper([_port_column(pdf.a), _port_column(pdf.b)], dropna=True)
-    ref = ref_gb.make_grouper([_ref_column(pdf.a), _ref_column(pdf.b)], dropna=True)
-    return pdf, port, ref
-
-
-# the columns each agg is held to the reference on (pandas holds every
-# column): the reference's min/max/first/last/prod/any/all run reset scans
-# that take ~4 s a dtype to compile on a CPU, so those are held to it on
-# the float64 column or not at all; its idxmin/idxmax fail under a row
-# mask (ROADMAP.md queue 3)
-REF_COLUMNS = dict({agg: ("i", "f", "t", "u") for agg in AGGS},
-                   min=("f",), max=("f",), first=("f",), last=("f",), prod=(), any=(),
-                   all=(), idxmin=(), idxmax=(), quantile=("i", "f"), median=("i", "f", "u"))
-
-
-@pytest.mark.parametrize("agg", AGGS)
-def test_sort_tier_aggs_match_reference_and_pandas(groupers, agg):
-    """Every sort-tier agg of every value dtype, under a row mask (null
-    and NaN keys dropped): values equal to the reference's sort tier on
-    REF_COLUMNS, dtypes, values and nulls pandas' on all."""
-    pdf, port, ref = groupers
-    exp_pd = pdf.groupby(["a", "b"])
-    for col in ("i", "f", "g", "t", "u", "s"):
-        if agg == "quantile" and col == "t":
-            continue                           # pandas refuses a bool quantile
-        got = gb.aggregate(_port_column(pdf[col]), port, agg)
-        g_np = got.to_numpy()
-        if col in REF_COLUMNS[agg]:
-            exp = ref_gb._AGG_DISPATCH.get(agg, ref_gb.group_quantile)(_ref_column(pdf[col]), ref)
-            e_np = np.asarray(exp.to_numpy())
-            if got.dtype.is_float:
-                rtol = 1e-12 if got.data.dtype == torch.float64 else F32_RTOL
-                np.testing.assert_allclose(g_np.astype(np.float64), e_np.astype(np.float64),
-                                           rtol=rtol, equal_nan=True, err_msg=f"{agg} {col}")
-            else:
-                np.testing.assert_array_equal(g_np.astype(e_np.dtype), e_np,
-                                              err_msg=f"{agg} {col}")
-        want = getattr(exp_pd[col], agg)()
-        _check_series(pd.Series(g_np), want.reset_index(drop=True), 1e-12, f"{agg} {col}")
-
-
-def test_group_nth_matches_reference(groupers):
-    """Each group's n-th kept row (from the end for n < 0), null where the
-    group is shorter: the reference's values and nulls."""
-    pdf, port, ref = groupers
-    for col in ("i", "f"):
-        for n in (0, 3, -1, -50):
-            got = gb.group_nth(_port_column(pdf[col]), port, n)
-            exp = ref_gb.group_nth(_ref_column(pdf[col]), ref, n)
-            np.testing.assert_array_equal(got.to_numpy().astype(float),   # None -> NaN
-                                          np.asarray(exp.to_numpy(), dtype=float),
-                                          err_msg=f"{col} {n}")
 
 
 @pytest.mark.parametrize("case", ["two_keys", "float_key", "bool_key", "three_keys"])

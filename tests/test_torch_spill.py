@@ -17,6 +17,7 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import as_column as ref_as_column
 from cudf_tpu.engine.expr import col as ref_col
 from cudf_tpu.engine.lazy import LazyFrame as RefLazyFrame

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 from cudf_tpu.core.column import Column as RC
 from cudf_tpu.ops import text as rtext
 

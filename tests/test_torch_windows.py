@@ -1,11 +1,12 @@
-"""``frame/window.py``, ``frame/resample.py`` and the engine's ``Rolling``
-against the reference (JAX on the CPU) within rtol 1e-12 where the
-reference is right, and against pandas 3 within rtol 1e-9 where this
-port's ROADMAP.md §3 lists the reference as wrong:
+"""``frame/window.py`` and the engine's ``Rolling`` against the reference
+(JAX on the CPU) within rtol 1e-12 where the reference is right, and
+against pandas 3 within rtol 1e-9 where this port's ROADMAP.md §3 lists
+the reference as wrong:
 
-- fault 1: an empty resample bin sums to 0 (the reference gives NaN);
+- fault 1: an empty resample bin sums to 0 (the reference gives NaN;
+  ``tests/test_torch_resample.py``);
 - fault 2: a centred window computes the column's tail (the reference
-  leaves the last (w - 1) // 2 rows NaN);
+  leaves the last (w - 1) // 2 rows NaN; ``tests/test_torch_rolling_grouped.py``);
 - fault 3: rolling var/std are centred per window; they are held to a
   two-pass float64 variance of each window, within rtol 1e-9 (pandas'
   own online algorithm is itself ~1e-8 off for values near 1e9, and the
@@ -22,68 +23,15 @@ import pandas as pd
 import pytest
 import torch
 
+import torch_jax_cache  # noqa: F401  (the run's shared JAX compile cache)
 import cudf_tpu as R
 
 import cudf_tpu_torch as ct
 from cudf_tpu_torch.engine import ir as IRs
 from cudf_tpu_torch.frame.series import UDF_ROUTES
+from torch_windows_helpers import CPU, REF_ATOL, _close, _values
 
 torch.set_num_threads(1)
-
-CPU = "cpu"
-
-
-def _values(n=240, seed=0, scale=10.0, nan=True):
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=n) * scale + 3.0
-    if nan:
-        x[::11] = np.nan
-    return pd.Series(x)
-
-
-def _close(got, exp, rtol, atol=0.0):
-    g = got.to_pandas() if hasattr(got, "to_pandas") else got
-    np.testing.assert_allclose(np.asarray(g, float), np.asarray(exp, float), rtol=rtol,
-                               atol=atol, equal_nan=True)
-
-
-REF_ATOL = 1e-11      # the reference's prefix-sum rounding over these columns
-
-
-def _two_pass(x, lo, hi, ddof=1):
-    out = np.full(len(lo), np.nan)
-    for i, (a, b) in enumerate(zip(lo, hi)):
-        v = x[a:b]
-        v = v[~np.isnan(v)]
-        if len(v) > ddof:
-            out[i] = np.var(v, ddof=ddof)
-    return out
-
-
-@pytest.mark.parametrize("fn", ["sum", "mean", "min", "max", "count"])
-@pytest.mark.parametrize("w,mp", [(1, None), (5, None), (5, 1), (13, 3), (300, 1)])
-def test_fixed_windows_equal_the_reference(fn, w, mp):
-    ps = _values()
-    got = getattr(ct.Series(ps, device=CPU).rolling(w, min_periods=mp), fn)()
-    exp = getattr(R.Series(ps).rolling(w, min_periods=mp), fn)()
-    if fn == "count":          # pandas (and the port) count rows against min_periods
-        exp = getattr(ps.rolling(w, min_periods=mp), fn)()
-        _close(got, exp, 0)
-        return
-    _close(got, exp.to_pandas(), 1e-12, REF_ATOL)
-
-
-@pytest.mark.parametrize("fn", ["var", "std"])
-@pytest.mark.parametrize("w,mp", [(5, None), (13, 3), (300, 2)])
-def test_fixed_var_std_equal_the_reference_and_two_pass(fn, w, mp):
-    ps = _values()
-    got = getattr(ct.Series(ps, device=CPU).rolling(w, min_periods=mp), fn)()
-    _close(got, getattr(R.Series(ps).rolling(w, min_periods=mp), fn)().to_pandas(), 1e-9)
-    hi = np.arange(1, len(ps) + 1)
-    var = _two_pass(ps.to_numpy(), np.maximum(hi - w, 0), hi)
-    cnt = ps.notna().rolling(w, min_periods=1).sum().to_numpy()
-    var[cnt < (w if mp is None else mp)] = np.nan
-    _close(got, var if fn == "var" else np.sqrt(var), 1e-9)
 
 
 def test_fault_3_var_near_1e9_is_centred():
@@ -94,17 +42,6 @@ def test_fault_3_var_near_1e9_is_centred():
     _close(ct.Series(big, device=CPU).rolling(3).std(), big.rolling(3).std(), 1e-7)
     const = pd.Series([5.0] * 8)
     assert ct.Series(const, device=CPU).rolling(3).var().tolist()[2:] == [0.0] * 6
-
-
-@pytest.mark.parametrize("w", [4, 5, 50])
-@pytest.mark.parametrize("fn", ["sum", "mean", "max", "count"])
-def test_fault_2_centred_windows_compute_the_tail(w, fn):
-    ps = _values(60, 1)
-    got = getattr(ct.Series(ps, device=CPU).rolling(w, min_periods=1, center=True), fn)()
-    _close(got, getattr(ps.rolling(w, min_periods=1, center=True), fn)(), 1e-9)
-    six = pd.Series(np.arange(1.0, 7.0))
-    assert ct.Series(six, device=CPU).rolling(4, min_periods=1, center=True).sum().tolist()[-1] \
-        == 15.0
 
 
 @pytest.mark.parametrize("fn", ["sum", "mean", "min", "max", "count"])
@@ -160,55 +97,6 @@ def test_dataframe_rolling_and_ewm():
                1e-12)
     _close(df[["a", "b"]].ewm(alpha=0.4).mean().to_pandas()["b"],
            pdf[["a", "b"]].ewm(alpha=0.4).mean()["b"], 1e-12)
-
-
-@pytest.mark.parametrize("fn", ["sum", "mean", "min", "max", "count", "var", "std"])
-def test_grouped_rolling_equals_pandas_and_the_reference(fn):
-    rng = np.random.default_rng(7)
-    pdf = pd.DataFrame({"k": rng.integers(0, 5, 200), "v": _values(200, 8).to_numpy(),
-                        "w": rng.normal(size=200)})
-    df = ct.DataFrame.from_pandas(pdf, device=CPU)
-    got = getattr(df.groupby("k")["v"].rolling(4, min_periods=2), fn)().to_pandas()
-    exp = getattr(pdf.groupby("k")["v"].rolling(4, min_periods=2), fn)()
-    assert list(got.index) == list(exp.index)
-    _close(got, exp, 1e-9)
-    if fn != "count":
-        ref = getattr(R.DataFrame.from_pandas(pdf).groupby("k")["v"].rolling(
-            4, min_periods=2), fn)().to_pandas()
-        _close(got, ref, 1e-12 if fn not in ("var", "std") else 1e-9, REF_ATOL)
-    frame = getattr(df.groupby("k").rolling(3), fn)().to_pandas()
-    pexp = getattr(pdf.groupby("k").rolling(3), fn)()
-    assert list(frame.columns) == list(pexp.columns) == ["v", "w"]
-    _close(frame["w"], pexp["w"], 1e-9)
-
-
-_STAMPS = pd.to_datetime(["2024-01-01 00:00", "2024-01-01 00:10", "2024-01-01 00:50",
-                          "2024-01-01 02:05", "2024-01-01 02:07"])
-
-
-@pytest.mark.parametrize("agg", ["sum", "mean", "min", "max", "count", "first", "last", "std",
-                                 "var", "median", "size"])
-@pytest.mark.parametrize("rule", ["20min", "h", "7min", "D"])
-def test_resample_matches_pandas(agg, rule):
-    """Fault 1: an empty bin sums (and counts) to 0, as in pandas."""
-    ps = pd.Series([1.0, 2.0, 4.0, np.nan, 8.0], index=_STAMPS)
-    got = getattr(ct.Series(ps, device=CPU).resample(rule), agg)().to_pandas()
-    exp = getattr(ps.resample(rule), agg)()
-    assert list(got.index) == list(exp.index)
-    _close(got, exp, 1e-12)
-
-
-def test_resample_frame_on_a_column_and_the_reference_where_it_is_right():
-    pdf = pd.DataFrame({"ts": _STAMPS, "a": [1, 2, 3, 4, 5], "b": [0.5, 1.5, 2.5, 3.5, 4.5]})
-    df = ct.DataFrame.from_pandas(pdf, device=CPU)
-    pd.testing.assert_frame_equal(df.resample("h", on="ts").sum().to_pandas(),
-                                  pdf.resample("h", on="ts").sum(), check_freq=False)
-    _close(df.resample("20min", on="ts")["b"].sum(), pdf.resample("20min", on="ts")["b"].sum(),
-           0)
-    _close(df.resample("20min", on="ts").b.mean(),
-           R.DataFrame.from_pandas(pdf).resample("20min", on="ts").mean().to_pandas()["b"], 0)
-    assert R.DataFrame.from_pandas(pdf).resample("20min", on="ts").sum().to_pandas()[
-        "b"].isna().any()           # the reference's fault 1
 
 
 def test_engine_rolling_node_equals_the_reference():
