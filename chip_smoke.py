@@ -323,7 +323,8 @@ answer held against its plain version inside the path and let go:
    ``ops_windows_calls`` in the kernels line) and takes its route (the
    host requests move only ``HOST_ROUTES``, ``apply`` only
    ``UDF_ROUTES["vmap"]``), its host syncs counted; a ``Tracer`` range
-   wraps each request and its summary is printed; the host route counts
+   wraps each request and its spans are summed by name (``by_name``) and
+   printed; the host route counts
    are printed at the end.
 5. timings of each device request beside its plain version; a host
    request once.
@@ -1753,9 +1754,8 @@ def probe_check(rp, pk, base, tables, pay=None, pay_dtype=None):
     return found, bids[0][found].long(), out
 
 
-def probe_row(rp, pk, base, tables, shape, library, pay=None, pay_dtype=None):
-    """Kernel H's row at one shape, timed also with every window staged
-    (ms_staged) and with none (ms_direct).  Bound: the keys of the
+def probe_bound(pk, base, tables, pay_dtype=None):
+    """(bytes, entries touched) of kernel H's bound: the keys of the
     windows' rows read, bids (and payload) written, and the table (and
     payload) entries the keys touch read once."""
     rows = int(base[-1])
@@ -1763,11 +1763,19 @@ def probe_row(rp, pk, base, tables, shape, library, pay=None, pay_dtype=None):
     touched = torch.zeros(tables.shape[1], dtype=torch.bool, device=pk.device)
     touched[k[k >= 0]] = True
     n_touched = int(touched.sum())
-    del touched, k
     m, n = tables.shape[0], pk.numel()
     moved = 4 * rows + 4 * m * n + 8 * m * n_touched
-    if pay is not None:
+    if pay_dtype is not None:
         moved += pay_dtype.itemsize * n + 8 * n_touched
+    return moved, n_touched
+
+
+def probe_row(rp, pk, base, tables, shape, library, pay=None, pay_dtype=None):
+    """Kernel H's row at one shape, timed also with every window staged
+    (ms_staged) and with none (ms_direct); bound ``probe_bound``."""
+    rows = int(base[-1])
+    m = tables.shape[0]
+    moved, n_touched = probe_bound(pk, base, tables, None if pay is None else pay_dtype)
     row = timed_row(0.0, lambda: rp.window_probe(pk, base, tables, pay, pay_dtype),
                     lambda: rp.window_probe_plain(pk, base, tables, pay, pay_dtype),
                     library, moved, m * rows, shape=shape, n_touched=n_touched,
@@ -2939,7 +2947,7 @@ def ops_windows_phase(group, frames, smi, wrappers, drive, plains, acc):
     call replayed against its plain version) and taking its ``ROUTE`` and
     no other; its host syncs counted; a device request timed beside its
     plain version, a host request once.  A ``Tracer`` range wraps each
-    request; its summary is printed.  Adds (launches, calls, times) by
+    request; its spans, summed by name, are printed.  Adds (launches, calls, times) by
     request to ``acc``."""
     from cudf_tpu_torch.frame.series import UDF_ROUTES
     from cudf_tpu_torch.models import ops_windows as ow
@@ -2994,8 +3002,8 @@ def ops_windows_phase(group, frames, smi, wrappers, drive, plains, acc):
             acc[2][n] = row
             log(f"phase 4/5 ops/windows {n}: {json.dumps(row)} [{smi}]")
             torch.cuda.empty_cache()
-        log(f"phase 4 ops/windows {group} tracer (host s by range): "
-            + json.dumps(tracer.summary()))
+        log(f"phase 4 ops/windows {group} tracer (spans by name: count, host ms, self ms): "
+            + json.dumps(tracer.by_name()))
 
 
 def py_murmur3(data: bytes, seed: int = 0) -> int:

@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cudf_tpu_torch.utils import tracing
+
 _BIT_WEIGHTS = (1 << np.arange(8)).astype(np.uint8)
 
 
@@ -71,4 +73,4 @@ def from_numpy_mask(mask, device) -> Optional[torch.Tensor]:
     mask = np.asarray(mask, dtype=bool)
     if mask.all():
         return None
-    return torch.from_numpy(mask.copy()).to(device)
+    return tracing.synced("host_mask", device, torch.from_numpy(mask.copy()).to, device)

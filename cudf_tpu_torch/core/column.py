@@ -56,6 +56,7 @@ import torch
 from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.dtypes import DType
+from cudf_tpu_torch.utils import tracing
 
 _UNITS = ("s", "ms", "us", "ns")
 _DAY_IDS = (dt.TypeId.TIMESTAMP_DAYS, dt.TypeId.DURATION_DAYS)
@@ -400,8 +401,9 @@ class Column:
             strings = [s if m else None for s, m in zip(strings, np.asarray(mask, bool))]
         chars, offsets = _encode(strings)
         mask = np.array([s is not None for s in strings], bool)
-        col = cls(dt.STRING, len(strings), torch.from_numpy(chars).to(device),
-                  bm.from_numpy_mask(mask, device), torch.from_numpy(offsets).to(device))
+        chars = tracing.synced("host_strings", device, torch.from_numpy(chars).to, device)
+        offsets = tracing.synced("host_strings", device, torch.from_numpy(offsets).to, device)
+        col = cls(dt.STRING, len(strings), chars, bm.from_numpy_mask(mask, device), offsets)
         col._cache["strings"] = strings
         return col
 

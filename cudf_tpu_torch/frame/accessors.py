@@ -35,6 +35,7 @@ from cudf_tpu_torch.ops import structs as struct_ops
 from cudf_tpu_torch.ops import timezone as tz_ops
 from cudf_tpu_torch.ops import unary
 from cudf_tpu_torch.ops._utils import materialize_validity
+from cudf_tpu_torch.utils import tracing
 
 _REGEX_CHARS = frozenset(r".^$*+?{}[]\|()")
 _NULLABLE = {dt.TypeId.STRING: dt.DType(dt.TypeId.STRING, nullable=True),
@@ -212,7 +213,8 @@ class StringMethods:
 
     def index(self, sub, start=0, end=None):
         out = self.find(sub, start, end)
-        if bool(((out._column.data == -1) & materialize_validity(out._column)).any()):
+        missing = (out._column.data == -1) & materialize_validity(out._column)
+        if tracing.to_bool(missing.any(), "label_lookup"):
             raise ValueError("substring not found")
         return out
 

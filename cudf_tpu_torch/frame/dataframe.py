@@ -50,6 +50,7 @@ from cudf_tpu_torch.ops import stream_compaction as sc
 from cudf_tpu_torch.ops import unary
 from cudf_tpu_torch.ops._utils import materialize_validity, maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
+from cudf_tpu_torch.utils import tracing
 
 # pandas methods the port does not have yet, and the ROADMAP.md item
 # that brings each
@@ -154,6 +155,7 @@ class DataFrame:
     def to_numpy(self) -> np.ndarray:
         return self.values
 
+    @tracing.annotate("DataFrame.__len__")
     def __len__(self) -> int:
         return self._table.num_rows if self._table.num_columns else len(self._index)
 
@@ -353,6 +355,7 @@ class DataFrame:
     # ------------------------------------------------------------------
     # column access
     # ------------------------------------------------------------------
+    @tracing.annotate("DataFrame.__getitem__")
     def __getitem__(self, key):
         if isinstance(key, Series) and key.dtype.is_bool:
             return self._filter(key)
@@ -456,7 +459,7 @@ class DataFrame:
             return self._new(self._table.drop(names))
         labels = _names_of(index if index is not None else labels)
         pos = self._index.get_indexer_for(labels, self.device)
-        if errors == "raise" and bool((pos < 0).any()):
+        if errors == "raise" and tracing.to_bool((pos < 0).any(), "label_lookup"):
             raise KeyError(f"{labels} not found in axis")
         keep = torch.ones(len(self), dtype=torch.bool, device=self.device)
         keep[pos[pos >= 0]] = False
@@ -512,7 +515,10 @@ class DataFrame:
 
     def take(self, indices) -> "DataFrame":
         """The rows at these positions (int64), with their index labels."""
-        indices = torch.as_tensor(indices, device=self.device).long().reshape(-1)
+        if not (isinstance(indices, torch.Tensor) and indices.device == self.device):
+            indices = tracing.synced("host_values", self.device, torch.as_tensor, indices,
+                                     device=self.device)
+        indices = indices.long().reshape(-1)
         return self._new(copying.gather_table(self._table, indices, bounds_check=False),
                          self._index.take(indices))
 
@@ -521,6 +527,7 @@ class DataFrame:
                                                      for c in self._table.columns])
         return self._new(table, self._index.slice(start, stop))
 
+    @tracing.annotate("DataFrame.head")
     def head(self, n: int = 5) -> "DataFrame":
         """The first n rows (all but the last -n when n < 0)."""
         n = len(self) + n if n < 0 else n
@@ -607,6 +614,7 @@ class DataFrame:
             cols.append(c if keep else fn(s)._column)
         return self._new(Table.from_pairs(self._table.names, cols))
 
+    @tracing.annotate("DataFrame.isna")
     def isna(self) -> "DataFrame":
         return self._per_column(lambda s: s.isna())
 
@@ -640,8 +648,8 @@ class DataFrame:
         if axis in (1, "columns"):
             rows = self if subset is None else self.loc[_names_of(subset)]
             cols = [nans_to_nulls(c) for c in rows._table.columns]
-            present = torch.stack([materialize_validity(c).sum() for c in cols]).tolist() \
-                if cols else []
+            present = tracing.tolist(torch.stack([materialize_validity(c).sum() for c in cols]),
+                                     "null_count") if cols else []
             n = len(rows)
             keep = [(p >= thresh) if thresh is not None else (p == n if how == "any" else p > 0)
                     for p in present]
@@ -688,6 +696,7 @@ class DataFrame:
             return self.where(~cond, other)
         return self._per_column(lambda s: s.mask(cond, other))
 
+    @tracing.annotate("DataFrame.__invert__")
     def __invert__(self) -> "DataFrame":
         return self._per_column(lambda s: ~s)
 
@@ -995,9 +1004,11 @@ class DataFrame:
             for j in range(i, k):
                 out[i, j] = out[j, i] = fn(self[names[i]], self[names[j]])
         dev = self.device
-        return DataFrame({n: torch.tensor(out[:, i], dtype=torch.float64, device=dev)
+        return DataFrame({n: tracing.synced("host_values", dev, torch.tensor, out[:, i],
+                                            dtype=torch.float64, device=dev)
                           for i, n in enumerate(names)}, index=list(names), device=dev)
 
+    @tracing.annotate("DataFrame.corr")
     def corr(self, method: str = "pearson", min_periods: int = 1) -> "DataFrame":
         """Pearson correlations of the numeric columns, each pair over the
         rows where both are present."""
@@ -1050,6 +1061,7 @@ class DataFrame:
     # ------------------------------------------------------------------
     # sorting, dedup, joins, groups
     # ------------------------------------------------------------------
+    @tracing.annotate("DataFrame.sort_values")
     def sort_values(self, by, ascending=True, na_position: str = "last",
                     ignore_index: bool = False, kind=None) -> "DataFrame":
         """A stable lexicographic sort by the named columns (any ``kind``
@@ -1079,6 +1091,7 @@ class DataFrame:
             out._index = default_index(len(out))
         return out
 
+    @tracing.annotate("DataFrame.merge")
     def merge(self, right, on=None, how="inner", left_on=None, right_on=None,
               left_index=False, right_index=False, suffixes=("_x", "_y"), sort=False):
         """Join with ``right`` (see ``frame/join.py``): inner, left,
@@ -1224,6 +1237,7 @@ class DataFrame:
     def T(self) -> "DataFrame":
         return self.transpose()
 
+    @tracing.annotate("DataFrame.groupby")
     def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
                 as_index: bool = True, group_keys: bool = True, observed: bool = True):
         """Group by key columns, Series, or index levels (see
@@ -1330,6 +1344,7 @@ class _DataFrameILoc:
     def __init__(self, df: DataFrame):
         self._df = df
 
+    @tracing.annotate("DataFrame.iloc")
     def __getitem__(self, key):
         df = self._df
         if isinstance(key, tuple):
@@ -1368,6 +1383,7 @@ class _DataFrameLoc:
     def __init__(self, df: DataFrame):
         self._df = df
 
+    @tracing.annotate("DataFrame.loc")
     def __getitem__(self, key):
         df = self._df
         if isinstance(key, tuple):
@@ -1396,12 +1412,12 @@ class _DataFrameLoc:
             if pos.shape[0] == 0:
                 raise KeyError(key)
             if pos.shape[0] == 1:
-                return _row(df, int(pos[0]), key)
+                return _row(df, tracing.to_int(pos[0], "label_lookup"), key)
             return df.take(pos)
         if _is_listlike(key) and _bool_array(key):
             return df._filter(Series._from(column_of(key, df.device), df._index))
         pos = df._index.get_indexer_for(key, df.device)
-        if bool((pos < 0).any()):
+        if tracing.to_bool((pos < 0).any(), "label_lookup"):
             raise KeyError(f"labels not in the index: "
                            f"{np.asarray(key)[(pos < 0).cpu().numpy()]}")
         return df.take(pos)

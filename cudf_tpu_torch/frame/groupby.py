@@ -55,6 +55,7 @@ from cudf_tpu_torch.ops.replace import nans_to_nulls
 from cudf_tpu_torch.ops.row_ops import equality_keys, lex_sort_permutation, sort_operands
 from cudf_tpu_torch.ops.scan import running_extreme
 from cudf_tpu_torch.ops.stream_compaction import filter_indices
+from cudf_tpu_torch.utils import tracing
 
 _SIMPLE_AGGS = ("sum", "mean", "min", "max", "count", "var", "std", "prod", "any", "all",
                 "first", "last", "nunique", "median", "idxmin", "idxmax")
@@ -185,7 +186,8 @@ class _GroupBy:
         g = self.grouper
         perm = self._group_order()
         sizes = gb_ops._sizes(g)
-        ends = torch.cumsum(sizes if perm is None else sizes[perm], 0).tolist()
+        ends = tracing.tolist(torch.cumsum(sizes if perm is None else sizes[perm], 0),
+                              "group_bounds")
         return g.frame_rows(self._rows_in_group_order()), list(zip([0] + ends[:-1], ends))
 
     def _groups_of(self, obj):
@@ -360,6 +362,7 @@ class _GroupBy:
     def _rows_where(self, keep: torch.Tensor):
         return self._take(self.grouper.frame_rows(filter_indices(keep)))
 
+    @tracing.annotate("GroupBy.head")
     def head(self, n: int = 5):
         """The first n rows of each group (all but the last -n when n < 0),
         in frame order."""
@@ -473,7 +476,7 @@ class _GroupBy:
                 for _, group in self._groups_of(self._selected())]
         kept = torch.zeros(g.num_groups, dtype=torch.bool, device=g.group_ids.device)
         if keep:
-            flags = torch.tensor(keep, device=kept.device)
+            flags = tracing.synced("host_values", kept, torch.tensor, keep, device=kept.device)
             kept[torch.arange(g.num_groups, device=kept.device) if perm is None else perm] = flags
         mask = torch.zeros(len(self._obj), dtype=torch.bool, device=kept.device)
         mask[g.frame_rows(torch.arange(g.group_ids.shape[0], device=kept.device))] = \
@@ -500,8 +503,10 @@ class _GroupBy:
             return out if self._as_index else out.reset_index()
         if not all(isinstance(r, type(results[0])) for r in results):
             raise TypeError("apply: the groups' results mix kinds")
-        counts = torch.tensor([len(r) for r in results], device=dev)
-        rep = torch.repeat_interleave(torch.arange(len(results), device=dev), counts)
+        counts = tracing.synced("host_values", dev, torch.tensor, [len(r) for r in results],
+                                device=dev)
+        rep = tracing.synced("repeat_total", counts, torch.repeat_interleave,
+                             torch.arange(len(results), device=dev), counts)
         levels = index._columns if isinstance(index, MultiIndex) else (index.column(dev),)
         key_cols = [copying.gather(c, rep, bounds_check=False) for c in levels]
         labels = copying.concatenate([r.index.column(dev) for r in results])
@@ -618,6 +623,7 @@ class DataFrameGroupBy(_GroupBy):
         self._obj = obj
         super().__init__(obj, by, level, sort, dropna, as_index, observed)
 
+    @tracing.annotate("DataFrameGroupBy.__getitem__")
     def __getitem__(self, key):
         """One name: a SeriesGroupBy; a list: a DataFrameGroupBy over those
         columns.  Both keep the keys, the flags and the grouper."""
@@ -651,6 +657,7 @@ class DataFrameGroupBy(_GroupBy):
     # ------------------------------------------------------------------
     # aggregation
     # ------------------------------------------------------------------
+    @tracing.annotate("DataFrameGroupBy.agg")
     def agg(self, func=None, **named):
         """func: 'sum' | ['sum', 'mean'] | {col: agg or [aggs]}, or pandas'
         named aggregation: ``agg(out=(column, agg), ...)``, one output
@@ -697,6 +704,7 @@ class DataFrameGroupBy(_GroupBy):
     def cov(self, ddof: int = 1, **kwargs) -> DataFrame:
         return self._pairwise("cov", ddof)
 
+    @tracing.annotate("DataFrameGroupBy.corr")
     def corr(self, method: str = "pearson", **kwargs) -> DataFrame:
         if method != "pearson":
             raise NotImplementedError(f"groupby corr(method={method!r}): pearson only")
@@ -743,6 +751,7 @@ class SeriesGroupBy(_GroupBy):
     def _apply_simple(self, agg: str):
         return self._one(self._run_aggs([(self._name, self._name, agg)]))
 
+    @tracing.annotate("SeriesGroupBy.agg")
     def agg(self, func=None, **named):
         """A name (a Series), a list of names or named outputs
         (``agg(total="sum")``; a frame), or a callable (once a group)."""

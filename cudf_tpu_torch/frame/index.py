@@ -19,6 +19,7 @@ import torch
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops import copying
+from cudf_tpu_torch.utils import tracing
 
 
 def label_column(labels, device) -> Column:
@@ -150,7 +151,7 @@ class Index:
             eq = binary_operation(mine, theirs, "null_equals")
         except TypeError:
             return False
-        return bool(eq.data.all())
+        return tracing.to_bool(eq.data.all(), "scalar_result")
 
     @property
     def is_unique(self) -> bool:
@@ -170,13 +171,16 @@ class Index:
         """Every position holding the label (duplicate labels give several)."""
         from cudf_tpu_torch.ops.search import is_in_list
 
-        return torch.nonzero(is_in_list(self._column, [label])).squeeze(1)
+        hit = is_in_list(self._column, [label])
+        return tracing.synced("label_lookup", hit, torch.nonzero, hit).squeeze(1)
 
     def get_loc(self, key):
         pos = self._positions_of(key)
         if pos.shape[0] == 0:
             raise KeyError(key)
-        return int(pos[0]) if pos.shape[0] == 1 else pos.cpu().numpy()
+        if pos.shape[0] == 1:
+            return tracing.to_int(pos[0], "label_lookup")
+        return tracing.synced("export", pos, pos.cpu).numpy()
 
     def isin(self, values) -> np.ndarray:
         from cudf_tpu_torch.ops.search import contains, is_in_list
@@ -185,7 +189,7 @@ class Index:
             mask = contains(label_column(values, self.device), self._column)
         else:
             mask = is_in_list(self._column, list(values))
-        return mask.cpu().numpy()
+        return tracing.synced("export", mask, mask.cpu).numpy()
 
     def _sorted_distinct(self, col: Column, name) -> "Index":
         from cudf_tpu_torch.ops import sort as sort_ops
@@ -232,7 +236,8 @@ class Index:
     def argsort(self, ascending: bool = True) -> np.ndarray:
         from cudf_tpu_torch.ops import sort as sort_ops
 
-        return sort_ops.sorted_order([self.column(self.device)], [ascending]).cpu().numpy()
+        order = sort_ops.sorted_order([self.column(self.device)], [ascending])
+        return tracing.synced("export", order, order.cpu).numpy()
 
     def sort_values(self, ascending: bool = True) -> "Index":
         from cudf_tpu_torch.ops import sort as sort_ops

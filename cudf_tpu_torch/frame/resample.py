@@ -26,6 +26,7 @@ from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops import datetime as dto
 from cudf_tpu_torch.ops import groupby as gb_ops
 from cudf_tpu_torch.ops.replace import replace_nulls_scalar
+from cudf_tpu_torch.utils import tracing
 
 _ZERO_WHEN_EMPTY = ("sum", "count", "size")
 
@@ -60,7 +61,8 @@ class Resampler:
         day = dto.freq_ticks("D", unit)
         t = self._ts.data
         valid = self._ts.validity
-        first = int((t if valid is None else t[valid]).min()) if self._ts.length else 0
+        live = t if valid is None else tracing.masked(t, valid, "bins")
+        first = tracing.to_int(live.min(), "bins") if self._ts.length else 0
         origin = first // day * day
         return torch.div(t - origin, step, rounding_mode="floor"), origin, step
 
@@ -79,7 +81,7 @@ class Resampler:
         gk, ga = gb_ops.groupby_agg(keys, [(i, c, agg) for i, (_, c) in enumerate(values)])
         present = gk["__bin"].data
         if present.shape[0]:
-            lo, hi = torch.stack([present[0], present[-1]]).tolist()
+            lo, hi = tracing.tolist(torch.stack([present[0], present[-1]]), "bins")
         else:
             lo, hi = 0, -1
         src = torch.full((hi - lo + 1,), -1, dtype=torch.int64, device=present.device)

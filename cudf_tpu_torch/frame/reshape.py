@@ -43,6 +43,7 @@ from cudf_tpu_torch.ops import groupby as gb_ops
 from cudf_tpu_torch.ops._utils import materialize_validity, signed_view
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 from cudf_tpu_torch.ops.unary import cast
+from cudf_tpu_torch.utils import tracing
 
 HOST_PANDAS = f"{BEYOND}: host pandas routes"
 
@@ -261,7 +262,9 @@ def _spread(row_keys: List[Column], row_names: List, col_keys: List[Column],
     cg = gb_ops.make_grouper(col_keys, dropna=False)
     R, C = rg.num_groups, cg.num_groups
     pos = cg.group_ids * R + rg.group_ids
-    if unique and pos.shape[0] and int(torch.bincount(pos, minlength=R * C).max()) > 1:
+    if unique and pos.shape[0] and tracing.to_int(tracing.synced(
+            "pivot_check", pos, torch.bincount, pos, minlength=R * C, syncs=2).max(),
+            "pivot_check") > 1:
         raise ValueError("Index contains duplicate entries, cannot reshape")
     index = _labels_index([copying.gather(k, rg.key_rows, bounds_check=False)
                            for k in row_keys], row_names)
@@ -291,7 +294,8 @@ def _spread(row_keys: List[Column], row_names: List, col_keys: List[Column],
         if fill_value is not None:
             data = torch.where(valid, data, torch.tensor(_fill(fill_value, col),
                                                          dtype=data.dtype, device=data.device))
-        full = valid.view(C, R).all(1).tolist()       # one host read for every column
+        # one host read for every column
+        full = tracing.tolist(valid.view(C, R).all(1), "null_check")
         dtype = col.dtype
         if fill_value is None and not all(full) and dtype.is_integer:
             # pandas' unstack makes the whole block float64 when a cell is missing

@@ -56,6 +56,7 @@ from cudf_tpu_torch.ops import unary
 from cudf_tpu_torch.ops._utils import materialize_validity, maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
 from cudf_tpu_torch.utils.missing import NA
+from cudf_tpu_torch.utils import tracing
 
 _BINOPS = {
     "__add__": "add", "__sub__": "sub", "__mul__": "mul",
@@ -334,6 +335,7 @@ class Series:
         is not counted, as in the reference)."""
         return self._column.nbytes
 
+    @tracing.annotate("Series.__len__")
     def __len__(self) -> int:
         return self._column.length
 
@@ -414,6 +416,7 @@ class Series:
         name = self.name if not isinstance(other, Series) or other.name == self.name else None
         return Series._from(out, index, name)
 
+    @tracing.annotate("Series.__invert__")
     def __invert__(self) -> "Series":
         return self._new(unary.unary_operation(self._column,
                                                "not" if self.dtype.is_bool else "bit_invert"))
@@ -467,6 +470,7 @@ class Series:
     def iat(self):
         return self.iloc
 
+    @tracing.annotate("Series.__getitem__")
     def __getitem__(self, key):
         if isinstance(key, slice):
             return self.iloc[key]
@@ -517,10 +521,14 @@ class Series:
 
     def take(self, indices) -> "Series":
         """The rows at these positions, with their index labels."""
-        idx = torch.as_tensor(indices, device=self.device).long().reshape(-1)
+        if not (isinstance(indices, torch.Tensor) and indices.device == self.device):
+            indices = tracing.synced("host_values", self.device, torch.as_tensor, indices,
+                                     device=self.device)
+        idx = indices.long().reshape(-1)
         return self._new(copying.gather(self._column, idx, bounds_check=False),
                          self._index.take(idx))
 
+    @tracing.annotate("Series.head")
     def head(self, n: int = 5) -> "Series":
         return self.iloc[:n]
 
@@ -544,6 +552,7 @@ class Series:
     # ------------------------------------------------------------------
     # missing data
     # ------------------------------------------------------------------
+    @tracing.annotate("Series.isna")
     def isna(self) -> "Series":
         missing = ~materialize_validity(self._column)
         if self.dtype.is_float:
@@ -590,14 +599,14 @@ class Series:
         if v is None:
             return self._index[0] if len(self) else None
         pos = sc.filter_indices(v)
-        return self._index[int(pos[0])] if pos.shape[0] else None
+        return self._index[tracing.to_int(pos[0], "label_lookup")] if pos.shape[0] else None
 
     def last_valid_index(self):
         v = self._nan_null().validity
         if v is None:
             return self._index[len(self) - 1] if len(self) else None
         pos = sc.filter_indices(v)
-        return self._index[int(pos[-1])] if pos.shape[0] else None
+        return self._index[tracing.to_int(pos[-1], "label_lookup")] if pos.shape[0] else None
 
     # ------------------------------------------------------------------
     # reductions: a host scalar through one sync each
@@ -607,7 +616,7 @@ class Series:
         missing = ~materialize_validity(col)
         if col.dtype.is_float:
             missing = missing | torch.isnan(col.data)
-        return bool(missing.any())
+        return tracing.to_bool(missing.any(), "null_check")
 
     def _reduce_scalar(self, value, skipna: bool = True):
         """pandas' scalar conventions: NaT for temporal columns, NA for
@@ -772,14 +781,15 @@ class Series:
         mx, my = x.sum() / n.clamp(min=1), y.sum() / n.clamp(min=1)
         return torch.where(ok, x - mx, 0.0), torch.where(ok, y - my, 0.0), n
 
+    @tracing.annotate("Series.corr")
     def corr(self, other: "Series", method: str = "pearson", min_periods=None) -> float:
         """Pearson correlation over the rows where both are present; NaN
         with fewer than two (or ``min_periods``) or a constant side."""
         if method != "pearson":
             raise NotImplementedError(f"Series.corr(method={method!r}): pearson only")
         dx, dy, n = self._centred_pair(other)
-        sxy, sxx, syy, cnt = torch.stack([(dx * dy).sum(), (dx * dx).sum(), (dy * dy).sum(),
-                                          n.double()]).tolist()
+        sxy, sxx, syy, cnt = tracing.tolist(torch.stack(
+            [(dx * dy).sum(), (dx * dx).sum(), (dy * dy).sum(), n.double()]), "scalar_result")
         den = float(np.sqrt(sxx * syy))
         if cnt < max(2, min_periods or 1) or den == 0.0:
             return float("nan")
@@ -789,7 +799,7 @@ class Series:
         """Covariance over the rows where both are present, over count -
         ddof; NaN where that is below 1 (or fewer than ``min_periods``)."""
         dx, dy, n = self._centred_pair(other)
-        sxy, cnt = torch.stack([(dx * dy).sum(), n.double()]).tolist()
+        sxy, cnt = tracing.tolist(torch.stack([(dx * dy).sum(), n.double()]), "scalar_result")
         if cnt - ddof < 1 or cnt < (min_periods or 0):
             return float("nan")
         return sxy / (cnt - ddof)
@@ -847,6 +857,7 @@ class Series:
             return func(*args, **kwargs)
         return func(self, *args, **kwargs)
 
+    @tracing.annotate("Series.groupby")
     def groupby(self, by=None, level=None, sort: bool = True, dropna: bool = True,
                 as_index: bool = True, group_keys: bool = True, observed: bool = True):
         """Group by Series, host arrays of this length, or index levels
@@ -940,6 +951,7 @@ class Series:
                                            nullable=src.nullable, arrow=src.arrow))
         return self._new(out)
 
+    @tracing.annotate("Series.sort_values")
     def sort_values(self, ascending: bool = True, na_position: str = "last",
                     ignore_index: bool = False, kind=None) -> "Series":
         """A stable sort (any ``kind``); NaN sorts as null."""
@@ -1031,7 +1043,8 @@ class Series:
         scalar = np.isscalar(value)
         needles = column_of([value] if scalar else value, self.device)
         out = lower_bound(self._column, needles, side)
-        return int(out[0]) if scalar else out.cpu().numpy()
+        return tracing.to_int(out[0], "scalar_result") if scalar else \
+            tracing.synced("export", out, out.cpu).numpy()
 
     def factorize(self, sort: bool = False):
         """(int64 codes, -1 for a missing row; the distinct values as an
@@ -1043,7 +1056,7 @@ class Series:
         codes = codes.long()
         if col.validity is not None:
             codes = torch.where(col.validity, codes, -1)
-        return codes.cpu().numpy(), Index(keys)
+        return tracing.synced("export", codes, codes.cpu).numpy(), Index(keys)
 
     # ------------------------------------------------------------------
     # elementwise
@@ -1056,7 +1069,7 @@ class Series:
                 and self._has_nulls_or_nans():
             raise ValueError("Cannot convert non-finite values (NA or inf) to integer")
         if errors == "raise" and target.is_integer and col.dtype.is_float \
-                and bool(torch.isinf(col.data).any()):
+                and tracing.to_bool(torch.isinf(col.data).any(), "nan_check"):
             raise ValueError("Cannot convert non-finite values (NA or inf) to integer")
         if col.dtype.is_temporal and target == dt.INT64 and col.validity is not None:
             # pandas' astype gives NaT as iNaT (INT64_MIN); the column cast keeps it null
@@ -1154,7 +1167,7 @@ class Series:
 
     def _host_map(self, func, na_action=None) -> "Series":
         UDF_ROUTES["host"] += 1
-        missing = self.isna()._column.data.cpu().tolist()
+        missing = tracing.tolist(self.isna()._column.data, "export")
         vals = [None if m and na_action == "ignore" else func(v)
                 for v, m in zip(self.tolist(), missing)]
         return Series(vals, index=self._index, name=self.name, device=self.device)
@@ -1266,7 +1279,7 @@ class Series:
             eq = binaryop.binary_operation(self._column, other._column, "null_equals")
         except TypeError:
             return False
-        return bool(eq.data.all())
+        return tracing.to_bool(eq.data.all(), "scalar_result")
 
 
 for _dunder, _op in _BINOPS.items():
@@ -1274,14 +1287,14 @@ for _dunder, _op in _BINOPS.items():
         def f(self, other):
             return self._binop(other, op)
         return f
-    setattr(Series, _dunder, _make())
+    setattr(Series, _dunder, tracing.annotate(f"Series.{_dunder}")(_make()))
 
 for _dunder, _op in _RBINOPS.items():
     def _make_r(op=_op):
         def f(self, other):
             return self._binop(other, op, reflect=True)
         return f
-    setattr(Series, _dunder, _make_r())
+    setattr(Series, _dunder, tracing.annotate(f"Series.{_dunder}")(_make_r()))
 
 for _named, _op in (("add", "add"), ("sub", "sub"), ("subtract", "sub"), ("mul", "mul"),
                     ("multiply", "mul"), ("div", "truediv"), ("truediv", "truediv"),
@@ -1296,15 +1309,15 @@ for _named, _op in (("add", "add"), ("sub", "sub"), ("subtract", "sub"), ("mul",
         def f(self, other, fill_value=None):
             return self._fill_binop(other, op, fill_value, reflect=True)
         return f
-    setattr(Series, _named, _make_named())
-    setattr(Series, "r" + _named, _make_rnamed())
+    setattr(Series, _named, tracing.annotate(f"Series.{_named}")(_make_named()))
+    setattr(Series, "r" + _named, tracing.annotate(f"Series.r{_named}")(_make_rnamed()))
 
 for _named in _COMPARISONS:
     def _make_cmp(op=_named):
         def f(self, other):
             return self._binop(other, op)
         return f
-    setattr(Series, _named, _make_cmp())
+    setattr(Series, _named, tracing.annotate(f"Series.{_named}")(_make_cmp()))
 
 
 def _scalar(value) -> bool:
@@ -1349,6 +1362,7 @@ class _SeriesILoc:
     def __init__(self, s: Series):
         self._s = s
 
+    @tracing.annotate("Series.iloc")
     def __getitem__(self, key):
         s = self._s
         if isinstance(key, (int, np.integer)):
@@ -1372,7 +1386,8 @@ class _SeriesILoc:
             start, stop, step = key.indices(len(s))
             idx = torch.arange(start, stop, step, device=s.device)
         else:
-            idx = torch.as_tensor(key, device=s.device).long()
+            idx = tracing.synced("host_values", s.device, torch.as_tensor, key,
+                                 device=s.device).long()
         s._set_positions(idx, value)
 
 
@@ -1380,6 +1395,7 @@ class _SeriesLoc:
     def __init__(self, s: Series):
         self._s = s
 
+    @tracing.annotate("Series.loc")
     def __getitem__(self, key):
         s = self._s
         if isinstance(key, Series) and key.dtype.is_bool:
@@ -1395,13 +1411,13 @@ class _SeriesLoc:
             if pos.shape[0] == 0:
                 raise KeyError(key)
             if pos.shape[0] == 1:
-                return copying.get_element(s._column, int(pos[0]))
+                return copying.get_element(s._column, tracing.to_int(pos[0], "label_lookup"))
             return s.take(pos)
         if _is_listlike(key) and _bool_array(key):
             return s._filter(Series._from(column_of(key, s.device), s._index))
         pos = s._index.get_indexer_for(key, s.device)
         missing = pos < 0
-        if bool(missing.any()):
+        if tracing.to_bool(missing.any(), "label_lookup"):
             raise KeyError(f"labels not in the index: {np.asarray(key)[missing.cpu().numpy()]}")
         return s.take(pos)
 

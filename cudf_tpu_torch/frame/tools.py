@@ -27,6 +27,7 @@ from cudf_tpu_torch.frame.series import BEYOND, Series
 from cudf_tpu_torch.ops import reductions, unary
 from cudf_tpu_torch.ops._utils import maybe_mask
 from cudf_tpu_torch.ops.replace import nans_to_nulls
+from cudf_tpu_torch.utils import tracing
 
 # a calendar frequency: (months a step, anchored at the month's "start" or "end")
 _CALENDAR = {"MS": (1, "start"), "ME": (1, "end"), "QS": (3, "start"), "QE": (3, "end"),
@@ -123,7 +124,7 @@ def to_numeric(arg, errors: str = "raise", downcast=None):
 
         def parsed(col):
             ints, ok = parse_numbers(col, floats=False)
-            if col.validity is None and bool(ok.all()):
+            if col.validity is None and tracing.to_bool(ok.all(), "cast_check"):
                 return Column(dt.INT64, col.length, ints)
             vals, ok = parse_numbers(col, floats=True)
             bad = None if errors == "coerce" else first_unparsed(col, ok)
@@ -165,13 +166,14 @@ def _downcast(s: Series, downcast: str) -> Series:
         if width < 4 or col.dtype == dt.FLOAT32:
             return s                         # no float dtype narrower than float32
         f32 = x.to(torch.float32).to(torch.float64)
-        if bool(((f32 - x).abs() <= 5e-4).logical_or(f32.isnan() & x.isnan()).all()):
+        close = ((f32 - x).abs() <= 5e-4).logical_or(f32.isnan() & x.isnan())
+        if tracing.to_bool(close.all(), "cast_check"):
             return s._new(unary.cast(col, dt.FLOAT32))
         return s
     if col.dtype.is_bool or col.dtype.is_float and col.validity is not None:
         return s                 # numpy bools are no numbers; pandas' NaN blocks the cast
     if downcast == "unsigned":
-        if valid.numel() and not bool((x >= 0).all()):
+        if valid.numel() and not tracing.to_bool((x >= 0).all(), "cast_check"):
             return s
         kinds = _UINTS
     else:
@@ -185,7 +187,7 @@ def _downcast(s: Series, downcast: str) -> Series:
         info = torch.iinfo(kind)
         inside = (x >= info.min) & (x <= info.max)
         whole = (x - x.trunc()).abs() <= 1e-8
-        if valid.numel() == 0 or bool((inside & whole).all()):
+        if valid.numel() == 0 or tracing.to_bool((inside & whole).all(), "cast_check"):
             return s._new(unary.cast(col, dt.from_torch(kind)))
     return s
 
@@ -247,7 +249,8 @@ def cut(x, bins, right: bool = True, labels=None, precision: int = 3,
         if np.any(np.diff(edges.astype(np.float64)) <= 0):
             raise ValueError("bins must increase monotonically and be unique")
     values = col.data.double()
-    e = torch.as_tensor(edges.astype(np.float64), device=values.device)
+    e = tracing.synced("host_values", values.device, torch.as_tensor, edges.astype(np.float64),
+                       device=values.device)
     pos = torch.searchsorted(e, values, right=not right) - 1
     if include_lowest:
         pos = torch.where(values == e[0], 0, pos)
@@ -307,7 +310,8 @@ def date_range(start=None, end=None, periods=None, freq=None, name=None, *,
     if freq is None and periods is not None and len(given) == 2:
         unit = max(units, key=_UNIT_ORDER.index)
         a, b = (int(st.astype(f"datetime64[{unit}]").astype(np.int64)) for st in stamps)
-        ticks = torch.from_numpy(np.linspace(a, b, int(periods)).astype(np.int64)).to(device)
+        ticks = torch.from_numpy(np.linspace(a, b, int(periods)).astype(np.int64))
+        ticks = tracing.synced("host_values", device, ticks.to, device)
         return Index(Column(dt.unit_dtype("M", unit), int(periods), ticks), name)
     m = re.fullmatch(r"(\d*)([A-Za-z]+)", freq or "D")
     if m is not None and m.group(2) in _CALENDAR:

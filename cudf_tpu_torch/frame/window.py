@@ -47,6 +47,7 @@ from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.frame.index import MultiIndex
 from cudf_tpu_torch.frame.series import UDF_ROUTES, Series, vmap_udf
+from cudf_tpu_torch.utils import tracing
 
 # windows a chunk of vmapped ``apply`` (bounds its temporaries)
 APPLY_CHUNK_VALUES = 1 << 26
@@ -318,9 +319,10 @@ class Rolling:
             offset = (self._window - 1) // 2 if self._center else 0
             hi = torch.clamp(torch.arange(n, device=x.device) + 1 + offset, max=n)
             lo = torch.clamp(hi - self._window, min=0)
-        vals = torch.where(valid, x, math.nan).cpu().numpy()
-        ok = valid.cpu().numpy()
-        lo, hi = lo.cpu().tolist(), hi.cpu().tolist()
+        vals = torch.where(valid, x, math.nan)
+        vals = tracing.synced("host_route", vals, vals.cpu).numpy()
+        ok = tracing.synced("host_route", valid, valid.cpu).numpy()
+        lo, hi = tracing.tolist(lo, "host_route"), tracing.tolist(hi, "host_route")
         labels = None
         if not raw:
             import pandas as pd
@@ -333,7 +335,7 @@ class Rolling:
                 continue
             window = vals[a:b] if raw else pd.Series(vals[a:b], index=labels[a:b])
             out[i] = float(func(window))
-        return torch.from_numpy(out).to(x.device)
+        return tracing.synced("host_values", x.device, torch.from_numpy(out).to, x.device)
 
 
 class EWM:

@@ -18,11 +18,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from cudf_tpu_torch.utils import tracing
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -43,9 +44,8 @@ class LaunchError(RuntimeError):
 
 
 class _Library:
-    def __init__(self, path: Path, build_seconds: float):
+    def __init__(self, path: Path):
         self.path = path
-        self.build_seconds = build_seconds
         self._cdll = ctypes.CDLL(str(path))
         self._cdll.cudf_error_string.argtypes = [ctypes.c_int]
         self._cdll.cudf_error_string.restype = ctypes.c_char_p
@@ -180,21 +180,30 @@ def library() -> _Library:
     """The loaded kernel library, built at first use."""
     global _library
     if _library is None:
-        t0 = time.perf_counter()
-        path = build()
-        _library = _Library(path, time.perf_counter() - t0)
+        _library = _Library(build())
     return _library
 
 
-def launch(name: str, argtypes: Sequence, device: torch.device, *args) -> None:
+def launch(name: str, argtypes: Sequence, device: torch.device, *args,
+           counter=None, nbytes: int = 0) -> None:
     """Call C entry point ``name`` on ``device``'s current stream (passed
-    as the last argument) and raise if it returns a CUDA error."""
+    as the last argument) and raise if it returns a CUDA error.  A kernel
+    launch names its wrapper, ``counter``, whose ``launches`` it counts,
+    and its least bytes (each operand read once, each output written
+    once, at its element width): the call is then a "kernel" span of
+    ``utils/tracing.py`` while spans are recorded."""
     lib = library()
     fn = lib.function(name, list(argtypes) + [ctypes.c_void_p])
     with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if counter is None:
+            err = fn(*args, stream)
+        else:
+            err = tracing.kernel(name, nbytes, fn, *args, stream)
     if err != 0:
         raise LaunchError(f"{name}: CUDA error {err}: {lib.error_string(err)}")
+    if counter is not None:
+        counter.launches += 1
 
 
 def kernel_values(vals: torch.Tensor):
@@ -221,6 +230,13 @@ def check_vector(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
         raise ValueError(f"{name}: expected contiguous {dtype}[{n}] on {device}, got "
                          f"{t.dtype}{list(t.shape)} on {t.device}"
                          f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def nbytes(*tensors: Optional[torch.Tensor]) -> int:
+    """Bytes of the tensors at their element widths (None counts 0): a
+    launch's least bytes, each operand read once and each output written
+    once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -154,8 +154,11 @@ def _launch(keys, vlist, K, valid, flags) -> List[Result]:
             _build.launch("cudf_onehot_aggregate", _ARGTYPES, dev, keys.data_ptr(),
                           _build.ptr(valid), keys.shape[0], K, len(part), vals_p,
                           ctypes.addressof(kinds), sums_p, mins_p, maxs_p,
-                          counts.data_ptr() if i == 0 else None)
-            onehot_groupby_aggregate.launches += 1
+                          counts.data_ptr() if i == 0 else None,
+                          counter=onehot_groupby_aggregate,
+                          nbytes=onehot_bytes(keys, valid, [kvs[j][0] for j in part],
+                                              [t[j] for t in (sums, mins, maxs) for j in part]
+                                              + [counts if i == 0 else None]))
     outs = []
     for j, v in enumerate(vlist):
         mn = mx = None
@@ -165,6 +168,13 @@ def _launch(keys, vlist, K, valid, flags) -> List[Result]:
                                     _decode_order_key(maxs[j], acc), counts, v.dtype)
         outs.append((sums[j], counts, mn, mx))
     return outs
+
+
+def onehot_bytes(keys: torch.Tensor, valid: Optional[torch.Tensor],
+                 vals: Sequence[torch.Tensor], outs: Sequence[Optional[torch.Tensor]]) -> int:
+    """One launch of kernel A's least bytes: keys, mask and value columns
+    read once, its bins (sums, min/max keys, counts) written once."""
+    return _build.nbytes(keys, valid, *vals, *outs)
 
 
 def _as_lists(outs: Sequence[Result]) -> ListResult:

@@ -54,6 +54,7 @@ import torch
 from cudf_tpu_torch.kernels import _build
 from cudf_tpu_torch.kernels._build import MAX_PAYLOADS, check_columns, column_arrays
 from cudf_tpu_torch.kernels.tile_sort import check_mask_bits, sort_key_plain, tile_sort_data
+from cudf_tpu_torch.utils import tracing
 
 SOURCE = "cudf_tpu_torch/csrc/radix_partition.cu"
 MERGE_SOURCE = "cudf_tpu_torch/csrc/merge_scatter.cu"
@@ -142,8 +143,8 @@ def digit_histogram(keys: torch.Tensor, nbits: int, shift: int,
         parts, part_len = tile_parts(-(-n // tile), tile, nbits, sms)
         _build.launch("cudf_digit_histogram", _HIST_ARGTYPES, keys.device,
                       keys.data_ptr(), n, shift, nbits, tile, part_len, parts,
-                      hist.data_ptr())
-        digit_histogram.launches += 1
+                      hist.data_ptr(), counter=digit_histogram,
+                      nbytes=_build.nbytes(keys, hist))
     return hist
 
 
@@ -277,12 +278,18 @@ def _scatter_pass(keys, payloads, offsets, nbits, shift, tile, out_keys=None):
         _build.launch("cudf_radix_scatter", _SCATTER_ARGTYPES, keys.device,
                       keys.data_ptr(), n, shift, nbits, tile, offsets.data_ptr(),
                       out_keys.data_ptr(), len(payloads), ctypes.addressof(src),
-                      ctypes.addressof(dst), ctypes.addressof(widths))
-        radix_scatter.launches += 1
+                      ctypes.addressof(dst), ctypes.addressof(widths), counter=radix_scatter,
+                      nbytes=scatter_bytes(keys, payloads, offsets, out_keys, outs))
     return out_keys, outs
 
 
 radix_scatter.launches = 0
+
+
+def scatter_bytes(keys, payloads, offsets, out_keys, outs) -> int:
+    """Kernel C's or G's least bytes: keys, payloads and offsets read
+    once, the output keys and payloads written once."""
+    return _build.nbytes(keys, *payloads, offsets, out_keys, *outs)
 
 
 def partition_occupancy(kernel: str, nbits: int, payload_bytes: int = 0) -> dict:
@@ -375,8 +382,8 @@ def merge_scatter(keys: torch.Tensor, payloads: Sequence[torch.Tensor],
                       shift, nbits, super_tile, tile, mask, offsets.data_ptr(),
                       out_keys.data_ptr(), out_keys.shape[0], int(out_rows is not None),
                       len(payloads), ctypes.addressof(src), ctypes.addressof(dst),
-                      ctypes.addressof(widths))
-        merge_scatter.launches += 1
+                      ctypes.addressof(widths), counter=merge_scatter,
+                      nbytes=scatter_bytes(keys, payloads, offsets, out_keys, outs))
     return out_keys, outs
 
 
@@ -608,12 +615,21 @@ def bucket_aggregate(pkeys: torch.Tensor, pvals: Values, base: torch.Tensor,
                       pkeys.data_ptr(), len(part), ctypes.addressof(src),
                       ctypes.addressof(kinds), win.data_ptr(), lo.data_ptr(), hi.data_ptr(),
                       win.shape[0], base.data_ptr(), num_windows, agg_rows,
-                      ctypes.addressof(dst), _build.ptr(counts) if start == 0 else None)
-        bucket_aggregate.launches += 1
+                      ctypes.addressof(dst), _build.ptr(counts) if start == 0 else None,
+                      counter=bucket_aggregate,
+                      nbytes=bucket_bytes(pkeys, [kvs[j][0] for j in part],
+                                          [sums[j] for j in part],
+                                          counts if start == 0 else None))
     return (sums[0] if single else sums), counts
 
 
 bucket_aggregate.launches = 0
+
+
+def bucket_bytes(pkeys, vals, sums, counts) -> int:
+    """One launch of kernel D's least bytes: the keys and value columns
+    read once, the sums (and counts) written once."""
+    return _build.nbytes(pkeys, *vals, *sums, counts)
 
 
 def bucket_aggregate_occupancy(n_cols: int) -> dict:
@@ -673,7 +689,8 @@ def radix_groupby_sum_count(keys: torch.Tensor, vals: Values, num_keys: int,
     bits = domain_bits(num_keys)
     if bits <= WINDOW_BITS:
         pkeys, pvals, G = keys, vlist, 1
-        base = torch.tensor([0, keys.shape[0]], dtype=torch.int64, device=keys.device)
+        base = tracing.synced("window_base", keys, torch.tensor, [0, keys.shape[0]],
+                              dtype=torch.int64, device=keys.device)
     else:
         pkeys, pvals, base, G = radix_partition(keys, vlist, bits, tile)
     sums, counts = bucket_aggregate(pkeys, pvals, base, G, agg_rows)
@@ -733,7 +750,8 @@ def _build_tables(rk: torch.Tensor, key_domain: int, rv: Optional[torch.Tensor],
     bits = domain_bits(key_domain)
     if bits <= WINDOW_BITS:
         pk, pv, G = rk, vals, 1
-        base = torch.tensor([0, n], dtype=torch.int64, device=rk.device)
+        base = tracing.synced("window_base", rk, torch.tensor, [0, n], dtype=torch.int64,
+                              device=rk.device)
     else:
         pk, pv, base, G = radix_partition(rk, vals, bits, tile)
     ids, counts, pay = window_tables(pk, pv[0], base, G,
@@ -760,7 +778,7 @@ def build_join_tables(rk: torch.Tensor, key_domain: int,
     probe_tables_raw's occupancy mask and occupancy_step_tab (the probe's
     occupancy bit) have no counterpart here."""
     ids, counts, pay, G = _build_tables(rk, key_domain, rv, tile, agg_rows)
-    unique = int(counts.max()) <= 1
+    unique = tracing.to_int(counts.max(), "unique_build") <= 1
     return ids, pay, unique, G
 
 
@@ -813,12 +831,20 @@ def window_probe(pkeys: torch.Tensor, base: torch.Tensor, tables: torch.Tensor,
     _build.launch("cudf_window_probe", _PROBE_ARGTYPES, pkeys.device,
                   pkeys.data_ptr(), n, base.data_ptr(), size // SPAN, tables.data_ptr(), m,
                   _build.ptr(pay), 0 if pay is None else pay_dtype.itemsize, stage_min_rows,
-                  bids.data_ptr(), _build.ptr(out))
-    window_probe.launches += 1
+                  bids.data_ptr(), _build.ptr(out), counter=window_probe,
+                  nbytes=probe_bytes(n, m, None if pay is None else pay_dtype.itemsize))
     return bids, out
 
 
 window_probe.launches = 0
+
+
+def probe_bytes(n: int, m: int, pay_itemsize: Optional[int] = None) -> int:
+    """Kernel H's least bytes over n probe rows and m tables: the bids
+    (and payload) written.  The keys of the windows' rows and the table
+    entries they touch are read too, but counting them needs a host sync,
+    so they are left out: a lower bound."""
+    return 4 * m * n + (0 if pay_itemsize is None else pay_itemsize * n)
 
 
 def window_probe_plain(pkeys, base, tables, pay=None, pay_dtype=None):
@@ -852,7 +878,8 @@ def _probe_side(lk: torch.Tensor, lv: torch.Tensor, key_domain: int,
     _build.check_vector("lv", lv, lv.dtype, _build.check_keys(lk), lk.device)
     bits = domain_bits(key_domain)
     if bits <= WINDOW_BITS:
-        return lk, lv, torch.tensor([0, lk.shape[0]], dtype=torch.int64, device=lk.device)
+        return lk, lv, tracing.synced("window_base", lk, torch.tensor, [0, lk.shape[0]],
+                                      dtype=torch.int64, device=lk.device)
     pk, (pv,), base, _ = radix_partition(lk, [lv], bits, tile)
     return pk, pv, base
 
@@ -917,7 +944,7 @@ def ordinal_tables(rk: torch.Tensor, key_domain: int, m_max: int = MAX_TABLES,
     n_r = _build.check_keys(rk)
     sk, perm = torch.sort(rk, stable=True)
     ords = torch.arange(n_r, device=rk.device) - torch.searchsorted(sk, sk)
-    mult = int(torch.where(sk >= 0, ords, 0).max()) + 1 if n_r else 1
+    mult = tracing.to_int(torch.where(sk >= 0, ords, 0).max(), "fan_out") + 1 if n_r else 1
     if mult > m_max:
         return None, mult
     ordinal = torch.empty_like(ords)

@@ -70,9 +70,15 @@ def _sort(wrapper, keys, columns, tile, alternate, mask_bits):
         src, dst, widths = _build.column_arrays(columns, outs)
         _build.launch("cudf_tile_sort", _SORT_ARGTYPES, keys.device, keys.data_ptr(), n,
                       tile, int(alternate), mask, out_keys.data_ptr(), len(columns),
-                      ctypes.addressof(src), ctypes.addressof(dst), ctypes.addressof(widths))
-        wrapper.launches += 1
+                      ctypes.addressof(src), ctypes.addressof(dst), ctypes.addressof(widths),
+                      counter=wrapper, nbytes=sort_bytes(keys, columns))
     return out_keys, outs
+
+
+def sort_bytes(keys: torch.Tensor, columns: Sequence[torch.Tensor]) -> int:
+    """Kernel E's or F's least bytes: keys and columns read and written
+    once."""
+    return 2 * _build.nbytes(keys, *columns)
 
 
 def tile_sort_data(keys: torch.Tensor, payloads: Sequence[torch.Tensor], tile: int,

@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 
 def materialize_validity(col: Column) -> torch.Tensor:
@@ -38,7 +39,7 @@ def dense_probe(tbl: torch.Tensor, lk: torch.Tensor, offset: int):
 
 def maybe_mask(validity: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Drop an all-valid mask back to None (one host sync)."""
-    if validity is None or bool(validity.all()):
+    if validity is None or tracing.to_bool(validity.all(), "null_check"):
         return None
     return validity
 

@@ -29,6 +29,7 @@ from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, is_null_scalar, to_ticks
 from cudf_tpu_torch.ops import datetime as dto
+from cudf_tpu_torch.utils import tracing
 
 _COMPARISONS = {"eq", "ne", "lt", "gt", "le", "ge"}
 _LOGICAL = {"and", "or"}
@@ -42,9 +43,11 @@ def _pair(fn):
     """A torch function of two tensors, taking a host scalar on either side."""
     def call(a, b):
         if not isinstance(a, torch.Tensor):
-            a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+            a = tracing.synced("host_values", b.device, torch.as_tensor, a, dtype=b.dtype,
+                               device=b.device)
         elif not isinstance(b, torch.Tensor):
-            b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+            b = tracing.synced("host_values", a.device, torch.as_tensor, b, dtype=a.dtype,
+                               device=a.device)
         return fn(a, b)
     return call
 
@@ -132,7 +135,8 @@ _U64_FNS = {
     "mod": _pair(lambda a, b: _udivmod(a, b)[1]),
     "cmod": _pair(lambda a, b: _udivmod(a, b)[1]),
     "shiftright": lambda a, b: _ushr(a, b) if isinstance(a, torch.Tensor) else _ushr(
-        torch.as_tensor(a, dtype=torch.int64, device=b.device), b),
+        tracing.synced("host_values", b.device, torch.as_tensor, a, dtype=torch.int64,
+                       device=b.device), b),
     "min": _pair(lambda a, b: torch.where(_ult(b, a), b, a)),
     "max": _pair(lambda a, b: torch.where(_ult(a, b), b, a)),
 }
@@ -300,7 +304,7 @@ def binary_operation(lhs, rhs, op: str) -> Column:
         data = torch.where(lv & rv, fn(lval, rval), torch.where(lv, lval, rval))
         validity = lv | rv
         return Column(out_dtype, n, data.to(out_dtype.torch_storage),
-                      None if bool(validity.all()) else validity)
+                      None if tracing.to_bool(validity.all(), "null_check") else validity)
 
     if op == "pow" and out_dtype.is_integer:
         _refuse_negative_exponent(r_data, r_valid, r_dtype)
@@ -321,7 +325,7 @@ def _refuse_negative_exponent(r_data, r_valid, r_dtype: dt.DType) -> None:
         neg = r_data < 0
         if r_valid is not None:
             neg &= r_valid
-        negative = bool(neg.any())
+        negative = tracing.to_bool(neg.any(), "sign_check")
     else:
         negative = r_data < 0
     if negative:
@@ -376,7 +380,7 @@ def _arith(l_data, r_data, op: str, out_dtype: dt.DType, n: int, device):
             isinstance(r, torch.Tensor) or r == 0):
         l, r = _dense(l, n, device, st), _dense(r, n, device, st)
         rz = r == 0
-        if op != "cmod" and bool(rz.any()):
+        if op != "cmod" and tracing.to_bool(rz.any(), "zero_divisor"):
             # pandas: int // 0 gives float +-inf (NaN for 0 // 0), x % 0 NaN,
             # and the result dtype becomes float64
             u = out_dtype.torch_storage
@@ -518,7 +522,8 @@ def _dictionary_vs_scalar(col: Column, value: str, op: str) -> Column:
     if not per_key:
         data = torch.zeros(col.length, dtype=torch.bool, device=col.device)
     else:
-        table = torch.tensor(per_key, dtype=torch.bool).to(col.device)
+        table = torch.tensor(per_key, dtype=torch.bool)
+        table = tracing.synced("host_values", col.device, table.to, col.device)
         codes = col.data
         safe = codes if col.validity is None else torch.where(col.validity, codes, 0)
         data = table[safe.long()]

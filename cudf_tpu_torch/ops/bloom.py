@@ -16,6 +16,7 @@ import torch
 
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops.hashing import M32, murmurhash3_x86_32
+from cudf_tpu_torch.utils import tracing
 
 __all__ = ["BloomFilter"]
 
@@ -53,4 +54,6 @@ class BloomFilter:
         return self._bits_on(cols[0].device)[self._positions(cols)].view(self.k, n).all(0)
 
     def fill_ratio(self) -> float:
-        return 0.0 if self.bits is None else int(self.bits.sum()) / self.m
+        if self.bits is None:
+            return 0.0
+        return tracing.to_int(self.bits.sum(), "scalar_result") / self.m

@@ -26,7 +26,9 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.ops._utils import materialize_validity, segment_expand, signed_view
+from cudf_tpu_torch.utils import tracing
 
+@tracing.annotate("copying.gather", "ops")
 def gather(col: Column, gather_map: torch.Tensor, bounds_check: bool = True) -> Column:
     """out[i] = col[gather_map[i]].  With bounds_check, negative or
     out-of-range indices give nulls (libcudf out_of_bounds_policy::NULLIFY);
@@ -85,7 +87,7 @@ def _gather_lists(col: Column, rows: torch.Tensor, in_range, validity) -> Column
     if in_range is not None:
         lens = torch.where(in_range, lens, 0)
     offsets = offsets_of(lens)
-    total = int(offsets[-1])
+    total = tracing.to_int(offsets[-1], "string_bytes")
     elem = segment_expand(offsets, total)
     src = starts[elem] + torch.arange(total, dtype=torch.int64, device=col.device) - offsets[elem]
     return make_list_column(offsets, gather(col.children[0], src, bounds_check=False), validity)
@@ -111,11 +113,13 @@ def _take(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return signed_view(data)[idx].view(data.dtype)
 
 
+@tracing.annotate("copying.gather_table", "ops")
 def gather_table(table: Table, gather_map: torch.Tensor, bounds_check: bool = True) -> Table:
     return Table.from_pairs(table.names,
                             [gather(c, gather_map, bounds_check) for c in table.columns])
 
 
+@tracing.annotate("copying.scatter", "ops")
 def scatter(source: Column, scatter_map: torch.Tensor, target: Column) -> Column:
     """target[scatter_map[i]] = source[i] (cudf::scatter), in target's
     dtype; the target is not modified.  A STRING target gathers its rows
@@ -153,7 +157,7 @@ def slice(col: Column, start: int, stop: int) -> Column:  # noqa: A001
     validity = None if col.validity is None else col.validity[start:stop]
     if col.dtype.is_list:
         offs = col.offsets[start:stop + 1]
-        c0, c1 = offs[[0, -1]].tolist()
+        c0, c1 = tracing.tolist(offs[[0, -1]], "slice_offsets")
         return Column(col.dtype, stop - start, None, validity, offs - c0,
                       [slice(col.children[0], c0, c1)])
     if col.dtype.is_struct:
@@ -168,6 +172,7 @@ def split(col: Column, splits: Sequence[int]) -> List[Column]:
     return [slice(col, bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
 
 
+@tracing.annotate("copying.concatenate", "ops")
 def concatenate(cols: Sequence[Column]) -> Column:
     """Vertical concat; mixed numeric dtypes are promoted as numpy
     promotes them, temporal units to the finest; dictionary columns must
@@ -382,7 +387,8 @@ def repeat(col: Column, counts) -> Column:
     counts = torch.as_tensor(counts, dtype=torch.int64, device=col.device)
     offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64, device=col.device)
     torch.cumsum(counts, 0, out=offsets[1:])
-    return gather(col, segment_expand(offsets, int(offsets[-1])), bounds_check=False)
+    return gather(col, segment_expand(offsets, tracing.to_int(offsets[-1], "repeat_total")),
+                  bounds_check=False)
 
 
 def tile(col: Column, count: int) -> Column:
@@ -410,9 +416,9 @@ def get_element(col: Column, i: int):
 
 
 def _fixed_element(col: Column, i: int):
-    if col.validity is not None and not bool(col.validity[i]):
+    if col.validity is not None and not tracing.to_bool(col.validity[i], "element"):
         return None
-    v = col.data[i].item()
+    v = tracing.item(col.data[i], "element")
     if col.dtype.is_temporal:
         return np.array(v, dtype=np.int64).view(col.dtype.to_numpy())[()]
     if col.data.dtype == torch.uint64 and v < 0:

@@ -19,6 +19,7 @@ import torch
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core import bitmask as bm
+from cudf_tpu_torch.utils import tracing
 
 _TICKS = {"s": 1, "ms": 1_000, "us": 1_000_000, "ns": 1_000_000_000}
 _SECONDS_PER_DAY = 86_400
@@ -98,7 +99,8 @@ def is_leap(y):
 
 
 def days_in_month(y, m):
-    base = torch.tensor(_DAYS_IN_MONTH, dtype=torch.int64, device=m.device)[m - 1]
+    base = tracing.synced("host_values", m.device, torch.tensor, _DAYS_IN_MONTH, dtype=torch.int64,
+                          device=m.device)[m - 1]
     return torch.where((m == 2) & is_leap(y), 29, base)
 
 

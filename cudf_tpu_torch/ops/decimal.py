@@ -35,6 +35,7 @@ from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column, is_null_scalar
 from cudf_tpu_torch.ops._utils import count_host_route
+from cudf_tpu_torch.utils import tracing
 
 __all__ = [
     "rescale", "decimal_binary_operation", "from_decimals", "to_decimals",
@@ -113,7 +114,9 @@ def _operand(x, n: int, device):
 
 def _nonzero_validity(validity, zero: torch.Tensor):
     """``validity`` with the rows of a zero divisor null (one host sync)."""
-    return bm.and_masks(validity, ~zero) if bool(zero.any()) else validity
+    if tracing.to_bool(zero.any(), "zero_divisor"):
+        return bm.and_masks(validity, ~zero)
+    return validity
 
 
 def decimal_binary_operation(lhs, rhs, op: str) -> Column:
@@ -215,8 +218,8 @@ def to_decimals(col: Column) -> list:
 
         return to_decimals128(col)
     count_host_route("to_decimals")
-    reps = col.data.cpu().tolist()
-    valid = [True] * col.length if col.validity is None else col.validity.cpu().tolist()
+    reps = tracing.tolist(col.data, "export")
+    valid = [True] * col.length if col.validity is None else tracing.tolist(col.validity, "export")
     s = col.dtype.scale
     return [_pydec.Decimal(r).scaleb(s) if ok else None for r, ok in zip(reps, valid)]
 
@@ -256,7 +259,8 @@ def cast_from_decimal(col: Column, target: dt.DType) -> Column:
         # a divide for negative scales: 1999 / 100.0 rounds right where
         # 1999 * 0.01 compounds the inexact 0.01; the divisor is a tensor,
         # as CUDA divides by a host scalar through its reciprocal
-        p = torch.tensor(float(_pow10(abs(s))), dtype=torch.float64, device=f.device)
+        p = tracing.synced("host_values", f.device, torch.tensor, float(_pow10(abs(s))),
+                               dtype=torch.float64, device=f.device)
         data = f / p if s < 0 else f * p
         return Column(target, col.length, data.to(target.torch_storage), col.validity)
     if target.is_integer or target.is_bool:

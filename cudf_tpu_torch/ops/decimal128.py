@@ -28,6 +28,7 @@ from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops._utils import count_host_route
+from cudf_tpu_torch.utils import tracing
 
 _MASK32 = 0xFFFFFFFF
 _TOP = -(1 << 63)
@@ -148,7 +149,8 @@ def from_ints128(reps, scale: int, *, device) -> Column:
     vals = [0 if r is None else int(r) for r in reps]
     lo = np.array([v & 0xFFFFFFFFFFFFFFFF for v in vals], np.uint64).view(np.int64)
     hi = np.array([v >> 64 for v in vals], np.int64)
-    return make_decimal128(torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+    return make_decimal128(tracing.synced("host_values", device, torch.from_numpy(hi).to, device),
+                           tracing.synced("host_values", device, torch.from_numpy(lo).to, device),
                            scale, bm.from_numpy_mask(np.array(valid, bool), device))
 
 
@@ -166,9 +168,9 @@ def from_decimals128(values, scale: Optional[int] = None, *, device) -> Column:
 def to_ints128(col: Column) -> List[Optional[int]]:
     """The unscaled values as Python ints (None: null)."""
     h, l = limbs(col)
-    hi = h.cpu().tolist()
-    lo = l.cpu().numpy().view(np.uint64).tolist()
-    valid = [True] * col.length if col.validity is None else col.validity.cpu().tolist()
+    hi = tracing.tolist(h, "export")
+    lo = tracing.synced("export", l, l.cpu).numpy().view(np.uint64).tolist()
+    valid = [True] * col.length if col.validity is None else tracing.tolist(col.validity, "export")
     return [(a << 64) + b if ok else None for a, b, ok in zip(hi, lo, valid)]
 
 

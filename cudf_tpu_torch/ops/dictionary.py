@@ -25,6 +25,7 @@ from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops._utils import inverse_permutation
 from cudf_tpu_torch.ops.row_ops import equality_keys, lex_sort_indices
 from cudf_tpu_torch.ops.stream_compaction import filter_indices
+from cudf_tpu_torch.utils import tracing
 
 
 def encode(col: Column) -> Column:
@@ -51,7 +52,7 @@ def factorize(col: Column, sort: bool = True) -> Tuple[torch.Tensor, Column]:
         neq[1:] |= s[1:] != s[:-1]
     gid_sorted = torch.cumsum(neq, 0) - 1
     codes = gid_sorted[inverse_permutation(order)]
-    has_nulls = base.validity is not None and bool((~base.validity).any())
+    has_nulls = base.validity is not None and tracing.to_bool((~base.validity).any(), "null_check")
     if base.validity is not None:
         codes = torch.where(base.validity, codes, 0)
     rep_rows = order[filter_indices(neq)]
@@ -114,6 +115,6 @@ def set_keys(col: Column, new_keys: Column) -> Column:
         pos = first_match(new_keys, col)
     found = pos >= 0
     validity = found if col.validity is None else col.validity & found
-    if bool(validity.all()):
+    if tracing.to_bool(validity.all(), "null_check"):
         validity = None
     return Column.from_dictionary(pos.clamp(min=0), new_keys, validity)

@@ -83,6 +83,7 @@ from cudf_tpu_torch.ops.row_ops import (_float_to_ordered_int, equality_keys,
                                         lex_sort_permutation, order_keys, sort_operands)
 from cudf_tpu_torch.ops.stream_compaction import filter_indices
 from cudf_tpu_torch.utils.config import get_option
+from cudf_tpu_torch.utils import tracing
 
 SUPPORTED_AGGS = frozenset({"sum", "count", "mean", "min", "max", "size"})
 
@@ -130,7 +131,7 @@ def _fit_int_results(results: Dict[object, Column], in_dtypes: Dict[object, dt.D
         v = c.data if c.validity is None else torch.where(c.validity, c.data, 0)
         ranges.append(torch.stack([v.min(), v.max()]) if v.numel() else
                       torch.zeros(2, dtype=torch.int64, device=v.device))
-    bounds = torch.stack(ranges).tolist()
+    bounds = tracing.tolist(torch.stack(ranges), "int_fit")
     for (name, d), (lo, hi) in zip(todo, bounds):
         c = results[name]
         info = np.iinfo(d.storage)
@@ -155,15 +156,15 @@ def _key_range(key: Column, valid: Optional[torch.Tensor],
     data = key.data if key.dtype.is_signed_integer else key.data.long()
     if valid is None:
         lo, hi = torch.aminmax(data)
-        n = torch.tensor(key.length, device=data.device)
+        n = tracing.synced("key_range", data, torch.tensor, key.length, device=data.device)
     else:
         info = torch.iinfo(data.dtype)
         lo = torch.where(valid, data, info.max).min()
         hi = torch.where(valid, data, info.min).max()
         n = valid.sum()
     flags = _nan_flags(nan_cols)
-    lo, hi, n, *nan = torch.stack([lo.long(), hi.long(), n.long(),
-                                   *[f.long() for f in flags]]).tolist()
+    lo, hi, n, *nan = tracing.tolist(torch.stack([lo.long(), hi.long(), n.long(),
+                                                  *[f.long() for f in flags]]), "key_range")
     if n == 0:
         return 0, -1, any(nan)
     return lo, hi, any(nan)
@@ -207,6 +208,7 @@ def _kernel_codes(keys: Table, values: Sequence[Request], dropna: bool):
     return key, (src - lo).to(torch.int32), K, lo, valid
 
 
+@tracing.annotate("groupby.onehot_fast_path", "ops")
 def _try_onehot_fast_path(keys: Table, values: Sequence[Request], dropna: bool,
                           dictionary_codes: bool = False,
                           first_appearance: bool = False) -> Optional[Tuple[Table, Table]]:
@@ -253,11 +255,12 @@ def _first_rows(codes: torch.Tensor, K: int, valid: Optional[torch.Tensor],
         first = torch.full((K + 1,), n, dtype=torch.int64, device=codes.device)
         first.scatter_reduce_(0, c, torch.arange(p, device=codes.device), "amin")
         rows = first[present]
-        if p == n or bool((rows < n).all()):
+        if p == n or tracing.to_bool((rows < n).all(), "first_rows"):
             return rows
         p = min(n, p * 8)
 
 
+@tracing.annotate("groupby.transform_kernel_tier", "ops")
 def transform_kernel_tier(key: Column, values: Sequence[Request],
                           dropna: bool = True) -> Optional[Dict[object, Column]]:
     """A groupby transform on the kernel tiers: {name: one value a row},
@@ -289,7 +292,7 @@ def _nan_flags(cols) -> List[torch.Tensor]:
 def _may_hold_nan(cols) -> bool:
     """``_nan_flags`` read in one host sync (none without a column)."""
     flags = _nan_flags(cols)
-    return bool(torch.stack(flags).any()) if flags else False
+    return tracing.to_bool(torch.stack(flags).any(), "nan_check") if flags else False
 
 
 def _slot_results(codes: torch.Tensor, K: int, valid: Optional[torch.Tensor],
@@ -380,8 +383,8 @@ def _segment_minmax(k_in: torch.Tensor, vals: torch.Tensor, K: int, masked: bool
     its zero count).  Masked-out rows (code -1) are left out."""
     kv, _, _ = _build.kernel_values(vals)
     if masked:
-        ok = k_in >= 0
-        k_in, kv = k_in[ok], kv[ok]
+        keep = filter_indices(k_in >= 0)
+        k_in, kv = k_in[keep], kv[keep]
     mins, maxs = segment_minmax_plain(k_in.long(), kv, K)
     return mins.to(vals.dtype), maxs.to(vals.dtype)
 
@@ -417,6 +420,7 @@ def _empty_grouper(device, row_mask=None) -> Grouper:
                    row_mask, None if row_mask is None else z, z)
 
 
+@tracing.annotate("groupby.make_grouper", "ops")
 def make_grouper(keys: Sequence[Column], dropna: bool = True) -> Grouper:
     """Group the rows of the key columns.  Groups are numbered in
     ascending key order (lexicographic over the keys), a null key after
@@ -448,9 +452,10 @@ def make_grouper(keys: Sequence[Column], dropna: bool = True) -> Grouper:
         neq[1:] |= s[1:] != s[:-1]
     if row_mask is not None:
         neq &= row_mask[order]
-        num_groups, n_kept = torch.stack([neq.sum(), row_mask.sum()]).tolist()
+        num_groups, n_kept = tracing.tolist(torch.stack([neq.sum(), row_mask.sum()]),
+                                            "group_count")
     else:
-        num_groups, n_kept = int(neq.sum()), n
+        num_groups, n_kept = tracing.to_int(neq.sum(), "group_count"), n
     if n_kept == 0:
         return _empty_grouper(dev, row_mask)
     order = order[:n_kept]
@@ -470,6 +475,7 @@ def make_grouper(keys: Sequence[Column], dropna: bool = True) -> Grouper:
                    row_mask, kept_rows, gid_sorted)
 
 
+@tracing.annotate("groupby.group_keys_table", "ops")
 def group_keys_table(keys_table: Table, grouper: Grouper) -> Table:
     """One row a group: the key values, in group order."""
     return copying.gather_table(keys_table, grouper.frame_rows(grouper.key_rows),
@@ -522,6 +528,7 @@ def group_count(col: Column, grouper: Grouper) -> Column:
     return Column(dt.INT64, grouper.num_groups, _valid_count(v, grouper))
 
 
+@tracing.annotate("groupby.group_size", "ops")
 def group_size(grouper: Grouper) -> Column:
     return Column(dt.INT64, grouper.num_groups, _sizes(grouper))
 
@@ -551,7 +558,8 @@ def _group_concat(col: Column, grouper: Grouper) -> Column:
         col = replace_nulls_scalar(col, "")
     rows = copying.gather(col, grouper.sorted_order, bounds_check=False)
     offsets = rows.offsets[grouper.group_offsets]
-    data = rows.data[int(offsets[0]):int(offsets[-1])]
+    data = rows.data[tracing.to_int(offsets[0], "string_bytes"):
+                     tracing.to_int(offsets[-1], "string_bytes")]
     return Column(col.dtype, grouper.num_groups, data, None, offsets - offsets[0])
 
 
@@ -687,6 +695,7 @@ def group_last(col: Column, grouper: Grouper) -> Column:
     return _group_first_last(col, grouper, first=False)
 
 
+@tracing.annotate("groupby.group_nth", "ops")
 def group_nth(col: Column, grouper: Grouper, n: int) -> Column:
     """Each group's n-th row (from the end for n < 0), null where the group
     is shorter."""
@@ -769,7 +778,8 @@ def _distinct_per_group(col: Column, grouper: Grouper):
         ks = key[order]
         neq[1:] |= ks[1:] != ks[:-1]
     starts = filter_indices(neq)
-    ends = torch.cat([starts[1:], torch.tensor([col.length], device=col.device)])
+    ends = torch.cat([starts[1:], tracing.synced("host_values", col.device, torch.tensor,
+                                                  [col.length], device=col.device)])
     return order[starts], gs[starts], ends - starts
 
 
@@ -883,6 +893,7 @@ def group_quantile(col: Column, grouper: Grouper, q: float = 0.5,
     return group_quantiles(col, grouper, [q], interpolation)[0]
 
 
+@tracing.annotate("groupby.group_quantiles", "ops")
 def group_quantiles(col: Column, grouper: Grouper, qs: Sequence[float],
                     interpolation: str = "linear") -> List[Column]:
     """``group_quantile`` at each of ``qs`` from one sort by (group,
@@ -1034,6 +1045,7 @@ def group_corr(cx: Column, cy: Column, grouper: Grouper) -> Column:
                     cnt)
 
 
+@tracing.annotate("groupby.group_pairwise", "ops")
 def group_pairwise(cols: Sequence[Column], grouper: Grouper, which: str = "cov",
                    ddof: int = 1) -> Dict[Tuple[int, int], Column]:
     """``group_cov`` (or ``group_corr``) of every pair i <= j of the
@@ -1043,7 +1055,7 @@ def group_pairwise(cols: Sequence[Column], grouper: Grouper, which: str = "cov",
     full = {}
     for i, c in enumerate(cols):
         data, v = _segment_data(_apply_row_mask(c, grouper))
-        if v is not None and not bool(v.all()):
+        if v is not None and not tracing.to_bool(v.all(), "null_check"):
             continue
         full[i] = _centred(_accumulate(data, None, 0).double(), None, _sizes(grouper), grouper)
     squares = {i: _group_sum(d * d, grouper) for i, d in full.items()}
@@ -1132,7 +1144,7 @@ def _group_bitwise(col: Column, grouper: Grouper, op: str) -> Column:
     x = x[order]
     fn = _BITWISE[op]
     sizes = _sizes(grouper)
-    d, largest = 1, int(sizes.max()) if grouper.num_groups else 0
+    d, largest = 1, tracing.to_int(sizes.max(), "group_size_max") if grouper.num_groups else 0
     while d < largest:
         same = gs[d:] == gs[:-d]
         x = torch.cat([x[:d], torch.where(same, fn(x[d:], x[:-d]), x[d:])])
@@ -1218,6 +1230,7 @@ def _temporal_aggregate(col: Column, grouper: Grouper, agg: str) -> Optional[Col
     return Column(out, res.length, ticks.to(torch.int64), res.validity)
 
 
+@tracing.annotate("groupby.aggregate", "ops")
 def aggregate(col: Column, grouper: Grouper, agg: str) -> Column:
     """One sort-tier aggregation of col over the grouper's groups."""
     fn = _AGG_DISPATCH.get(agg)
@@ -1230,6 +1243,7 @@ def aggregate(col: Column, grouper: Grouper, agg: str) -> Column:
     return fn(col, grouper)
 
 
+@tracing.annotate("groupby.groupby_agg", "ops")
 def groupby_agg(keys: Table, values: Sequence[Request],
                 dropna: bool = True) -> Tuple[Table, Table]:
     """values: (output_name, column, agg) triples -> (group keys, aggs).
@@ -1259,6 +1273,7 @@ def _unsort(x_sorted: torch.Tensor, grouper: Grouper) -> torch.Tensor:
     return out
 
 
+@tracing.annotate("groupby.group_cumsum", "ops")
 def group_cumsum(col: Column, grouper: Grouper) -> Column:
     """Running sums within groups in row order; null (and NaN) rows give
     null and add nothing.  Integers are exact; floats run in float64 as
@@ -1278,6 +1293,7 @@ def group_cumsum(col: Column, grouper: Grouper) -> Column:
     return _fit_int(Column(dt.INT64, col.length, out, v), col.dtype)
 
 
+@tracing.annotate("groupby.group_cumcount", "ops")
 def group_cumcount(grouper: Grouper) -> Column:
     """Each kept row's position in its group (0-based, row order)."""
     n = grouper.sorted_order.shape[0]
@@ -1286,6 +1302,7 @@ def group_cumcount(grouper: Grouper) -> Column:
     return Column(dt.INT64, n, _unsort(within, grouper))
 
 
+@tracing.annotate("groupby.group_shift", "ops")
 def group_shift(col: Column, grouper: Grouper, periods: int = 1) -> Column:
     """The value ``periods`` rows earlier in the group (later for
     periods < 0), null where there is none."""

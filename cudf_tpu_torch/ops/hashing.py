@@ -34,6 +34,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops._utils import count_host_route
 from cudf_tpu_torch.ops.row_ops import _s64, _shr
+from cudf_tpu_torch.utils import tracing
 
 __all__ = ["murmurhash3_x86_32", "xxhash_64", "hash_values", "checksum"]
 
@@ -73,7 +74,7 @@ def _string_chunks(col: Column):
     a STRING column, a chunk of rows at a time (bytes past a row's end are
     zero)."""
     lens = col.offsets[1:] - col.offsets[:-1]
-    longest = max(int(lens.max()) if col.length else 0, 4)
+    longest = max(tracing.to_int(lens.max(), "string_width") if col.length else 0, 4)
     step = max(1, CHUNK_BYTES // longest)
     cols = torch.arange(longest, device=col.device)
     for lo in range(0, col.length, step):
@@ -289,11 +290,11 @@ def _row_bytes(col: Column) -> List:
         col = col.decode_dictionary()
     if col.dtype.is_string:
         return [None if v is None else v.encode() for v in col.host_strings()]
-    arr = col.data.cpu()
+    arr = tracing.synced("export", col.data, col.data.cpu)
     if col.dtype.is_bool:
         arr = arr.to(torch.uint8)
     arr = arr.numpy()
-    valid = [True] * col.length if col.validity is None else col.validity.cpu().tolist()
+    valid = [True] * col.length if col.validity is None else tracing.tolist(col.validity, "export")
     return [arr[i].tobytes() if ok else None for i, ok in enumerate(valid)]
 
 

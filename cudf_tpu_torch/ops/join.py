@@ -45,6 +45,7 @@ from cudf_tpu_torch.ops._utils import dense_key_table, dense_probe, segment_expa
 from cudf_tpu_torch.ops.row_ops import equality_keys, lex_sort_permutation
 from cudf_tpu_torch.ops.stream_compaction import filter_indices
 from cudf_tpu_torch.utils.config import get_option
+from cudf_tpu_torch.utils import tracing
 
 Maps = Tuple[torch.Tensor, torch.Tensor]
 
@@ -122,7 +123,7 @@ def _chunk_count(*cols: Column) -> int:
     """The 8-byte chunks the longest row of these STRING columns needs
     (one host sync)."""
     lens = [(c.offsets[1:] - c.offsets[:-1]).max() for c in cols if c.length]
-    longest = int(torch.stack(lens).max()) if lens else 0
+    longest = tracing.to_int(torch.stack(lens).max(), "chunk_count") if lens else 0
     return max(1, -(-longest // 8))
 
 
@@ -178,7 +179,8 @@ def _both_sides_have_nulls(lc: Column, rc: Column) -> bool:
     carry validity masks)."""
     if lc.validity is None or rc.validity is None:
         return False
-    return bool(torch.stack([(~lc.validity).any(), (~rc.validity).any()]).all())
+    return tracing.to_bool(torch.stack([(~lc.validity).any(), (~rc.validity).any()]).all(),
+                           "null_check")
 
 
 # ----------------------------------------------------------------------
@@ -241,7 +243,7 @@ def _expand_matches(counts: torch.Tensor, lo: torch.Tensor, r_order: torch.Tenso
     emit = counts.clamp(min=1) if keep_unmatched_left else counts
     offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=counts.device),
                          torch.cumsum(emit, 0)])
-    total = int(offsets[-1])
+    total = tracing.to_int(offsets[-1], "match_total")
     if total == 0:
         return _empty(counts.device)
     row = segment_expand(offsets, total)
@@ -293,13 +295,14 @@ def _build_stats(rc: Column) -> Tuple[int, int, int]:
     d = rc.data if rc.data.dtype in (torch.int32, torch.int64) else rc.data.long()
     if rc.validity is None:
         lo, hi = torch.aminmax(d)
-        n = torch.tensor(rc.length, device=d.device)
+        n = tracing.synced("build_stats", d, torch.tensor, rc.length, device=d.device)
     else:
         info = torch.iinfo(d.dtype)
         lo = torch.where(rc.validity, d, info.max).min()
         hi = torch.where(rc.validity, d, info.min).max()
         n = rc.validity.sum()
-    return tuple(int(x) for x in torch.stack([lo.long(), hi.long(), n.long()]).tolist())
+    return tuple(int(x) for x in tracing.tolist(torch.stack([lo.long(), hi.long(), n.long()]),
+                                                "build_stats"))
 
 
 def _codes(col: Column, rmin: int, rmax: int) -> torch.Tensor:
@@ -364,7 +367,7 @@ def _radix_inner_multi(lcodes: torch.Tensor, rows: torch.Tensor, rcodes: torch.T
     if bids is None:                            # fan-out exceeds m_max
         return None
     cnts = (bids >= 0).sum(dim=0)               # a row's matches are bids[:c]
-    M = int(cnts.sum())
+    M = tracing.to_int(cnts.sum(), "match_total")
     if M == 0:
         return _empty(lcodes.device)
     li = torch.repeat_interleave(pvl, cnts, output_size=M)
@@ -399,8 +402,9 @@ def _try_dense_inner(lc: Column, rc: Column) -> Optional[Maps]:
     if domain > max(4 * rc.length, 1 << 16) or domain > 1 << MAX_DOMAIN_BITS:
         return None
     rcodes = _codes(rc, rmin, rmax)
-    counts = torch.bincount(rcodes.long() + 1, minlength=domain + 1)[1:]
-    if int(counts.max()) > 1:
+    counts = tracing.synced("dense_check", rcodes, torch.bincount, rcodes.long() + 1,
+                            minlength=domain + 1, syncs=2)[1:]
+    if tracing.to_int(counts.max(), "dense_check") > 1:
         return None
     r_idx, found = dense_probe(dense_key_table(rcodes, 0, domain), _codes(lc, rmin, rmax), 0)
     li = filter_indices(found)
@@ -431,6 +435,7 @@ def _try_kernel_tiers(lc: Column, rc: Column) -> Optional[Maps]:
 # the joins
 # ----------------------------------------------------------------------
 
+@tracing.annotate("join.join", "ops")
 def _join(left_keys: Sequence[Column], right_keys: Sequence[Column], how: str,
           nulls_equal: bool = True) -> Maps:
     if how not in ("inner", "left", "outer"):
@@ -475,18 +480,21 @@ def _join(left_keys: Sequence[Column], right_keys: Sequence[Column], how: str,
     return li, ri
 
 
+@tracing.annotate("join.inner_join", "ops")
 def inner_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
                nulls_equal: bool = True) -> Maps:
     """cudf::inner_join -> (left gather map, right gather map), int64."""
     return _join(left_keys, right_keys, how="inner", nulls_equal=nulls_equal)
 
 
+@tracing.annotate("join.left_join", "ops")
 def left_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
               nulls_equal: bool = True) -> Maps:
     """cudf::left_join: every left row, its right map -1 without a match."""
     return _join(left_keys, right_keys, how="left", nulls_equal=nulls_equal)
 
 
+@tracing.annotate("join.full_join", "ops")
 def full_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
               nulls_equal: bool = True) -> Maps:
     """cudf::full_join: the left join's pairs, then the unmatched right
@@ -506,18 +514,21 @@ def _match_mask(left_keys: Sequence[Column], right_keys: Sequence[Column],
     return mask if l_null is None else mask & ~l_null
 
 
+@tracing.annotate("join.semi_join", "ops")
 def semi_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
               nulls_equal: bool = True) -> torch.Tensor:
     """cudf::left_semi_join: the left rows with at least one match, in order."""
     return filter_indices(_match_mask(left_keys, right_keys, nulls_equal))
 
 
+@tracing.annotate("join.anti_join", "ops")
 def anti_join(left_keys: Sequence[Column], right_keys: Sequence[Column],
               nulls_equal: bool = True) -> torch.Tensor:
     """cudf::left_anti_join: the left rows without a match, in order."""
     return filter_indices(~_match_mask(left_keys, right_keys, nulls_equal))
 
 
+@tracing.annotate("join.cross_join", "ops")
 def cross_join(nl: int, nr: int, *, device) -> Maps:
     """Every (left, right) pair, left-major, as maps on ``device``."""
     left = torch.arange(nl, device=device).repeat_interleave(nr)

@@ -25,6 +25,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops._utils import count_host_route, segment_expand
+from cudf_tpu_torch.utils import tracing
 
 
 def make_list_column(offsets: torch.Tensor, child: Column,
@@ -66,16 +67,16 @@ def from_pylists(lists, dtype=None, *, device) -> Column:
     offsets = np.zeros(len(lens) + 1, np.int64)
     np.cumsum(lens, out=offsets[1:])
     child = Column.from_pylist(flat, dtype, device=device)
-    return make_list_column(torch.from_numpy(offsets).to(device), child,
-                            bm.from_numpy_mask(np.array(valid, bool), device))
+    offsets = tracing.synced("host_values", device, torch.from_numpy(offsets).to, device)
+    return make_list_column(offsets, child, bm.from_numpy_mask(np.array(valid, bool), device))
 
 
 def to_pylists(col: Column) -> list:
     """Host export: each row's values as a Python list, None for a null row."""
     count_host_route("to_pylists")
-    offs = col.offsets.cpu().tolist()
+    offs = tracing.tolist(col.offsets, "export")
     vals = col.children[0].to_pylist()
-    valid = None if col.validity is None else col.validity.cpu().tolist()
+    valid = None if col.validity is None else tracing.tolist(col.validity, "export")
     return [None if valid is not None and not valid[i] else vals[offs[i]:offs[i + 1]]
             for i in range(col.length)]
 
@@ -104,7 +105,7 @@ def explode(col: Column, outer: bool = False):
         return child, element_rows(col)
     lens = lengths(col)
     out_offsets = offsets_of(torch.clamp(lens, min=1))
-    total = int(out_offsets[-1])
+    total = tracing.to_int(out_offsets[-1], "list_rows")
     row = segment_expand(out_offsets, total)
     within = torch.arange(total, dtype=torch.int64, device=col.device) - out_offsets[row]
     has = within < lens[row]
@@ -148,14 +149,15 @@ def concatenate_rows(cols: Sequence[Column]) -> Column:
     lens = torch.stack([lengths(c) for c in cols])                       # [k, n]
     run = torch.cumsum(lens, 0)                                          # ends, per row
     offsets = offsets_of(run[-1])
-    total = int(offsets[-1])
+    total = tracing.to_int(offsets[-1], "list_rows")
     row = segment_expand(offsets, total)
     within = torch.arange(total, dtype=torch.int64, device=dev) - offsets[row]
     ends = run.t().contiguous()                                          # [n, k]
     which = torch.searchsorted(ends[row], within[:, None], right=True)[:, 0]
     before = torch.where(which > 0, ends[row, (which - 1).clamp(min=0)], 0)
     starts = torch.stack([c.offsets[:-1] for c in cols])                 # [k, n]
-    bases = offsets_of(torch.tensor([c.children[0].length for c in cols], device=dev))
+    bases = offsets_of(tracing.synced("host_values", dev, torch.tensor,
+                                  [c.children[0].length for c in cols], device=dev))
     src = bases[which] + starts[which, row] + (within - before)
     child = copying.gather(copying.concatenate([c.children[0] for c in cols]), src,
                            bounds_check=False)
@@ -198,7 +200,7 @@ def unique_per_row(col: Column) -> Column:
 def sequences(starts: Column, sizes: Column, steps: Optional[Column] = None) -> Column:
     """Per-row arithmetic sequences (sequences.cu)."""
     offsets = offsets_of(sizes.data.long())
-    total = int(offsets[-1])
+    total = tracing.to_int(offsets[-1], "list_rows")
     row = segment_expand(offsets, total)
     within = torch.arange(total, dtype=torch.int64, device=starts.device) - offsets[row]
     step = steps.data[row] if steps is not None else 1

@@ -21,6 +21,7 @@ from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops.row_ops import row_hash
+from cudf_tpu_torch.utils import tracing
 
 
 def unsigned_remainder(h: torch.Tensor, divisor: int) -> torch.Tensor:
@@ -46,7 +47,8 @@ def partition_by_ids(table: Table, pids: torch.Tensor,
     """The rows stably ordered by ``pids`` and each partition's offsets."""
     order = torch.sort(pids, stable=True).indices
     out = copying.gather_table(table, order, bounds_check=False)
-    counts = torch.bincount(pids.long(), minlength=num_partitions)
+    counts = tracing.synced("partition_sizes", pids, torch.bincount, pids.long(),
+                            minlength=num_partitions, syncs=2)
     offsets = torch.zeros(num_partitions + 1, dtype=torch.int64, device=pids.device)
     torch.cumsum(counts, 0, out=offsets[1:])
     return out, offsets

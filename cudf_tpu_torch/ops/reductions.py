@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 
 def _masked(col: Column, identity) -> torch.Tensor:
@@ -34,7 +35,7 @@ def _numeric(col: Column, what: str) -> None:
 
 def count(col: Column) -> int:
     v = _nan_aware_validity(col)
-    return col.length if v is None else int(v.sum())
+    return col.length if v is None else tracing.to_int(v.sum(), "scalar_result")
 
 
 def _accumulated(col: Column, fill, as_float: bool = False):
@@ -59,8 +60,9 @@ def _int_result(col: Column, total: int) -> int:
 
 def sum(col: Column, min_count: int = 0):  # noqa: A001
     x, v = _accumulated(col, 0)
-    n = torch.tensor(col.length, device=x.device) if v is None else v.sum()
-    total, n = torch.stack([x.sum(), n.to(x.dtype)]).tolist()
+    n = (tracing.synced("host_values", x.device, torch.tensor, col.length, device=x.device)
+         if v is None else v.sum())
+    total, n = tracing.tolist(torch.stack([x.sum(), n.to(x.dtype)]), "scalar_result")
     if min_count > 0 and n < min_count:
         return None
     return float(total) if col.dtype.is_float else _int_result(col, total)
@@ -96,7 +98,8 @@ def _minmax(col: Column, which: str):
     if col.dtype.is_string:
         from cudf_tpu_torch.ops.sort import sorted_order
 
-        return _string_at(col, int(sorted_order([col], [which == "min"], "last")[0]))
+        return _string_at(col, tracing.to_int(sorted_order([col], [which == "min"], "last")[0],
+                                              "scalar_result"))
     v = _nan_aware_validity(col)
     d = col.data
     if col.dtype.is_float:
@@ -112,8 +115,10 @@ def _minmax(col: Column, which: str):
     elif flip:
         d = d.view(torch.int64) ^ (-(1 << 63))
     if v is not None:
-        d = torch.where(v, d, torch.tensor(fill, dtype=d.dtype, device=d.device))
-    val = (d.min() if which == "min" else d.max()).item()
+        fill = tracing.synced("host_values", d.device, torch.tensor, fill, dtype=d.dtype,
+                              device=d.device)
+        d = torch.where(v, d, fill)
+    val = tracing.item(d.min() if which == "min" else d.max(), "scalar_result")
     if flip:
         val = (val ^ (-(1 << 63))) % (1 << 64)
     if col.dtype.is_temporal:
@@ -126,7 +131,8 @@ def _minmax(col: Column, which: str):
 def _string_at(col: Column, row: int) -> str:
     from cudf_tpu_torch.ops.copying import gather
 
-    return gather(col, torch.tensor([row], device=col.device), bounds_check=False
+    return gather(col, tracing.synced("host_values", col.device, torch.tensor, [row],
+                                        device=col.device), bounds_check=False
                   ).host_strings()[0]
 
 
@@ -155,11 +161,11 @@ def std(col: Column, ddof: int = 1):
 
 
 def any(col: Column) -> bool:  # noqa: A001
-    return bool(_masked(col, False).to(torch.bool).any())
+    return tracing.to_bool(_masked(col, False).to(torch.bool).any(), "scalar_result")
 
 
 def all(col: Column) -> bool:  # noqa: A001
-    return bool(_masked(col, True).to(torch.bool).all())
+    return tracing.to_bool(_masked(col, True).to(torch.bool).all(), "scalar_result")
 
 
 def _arg_extreme(col: Column, which: str) -> int:
@@ -174,7 +180,7 @@ def _arg_extreme(col: Column, which: str) -> int:
         fill = (float("inf") if which == "min" else float("-inf")) if col.dtype.is_float else (
             torch.iinfo(torch.int64).max if which == "min" else torch.iinfo(torch.int64).min)
         data = torch.where(v, data, fill)
-    return int(data.argmin() if which == "min" else data.argmax())
+    return tracing.to_int(data.argmin() if which == "min" else data.argmax(), "scalar_result")
 
 
 def argmin(col: Column) -> int:
@@ -204,7 +210,9 @@ def quantile(col: Column, q, interpolation: str = "linear"):
     pos = qs * (data.shape[0] - 1)
     lo = np.floor(pos).astype(np.int64)
     hi = np.ceil(pos).astype(np.int64)
-    picked = data[torch.from_numpy(np.concatenate([lo, hi])).to(data.device)].cpu().numpy()
+    at = tracing.synced("host_values", data.device, torch.from_numpy(np.concatenate([lo, hi])).to,
+                        data.device)
+    picked = tracing.synced("scalar_result", data, data[at].cpu).numpy()
     dlo, dhi = picked[:len(qs)], picked[len(qs):]
     if interpolation == "linear":
         out = dlo + (pos - lo) * (dhi - dlo)
@@ -231,7 +239,8 @@ def _moments(col: Column, orders):
     d = x - x.sum() / n
     if v is not None:
         d = torch.where(v, d, 0.0)
-    return n, torch.stack([(d ** k).sum() / n for k in orders]).tolist()
+    return n, tracing.tolist(torch.stack([(d ** k).sum() / n for k in orders]),
+                             "scalar_result")
 
 
 def skew(col: Column):

@@ -38,6 +38,8 @@ import torch
 import re._constants as sre_c
 import re._parser as sre_parse
 
+from cudf_tpu_torch.utils import tracing
+
 
 class Unsupported(Exception):
     """A construct the device engine does not cover."""
@@ -231,9 +233,8 @@ class Dfa:
 
 @lru_cache(maxsize=64)
 def _dfa_tensors(d: Dfa, device: str):
-    return (torch.from_numpy(d.table.astype(np.int32)).to(device),
-            torch.from_numpy(d.accept).to(device),
-            torch.from_numpy(d.class_map.astype(np.int32)).to(device))
+    return tuple(tracing.synced("host_values", device, torch.from_numpy(a).to, device)
+                 for a in (d.table.astype(np.int32), d.accept, d.class_map.astype(np.int32)))
 
 
 @lru_cache(maxsize=256)
@@ -299,7 +300,7 @@ def run_predicate(col, pattern: str, flags: int = 0, mode: str = "search") -> to
     starts = col.offsets[:-1]
     lens = col.offsets[1:] - starts
     total = int(col.data.shape[0])
-    steps = int(lens.max()) if col.length and total else 0
+    steps = tracing.to_int(lens.max(), "string_width") if col.length and total else 0
     state = torch.zeros(col.length, dtype=torch.int32, device=col.device)
     hit = torch.full((col.length,), bool(d.accept[0]) and not final_only, device=col.device)
     for j in range(steps):

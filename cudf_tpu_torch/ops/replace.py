@@ -16,6 +16,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import (
     FEW_VALUES, Column, holds, is_null_scalar, plain_fixed, to_ticks)
 from cudf_tpu_torch.ops._utils import materialize_validity
+from cudf_tpu_torch.utils import tracing
 
 
 def replace_nulls_scalar(col: Column, value) -> Column:
@@ -33,7 +34,8 @@ def replace_nulls_scalar(col: Column, value) -> Column:
         col = cast(col, dt.FLOAT64)
     fill = to_ticks(value, col.dtype) if col.dtype.is_temporal else value
     data = torch.where(col.validity, col.data,
-                       torch.tensor(fill, dtype=col.data.dtype, device=col.device))
+                       tracing.synced("host_values", col.device, torch.tensor, fill,
+                                      dtype=col.data.dtype, device=col.device))
     return Column(col.dtype, col.length, data)
 
 
@@ -62,7 +64,7 @@ def nans_to_nulls(col: Column) -> Column:
     if not col.dtype.is_float:
         return col
     nan = torch.isnan(col.data)
-    if not bool(nan.any()):
+    if not tracing.to_bool(nan.any(), "nan_check"):
         return col
     return Column(col.dtype, col.length, col.data, materialize_validity(col) & ~nan)
 
@@ -149,7 +151,9 @@ def clamp(col: Column, lo=None, hi=None) -> Column:
     """Values below lo become lo, above hi hi (NaN and nulls stay)."""
     data = col.data
     if lo is not None:
-        data = torch.maximum(data, torch.tensor(lo, dtype=data.dtype, device=data.device))
+        data = torch.maximum(data, tracing.synced("host_values", data.device, torch.tensor, lo,
+                                                            dtype=data.dtype, device=data.device))
     if hi is not None:
-        data = torch.minimum(data, torch.tensor(hi, dtype=data.dtype, device=data.device))
+        data = torch.minimum(data, tracing.synced("host_values", data.device, torch.tensor, hi,
+                                                            dtype=data.dtype, device=data.device))
     return Column(col.dtype, col.length, data, col.validity)

@@ -44,6 +44,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 _F64_NAN_BITS = 0x7FF8000000000000
 _F32_NAN_BITS = 0x7FC00000
@@ -72,7 +73,7 @@ def string_chunks(col: Column, nchunks: Optional[int] = None) -> List[torch.Tens
     starts = col.offsets[:-1]
     lens = col.offsets[1:] - starts
     if nchunks is None:
-        nchunks = max(1, -(-int(lens.max()) // 8)) if col.length else 1
+        nchunks = max(1, -(-tracing.to_int(lens.max(), "chunk_count") // 8)) if col.length else 1
     chars = col.data if col.data.shape[0] else torch.zeros(1, dtype=torch.uint8,
                                                            device=col.device)
     out = []
@@ -93,7 +94,8 @@ def string_chunks(col: Column, nchunks: Optional[int] = None) -> List[torch.Tens
 def string_compare(l: Column, r: Column) -> torch.Tensor:
     """int8 in {-1, 0, 1}: l's rows against r's in UTF-8 byte order (r may
     be one row, compared with every row of l)."""
-    n = max(int((c.offsets[1:] - c.offsets[:-1]).max()) if c.length else 0 for c in (l, r))
+    n = max(tracing.to_int((c.offsets[1:] - c.offsets[:-1]).max(), "chunk_count") if c.length
+            else 0 for c in (l, r))
     k = max(1, -(-n // 8))
     cmp = torch.zeros(l.length, dtype=torch.int8, device=l.device)
     for a, b in zip(string_chunks(l, k), string_chunks(r, k)):
@@ -343,6 +345,7 @@ def sort_operands(cols: Sequence[Column], ascending: Optional[Sequence[bool]] = 
     return ops
 
 
+@tracing.annotate("row_ops.lex_sort_indices", "ops")
 def lex_sort_indices(cols: Sequence[Column], ascending: Optional[Sequence[bool]] = None,
                      na_position: str = "last") -> torch.Tensor:
     """Stable lexicographic argsort over columns (int64): equal to the

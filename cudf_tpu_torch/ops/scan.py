@@ -20,6 +20,7 @@ import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 _OPS = ("cumsum", "cumprod", "cummin", "cummax")
 _I64_MIN = -(1 << 63)
@@ -94,7 +95,9 @@ def scan(col: Column, op: str) -> Column:
     if nan is not None:
         skip = nan if skip is None else skip | nan
     if skip is not None:
-        x = torch.where(skip, torch.tensor(_identity(op, x), dtype=x.dtype, device=x.device), x)
+        identity = tracing.synced("host_values", x.device, torch.tensor, _identity(op, x),
+                                  dtype=x.dtype, device=x.device)
+        x = torch.where(skip, identity, x)
     if op == "cumsum":
         y = torch.cumsum(x, 0, dtype=x.dtype)
     elif op == "cumprod":

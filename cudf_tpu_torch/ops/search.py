@@ -19,6 +19,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import (
     FEW_VALUES, Column, holds, is_null_scalar, plain_fixed, to_ticks)
 from cudf_tpu_torch.ops.row_ops import equality_keys, lex_sort_permutation, order_keys
+from cudf_tpu_torch.utils import tracing
 
 _EMPTY_CHUNK = -(1 << 63)
 
@@ -147,14 +148,15 @@ def is_in_list(col: Column, values) -> torch.Tensor:
             km = [k in want for k in keys.host_strings()]
         else:
             want = set(values)
-            km = [k in want for k in keys.data.tolist()]
+            km = [k in want for k in tracing.tolist(keys.data, "host_route")]
         matched = [i for i, hit in enumerate(km) if hit]
         if len(matched) <= FEW_VALUES:
             mask = torch.zeros(col.length, dtype=torch.bool, device=col.device)
             for c in matched:
                 mask |= col.data == c
         else:
-            mask = torch.tensor(km, dtype=torch.bool).to(col.device)[
+            mask = tracing.synced("host_values", col.device, torch.tensor(km, dtype=torch.bool).to,
+                                  col.device)[
                 col.data.clamp(min=0).long()]
         return mask if col.validity is None else mask & col.validity
     if not values:

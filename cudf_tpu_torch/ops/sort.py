@@ -20,8 +20,10 @@ from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops._utils import inverse_permutation
 from cudf_tpu_torch.ops.row_ops import (equality_keys, lex_sort_indices, lex_sort_permutation,
                                         order_keys, sort_operands)
+from cudf_tpu_torch.utils import tracing
 
 
+@tracing.annotate("sort.sorted_order", "ops")
 def sorted_order(keys: Sequence[Column], ascending: Optional[Sequence[bool]] = None,
                  na_position: str = "last") -> torch.Tensor:
     """Stable argsort over key columns (cudf::stable_sorted_order), int64."""
@@ -33,6 +35,7 @@ def sort(col: Column, ascending: bool = True, na_position: str = "last") -> Colu
                           bounds_check=False)
 
 
+@tracing.annotate("sort.sort_by_key", "ops")
 def sort_by_key(values: Table, keys: Sequence[Column],
                 ascending: Optional[Sequence[bool]] = None,
                 na_position: str = "last") -> Table:
@@ -56,9 +59,10 @@ def is_sorted(keys: Sequence[Column], ascending: Optional[Sequence[bool]] = None
             a, b = op[:-1], op[1:]
             strict_lt |= all_eq & (a < b)
             all_eq &= a == b
-    return bool((strict_lt | all_eq).all())
+    return tracing.to_bool((strict_lt | all_eq).all(), "is_sorted")
 
 
+@tracing.annotate("sort.rank", "ops")
 def rank(col: Column, method: str = "average", ascending: bool = True,
          na_option: str = "keep", pct: bool = False) -> Column:
     """cudf::rank with pandas' semantics: float64 ranks; with
@@ -104,7 +108,8 @@ def rank(col: Column, method: str = "average", ascending: bool = True,
         elif keep:
             denom = col.validity.sum().double()
         else:
-            denom = torch.tensor(float(n), dtype=torch.float64, device=dev)
+            denom = tracing.synced("host_values", dev, torch.tensor, float(n),
+                                   dtype=torch.float64, device=dev)
         ranks = ranks / denom
     return Column(dt.FLOAT64, n, ranks, col.validity if keep else None)
 

@@ -15,12 +15,14 @@ from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.ops import copying
 from cudf_tpu_torch.ops._utils import materialize_validity
 from cudf_tpu_torch.ops.row_ops import equality_keys, lex_sort_indices
+from cudf_tpu_torch.utils import tracing
 
 
+@tracing.annotate("stream_compaction.filter_indices", "ops")
 def filter_indices(mask: torch.Tensor) -> torch.Tensor:
     """bool[n] -> int64[k] indices of the True entries, ascending (one
     host sync for k, like the reference's two-phase compaction)."""
-    return torch.nonzero(mask).squeeze(1)
+    return tracing.synced("compaction", mask, torch.nonzero, mask).squeeze(1)
 
 
 def _mask_of(mask: Column) -> torch.Tensor:
@@ -29,21 +31,25 @@ def _mask_of(mask: Column) -> torch.Tensor:
     return m if mask.validity is None else m & mask.validity
 
 
+@tracing.annotate("stream_compaction.apply_boolean_mask", "ops")
 def apply_boolean_mask(col: Column, mask: Column) -> Column:
     """cudf::apply_boolean_mask: the rows where mask is True."""
     return copying.gather(col, filter_indices(_mask_of(mask)), bounds_check=False)
 
 
+@tracing.annotate("stream_compaction.apply_boolean_mask_table", "ops")
 def apply_boolean_mask_table(table: Table, mask: Column) -> Table:
     return copying.gather_table(table, filter_indices(_mask_of(mask)), bounds_check=False)
 
 
+@tracing.annotate("stream_compaction.drop_nulls", "ops")
 def drop_nulls(col: Column) -> Column:
     if col.validity is None:
         return col
     return copying.gather(col, filter_indices(col.validity), bounds_check=False)
 
 
+@tracing.annotate("stream_compaction.drop_nulls_table", "ops")
 def drop_nulls_table(table: Table, keys: Optional[Sequence] = None, how: str = "any") -> Table:
     """Rows with a null in any (how="any") or every (how="all") key."""
     names = keys if keys is not None else table.names
@@ -66,6 +72,7 @@ def _adjacent_neq(cols: Sequence[Column], order: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+@tracing.annotate("stream_compaction.distinct_indices", "ops")
 def distinct_indices(keys: Sequence[Column], keep="first") -> torch.Tensor:
     """Row indices of distinct rows in input order (cudf::distinct, pandas
     drop_duplicates): keep "first", "last" or "none" (False)."""
@@ -93,6 +100,7 @@ def duplicated_mask(keys: Sequence[Column], keep="first") -> torch.Tensor:
     return mask
 
 
+@tracing.annotate("stream_compaction.distinct", "ops")
 def distinct(table: Table, key_names: Optional[Sequence] = None, keep="first") -> Table:
     names = key_names if key_names is not None else table.names
     idx = distinct_indices([table[n] for n in names], keep)
@@ -117,7 +125,8 @@ def distinct_count(col: Column, dropna: bool = True) -> int:
     flags = [neq.sum(), (~valid).any()]
     if col.dtype.is_float:
         flags.append((torch.isnan(col.data) & valid).any())
-    total, *drops = (int(x) for x in torch.stack([f.long() for f in flags]).tolist())
+    total, *drops = (int(x) for x in tracing.tolist(torch.stack([f.long() for f in flags]),
+                                                    "distinct_count"))
     return total - sum(drops) if dropna else total
 
 
@@ -141,7 +150,7 @@ def approx_distinct_count(col: Column, precision: int = 12) -> int:
         x = torch.where(zero_top, x << shift, x)
     regs = torch.zeros(m, dtype=torch.int64, device=h.device).scatter_reduce_(
         0, bucket, lz + 1, "amax")
-    regs_np = regs.cpu().numpy().astype(np.float64)
+    regs_np = tracing.synced("sketch", regs, regs.cpu).numpy().astype(np.float64)
     alpha = 0.7213 / (1 + 1.079 / m)
     est = alpha * m * m / np.sum(2.0 ** (-regs_np))
     if est <= 2.5 * m:

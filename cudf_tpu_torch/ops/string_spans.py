@@ -23,13 +23,14 @@ from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.ops import regex_engine as rex
 from cudf_tpu_torch.ops import strings as so
+from cudf_tpu_torch.utils import tracing
 
 
 def max_row_len(col: Column) -> int:
     """One host sync."""
     if col.length == 0 or so.total_bytes(col) == 0:
         return 0
-    return int(so.lengths(col).max())
+    return tracing.to_int(so.lengths(col).max(), "string_width")
 
 
 def literal_spans(col: Column, pat: str) -> torch.Tensor:
@@ -76,18 +77,19 @@ def assemble_replace(col: Column, sel: torch.Tensor, covered: torch.Tensor,
                      repl: str) -> Column:
     """Every kept span replaced by ``repl``: each byte emits itself, ``repl``
     (a span's first byte) or nothing (the rest of a span)."""
-    rb = torch.tensor(so.pattern_bytes(repl) or [0], dtype=torch.uint8, device=col.device)
+    rb = tracing.synced("host_values", col.device, torch.tensor,
+                        so.pattern_bytes(repl) or [0], dtype=torch.uint8, device=col.device)
     r = len(so.pattern_bytes(repl))
     total = so.total_bytes(col)
     idt = so.index_dtype(total * max(r, 1))
-    emit = torch.where(covered, torch.where(sel, torch.tensor(r, dtype=idt, device=col.device),
-                                            torch.tensor(0, dtype=idt, device=col.device)),
-                       torch.tensor(1, dtype=idt, device=col.device))
+    r_t, zero, one = (tracing.synced("host_values", col.device, torch.tensor, v, dtype=idt,
+                                    device=col.device) for v in (r, 0, 1))
+    emit = torch.where(covered, torch.where(sel, r_t, zero), one)
     pre = torch.zeros(total + 1, dtype=emit.dtype, device=col.device)
     torch.cumsum(emit, 0, dtype=emit.dtype, out=pre[1:])
     offsets = torch.zeros(col.length + 1, dtype=torch.int64, device=col.device)
     offsets[1:] = pre[col.offsets[1:]].long()
-    out_total = int(offsets[-1])
+    out_total = tracing.to_int(offsets[-1], "string_bytes")
     q = torch.arange(out_total, dtype=pre.dtype, device=col.device)
     src = torch.searchsorted(pre[1:], q, right=True)     # the byte emitting each output byte
     within = q - pre[src]
@@ -156,7 +158,7 @@ def split_columns(col: Column, pat: str, maxsplit: int = -1, regex: bool = False
     sel, _ = select_greedy(col, spans, maxsplit)
     pre = so.prefix(sel)
     pieces = so.row_sums(col, None, pre) + 1
-    width = int(pieces.max()) if col.length else 1
+    width = tracing.to_int(pieces.max(), "string_width") if col.length else 1
     total = so.total_bytes(col)
     lo = col.offsets[:-1]
     out = []
@@ -189,16 +191,17 @@ def split_lists(col: Column, pat: str, maxsplit: int = -1, regex: bool = False,
         if col.validity is None else col.validity
     pieces = torch.where(valid, so.row_sums(col, sel) + 1, 0)
     list_offsets = offsets_of(pieces)
-    m = int(list_offsets[-1])
+    m = tracing.to_int(list_offsets[-1], "string_bytes")
     starts = torch.zeros(m, dtype=torch.int64, device=col.device)
     ends = torch.zeros(m, dtype=torch.int64, device=col.device)
-    first, last = list_offsets[:-1][valid], list_offsets[1:][valid] - 1
-    starts[first] = col.offsets[:-1][valid]
-    ends[last] = col.offsets[1:][valid]
-    pos = torch.nonzero(sel).squeeze(1)
+    first = tracing.masked(list_offsets[:-1], valid, "compaction")
+    last = tracing.masked(list_offsets[1:], valid, "compaction") - 1
+    starts[first] = tracing.masked(col.offsets[:-1], valid, "compaction")
+    ends[last] = tracing.masked(col.offsets[1:], valid, "compaction")
+    pos = tracing.synced("compaction", sel, torch.nonzero, sel).squeeze(1)
     row = torch.searchsorted(col.offsets[1:], pos, right=True)
     keep = valid[row]
-    pos, row = pos[keep], row[keep]
+    pos, row = tracing.masked(pos, keep, "compaction"), tracing.masked(row, keep, "compaction")
     # the k-th separator of a row ends its piece k and starts piece k + 1
     k = torch.arange(pos.shape[0], device=col.device) - \
         offsets_of(torch.where(valid, pieces - 1, 0))[row]
@@ -216,7 +219,7 @@ def findall_lists(col: Column, pat: str, flags: int = 0):
 
     spans = regex_spans(col, pat, flags)
     sel, _ = select_greedy(col, spans)
-    pos = torch.nonzero(sel).squeeze(1)
+    pos = tracing.synced("compaction", sel, torch.nonzero, sel).squeeze(1)
     counts = so.row_sums(col, sel)
     if col.validity is not None:
         counts = torch.where(col.validity, counts, 0)

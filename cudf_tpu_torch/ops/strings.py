@@ -47,6 +47,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core import bitmask as bm
 from cudf_tpu_torch.ops import datetime as dto
+from cudf_tpu_torch.utils import tracing
 
 # how many string ops took each route: "device" (the column's own
 # device) or "host" (a Python loop over the rows)
@@ -141,7 +142,7 @@ def build_bytes(offsets: torch.Tensor, make: Callable, chunk: int = 1 << 27) -> 
     """uint8[offsets[-1]]: ``make(row, within)`` of every output byte (its
     row, int64, and its position in the row), ``chunk`` bytes at a time so
     that no per-byte int64 array outgrows the chunk (one host sync)."""
-    total = int(offsets[-1])
+    total = tracing.to_int(offsets[-1], "string_bytes")
     out = torch.empty(total, dtype=torch.uint8, device=offsets.device)
     rows = byte_rows(offsets, total)
     for a in range(0, total, chunk):
@@ -175,7 +176,7 @@ def is_char_start(chars: torch.Tensor) -> torch.Tensor:
 
 def has_non_ascii(col: Column) -> bool:
     """One host sync."""
-    return total_bytes(col) > 0 and bool((col.data >= 128).any())
+    return total_bytes(col) > 0 and tracing.to_bool((col.data >= 128).any(), "ascii_check")
 
 
 def _bools(col: Column, data: torch.Tensor) -> Column:
@@ -771,7 +772,7 @@ def concat(parts, chunk: int = 1 << 27) -> Column:
         else:
             lens.append(torch.full((n,), len(p.encode("utf-8")), dtype=torch.int64, device=dev))
     offsets = new_offsets(sum(lens))
-    out = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=dev)
+    out = torch.empty(tracing.to_int(offsets[-1], "string_bytes"), dtype=torch.uint8, device=dev)
     at = offsets[:-1].clone()                 # where each row's next part goes
     for p, ln in zip(parts, lens):
         if not isinstance(p, Column):
@@ -809,9 +810,9 @@ def parse_numbers(col: Column, floats: bool):
     counted in ``STRING_ROUTES``.  ``parsed`` is False for a null row and
     for a row that is no number."""
     starts, ln = col.offsets[:-1], lengths(col)
-    width = int(ln.max()) if col.length else 0
+    width = tracing.to_int(ln.max(), "string_width") if col.length else 0
     if 0 < width <= (15 if floats else 18) and \
-            bool(((col.data >= 48) & (col.data <= 57)).all()):
+            tracing.to_bool(((col.data >= 48) & (col.data <= 57)).all(), "digit_check"):
         return _parse_digits(col, floats, width)
     zero = torch.zeros(col.length, dtype=torch.int64, device=col.device)
     no = torch.zeros(col.length, dtype=torch.bool, device=col.device)
@@ -877,7 +878,7 @@ def parse_numbers(col: Column, floats: bool):
         ((lead == 105) | (lead == 110)) if floats else torch.zeros_like(ok)
     host = ((ok & ~exact) | spelled) if col.validity is None else \
         ((ok & ~exact) | spelled) & col.validity
-    rows = torch.nonzero(host).squeeze(1)
+    rows = tracing.synced("host_route", host, torch.nonzero, host).squeeze(1)
     if rows.numel():
         from cudf_tpu_torch.ops.copying import gather
 
@@ -890,9 +891,11 @@ def parse_numbers(col: Column, floats: bool):
                 v = None
             got.append(None if not floats and v is not None and not -2 ** 63 <= v < 2 ** 63
                        else v)
-        good = torch.tensor([g is not None for g in got], dtype=torch.bool, device=col.device)
-        vals = torch.tensor([0 if g is None else g for g in got],
-                            dtype=values.dtype, device=col.device)
+        good = tracing.synced("host_values", col.device, torch.tensor,
+                              [g is not None for g in got], dtype=torch.bool, device=col.device)
+        vals = tracing.synced("host_values", col.device, torch.tensor,
+                              [0 if g is None else g for g in got],
+                              dtype=values.dtype, device=col.device)
         values[rows] = vals
         valid[rows] = good
     return values, valid
@@ -913,12 +916,12 @@ def first_unparsed(col: Column, parsed: torch.Tensor) -> Optional[tuple]:
     """(position, string) of the first valid row that did not parse, or
     None: one host sync."""
     bad = ~parsed if col.validity is None else col.validity & ~parsed
-    rows = torch.nonzero(bad).squeeze(1)
+    rows = tracing.synced("parse_errors", bad, torch.nonzero, bad).squeeze(1)
     if rows.numel() == 0:
         return None
     from cudf_tpu_torch.ops.copying import gather
 
-    i = int(rows[0])
+    i = tracing.to_int(rows[0], "parse_errors")
     return i, gather(col, rows[:1], bounds_check=False).host_strings()[0]
 
 
@@ -1015,7 +1018,8 @@ def _text_table(names, dev):
     tab = torch.zeros(len(names), width, dtype=torch.uint8)
     for i, s in enumerate(names):
         tab[i, :len(s)] = torch.tensor(list(s.encode()), dtype=torch.uint8)
-    return tab.to(dev), torch.tensor([len(s) for s in names], device=dev)
+    return (tracing.synced("host_values", dev, tab.to, dev),
+            tracing.synced("host_values", dev, torch.tensor, [len(s) for s in names], device=dev))
 
 
 @counted
@@ -1036,13 +1040,15 @@ def strftime(col: Column, fmt: str) -> Column:
     lens, makers = [], []
     for piece in pieces:
         if piece[0] == "lit":
-            raw = torch.tensor(pattern_bytes(piece[1]), dtype=torch.uint8, device=dev)
+            raw = tracing.synced("host_values", dev, torch.tensor, pattern_bytes(piece[1]),
+                                 dtype=torch.uint8, device=dev)
             lens.append(torch.full((n,), raw.shape[0], dtype=torch.int64, device=dev))
             makers.append(lambda row, w, raw=raw: raw[torch.clamp(w, max=raw.shape[0] - 1)])
         elif piece[0] in ("num", "num_sp"):
             v, k = f[piece[1]], piece[2]
             lens.append(torch.full((n,), k, dtype=torch.int64, device=dev))
-            pow10 = torch.tensor([10 ** (k - 1 - i) for i in range(k)], device=dev)
+            pow10 = tracing.synced("host_values", dev, torch.tensor,
+                                   [10 ** (k - 1 - i) for i in range(k)], device=dev)
 
             def digit(row, w, v=v, pow10=pow10, k=k, spaced=piece[0] == "num_sp"):
                 p = pow10[torch.clamp(w, max=k - 1)]
@@ -1081,7 +1087,8 @@ def strftime(col: Column, fmt: str) -> Column:
             step = 3 if colon else 2
             lens.append(torch.where(off % 60 != 0, 9, 6) if colon else
                         torch.where(off % 60 != 0, 7, 5))
-            sep = torch.tensor(pattern_bytes("+-:"), dtype=torch.uint8, device=dev)
+            sep = tracing.synced("host_values", dev, torch.tensor, pattern_bytes("+-:"),
+                                 dtype=torch.uint8, device=dev)
 
             def offset(row, w, off=off, sep=sep, step=step):
                 o = off[row]
@@ -1150,11 +1157,12 @@ def _strftime_host(col: Column, fmt: str) -> Column:
 
         wall = timezone.wall_clock_column(col)
     days, secs, sub, tps = dto.days_and_time(wall.data, col.dtype.time_unit)
-    micros = (sub * 1_000_000 // tps).tolist()
+    micros = tracing.tolist(sub * 1_000_000 // tps, "export")
     epoch = _dt.datetime(1970, 1, 1)
-    valid = [True] * col.length if col.validity is None else col.validity.cpu().tolist()
+    valid = [True] * col.length if col.validity is None else tracing.tolist(col.validity, "export")
     out = [(epoch + _dt.timedelta(days=d, seconds=s, microseconds=u)).strftime(fmt) if ok
-           else None for d, s, u, ok in zip(days.tolist(), secs.tolist(), micros, valid)]
+           else None for d, s, u, ok in zip(tracing.tolist(days, "export"),
+                                                 tracing.tolist(secs, "export"), micros, valid)]
     return Column.from_strings(out, device=col.device)
 
 
@@ -1214,7 +1222,8 @@ def _parse_timestamps(col: Column, fmt: Optional[str]):
         d, ok3 = num(8, 2)
         ok = ok & ok2 & ok3 & lit(4, "-") & lit(7, "-")
         hh = mi = ss = zero
-        if col.length and int(ln.max()) > 10:          # times too: one sync spares dates
+        # times too: one sync spares dates
+        if col.length and tracing.to_int(ln.max(), "string_width") > 10:
             timed = ln > 10
             sep = lit(10, "T") | lit(10, " ")
             hh, a = num(11, 2)
@@ -1251,7 +1260,7 @@ def _parse_timestamps(col: Column, fmt: Optional[str]):
     ndig = torch.clamp(ln - frac_at, min=0)
     ok &= ndig <= 9
     fr = zero.clone()
-    for j in range(min(int(ndig.max()) if col.length else 0, 9)):
+    for j in range(min(tracing.to_int(ndig.max(), "string_width") if col.length else 0, 9)):
         b = _row_byte(col, j, lo + frac_at)
         inside = j < ndig
         ok &= ~inside | ((b >= 48) & (b <= 57))
@@ -1278,7 +1287,7 @@ def to_timestamps(col: Column, format: Optional[str] = None, errors: str = "rais
 
     days, secs, frac, ok, ndig = _parse_timestamps(col, format)
     missed = ~ok if col.validity is None else col.validity & ~ok
-    rows = torch.nonzero(missed).squeeze(1)
+    rows = tracing.synced("host_route", missed, torch.nonzero, missed).squeeze(1)
     if rows.numel():
         from cudf_tpu_torch.ops.copying import gather
 
@@ -1298,13 +1307,15 @@ def to_timestamps(col: Column, format: Optional[str] = None, errors: str = "rais
                     raise ValueError(f"time data {s!r} doesn't match format "
                                      f"{format or 'ISO8601'!r}") from None
                 got.append(None)
-        parts = torch.tensor([(0, 0, 0) if g is None else g for g in got],
-                             dtype=torch.int64, device=col.device).reshape(-1, 3)
+        parts = tracing.synced("host_values", col.device, torch.tensor,
+                               [(0, 0, 0) if g is None else g for g in got],
+                               dtype=torch.int64, device=col.device).reshape(-1, 3)
         days[rows], secs[rows], frac[rows] = parts[:, 0], parts[:, 1], parts[:, 2]
-        ok[rows] = torch.tensor([g is not None for g in got], device=col.device)
+        ok[rows] = tracing.synced("host_values", col.device, torch.tensor,
+                                 [g is not None for g in got], device=col.device)
         ndig[rows] = torch.where(parts[:, 2] % 1000 != 0, 9, 0)
     if target is None:
-        fine = bool((ndig > 6).any())
+        fine = tracing.to_bool((ndig > 6).any(), "digit_check")
         target = dt.TIMESTAMP_NS if fine else dt.unit_dtype("M", "us")
     tps = {"s": 1, "ms": 10 ** 3, "us": 10 ** 6, "ns": 10 ** 9}[target.time_unit]
     seconds = days * 86400 + secs
@@ -1315,16 +1326,18 @@ def to_timestamps(col: Column, format: Optional[str] = None, errors: str = "rais
         inside = ((seconds > lo_s) | ((seconds == lo_s) & (frac >= lo_ns))) & \
             ((seconds < hi_s) | ((seconds == hi_s) & (frac <= hi_ns)))
         outside = ok & ~inside
-        if bool(outside.any()):
+        if tracing.to_bool(outside.any(), "range_check"):
             if errors == "raise":
                 from cudf_tpu_torch.ops.copying import gather
 
-                first = gather(col, torch.nonzero(outside)[:1, 0], bounds_check=False)
+                at = tracing.synced("range_check", outside, torch.nonzero, outside)[:1, 0]
+                first = gather(col, at, bounds_check=False)
                 raise OutOfBoundsDatetime(
                     f"Out of bounds nanosecond timestamp: {first.host_strings()[0]}")
             ok &= inside
     out = seconds * tps + torch.div(frac, 10 ** 9 // tps, rounding_mode="floor")
-    valid = ok if (col.validity is not None or not bool(ok.all())) else None
+    valid = ok if (col.validity is not None
+                   or not tracing.to_bool(ok.all(), "null_check")) else None
     return Column(target, col.length, torch.where(ok, out, 0), valid)
 
 
@@ -1345,7 +1358,8 @@ def _format_ints(col: Column) -> Column:
     for k in range(1, 19):
         ndig += (torch.div(x, 10 ** k, rounding_mode="trunc") != 0).long()
     offsets = new_offsets(ndig + neg)
-    pow10 = torch.tensor([10 ** k for k in range(19)], device=x.device)
+    pow10 = tracing.synced("host_values", x.device, torch.tensor, [10 ** k for k in range(19)],
+                           device=x.device)
 
     def make(row, within):
         k = torch.clamp(ndig[row] - 1 - (within - neg[row]), 0, 18)
@@ -1355,7 +1369,8 @@ def _format_ints(col: Column) -> Column:
 
 
 def _format_bools(col: Column) -> Column:
-    table = torch.tensor(pattern_bytes("FalseTrue"), dtype=torch.uint8, device=col.device)
+    table = tracing.synced("host_values", col.device, torch.tensor, pattern_bytes("FalseTrue"),
+                           dtype=torch.uint8, device=col.device)
     true = col.data.long()
     offsets = new_offsets(5 - true)
     data = build_bytes(offsets, lambda row, within: table[within + 5 * true[row]])
@@ -1372,9 +1387,9 @@ def _timestamp_format(col: Column) -> str:
         else col.validity
     ns = torch.where(valid, f["nano"], 0)
     clock = torch.where(valid, f["hour"] * 3600 + f["minute"] * 60 + f["second"], 0)
-    any_ns, any_us, any_ms, any_time = torch.stack([
+    any_ns, any_us, any_ms, any_time = tracing.tolist(torch.stack([
         (ns % 1000 != 0).any(), (ns % 10 ** 6 != 0).any(), (ns != 0).any(),
-        (clock != 0).any()]).tolist()
+        (clock != 0).any()]), "time_units")
     if not (any_ms or any_time) and col.dtype.tz is None:
         return "%Y-%m-%d"
     if col.dtype.tz is not None:
@@ -1419,10 +1434,10 @@ def from_column(col: Column) -> Column:
 def _host_values(col: Column, one) -> Column:
     """The host route for formatting: ``one`` of every valid value."""
     STRING_ROUTES["host"] += 1
-    data = col.data.cpu()
+    data = tracing.synced("export", col.data, col.data.cpu)
     if col.dtype.id == dt.TypeId.UINT64:
         data = data.view(torch.int64).numpy().view(np.uint64)
     values = data.tolist()
-    valid = [True] * col.length if col.validity is None else col.validity.cpu().tolist()
+    valid = [True] * col.length if col.validity is None else tracing.tolist(col.validity, "export")
     return Column.from_strings([one(v) if ok else None for v, ok in zip(values, valid)],
                                device=col.device)

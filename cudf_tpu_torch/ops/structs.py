@@ -20,6 +20,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.core.table import Table
 from cudf_tpu_torch.ops._utils import count_host_route
+from cudf_tpu_torch.utils import tracing
 
 
 def make_struct_column(fields: Sequence[Tuple[str, Column]],
@@ -49,7 +50,7 @@ def to_pydicts(col: Column) -> list:
     count_host_route("to_pydicts")
     names = [n for n, _ in col.dtype.fields]
     vals = [c.to_pylist() for c in col.children]
-    valid = None if col.validity is None else col.validity.cpu().tolist()
+    valid = None if col.validity is None else tracing.tolist(col.validity, "export")
     return [None if valid is not None and not valid[i] else
             {n: vals[j][i] for j, n in enumerate(names)} for i in range(col.length)]
 

@@ -24,6 +24,7 @@ import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 __all__ = ["TDigest", "build_tdigest", "merge_tdigests", "percentile_approx"]
 
@@ -51,7 +52,7 @@ def _cluster(sorted_x: torch.Tensor, w: torch.Tensor, delta: int) -> TDigest:
     means = torch.where(wsum > 0, xsum / torch.clamp(wsum, min=1e-300), 0.0)
     if sorted_x.shape[0] == 0:
         return TDigest(means, wsum, float("nan"), float("nan"))
-    lo, hi = torch.stack([sorted_x[0], sorted_x[-1]]).tolist()
+    lo, hi = tracing.tolist(torch.stack([sorted_x[0], sorted_x[-1]]), "tdigest")
     return TDigest(means, wsum, lo, hi)
 
 
@@ -61,7 +62,7 @@ def build_tdigest(col: Column, delta: int = 100) -> TDigest:
     valid = ~torch.isnan(x)
     if col.validity is not None:
         valid &= col.validity
-    xs = torch.sort(x[valid]).values
+    xs = torch.sort(tracing.masked(x, valid, "tdigest")).values
     return _cluster(xs, torch.ones_like(xs), delta)
 
 
@@ -79,15 +80,19 @@ def percentile_approx(digest: TDigest, percentiles) -> Column:
     """FLOAT64 estimates at ``percentiles`` (cudf::percentile_approx)."""
     w = digest.weights
     dev = w.device
-    ps = torch.as_tensor(np.atleast_1d(np.asarray(percentiles, np.float64)), device=dev)
+    ps = tracing.synced("host_values", dev, torch.as_tensor,
+                        np.atleast_1d(np.asarray(percentiles, np.float64)), device=dev)
     total = w.sum()
     cum = torch.cumsum(w, 0) - w * 0.5
     keep = w > 0
     # interpolation nodes: min at 0, the non-empty centroids' midpoints, max at total
-    nodes_m = torch.cat([torch.tensor([digest.min], dtype=torch.float64, device=dev),
-                         digest.means[keep],
-                         torch.tensor([digest.max], dtype=torch.float64, device=dev)])
-    nodes_c = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev), cum[keep],
+    nodes_m = torch.cat([tracing.synced("host_values", dev, torch.tensor, [digest.min],
+                                        dtype=torch.float64, device=dev),
+                         tracing.masked(digest.means, keep, "tdigest"),
+                         tracing.synced("host_values", dev, torch.tensor, [digest.max],
+                                        dtype=torch.float64, device=dev)])
+    nodes_c = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev),
+                         tracing.masked(cum, keep, "tdigest"),
                          total.reshape(1)])
     k = nodes_c.shape[0]
     target = ps * total

@@ -36,6 +36,7 @@ from cudf_tpu_torch.ops import strings as so
 from cudf_tpu_torch.ops._utils import count_host_route
 from cudf_tpu_torch.ops.lists import from_pylists, make_list_column, offsets_of
 from cudf_tpu_torch.ops.row_ops import _s64, _shr, lex_sort_permutation
+from cudf_tpu_torch.utils import tracing
 
 __all__ = ["count_tokens", "tokenize", "character_ngrams", "ngrams_tokenize", "minhash",
            "jaccard_index", "edit_distance", "normalize_spaces", "porter_stemmer_measure",
@@ -62,7 +63,7 @@ def _python_space(data: torch.Tensor) -> torch.Tensor:
     """bool per byte: part of a character Python's ``str.isspace`` holds
     (ASCII \\t-\\r, \\x1c-\\x1f and space, and the multi-byte spaces)."""
     sp = ((data >= 9) & (data <= 13)) | ((data >= 28) & (data <= 32))
-    if data.numel() and bool((data >= 0xC2).any()):
+    if data.numel() and tracing.to_bool((data >= 0xC2).any(), "ascii_check"):
         total = data.shape[0]
         for seq in _WIDE_SPACES:
             k = len(seq)
@@ -101,8 +102,9 @@ def _row_ranges(col: Column, per_byte: int = 1):
     want = torch.arange(step, max(total, step), step, device=col.device)
     cuts = torch.searchsorted(col.offsets, want, right=True) - 1
     bounds = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), col.length)])
-    bounds = torch.unique_consecutive(bounds)
-    rows, starts = bounds.tolist(), col.offsets[bounds].tolist()
+    bounds = tracing.synced("text_chunks", bounds, torch.unique_consecutive, bounds)
+    rows = tracing.tolist(bounds, "text_chunks")
+    starts = tracing.tolist(col.offsets[bounds], "text_chunks")
     for i in range(len(rows) - 1):
         if rows[i + 1] > rows[i]:
             yield rows[i], rows[i + 1], starts[i], starts[i + 1]
@@ -161,8 +163,8 @@ def _token_spans(col: Column):
     cuts = col.offsets[1:-1][col.offsets[1:-1] < total]
     begin[cuts] = word[cuts]
     end[cuts - 1] = word[cuts - 1]
-    starts = torch.nonzero(begin).squeeze(1)
-    ends = torch.nonzero(end).squeeze(1) + 1
+    starts = tracing.synced("compaction", begin, torch.nonzero, begin).squeeze(1)
+    ends = tracing.synced("compaction", end, torch.nonzero, end).squeeze(1) + 1
     return starts, ends, torch.searchsorted(col.offsets[1:], starts, right=True)
 
 
@@ -176,7 +178,8 @@ def _tokens(col: Column, delimiter: Optional[str] = None):
     from cudf_tpu_torch.ops.string_spans import split_lists
 
     lists = split_lists(col, delimiter)
-    keep = torch.nonzero(so.lengths(lists.children[0]) > 0).squeeze(1)
+    nonempty = so.lengths(lists.children[0]) > 0
+    keep = tracing.synced("compaction", nonempty, torch.nonzero, nonempty).squeeze(1)
     return (copying.gather(lists.children[0], keep, bounds_check=False),
             torch.searchsorted(lists.offsets[1:], keep, right=True))
 
@@ -187,7 +190,9 @@ def tokenize(col: Column, delimiter: Optional[str] = None) -> Column:
 
 
 def _list_validity(col: Column):
-    return None if col.validity is None or bool(col.validity.all()) else col.validity
+    if col.validity is None or tracing.to_bool(col.validity.all(), "null_check"):
+        return None
+    return col.validity
 
 
 def _char_starts(col: Column):
@@ -196,7 +201,7 @@ def _char_starts(col: Column):
     cs = so.is_char_start(col.data)
     if col.validity is not None and cs.numel():
         cs &= col.validity[_byte_row(col)]
-    pos = torch.nonzero(cs).squeeze(1)
+    pos = tracing.synced("compaction", cs, torch.nonzero, cs).squeeze(1)
     return pos, torch.searchsorted(col.offsets[1:], pos, right=True), so.row_sums(col, cs)
 
 
@@ -210,7 +215,8 @@ def _ngram_spans(col: Column, n: int):
     nxt = after[torch.clamp(torch.arange(pos.shape[0], device=col.device) + n,
                             max=pos.shape[0])]
     ends = torch.where(local + n < nchars[row], nxt, col.offsets[1:][row])
-    return pos[keep], ends[keep], torch.clamp(nchars - n + 1, min=0)
+    return (tracing.masked(pos, keep, "compaction"), tracing.masked(ends, keep, "compaction"),
+            torch.clamp(nchars - n + 1, min=0))
 
 
 def character_ngrams(col: Column, n: int = 2) -> Column:
@@ -226,16 +232,19 @@ def ngrams_tokenize(col: Column, n: int = 2, separator: str = "_") -> Column:
     """LIST<STRING>: each row's n-grams of whitespace tokens joined by
     ``separator``, a null row null."""
     starts, ends, row = _token_spans(col)
-    ntok = torch.bincount(row, minlength=col.length) if row.numel() else \
+    ntok = tracing.synced("token_counts", row, torch.bincount, row, minlength=col.length,
+                          syncs=2) if row.numel() else \
         torch.zeros(col.length, dtype=torch.int64, device=col.device)
     first_tok = offsets_of(ntok)
     grams = torch.clamp(ntok - n + 1, min=0)
     # gram g of row r starts at the row's token first_tok[r] + (g - its first gram)
-    gram_row = torch.repeat_interleave(torch.arange(col.length, device=col.device), grams)
+    gram_row = tracing.synced("token_counts", grams, torch.repeat_interleave,
+                              torch.arange(col.length, device=col.device), grams)
     t0 = first_tok[:-1][gram_row] + torch.arange(gram_row.shape[0], device=col.device) - \
         offsets_of(grams)[:-1][gram_row]
     tok_len = ends - starts
-    sep = torch.tensor(so.pattern_bytes(separator), dtype=torch.uint8, device=col.device)
+    sep = tracing.synced("host_values", col.device, torch.tensor, so.pattern_bytes(separator),
+                         dtype=torch.uint8, device=col.device)
     k_sep = sep.shape[0]
     cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=col.device),
                      torch.cumsum(tok_len, 0)])
@@ -330,7 +339,8 @@ def _distinct_per_row(ops: List[torch.Tensor], rows: int) -> torch.Tensor:
     for op in ops:
         s = op[order]
         new[1:] |= s[1:] != s[:-1]
-    return torch.bincount(ops[0][order][new], minlength=rows)
+    return tracing.synced("token_counts", order, torch.bincount, ops[0][order][new],
+                          minlength=rows, syncs=2)
 
 
 def jaccard_index(a: Column, b: Column, width: int = 4) -> Column:
@@ -341,7 +351,8 @@ def jaccard_index(a: Column, b: Column, width: int = 4) -> Column:
     from cudf_tpu_torch.core import bitmask as bm
 
     n, dev = a.length, a.device
-    longest = max(int(so.lengths(c).max()) if c.length else 0 for c in (a, b))
+    longest = max(tracing.to_int(so.lengths(c).max(), "string_width") if c.length else 0
+                  for c in (a, b))
     words = max(1, -(-min(4 * width, max(longest, 1)) // 8))
     out = torch.zeros(n, dtype=torch.float64, device=dev)
     step = max(1, CHUNK_BYTES // (8 * max(longest, 1)))
@@ -402,8 +413,9 @@ def normalize_spaces(col: Column) -> Column:
     last = torch.full((col.length,), -1, dtype=torch.int64, device=col.device)
     last.scatter_reduce_(0, row, torch.where(sp, -1, pos), "amax")
     keep &= pos <= last[row]
-    norm = torch.where(sp, torch.tensor(32, dtype=torch.uint8, device=col.device), b)
-    return Column(dt.STRING, col.length, norm[keep], col.validity,
+    norm = torch.where(sp, tracing.synced("host_values", col.device, torch.tensor, 32,
+                                              dtype=torch.uint8, device=col.device), b)
+    return Column(dt.STRING, col.length, tracing.masked(norm, keep, "compaction"), col.validity,
                   so.new_offsets(so.row_sums(col, keep)))
 
 
@@ -443,7 +455,8 @@ def tokenize_with_vocabulary(col: Column, vocab: Column, delimiter: Optional[str
         ids = torch.where(found, order[safe], default_id)
     else:
         ids = torch.full_like(row, default_id)
-    counts = torch.bincount(row, minlength=col.length) if row.numel() else \
+    counts = tracing.synced("token_counts", row, torch.bincount, row, minlength=col.length,
+                            syncs=2) if row.numel() else \
         torch.zeros(col.length, dtype=torch.int64, device=col.device)
     return make_list_column(offsets_of(counts), Column(dt.INT32, ids.shape[0],
                                                        ids.to(torch.int32)),

@@ -28,6 +28,7 @@ import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 _TICKS = {"s": 1, "ms": 1_000, "us": 1_000_000, "ns": 1_000_000_000}
 _UTC = ("UTC", "utc", "GMT", "Etc/UTC")
@@ -230,7 +231,8 @@ def tz_localize(col: Column, tz, ambiguous="raise", nonexistent="raise") -> Colu
     # [trans[k - 1] + offs[k], trans[k] + offs[k]); k is the last to start by w
     k = torch.searchsorted(trans + offs[1:], w, right=True)
     big = torch.iinfo(torch.int64).max
-    end = torch.cat([trans, torch.tensor([big], device=w.device)]) + \
+    end = torch.cat([trans, tracing.synced("host_values", w.device, torch.tensor, [big],
+                                        device=w.device)]) + \
         torch.cat([offs[:-1], torch.zeros(1, dtype=offs.dtype, device=w.device)])
     end_prev = torch.where(k > 0, end[(k - 1).clamp(min=0)], torch.iinfo(torch.int64).min)
     utc = w - offs[k]
@@ -238,7 +240,7 @@ def tz_localize(col: Column, tz, ambiguous="raise", nonexistent="raise") -> Colu
     gap = live & (w >= end[k])
     fold = live & (w < end_prev)
     validity = col.validity
-    bad_gap, bad_fold = torch.stack([gap.any(), fold.any()]).tolist()
+    bad_gap, bad_fold = tracing.tolist(torch.stack([gap.any(), fold.any()]), "tz_check")
     if bad_fold:
         if isinstance(ambiguous, str):
             if ambiguous == "raise":
@@ -249,7 +251,8 @@ def tz_localize(col: Column, tz, ambiguous="raise", nonexistent="raise") -> Colu
                                           "ROADMAP.md, beyond the reference")
             validity = _null_where(validity, fold)
         else:
-            first = torch.as_tensor(np.asarray(ambiguous, bool), device=w.device)
+            first = tracing.synced("host_values", w.device, torch.as_tensor,
+                                   np.asarray(ambiguous, bool), device=w.device)
             utc = torch.where(fold & first, w - offs[(k - 1).clamp(min=0)], utc)
     if bad_gap:
         if nonexistent == "raise":
@@ -270,8 +273,8 @@ def _null_where(validity, rows: torch.Tensor) -> torch.Tensor:
 
 
 def _wall_text(col: Column, rows: torch.Tensor) -> str:
-    at = int(torch.nonzero(rows)[0, 0])
-    return str(np.int64(col.data[at].item()).astype(col.dtype.to_numpy()))
+    at = tracing.to_int(tracing.synced("tz_check", rows, torch.nonzero, rows)[0, 0], "tz_check")
+    return str(np.int64(tracing.item(col.data[at], "tz_check")).astype(col.dtype.to_numpy()))
 
 
 def tz_convert(col: Column, tz) -> Column:

@@ -9,6 +9,7 @@ from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
 from cudf_tpu_torch.ops._utils import materialize_validity
 from cudf_tpu_torch.ops.binaryop import _rescale_ticks
+from cudf_tpu_torch.utils import tracing
 
 
 def cast(col: Column, target) -> Column:
@@ -70,7 +71,7 @@ def cast(col: Column, target) -> Column:
     if target.is_temporal and col.dtype.is_integer:
         # iNaT (INT64_MIN) ticks are NaT (pandas' M8 sentinel): one host sync
         nat = data == torch.iinfo(torch.int64).min
-        if bool(nat.any()):
+        if tracing.to_bool(nat.any(), "nan_check"):
             validity = ~nat if validity is None else validity & ~nat
     return Column(target, col.length, data, validity)
 

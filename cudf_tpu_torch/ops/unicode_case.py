@@ -19,6 +19,7 @@ import torch
 
 from cudf_tpu_torch.core import dtypes as dt
 from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.utils import tracing
 
 _BMP = 1 << 16
 _CLASSES = ("isdigit", "isdecimal", "isnumeric", "isalpha", "isalnum", "isspace", "isupper",
@@ -56,7 +57,8 @@ def decode_utf8(col: Column):
     every character, c the column's character count."""
     buf = col.data.to(torch.int32)
     total = buf.shape[0]
-    starts = torch.nonzero((buf & 0xC0) != 0x80).squeeze(1)
+    lead = (buf & 0xC0) != 0x80
+    starts = tracing.synced("compaction", lead, torch.nonzero, lead).squeeze(1)
     b0 = buf[starts]
     nxt = [buf[torch.clamp(starts + i, max=total - 1)] & 0x3F for i in (1, 2, 3)]
     cp = torch.where(b0 < 0x80, b0, torch.where(
@@ -74,7 +76,7 @@ def encode_utf8(cp: torch.Tensor, row: torch.Tensor, n_rows: int, validity) -> C
     lens = torch.zeros(n_rows, dtype=torch.int64, device=cp.device).index_add_(0, row, ln.long())
     offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=cp.device)
     torch.cumsum(lens, 0, out=offsets[1:])
-    total = int(offsets[-1])
+    total = tracing.to_int(offsets[-1], "string_bytes")
     char = torch.repeat_interleave(torch.arange(cp.shape[0], device=cp.device), ln,
                                    output_size=total)
     first = torch.cumsum(ln, 0) - ln
@@ -92,7 +94,7 @@ def case_map(col: Column, kind: str) -> Optional[Column]:
     """lower / upper / swapcase / capitalize / title; None when a code
     point is outside the BMP or maps to more than one."""
     cp, row, idx = decode_utf8(col)
-    if bool((cp >= _BMP).any()):
+    if tracing.to_bool((cp >= _BMP).any(), "bmp_check"):
         return None
     dev = col.device
     if kind in ("upper", "lower", "swapcase"):
@@ -106,7 +108,7 @@ def case_map(col: Column, kind: str) -> Optional[Column]:
             prev = torch.zeros_like(cased)
             prev[1:] = cased[:-1]
             mapped = torch.where(prev & (idx > 0), lo, up)
-    if bool((mapped < 0).any()):
+    if tracing.to_bool((mapped < 0).any(), "bmp_check"):
         return None
     return encode_utf8(mapped, row, col.length, col.validity)
 
@@ -116,7 +118,7 @@ def char_class_all(col: Column, kind: str) -> Optional[Column]:
     the row not empty; ``isupper``/``islower`` by the cased-character rule.
     None when a code point is outside the BMP."""
     cp, row, _ = decode_utf8(col)
-    if bool((cp >= _BMP).any()):
+    if tracing.to_bool((cp >= _BMP).any(), "bmp_check"):
         return None
     n, dev = col.length, col.device
 

@@ -1,6 +1,6 @@
 """``DataFrame.query`` / ``eval`` (``frame/eval_expr.py``) against pandas 3
-and the reference (JAX on the CPU), and ``utils/tracing.py``'s ranges,
-summary and profiler trace.  ``merge_asof`` is in
+and the reference (JAX on the CPU), and ``utils/tracing.py``'s spans, their
+sums by name and the profiler trace that carries them.  ``merge_asof`` is in
 ``tests/test_torch_asof_eval.py``."""
 
 import numpy as np
@@ -42,9 +42,9 @@ def test_eval_matches_pandas(expr):
 
 def test_tracer_ranges_summary_and_profiler_trace(tmp_path):
     tr = tracing.tracer
+    tr.clear()
     with tracing.enable_tracing() as t:
         assert t is tr and tr.enabled
-        tr.clear()
         with tr.range("outer"):
             with tr.range("inner"):
                 torch.ones(10).sum()
@@ -57,15 +57,17 @@ def test_tracer_ranges_summary_and_profiler_trace(tmp_path):
 
         assert work(1) == 2
     assert not tr.enabled
-    summary = tr.summary()
+    summary = tr.by_name()
     assert set(summary) == {"outer", "inner", "decorated"}
-    assert summary["outer"] >= 0 and len(tr.records) == 4
-    with tr.range("off"):                      # no record while disabled
+    assert summary["inner"]["count"] == 2 and summary["outer"]["ms"] >= 0
+    assert len(tr.spans()) == 4
+    with tr.range("off"):                      # no span while neither switch is on
         pass
-    assert len(tr.records) == 4
+    assert len(tr.spans()) == 4
     tracing.start_profiler_trace(str(tmp_path))
     with tr.range("profiled"):
         torch.ones(100).cumsum(0)
     prof = tracing.stop_profiler_trace()
-    assert (tmp_path / "trace.json").exists()
-    assert any(e.key == "profiled" for e in prof.key_averages())
+    assert [s.name for s in tr.spans()] == ["profiled"]     # the start cleared the others
+    assert '"profiled"' in (tmp_path / "trace.json").read_text()
+    assert not any(e.key == "profiled" for e in prof.key_averages())   # no record_function

@@ -62,6 +62,9 @@ EXEMPT = {
     "frame.series.Series.to_jax": f"{DO_NOT_PORT}: **JAX pytrees and buffers**",
     "utils.config[join.kernel_interpret]": f"{DO_NOT_PORT}: **Pallas interpret mode**",
     "utils.config[groupby.kernel_interpret]": f"{DO_NOT_PORT}: **Pallas interpret mode**",
+    # host seconds by range, replaced by the spans
+    "utils.tracing.Tracer.summary": "`cudf_tpu_torch.utils.tracing.Tracer.by_name` counts the "
+                                    "recorded spans and sums their ms by name",
     # parameters the port names as pandas does
     "frame.accessors.DatetimeProperties.strftime(fmt)":
         f"{PANDAS_NAME} date_format: "
